@@ -1,0 +1,15 @@
+"""tigerbeetle_tpu_torch — the PyTorch/CUDA port of tigerbeetle_tpu for
+one NVIDIA H100.
+
+The JAX package `tigerbeetle_tpu` stays the reference; this package
+computes the same results from the same inputs, bit for bit, and
+imports nothing of it (nor of JAX). This slice holds the plain-tier
+create_transfers / create_accounts main path on a device ledger, with
+the two-choice hash probe as a hand-written CUDA kernel
+(`csrc/ht_probe.cu`).
+"""
+
+from .convert import state_from_numpy, state_to_numpy
+from .ops.ledger import DeviceLedger
+
+__all__ = ["DeviceLedger", "state_from_numpy", "state_to_numpy"]

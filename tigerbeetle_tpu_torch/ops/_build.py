@@ -1,0 +1,79 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source under `csrc/` is compiled by `nvcc` for `sm_90a` into
+a shared library with a plain C interface, at first use, and bound with
+`ctypes`. The library's name carries a hash of its source, so an edited
+source is rebuilt and a stale library is never loaded. Build outputs go
+to `tigerbeetle_tpu_torch/build/` (git-ignored). A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless its library is already built.
+    Returns the library path; raises with nvcc's output on failure."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {name} ({proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_ht_probe():
+    """The ht_probe library with its C signature declared."""
+    with _lock:
+        lib = _libs.get("ht_probe")
+        if lib is None:
+            lib = ctypes.CDLL(str(build("ht_probe")))
+            fn = lib.ht_probe_launch
+            vp = ctypes.c_void_p
+            fn.argtypes = [vp, ctypes.c_longlong, vp, vp, ctypes.c_longlong,
+                           vp, vp, vp]
+            fn.restype = ctypes.c_int
+            _libs["ht_probe"] = lib
+        return lib
