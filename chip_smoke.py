@@ -3,31 +3,50 @@
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
-Drives the port's main path — create_accounts and plain-tier
-create_transfers on a `tigerbeetle_tpu_torch.DeviceLedger` — at the
-ledger's default capacities, and holds its one CUDA kernel against its
-plain PyTorch twin. Phases, each failing the run with a nonzero exit:
+Drives the port's main paths — create_accounts and create_transfers on a
+`tigerbeetle_tpu_torch.DeviceLedger`, through the plain tier (BASELINE
+config 2) and through the limit fixpoint tiers and their escalation
+ladder (BASELINE config 4) — at the ledger's default capacities, and
+holds its two CUDA kernels against their plain PyTorch twins. Phases,
+each failing the run with a nonzero exit:
 
   1. device   a CUDA card is present; its name and power limit are
               printed as nvidia-smi gives them;
-  2. build    csrc/ht_probe.cu is compiled by nvcc for sm_90a;
-  3. kernel   the fused probe against the plain lookup, bit for bit, on
+  2. build    csrc/ht_probe.cu and csrc/row_gather.cu are compiled by
+              nvcc for sm_90a, both at once;
+  3. probe    the fused probe against the plain lookup, bit for bit, on
               a filled transfer-table shape (B = 2^20 buckets) and an
               account-table shape (B = 2^15), 16 sets of 16,384 queries
               of present, orphaned, absent, zero and bit-edge keys; both
               timed on the device (torch.profiler) and on the stream
               (CUDA events), cycling through the sets;
-  4. main     10,000 accounts, a pendings batch, a mixed batch (posts and
+  4. gather   the row gather against its plain twin, bit for bit, at the
+              TPU probes' own shape ((4097, 48) u32, 8,192 rows, both
+              masks), the account-balance shape (2^17 + 1 rows, 32,768
+              gathered), the transfer shape (2^21 + 1 rows, 16,384
+              gathered, row sets cycling through more than the L2) and
+              with out-of-range rows; timed beside the plain twin and
+              torch.index_select;
+  5. config 2 10,000 accounts, a pendings batch, a mixed batch (posts and
               voids of committed pendings, a linked chain with a failing
               member, failing lanes) and 8 batches of the uniform
-              workload (BASELINE config 2: 8,190 transfers over 10,000
-              accounts, no flags), on the card and, as the reference,
-              on the CPU; statuses, timestamps, row counts and state
-              digests must be equal after every batch, the mixed batch
-              must give its expected statuses, no batch may fall back,
-              the probe kernel must launch twice per transfer batch, and
-              debits must equal credits. Then 64 more uniform batches
-              are timed on the card alone.
+              workload (8,190 transfers over 10,000 accounts, no flags),
+              on the card and, as the reference, on the CPU; statuses,
+              timestamps, row counts and state digests must be equal
+              after every batch, the mixed batch must give its expected
+              statuses, no batch may fall back, each kernel must launch
+              as often as the plain tier predicts, and debits must equal
+              credits. Then 64 more uniform batches are timed on the
+              card alone;
+  6. config 4 two-phase transfers under balance limits: 64 accounts, the
+              even ones debit-limited, pairs of 8,190-event batches (a
+              pend batch, then a post/void batch of its pendings). Six
+              pairs on the card and on the CPU, equal after every batch,
+              with the JAX package's created counts and ladder counters;
+              an in-batch two-phase batch; the 12-wave limit cascade on a
+              small ledger (exactly one deep escalation); the launch
+              counts each tier run predicts. Then 16 more pairs are
+              timed on the card alone and one pend batch is profiled.
 
 Prints the card line, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Imports neither JAX nor the JAX package.
@@ -39,6 +58,7 @@ import itertools
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -57,6 +77,41 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 ROW_KEY_BYTES = 16 * 8      # the key_hi and key_lo halves of a bucket row
 SECTOR_BYTES = 32           # the least a read from HBM moves
 U128_MAX = (1 << 128) - 1
+
+# Config 4 (the JAX package's benchmark.py bench_config4, W_PAIRS = 1).
+C4_ACCOUNTS = 64
+C4_CHECKED_PAIRS = 6
+C4_TIMED_PAIRS = 16
+# The JAX package's DeviceLedger on this workload (8,190-event pairs,
+# default_rng(4), a_cap 2^12 / t_cap 2^17, JAX on the CPU): transfers
+# created by each of the first six pend batches (each post/void batch
+# creates as many), and the counters after the accounts batch and the
+# six pairs (fast_batches, fixpoint_batches, deep_fixpoint_batches,
+# escalations, fallbacks).
+C4_JAX_CREATED = (4095, 5306, 6000, 6598, 6998, 7255)
+C4_JAX_COUNTERS = (13, 12, 8, 10, 0)
+
+# Kernel launches of one run of each tier, read from the code:
+#   create_accounts_fast: the id probe; the meta-row gather and the insert
+#     plan's bucket-row gather;
+#   create_transfers_fast, plain tier: the account-id and transfer-id
+#     probes; the transfer-role gather, the two account-role gathers
+#     (balances, meta), the balance base of the application, the insert
+#     plan's bucket rows;
+#   a fixpoint tier (8 or 32 rounds): the same plus the in-window
+#     pending view (the application reuses the rounds' balance base).
+PROBES_PER_RUN = {"accounts": 1, "plain": 2, "fixpoint": 2}
+GATHERS_PER_RUN = {"accounts": 2, "plain": 5, "fixpoint": 6}
+
+# The TPU kernels that row_gather replaces: eight formulations of one
+# function, table[rows] on a (4097, 48) u32 table (two of them of its
+# low 16-bit limb).
+GATHER_REPLACES = [
+    "onchip/gather_probe.py:31", "onchip/gather_probe.py:35",
+    "onchip/gather_probe.py:40", "onchip/gather_probe.py:47",
+    "onchip/gather_probe2.py:31", "onchip/gather_probe2.py:56",
+    "onchip/gather_probe2.py:74", "onchip/gather_probe2.py:101",
+]
 
 
 def check(cond, msg: str) -> None:
@@ -141,6 +196,130 @@ def mixed_batches(Transfer, TF):
         "created", "created",
     ]
     return [(pend, pend_expect), (mixed, mixed_expect)]
+
+
+def soa(ids, dr, cr, amount, flags, pid=None) -> dict:
+    """Transfer events as the SoA dict of the JAX package's benchmark
+    `_soa`: ledger 1, code 1, no user data, no timeout."""
+    n = len(ids)
+    z = np.zeros(n, dtype=np.uint64)
+    z32 = np.zeros(n, dtype=np.uint32)
+    return dict(
+        id_hi=z.copy(), id_lo=np.asarray(ids, dtype=np.uint64),
+        dr_hi=z.copy(), dr_lo=np.asarray(dr, dtype=np.uint64),
+        cr_hi=z.copy(), cr_lo=np.asarray(cr, dtype=np.uint64),
+        amt_hi=z.copy(), amt_lo=np.asarray(amount, dtype=np.uint64),
+        pid_hi=z.copy(),
+        pid_lo=z.copy() if pid is None else np.asarray(pid, dtype=np.uint64),
+        ud128_hi=z.copy(), ud128_lo=z.copy(), ud64=z.copy(),
+        ud32=z32.copy(), timeout=z32.copy(),
+        ledger=np.ones(n, dtype=np.uint32), code=np.ones(n, dtype=np.uint32),
+        flags=np.asarray(flags, dtype=np.uint32), ts=z.copy())
+
+
+def config4_accounts(Account, AccountFlags) -> list:
+    """C4_ACCOUNTS accounts, the even ones debits_must_not_exceed_credits."""
+    limit = int(AccountFlags.debits_must_not_exceed_credits)
+    return [Account(id=i, ledger=1, code=1,
+                    flags=limit if i % 2 == 0 else 0)
+            for i in range(1, C4_ACCOUNTS + 1)]
+
+
+def config4_pair(rng, next_id: int, TransferFlags, n: int = BATCH):
+    """One config-4 pair, as the JAX package's bench_config4 makes it:
+    n pendings of 1-99 between random distinct accounts, then a batch
+    that posts the even lanes' pendings (the U128_MAX sentinel amount:
+    post the full amount) and voids the odd ones', ledger and code 0
+    (inherited from the pending). Returns (pend, post_void, next_id)."""
+    pend_base = next_id
+    dr = rng.integers(1, C4_ACCOUNTS + 1, n, dtype=np.uint64)
+    cr = rng.integers(1, C4_ACCOUNTS + 1, n, dtype=np.uint64)
+    clash = dr == cr
+    cr[clash] = dr[clash] % C4_ACCOUNTS + 1
+    pend = soa(np.arange(pend_base, pend_base + n), dr, cr,
+               rng.integers(1, 100, n),
+               np.full(n, int(TransferFlags.pending), dtype=np.uint32))
+    even = np.arange(n) % 2 == 0
+    top = np.uint64((1 << 64) - 1)
+    z = np.zeros(n, dtype=np.uint64)
+    rev = soa(np.arange(pend_base + n, pend_base + 2 * n), z, z,
+              np.where(even, top, np.uint64(0)),
+              np.where(even, int(TransferFlags.post_pending_transfer),
+                       int(TransferFlags.void_pending_transfer)),
+              pid=np.arange(pend_base, pend_base + n))
+    rev["amt_hi"] = np.where(even, top, np.uint64(0))
+    rev["ledger"] = np.zeros(n, dtype=np.uint32)
+    rev["code"] = np.zeros(n, dtype=np.uint32)
+    return pend, rev, pend_base + 2 * n
+
+
+def in_batch_two_phase(Transfer, TF):
+    """(events, expected status names) of one batch whose pendings are
+    posted and voided later in the same batch, with a post of a failed
+    pend, a post before its pend, a partial post and a post of a post.
+    Debits go to odd (unlimited) accounts of config 4, so the statuses do
+    not depend on the balances."""
+    P, POST, VOID = (TF.pending, TF.post_pending_transfer,
+                     TF.void_pending_transfer)
+    base = 900_000_000
+
+    def x(i, dr=0, cr=0, amount=0, ledger=1, code=1, **kw):
+        return Transfer(id=base + i, debit_account_id=dr,
+                        credit_account_id=cr, amount=amount, ledger=ledger,
+                        code=code, **kw)
+
+    events = [
+        x(1, 1, 2, 100, flags=P),
+        x(2, 3, 4, 50, flags=P, timeout=60),
+        x(3, 5, 10_000_000, 10, flags=P),          # credit account missing
+        x(4, 0, 0, U128_MAX, ledger=0, code=0, flags=POST,
+          pending_id=base + 6),                    # before its pend
+        x(5, 0, 0, U128_MAX, ledger=0, code=0, flags=POST,
+          pending_id=base + 1),
+        x(6, 7, 8, 30, flags=P),
+        x(7, 0, 0, 0, flags=VOID, pending_id=base + 2),
+        x(8, 0, 0, U128_MAX, flags=POST, pending_id=base + 3),
+        x(9, 9, 10, 100, flags=P),
+        x(10, 0, 0, 40, flags=POST, pending_id=base + 9),   # partial
+        x(11, 0, 0, U128_MAX, flags=POST, pending_id=base + 5),
+        x(12, 11, 12, 5),
+    ]
+    expect = [
+        "created", "created", "credit_account_not_found",
+        "pending_transfer_not_found", "created", "created", "created",
+        "pending_transfer_not_found", "created", "created",
+        "pending_transfer_not_pending", "created",
+    ]
+    return events, expect
+
+
+def cascade_steps(Account, Transfer, AccountFlags, TransferFlags,
+                  k_chains: int = 12):
+    """(accounts, funding transfers, cascade batch) of the k-wave limit
+    cascade of the JAX package's tests/test_fixpoint_escalation.py:
+    account 1 unlimited, 2..k + 5 debit-limited with a credit of 10
+    each; chain k debits account k + 2 by 20 (its credit plus the relief
+    credit the previous chain's second member would land) and credits
+    the next one by 10; chain 0's credit names a missing account, so the
+    sequential truth unwinds one chain a wave."""
+    n_limited = k_chains + 4
+    limit = AccountFlags.debits_must_not_exceed_credits
+    accounts = [Account(id=1, ledger=1, code=1)] + [
+        Account(id=i, ledger=1, code=1, flags=limit)
+        for i in range(2, n_limited + 2)]
+    funds = [Transfer(id=100 + i, debit_account_id=1, credit_account_id=i,
+                      amount=10, ledger=1, code=1)
+             for i in range(2, n_limited + 2)]
+    cascade = []
+    for k in range(k_chains):
+        cascade.append(Transfer(id=10_000 + 2 * k, debit_account_id=2 + k,
+                                credit_account_id=1, amount=20, ledger=1,
+                                code=1, flags=TransferFlags.linked))
+        cascade.append(Transfer(id=10_001 + 2 * k, debit_account_id=1,
+                                credit_account_id=(999_999 if k == 0
+                                                   else 3 + k),
+                                amount=10, ledger=1, code=1))
+    return accounts, funds, cascade
 
 
 # ------------------------------------------------------------ the phases
@@ -338,6 +517,115 @@ def probe_phase(dev):
     return results
 
 
+def gather_bytes(table, rows, mask) -> int:
+    """The bytes one row gather must move: the output written once, the
+    indexes read once, each distinct gathered row read once in 32-byte
+    sectors (a masked gather reads the row's words all the same)."""
+    b = table.shape[0]
+    row_bytes = table.shape[1] * table.element_size()
+    distinct = int(torch.unique(rows.to(torch.int64).clamp(0, b - 1)).numel())
+    sectors = -(-row_bytes // SECTOR_BYTES)
+    return (rows.numel() * row_bytes + rows.numel() * rows.element_size()
+            + distinct * sectors * SECTOR_BYTES)
+
+
+def gather_phase(dev):
+    """Row-gather kernel against its plain twin, bit for bit, at the
+    shapes of the TPU probes and of the main path; timed on the device
+    (torch.profiler) and on the stream (CUDA events) beside the plain
+    twin and torch.index_select (one PyTorch call computing the same
+    function, timed as a yardstick only). Returns {shape: numbers}."""
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.ops.ev_layout import XF_NCOLS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def rand_table(rows, width):
+        return torch.randint(-2**63, 2**63 - 1, (rows, width),
+                             dtype=torch.int64, device=dev, generator=gen)
+
+    def rand_rows(n, hi, sets, lo=0):
+        return [torch.randint(lo, hi, (n,), dtype=torch.int64, device=dev,
+                              generator=gen) for _ in range(sets)]
+
+    probe_table = torch.arange(4097 * 48, dtype=torch.int32,
+                               device=dev).reshape(4097, 48)
+    probe_rows = [((torch.arange(8192, device=dev) * 7) % 4097).to(
+        torch.int32)]
+    bal = rand_table((1 << 17) + 1, 16)
+    xfr = rand_table((1 << 21) + 1, XF_NCOLS)
+    # (name, table, row sets, mask, library call timed): the transfer
+    # shape cycles through 32 sets of 16,384 rows (~84 MB of rows, more
+    # than the 50 MB L2), so its rows are read cold as a batch's are.
+    shapes = [
+        ("probe", probe_table, probe_rows, None, True),
+        ("probe_low16", probe_table, probe_rows, 0xFFFF, False),
+        ("account", bal, rand_rows(4 * 8192, (1 << 17) + 1, 4), None, True),
+        ("transfer", xfr, rand_rows(2 * 8192, (1 << 21) + 1, 32), None,
+         True),
+        ("clamped", xfr, rand_rows(2 * 8192, 1 << 40, 2, lo=-(1 << 40)),
+         None, False),
+    ]
+    results = {}
+    for name, table, row_sets, mask, library in shapes:
+        max_err = 0
+        for rows in row_sets:
+            got = RG.row_gather(table, rows, mask)
+            want = RG.row_gather_plain(table, rows, mask)
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype and got.shape == want.shape
+                  and torch.equal(got, want),
+                  f"row_gather {name}: kernel disagrees with the plain twin")
+            diff = (got.view(torch.int32).to(torch.int64)
+                    - want.view(torch.int32).to(torch.int64)).abs()
+            max_err = max(max_err, int(diff.max()))
+        if name == "clamped":
+            results[name] = dict(max_abs_err=max_err)
+            continue
+
+        def cycling(fn):
+            it = itertools.cycle(row_sets)
+            return lambda: fn(table, next(it))
+
+        kern = cycling(lambda t, r: RG.row_gather(t, r, mask))
+        plain = cycling(lambda t, r: RG.row_gather_plain(t, r, mask))
+        lib = cycling(lambda t, r: torch.index_select(t, 0, r))
+        # Plain and kernel in turns within one call.
+        p_ms = time_ms(plain)
+        k_ms = time_ms(kern)
+        k_ms2 = time_ms(kern)
+        p_ms2 = time_ms(plain)
+        _, k_names = device_profile(kern)
+        p_dev, _ = device_profile(plain)
+        k_dev = [v[0] for k, v in k_names.items() if "row_gather" in k]
+        check(len(k_dev) == 1 and p_dev is not None,
+              f"row_gather {name}: the profiler trace holds no device time "
+              "for the kernel or the plain twin")
+        bound = float(np.mean([gather_bytes(table, r, mask)
+                               for r in row_sets]))
+        res = dict(
+            ms=k_dev[0], plain_ms=p_dev, library_ms=None,
+            stream_ms=min(k_ms, k_ms2), plain_stream_ms=min(p_ms, p_ms2),
+            library_stream_ms=None,
+            bound_ms=bound / HBM_BYTES_PER_S * 1e3, max_abs_err=max_err,
+            table=list(table.shape), dtype=str(table.dtype).split(".")[-1],
+            rows=int(row_sets[0].numel()),
+            mask=None if mask is None else hex(mask))
+        if library:
+            res["library_ms"], _ = device_profile(lib)
+            res["library_stream_ms"] = time_ms(lib)
+        results[name] = res
+        print(f"row_gather {name}: table {tuple(table.shape)} "
+              f"{res['dtype']}, {res['rows']} rows x {len(row_sets)} sets, "
+              f"mask {res['mask']}; device per call: kernel {res['ms']} ms, "
+              f"plain {p_dev} ms, index_select {res['library_ms']} ms; "
+              f"stream per call: kernel {k_ms:.5f}/{k_ms2:.5f} ms, plain "
+              f"{p_ms:.5f}/{p_ms2:.5f} ms; bound {bound:.0f} B = "
+              f"{res['bound_ms']} ms", flush=True)
+    return results
+
+
 def ledger_digest(led):
     from tigerbeetle_tpu_torch.ops.state_epoch import device_state_digest
     return device_state_digest(led.state)
@@ -360,8 +648,11 @@ def double_entry(led) -> None:
 
 
 def main_path_phase(dev):
+    """BASELINE config 2 through the plain tier; returns (probe launches,
+    row-gather launches, the probe's device ms per launch)."""
     from tigerbeetle_tpu_torch import DeviceLedger
     from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
     from tigerbeetle_tpu_torch.ops.batch import transfers_to_arrays
     from tigerbeetle_tpu_torch.types import (
         Account, CreateTransferStatus, Transfer, TransferFlags)
@@ -391,16 +682,18 @@ def main_path_phase(dev):
     def transfer_step(label, ev):
         nonlocal ts
         ts += BATCH + 1000
-        before = fused_probe.LAUNCHES
+        before = (fused_probe.LAUNCHES, RG.LAUNCHES)
         got = gpu.create_transfers_soa(ev, ts)
-        check(fused_probe.LAUNCHES - before == 2,
-              f"{label}: probe launched {fused_probe.LAUNCHES - before} "
-              "times, not 2")
+        ran = (fused_probe.LAUNCHES - before[0], RG.LAUNCHES - before[1])
+        check(ran == (PROBES_PER_RUN["plain"], GATHERS_PER_RUN["plain"]),
+              f"{label}: probe and row gather launched {ran} times, not "
+              f"{PROBES_PER_RUN['plain']} and {GATHERS_PER_RUN['plain']}")
         compare(label, got, cpu.create_transfers_soa(ev, ts))
         return got
 
     # The kernel counts start from zero just before the main path runs.
     fused_probe.LAUNCHES = 0
+    RG.LAUNCHES = 0
     accounts = [Account(id=i, ledger=1, code=1)
                 for i in range(1, N_ACCOUNTS + 1)]
     for lo in range(0, N_ACCOUNTS, BATCH):
@@ -414,7 +707,11 @@ def main_path_phase(dev):
         check(all(r.status.name == "created" for r in g),
               "create_accounts: not every account was created")
     launches_accounts = fused_probe.LAUNCHES
-    check(launches_accounts == 2, "create_accounts did not launch the probe")
+    gathers_accounts = RG.LAUNCHES
+    check(launches_accounts == 2 * PROBES_PER_RUN["accounts"]
+          and gathers_accounts == 2 * GATHERS_PER_RUN["accounts"],
+          "create_accounts did not launch the probe and the row gather "
+          "as predicted")
 
     for i, (events, expect) in enumerate(mixed_batches(Transfer,
                                                        TransferFlags)):
@@ -447,8 +744,13 @@ def main_path_phase(dev):
           f"timed run created {rows} of {N_TIMED * BATCH} transfers")
     double_entry(gpu)
     launches = fused_probe.LAUNCHES
-    want = launches_accounts + 2 * (2 + N_CHECKED + N_TIMED)
-    check(launches == want, f"probe launches {launches}, expected {want}")
+    gathers = RG.LAUNCHES
+    batches = 2 + N_CHECKED + N_TIMED
+    want = (launches_accounts + PROBES_PER_RUN["plain"] * batches,
+            gathers_accounts + GATHERS_PER_RUN["plain"] * batches)
+    check((launches, gathers) == want,
+          f"probe and row gather launches {(launches, gathers)}, expected "
+          f"{want}")
     tps = N_TIMED * BATCH / elapsed
     print(f"main path: {N_TIMED} config-2 batches of {BATCH} in "
           f"{elapsed:.4f} s = {tps:.0f} validated transfers/s "
@@ -486,7 +788,283 @@ def main_path_phase(dev):
     print(f"main path probe: {probe[0][1]:.1f} launches/batch, "
           f"{probe_ms} ms device per launch (transfer and account "
           "tables)", flush=True)
-    return launches, probe_ms
+    return launches, gathers, probe_ms
+
+
+def ladder_counters(led) -> tuple:
+    return (led.fast_batches, led.fixpoint_batches,
+            led.deep_fixpoint_batches, led.escalations, led.fallbacks)
+
+
+def run_tiers(led, call):
+    """Run one create_transfers call on `led`; returns (its result, (plain
+    tier runs, fixpoint tier runs)), read from the ladder's state before
+    the call and its counters after (ops/ledger.py
+    create_transfers_arrays): off the fixpoint-first regime the plain
+    tier runs and each escalation reruns the batch one tier deeper; in
+    the deep-first regime only the 32-round tier runs; otherwise the
+    8-round tier, and the 32-round one after it if it escalated."""
+    first, deep_first = led._fixpoint_first, led._deep_first
+    esc, deep = led.escalations, led.deep_fixpoint_batches
+    out = call()
+    if not first:
+        return out, (1, led.escalations - esc)
+    if deep_first > 0:
+        return out, (0, 1)
+    return out, (0, 1 + led.deep_fixpoint_batches - deep)
+
+
+def config4_phase(dev):
+    """BASELINE config 4 through the limit fixpoint tiers and the
+    escalation ladder. Returns the kernels' launches in the phase and the
+    timing and trace numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tigerbeetle_tpu_torch import DeviceLedger
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.ops.batch import transfers_to_arrays
+    from tigerbeetle_tpu_torch.types import (
+        Account, AccountFlags, CreateTransferStatus, Transfer, TransferFlags)
+
+    created = int(CreateTransferStatus.created)
+    t0 = time.perf_counter()
+    gpu = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
+    cpu = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    predicted = [0, 0]   # probe, row gather launches the tier runs predict
+
+    def predict(kind, runs=1):
+        predicted[0] += PROBES_PER_RUN[kind] * runs
+        predicted[1] += GATHERS_PER_RUN[kind] * runs
+
+    def accounts_step(label, card, ref, accounts, ts):
+        g = card.create_accounts(accounts, ts)
+        c = ref.create_accounts(accounts, ts)
+        predict("accounts")
+        check([(r.timestamp, r.status) for r in g]
+              == [(r.timestamp, r.status) for r in c]
+              and all(r.status.name == "created" for r in g),
+              f"{label}: accounts differ or were not created")
+
+    def step(label, card, ref, ev, ts, checked=True):
+        """One batch on the card (and on the CPU reference, unless None):
+        launches as the tier runs predict, and card equal to CPU. A
+        checked batch also proves double entry on the card."""
+        before = (fused_probe.LAUNCHES, RG.LAUNCHES)
+        got, (plain, fix) = run_tiers(
+            card, lambda: card.create_transfers_soa(ev, ts))
+        predict("plain", plain)
+        predict("fixpoint", fix)
+        ran = (fused_probe.LAUNCHES - before[0], RG.LAUNCHES - before[1])
+        want = (PROBES_PER_RUN["plain"] * plain
+                + PROBES_PER_RUN["fixpoint"] * fix,
+                GATHERS_PER_RUN["plain"] * plain
+                + GATHERS_PER_RUN["fixpoint"] * fix)
+        check(ran == want, f"{label}: probe and row gather launched {ran} "
+              f"times; {plain} plain and {fix} fixpoint runs predict {want}")
+        check(card.fallbacks == 0, f"{label}: a batch fell back")
+        if ref is not None:
+            exp = ref.create_transfers_soa(ev, ts)
+            check(np.array_equal(got[0], exp[0])
+                  and np.array_equal(got[1], exp[1]),
+                  f"{label}: card and CPU results differ")
+            check(ladder_counters(card) == ladder_counters(ref)
+                  and card._fixpoint_first == ref._fixpoint_first
+                  and card._deep_first == ref._deep_first,
+                  f"{label}: card and CPU ladders differ")
+            for k in ("accounts", "transfers", "events"):
+                check(int(card.state[k]["count"])
+                      == int(ref.state[k]["count"]),
+                      f"{label}: {k} counts differ")
+            check(ledger_digest(card) == ledger_digest(ref),
+                  f"{label}: state digests differ")
+        if checked:
+            double_entry(card)
+        return got[0]
+
+    # The kernel counts start from zero just before the path runs.
+    fused_probe.LAUNCHES = 0
+    RG.LAUNCHES = 0
+    accounts_step("config-4 accounts", gpu, cpu,
+                  config4_accounts(Account, AccountFlags), C4_ACCOUNTS)
+    rng = np.random.default_rng(4)
+    ts = 10**12
+    next_id = 10**7
+    pend_created = []
+    for i in range(C4_CHECKED_PAIRS):
+        pend, rev, next_id = config4_pair(rng, next_id, TransferFlags)
+        st = step(f"config-4 pend {i}", gpu, cpu, pend, ts + BATCH + 10)
+        st2 = step(f"config-4 post/void {i}", gpu, cpu, rev,
+                   ts + 2 * (BATCH + 10))
+        ts += 2 * (BATCH + 10)
+        n_pend = int((st == created).sum())
+        check(int((st2 == created).sum()) == n_pend,
+              f"config-4 pair {i}: the post/void batch created "
+              f"{int((st2 == created).sum())}, the pend batch {n_pend}")
+        pend_created.append(n_pend)
+        print(f"config-4 pair {i}: {n_pend} pendings created and resolved; "
+              f"counters {ladder_counters(gpu)}", flush=True)
+    check(tuple(pend_created) == C4_JAX_CREATED,
+          f"config-4 created {pend_created}, the JAX package "
+          f"{list(C4_JAX_CREATED)}")
+    check(ladder_counters(gpu) == C4_JAX_COUNTERS,
+          f"config-4 counters {ladder_counters(gpu)}, the JAX package "
+          f"{C4_JAX_COUNTERS}")
+
+    events, expect = in_batch_two_phase(Transfer, TransferFlags)
+    ts += 1000
+    st = step("in-batch two-phase", gpu, cpu, transfers_to_arrays(events),
+              ts)
+    names = [CreateTransferStatus(int(v)).name for v in st]
+    check(names == expect, f"in-batch two-phase: statuses {names}")
+
+    small = (DeviceLedger(a_cap=1 << 10, t_cap=1 << 12),
+             DeviceLedger(a_cap=1 << 10, t_cap=1 << 12, device="cpu"))
+    accounts, funds, cascade = cascade_steps(Account, Transfer, AccountFlags,
+                                             TransferFlags)
+    accounts_step("cascade accounts", *small, accounts, 10**13)
+    step("cascade funds", *small, transfers_to_arrays(funds), 10**13 + 1000)
+    step("12-wave cascade", *small, transfers_to_arrays(cascade),
+         10**13 + 5000)
+    check(ladder_counters(small[0])[2:] == (1, 2, 0),
+          f"12-wave cascade: counters {ladder_counters(small[0])}, "
+          "expected one deep escalation and no fallback")
+    print(f"config 4 checked against the CPU: {2 * C4_CHECKED_PAIRS + 1} "
+          f"batches, the cascade's 3, in {time.perf_counter() - t0:.1f} s; "
+          f"counters {ladder_counters(gpu)}", flush=True)
+    del cpu, small
+
+    # Timed: the card alone, one sync after every batch so pend and
+    # post/void batches are timed apart.
+    pairs = []
+    for _ in range(C4_TIMED_PAIRS):
+        pend, rev, next_id = config4_pair(rng, next_id, TransferFlags)
+        pairs.append((pend, rev))
+    counters_before = ladder_counters(gpu)
+    ms = {"pend": [], "post/void": []}
+    n_created = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i, (pend, rev) in enumerate(pairs):
+        for kind, ev, at in (("pend", pend, ts + BATCH + 10),
+                             ("post/void", rev, ts + 2 * (BATCH + 10))):
+            tb = time.perf_counter()
+            st = step(f"timed {kind} {i}", gpu, None, ev, at,
+                      checked=False)
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - tb) * 1e3)
+            n_created += int((st == created).sum())
+        ts += 2 * (BATCH + 10)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    double_entry(gpu)
+    delta = tuple(a - b for a, b in zip(ladder_counters(gpu),
+                                        counters_before))
+    timing = dict(
+        elapsed_s=elapsed, batches=2 * C4_TIMED_PAIRS,
+        transfers_per_s=2 * C4_TIMED_PAIRS * BATCH / elapsed,
+        created_per_s=n_created / elapsed,
+        pend_ms=float(np.mean(ms["pend"])),
+        post_void_ms=float(np.mean(ms["post/void"])),
+        counters_delta=delta)
+    print(f"config 4: {C4_TIMED_PAIRS} pairs of {BATCH} in {elapsed:.4f} s = "
+          f"{timing['transfers_per_s']:.0f} validated transfers/s "
+          f"({timing['created_per_s']:.0f} created/s); pend "
+          f"{timing['pend_ms']:.3f} ms/batch "
+          f"({BATCH / timing['pend_ms'] * 1e3:.0f} transfers/s), post/void "
+          f"{timing['post_void_ms']:.3f} ms/batch "
+          f"({BATCH / timing['post_void_ms'] * 1e3:.0f} transfers/s); "
+          f"counters over the timed run (fast, fixpoint, deep, escalations, "
+          f"fallbacks) {delta}", flush=True)
+
+    # One pend batch's trace (three in a row, their post/voids after).
+    reps = 3
+    prof_pairs = []
+    for _ in range(reps):
+        pend, rev, next_id = config4_pair(rng, next_id, TransferFlags)
+        prof_pairs.append((pend, rev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for pend, _ in prof_pairs:
+            ts += BATCH + 10
+            step("profiled pend", gpu, None, pend, ts, checked=False)
+        torch.cuda.synchronize()
+    for _, rev in prof_pairs:
+        ts += BATCH + 10
+        step("profiled post/void", gpu, None, rev, ts)
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            m, n = by_name.get(e.key, (0.0, 0.0))
+            by_name[e.key] = (m + us / 1e3 / reps, n + e.count / reps)
+    check(by_name, "the config-4 trace holds no device time")
+    busy = sum(v[0] for v in by_name.values())
+    ops = sum(v[1] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+
+    def per_launch(tag):
+        hits = [v for k, v in by_name.items() if tag in k]
+        check(hits and sum(v[1] for v in hits) > 0,
+              f"the config-4 trace holds no device time for {tag}")
+        return (sum(v[0] for v in hits) / sum(v[1] for v in hits),
+                sum(v[1] for v in hits))
+
+    gather_ms, gather_n = per_launch("row_gather")
+    probe_ms, probe_n = per_launch("ht_probe_kernel")
+    trace = dict(busy_ms=busy, ops=ops, wall_ms=timing["pend_ms"],
+                 idle_share=1 - busy / timing["pend_ms"],
+                 gather_ms=gather_ms, gather_launches=gather_n,
+                 probe_ms=probe_ms, probe_launches=probe_n)
+    print(f"config-4 pend batch breakdown: wall {timing['pend_ms']:.3f} "
+          f"ms/batch (timed run), device busy {busy} ms/batch, {ops:.1f} "
+          f"device ops/batch under {len(by_name)} names; row_gather "
+          f"{gather_n:.1f} launches x {gather_ms} ms, probe {probe_n:.1f} x "
+          f"{probe_ms} ms; top (ms, count): "
+          + "; ".join(f"{k[:70]} {v[0]:.4f} x{v[1]:.1f}" for k, v in top),
+          flush=True)
+
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+    check(launches == tuple(predicted),
+          f"config 4: probe and row gather launches {launches}, the tier "
+          f"runs predict {tuple(predicted)}")
+    check(all(n > 0 for n in launches), "config 4 launched no kernel")
+    print(f"config 4 launches: probe {launches[0]}, row gather "
+          f"{launches[1]} (as the tier runs predict)", flush=True)
+    return dict(probe_launches=launches[0], gather_launches=launches[1],
+                timing=timing, trace=trace)
+
+
+def build_all():
+    """Compile both kernel sources at once (one nvcc each) and load them;
+    prints each build time."""
+    from tigerbeetle_tpu_torch.ops import _build
+
+    names = ("ht_probe", "row_gather")
+    took, errors = {}, {}
+
+    def one(name):
+        t = time.perf_counter()
+        try:
+            _build.build(name)
+        except Exception as exc:   # re-raised below, in the main thread
+            errors[name] = exc
+        took[name] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name in names:
+        if name in errors:
+            raise errors[name]
+        print(f"built {_build.library_path(name).name} in {took[name]:.1f} s",
+              flush=True)
+    _build.load_ht_probe()
+    _build.load_row_gather()
 
 
 def main() -> int:
@@ -495,28 +1073,31 @@ def main() -> int:
         return 2
     print(card_line(), flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from tigerbeetle_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    _build.load_ht_probe()
-    print(f"built {_build.library_path('ht_probe').name} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-
+    build_all()
     probe = probe_phase(dev)
-    launches, main_probe_ms = main_path_phase(dev)
+    gather = gather_phase(dev)
+    launches, c2_gathers, main_probe_ms = main_path_phase(dev)
+    c4 = config4_phase(dev)
+    print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
-    # ms / plain_ms: device time per call from the profiler trace, on the
-    # transfer table with cold rows; *stream_ms: CUDA-event time per call
-    # on the stream, host issue included; main_path_ms: the kernel's
-    # device time per launch in the main path's trace.
+    # ms / plain_ms / library_ms: device time per call from the profiler
+    # trace (the probe on the transfer table with cold rows, the gather
+    # at the transfer shape with cold rows); *stream_ms: CUDA-event time
+    # per call on the stream, host issue included; main_path_ms: the
+    # kernel's device time per launch in a main path's own trace.
     x, a = probe["xfer_ht"], probe["acct_ht"]
+    g = gather["transfer"]
     kernels = [{
         "name": "ht_lookup_fused",
         "route": "cuda",
         "source": "tigerbeetle_tpu_torch/csrc/ht_probe.cu",
         "replaces": "tigerbeetle_tpu/ops/pallas_kernels.py:80",
         "launches": launches,
+        "launches_config4": c4["probe_launches"],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"]),
         "ms": x["ms"],
         "plain_ms": x["plain_ms"],
@@ -526,14 +1107,36 @@ def main() -> int:
         "stream_ms": x["stream_ms"],
         "plain_stream_ms": x["plain_stream_ms"],
         "main_path_ms": main_probe_ms,
+        "main_path_ms_config4": c4["trace"]["probe_ms"],
         "acct_ht_ms": a["ms"],
         "acct_ht_plain_ms": a["plain_ms"],
         "acct_ht_bound_ms": a["bound_ms"],
+    }, {
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "tigerbeetle_tpu_torch/csrc/row_gather.cu",
+        "replaces": ", ".join(GATHER_REPLACES),
+        "launches": c4["gather_launches"],
+        "launches_config2": c2_gathers,
+        "max_abs_err": max(v["max_abs_err"] for v in gather.values()),
+        "ms": g["ms"],
+        "plain_ms": g["plain_ms"],
+        "bound_ms": g["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": g["library_ms"],
+        "stream_ms": g["stream_ms"],
+        "plain_stream_ms": g["plain_stream_ms"],
+        "library_stream_ms": g["library_stream_ms"],
+        "main_path_ms": c4["trace"]["gather_ms"],
+        "shapes": {k: v for k, v in gather.items() if k != "clamped"},
     }]
+    print(json.dumps({"config4": {**c4["timing"], **c4["trace"]}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    # One card is what this run used, whatever the machine shows.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -117,7 +117,8 @@ class Pair:
                                       j_out["r_status"].astype(np.int64))
         np.testing.assert_array_equal(
             t_out["r_ts"].numpy().view(np.uint64), j_out["r_ts"])
-        for k in ("fallback", "limit_only", "created_count"):
+        for k in ("fallback", "limit_only", "limit_hit", "fix_unconverged",
+                  "fix_rounds", "created_count"):
             if k in j_out:
                 assert int(t_out[k]) == int(j_out[k]), k
         if "fb_causes" in j_out:
@@ -442,10 +443,20 @@ def test_non_plain_tiers_raise_not_implemented():
     t_state = state_from_numpy(_np(state), "cpu")
     ev = events_to_device(JL.pad_transfer_events(
         JB.transfers_to_arrays([_xfer(1, 1, 2, 3)]), 16), "cpu")
-    for kw in ({"limit_rounds": 8}, {"seg": {}}, {"ring_reset": True},
+    # The limit fixpoint tiers are ported: limit_rounds > 1 runs.
+    for rounds in (TFK.LIMIT_FIXPOINT_ROUNDS,
+                   TFK.LIMIT_FIXPOINT_ROUNDS_DEEP):
+        _, out = TFK.create_transfers_fast(t_state, ev, TS0, 1,
+                                           limit_rounds=rounds)
+        assert not bool(out["fallback"]) and int(out["fix_rounds"]) == 1
+    for kw in ({"per_event": {}}, {"seg": {}}, {"ring_reset": True},
                {"imported_mode": True}, {"balancing_mode": True}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TFK.create_transfers_fast(t_state, ev, TS0, 1, **kw)
+        for rounds in (1, TFK.LIMIT_FIXPOINT_ROUNDS):
+            with pytest.raises(NotImplementedError, match="later slice"):
+                TFK.create_transfers_fast(t_state, ev, TS0, 1,
+                                          limit_rounds=rounds, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        TFK.per_event_status(t_state, ev, ev["ts"], imported_ctx={})
     aev = events_to_device(JL.pad_account_events(
         JB.accounts_to_arrays([_acct(1)]), 16), "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: `tigerbeetle_tpu_torch` and
-`chip_smoke.py` import neither JAX nor the JAX package, and the port's
-modules import nothing that needs a card or a compiler at import time."""
+`chip_smoke.py` import neither JAX nor the JAX package nor the TPU probe
+scripts of `onchip/`, and the port's modules import nothing that needs a
+card or a compiler at import time."""
 
 import ast
 import pathlib
@@ -11,7 +12,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "tigerbeetle_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "tigerbeetle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "tigerbeetle_tpu", "onchip")
 
 
 def _sources():
@@ -49,11 +50,14 @@ def test_port_sources_name_no_jax_module(path):
     assert "import jax" not in text and "from jax" not in text
     assert "tigerbeetle_tpu." not in text.replace("tigerbeetle_tpu_torch",
                                                   "")
+    assert "import onchip" not in text and "from onchip" not in text
 
 
 def test_port_modules_import_no_triton_or_build_at_import():
     code = (
         "import sys, tigerbeetle_tpu_torch.ops.fused_probe as fp\n"
+        "import tigerbeetle_tpu_torch.ops.row_gather\n"
+        "import tigerbeetle_tpu_torch.ops.ledger\n"
         "assert 'triton' not in sys.modules\n"
         "assert fp._build._libs == {}\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

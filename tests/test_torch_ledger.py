@@ -199,17 +199,20 @@ def test_fallback_raises_and_leaves_state_unchanged():
     before = device_state_digest(port.state)
     dup = [TT.Transfer(id=10, debit_account_id=1, credit_account_id=2,
                        amount=3, ledger=1, code=1)] * 2
-    with pytest.raises(TL.PlainTierFallback) as err:
+    # The plain tier escalates the collision; the fixpoint tier finds a
+    # real duplicate id and falls back, so the ledger raises.
+    with pytest.raises(TL.DeviceTierFallback) as err:
         port.create_transfers(dup, TS0 + 20)
-    assert err.value.limit_only and err.value.fb_causes["e2_collision"]
+    assert not err.value.limit_only and err.value.fb_causes["e2_collision"]
+    assert port.escalations == 1 and port.fixpoint_batches == 0
     bal = [TT.Transfer(id=11, debit_account_id=1, credit_account_id=2,
                        amount=3, ledger=1, code=1,
                        flags=TT.TransferFlags.balancing_debit)]
-    with pytest.raises(TL.PlainTierFallback) as err:
+    with pytest.raises(TL.DeviceTierFallback) as err:
         port.create_transfers(bal, TS0 + 30)
     assert not err.value.limit_only
     assert err.value.fb_causes["e1_hard_flags"]
-    with pytest.raises(TL.PlainTierFallback):
+    with pytest.raises(TL.DeviceTierFallback):
         port.create_accounts([TT.Account(id=7, ledger=1, code=1)] * 2,
                              TS0 + 40)
     assert device_state_digest(port.state) == before
@@ -289,3 +292,144 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+# ------------------------------------------------- the escalation ladder
+
+def _counters(led):
+    return dict(fast=led.fast_batches, fixpoint=led.fixpoint_batches,
+                deep=led.deep_fixpoint_batches, escalations=led.escalations,
+                fallbacks=led.fallbacks, fixpoint_first=led._fixpoint_first,
+                deep_first=led._deep_first)
+
+
+def _cascade(k_chains, first_acct, first_id):
+    """k linked chains forming a k-wave limit cascade (the construction of
+    tests/test_fixpoint_escalation.py): chain k debits limited account
+    first_acct + k by 20 (its credit 10 plus the relief credit 10 the
+    previous chain's second member would land) and credits the next one
+    by 10; chain 0's credit names a missing account, so the sequential
+    truth unwinds one chain a wave."""
+    events = []
+    for k in range(k_chains):
+        acct = first_acct + k
+        events.append(Transfer(id=first_id + 2 * k, debit_account_id=acct,
+                               credit_account_id=1, amount=20, ledger=1,
+                               code=1, flags=TF.linked))
+        events.append(Transfer(id=first_id + 2 * k + 1, debit_account_id=1,
+                               credit_account_id=(999_999 if k == 0
+                                                  else acct + 1),
+                               amount=10, ledger=1, code=1))
+    return events
+
+
+def _ladder_setup(n_limited):
+    """Account 1 unlimited, 2..n_limited + 1 debit-limited with a credit
+    of 10 each, 200..203 unlimited."""
+    accts = [Account(id=1, ledger=1, code=1)]
+    accts += [Account(id=i, ledger=1, code=1,
+                      flags=AF.debits_must_not_exceed_credits)
+              for i in range(2, n_limited + 2)]
+    accts += [Account(id=i, ledger=1, code=1) for i in range(200, 204)]
+    fund = [Transfer(id=100 + i, debit_account_id=1, credit_account_id=i,
+                     amount=10, ledger=1, code=1)
+            for i in range(2, n_limited + 2)]
+    return [("create_accounts", accts, TS0),
+            ("create_transfers", fund, TS0 + 1000)]
+
+
+def _x(i, dr, cr, amount, **kw):
+    return Transfer(id=i, debit_account_id=dr, credit_account_id=cr,
+                    amount=amount, ledger=1, code=1, **kw)
+
+
+def _breach(i, acct):
+    """Two debits of 6 from a limited account with a headroom of 10 or
+    less: the headroom proof fails."""
+    return [_x(i, acct, 200, 6), _x(i + 1, acct, 201, 6)]
+
+
+def _in_batch_two_phase(i):
+    return [_x(i, 202, 203, 50, flags=TF.pending),
+            _x(i + 1, 0, 0, (1 << 128) - 1, pending_id=i,
+               flags=TF.post_pending_transfer),
+            _x(i + 2, 203, 202, 5)]
+
+
+def test_escalation_ladder_matches_the_jax_ledger_and_the_oracle():
+    """Plain -> 8-round escalation and the fixpoint-first regime with its
+    drop-back; an in-batch pending reference escalating; a 12-wave
+    cascade escalating to the 32-round tier and the deep-first regime
+    for DEEP_PROBE_INTERVAL batches, then the shallow re-probe. The
+    counters equal the JAX ledger's after every batch."""
+    steps = _ladder_setup(20)
+    ts = TS0 + 2000
+    plan = [
+        ("breach escalates", _breach(1000, 2)),
+        ("fixpoint first, breach", _breach(1010, 3)),
+        ("no breach: drop back", _in_batch_two_phase(1020)),
+        ("plain", [_x(1030, 200, 201, 1)]),
+        ("in-batch pending escalates", _in_batch_two_phase(1040)),
+        ("no breach: drop back", [_x(1050, 201, 200, 1)]),
+        ("12-wave cascade", _cascade(12, 5, 2000)),
+    ]
+    plan += [(f"deep first {k}", _breach(3000 + 10 * k, 4))
+             for k in range(TL.DeviceLedger.DEEP_PROBE_INTERVAL + 1)]
+    plan += [("no breach: drop back", [_x(4000, 200, 202, 1)]),
+             ("plain again", [_x(4010, 202, 200, 1)])]
+    for _, evs in plan:
+        ts += 1000
+        steps.append(("create_transfers", evs, ts))
+
+    port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
+    sm = StateMachineOracle()
+    seen = []
+    for k, step in enumerate(steps):
+        _run_all([step], port, jax_led, sm)
+        assert _counters(port) == _counters(jax_led), (k, step[0])
+        seen.append(_counters(port))
+    assert device_state_digest(port.state) == jax_digest(jax_led.state)
+
+    by_label = dict(zip(["accounts", "fund"] + [p[0] for p in plan], seen))
+    assert by_label["breach escalates"] == dict(
+        fast=3, fixpoint=1, deep=0, escalations=1, fallbacks=0,
+        fixpoint_first=True, deep_first=0)
+    assert not by_label["plain"]["fixpoint_first"]
+    assert by_label["in-batch pending escalates"]["escalations"] == 2
+    assert by_label["12-wave cascade"] == dict(
+        fast=9, fixpoint=6, deep=1, escalations=4, fallbacks=0,
+        fixpoint_first=True, deep_first=TL.DeviceLedger.DEEP_PROBE_INTERVAL)
+    last_deep = f"deep first {TL.DeviceLedger.DEEP_PROBE_INTERVAL - 1}"
+    assert by_label[last_deep]["deep"] == 1 + \
+        TL.DeviceLedger.DEEP_PROBE_INTERVAL
+    assert by_label[last_deep]["deep_first"] == 0
+    reprobe = f"deep first {TL.DeviceLedger.DEEP_PROBE_INTERVAL}"
+    assert by_label[reprobe]["deep"] == by_label[last_deep]["deep"]
+    assert by_label[reprobe]["fixpoint"] == \
+        by_label[last_deep]["fixpoint"] + 1
+    assert seen[-1] == dict(fast=len(steps), fixpoint=16, deep=9,
+                            escalations=4, fallbacks=0,
+                            fixpoint_first=False, deep_first=0)
+
+
+def test_a_cascade_beyond_the_deep_tier_raises_with_the_state_unchanged():
+    """A 40-wave cascade outruns the 32-round tier too: the port raises
+    DeviceTierFallback and leaves its state as it was, after the same
+    ladder (and the same counters) as the JAX ledger, which then takes
+    its exact host path."""
+    port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
+    sm = StateMachineOracle()
+    _run_all(_ladder_setup(44), port, jax_led, sm)
+    before = device_state_digest(port.state)
+    events = _cascade(40, 2, 5000)
+    with pytest.raises(TL.DeviceTierFallback) as err:
+        port.create_transfers(_port_objs(events, TT.Transfer), TS0 + 9000)
+    assert err.value.fb_causes["e3_limit"] and not err.value.limit_only
+    assert device_state_digest(port.state) == before
+    assert _res(jax_led.create_transfers(events, TS0 + 9000)) == \
+        _res(sm.create_transfers(events, TS0 + 9000))
+    assert _counters(port) == _counters(jax_led) == dict(
+        fast=2, fixpoint=0, deep=1, escalations=2, fallbacks=1,
+        fixpoint_first=False, deep_first=TL.DeviceLedger.DEEP_PROBE_INTERVAL)

@@ -64,16 +64,32 @@ def build(name: str) -> Path:
     return out
 
 
+def _load(name: str, fn_name: str, argtypes: list):
+    """Build (if needed) and load csrc/<name>.cu, declaring the C
+    signature of its entry point `fn_name`."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+
+
 def load_ht_probe():
     """The ht_probe library with its C signature declared."""
-    with _lock:
-        lib = _libs.get("ht_probe")
-        if lib is None:
-            lib = ctypes.CDLL(str(build("ht_probe")))
-            fn = lib.ht_probe_launch
-            vp = ctypes.c_void_p
-            fn.argtypes = [vp, ctypes.c_longlong, vp, vp, ctypes.c_longlong,
-                           vp, vp, vp]
-            fn.restype = ctypes.c_int
-            _libs["ht_probe"] = lib
-        return lib
+    return _load("ht_probe", "ht_probe_launch",
+                 [_VP, _LL, _VP, _VP, _LL, _VP, _VP, _VP])
+
+
+def load_row_gather():
+    """The row_gather library with its C signature declared."""
+    return _load("row_gather", "row_gather_launch",
+                 [_VP, _LL, _LL, _VP, ctypes.c_int, _LL, ctypes.c_uint,
+                  _VP, _VP])

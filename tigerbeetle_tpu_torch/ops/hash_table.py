@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .row_gather import row_gather
 from .u64 import s64, srl
 
 SLOTS = 8
@@ -138,8 +139,9 @@ def ht_plan(table: dict, k_hi, k_lo, mask):
     n = k_hi.shape[0]
     dump = b * SLOTS
     b1, b2 = _buckets(k_hi, k_lo, b)
-    occ1 = _occupancy(packed[b1])
-    occ2 = _occupancy(packed[b2])
+    # Both choices' bucket rows in one row gather.
+    occ = _occupancy(row_gather(packed, torch.cat([b1, b2])))
+    occ1, occ2 = occ[:n], occ[n:]
 
     take1 = occ1 <= occ2
     tgt = torch.where(take1, b1, b2)

@@ -1,16 +1,21 @@
 """DeviceLedger: the device-resident account/transfer state store.
 
-A port of the JAX package's `ops/ledger.py`, plain-tier slice: accounts
-and transfers live on the card as packed int64-carried u64 row matrices
-(`init_state`); id -> row lookups run through the device hash tables
-and the fused probe kernel; each batch runs the vectorized plain-tier
-kernels (`fast_kernels.py`) with no per-event host work.
+A port of the JAX package's `ops/ledger.py`: accounts and transfers live
+on the card as packed int64-carried u64 row matrices (`init_state`);
+id -> row lookups run through the device hash tables and the fused
+probe kernel, row reads through the row-gather kernel; each batch runs
+the vectorized kernels (`fast_kernels.py`) with no per-event host work.
 
-A batch the plain tier cannot prove order-independent comes back with
-`fallback` set and the state untouched. The JAX package then escalates
-to its fixpoint tiers or its exact host path; those are later slices of
-the port, so here the ledger raises `PlainTierFallback`. A fallback is
-never swallowed.
+create_transfers climbs the JAX package's escalation ladder: the plain
+tier first; a fallback that only the fixpoint tiers resolve (`limit_only`)
+reruns on the 8-round limit fixpoint tier, and one whose cascade is
+deeper than 8 rounds (`fix_unconverged`) on the 32-round tier. After a
+batch resolved on a fixpoint tier, later batches go to the fixpoint
+tiers first until a batch shows no headroom breach; after a deep
+escalation, the deep tier first for DEEP_PROBE_INTERVAL batches. A
+batch that still falls back leaves the state untouched and raises
+`DeviceTierFallback`: the exact host path is a later slice of the port.
+A fallback is never swallowed.
 
 The device is explicit: `DeviceLedger(device=None)` means CUDA and
 raises when no CUDA device is present; the tests pass `device="cpu"`.
@@ -47,9 +52,15 @@ from .ev_layout import (
     bal_col,
     xf_named,
 )
-from .fast_kernels import create_accounts_fast, create_transfers_fast
+from .fast_kernels import (
+    create_accounts_fast,
+    create_transfers_fast,
+    create_transfers_fixpoint,
+    create_transfers_fixpoint_deep,
+)
 from .fused_probe import ht_lookup_fused
 from .hash_table import ht_init
+from .row_gather import row_gather
 
 N_PAD = 8192
 assert N_PAD >= BATCH_MAX
@@ -260,24 +271,33 @@ def events_to_device(ev: dict, device) -> dict:
     return out
 
 
-class PlainTierFallback(RuntimeError):
-    """The plain tier could not prove a batch order-independent. The
-    state is unchanged. `fb_causes` names the eligibility proofs that
-    failed; `limit_only` marks a batch that the fixpoint tiers (a later
-    slice) would resolve on the device."""
+class DeviceTierFallback(RuntimeError):
+    """No device tier could run a batch: the plain tier's proofs failed
+    and the fixpoint tiers (where the causes allowed them) fell back too.
+    The state is unchanged. `fb_causes` names the causes reported by the
+    last tier that ran; `limit_only` is that tier's escalation flag."""
 
     def __init__(self, op: str, fb_causes: dict, limit_only: bool):
         self.fb_causes = fb_causes
         self.limit_only = limit_only
         causes = sorted(k for k, v in fb_causes.items() if v)
         super().__init__(
-            f"{op}: plain-tier fallback (causes: {', '.join(causes)}; "
-            f"limit_only={limit_only}); the fixpoint tiers and the exact "
-            "host path are later slices of the port")
+            f"{op}: device-tier fallback (causes: {', '.join(causes)}; "
+            f"limit_only={limit_only}); the exact host path is a later "
+            "slice of the port")
+
+
+def _host_bools(*flags) -> list:
+    """Scalar device flags -> Python bools in one host sync."""
+    return [bool(x) for x in torch.stack(flags).tolist()]
 
 
 class DeviceLedger:
-    """The device ledger state plus the plain-tier batch entry points."""
+    """The device ledger state plus the batch entry points."""
+
+    # After an 8 -> 32-round escalation, dispatch the deep tier directly
+    # for this many breach batches before re-probing the shallow one.
+    DEEP_PROBE_INTERVAL = 8
 
     def __init__(self, a_cap: int = 1 << 17, t_cap: int = 1 << 21,
                  device=None):
@@ -286,14 +306,25 @@ class DeviceLedger:
         self.t_cap = t_cap
         self.state = init_state(a_cap, t_cap, device=self.device)
         self.fast_batches = 0
+        self.fixpoint_batches = 0
+        self.deep_fixpoint_batches = 0
+        # On-device tier redispatches (plain -> fixpoint, shallow ->
+        # deep): resolved without the host.
+        self.escalations = 0
         self.fallbacks = 0
+        self._deep_first = 0
+        # Adaptive routing: after a batch resolved breaches on a fixpoint
+        # tier, later batches dispatch the fixpoint tiers first (skipping
+        # the headroom proof that would fail anyway) until a breach-free
+        # batch cools the workload back down.
+        self._fixpoint_first = False
 
     def _raise_fallback(self, op: str, out) -> None:
         self.fallbacks += 1
         causes = {k: bool(v) for k, v in out["fb_causes"].items()} \
             if "fb_causes" in out else {}
-        raise PlainTierFallback(op, causes,
-                                bool(out.get("limit_only", False)))
+        raise DeviceTierFallback(op, causes,
+                                 bool(out.get("limit_only", False)))
 
     # ------------------------------------------------------------- fast path
 
@@ -321,15 +352,73 @@ class DeviceLedger:
         out — no per-event Python."""
         return self.create_transfers_arrays(ev, timestamp, raw=True)
 
+    def _escalate_fixpoint(self, evd, timestamp, n):
+        """The 8-round tier reported a cascade deeper than its budget (and
+        no other obstacle): rerun on the 32-round tier and enter the
+        deep-first regime. Returns (fallback, out) of the deep run."""
+        self.state, out = create_transfers_fixpoint_deep(
+            self.state, evd, timestamp, n)
+        self.deep_fixpoint_batches += 1
+        self.escalations += 1
+        self._deep_first = self.DEEP_PROBE_INTERVAL
+        return bool(out["fallback"]), out
+
     def create_transfers_arrays(self, ev: dict, timestamp: int,
                                 raw: bool = False):
-        """ev: unpadded host SoA dict. One host sync per batch reads the
-        fallback flag; the results then come back in one copy each."""
+        """ev: unpadded host SoA dict. The tier ladder reads its flags
+        with one host sync per tier run (the JAX package's device_gets);
+        the results then come back in one copy each. A tier that falls
+        back left the state and the events untouched, so the next tier
+        reruns the same batch."""
         n = len(ev["id_lo"])
-        evp = pad_transfer_events(ev, n_pad=_pad_bucket(n))
-        self.state, out = create_transfers_fast(
-            self.state, events_to_device(evp, self.device), timestamp, n)
-        if bool(out["fallback"]):
+        evd = events_to_device(
+            pad_transfer_events(ev, n_pad=_pad_bucket(n)), self.device)
+        if self._fixpoint_first:
+            # The workload has been breaching balance limits: go straight
+            # to the fixpoint tiers, and to the deep one while cascades
+            # have been exceeding the shallow budget (re-probing the
+            # shallow one every DEEP_PROBE_INTERVAL batches).
+            if self._deep_first > 0:
+                self._deep_first -= 1
+                self.state, out = create_transfers_fixpoint_deep(
+                    self.state, evd, timestamp, n)
+                self.deep_fixpoint_batches += 1
+                fallback, limit_hit = _host_bools(out["fallback"],
+                                                  out["limit_hit"])
+            else:
+                self.state, out = create_transfers_fixpoint(
+                    self.state, evd, timestamp, n)
+                fallback, limit_hit, unconverged = _host_bools(
+                    out["fallback"], out["limit_hit"],
+                    out["fix_unconverged"])
+                if fallback and unconverged:
+                    fallback, out = self._escalate_fixpoint(
+                        evd, timestamp, n)
+            if not fallback:
+                self.fixpoint_batches += 1
+                if not limit_hit:
+                    self._fixpoint_first = False
+        else:
+            self.state, out = create_transfers_fast(
+                self.state, evd, timestamp, n)
+            fallback, limit_only = _host_bools(out["fallback"],
+                                               out["limit_only"])
+            if fallback and limit_only:
+                # The only obstacles were the headroom proof, a collision,
+                # a closing flag or a void of a closing pending: all
+                # resolve natively on the fixpoint tier.
+                self.escalations += 1
+                self.state, out = create_transfers_fixpoint(
+                    self.state, evd, timestamp, n)
+                fallback, unconverged = _host_bools(out["fallback"],
+                                                    out["fix_unconverged"])
+                if fallback and unconverged:
+                    fallback, out = self._escalate_fixpoint(
+                        evd, timestamp, n)
+                if not fallback:
+                    self.fixpoint_batches += 1
+                    self._fixpoint_first = True
+        if fallback:
             self._raise_fallback("create_transfers", out)
         self.fast_batches += 1
         st = out["r_status"][:n].cpu().numpy().astype(np.uint32)
@@ -345,8 +434,8 @@ class DeviceLedger:
     # ------------------------------------------------------------- lookups
 
     def _gather_rows(self, table_key: str, store: dict, ids: list[int]):
-        """Device-side id->row probe + row gather: only the queried rows
-        cross to the host."""
+        """Device-side id->row probe + one row gather per store matrix:
+        only the queried rows cross to the host."""
         hi, lo = u128.from_ints(ids)
         found, rows = ht_lookup_fused(
             self.state[table_key],
@@ -355,7 +444,8 @@ class DeviceLedger:
         # Orphan markers (negative vals) are not live objects.
         found = found & (rows >= 0)
         rows = torch.clamp(rows, min=0).to(torch.int64)
-        gathered = {k: store[k][rows].cpu() for k in store if k != "count"}
+        gathered = {k: row_gather(store[k], rows).cpu()
+                    for k in store if k != "count"}
         return found.cpu().numpy(), gathered
 
     def lookup_accounts(self, ids: list[int]) -> list[Account]:
