@@ -13,20 +13,29 @@ each failing the run with a nonzero exit:
   1. device   a CUDA card is present; its name and power limit are
               printed as nvidia-smi gives them;
   2. build    csrc/ht_probe.cu and csrc/row_gather.cu are compiled by
-              nvcc for sm_90a, both at once;
+              nvcc for sm_90a, all at once;
   3. probe    the fused probe against the plain lookup, bit for bit, on
               a filled transfer-table shape (B = 2^20 buckets) and an
               account-table shape (B = 2^15), 16 sets of 16,384 queries
-              of present, orphaned, absent, zero and bit-edge keys; both
-              timed on the device (torch.profiler) and on the stream
-              (CUDA events), cycling through the sets;
+              of present, orphaned, absent, zero and bit-edge keys, one
+              table a launch and both tables in one launch (as
+              per_event_status probes them); timed on the device
+              (torch.profiler) and on the stream (CUDA events), cycling
+              through the sets; a floor sweep of 1 to 32,768 cold
+              transfer-table queries a call;
   4. gather   the row gather against its plain twin, bit for bit, at the
               TPU probes' own shape ((4097, 48) u32, 8,192 rows, both
               masks), the account-balance shape (2^17 + 1 rows, 32,768
-              gathered), the transfer shape (2^21 + 1 rows, 16,384
-              gathered, row sets cycling through more than the L2) and
-              with out-of-range rows; timed beside the plain twin and
-              torch.index_select;
+              gathered) alone and with the account meta matrix in one
+              launch (the account-role gather), both account matrices at
+              8,190 rows (lookup_accounts), the transfer shape (2^21 + 1
+              rows, 16,384 gathered, row sets cycling through more than
+              the L2) and with out-of-range rows; timed beside the plain
+              twin and torch.index_select (one call a table); a floor
+              sweep of 1 to 32,768 cold transfer rows a call; checked
+              only, a four-segment launch mixing 16-byte and 32-bit-word
+              items, int32 and int64 rows, both masks and an empty
+              segment;
   5. config 2 10,000 accounts, a pendings batch, a mixed batch (posts and
               voids of committed pendings, a linked chain with a failing
               member, failing lanes) and 8 batches of the uniform
@@ -48,7 +57,8 @@ each failing the run with a nonzero exit:
               counts each tier run predicts. Then 16 more pairs are
               timed on the card alone and one pend batch is profiled.
 
-Prints the card line, a `{"kernels": [...]}` line, and last
+Prints the card line, `{"config2": ...}`, `{"config4": ...}` and
+`{"kernels": [...]}` lines, and last
 `{"ok": true, "device": {...}}`. Imports neither JAX nor the JAX package.
 """
 
@@ -73,6 +83,12 @@ N_CHECKED = 8
 N_TIMED = 64
 N_QUERIES = 16_384
 N_QUERY_SETS = 16
+# Rows (queries) a call in the kernels' floor sweeps; the first is the
+# floor, a launch's fixed cost.
+SWEEP_COUNTS = (1, 1024, 8192, 16_384, 32_768)
+FULL_MASK = 0xFFFFFFFF
+# Row-gather shapes that are held against the plain twin but not timed.
+CHECKED_ONLY = ("clamped", "mixed4")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 ROW_KEY_BYTES = 16 * 8      # the key_hi and key_lo halves of a bucket row
 SECTOR_BYTES = 32           # the least a read from HBM moves
@@ -94,14 +110,14 @@ C4_JAX_COUNTERS = (13, 12, 8, 10, 0)
 # Kernel launches of one run of each tier, read from the code:
 #   create_accounts_fast: the id probe; the meta-row gather and the insert
 #     plan's bucket-row gather;
-#   create_transfers_fast, plain tier: the account-id and transfer-id
-#     probes; the transfer-role gather, the two account-role gathers
-#     (balances, meta), the balance base of the application, the insert
-#     plan's bucket rows;
+#   create_transfers_fast, plain tier: one two-table probe (account ids,
+#     transfer and pending ids); the transfer-role gather, the two-table
+#     account-role gather (balances and meta in one launch), the balance
+#     base of the application, the insert plan's bucket rows;
 #   a fixpoint tier (8 or 32 rounds): the same plus the in-window
 #     pending view (the application reuses the rounds' balance base).
-PROBES_PER_RUN = {"accounts": 1, "plain": 2, "fixpoint": 2}
-GATHERS_PER_RUN = {"accounts": 2, "plain": 5, "fixpoint": 6}
+PROBES_PER_RUN = {"accounts": 1, "plain": 1, "fixpoint": 1}
+GATHERS_PER_RUN = {"accounts": 2, "plain": 4, "fixpoint": 5}
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -353,29 +369,85 @@ def time_ms(fn, reps: int = 50, rounds: int = 5) -> float:
     return float(np.median(per))
 
 
-def device_profile(fn, reps: int = 20):
+def device_profile(fn, reps: int = 20, attempts: int = 3):
     """(device-busy ms per call, {name: (ms per call, launches per
     call)}) of fn() from a torch.profiler trace of `reps` calls;
-    (None, {}) when the trace holds no device time."""
+    (None, {}) when the trace holds no device time. A trace that comes
+    back empty (the profiler now and then drops a short window's device
+    events) is taken again, up to `attempts` traces."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us:
-            ms, n = by_name.get(e.key, (0.0, 0.0))
-            by_name[e.key] = (ms + us / 1e3 / reps, n + e.count / reps)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us:
+                ms, n = by_name.get(e.key, (0.0, 0.0))
+                by_name[e.key] = (ms + us / 1e3 / reps, n + e.count / reps)
+        if by_name:
+            break
     if not by_name:
         return None, {}
     return sum(v[0] for v in by_name.values()), by_name
+
+
+def kernel_ms(fn, tag: str, attempts: int = 3) -> float:
+    """Device ms per call of the one kernel named like `tag` that fn()
+    launches once a call, from a torch.profiler trace. A trace that
+    holds the kernel fewer or more times than the calls made (the
+    profiler now and then drops device events) is taken again, up to
+    `attempts` traces."""
+    for _ in range(attempts):
+        _, names = device_profile(fn, attempts=1)
+        hits = [v for k, v in names.items() if tag in k]
+        if len(hits) == 1 and abs(hits[0][1] - 1) < 1e-9:
+            return hits[0][0]
+    check(False, f"the traces of {tag} never held its kernel once a call: "
+          f"{ {k: v[1] for k, v in names.items()} }")
+
+
+def cycling(fn, arg_sets):
+    """A call that applies fn to the next of arg_sets each time."""
+    it = itertools.cycle(arg_sets)
+    return lambda: fn(*next(it))
+
+
+def measure(kern, plain, tag: str, library=None) -> dict:
+    """The kernel's device ms per call (torch.profiler) beside its plain
+    twin's (and one library call's), and each one's stream ms per call
+    (CUDA events), taken in turns within this call: plain, kernel,
+    kernel, plain."""
+    p_ms = time_ms(plain)
+    k_ms = time_ms(kern)
+    k_ms2 = time_ms(kern)
+    p_ms2 = time_ms(plain)
+    p_dev, _ = device_profile(plain)
+    check(p_dev is not None, f"{tag}: the trace holds no device time for "
+          "the plain twin")
+    res = dict(ms=kernel_ms(kern, tag), plain_ms=p_dev,
+               stream_ms=min(k_ms, k_ms2), plain_stream_ms=min(p_ms, p_ms2),
+               stream_ms_turns=[k_ms, k_ms2],
+               plain_stream_ms_turns=[p_ms, p_ms2],
+               library_ms=None, library_stream_ms=None)
+    if library is not None:
+        res["library_ms"], _ = device_profile(library)
+        res["library_stream_ms"] = time_ms(library)
+    return res
+
+
+def sweep(calls: dict, tag: str) -> dict:
+    """{count: device ms per call} of the kernel over the calls made for
+    each count in SWEEP_COUNTS; SWEEP_COUNTS[0] (one row or query) is the
+    kernel's floor, the fixed cost of a launch."""
+    return {n: kernel_ms(calls[n], tag) for n in SWEEP_COUNTS}
 
 
 def query_set(rng, k_hi, k_lo, vals, n_keys, dev):
@@ -417,26 +489,27 @@ def probe_bytes(qh, ql, want_found, buckets: int) -> int:
     live = (qh != 0) | (ql != 0)
     rows = int((live.to(torch.int64) * (1 + (b1 != b2).to(torch.int64)))
                .sum())
-    return (N_QUERIES * (16 + 5) + rows * ROW_KEY_BYTES
+    return (qh.numel() * (16 + 5) + rows * ROW_KEY_BYTES
             + int(want_found.sum()) * SECTOR_BYTES)
 
 
-def probe_phase(dev):
-    """Kernel against plain on the two table shapes of the default
-    ledger. Returns the kernels-line numbers of both shapes.
+def probe_fixtures(dev) -> dict:
+    """The default ledger's two probe tables, filled, each with
+    N_QUERY_SETS query sets: {name: (table, sets, buckets)}. The
+    transfer table (B = 2^20, 201 MB) holds 2^21 keys, the account table
+    (B = 2^15) 100,000; both also every bit-edge key, ~10% of the keys
+    orphaned, inserted a batch at a time as the ledger inserts them.
 
-    Each timed call probes the next of N_QUERY_SETS query sets, whose
-    rows together (~100 MB on the transfer table) exceed the 50 MB L2, so
-    the transfer-table probe reads cold rows from HBM as a batch on the
-    main path does. The account table (6 MB) stays in L2, as it does on
-    the main path."""
-    from tigerbeetle_tpu_torch.ops import fused_probe
+    The transfer-table sets' rows together (~100 MB) exceed the 50 MB L2,
+    so a call cycling through them reads cold rows from HBM as a batch
+    on the main path does; the account table (6 MB) stays in L2, as it
+    does on the main path."""
     from tigerbeetle_tpu_torch.ops.hash_table import (
-        ORPHAN_VAL, ht_init, ht_insert, ht_lookup)
+        ORPHAN_VAL, ht_init, ht_insert)
 
     edges = [0, 1, 2**63 - 1, 2**63, 2**64 - 1]
     edge_keys = [(h, l) for h in edges for l in edges if (h, l) != (0, 0)]
-    results = {}
+    fixtures = {}
     for name, cap, n_keys, seed in (("xfer_ht", 1 << 23, 1 << 21, 11),
                                     ("acct_ht", 1 << 18, 100_000, 12)):
         rng = np.random.default_rng(seed)
@@ -456,16 +529,28 @@ def probe_phase(dev):
         th = torch.from_numpy(k_hi.view(np.int64)).to(dev)
         tl = torch.from_numpy(k_lo.view(np.int64)).to(dev)
         tv = torch.from_numpy(vals).to(dev)
-        # Inserted a batch at a time, as the ledger inserts them.
         for lo in range(0, total, BATCH):
             sl = slice(lo, lo + BATCH)
             table, ok = ht_insert(table, th[sl], tl[sl], tv[sl],
                                   torch.ones_like(th[sl], dtype=torch.bool))
             check(bool(ok), f"{name}: insert overflowed")
-        del th, tl, tv
-
         sets = [query_set(rng, k_hi, k_lo, vals, n_keys, dev)
                 for _ in range(N_QUERY_SETS)]
+        fixtures[name] = (table, sets, cap // 8)
+    return fixtures
+
+
+def probe_phase(fx) -> dict:
+    """Kernel against plain, bit for bit, on the two table shapes of the
+    default ledger one at a time, then on both in one launch as
+    per_event_status probes them (the account table at 16,384 keys, the
+    transfer table at 16,384 keys); timed, and swept over SWEEP_COUNTS
+    queries on the transfer table. Returns the kernels-line numbers."""
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops.hash_table import ht_lookup
+
+    results = {}
+    for name, (table, sets, buckets) in fx.items():
         max_err = 0
         for qh, ql, want_found, want_val in sets:
             got_f, got_v = fused_probe.ht_lookup_fused(table, qh, ql)
@@ -478,65 +563,93 @@ def probe_phase(dev):
             max_err = max(max_err, int((got_v.to(torch.int64)
                                         - ref_v.to(torch.int64)).abs().max())
                           + int((got_f != ref_f).sum()))
-        bound_bytes = np.mean([probe_bytes(qh, ql, wf, cap // 8)
+        bound_bytes = np.mean([probe_bytes(qh, ql, wf, buckets)
                                for qh, ql, wf, _ in sets])
+        args = [(table, qh, ql) for qh, ql, _, _ in sets]
+        res = measure(cycling(fused_probe.ht_lookup_fused, args),
+                      cycling(ht_lookup, args), "ht_probe_kernel")
+        res.update(bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
+                   max_abs_err=max_err, segments=1)
+        results[name] = res
+        print(f"probe {name}: B={buckets} keys, {N_QUERY_SETS} query sets "
+              f"of {N_QUERIES} in turn; device per call: kernel {res['ms']} "
+              f"ms, plain {res['plain_ms']} ms; stream per call: kernel "
+              f"{res['stream_ms_turns']} ms, plain "
+              f"{res['plain_stream_ms_turns']} ms; bound {bound_bytes:.0f} "
+              f"B = {res['bound_ms']} ms", flush=True)
 
-        def cycling(fn):
-            it = itertools.cycle(sets)
+    # Both tables in one launch, as per_event_status probes them.
+    a_table, a_sets, a_b = fx["acct_ht"]
+    x_table, x_sets, x_b = fx["xfer_ht"]
+    pairs = [(((a_table, ah, al), (x_table, xh, xl)),)
+             for (ah, al, _, _), (xh, xl, _, _) in zip(a_sets, x_sets)]
+    max_err = 0
+    for (segs,) in pairs:
+        got = fused_probe.ht_lookup_fused_multi(segs)
+        for (gf, gv), seg in zip(got, segs):
+            rf, rv = ht_lookup(*seg)
+            check(torch.equal(gf, rf) and torch.equal(gv, rv),
+                  "two-table probe: kernel disagrees with the plain lookup")
+            max_err = max(max_err, int((gv.to(torch.int64)
+                                        - rv.to(torch.int64)).abs().max())
+                          + int((gf != rf).sum()))
+    bound_bytes = np.mean([
+        probe_bytes(ah, al, af, a_b) + probe_bytes(xh, xl, xf, x_b)
+        for (ah, al, af, _), (xh, xl, xf, _) in zip(a_sets, x_sets)])
+    res = measure(cycling(fused_probe.ht_lookup_fused_multi, pairs),
+                  cycling(lambda segs: [ht_lookup(*s) for s in segs], pairs),
+                  "ht_probe_kernel")
+    res.update(bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
+               max_abs_err=max_err, segments=2)
+    results["two_tables"] = res
+    print(f"probe two tables in one launch (acct_ht + xfer_ht, "
+          f"{N_QUERIES} keys each): device per call: kernel {res['ms']} ms, "
+          f"plain {res['plain_ms']} ms; stream per call: kernel "
+          f"{res['stream_ms_turns']} ms, plain "
+          f"{res['plain_stream_ms_turns']} ms; bound {bound_bytes:.0f} B = "
+          f"{res['bound_ms']} ms", flush=True)
 
-            def call():
-                qh, ql, _, _ = next(it)
-                return fn(table, qh, ql)
-            return call
-
-        kern = cycling(fused_probe.ht_lookup_fused)
-        plain = cycling(ht_lookup)
-        # Plain and kernel in turns within one call.
-        p_ms = time_ms(plain)
-        k_ms = time_ms(kern)
-        k_ms2 = time_ms(kern)
-        p_ms2 = time_ms(plain)
-        _, k_names = device_profile(kern)
-        p_dev, _ = device_profile(plain)
-        k_dev = [v[0] for k, v in k_names.items() if "ht_probe_kernel" in k]
-        check(len(k_dev) == 1 and p_dev is not None,
-              f"{name}: the profiler trace holds no device time for the "
-              "kernel or the plain lookup")
-        results[name] = dict(
-            ms=k_dev[0], plain_ms=p_dev,
-            stream_ms=min(k_ms, k_ms2), plain_stream_ms=min(p_ms, p_ms2),
-            bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
-            max_abs_err=max_err)
-        print(f"probe {name}: B={cap // 8} keys={total}, {N_QUERY_SETS} "
-              f"query sets of {N_QUERIES} in turn; device per call: kernel "
-              f"{k_dev[0]} ms, plain {p_dev} ms; stream per call: kernel "
-              f"{k_ms:.5f}/{k_ms2:.5f} ms, plain {p_ms:.5f}/{p_ms2:.5f} ms; "
-              f"bound {bound_bytes:.0f} B = {results[name]['bound_ms']} ms",
-              flush=True)
-        del table, sets
+    # The floor sweep: cold transfer-table queries, 1 to 32,768 a call.
+    wide = [(torch.cat([a[0], b[0]]), torch.cat([a[1], b[1]]))
+            for a, b in zip(x_sets, x_sets[1:] + x_sets[:1])]
+    calls = {n: cycling(fused_probe.ht_lookup_fused,
+                        [(x_table, qh[:n], ql[:n]) for qh, ql in wide])
+             for n in SWEEP_COUNTS}
+    results["sweep"] = sweep(calls, "ht_probe_kernel")
+    print(f"probe sweep (xfer_ht, queries: device ms per call): "
+          f"{results['sweep']}", flush=True)
     return results
 
 
-def gather_bytes(table, rows, mask) -> int:
-    """The bytes one row gather must move: the output written once, the
-    indexes read once, each distinct gathered row read once in 32-byte
-    sectors (a masked gather reads the row's words all the same)."""
-    b = table.shape[0]
-    row_bytes = table.shape[1] * table.element_size()
-    distinct = int(torch.unique(rows.to(torch.int64).clamp(0, b - 1)).numel())
-    sectors = -(-row_bytes // SECTOR_BYTES)
-    return (rows.numel() * row_bytes + rows.numel() * rows.element_size()
-            + distinct * sectors * SECTOR_BYTES)
+def gather_bytes(tables, rows) -> int:
+    """The bytes one row gather of `tables` at `rows` must move: the
+    indexes read once, and for each table the output written once and
+    each distinct gathered row read once in 32-byte sectors (a masked
+    gather reads the row's words all the same)."""
+    total = rows.numel() * rows.element_size()
+    for table in tables:
+        b = table.shape[0]
+        row_bytes = table.shape[1] * table.element_size()
+        distinct = int(torch.unique(
+            rows.to(torch.int64).clamp(0, b - 1)).numel())
+        sectors = -(-row_bytes // SECTOR_BYTES)
+        total += rows.numel() * row_bytes + distinct * sectors * SECTOR_BYTES
+    return total
 
 
-def gather_phase(dev):
-    """Row-gather kernel against its plain twin, bit for bit, at the
-    shapes of the TPU probes and of the main path; timed on the device
-    (torch.profiler) and on the stream (CUDA events) beside the plain
-    twin and torch.index_select (one PyTorch call computing the same
-    function, timed as a yardstick only). Returns {shape: numbers}."""
-    from tigerbeetle_tpu_torch.ops import row_gather as RG
-    from tigerbeetle_tpu_torch.ops.ev_layout import XF_NCOLS
+def gather_fixtures(dev) -> dict:
+    """The row gather's shapes: {name: (tables, row sets, masks, library
+    call timed)}. The TPU probes' (4097, 48) u32 table at 8,192 rows with
+    both masks; the account balances (2^17 + 1, 16) int64 at 32,768 rows
+    alone, and with the account meta matrix (2^17 + 1, 8) in one launch
+    as the account-role gather reads them; both account matrices at
+    8,190 rows, as lookup_accounts reads them; the transfer store
+    (2^21 + 1, 20) int64 at 16,384 rows, cycling through 32 row sets
+    (~84 MB of rows, more than the 50 MB L2, so its rows are read cold
+    as a batch's are), and at out-of-range rows; and, checked only, a
+    four-segment launch mixing 16-byte and 32-bit-word items (a 7-word
+    table), int32 and int64 rows, both masks and an empty segment."""
+    from tigerbeetle_tpu_torch.ops.ev_layout import AC_NCOLS, XF_NCOLS
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -553,76 +666,96 @@ def gather_phase(dev):
                                device=dev).reshape(4097, 48)
     probe_rows = [((torch.arange(8192, device=dev) * 7) % 4097).to(
         torch.int32)]
-    bal = rand_table((1 << 17) + 1, 16)
-    xfr = rand_table((1 << 21) + 1, XF_NCOLS)
-    # (name, table, row sets, mask, library call timed): the transfer
-    # shape cycles through 32 sets of 16,384 rows (~84 MB of rows, more
-    # than the 50 MB L2), so its rows are read cold as a batch's are.
-    shapes = [
-        ("probe", probe_table, probe_rows, None, True),
-        ("probe_low16", probe_table, probe_rows, 0xFFFF, False),
-        ("account", bal, rand_rows(4 * 8192, (1 << 17) + 1, 4), None, True),
-        ("transfer", xfr, rand_rows(2 * 8192, (1 << 21) + 1, 32), None,
-         True),
-        ("clamped", xfr, rand_rows(2 * 8192, 1 << 40, 2, lo=-(1 << 40)),
-         None, False),
-    ]
+    bal = rand_table(A_CAP + 1, 16)
+    meta = rand_table(A_CAP + 1, AC_NCOLS)
+    xfr = rand_table(T_CAP + 1, XF_NCOLS)
+    acct_rows = rand_rows(4 * 8192, A_CAP + 1, 4)
+    words = torch.arange(4097 * 7, dtype=torch.int32,
+                         device=dev).reshape(4097, 7) * -40503
+    mixed = [rand_rows(8192, T_CAP + 1, 1)[0],
+             rand_rows(8192, 1 << 20, 1, lo=-(1 << 20))[0],
+             torch.empty(0, dtype=torch.int64, device=dev),
+             probe_rows[0]]
+    return {
+        "probe": ([probe_table], probe_rows, None, True),
+        "probe_low16": ([probe_table], probe_rows, [0xFFFF], False),
+        "account": ([bal], acct_rows, None, True),
+        "account2": ([bal, meta], acct_rows, None, True),
+        "lookup": ([bal, meta], rand_rows(BATCH, A_CAP + 1, 4), None, True),
+        "transfer": ([xfr], rand_rows(2 * 8192, T_CAP + 1, 32), None, True),
+        "clamped": ([xfr], rand_rows(2 * 8192, 1 << 40, 2, lo=-(1 << 40)),
+                    None, False),
+        "mixed4": ([xfr, words, bal, probe_table], [mixed],
+                   [None, 0xFFFF, None, FULL_MASK], False),
+        # The floor sweep's rows: 32 sets of 32,768, cut to each count.
+        "sweep": ([xfr], rand_rows(max(SWEEP_COUNTS), T_CAP + 1, 32), None,
+                  False),
+    }
+
+
+def gather_phase(fx) -> dict:
+    """Row-gather kernel against its plain twin, bit for bit, at every
+    shape of `fx`; timed on the device (torch.profiler) and on the stream
+    (CUDA events) beside the plain twin and torch.index_select (one
+    PyTorch call a table computing the same function, timed as a
+    yardstick only); swept over SWEEP_COUNTS rows at the transfer
+    shape. Returns {shape: numbers}."""
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+
     results = {}
-    for name, table, row_sets, mask, library in shapes:
+    for name, (tables, row_sets, masks, library) in fx.items():
+        if name == "sweep":
+            continue
         max_err = 0
         for rows in row_sets:
-            got = RG.row_gather(table, rows, mask)
-            want = RG.row_gather_plain(table, rows, mask)
+            got = RG.row_gather_multi(tables, rows, masks)
+            want = RG.row_gather_multi_plain(tables, rows, masks)
             torch.cuda.synchronize()
-            check(got.dtype == want.dtype and got.shape == want.shape
-                  and torch.equal(got, want),
-                  f"row_gather {name}: kernel disagrees with the plain twin")
-            diff = (got.view(torch.int32).to(torch.int64)
-                    - want.view(torch.int32).to(torch.int64)).abs()
-            max_err = max(max_err, int(diff.max()))
-        if name == "clamped":
-            results[name] = dict(max_abs_err=max_err)
+            for g, w in zip(got, want):
+                check(g.dtype == w.dtype and g.shape == w.shape
+                      and torch.equal(g, w),
+                      f"row_gather {name}: kernel disagrees with the plain "
+                      "twin")
+                diff = (g.view(torch.int32).to(torch.int64)
+                        - w.view(torch.int32).to(torch.int64)).abs()
+                max_err = max(max_err, int(diff.max()) if diff.numel() else 0)
+        if name in CHECKED_ONLY:
+            results[name] = dict(max_abs_err=max_err, segments=len(tables))
             continue
-
-        def cycling(fn):
-            it = itertools.cycle(row_sets)
-            return lambda: fn(table, next(it))
-
-        kern = cycling(lambda t, r: RG.row_gather(t, r, mask))
-        plain = cycling(lambda t, r: RG.row_gather_plain(t, r, mask))
-        lib = cycling(lambda t, r: torch.index_select(t, 0, r))
-        # Plain and kernel in turns within one call.
-        p_ms = time_ms(plain)
-        k_ms = time_ms(kern)
-        k_ms2 = time_ms(kern)
-        p_ms2 = time_ms(plain)
-        _, k_names = device_profile(kern)
-        p_dev, _ = device_profile(plain)
-        k_dev = [v[0] for k, v in k_names.items() if "row_gather" in k]
-        check(len(k_dev) == 1 and p_dev is not None,
-              f"row_gather {name}: the profiler trace holds no device time "
-              "for the kernel or the plain twin")
-        bound = float(np.mean([gather_bytes(table, r, mask)
-                               for r in row_sets]))
-        res = dict(
-            ms=k_dev[0], plain_ms=p_dev, library_ms=None,
-            stream_ms=min(k_ms, k_ms2), plain_stream_ms=min(p_ms, p_ms2),
-            library_stream_ms=None,
+        if len(tables) == 1:
+            mask = None if masks is None else masks[0]
+            kern = cycling(lambda r: RG.row_gather(tables[0], r, mask),
+                           [(r,) for r in row_sets])
+        else:
+            kern = cycling(lambda r: RG.row_gather_multi(tables, r, masks),
+                           [(r,) for r in row_sets])
+        plain = cycling(lambda r: RG.row_gather_multi_plain(tables, r, masks),
+                        [(r,) for r in row_sets])
+        lib = cycling(lambda r: [torch.index_select(t, 0, r) for t in tables],
+                      [(r,) for r in row_sets]) if library else None
+        res = measure(kern, plain, "row_gather", lib)
+        bound = float(np.mean([gather_bytes(tables, r) for r in row_sets]))
+        res.update(
             bound_ms=bound / HBM_BYTES_PER_S * 1e3, max_abs_err=max_err,
-            table=list(table.shape), dtype=str(table.dtype).split(".")[-1],
+            segments=len(tables), tables=[list(t.shape) for t in tables],
+            dtype=str(tables[0].dtype).split(".")[-1],
             rows=int(row_sets[0].numel()),
-            mask=None if mask is None else hex(mask))
-        if library:
-            res["library_ms"], _ = device_profile(lib)
-            res["library_stream_ms"] = time_ms(lib)
+            mask=None if masks is None else hex(masks[0]))
         results[name] = res
-        print(f"row_gather {name}: table {tuple(table.shape)} "
-              f"{res['dtype']}, {res['rows']} rows x {len(row_sets)} sets, "
-              f"mask {res['mask']}; device per call: kernel {res['ms']} ms, "
-              f"plain {p_dev} ms, index_select {res['library_ms']} ms; "
-              f"stream per call: kernel {k_ms:.5f}/{k_ms2:.5f} ms, plain "
-              f"{p_ms:.5f}/{p_ms2:.5f} ms; bound {bound:.0f} B = "
+        print(f"row_gather {name}: tables {res['tables']} {res['dtype']}, "
+              f"{res['rows']} rows x {len(row_sets)} sets, mask "
+              f"{res['mask']}; device per call: kernel {res['ms']} ms, plain "
+              f"{res['plain_ms']} ms, index_select {res['library_ms']} ms; "
+              f"stream per call: kernel {res['stream_ms_turns']} ms, plain "
+              f"{res['plain_stream_ms_turns']} ms; bound {bound:.0f} B = "
               f"{res['bound_ms']} ms", flush=True)
+
+    (xfr,), wide, _, _ = fx["sweep"]
+    calls = {n: cycling(RG.row_gather, [(xfr, r[:n]) for r in wide])
+             for n in SWEEP_COUNTS}
+    results["sweep"] = sweep(calls, "row_gather")
+    print(f"row_gather sweep (transfer store, rows: device ms per call): "
+          f"{results['sweep']}", flush=True)
     return results
 
 
@@ -649,7 +782,8 @@ def double_entry(led) -> None:
 
 def main_path_phase(dev):
     """BASELINE config 2 through the plain tier; returns (probe launches,
-    row-gather launches, the probe's device ms per launch)."""
+    row-gather launches, the probe's device ms per launch, the timing and
+    trace numbers)."""
     from tigerbeetle_tpu_torch import DeviceLedger
     from tigerbeetle_tpu_torch.ops import fused_probe
     from tigerbeetle_tpu_torch.ops import row_gather as RG
@@ -785,10 +919,23 @@ def main_path_phase(dev):
     check(len(probe) == 1 and probe[0][1] > 0,
           "the main path's trace holds no device time for the probe")
     probe_ms = probe[0][0] / probe[0][1]
+    gather = [v for k, v in by_name.items() if "row_gather" in k]
+    check(gather and sum(v[1] for v in gather) > 0,
+          "the main path's trace holds no device time for the row gather")
+    gather_n = sum(v[1] for v in gather)
     print(f"main path probe: {probe[0][1]:.1f} launches/batch, "
           f"{probe_ms} ms device per launch (transfer and account "
-          "tables)", flush=True)
-    return launches, gathers, probe_ms
+          f"tables); row gather {gather_n:.1f} launches/batch, "
+          f"{sum(v[0] for v in gather) / gather_n} ms device per launch",
+          flush=True)
+    numbers = dict(
+        elapsed_s=elapsed, batches=N_TIMED, transfers_per_s=tps,
+        batch_ms=elapsed / N_TIMED * 1e3, wall_ms=wall, busy_ms=busy,
+        ops=launches_per_batch, idle_share=1 - busy / wall,
+        probe_ms=probe_ms, probe_launches=probe[0][1],
+        gather_ms=sum(v[0] for v in gather) / gather_n,
+        gather_launches=gather_n)
+    return launches, gathers, probe_ms, numbers
 
 
 def ladder_counters(led) -> tuple:
@@ -1077,9 +1224,12 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     build_all()
-    probe = probe_phase(dev)
-    gather = gather_phase(dev)
-    launches, c2_gathers, main_probe_ms = main_path_phase(dev)
+    probe_fx = probe_fixtures(dev)
+    gather_fx = gather_fixtures(dev)
+    probe = probe_phase(probe_fx)
+    gather = gather_phase(gather_fx)
+    del probe_fx, gather_fx
+    launches, c2_gathers, main_probe_ms, c2 = main_path_phase(dev)
     c4 = config4_phase(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1088,9 +1238,13 @@ def main() -> int:
     # trace (the probe on the transfer table with cold rows, the gather
     # at the transfer shape with cold rows); *stream_ms: CUDA-event time
     # per call on the stream, host issue included; main_path_ms: the
-    # kernel's device time per launch in a main path's own trace.
-    x, a = probe["xfer_ht"], probe["acct_ht"]
+    # kernel's device time per launch in a main path's own trace;
+    # floor_ms: the device time of a one-row (one-query) call, the
+    # launch's fixed cost; segments: the most tables one launch serves
+    # on the main path.
+    x, a, two = probe["xfer_ht"], probe["acct_ht"], probe["two_tables"]
     g = gather["transfer"]
+    shapes = {k: v for k, v in gather.items() if "ms" in v}
     kernels = [{
         "name": "ht_lookup_fused",
         "route": "cuda",
@@ -1098,7 +1252,8 @@ def main() -> int:
         "replaces": "tigerbeetle_tpu/ops/pallas_kernels.py:80",
         "launches": launches,
         "launches_config4": c4["probe_launches"],
-        "max_abs_err": max(x["max_abs_err"], a["max_abs_err"]),
+        "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
+                           two["max_abs_err"]),
         "ms": x["ms"],
         "plain_ms": x["plain_ms"],
         "bound_ms": x["bound_ms"],
@@ -1108,9 +1263,16 @@ def main() -> int:
         "plain_stream_ms": x["plain_stream_ms"],
         "main_path_ms": main_probe_ms,
         "main_path_ms_config4": c4["trace"]["probe_ms"],
+        "floor_ms": probe["sweep"][SWEEP_COUNTS[0]],
+        "segments": two["segments"],
         "acct_ht_ms": a["ms"],
         "acct_ht_plain_ms": a["plain_ms"],
         "acct_ht_bound_ms": a["bound_ms"],
+        "two_tables_ms": two["ms"],
+        "two_tables_plain_ms": two["plain_ms"],
+        "two_tables_bound_ms": two["bound_ms"],
+        "two_tables_stream_ms": two["stream_ms"],
+        "sweep_ms": probe["sweep"],
     }, {
         "name": "row_gather",
         "route": "cuda",
@@ -1118,7 +1280,8 @@ def main() -> int:
         "replaces": ", ".join(GATHER_REPLACES),
         "launches": c4["gather_launches"],
         "launches_config2": c2_gathers,
-        "max_abs_err": max(v["max_abs_err"] for v in gather.values()),
+        "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
+                           if k != "sweep"),
         "ms": g["ms"],
         "plain_ms": g["plain_ms"],
         "bound_ms": g["bound_ms"],
@@ -1128,8 +1291,13 @@ def main() -> int:
         "plain_stream_ms": g["plain_stream_ms"],
         "library_stream_ms": g["library_stream_ms"],
         "main_path_ms": c4["trace"]["gather_ms"],
-        "shapes": {k: v for k, v in gather.items() if k != "clamped"},
+        "main_path_ms_config2": c2["gather_ms"],
+        "floor_ms": gather["sweep"][SWEEP_COUNTS[0]],
+        "segments": max(v["segments"] for v in shapes.values()),
+        "sweep_ms": gather["sweep"],
+        "shapes": shapes,
     }]
+    print(json.dumps({"config2": c2}), flush=True)
     print(json.dumps({"config4": {**c4["timing"], **c4["trace"]}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

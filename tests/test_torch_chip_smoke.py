@@ -23,7 +23,6 @@ from tigerbeetle_tpu.types import Account, Transfer
 from tigerbeetle_tpu_torch import DeviceLedger
 from tigerbeetle_tpu_torch import types as TT
 from tigerbeetle_tpu_torch.ops import fast_kernels, hash_table, ledger
-from tigerbeetle_tpu_torch.ops import row_gather as RG
 from tigerbeetle_tpu_torch.ops.state_epoch import device_state_digest
 
 # One intra-op thread: these tests share the CPU with the rest of the
@@ -44,7 +43,8 @@ def _deterministic():
 @pytest.fixture
 def calls(monkeypatch):
     """Counts the plain twins' calls where the path would launch the
-    kernels: {"probe": n, "gather": n}."""
+    kernels, one a call of a wrapper (a multi-segment call is one
+    launch): {"probe": n, "gather": n}."""
     n = {"probe": 0, "gather": 0}
 
     def counted(fn, key):
@@ -53,12 +53,13 @@ def calls(monkeypatch):
             return fn(*args, **kw)
         return call
 
-    for mod in (fast_kernels, ledger):
-        monkeypatch.setattr(mod, "ht_lookup_fused",
-                            counted(mod.ht_lookup_fused, "probe"))
+    wrappers = {"ht_lookup_fused": "probe", "ht_lookup_fused_multi": "probe",
+                "row_gather": "gather", "row_gather_multi": "gather"}
     for mod in (fast_kernels, hash_table, ledger):
-        monkeypatch.setattr(mod, "row_gather",
-                            counted(RG.row_gather, "gather"))
+        for name, key in wrappers.items():
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name,
+                                    counted(getattr(mod, name), key))
     return n
 
 

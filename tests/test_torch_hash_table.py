@@ -189,3 +189,81 @@ def test_live_items_match_jax():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert len(got[0]) == len(items)
+
+
+# ------------------------------------------- the multi-segment probe call
+
+def _probe_cases():
+    """{case: [(filled-table seed, cap), ...]}: the segments of one call,
+    each a table filled by the same insert sequence in both packages."""
+    return {
+        "one table": [(5, 1 << 10)],
+        "two tables": [(5, 1 << 10), (9, 1 << 11)],
+        "one table twice": [(5, 1 << 10), (5, 1 << 10)],
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_probe_cases()))
+def test_fused_probe_multi_cpu_path_matches_jax_lookups(case):
+    """Each segment of one ht_lookup_fused_multi call equals the JAX
+    package's ht_lookup on its own table: present, orphaned, absent,
+    zero and bit-edge keys (the edge keys are inserted, or masked off
+    and so absent, in _filled's first batch)."""
+    segs, wants = [], []
+    for i, (seed, cap) in enumerate(_probe_cases()[case]):
+        jt, tt, items = _filled(cap=cap, seed=seed)
+        q_hi, q_lo = _queries(items, np.random.default_rng(20 + i))
+        e_hi, e_lo = _edge_keys()
+        q_hi = np.concatenate([q_hi, e_hi])
+        q_lo = np.concatenate([q_lo, e_lo])
+        wants.append(JHT.ht_lookup(jt, jnp.asarray(q_hi), jnp.asarray(q_lo)))
+        segs.append((tt, _t(q_hi), _t(q_lo)))
+    before = fused_probe.LAUNCHES
+    got = fused_probe.ht_lookup_fused_multi(segs)
+    assert fused_probe.LAUNCHES == before
+    assert len(got) == len(segs)
+    for (got_f, got_v), (want_f, want_v), seg in zip(got, wants, segs):
+        np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+        assert got_v.dtype == torch.int32 and got_f.dtype == torch.bool
+        one_f, one_v = fused_probe.ht_lookup_fused(*seg)
+        assert torch.equal(one_f, got_f) and torch.equal(one_v, got_v)
+
+
+def test_fused_probe_multi_with_an_empty_segment():
+    _, tt, items = _filled(seed=5)
+    q_hi, q_lo = _queries(items, np.random.default_rng(6))
+    empty = torch.zeros(0, dtype=torch.int64)
+    (f0, v0), (f1, v1) = fused_probe.ht_lookup_fused_multi(
+        [(tt, empty, empty), (tt, _t(q_hi), _t(q_lo))])
+    assert f0.shape == v0.shape == (0,)
+    want_f, want_v = THT.ht_lookup(tt, _t(q_hi), _t(q_lo))
+    assert torch.equal(f1, want_f) and torch.equal(v1, want_v)
+
+
+def _bad_probe_calls():
+    tt = THT.ht_init(64, device="cpu")
+    k = torch.zeros(4, dtype=torch.int64)
+    strided = dict(packed=tt["packed"].T.contiguous().T)
+    return {
+        "three segments": ([(tt, k, k)] * 3, "1 to 2"),
+        "no segment": ([], "1 to 2"),
+        "keys on another device": ([(tt, k, k), (tt, k.to("meta"), k)],
+                                   "one CUDA device"),
+        "a table on another device": (
+            [(tt, k, k), (THT.ht_init(64, device="meta"), k, k)],
+            "one CUDA device"),
+        "a strided table": ([(tt, k, k), (strided, k, k)], "contiguous"),
+        "int32 keys": ([(tt, k.to(torch.int32), k)], "int64"),
+        "unequal key halves": ([(tt, k, k[:3])], "equal-length"),
+        "a table not (B+1, 24)": ([(dict(packed=tt["packed"][:, :16]
+                                         .contiguous()), k, k)],
+                                  "is not"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_probe_calls()))
+def test_fused_probe_multi_refuses_what_the_kernel_does_not_take(case):
+    segments, match = _bad_probe_calls()[case]
+    with pytest.raises(ValueError, match=match):
+        fused_probe.ht_lookup_fused_multi(segments)

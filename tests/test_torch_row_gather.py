@@ -171,3 +171,132 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     table, rows, mask, match = _bad_calls()[case]
     with pytest.raises(ValueError, match=match):
         RG.row_gather(table, rows, mask)
+
+
+# ----------------------------------------------- multi-segment launches
+
+def _store(seed, rows, width, dtype):
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 1 << 64, (rows, width), dtype=np.uint64)
+    if dtype == np.int32:
+        return bits.astype(np.uint32).view(np.int32)
+    return bits.view(np.int64)
+
+
+def _rows(seed, n, hi, dtype, lo=0):
+    return np.random.default_rng(seed).integers(lo, hi, n).astype(dtype)
+
+
+def _multi_cases():
+    """{case: (tables, rows (one shared array or one per table), masks)}
+    in numpy: the widths of the main path's stores (16 and 20 int64
+    lanes) and of the probes' table (48 int32 words, with the 16-bit
+    mask), one to four segments."""
+    bal = _store(11, 1025, 16, np.int64)
+    xfr = _store(12, 2049, 20, np.int64)
+    probe = _store(13, B, W, np.int32)
+    shared = np.concatenate([_rows(14, 3000, 1025, np.int64),
+                             [-1, -2**40, 1025, 2**40, 0, 1024]])
+    return {
+        "one masked int32": ([probe], _rows(15, N, B, np.int32), [0xFFFF]),
+        "two sharing rows": ([bal, _store(16, 1025, 8, np.int64)], shared,
+                             None),
+        "three own rows": ([bal, xfr, probe],
+                           [_rows(17, 500, 1025, np.int32),
+                            _rows(18, 700, 4000, np.int64, lo=-2000),
+                            _rows(19, 900, B + 50, np.int64)],
+                           [None, None, 0xFFFF]),
+        "four with an empty one": ([xfr, bal, probe, probe],
+                                   [_rows(20, 300, 2049, np.int64),
+                                    np.zeros(0, dtype=np.int64),
+                                    _rows(21, 400, B, np.int32),
+                                    np.array([-5, B, 2**31 - 1, 7],
+                                             dtype=np.int32)],
+                                   [None, None, 0xFFFF, 0xFFFFFFFF]),
+        "four sharing clamped rows": ([bal, xfr, probe, probe],
+                                      np.array([-(2**62), -1, 0, 1, 1024,
+                                                2048, B - 1, B, 2**62],
+                                               dtype=np.int64),
+                                      [None, None, None, 0xFFFF]),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_multi_cases()))
+def test_multi_plain_twin_equals_numpy_and_the_one_segment_gather(case):
+    tables, rows, masks = _multi_cases()[case]
+    per_rows = rows if isinstance(rows, list) else [rows] * len(tables)
+    per_masks = masks or [None] * len(tables)
+    t_tables = [torch.from_numpy(t) for t in tables]
+    t_rows = (torch.from_numpy(rows) if not isinstance(rows, list)
+              else [torch.from_numpy(r) for r in rows])
+    got = RG.row_gather_multi(t_tables, t_rows, masks)
+    plain = RG.row_gather_multi_plain(t_tables, t_rows, masks)
+    assert len(got) == len(plain) == len(tables)
+    for t, r, m, g, p in zip(tables, per_rows, per_masks, got, plain):
+        want = t[np.clip(r, 0, t.shape[0] - 1)]
+        if m is not None:
+            want = want & np.array(m, dtype=np.uint32).view(np.int32)
+        assert g.dtype == torch.from_numpy(t).dtype
+        np.testing.assert_array_equal(g.numpy(), want)
+        assert torch.equal(p, g)
+        one = RG.row_gather(torch.from_numpy(t), torch.from_numpy(r), m)
+        assert torch.equal(one, g)
+
+
+def _bad_multi_calls():
+    t32 = torch.zeros((64, 8), dtype=torch.int32)
+    t64 = torch.zeros((64, 8), dtype=torch.int64)
+    rows = torch.arange(10)
+    return {
+        "five segments": ([t32] * 5, rows, None, "1 to 4"),
+        "no segment": ([], rows, None, "1 to 4"),
+        "rows for the wrong count": ([t32, t64], [rows] * 3, None,
+                                     "row sets"),
+        "masks for the wrong count": ([t32, t32], rows, [0xFFFF], "masks"),
+        "a table on another device": ([t32, t64.to("meta")], rows, None,
+                                      "one CUDA device"),
+        "rows on another device": ([t32, t64], [rows, rows.to("meta")],
+                                   None, "one CUDA device"),
+        "all on another device": ([t32.to("meta")], rows.to("meta"), None,
+                                  "one CUDA device"),
+        "a strided table": ([t32, t64.T], rows, None, "contiguous"),
+        "a mask on an int64 table": ([t32, t64], rows, [0xFFFF, 0xFFFF],
+                                     "32-bit tables only"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_multi_calls()))
+def test_multi_wrapper_refuses_what_the_kernel_does_not_take(case):
+    tables, rows, masks, match = _bad_multi_calls()[case]
+    with pytest.raises(ValueError, match=match):
+        RG.row_gather_multi(tables, rows, masks)
+
+
+def test_ledger_lookups_gather_each_store_in_one_call(monkeypatch):
+    """lookup_accounts reads the balance and meta matrices in one
+    row-gather call (one launch on the card), lookup_transfers its one
+    matrix; both still give what was created."""
+    from tigerbeetle_tpu_torch import DeviceLedger
+    from tigerbeetle_tpu_torch.ops import ledger
+    from tigerbeetle_tpu_torch.types import Account, Transfer
+
+    led = DeviceLedger(a_cap=1 << 8, t_cap=1 << 10, device="cpu")
+    led.create_accounts([Account(id=i, ledger=1, code=1)
+                         for i in (1, 2, 2**127 + 5)], 100)
+    led.create_transfers([Transfer(id=77, debit_account_id=1,
+                                   credit_account_id=2**127 + 5, amount=5,
+                                   ledger=1, code=1)], 200)
+    calls = []
+
+    def counted(tables, rows, masks=None):
+        calls.append(len(tables))
+        return RG.row_gather_multi(tables, rows, masks)
+
+    monkeypatch.setattr(ledger, "row_gather_multi", counted)
+    accts = led.lookup_accounts([2**127 + 5, 3, 1])
+    assert [a.id for a in accts] == [2**127 + 5, 1]
+    assert accts[0].credits_posted == 5 and accts[1].debits_posted == 5
+    assert calls == [2]
+    xfers = led.lookup_transfers([77, 78])
+    assert [(t.id, t.amount) for t in xfers] == [(77, 5)]
+    assert calls == [2, 1]

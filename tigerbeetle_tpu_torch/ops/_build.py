@@ -5,6 +5,10 @@ a shared library with a plain C interface, at first use, and bound with
 `ctypes`. The library's name carries a hash of its source, so an edited
 source is rebuilt and a stale library is never loaded. Build outputs go
 to `tigerbeetle_tpu_torch/build/` (git-ignored). A failed build raises.
+
+The C interfaces: each entry point takes an array of segment structures
+(mirrored below as `ctypes.Structure`s, field for field), their count
+and the CUDA stream, and returns `cudaGetLastError()` of its launch.
 """
 
 from __future__ import annotations
@@ -26,6 +30,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+
+
+class RowGatherSegment(ctypes.Structure):
+    """csrc/row_gather.cu's segment: out[i] = table[clamp(rows[i])] &
+    mask over a contiguous (n_rows, width) table of 32-bit words."""
+    _fields_ = [("table", _VP), ("rows", _VP), ("out", _VP),
+                ("n_rows", _LL), ("n", _LL), ("width", _LL),
+                ("rows_are_64", ctypes.c_int), ("mask", ctypes.c_uint)]
+
+
+class ProbeSegment(ctypes.Structure):
+    """csrc/ht_probe.cu's segment: one table and its queries."""
+    _fields_ = [("packed", _VP), ("n_buckets", _LL), ("k_hi", _VP),
+                ("k_lo", _VP), ("n", _LL), ("found", _VP), ("val", _VP)]
 
 
 def _nvcc() -> str:
@@ -64,32 +85,25 @@ def build(name: str) -> Path:
     return out
 
 
-def _load(name: str, fn_name: str, argtypes: list):
-    """Build (if needed) and load csrc/<name>.cu, declaring the C
-    signature of its entry point `fn_name`."""
+def _load(name: str, fn_name: str, segment):
+    """Build (if needed) and load csrc/<name>.cu; returns its entry point
+    `fn_name(segments, n_seg, stream) -> int` with the C signature
+    declared."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
+        fn = _libs.get(name)
+        if fn is None:
+            fn = getattr(ctypes.CDLL(str(build(name))), fn_name)
+            fn.argtypes = [ctypes.POINTER(segment), ctypes.c_int, _VP]
             fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return lib
-
-
-_VP = ctypes.c_void_p
-_LL = ctypes.c_longlong
+            _libs[name] = fn
+        return fn
 
 
 def load_ht_probe():
-    """The ht_probe library with its C signature declared."""
-    return _load("ht_probe", "ht_probe_launch",
-                 [_VP, _LL, _VP, _VP, _LL, _VP, _VP, _VP])
+    """The ht_probe entry point, `ht_probe_launch`."""
+    return _load("ht_probe", "ht_probe_launch", ProbeSegment)
 
 
 def load_row_gather():
-    """The row_gather library with its C signature declared."""
-    return _load("row_gather", "row_gather_launch",
-                 [_VP, _LL, _LL, _VP, ctypes.c_int, _LL, ctypes.c_uint,
-                  _VP, _VP])
+    """The row_gather entry point, `row_gather_launch`."""
+    return _load("row_gather", "row_gather_launch", RowGatherSegment)

@@ -28,9 +28,11 @@ Tiers (`limit_rounds`):
 The superbatch/window, imported and balancing tiers are later slices of
 the port.
 
-Every row gather goes through `row_gather` (the CUDA row-gather kernel
-on the card, `csrc/row_gather.cu`); 1-D element gathers stay torch
-indexing.
+Every row gather goes through `row_gather` / `row_gather_multi` (the
+CUDA row-gather kernel on the card, `csrc/row_gather.cu`; tables read
+at one stage share a launch); 1-D element gathers stay torch indexing.
+Both hash probes of a tier run share one launch of the probe kernel
+(`ht_lookup_fused_multi`, `csrc/ht_probe.cu`).
 
 u64 lanes ride as int64 (see `u64.py`); the per-event 32-bit fields as
 int64 holding the u32 value; statuses as int64 holding the u32 wire
@@ -88,9 +90,9 @@ from .ev_layout import (
     pack32,
     xf_named,
 )
-from .fused_probe import ht_lookup_fused
+from .fused_probe import ht_lookup_fused, ht_lookup_fused_multi
 from .hash_table import ORPHAN_VAL, ht_plan, ht_write
-from .row_gather import row_gather
+from .row_gather import row_gather, row_gather_multi
 from .u64 import (
     M32,
     U64_MAX,
@@ -457,11 +459,11 @@ def _acct_unpack(g_bal, g64, found):
 
 
 def _acct_gather_multi(acc, rows_list, found_list):
-    """K account-role gathers as two row gathers over the concatenated
-    row set. Returns one named dict per role."""
+    """K account-role gathers as ONE two-table row gather (balances and
+    meta) over the concatenated row set. Returns one named dict per
+    role."""
     rows = torch.cat(rows_list)
-    g_bal = row_gather(acc["bal"], rows)
-    g64 = row_gather(acc["u64"], rows)
+    g_bal, g64 = row_gather_multi((acc["bal"], acc["u64"]), rows)
     outs = []
     off = 0
     for r, found in zip(rows_list, found_list):
@@ -627,23 +629,23 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
     pv = _flag(flags, _F_POST) | _flag(flags, _F_VOID)
 
     # ---------------- lookups ----------------
-    # One probe per table over the concatenated key sets. The transfer
-    # table carries orphaned (transiently failed) ids inline with val =
-    # ORPHAN_VAL, so one probe of the event id answers both exists and
-    # already-failed (reference id_already_failed,
-    # src/state_machine.zig:3734).
+    # Both tables in one probe launch, each over its concatenated key
+    # sets: the account table at the dr then cr keys, the transfer table
+    # at the id then pid keys. The transfer table carries orphaned
+    # (transiently failed) ids inline with val = ORPHAN_VAL, so one probe
+    # of the event id answers both exists and already-failed (reference
+    # id_already_failed, src/state_machine.zig:3734).
     N_ev = ev["id_lo"].shape[0]
-    a_found, a_row = ht_lookup_fused(
-        state["acct_ht"],
-        torch.cat([ev["dr_hi"], ev["cr_hi"]]),
-        torch.cat([ev["dr_lo"], ev["cr_lo"]]))
+    (a_found, a_row), (x_found, x_val) = ht_lookup_fused_multi((
+        (state["acct_ht"],
+         torch.cat([ev["dr_hi"], ev["cr_hi"]]),
+         torch.cat([ev["dr_lo"], ev["cr_lo"]])),
+        (state["xfer_ht"],
+         torch.cat([ev["id_hi"], ev["pid_hi"]]),
+         torch.cat([ev["id_lo"], ev["pid_lo"]]))))
     dr_found, cr_found = a_found[:N_ev], a_found[N_ev:]
     a_row = a_row.to(torch.int64)
     dr_row, cr_row = a_row[:N_ev], a_row[N_ev:]
-    x_found, x_val = ht_lookup_fused(
-        state["xfer_ht"],
-        torch.cat([ev["id_hi"], ev["pid_hi"]]),
-        torch.cat([ev["id_lo"], ev["pid_lo"]]))
     x_val = x_val.to(torch.int64)
     live = x_val >= 0
     e_found = x_found[:N_ev] & live[:N_ev]

@@ -60,7 +60,7 @@ from .fast_kernels import (
 )
 from .fused_probe import ht_lookup_fused
 from .hash_table import ht_init
-from .row_gather import row_gather
+from .row_gather import row_gather_multi
 
 N_PAD = 8192
 assert N_PAD >= BATCH_MAX
@@ -434,8 +434,8 @@ class DeviceLedger:
     # ------------------------------------------------------------- lookups
 
     def _gather_rows(self, table_key: str, store: dict, ids: list[int]):
-        """Device-side id->row probe + one row gather per store matrix:
-        only the queried rows cross to the host."""
+        """Device-side id->row probe + one row gather launch for all the
+        store's matrices: only the queried rows cross to the host."""
         hi, lo = u128.from_ints(ids)
         found, rows = ht_lookup_fused(
             self.state[table_key],
@@ -444,8 +444,9 @@ class DeviceLedger:
         # Orphan markers (negative vals) are not live objects.
         found = found & (rows >= 0)
         rows = torch.clamp(rows, min=0).to(torch.int64)
-        gathered = {k: row_gather(store[k], rows).cpu()
-                    for k in store if k != "count"}
+        keys = [k for k in store if k != "count"]
+        outs = row_gather_multi([store[k] for k in keys], rows)
+        gathered = {k: out.cpu() for k, out in zip(keys, outs)}
         return found.cpu().numpy(), gathered
 
     def lookup_accounts(self, ids: list[int]) -> list[Account]:
