@@ -5,15 +5,16 @@
 
 Drives the port's main paths — create_accounts and create_transfers on a
 `tigerbeetle_tpu_torch.DeviceLedger`, through the plain tier (BASELINE
-config 2) and through the limit fixpoint tiers and their escalation
-ladder (BASELINE config 4) — at the ledger's default capacities, and
-holds its two CUDA kernels against their plain PyTorch twins. Phases,
-each failing the run with a nonzero exit:
+config 2), through the limit fixpoint tiers and their escalation ladder
+(BASELINE config 4) and through the exact path (the host-mirror regime),
+and `run_create_*` through the sequential kernel — at the ledger's
+default capacities, and holds its three CUDA kernels against their plain
+PyTorch twins. Phases, each failing the run with a nonzero exit:
 
   1. device   a CUDA card is present; its name and power limit are
               printed as nvidia-smi gives them;
-  2. build    csrc/ht_probe.cu and csrc/row_gather.cu are compiled by
-              nvcc for sm_90a, all at once;
+  2. build    csrc/ht_probe.cu, csrc/row_gather.cu and csrc/create_seq.cu
+              are compiled by nvcc for sm_90a, all at once;
   3. probe    the fused probe against the plain lookup, bit for bit, on
               a filled transfer-table shape (B = 2^20 buckets) and an
               account-table shape (B = 2^15), 16 sets of 16,384 queries
@@ -55,15 +56,35 @@ each failing the run with a nonzero exit:
               an in-batch two-phase batch; the 12-wave limit cascade on a
               small ledger (exactly one deep escalation); the launch
               counts each tier run predicts. Then 16 more pairs are
-              timed on the card alone and one pend batch is profiled.
+              timed on the card alone and one pend batch is profiled;
+  7. exact    the exact path on a ledger on the card beside one on the
+              CPU and the port's oracle: 10,000 accounts, 8 config-2
+              batches, then a batch of each kind no device tier runs
+              (config 2 with balancing flags, accounts with a repeated
+              id, the pair-sum overflow, 8,190 pendings with a 1 s
+              timeout and their expiry, the 40-wave limit cascade as the
+              mirror's probe) and the config-2 batches over which the
+              probe returns the ledger to its device tiers; after every
+              batch, statuses and timestamps equal to the oracle's and
+              the digest and counters to the CPU ledger's; to_host, the
+              oracle's apply and the push timed;
+  8. seq      the sequential kernel against its plain twin, bit for bit
+              on every output, on 512-event mixed batches (chains,
+              two-phase, balancing, closing, repeated ids, imported; and
+              accounts), then `run_create_accounts` (10,000 accounts)
+              and `run_create_transfers` at 8,190 events (config-3
+              linked pairs, a config-4 pend batch and its post/void
+              batch) equal to a second oracle; the kernel's device time
+              on a config-3 batch beside the twin's (on the CPU).
 
-Prints the card line, `{"config2": ...}`, `{"config4": ...}` and
-`{"kernels": [...]}` lines, and last
+Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
+`{"exact_path": ...}` and `{"kernels": [...]}` lines, and last
 `{"ok": true, "device": {...}}`. Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -93,6 +114,17 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 ROW_KEY_BYTES = 16 * 8      # the key_hi and key_lo halves of a bucket row
 SECTOR_BYTES = 32           # the least a read from HBM moves
 U128_MAX = (1 << 128) - 1
+
+# The exact path: setup batches before the first hard batch, one event in
+# X_BAL_EVERY balancing in its balancing batch, and the waves of its
+# limit cascade (more than the 32-round tier resolves).
+X_SETUP_BATCHES = 8
+X_BAL_EVERY = 16
+X_CASCADE_CHAINS = 40
+# The sequential kernel: events of each batch held against the plain
+# twin, and the full-width batches (config 3 and a config-4 pair).
+SEQ_CHECKED = 512
+SEQ_CONFIG3_BATCHES = 2
 
 # Config 4 (the JAX package's benchmark.py bench_config4, W_PAIRS = 1).
 C4_ACCOUNTS = 64
@@ -140,22 +172,27 @@ def check(cond, msg: str) -> None:
 def config2_batch(rng, b: int) -> dict:
     """One BASELINE config-2 batch: uniform random transfers over
     N_ACCOUNTS accounts, no flags (the JAX package's bench_config2)."""
-    ids = np.arange(10**7 + b * BATCH, 10**7 + (b + 1) * BATCH,
-                    dtype=np.uint64)
-    dr = rng.integers(1, N_ACCOUNTS + 1, BATCH, dtype=np.uint64)
-    cr = rng.integers(1, N_ACCOUNTS + 1, BATCH, dtype=np.uint64)
+    return uniform_batch(rng, 10**7 + b * BATCH, BATCH, N_ACCOUNTS)
+
+
+def uniform_batch(rng, first_id: int, n: int, n_accounts: int) -> dict:
+    """n uniform random transfers (ids first_id...) over accounts
+    1..n_accounts, amounts 1..10^6 - 1, no flags."""
+    ids = np.arange(first_id, first_id + n, dtype=np.uint64)
+    dr = rng.integers(1, n_accounts + 1, n, dtype=np.uint64)
+    cr = rng.integers(1, n_accounts + 1, n, dtype=np.uint64)
     clash = dr == cr
-    cr[clash] = dr[clash] % N_ACCOUNTS + 1
-    z = np.zeros(BATCH, dtype=np.uint64)
-    z32 = np.zeros(BATCH, dtype=np.uint32)
+    cr[clash] = dr[clash] % n_accounts + 1
+    z = np.zeros(n, dtype=np.uint64)
+    z32 = np.zeros(n, dtype=np.uint32)
     return dict(
         id_hi=z.copy(), id_lo=ids, dr_hi=z.copy(), dr_lo=dr,
         cr_hi=z.copy(), cr_lo=cr, amt_hi=z.copy(),
-        amt_lo=rng.integers(1, 10**6, BATCH).astype(np.uint64),
+        amt_lo=rng.integers(1, 10**6, n).astype(np.uint64),
         pid_hi=z.copy(), pid_lo=z.copy(), ud128_hi=z.copy(),
         ud128_lo=z.copy(), ud64=z.copy(), ud32=z32.copy(),
-        timeout=z32.copy(), ledger=np.ones(BATCH, dtype=np.uint32),
-        code=np.ones(BATCH, dtype=np.uint32), flags=z32.copy(),
+        timeout=z32.copy(), ledger=np.ones(n, dtype=np.uint32),
+        code=np.ones(n, dtype=np.uint32), flags=z32.copy(),
         ts=z.copy())
 
 
@@ -336,6 +373,282 @@ def cascade_steps(Account, Transfer, AccountFlags, TransferFlags,
                                                    else 3 + k),
                                 amount=10, ledger=1, code=1))
     return accounts, funds, cascade
+
+
+def shifted(objs, acct_off: int, xfer_off: int = 0) -> list:
+    """Accounts or transfers with every account id moved up by acct_off
+    and every transfer id (and pending id) by xfer_off; zero ids stay."""
+    out = []
+    for o in objs:
+        if hasattr(o, "debit_account_id"):
+            o = dataclasses.replace(
+                o, id=o.id + xfer_off,
+                debit_account_id=o.debit_account_id + acct_off,
+                credit_account_id=o.credit_account_id + acct_off,
+                pending_id=o.pending_id + xfer_off if o.pending_id else 0)
+        else:
+            o = dataclasses.replace(o, id=o.id + acct_off)
+        out.append(o)
+    return out
+
+
+def exact_path_plan(Account, Transfer, AccountFlags, TransferFlags, rng,
+                    n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
+                    setup_batches: int = X_SETUP_BATCHES):
+    """The exact-path workload: (label, op, events, timestamp, hard)
+    steps, op one of "accounts", "transfers" (events as SoA) or "expire"
+    (events None), hard for the steps of the hard sequence. n_accounts accounts and setup_batches uniform batches; then a
+    batch of each hard kind, in the host-mirror regime the first one
+    opens: uniform traffic with one event in X_BAL_EVERY balancing
+    (debit and credit by turns); new accounts with one id repeated (the
+    cascade's and the overflow's accounts among them); the cascade's
+    funding; the pair-sum overflow of the JAX package's
+    tests/test_fast_path.py (pend 2^127, post it, pend 2^127 - 10, then
+    100 more debits: overflows_debits) on accounts of its own; `batch`
+    pendings with timeout 1 s, then their expiry once the pulse is due;
+    uniform batches up to the mirror's probe, which meets the
+    X_CASCADE_CHAINS-wave limit cascade (deeper than the 32-round tier);
+    then MIRROR_PROBE_INTERVAL + 1 uniform batches, over which the probe
+    returns the ledger to its device tiers. Hard batches are filled to
+    `batch` events with uniform traffic."""
+    from tigerbeetle_tpu_torch.ops.batch import transfers_to_arrays
+    from tigerbeetle_tpu_torch.ops.ledger import DeviceLedger
+
+    TF = TransferFlags
+    probe_interval = DeviceLedger.MIRROR_PROBE_INTERVAL
+    steps = []
+    ts = 10**13
+    next_id = [10**7]
+
+    def uniform(n):
+        ev = uniform_batch(rng, next_id[0], n, n_accounts)
+        next_id[0] += n
+        return ev
+
+    def filled(objs):
+        ev = transfers_to_arrays(objs)
+        if len(objs) < batch:
+            ev = {k: np.concatenate([ev[k], v])
+                  for k, v in uniform(batch - len(objs)).items()}
+        return ev
+
+    def add(label, op, events, gap, hard=False):
+        nonlocal ts
+        ts += gap
+        steps.append((label, op, events, ts, hard))
+
+    accounts = [Account(id=i, ledger=1, code=1)
+                for i in range(1, n_accounts + 1)]
+    for lo in range(0, n_accounts, batch):
+        chunk = accounts[lo:lo + batch]
+        add(f"accounts {lo}", "accounts", chunk, len(chunk))
+    for b in range(setup_batches):
+        add(f"setup {b}", "transfers", uniform(batch), batch + 1000)
+
+    ev = uniform(batch)
+    k = np.arange(batch) % X_BAL_EVERY == 0
+    ev["flags"][k] = np.where(np.arange(k.sum()) % 2 == 0,
+                              int(TF.balancing_debit),
+                              int(TF.balancing_credit))
+    add("balancing", "transfers", ev, batch + 1000, hard=True)
+
+    c_acc, c_funds, c_events = cascade_steps(
+        Account, Transfer, AccountFlags, TF, k_chains=X_CASCADE_CHAINS)
+    off = n_accounts
+    c_acc = shifted(c_acc, off)
+    o_first = off + len(c_acc) + 1
+    o_acc = [Account(id=o_first + j, ledger=1, code=1) for j in range(3)]
+    fill_first = o_first + 3
+    fill = [Account(id=fill_first + j, ledger=1, code=1, user_data_64=j)
+            for j in range(batch - len(c_acc) - len(o_acc) - 1)]
+    new_accounts = c_acc + o_acc + fill + [fill[len(fill) // 2]]
+    add("repeated account id", "accounts", new_accounts, batch + 1000,
+        hard=True)
+    add("cascade funds", "transfers",
+        filled(shifted(c_funds, off, 5 * 10**8)), batch + 1000)
+
+    big = 1 << 127
+    o1, o2, o3 = (a.id for a in o_acc)
+    x0 = 6 * 10**8
+    overflow = [
+        Transfer(id=x0, debit_account_id=o1, credit_account_id=o2,
+                 amount=big, ledger=1, code=1, flags=TF.pending),
+        Transfer(id=x0 + 1, pending_id=x0, amount=(1 << 128) - 1,
+                 flags=TF.post_pending_transfer),
+        Transfer(id=x0 + 2, debit_account_id=o1, credit_account_id=o2,
+                 amount=big - 10, ledger=1, code=1, flags=TF.pending),
+        Transfer(id=x0 + 3, debit_account_id=o1, credit_account_id=o3,
+                 amount=100, ledger=1, code=1),
+    ]
+    add("pair-sum overflow", "transfers", filled(overflow), batch + 1000,
+        hard=True)
+
+    ev = uniform(batch)
+    ev["flags"][:] = int(TF.pending)
+    ev["timeout"][:] = 1
+    add("pendings, timeout 1 s", "transfers", ev, batch + 1000, hard=True)
+    add("expiry", "expire", None, 2 * 10**9, hard=True)
+    # The mirror's batches so far: the five hard ones; the probe comes
+    # with batch probe_interval + 1.
+    for b in range(probe_interval - 5):
+        add(f"mirror {b}", "transfers", uniform(batch), batch + 1000)
+    add("cascade (the probe)", "transfers",
+        filled(shifted(c_events, off, 5 * 10**8)), batch + 1000, hard=True)
+    for b in range(probe_interval + 1):
+        add(f"recovery {b}", "transfers", uniform(batch), batch + 1000)
+    return steps
+
+
+def config3_batch(rng, b: int, n: int = BATCH, n_accounts: int = 1000):
+    """One BASELINE config-3 batch (the JAX package's bench_config3):
+    linked pairs (even lanes head, odd lanes terminator) over n_accounts
+    accounts, ~25% of the chains poisoned by a terminator that debits a
+    missing account."""
+    ev = uniform_batch(rng, 10**7 + b * n, n, n_accounts)
+    ev["flags"][0::2] = 1  # TransferFlags.linked
+    bad = rng.random(n // 2) < 0.25
+    dr = ev["dr_lo"]
+    dr[1::2][bad] = n_accounts + 10**6
+    ev["amt_lo"] = rng.integers(1, 1000, n).astype(np.uint64)
+    return ev
+
+
+def seq_mixed_transfers(Transfer, TF, rng, n: int, first_id: int,
+                        n_accounts: int, pend_ids: list,
+                        imported_after: int | None = None) -> list:
+    """n events that reach every path of the sequential kernel: linked
+    chains (some broken by a missing account), pendings with and without
+    timeout, posts and voids of committed pendings (pend_ids) and of
+    pendings earlier in the batch (full, partial, over-amount, twice),
+    balancing debits and credits, closing pendings and voids of them,
+    repeated ids (in the batch and committed), failing lanes (ledger 0,
+    code 0, same accounts, u128 overflow). With imported_after set, every
+    event is imported with strictly increasing timestamps from it (a few
+    regress or carry no flag)."""
+    evs = []
+    nid = first_id
+    in_batch_pend = []
+    P, POST, VOID, L = (TF.pending, TF.post_pending_transfer,
+                        TF.void_pending_transfer, TF.linked)
+
+    def pair():
+        d, c = rng.choice(np.arange(1, n_accounts + 1), 2, replace=False)
+        return int(d), int(c)
+
+    def x(**kw):
+        nonlocal nid
+        kw.setdefault("ledger", 1)
+        kw.setdefault("code", 1)
+        t = Transfer(id=kw.pop("id", nid), **kw)
+        nid += 1
+        evs.append(t)
+        return t
+
+    while len(evs) < n:
+        r = rng.random()
+        amt = int(rng.integers(1, 1000))
+        if r < 0.15:
+            for j in range(int(rng.integers(2, 5))):
+                d, c = pair()
+                if rng.random() < 0.15:
+                    c = n_accounts + 5000
+                x(debit_account_id=d, credit_account_id=c, amount=amt,
+                  flags=L if j < 3 and rng.random() < 0.8 else 0)
+        elif r < 0.3:
+            d, c = pair()
+            t = x(debit_account_id=d, credit_account_id=c, amount=amt,
+                  flags=P, timeout=int(rng.integers(0, 2)) * 3600)
+            in_batch_pend.append(t.id)
+        elif r < 0.42:
+            pool = pend_ids if (rng.random() < 0.6 or not in_batch_pend) \
+                else in_batch_pend
+            pid = pool[int(rng.integers(0, len(pool)))] if pool else 1
+            kind = rng.random()
+            f = POST if kind < 0.5 else VOID
+            a = (1 << 128) - 1 if f == POST else 0
+            if kind < 0.15:
+                a = int(rng.integers(1, 10))         # partial post
+            elif kind > 0.95:
+                a = 10**9                            # over the amount
+            x(pending_id=pid, amount=a, flags=f, ledger=0, code=0)
+        elif r < 0.52:
+            d, c = pair()
+            x(debit_account_id=d, credit_account_id=c,
+              amount=int(rng.integers(1, 10**6)),
+              flags=TF.balancing_debit if r < 0.47 else TF.balancing_credit)
+        elif r < 0.57:
+            d, c = pair()
+            t = x(debit_account_id=d, credit_account_id=c, amount=amt,
+                  flags=P | (TF.closing_debit if r < 0.55
+                             else TF.closing_credit))
+            if rng.random() < 0.5:
+                x(pending_id=t.id, flags=VOID, ledger=0, code=0)
+        elif r < 0.63 and evs:
+            # A repeated id: an event of this batch, or a committed one.
+            src = evs[int(rng.integers(0, len(evs)))]
+            if rng.random() < 0.3 and pend_ids:
+                src = dataclasses.replace(
+                    src, id=pend_ids[int(rng.integers(0, len(pend_ids)))])
+            x(**{**dataclasses.asdict(src), "id": src.id})
+        elif r < 0.7:
+            d, c = pair()
+            bad = int(rng.integers(0, 4))
+            x(debit_account_id=d, credit_account_id=d if bad == 0 else c,
+              amount=(1 << 128) - 1 if bad == 1 else amt,
+              ledger=0 if bad == 2 else 1, code=0 if bad == 3 else 1)
+        else:
+            d, c = pair()
+            x(debit_account_id=d, credit_account_id=c, amount=amt)
+    evs = evs[:n]
+    if imported_after is not None:
+        for j, t in enumerate(evs):
+            t.flags |= TF.imported
+            t.timeout = 0
+            t.timestamp = imported_after + 1 + j
+            if j % 50 == 7:
+                t.timestamp = imported_after - 5       # regresses
+            if j % 97 == 11:
+                t.flags &= ~TF.imported                # not imported
+                t.timestamp = 0
+    return evs
+
+
+def seq_mixed_accounts(Account, AF, rng, n: int, first_id: int,
+                       imported_after: int | None = None) -> list:
+    """n account events: linked chains (some broken), repeated ids
+    (identical and different), mutually exclusive flags, nonzero
+    balances, ledger or code 0, a reserved flag; imported with increasing
+    timestamps when imported_after is set."""
+    evs = []
+    for j in range(n):
+        r = rng.random()
+        a = Account(id=first_id + j, ledger=1, code=1,
+                    user_data_64=int(rng.integers(0, 3)),
+                    flags=int(AF.debits_must_not_exceed_credits)
+                    if r < 0.2 else 0)
+        if r < 0.12:
+            a.flags |= AF.linked
+        elif r < 0.16 and evs:
+            src = evs[int(rng.integers(0, len(evs)))]
+            a = dataclasses.replace(src, flags=src.flags & ~AF.linked)
+            if rng.random() < 0.5:
+                a.user_data_64 += 1
+        elif r < 0.18:
+            a.flags |= AF.credits_must_not_exceed_debits
+        elif r < 0.2:
+            a.debits_posted = 5
+        elif r < 0.22:
+            a.ledger = 0
+        elif r < 0.23:
+            a.flags |= 1 << 9
+        evs.append(a)
+    if imported_after is not None:
+        for j, a in enumerate(evs):
+            a.flags |= AF.imported
+            a.timestamp = imported_after + 1 + j
+            if j % 40 == 9:
+                a.timestamp = imported_after - 3
+    return evs
 
 
 # ------------------------------------------------------------ the phases
@@ -1184,12 +1497,367 @@ def config4_phase(dev):
                 timing=timing, trace=trace)
 
 
+def exact_path_phase(dev, n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
+                     setup_batches: int = X_SETUP_BATCHES,
+                     caps: tuple = (A_CAP, T_CAP)):
+    """The exact path: the hard batches no device tier can run, the
+    host-mirror regime that answers them, the expiry pulse and the
+    probe's return to the device tiers (exact_path_plan), on a ledger on
+    `dev` beside one on the CPU and the port's oracle fed the same
+    batches. After every batch: statuses and timestamps equal to the
+    oracle's, state digests and counters equal to the CPU ledger's.
+    Returns the probe and row-gather launches and the timings."""
+    from tigerbeetle_tpu_torch import DeviceLedger
+    from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.ops.batch import transfers_from_arrays
+    from tigerbeetle_tpu_torch.ops.ledger import results_to_arrays
+    from tigerbeetle_tpu_torch.types import (
+        Account, AccountFlags, Transfer, TransferFlags)
+
+    t0 = time.perf_counter()
+    card = DeviceLedger(a_cap=caps[0], t_cap=caps[1], device=dev)
+    ref = DeviceLedger(a_cap=caps[0], t_cap=caps[1], device="cpu")
+    sm = StateMachineOracle()
+    steps = exact_path_plan(Account, Transfer, AccountFlags, TransferFlags,
+                            np.random.default_rng(5), n_accounts, batch,
+                            setup_batches)
+
+    # Host timings of the card ledger's mirror work: to_host, the
+    # oracle's apply and the push of what it dirtied.
+    spans = {"to_host": [], "apply": [], "push": []}
+
+    def timed(fn, key):
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            sync(dev)
+            spans[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    to_host = card.to_host
+
+    def to_host_timed():
+        sm_dev = timed(to_host, "to_host")()
+        for name in ("create_accounts", "create_transfers",
+                     "expire_pending_transfers"):
+            setattr(sm_dev, name, timed(getattr(sm_dev, name), "apply"))
+        return sm_dev
+
+    card.to_host = to_host_timed
+    card._push_dirty = timed(card._push_dirty, "push")
+
+    fused_probe.LAUNCHES = 0
+    RG.LAUNCHES = 0
+    per_batch, hard = [], []
+    for label, op, events, ts, is_hard in steps:
+        fb = card.fallbacks
+        n_spans = {k: len(v) for k, v in spans.items()}
+        t = time.perf_counter()
+        if op == "accounts":
+            got = results_to_arrays(card.create_accounts(events, ts))
+            sync(dev)
+            wall = (time.perf_counter() - t) * 1e3
+            exp = results_to_arrays(ref.create_accounts(events, ts))
+            want = results_to_arrays(sm.create_accounts(events, ts))
+        elif op == "transfers":
+            got = card.create_transfers_soa(events, ts)
+            sync(dev)
+            wall = (time.perf_counter() - t) * 1e3
+            exp = ref.create_transfers_soa(events, ts)
+            want = results_to_arrays(sm.create_transfers(
+                transfers_from_arrays(events), ts))
+        else:
+            check(card.pulse_needed(ts) and ref.pulse_needed(ts)
+                  and sm.pulse_needed(ts), f"{label}: no pulse is due")
+            n = card.expire_pending_transfers(ts)
+            sync(dev)
+            wall = (time.perf_counter() - t) * 1e3
+            got = exp = want = (np.array([n]), np.array([n]))
+            check(n == ref.expire_pending_transfers(ts)
+                  == sm.expire_pending_transfers(ts) == batch,
+                  f"{label}: expired {n}, not {batch} on every engine")
+        for name, res in (("the oracle", want), ("the CPU ledger", exp)):
+            check(np.array_equal(got[0], res[0])
+                  and np.array_equal(got[1], res[1]),
+                  f"{label}: statuses or timestamps differ from {name}'s")
+        check(ledger_digest(card) == ledger_digest(ref),
+              f"{label}: state digests differ")
+        counters = (ladder_counters(card), dict(card.fallback_causes))
+        check(counters == (ladder_counters(ref), dict(ref.fallback_causes)),
+              f"{label}: counters differ: card {counters}, CPU "
+              f"{(ladder_counters(ref), ref.fallback_causes)}")
+        mirror = card.fallbacks > fb or op == "expire"
+        if mirror:
+            per_batch.append(wall)
+        new = {k: v[n_spans[k]:] for k, v in spans.items()}
+        check(not mirror or (new["apply"] and new["push"]),
+              f"{label}: a mirror batch recorded no apply or push span")
+        if is_hard:
+            hard.append(dict(label=label, wall_ms=wall,
+                             to_host_ms=sum(new["to_host"]),
+                             apply_ms=sum(new["apply"]),
+                             push_ms=sum(new["push"])))
+        print(f"exact path {label}: {'mirror' if mirror else 'device'} "
+              f"{wall:.1f} ms; fallbacks {card.fallbacks}, causes "
+              f"{dict(card.fallback_causes)}", flush=True)
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+
+    check(card.mirror is None and ref.mirror is None,
+          "the probe did not return the ledger to its device tiers")
+    check(torch.device(dev).type != "cuda" or all(n > 0 for n in launches),
+          f"the exact path launched probe / row gather {launches} times")
+    double_entry(card)
+    timing = dict(
+        to_host_ms=spans["to_host"][0], hard=hard,
+        mirror_batch_ms=float(np.mean(per_batch)),
+        mirror_batches=len(per_batch), fallbacks=card.fallbacks,
+        causes=dict(card.fallback_causes), counters=ladder_counters(card),
+        elapsed_s=time.perf_counter() - t0)
+    print(f"exact path: {len(steps)} steps in {timing['elapsed_s']:.1f} s, "
+          f"equal to the oracle and the CPU ledger after each; first "
+          f"to_host {timing['to_host_ms']:.1f} ms; "
+          f"{len(per_batch)} mirror batches at "
+          f"{timing['mirror_batch_ms']:.1f} ms each; hard batches (ms: "
+          f"wall, to_host, oracle apply, push): "
+          + "; ".join(f"{h['label']} {h['wall_ms']:.1f} "
+                      f"{h['to_host_ms']:.1f} {h['apply_ms']:.1f} "
+                      f"{h['push_ms']:.1f}" for h in hard)
+          + f"; counters {timing['counters']}, causes {timing['causes']}; "
+          f"probe {launches[0]}, row gather {launches[1]} launches",
+          flush=True)
+    return launches, timing
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def seq_compare(label, got: dict, want: dict) -> int:
+    """Every output tensor of the kernel equal to the plain twin's;
+    returns the largest absolute difference over them (0 when equal)."""
+    check(set(got) == set(want), f"{label}: output keys differ")
+    err = 0
+    for k in want:
+        g, w = got[k].cpu(), want[k]
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{label}: output {k} has another dtype or shape")
+        diff = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        err = max(err, int(diff.max()) if diff.numel() else 0)
+        check(torch.equal(g, w),
+              f"{label}: output {k} differs from the plain twin's")
+    return err
+
+
+def seq_bytes(tin: dict, out: dict) -> int:
+    """Bytes the kernel must move: every input array read once, every
+    output written once."""
+    n = sum(t.numel() * t.element_size() for g in tin.values()
+            if isinstance(g, dict) for t in g.values())
+    return n + sum(t.numel() * t.element_size() for t in out.values())
+
+
+def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
+              n_accounts: int = N_ACCOUNTS,
+              config3_batches: int = SEQ_CONFIG3_BATCHES):
+    """The sequential kernel. Checked: mixed batches (chains, two-phase,
+    balancing, closing, repeated ids, imported) through the CUDA kernel
+    and through the plain twin on the same prefetched inputs, bit-equal
+    on every output. Then the path a user calls, run_create_accounts
+    (n_accounts accounts) and run_create_transfers at n_full events
+    (config-3 batches, and a config-4 pend batch and its post/void
+    batch), on the card and held against a second oracle fed the same
+    batches. Returns the kernel's launches on that path and the
+    numbers."""
+    from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+    from tigerbeetle_tpu_torch.ops import create_kernels as CK
+    from tigerbeetle_tpu_torch.ops import create_seq
+    from tigerbeetle_tpu_torch.ops.batch import (
+        accounts_to_arrays, prefetch_create_accounts,
+        prefetch_create_transfers, transfers_from_arrays,
+        transfers_to_arrays)
+    from tigerbeetle_tpu_torch.ops.ledger import results_to_arrays
+    from tigerbeetle_tpu_torch.types import (
+        Account, AccountFlags, Transfer, TransferFlags)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(6)
+    sm = StateMachineOracle()
+    n_small = 200
+    ts = 10**12
+    accounts = seq_mixed_accounts(Account, AccountFlags, rng, n_small, 1)
+    for a in accounts:
+        a.flags &= ~int(AccountFlags.linked)
+    sm.create_accounts(accounts, ts)
+    pend = [Transfer(id=10**6 + j, debit_account_id=1 + j % n_small,
+                     credit_account_id=1 + (j + 7) % n_small,
+                     amount=100 + j, ledger=1, code=1,
+                     flags=TransferFlags.pending,
+                     timeout=(3600 if j % 3 else 0)) for j in range(300)]
+    ts += 1000
+    sm.create_transfers(pend, ts)
+    pend_ids = [t.id for t in pend]
+
+    cases = []
+    ts += 10**4
+    cases.append(("mixed transfers", "transfers", seq_mixed_transfers(
+        Transfer, TransferFlags, rng, n_checked, 2 * 10**6, n_small,
+        pend_ids), ts))
+    ts += 10**4
+    cases.append(("imported transfers", "transfers", seq_mixed_transfers(
+        Transfer, TransferFlags, rng, n_checked, 3 * 10**6, n_small,
+        pend_ids, imported_after=ts - 5000), ts))
+    ts += 10**4
+    cases.append(("mixed accounts", "accounts", seq_mixed_accounts(
+        Account, AccountFlags, rng, n_checked, 10**5), ts))
+    ts += 10**4
+    cases.append(("imported accounts", "accounts", seq_mixed_accounts(
+        Account, AccountFlags, rng, n_checked, 2 * 10**5,
+        imported_after=ts - 5000), ts))
+    err = 0
+    for label, kind, events, at in cases:
+        if kind == "transfers":
+            inputs, aux = prefetch_create_transfers(
+                sm, transfers_to_arrays(events), at)
+            kern, plain = (create_seq.create_transfers_seq,
+                           CK.create_transfers_seq_plain)
+            dtypes, apply = CK.CT_OUT_DTYPES, CK.apply_create_transfers
+        else:
+            inputs, aux = prefetch_create_accounts(
+                sm, accounts_to_arrays(events), at)
+            kern, plain = (create_seq.create_accounts_seq,
+                           CK.create_accounts_seq_plain)
+            dtypes, apply = CK.CA_OUT_DTYPES, CK.apply_create_accounts
+        want = plain(CK.inputs_to_device(inputs, "cpu"))
+        got = kern(CK.inputs_to_device(inputs, dev))
+        err = max(err, seq_compare(label, got, want))
+        res = apply(sm, inputs, aux, CK.outputs_to_numpy(want, dtypes))
+        names = {r.status.name for r in res}
+        print(f"sequential kernel vs plain twin, {label}: {len(events)} "
+              f"events bit-equal on {len(want)} outputs; {len(names)} "
+              f"distinct statuses", flush=True)
+
+    # The path a user calls, counted: run_create_* on the card against a
+    # second oracle. Prefetch, kernel and apply ms are the spans each
+    # run_create_* call records itself.
+    spans = {"prefetch": [], "kernel": [], "apply": [], "events": []}
+
+    def step(label, a, b, kind, events, at):
+        create_seq.SPANS.clear()
+        if kind == "accounts":
+            got = create_seq.run_create_accounts(a, events, at, device=dev)
+            want = b.create_accounts(events, at)
+        else:
+            got = create_seq.run_create_transfers(a, events, at, device=dev)
+            want = b.create_transfers(events, at)
+        check(set(create_seq.SPANS) == {"prefetch", "kernel", "apply"},
+              f"{label}: run_create_{kind} recorded no spans")
+        for k, v in create_seq.SPANS.items():
+            spans[k].append(v)
+        spans["events"].append(len(events))
+        g, w = results_to_arrays(got), results_to_arrays(want)
+        check(np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1]),
+              f"{label}: run_create_{kind} differs from the oracle")
+        return g[0]
+
+    created = int(CK._CREATED)
+    create_seq.LAUNCHES = 0
+    runs = 0
+    a, b = StateMachineOracle(), StateMachineOracle()
+    ts = 10**12
+    accounts = [Account(id=i, ledger=1, code=1)
+                for i in range(1, n_accounts + 1)]
+    for lo in range(0, n_accounts, n_full):
+        chunk = accounts[lo:lo + n_full]
+        ts += len(chunk)
+        st = step("accounts", a, b, "accounts", chunk, ts)
+        runs += 1
+        check(bool((st == created).all()), "accounts not created")
+    c3 = []
+    for k in range(config3_batches):
+        ev = config3_batch(rng, k, n_full, min(1000, n_accounts))
+        ts += n_full + 1000
+        st = step(f"config-3 batch {k}", a, b, "transfers",
+                  transfers_from_arrays(ev), ts)
+        runs += 1
+        c3.append(int((st == created).sum()))
+    a, b = StateMachineOracle(), StateMachineOracle()
+    c4_acc = config4_accounts(Account, AccountFlags)
+    step("config-4 accounts", a, b, "accounts", c4_acc, C4_ACCOUNTS)
+    pend, rev, _ = config4_pair(np.random.default_rng(4), 10**7,
+                                TransferFlags, n_full)
+    ts = 10**12
+    st_p = step("config-4 pend", a, b, "transfers",
+                transfers_from_arrays(pend), ts + n_full + 10)
+    st_r = step("config-4 post/void", a, b, "transfers",
+                transfers_from_arrays(rev), ts + 2 * (n_full + 10))
+    runs += 3
+    launches = create_seq.LAUNCHES
+    check(launches == (runs if torch.device(dev).type == "cuda" else 0),
+          f"run_create_* launched the kernel {launches} times in {runs} "
+          "calls")
+    n_pend = int((st_p == created).sum())
+    check(int((st_r == created).sum()) == n_pend,
+          "the config-4 post/void batch did not resolve every pending")
+
+    numbers = dict(
+        launches=launches, max_abs_err=err, kernel_ms=spans["kernel"],
+        events=spans["events"], prefetch_ms=spans["prefetch"],
+        apply_ms=spans["apply"], config3_created=c3,
+        config4_created=n_pend)
+    if torch.device(dev).type != "cuda":
+        return numbers
+
+    # The kernels line: device time of the transfers kernel on the first
+    # config-3 batch's inputs (profiler), the plain twin's on the same
+    # inputs (CPU), and the bound.
+    rng3 = np.random.default_rng(3)
+    o = StateMachineOracle()
+    o.create_accounts([Account(id=i, ledger=1, code=1)
+                       for i in range(1, 1001)], 1000)
+    inputs, _ = prefetch_create_transfers(
+        o, config3_batch(rng3, 0, n_full, 1000), 10**7)
+    tin_g = CK.inputs_to_device(inputs, dev)
+    tin_c = CK.inputs_to_device(inputs, "cpu")
+    t = time.perf_counter()
+    want = CK.create_transfers_seq_plain(tin_c)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    got = create_seq.create_transfers_seq(tin_g)
+    err = max(err, seq_compare("config-3 full width", got, want))
+    bound_ms = seq_bytes(tin_g, got) / HBM_BYTES_PER_S * 1e3
+    busy, by_name = device_profile(
+        lambda: create_seq.create_transfers_seq(tin_g), reps=3)
+    hits = [v for k, v in by_name.items() if "create_transfers_seq" in k]
+    check(len(hits) == 1 and abs(hits[0][1] - 1) < 1e-9,
+          f"the trace holds the kernel {hits} times a call")
+    ms = hits[0][0]
+    numbers.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, ns_per_event=ms * 1e6 / n_full,
+                   elapsed_s=time.perf_counter() - t0)
+    print(f"sequential kernel: {launches} launches on run_create_* "
+          f"({runs} calls), equal to the oracle; device {ms:.3f} ms a "
+          f"{n_full}-event config-3 batch ({numbers['ns_per_event']:.0f} "
+          f"ns/event; bound {bound_ms:.4f} ms, bytes), plain twin "
+          f"{plain_ms:.0f} ms on the CPU; run_create_* kernel spans "
+          f"(launch to outputs on the host, ms / events): "
+          + ", ".join(f"{m:.2f}/{n}" for m, n in zip(spans["kernel"],
+                                                     spans["events"]))
+          + f"; prefetch ms {[round(x, 1) for x in spans['prefetch']]}, "
+          f"apply ms {[round(x, 1) for x in spans['apply']]}; config 3 "
+          f"created {c3}, config 4 {n_pend} pendings resolved; "
+          f"{numbers['elapsed_s']:.1f} s", flush=True)
+    return numbers
+
+
 def build_all():
-    """Compile both kernel sources at once (one nvcc each) and load them;
+    """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
     from tigerbeetle_tpu_torch.ops import _build
 
-    names = ("ht_probe", "row_gather")
+    names = ("ht_probe", "row_gather", "create_seq")
     took, errors = {}, {}
 
     def one(name):
@@ -1212,6 +1880,8 @@ def build_all():
               flush=True)
     _build.load_ht_probe()
     _build.load_row_gather()
+    _build.load_create_seq("transfers")
+    _build.load_create_seq("accounts")
 
 
 def main() -> int:
@@ -1231,6 +1901,8 @@ def main() -> int:
     del probe_fx, gather_fx
     launches, c2_gathers, main_probe_ms, c2 = main_path_phase(dev)
     c4 = config4_phase(dev)
+    x_launches, exact = exact_path_phase(dev)
+    seq = seq_phase(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1296,9 +1968,35 @@ def main() -> int:
         "segments": max(v["segments"] for v in shapes.values()),
         "sweep_ms": gather["sweep"],
         "shapes": shapes,
+    }, {
+        # No Pallas counterpart: the JAX package's XLA sequential kernels.
+        # ms / plain_ms / bound_ms: one 8,190-event config-3 batch (device
+        # time from the profiler; the plain twin on the CPU, host clock);
+        # kernel_ms / prefetch_ms / apply_ms: the spans each
+        # run_create_* call recorded (create_seq.SPANS; events in
+        # events).
+        "name": "create_seq",
+        "route": "cuda",
+        "source": "tigerbeetle_tpu_torch/csrc/create_seq.cu",
+        "replaces": "tigerbeetle_tpu/ops/create_kernels.py:664, "
+                    "tigerbeetle_tpu/ops/create_kernels.py:792",
+        "launches": seq["launches"],
+        "max_abs_err": seq["max_abs_err"],
+        "ms": seq["ms"],
+        "plain_ms": seq["plain_ms"],
+        "bound_ms": seq["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ns_per_event": seq["ns_per_event"],
+        "kernel_ms": seq["kernel_ms"],
+        "events": seq["events"],
+        "prefetch_ms": seq["prefetch_ms"],
+        "apply_ms": seq["apply_ms"],
     }]
     print(json.dumps({"config2": c2}), flush=True)
     print(json.dumps({"config4": {**c4["timing"], **c4["trace"]}}),
+          flush=True)
+    print(json.dumps({"exact_path": {**exact, "launches": x_launches}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     # One card is what this run used, whatever the machine shows.

@@ -143,3 +143,58 @@ def test_cascade_escalates_once_to_the_deep_tier(calls):
     assert (plain, fix) == (1, 2)
     assert CS.ladder_counters(led)[2:] == (1, 2, 0)
     assert device_state_digest(led.state) == oracle_state_digest(sm, 1 << 10)
+
+
+def test_chip_smoke_has_the_exact_path_and_sequential_phases():
+    """main() runs both new phases after the earlier ones, builds
+    create_seq.cu with the other kernels, and names the kernel in the
+    kernels line."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in ("main_path_phase(", "config4_phase(",
+                                      "exact_path_phase(", "seq_phase(")]
+    assert order == sorted(order)
+    assert "'name': 'create_seq'" in main
+    assert "tigerbeetle_tpu_torch/csrc/create_seq.cu" in main
+    build = inspect.getsource(CS.build_all)
+    assert '"create_seq"' in build and "load_create_seq" in build
+
+
+def test_exact_path_phase_rehearsed_on_the_cpu():
+    """The exact-path phase at a small size with both ledgers on the CPU:
+    every batch equal to the oracle and between the ledgers; the hard
+    batches open the mirror regime, the cascade probes the device tiers
+    and falls back past the 32-round tier, and the recovery batches
+    return the ledger to its device tiers."""
+    launches, timing = CS.exact_path_phase(
+        "cpu", n_accounts=300, batch=64, setup_batches=2,
+        caps=(1 << 10, 1 << 13))
+    assert launches == (0, 0)  # the plain twins ran: no kernel launched
+    assert timing["causes"] == {"e1_hard_flags": 1, "e3_limit": 1}
+    fast, fixpoint, deep, escalations, fallbacks = timing["counters"]
+    assert (fixpoint, deep, escalations) == (0, 1, 2)
+    assert fallbacks == timing["mirror_batches"] - 1  # expiry is no batch
+    assert [h["label"] for h in timing["hard"]] == [
+        "balancing", "repeated account id", "pair-sum overflow",
+        "pendings, timeout 1 s", "expiry", "cascade (the probe)"]
+    assert timing["hard"][0]["to_host_ms"] > 0
+
+
+def test_seq_phase_rehearsed_on_the_cpu():
+    """The sequential phase at a small size on the CPU: the mixed batches
+    reach the twin (here compared with itself) and run_create_* equals
+    the oracle on config-3 and config-4 batches."""
+    numbers = CS.seq_phase("cpu", n_full=64, n_checked=96, n_accounts=300,
+                           config3_batches=2)
+    assert numbers["launches"] == 0 and numbers["max_abs_err"] == 0
+    assert numbers["events"] == [64] * 4 + [44] + [64] * 5
+    # Every run_create_* call recorded its own three spans.
+    for k in ("prefetch_ms", "kernel_ms", "apply_ms"):
+        assert len(numbers[k]) == 10 and min(numbers[k]) > 0, k
+    assert 0 < min(numbers["config3_created"]) < 64
+    assert 0 < numbers["config4_created"] < 64

@@ -24,7 +24,10 @@ def _sources():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, tigerbeetle_tpu_torch, tigerbeetle_tpu_torch.ops."
-        "ledger, tigerbeetle_tpu_torch.ops.state_epoch\n"
+        "ledger, tigerbeetle_tpu_torch.ops.state_epoch, "
+        "tigerbeetle_tpu_torch.oracle, tigerbeetle_tpu_torch.ops.batch, "
+        "tigerbeetle_tpu_torch.ops.create_kernels, "
+        "tigerbeetle_tpu_torch.ops.create_seq\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -58,6 +61,10 @@ def test_port_modules_import_no_triton_or_build_at_import():
         "import sys, tigerbeetle_tpu_torch.ops.fused_probe as fp\n"
         "import tigerbeetle_tpu_torch.ops.row_gather\n"
         "import tigerbeetle_tpu_torch.ops.ledger\n"
+        "import tigerbeetle_tpu_torch.ops.create_seq as cs\n"
+        "import tigerbeetle_tpu_torch.ops.create_kernels\n"
+        "import tigerbeetle_tpu_torch.oracle\n"
+        "assert cs._launch == {}\n"
         "assert 'triton' not in sys.modules\n"
         "assert fp._build._libs == {}\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

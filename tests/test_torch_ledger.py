@@ -190,33 +190,44 @@ def test_soa_entry_returns_status_and_timestamp_arrays():
 
 
 def test_fallback_raises_and_leaves_state_unchanged():
+    """The batches no device tier can run take the exact path (they used
+    to raise): a real in-batch duplicate id (the plain tier escalates the
+    collision; the fixpoint tier finds the duplicate and falls back)
+    enters the host-mirror regime, where a balancing batch and an
+    accounts batch with a repeated id run too. Results equal the JAX
+    ledger's and the oracle's, and so do the digest and the counters."""
     port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
-    port.create_accounts([TT.Account(id=i, ledger=1, code=1)
-                          for i in range(1, 5)], TS0)
-    port.create_transfers([TT.Transfer(id=9, debit_account_id=1,
+    jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
+    sm = StateMachineOracle()
+    steps = [
+        ("create_accounts", [Account(id=i, ledger=1, code=1)
+                             for i in range(1, 5)], TS0),
+        ("create_transfers", [Transfer(id=9, debit_account_id=1,
                                        credit_account_id=2, amount=3,
-                                       ledger=1, code=1)], TS0 + 10)
-    before = device_state_digest(port.state)
-    dup = [TT.Transfer(id=10, debit_account_id=1, credit_account_id=2,
-                       amount=3, ledger=1, code=1)] * 2
-    # The plain tier escalates the collision; the fixpoint tier finds a
-    # real duplicate id and falls back, so the ledger raises.
-    with pytest.raises(TL.DeviceTierFallback) as err:
-        port.create_transfers(dup, TS0 + 20)
-    assert not err.value.limit_only and err.value.fb_causes["e2_collision"]
+                                       ledger=1, code=1)], TS0 + 10),
+        ("create_transfers", [Transfer(id=10, debit_account_id=1,
+                                       credit_account_id=2, amount=3,
+                                       ledger=1, code=1)] * 2, TS0 + 20),
+    ]
+    _run_all(steps, port, jax_led, sm)
+    assert _counters(port) == _counters(jax_led)
     assert port.escalations == 1 and port.fixpoint_batches == 0
-    bal = [TT.Transfer(id=11, debit_account_id=1, credit_account_id=2,
-                       amount=3, ledger=1, code=1,
-                       flags=TT.TransferFlags.balancing_debit)]
-    with pytest.raises(TL.DeviceTierFallback) as err:
-        port.create_transfers(bal, TS0 + 30)
-    assert not err.value.limit_only
-    assert err.value.fb_causes["e1_hard_flags"]
-    with pytest.raises(TL.DeviceTierFallback):
-        port.create_accounts([TT.Account(id=7, ledger=1, code=1)] * 2,
-                             TS0 + 40)
-    assert device_state_digest(port.state) == before
+    assert port.fallbacks == 1 and port.mirror is not None
+    assert port.fallback_causes == jax_led.fallback_causes
+    assert port.fallback_causes["e2_collision"] == 1
+    more = [
+        ("create_transfers", [Transfer(id=11, debit_account_id=1,
+                                       credit_account_id=2, amount=3,
+                                       ledger=1, code=1,
+                                       flags=TF.balancing_debit)],
+         TS0 + 30),
+        ("create_accounts", [Account(id=7, ledger=1, code=1)] * 2, TS0 + 40),
+    ]
+    _run_all(more, port, jax_led, sm)
+    assert device_state_digest(port.state) == jax_digest(jax_led.state)
+    assert _counters(port) == _counters(jax_led)
     assert port.fallbacks == 3 and port.fast_batches == 2
+    assert port.fallback_causes == jax_led.fallback_causes
 
 
 def test_default_device_is_the_card():
@@ -414,22 +425,277 @@ def test_escalation_ladder_matches_the_jax_ledger_and_the_oracle():
 
 
 def test_a_cascade_beyond_the_deep_tier_raises_with_the_state_unchanged():
-    """A 40-wave cascade outruns the 32-round tier too: the port raises
-    DeviceTierFallback and leaves its state as it was, after the same
-    ladder (and the same counters) as the JAX ledger, which then takes
-    its exact host path."""
+    """A 40-wave cascade outruns the 32-round tier too: after the same
+    ladder as the JAX ledger (plain -> 8 rounds -> 32 rounds) the port
+    answers it on the exact path, with the JAX ledger's results, digest
+    and counters (one fallback, cause e3_limit)."""
     port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
     jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
     sm = StateMachineOracle()
     _run_all(_ladder_setup(44), port, jax_led, sm)
-    before = device_state_digest(port.state)
     events = _cascade(40, 2, 5000)
-    with pytest.raises(TL.DeviceTierFallback) as err:
-        port.create_transfers(_port_objs(events, TT.Transfer), TS0 + 9000)
-    assert err.value.fb_causes["e3_limit"] and not err.value.limit_only
-    assert device_state_digest(port.state) == before
-    assert _res(jax_led.create_transfers(events, TS0 + 9000)) == \
-        _res(sm.create_transfers(events, TS0 + 9000))
+    _run_all([("create_transfers", events, TS0 + 9000)], port, jax_led, sm)
+    assert device_state_digest(port.state) == jax_digest(jax_led.state)
     assert _counters(port) == _counters(jax_led) == dict(
         fast=2, fixpoint=0, deep=1, escalations=2, fallbacks=1,
         fixpoint_first=False, deep_first=TL.DeviceLedger.DEEP_PROBE_INTERVAL)
+    assert port.fallback_causes == jax_led.fallback_causes
+    assert port.fallback_causes["e3_limit"] == 1
+
+
+# ------------------------------------------------------ the exact path
+
+def _state(led_or_sm):
+    from test_torch_oracle import state_of
+    return state_of(led_or_sm)
+
+
+def _dup_batch(rng, first_id, n, hard):
+    """n transfers over accounts 1..100 of ledger 1 (pending, linked and
+    failing lanes among them); with `hard`, same-id duplicate pairs (a
+    real in-batch duplicate: no device tier runs it)."""
+    evs = []
+    nid = first_id
+    while len(evs) < n:
+        r = rng.random()
+        dr = int(rng.integers(1, 101))
+        cr = dr % 100 + 1
+        t = Transfer(id=nid, debit_account_id=dr, credit_account_id=cr,
+                     amount=int(rng.integers(0, 500)), ledger=1,
+                     code=int(rng.integers(0, 2)),
+                     flags=(TF.pending if r < 0.2 else
+                            TF.linked if r < 0.25 else 0))
+        nid += 1
+        evs.append(t)
+        if hard and r > 0.8:
+            evs.append(dataclasses.replace(t))
+    evs[-1].flags &= ~TF.linked
+    return evs, nid
+
+
+def test_hard_regime_and_probe_recovery():
+    """Two batches with real duplicate ids open the host-mirror regime;
+    MIRROR_PROBE_INTERVAL batches later the probe returns the ledger to
+    its device tiers and drops the mirror. Results, digest and counters
+    equal the JAX ledger's (and the oracle's) after every batch; the
+    state the device holds at the end equals the oracle's."""
+    port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
+    sm = StateMachineOracle()
+    rng = np.random.default_rng(32)
+    steps = [("create_accounts", [Account(id=i, ledger=1, code=1)
+                                  for i in range(1, 101)], TS0)]
+    ts, nid = TS0, 10**6
+    for b in range(TL.DeviceLedger.MIRROR_PROBE_INTERVAL + 4):
+        evs, nid = _dup_batch(rng, nid, 60, hard=b < 2)
+        ts += 300
+        steps.append(("create_transfers", evs, ts))
+    seen = []
+    for step in steps:
+        _run_all([step], port, jax_led, sm)
+        assert _counters(port) == _counters(jax_led)
+        assert port.fallback_causes == jax_led.fallback_causes
+        seen.append((port.fallbacks, port.mirror is not None))
+    assert device_state_digest(port.state) == jax_digest(jax_led.state)
+    # In the regime from the first hard batch for MIRROR_PROBE_INTERVAL
+    # batches; the probe after them runs on the device and drops it.
+    interval = TL.DeviceLedger.MIRROR_PROBE_INTERVAL
+    assert seen[1:3] == [(1, True), (2, True)]
+    assert seen[1 + interval] == (interval, False)
+    assert port.mirror is None and jax_led.mirror is None
+    # The second hard batch ran on the held mirror: one device fallback.
+    assert port.fallback_causes == {"e2_collision": 1}
+    assert _state(port.to_host()) == _state(sm)
+
+
+def test_fast_path_hard_batches_on_the_exact_path():
+    """The scenarios of the JAX package's test_fast_path.py (hard batches,
+    the pair-sum overflow): a balancing batch, which the JAX ledger runs
+    on its balancing tier, opens the port's mirror regime (the port has
+    no balancing tier yet); the overflow falls back in both. Statuses,
+    timestamps and digests equal the JAX ledger's and the oracle's after
+    every batch; the counters are compared where both fall back."""
+    port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
+    sm = StateMachineOracle()
+    big = 1 << 127
+    top = (1 << 128) - 1
+    P, POST, VOID = (TF.pending, TF.post_pending_transfer,
+                     TF.void_pending_transfer)
+    x = _x
+    plan = [
+        ("create_accounts", [
+            Account(id=1, ledger=1, code=1), Account(id=2, ledger=1, code=1),
+            Account(id=3, ledger=1, code=1,
+                    flags=AF.debits_must_not_exceed_credits),
+            Account(id=4, ledger=1, code=1), Account(id=5, ledger=1, code=1),
+            Account(id=6, ledger=1, code=1)]),
+        ("create_transfers", [x(1, 1, 3, 10), x(2, 3, 2, 5), x(3, 3, 2, 6)]),
+        ("create_transfers", [x(4, 1, 2, top, flags=TF.balancing_debit)]),
+        ("create_transfers", [x(5, 1, 2, 5, flags=P),
+                              x(6, 0, 0, top, pending_id=5, flags=POST)]),
+        ("create_transfers", [x(7, 1, 2, 1, flags=P | TF.closing_debit)]),
+        ("create_transfers", [x(8, 0, 0, 0, pending_id=7, flags=VOID)]),
+        ("create_transfers", [x(11, 4, 5, big, flags=P)]),
+        ("create_transfers", [x(12, 0, 0, top, pending_id=11, flags=POST)]),
+        ("create_transfers", [x(13, 4, 5, big - 10, flags=P)]),
+        ("create_transfers", [x(14, 4, 6, 100)]),
+    ]
+    ts = TS0
+    for k, (fn, evs) in enumerate(plan):
+        ts += len(evs) + 7
+        _run_all([(fn, evs, ts)], port, jax_led, sm)
+        assert device_state_digest(port.state) == jax_digest(jax_led.state)
+        if k == 1:
+            assert port.fixpoint_batches == jax_led.fixpoint_batches == 1
+        if k == 2:
+            assert port.fallbacks == 1 and jax_led.fallbacks == 0
+            assert port.fallback_causes["e1_hard_flags"] == 1
+    assert port.lookup_transfers([14]) == []
+    assert _state(port.to_host()) == _state(sm)
+
+
+def test_overflow_pair_sum_falls_back_in_both():
+    """test_fast_path.py's pair-sum overflow alone: both ledgers fall back
+    on the same batch (u128 overflow of a pair sum), with the same
+    counters and causes, and report overflows_debits."""
+    port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
+    sm = StateMachineOracle()
+    big = 1 << 127
+    steps = [("create_accounts", [Account(id=i, ledger=1, code=1)
+                                  for i in (1, 2, 3)], TS0)]
+    for k, evs in enumerate([
+            [_x(1, 1, 2, big, flags=TF.pending)],
+            [_x(2, 0, 0, (1 << 128) - 1, pending_id=1,
+                flags=TF.post_pending_transfer)],
+            [_x(3, 1, 2, big - 10, flags=TF.pending)],
+            [_x(4, 1, 3, 100)]]):
+        steps.append(("create_transfers", evs, TS0 + 100 * (k + 1)))
+    _run_all(steps, port, jax_led, sm)
+    assert _counters(port) == _counters(jax_led)
+    assert port.fallbacks == 3  # the first u128 batch opens the regime
+    assert port.fallback_causes == jax_led.fallback_causes
+    assert port.lookup_transfers([4]) == []
+    want = sm.create_transfers([_x(5, 1, 3, 100)], TS0 + 1000)
+    assert want[0].status.name == "overflows_debits"
+
+
+def test_duplicate_account_ids_fall_back_in_both():
+    """An accounts batch that repeats an id: both ledgers' device tier
+    falls back and the exact path answers (exists for the identical
+    repeat, exists_with_different_* for the other), with equal counters;
+    the batches after it run on the mirror in both."""
+    port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
+    sm = StateMachineOracle()
+    accts = [Account(id=i, ledger=1, code=1) for i in range(1, 6)]
+    accts += [Account(id=2, ledger=1, code=1),
+              Account(id=3, ledger=1, code=1, user_data_64=9)]
+    steps = [("create_accounts", accts, TS0),
+             ("create_transfers", [_x(1, 1, 2, 5)], TS0 + 100)]
+    _run_all(steps, port, jax_led, sm)
+    assert _counters(port) == _counters(jax_led)
+    assert (port.fallbacks, port.fast_batches) == (2, 0)
+    assert port.mirror is not None and jax_led.mirror is not None
+    assert sm.accounts[3].user_data_64 == 0
+
+
+def test_imported_batches_take_the_exact_path():
+    """Imported transfers and accounts (the JAX package runs them on its
+    imported tiers; the port has none yet): the port's device tier falls
+    back (E1) on the transfers and the mirror answers both batches as
+    the oracle does, past timestamps, a regressing one, a collision with
+    an account's timestamp and a missing flag among them."""
+    port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    sm = StateMachineOracle()
+    IA, IT = AF.imported, TF.imported
+    xfers = [Transfer(id=1000 + i, debit_account_id=1 + i % 4,
+                      credit_account_id=2 + i % 4, amount=7, ledger=1,
+                      code=1, flags=IT, timestamp=TS0 + 1000 + 3 * i)
+             for i in range(12)]
+    xfers[4].timestamp = TS0 - 4     # an account's timestamp
+    xfers[7].timestamp = TS0 + 1001  # regresses
+    accts = [Account(id=20 + i, ledger=1, code=1, flags=IA,
+                     timestamp=TS0 + 5000 + i) for i in range(8)]
+    accts[5].timestamp = TS0 - 100   # regresses
+    accts[6].flags, accts[6].timestamp = 0, 0  # not imported
+    steps = [("create_accounts", [Account(id=i, ledger=1, code=1)
+                                  for i in range(1, 9)], TS0),
+             ("create_transfers", xfers, TS0 + 10**6),
+             ("create_accounts", accts, TS0 + 2 * 10**6)]
+    _run_all(steps, port, None, sm)
+    assert (port.fast_batches, port.fallbacks) == (1, 2)
+    assert port.fallback_causes == {"e1_hard_flags": 1}
+    assert sm.transfers_key_max == TS0 + 1000 + 3 * 11
+    assert _state(port.to_host()) == _state(sm)
+
+
+def test_expiry_pulse():
+    """Pendings with a 1 s timeout: once the pulse is due, the port
+    expires what the JAX ledger and the oracle expire, through the
+    mirror, and the digests stay equal."""
+    port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
+    sm = StateMachineOracle()
+    evs = [Transfer(id=10**6 + i, debit_account_id=1 + i,
+                    credit_account_id=2 + i, amount=10, ledger=1, code=1,
+                    flags=TF.pending, timeout=1 + i % 2) for i in range(5)]
+    _run_all([("create_accounts", [Account(id=i, ledger=1, code=1)
+                                   for i in range(1, 8)], TS0),
+              ("create_transfers", evs, TS0 + 10)], port, jax_led, sm)
+    soon, later = TS0 + 10**9 + 20, TS0 + 5 * 10**9
+    for ts in (soon, later):
+        assert port.pulse_needed(ts) == jax_led.pulse_needed(ts) \
+            == sm.pulse_needed(ts)
+        n = port.expire_pending_transfers(ts)
+        assert n == jax_led.expire_pending_transfers(ts) \
+            == sm.expire_pending_transfers(ts) > 0
+        assert device_state_digest(port.state) == jax_digest(jax_led.state)
+        assert device_state_digest(port.state) == oracle_state_digest(
+            sm, A_CAP)
+    assert not port.pulse_needed(later + 1)
+    assert not jax_led.pulse_needed(later + 1)
+    assert _counters(port) == _counters(jax_led)
+    host = port.to_host()
+    assert all(s.name == "expired" for s in host.pending_status.values())
+    assert _state(host) == _state(sm)
+
+
+def test_to_host_from_host_round_trip_keeps_the_digest():
+    """to_host gives the oracle's state (the JAX ledger's to_host too);
+    from_host of it rebuilds a device state with the same digest, and
+    the rebuilt ledger goes on exactly like the oracle."""
+    steps = _batches(seed=3)
+    top64, top128 = (1 << 64) - 1, (1 << 128) - 1
+    # u64 fields at and above 2^63, u128 fields above 2^64, pushed by the
+    # mirror (the duplicate id opens it) and carried by to_host.
+    steps.append(("create_accounts", [Account(
+        id=top128 - 1, ledger=1, code=1, user_data_64=top64,
+        user_data_128=top128 - 7, user_data_32=(1 << 32) - 1)],
+        steps[-1][2] + 10))
+    steps.append(("create_transfers", [Transfer(
+        id=(1 << 100) + i, debit_account_id=top128 - 1, credit_account_id=1,
+        amount=(1 << 70) + i, ledger=1, code=(1 << 16) - 1,
+        user_data_64=(1 << 63) + i, user_data_128=top128 - i)
+        for i in (0, 0, 1)], steps[-1][2] + 20))
+    port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    sm = StateMachineOracle()
+    _run_all(steps, port, None, sm)
+    assert port.mirror is not None
+    host = port.to_host()
+    assert _state(host) == _state(sm)
+    before = device_state_digest(port.state)
+    fresh = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    fresh.from_host(host)
+    assert device_state_digest(fresh.state) == before
+    assert _state(fresh.to_host()) == _state(sm)
+    tail = [Transfer(id=40_000 + i, debit_account_id=1 + i,
+                     credit_account_id=50 + i, amount=3, ledger=1, code=1)
+            for i in range(20)] + [
+        Transfer(id=10_001, debit_account_id=1, credit_account_id=2,
+                 amount=5, ledger=1, code=1),
+        Transfer(id=10_009, debit_account_id=1, credit_account_id=2,
+                 amount=5, ledger=1, code=1)]
+    _run_all([("create_transfers", tail, steps[-1][2] + 100)], fresh, None,
+             sm)

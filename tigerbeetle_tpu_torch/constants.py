@@ -1,5 +1,5 @@
-"""The constants the create_transfers path needs (a copy of the JAX
-package's `constants.py` subset; reference: src/config.zig,
+"""The constants the create_transfers path and the oracle need (a copy
+of the JAX package's `constants.py` subset; reference: src/config.zig,
 src/tigerbeetle.zig)."""
 
 MESSAGE_SIZE_MAX = 1024 * 1024
@@ -20,3 +20,8 @@ TIMESTAMP_MIN = 1
 TIMESTAMP_MAX = U63_MAX
 
 NS_PER_S = 1_000_000_000
+
+
+def timestamp_valid(timestamp: int) -> bool:
+    """reference: src/lsm/timestamp_range.zig:36-39"""
+    return TIMESTAMP_MIN <= timestamp <= TIMESTAMP_MAX

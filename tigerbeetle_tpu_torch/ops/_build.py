@@ -9,6 +9,7 @@ to `tigerbeetle_tpu_torch/build/` (git-ignored). A failed build raises.
 The C interfaces: each entry point takes an array of segment structures
 (mirrored below as `ctypes.Structure`s, field for field), their count
 and the CUDA stream, and returns `cudaGetLastError()` of its launch.
+One source may export several entry points (`create_seq.cu` has two).
 """
 
 from __future__ import annotations
@@ -47,6 +48,17 @@ class ProbeSegment(ctypes.Structure):
     """csrc/ht_probe.cu's segment: one table and its queries."""
     _fields_ = [("packed", _VP), ("n_buckets", _LL), ("k_hi", _VP),
                 ("k_lo", _VP), ("n", _LL), ("found", _VP), ("val", _VP)]
+
+
+SEQ_MAX_PTRS = 128
+
+
+class SeqArgs(ctypes.Structure):
+    """csrc/create_seq.cu's argument block: one batch's tensor pointers
+    in the order of its `Ptr` enum, the batch timestamp, the event count
+    and the padded lane count."""
+    _fields_ = [("p", _VP * SEQ_MAX_PTRS), ("timestamp", ctypes.c_ulonglong),
+                ("n", _LL), ("N", _LL)]
 
 
 def _nvcc() -> str:
@@ -90,12 +102,12 @@ def _load(name: str, fn_name: str, segment):
     `fn_name(segments, n_seg, stream) -> int` with the C signature
     declared."""
     with _lock:
-        fn = _libs.get(name)
+        fn = _libs.get((name, fn_name))
         if fn is None:
             fn = getattr(ctypes.CDLL(str(build(name))), fn_name)
             fn.argtypes = [ctypes.POINTER(segment), ctypes.c_int, _VP]
             fn.restype = ctypes.c_int
-            _libs[name] = fn
+            _libs[(name, fn_name)] = fn
         return fn
 
 
@@ -107,3 +119,9 @@ def load_ht_probe():
 def load_row_gather():
     """The row_gather entry point, `row_gather_launch`."""
     return _load("row_gather", "row_gather_launch", RowGatherSegment)
+
+
+def load_create_seq(kind: str):
+    """The create_seq entry point of `kind` ("transfers" or "accounts"),
+    `create_<kind>_seq_launch`."""
+    return _load("create_seq", f"create_{kind}_seq_launch", SeqArgs)

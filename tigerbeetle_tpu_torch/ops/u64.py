@@ -20,6 +20,7 @@ unsigned order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK64 = (1 << 64) - 1
@@ -37,6 +38,20 @@ def s64(x: int) -> int:
 def u64(x) -> int:
     """int64 bit pattern (Python int or 0-dim tensor) -> u64 value."""
     return int(x) & MASK64
+
+
+def carrier(a, device):
+    """A host numpy array in the JAX package's dtypes -> its carrier
+    tensor on `device`: u64 as the int64 bit patterns, other integers
+    widened to int64, bool as bool."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        t = torch.from_numpy(a)
+    elif a.dtype == np.uint64:
+        t = torch.from_numpy(a.view(np.int64))
+    else:
+        t = torch.from_numpy(a.astype(np.int64))
+    return t.to(device)
 
 
 def srl(x, k: int):

@@ -1,6 +1,6 @@
 """Data model: flags, status codes and the object types of the
-create_transfers path (a copy of the JAX package's `types.py` subset;
-reference: src/tigerbeetle.zig).
+create_transfers path and the oracle (a copy of the JAX package's
+`types.py` subset; reference: src/tigerbeetle.zig).
 
 Status enums carry the reference's wire codes as values; declaration
 order is the reference's precedence order."""
@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+
+from .constants import NS_PER_S
 
 
 class AccountFlags(enum.IntFlag):
@@ -20,6 +22,10 @@ class AccountFlags(enum.IntFlag):
     history = 1 << 3
     imported = 1 << 4
     closed = 1 << 5
+
+    @staticmethod
+    def padding_mask() -> int:
+        return ~0x3F & 0xFFFF
 
 
 class TransferFlags(enum.IntFlag):
@@ -34,6 +40,10 @@ class TransferFlags(enum.IntFlag):
     closing_debit = 1 << 6
     closing_credit = 1 << 7
     imported = 1 << 8
+
+    @staticmethod
+    def padding_mask() -> int:
+        return ~0x1FF & 0xFFFF
 
 
 class TransferPendingStatus(enum.IntEnum):
@@ -64,6 +74,22 @@ class Account:
     flags: int = 0
     timestamp: int = 0
 
+    def debits_exceed_credits(self, amount: int) -> bool:
+        """reference: src/tigerbeetle.zig:34-38"""
+        return bool(
+            self.flags & AccountFlags.debits_must_not_exceed_credits
+            and self.debits_pending + self.debits_posted + amount
+            > self.credits_posted
+        )
+
+    def credits_exceed_debits(self, amount: int) -> bool:
+        """reference: src/tigerbeetle.zig:39-42"""
+        return bool(
+            self.flags & AccountFlags.credits_must_not_exceed_debits
+            and self.credits_pending + self.credits_posted + amount
+            > self.debits_posted
+        )
+
 
 @dataclasses.dataclass
 class Transfer:
@@ -82,6 +108,10 @@ class Transfer:
     code: int = 0
     flags: int = 0
     timestamp: int = 0
+
+    def timeout_ns(self) -> int:
+        """reference: src/tigerbeetle.zig:106-109"""
+        return self.timeout * NS_PER_S
 
 
 class CreateAccountStatus(enum.IntEnum):
