@@ -6,8 +6,10 @@
 Drives the port's main paths — create_accounts and create_transfers on a
 `tigerbeetle_tpu_torch.DeviceLedger`, through the plain tier (BASELINE
 config 2), through the limit fixpoint tiers and their escalation ladder
-(BASELINE config 4) and through the exact path (the host-mirror regime),
-and `run_create_*` through the sequential kernel — at the ledger's
+(BASELINE config 4), through the exact path (the host-mirror regime) and
+through the commit-window routes (config 2 and config 4 as windows, each
+a replayed CUDA graph), and `run_create_*` through the sequential
+kernel — at the ledger's
 default capacities, and holds its three CUDA kernels against their plain
 PyTorch twins. Phases, each failing the run with a nonzero exit:
 
@@ -77,9 +79,28 @@ PyTorch twins. Phases, each failing the run with a nonzero exit:
               batch) equal to a second oracle; the kernel's device time
               on a config-3 batch beside the twin's (on the CPU).
 
+  9. config-2 windows  config 2 as commit windows on the chain route, on
+              the card one replay of a captured CUDA graph a window from a
+              key's second window on: 2 windows of 8 prepares on the card
+              and on the CPU (results, route counters and digests equal
+              after each), then windows of 32 (the JAX package's
+              SUPERBATCH_MAX) submitted and resolved two deep and timed,
+              beside the same prepares one batch at a time and one window
+              through the eager chain function; one window profiled (its
+              kernels counted against the route's prediction);
+ 10. config-4 windows  windows of 4 pend/post-void pairs on the
+              super_deep route, two deep: 2 checked against the CPU, 4
+              timed, one profiled;
+ 11. window fallbacks  a chain window with a balancing prepare (prefix
+              commits, that prepare per batch, the rest re-windowed) and
+              a pipelined window that falls back and poisons its
+              successor, each against a CPU ledger and the port's oracle.
+
 Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
-`{"exact_path": ...}` and `{"kernels": [...]}` lines, and last
-`{"ok": true, "device": {...}}`. Imports neither JAX nor the JAX package.
+`{"exact_path": ...}`, `{"config2_window": ...}`,
+`{"config4_window": ...}`, `{"window_fallbacks": ...}` and
+`{"kernels": [...]}` lines, and last `{"ok": true, "device": {...}}`.
+Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -109,7 +130,7 @@ N_QUERY_SETS = 16
 SWEEP_COUNTS = (1, 1024, 8192, 16_384, 32_768)
 FULL_MASK = 0xFFFFFFFF
 # Row-gather shapes that are held against the plain twin but not timed.
-CHECKED_ONLY = ("clamped", "mixed4")
+CHECKED_ONLY = ("clamped", "mixed4", "window_account", "window_transfer")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 ROW_KEY_BYTES = 16 * 8      # the key_hi and key_lo halves of a bucket row
 SECTOR_BYTES = 32           # the least a read from HBM moves
@@ -150,6 +171,26 @@ C4_JAX_COUNTERS = (13, 12, 8, 10, 0)
 #     pending view (the application reuses the rounds' balance base).
 PROBES_PER_RUN = {"accounts": 1, "plain": 1, "fixpoint": 1}
 GATHERS_PER_RUN = {"accounts": 2, "plain": 4, "fixpoint": 5}
+
+# Commit windows (the JAX package's benchmark.py): config 2 as chain
+# windows of SUPERBATCH_MAX prepares (:111, :125-189), config 4 as
+# windows of W_PAIRS pend/post-void pairs on the deep window tier,
+# submitted and resolved two deep (:338-420). Checked: W_CHECKED-deep
+# config-2 windows and C4_W_CHECKED config-4 windows against a CPU
+# ledger; timed: W_TIMED_WINDOWS config-2 windows and C4_W_TIMED config-4
+# windows on the card's graph route. The fallback windows are FB_W deep.
+SUPERBATCH_MAX = 32
+W_CHECKED = 8
+W_CHECKED_WINDOWS = 2
+W_TIMED_WINDOWS = 3
+C4_W_PAIRS = 4
+C4_W_CHECKED = 2
+C4_W_TIMED = 4
+FB_W = 4
+# The flat window tiers run the kernels at W·n_pad lanes: config 4's
+# window of 8 prepares is 65,536 lanes, so the probe takes 2 x 65,536
+# keys a table and the account-role gather 4 x 65,536 rows.
+WINDOW_LANES = C4_W_PAIRS * 2 * 8192
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -915,6 +956,27 @@ def probe_phase(fx) -> dict:
     res.update(bound_ms=bound_bytes / HBM_BYTES_PER_S * 1e3,
                max_abs_err=max_err, segments=2)
     results["two_tables"] = res
+
+    # Checked only: both tables at a flat window's width, 2 x
+    # WINDOW_LANES keys each, as per_event_status probes config 4's
+    # window of 8 prepares.
+    n_sets = 2 * WINDOW_LANES // N_QUERIES
+    segs = tuple((table, torch.cat([q[0] for q in sets[:n_sets]]),
+                  torch.cat([q[1] for q in sets[:n_sets]]))
+                 for table, sets in ((a_table, a_sets), (x_table, x_sets)))
+    win_err = 0
+    for (gf, gv), seg in zip(fused_probe.ht_lookup_fused_multi(segs), segs):
+        rf, rv = ht_lookup(*seg)
+        check(torch.equal(gf, rf) and torch.equal(gv, rv),
+              "window-width probe: kernel disagrees with the plain lookup")
+        win_err = max(win_err, int((gv.to(torch.int64)
+                                    - rv.to(torch.int64)).abs().max())
+                      + int((gf != rf).sum()))
+    results["window"] = dict(max_abs_err=win_err, segments=2,
+                             keys=[int(sg[1].numel()) for sg in segs])
+    print(f"probe at a window's width (acct_ht + xfer_ht, "
+          f"{results['window']['keys']} keys in one launch): equal to the "
+          "plain lookup", flush=True)
     print(f"probe two tables in one launch (acct_ht + xfer_ht, "
           f"{N_QUERIES} keys each): device per call: kernel {res['ms']} ms, "
           f"plain {res['plain_ms']} ms; stream per call: kernel "
@@ -1000,6 +1062,14 @@ def gather_fixtures(dev) -> dict:
                     None, False),
         "mixed4": ([xfr, words, bal, probe_table], [mixed],
                    [None, 0xFFFF, None, FULL_MASK], False),
+        # A flat window's widths (config 4's 8 prepares): the
+        # account-role gather at 4 x WINDOW_LANES rows, the transfer-role
+        # gather at 2 x WINDOW_LANES.
+        "window_account": ([bal, meta],
+                           rand_rows(4 * WINDOW_LANES, A_CAP + 1, 1), None,
+                           False),
+        "window_transfer": ([xfr], rand_rows(2 * WINDOW_LANES, T_CAP + 1, 1),
+                            None, False),
         # The floor sweep's rows: 32 sets of 32,768, cut to each count.
         "sweep": ([xfr], rand_rows(max(SWEEP_COUNTS), T_CAP + 1, 32), None,
                   False),
@@ -1852,6 +1922,618 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
     return numbers
 
 
+# ------------------------------------------------------------ commit windows
+
+def window_launches(route: str, W: int) -> tuple:
+    """(probe, row gather) launches of one window on `route`: one tier
+    run a prepare on the chain (plain tier), one over all W·n_pad lanes
+    on a flat tier."""
+    if route == "chain":
+        return PROBES_PER_RUN["plain"] * W, GATHERS_PER_RUN["plain"] * W
+    kind = "fixpoint" if route == "super_deep" else "plain"
+    return PROBES_PER_RUN[kind], GATHERS_PER_RUN[kind]
+
+
+def graph_launches(wg) -> tuple:
+    """(launches the wrappers counted, launches the device ran), each a
+    (probe, row gather) pair, over one ledger's window graphs: an eager
+    window and a capture call the wrappers; an eager window and every
+    replay (the one after a capture included) run the kernels."""
+    counted, ran = [0, 0], [0, 0]
+    for key in set(wg.eager) | set(wg.replays):
+        per = window_launches(key[0], key[1])
+        calls = wg.eager.get(key, 0) + wg.captures.get(key, 0)
+        runs = wg.eager.get(key, 0) + wg.replays.get(key, 0)
+        for i in range(2):
+            counted[i] += calls * per[i]
+            ran[i] += runs * per[i]
+    return tuple(counted), tuple(ran)
+
+
+def route_counters(led) -> tuple:
+    return (dict(led.window_routes), dict(led.chain_batch_fallbacks),
+            led.last_window_route, led.last_window_tier,
+            led.window_fallbacks, ladder_counters(led),
+            dict(led.fallback_causes))
+
+
+def compare_windows(label, card, ref, got, want) -> None:
+    """A window's results, route counters and state digest: card equal to
+    the reference ledger."""
+    check(len(got) == len(want), f"{label}: {len(got)} prepares answered, "
+          f"the reference {len(want)}")
+    for b, ((gs, gt), (ws, wt)) in enumerate(zip(got, want)):
+        check(np.array_equal(gs, ws) and np.array_equal(gt, wt),
+              f"{label}: prepare {b} differs from the reference's")
+    check(route_counters(card) == route_counters(ref),
+          f"{label}: route counters {route_counters(card)}, the reference "
+          f"{route_counters(ref)}")
+    check(ledger_digest(card) == ledger_digest(ref),
+          f"{label}: state digests differ")
+
+
+def drive_pipelined(led, windows) -> list:
+    """Windows submitted and resolved two deep (submit k + 1, then resolve
+    k), as the JAX package's config-4 benchmark drives them; returns each
+    window's results in order. A window submit_window declines runs on
+    the synchronous path after the pipeline drains."""
+    pending, results = [], []
+    for evs, tss in windows:
+        tk = led.submit_window(evs, tss)
+        if tk is None:
+            led.resolve_windows()
+            results.extend(p.results[1] for p in pending)
+            pending = []
+            results.append(led.create_transfers_window(evs, tss))
+            continue
+        pending.append(tk)
+        if len(pending) > 1:
+            led.resolve_windows(count=1)
+            while pending and pending[0].results is not None:
+                results.append(pending.pop(0).results[1])
+    led.resolve_windows()
+    results.extend(p.results[1] for p in pending)
+    return results
+
+
+def window_trace(dev, fn, label: str) -> dict:
+    """One call of fn() under torch.profiler: its device-busy ms, its
+    device ops and its probe and row-gather kernel counts (None where the
+    trace holds no device time, and on the CPU)."""
+    if torch.device(dev).type != "cuda":
+        fn()
+        return dict(busy_ms=None, ops=None, probes=None, gathers=None)
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            m, n = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (m + us / 1e3, n + e.count)
+    if not by_name:
+        print(f"{label}: the trace holds no device time", flush=True)
+        return dict(busy_ms=None, ops=None, probes=None, gathers=None)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    out = dict(busy_ms=sum(v[0] for v in by_name.values()),
+               ops=sum(v[1] for v in by_name.values()),
+               probes=sum(v[1] for k, v in by_name.items()
+                          if "ht_probe_kernel" in k),
+               gathers=sum(v[1] for k, v in by_name.items()
+                           if "row_gather" in k))
+    print(f"{label}: device busy {out['busy_ms']} ms, {out['ops']} device "
+          f"ops, probe kernels {out['probes']}, row-gather kernels "
+          f"{out['gathers']}; top (ms, count): "
+          + "; ".join(f"{k[:60]} {v[0]:.4f} x{v[1]}" for k, v in top),
+          flush=True)
+    return out
+
+
+def check_trace(label, trace, route, W) -> None:
+    if trace["busy_ms"] is None:
+        return
+    want = window_launches(route, W)
+    check((trace["probes"], trace["gathers"]) == want,
+          f"{label}: the trace holds {trace['probes']} probe and "
+          f"{trace['gathers']} row-gather kernels, the route predicts {want}")
+
+
+def window_breakdown(dev, led, route: str, window) -> dict:
+    """Where a window's time goes, taken after the timed run on the ledger
+    that ran it. Host: the window's per-window steps (the pre-route
+    scans, stacking, packing the lane matrix, the copy to the card, the
+    copy of the outputs back), host clock with a sync around each. Card:
+    the span of one replay of the route's graph between CUDA events,
+    replayed poisoned (force_fallback set: every prepare falls back and
+    the state is untouched, which the digest is held to) and so running
+    the kernels a committing window runs. (None on the CPU.)"""
+    from tigerbeetle_tpu_torch.ops.ledger import (
+        _WINDOW_OUTS, _evs_pend_refs, _has_balancing, _has_closing,
+        _has_imported, _pad_bucket)
+    from tigerbeetle_tpu_torch.ops.window_graph import Harvest
+
+    evs, tss = window
+    n_pad = _pad_bucket(max(len(e["id_lo"]) for e in evs))
+    host = {}
+
+    def timed(name, fn):
+        sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        sync(dev)
+        host[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    timed("pre_route", lambda: (_has_imported(evs), _has_balancing(evs),
+                                _has_closing(evs), _evs_pend_refs(evs)))
+    lanes = timed("pack_copy_in",
+                  lambda: led._pack(route, evs, tss, n_pad))
+    out = dict(host_ms=host, replay_span_ms=None, replay_spans_ms=None)
+    key = (route, len(evs), n_pad)
+    if torch.device(dev).type != "cuda":
+        return out
+    graph, outs = led.windows._graphs[key]
+    before = ledger_digest(led)
+    spans = []
+    led.windows._ff.fill_(True)
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    # The host's side of one poisoned window, as submit_window issues it:
+    # the input copy, the replay and the output copies, host clock until
+    # the calls return (no sync), then until the card is done.
+    sync(dev)
+    t = time.perf_counter()
+    led._pack(route, evs, tss, n_pad)
+    t_put = time.perf_counter()
+    graph.replay()
+    t_replay = time.perf_counter()
+    harvest = Harvest(outs, _WINDOW_OUTS)
+    t_issue = time.perf_counter()
+    sync(dev)
+    t_done = time.perf_counter()
+    issue = dict(put=(t_put - t) * 1e3, replay=(t_replay - t_put) * 1e3,
+                 harvest=(t_issue - t_replay) * 1e3,
+                 drain=(t_done - t_issue) * 1e3)
+    harvest.get()
+    led.windows._ff.fill_(False)
+    got = timed("copy_out", lambda: Harvest(outs, _WINDOW_OUTS).get())
+    check(bool(np.all(got["fallback"])) and ledger_digest(led) == before,
+          f"{key}: a poisoned replay did not fall back whole or changed "
+          "the state")
+    out.update(replay_span_ms=float(np.median(spans)), replay_spans_ms=spans,
+               issue_ms=issue)
+    return out
+
+
+def funded_ledger(dev, caps, accounts, ts0: int):
+    from tigerbeetle_tpu_torch import DeviceLedger
+
+    led = DeviceLedger(a_cap=caps[0], t_cap=caps[1], device=dev)
+    for lo in range(0, len(accounts), BATCH):
+        chunk = accounts[lo:lo + BATCH]
+        res = led.create_accounts(chunk, ts0 + lo + len(chunk))
+        check(all(r.status.name == "created" for r in res),
+              "window phase: an account was not created")
+    return led
+
+
+def config2_window_phase(dev, n_accounts: int = N_ACCOUNTS,
+                         batch: int = BATCH, w_checked: int = W_CHECKED,
+                         w_timed: int = SUPERBATCH_MAX,
+                         timed_windows: int = W_TIMED_WINDOWS,
+                         caps: tuple = (A_CAP, T_CAP)) -> dict:
+    """Config 2 as commit windows on the chain route.
+
+    Checked: W_CHECKED_WINDOWS windows of w_checked prepares on `dev` and
+    on a CPU ledger (the first window of the key runs eagerly, the second
+    is captured and replayed on the card); after each, statuses,
+    timestamps, route counters and state digest equal.
+
+    Timed: windows of w_timed prepares on a card ledger G (an eager
+    window, a captured one, timed_windows windows submitted and resolved
+    two deep, one profiled, one last), beside the same prepares one batch
+    at a time on a second ledger P (equal results, timed over the same
+    prepares), and the last window through the eager chain function on
+    P's state, called directly. Returns the numbers, with the launches
+    the wrappers counted and the device ran."""
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.ops.fast_kernels import create_transfers_chain
+    from tigerbeetle_tpu_torch.ops.ledger import (
+        _pad_bucket, events_to_device, stack_chain_window)
+    from tigerbeetle_tpu_torch.types import Account, CreateTransferStatus
+
+    t0 = time.perf_counter()
+    created = int(CreateTransferStatus.created)
+    accounts = [Account(id=i, ledger=1, code=1)
+                for i in range(1, n_accounts + 1)]
+    rng = np.random.default_rng(20)
+    counter = itertools.count()
+    clock = [10**12]
+
+    def window(W):
+        evs, tss = [], []
+        for _ in range(W):
+            evs.append(uniform_batch(rng, 10**7 + next(counter) * batch,
+                                     batch, n_accounts))
+            clock[0] += batch + 1000
+            tss.append(clock[0])
+        return evs, tss
+
+    fused_probe.LAUNCHES = 0
+    RG.LAUNCHES = 0
+    counted = [0, 0]    # wrapper calls outside the window graphs
+
+    def add(kind, runs=1):
+        counted[0] += PROBES_PER_RUN[kind] * runs
+        counted[1] += GATHERS_PER_RUN[kind] * runs
+
+    n_acc_batches = -(-n_accounts // BATCH)
+    card = funded_ledger(dev, caps, accounts, 10**11)
+    ref = funded_ledger("cpu", caps, accounts, 10**11)
+    add("accounts", n_acc_batches)
+    for w in range(W_CHECKED_WINDOWS):
+        evs, tss = window(w_checked)
+        got = card.create_transfers_window(evs, tss)
+        want = ref.create_transfers_window(evs, tss)
+        compare_windows(f"config-2 window {w}", card, ref, got, want)
+        check(all(bool((st == created).all()) for st, _ in got)
+              and card.window_routes == {"chain": w + 1},
+              f"config-2 window {w}: not every transfer created on the "
+              f"chain route ({card.window_routes})")
+    n_pad = _pad_bucket(batch)
+    key = ("chain", w_checked, n_pad)
+    if torch.device(dev).type == "cuda":
+        check((card.windows.eager, card.windows.captures,
+               card.windows.replays) == ({key: 1}, {key: 1}, {key: 1}),
+              f"config-2 windows: eager {card.windows.eager}, captures "
+              f"{card.windows.captures}, replays {card.windows.replays}")
+    double_entry(card)
+    checked_s = time.perf_counter() - t0
+    print(f"config-2 windows checked against the CPU: "
+          f"{W_CHECKED_WINDOWS} windows of {w_checked} in {checked_s:.1f} s "
+          f"(graphs: eager {card.windows.eager}, captures "
+          f"{card.windows.captures}, replays {card.windows.replays})",
+          flush=True)
+    graphs = [graph_launches(card.windows)]
+    # The CPU reference's plain-twin calls (a rehearsal on the CPU counts
+    # them beside the card ledger's).
+    ref_calls = tuple(graph_launches(ref.windows)[0][i]
+                      + n_acc_batches * (PROBES_PER_RUN["accounts"],
+                                         GATHERS_PER_RUN["accounts"])[i]
+                      for i in (0, 1))
+    del ref
+
+    G = funded_ledger(dev, caps, accounts, 10**11)
+    P = funded_ledger(dev, caps, accounts, 10**11)
+    add("accounts", 2 * n_acc_batches)
+    windows = [window(w_timed) for _ in range(timed_windows + 4)]
+    eager_w, capture_w, timed_ws = windows[0], windows[1], windows[2:-2]
+    prof_w, last_w = windows[-2], windows[-1]
+
+    def on_g(evs, tss):
+        t = time.perf_counter()
+        res = G.create_transfers_window(evs, tss)
+        return res, (time.perf_counter() - t) * 1e3
+
+    g_res = {}
+    g_res[0], eager_ms = on_g(*eager_w)
+    g_res[1], capture_ms = on_g(*capture_w)
+    sync(dev)
+    t1 = time.perf_counter()
+    piped = drive_pipelined(G, timed_ws)
+    sync(dev)
+    g_elapsed = time.perf_counter() - t1
+    for i, res in enumerate(piped):
+        g_res[2 + i] = res
+
+    def profiled():
+        g_res[len(windows) - 2] = G.create_transfers_window(*prof_w)
+
+    trace = window_trace(dev, profiled,
+                         f"config-2 window of {w_timed} (one replay)")
+    check_trace("config-2 window", trace, "chain", w_timed)
+
+    # The same prepares one batch at a time on P (timed over the windows
+    # G timed), equal to G's results.
+    p_elapsed = 0.0
+    for w, (evs, tss) in enumerate(windows[:-1]):
+        sync(dev)
+        t = time.perf_counter()
+        res = [P.create_transfers_soa(ev, ts) for ev, ts in zip(evs, tss)]
+        sync(dev)
+        if 2 <= w < 2 + timed_windows:
+            p_elapsed += time.perf_counter() - t
+        add("plain", len(evs))
+        for b, ((gs, gt), (ps, pt)) in enumerate(zip(g_res[w], res)):
+            check(np.array_equal(gs, ps) and np.array_equal(gt, pt)
+                  and bool((gs == created).all()),
+                  f"config-2 window {w} prepare {b}: the graph route and "
+                  "the per-batch path differ")
+
+    # The last window: a replay on G, and the eager chain function on P's
+    # state, called directly.
+    g_last, last_ms = on_g(*last_w)
+    ev, seg = stack_chain_window(*last_w, n_pad=n_pad)
+    ev = events_to_device(ev, P.device)
+    seg = events_to_device(seg, P.device)
+    sync(dev)
+    t = time.perf_counter()
+    _, out = create_transfers_chain(P.state, ev, seg)
+    st = out["r_status"].cpu().numpy()
+    eager_fn_ms = (time.perf_counter() - t) * 1e3
+    add("plain", w_timed)
+    check(not bool(out["fallback"].any()), "the eager chain fell back")
+    for b, (gs, _) in enumerate(g_last):
+        check(np.array_equal(gs, st[b, :batch].astype(np.uint32)),
+              f"last window prepare {b}: replay and eager chain differ")
+    check(ledger_digest(G) == ledger_digest(P),
+          "the graph route's ledger and the per-batch ledger differ")
+    double_entry(G)
+    parts = window_breakdown(dev, G, "chain", last_w)
+    graphs.append(graph_launches(G.windows))
+    check(G.window_routes == {"chain": len(windows)}
+          and G.window_fallbacks == 0 and G.fallbacks == 0,
+          f"config-2 windows: routes {G.window_routes}, fallbacks "
+          f"{G.window_fallbacks} / {G.fallbacks}")
+    gkey = ("chain", w_timed, n_pad)
+    if torch.device(dev).type == "cuda":
+        check(G.windows.replays.get(gkey) == len(windows) - 1
+              and G.windows.captures.get(gkey) == 1,
+              f"config-2 timed windows: replays {G.windows.replays}, "
+              f"captures {G.windows.captures}")
+
+    wrap = tuple(counted[i] + sum(g[0][i] for g in graphs) for i in (0, 1))
+    ran = tuple(counted[i] + sum(g[1][i] for g in graphs) for i in (0, 1))
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+    if torch.device(dev).type == "cuda":
+        check(launches == wrap, f"config-2 windows: the wrappers counted "
+              f"{launches} launches, the routes predict {wrap}")
+    n = timed_windows * w_timed * batch
+    numbers = dict(
+        window=w_timed, windows=timed_windows,
+        transfers_per_s=n / g_elapsed, window_ms=g_elapsed / timed_windows
+        * 1e3, per_batch_transfers_per_s=n / p_elapsed,
+        per_batch_window_ms=p_elapsed / timed_windows * 1e3,
+        per_batch_ms=p_elapsed / (timed_windows * w_timed) * 1e3,
+        eager_window_ms=eager_ms, capture_window_ms=capture_ms,
+        last_window_ms=last_ms, eager_chain_fn_ms=eager_fn_ms,
+        busy_ms=trace["busy_ms"], ops=trace["ops"],
+        idle_share=(None if trace["busy_ms"] is None else
+                    1 - trace["busy_ms"] / (g_elapsed / timed_windows
+                                            * 1e3)),
+        trace_probes=trace["probes"], trace_gathers=trace["gathers"],
+        breakdown=parts,
+        launches_counted=wrap, launches_ran=ran, cpu_ref_calls=ref_calls,
+        checked_s=checked_s, elapsed_s=time.perf_counter() - t0)
+    print(f"config-2 windows of {w_timed}: {timed_windows} windows (two "
+          f"deep) in {g_elapsed:.4f} s = {numbers['transfers_per_s']:.0f} "
+          f"transfers/s, {numbers['window_ms']:.3f} ms/window; the same "
+          f"prepares one batch at a time {p_elapsed:.4f} s = "
+          f"{numbers['per_batch_transfers_per_s']:.0f} transfers/s "
+          f"({numbers['per_batch_ms']:.3f} ms/batch); eager window "
+          f"{eager_ms:.1f} ms, capture window {capture_ms:.1f} ms, last "
+          f"replay {last_ms:.3f} ms, eager chain function {eager_fn_ms:.1f} "
+          f"ms; idle share {numbers['idle_share']}; launches counted {wrap}"
+          f", run {ran}; a window's host steps (ms) {parts['host_ms']}, "
+          f"its replay's span on the card {parts['replay_spans_ms']} ms, "
+          f"issue (ms) {parts.get('issue_ms')}", flush=True)
+    return numbers
+
+
+def config4_window_phase(dev, batch: int = BATCH, pairs: int = C4_W_PAIRS,
+                         n_checked: int = C4_W_CHECKED,
+                         n_timed: int = C4_W_TIMED,
+                         caps: tuple = (A_CAP, T_CAP)) -> dict:
+    """Config 4 as windows of `pairs` pend/post-void pairs (2 x pairs
+    prepares, each post/void batch referring to the pend batch before it,
+    so every window takes the super_deep route), submitted and resolved
+    two deep as the JAX package's benchmark does. Checked: n_checked
+    windows on `dev` and on a CPU ledger driven alike, results, route
+    counters and state digest equal. Timed: n_timed more windows on the
+    card; then one window profiled. Returns the numbers."""
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.types import (
+        Account, AccountFlags, CreateTransferStatus, TransferFlags)
+
+    t0 = time.perf_counter()
+    created = int(CreateTransferStatus.created)
+    rng = np.random.default_rng(40)
+    state = dict(ts=10**12, next_id=10**7)
+
+    def window():
+        evs, tss = [], []
+        for _ in range(pairs):
+            pend, rev, state["next_id"] = config4_pair(
+                rng, state["next_id"], TransferFlags, batch)
+            evs += [pend, rev]
+            tss += [state["ts"] + batch + 10, state["ts"] + 2 * (batch + 10)]
+            state["ts"] += 2 * (batch + 10)
+        return evs, tss
+
+    fused_probe.LAUNCHES = 0
+    RG.LAUNCHES = 0
+    accounts = config4_accounts(Account, AccountFlags)
+    card = funded_ledger(dev, caps, accounts, 0)
+    ref = funded_ledger("cpu", caps, accounts, 0)
+    checked = [window() for _ in range(n_checked)]
+    got = drive_pipelined(card, checked)
+    want = drive_pipelined(ref, checked)
+    compare_windows("config-4 windows", card, ref,
+                    [p for w in got for p in w], [p for w in want for p in w])
+    check(card.window_routes == {"super_deep": n_checked},
+          f"config-4 windows: routes {card.window_routes}")
+    n_created = [int((st == created).sum()) for w in got for st, _ in w]
+    check(n_created[0::2] == n_created[1::2],
+          f"config-4 windows: created {n_created}: a post/void batch did "
+          "not resolve every pending of its pend batch")
+    double_entry(card)
+    checked_s = time.perf_counter() - t0
+    print(f"config-4 windows checked against the CPU: {n_checked} windows "
+          f"of {2 * pairs} prepares in {checked_s:.1f} s; created "
+          f"{n_created}; counters {route_counters(card)}", flush=True)
+    ref_calls = tuple(graph_launches(ref.windows)[0][i]
+                      + (PROBES_PER_RUN["accounts"],
+                         GATHERS_PER_RUN["accounts"])[i] for i in (0, 1))
+    del ref
+
+    timed = [window() for _ in range(n_timed)]
+    sync(dev)
+    t1 = time.perf_counter()
+    res = drive_pipelined(card, timed)
+    sync(dev)
+    elapsed = time.perf_counter() - t1
+    n_timed_created = sum(int((st == created).sum())
+                          for w in res for st, _ in w)
+    prof_w = window()
+    trace = window_trace(dev, lambda: card.create_transfers_window(*prof_w),
+                         f"config-4 window of {2 * pairs} (one replay)")
+    check_trace("config-4 window", trace, "super_deep", 2 * pairs)
+    double_entry(card)
+    parts = window_breakdown(dev, card, "super_deep", prof_w)
+    check(card.window_routes == {"super_deep": n_checked + n_timed + 1}
+          and card.window_fallbacks == 0 and card.fallbacks == 0,
+          f"config-4 windows: counters {route_counters(card)}")
+    counted, ran = graph_launches(card.windows)
+    counted = (counted[0] + PROBES_PER_RUN["accounts"],
+               counted[1] + GATHERS_PER_RUN["accounts"])
+    ran = (ran[0] + PROBES_PER_RUN["accounts"],
+           ran[1] + GATHERS_PER_RUN["accounts"])
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+    if torch.device(dev).type == "cuda":
+        check(launches == counted, f"config-4 windows: the wrappers counted "
+              f"{launches} launches, the routes predict {counted}")
+    window_ms = elapsed / n_timed * 1e3
+    numbers = dict(
+        window=2 * pairs, windows=n_timed, elapsed_s=elapsed,
+        window_ms=window_ms,
+        transfers_per_s=n_timed * 2 * pairs * batch / elapsed,
+        created_per_s=n_timed_created / elapsed,
+        busy_ms=trace["busy_ms"], ops=trace["ops"],
+        idle_share=(None if trace["busy_ms"] is None
+                    else 1 - trace["busy_ms"] / window_ms),
+        trace_probes=trace["probes"], trace_gathers=trace["gathers"],
+        breakdown=parts,
+        launches_counted=counted, launches_ran=ran, cpu_ref_calls=ref_calls,
+        graphs=dict(eager=len(card.windows.eager),
+                    captures=sum(card.windows.captures.values()),
+                    replays=sum(card.windows.replays.values())),
+        checked_s=checked_s, elapsed_total_s=time.perf_counter() - t0)
+    print(f"config-4 windows of {2 * pairs}: {n_timed} windows (two deep) "
+          f"in {elapsed:.4f} s = {window_ms:.3f} ms/window, "
+          f"{numbers['transfers_per_s']:.0f} validated transfers/s, "
+          f"{numbers['created_per_s']:.0f} created/s; idle share "
+          f"{numbers['idle_share']}; launches counted {counted}, run {ran}; "
+          f"a window's host steps (ms) {parts['host_ms']}, its replay's "
+          f"span on the card {parts['replay_spans_ms']} ms, issue (ms) "
+          f"{parts.get('issue_ms')}", flush=True)
+    return numbers
+
+
+def window_fallback_phase(dev, n_accounts: int = N_ACCOUNTS,
+                          batch: int = BATCH, depth: int = FB_W,
+                          caps: tuple = (A_CAP, T_CAP)) -> dict:
+    """The window fallbacks, each on a fresh ledger on `dev` beside one on
+    the CPU and the port's oracle fed the same prepares:
+
+      balancing  a chain window whose prepare 1 carries a balancing_credit
+                 lane: prepare 0 commits, prepare 1 replays per batch on
+                 the exact path, and the rest re-windows (in the mirror
+                 regime that prepare 1 opened: per batch);
+      poisoned   two windows in flight, the first with a repeated id in
+                 its prepare 2: the chain commits prepares 0-1, prepare 2
+                 replays per batch and the rest re-windows, and the
+                 second window, poisoned on the device, replays whole.
+
+    Results equal the CPU ledger's and the oracle's, and so do the route
+    counters and the digest (the CPU ledger's)."""
+    from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+    from tigerbeetle_tpu_torch.ops.batch import transfers_from_arrays
+    from tigerbeetle_tpu_torch.ops.ledger import results_to_arrays
+    from tigerbeetle_tpu_torch.types import Account, TransferFlags
+
+    t0 = time.perf_counter()
+    accounts = [Account(id=i, ledger=1, code=1)
+                for i in range(1, n_accounts + 1)]
+    rng = np.random.default_rng(30)
+    counter = itertools.count()
+    clock = [10**12]
+
+    def window():
+        evs, tss = [], []
+        for _ in range(depth):
+            evs.append(uniform_batch(rng, 10**7 + next(counter) * batch,
+                                     batch, n_accounts))
+            clock[0] += batch + 1000
+            tss.append(clock[0])
+        return evs, tss
+
+    def trio():
+        sm = StateMachineOracle()
+        for lo in range(0, n_accounts, BATCH):
+            chunk = accounts[lo:lo + BATCH]
+            sm.create_accounts(chunk, 10**11 + lo + len(chunk))
+        return (funded_ledger(dev, caps, accounts, 10**11),
+                funded_ledger("cpu", caps, accounts, 10**11), sm)
+
+    def oracle(sm, windows):
+        return [[results_to_arrays(sm.create_transfers(
+            transfers_from_arrays(ev), ts)) for ev, ts in zip(*w)]
+            for w in windows]
+
+    out = {}
+    card, ref, sm = trio()
+    evs, tss = window()
+    evs[1]["flags"][5] = np.uint32(int(TransferFlags.balancing_credit))
+    got = card.create_transfers_window(evs, tss)
+    want = ref.create_transfers_window(evs, tss)
+    compare_windows("balancing window", card, ref, got, want)
+    compare_windows("balancing window (oracle)", card, card, got,
+                    oracle(sm, [(evs, tss)])[0])
+    check(card.window_routes == {"chain": 1, "per_batch": 1}
+          and card.chain_batch_fallbacks == {"e1_hard_flags": 1}
+          and card.fallbacks == depth - 1,
+          f"balancing window: counters {route_counters(card)}")
+    out["balancing"] = route_counters(card)[:5]
+    print(f"balancing window: prepare 0 on the chain, prepare 1 per batch, "
+          f"the rest re-windowed; counters {route_counters(card)}",
+          flush=True)
+
+    card, ref, sm = trio()
+    windows = [window(), window()]
+    evs0 = windows[0][0]
+    evs0[2]["id_lo"][7] = evs0[2]["id_lo"][3]
+    got = drive_pipelined(card, windows)
+    want = drive_pipelined(ref, windows)
+    compare_windows("poisoned windows", card, ref,
+                    [p for w in got for p in w], [p for w in want for p in w])
+    compare_windows("poisoned windows (oracle)", card, card,
+                    [p for w in got for p in w],
+                    [p for w in oracle(sm, windows) for p in w])
+    check(card.chain_batch_fallbacks.get("e2_collision", 0) >= 1
+          and card.window_routes.get("chain", 0) >= 2,
+          f"poisoned windows: counters {route_counters(card)}")
+    out["poisoned"] = route_counters(card)[:5]
+    out["elapsed_s"] = time.perf_counter() - t0
+    print(f"poisoned windows: the first falls back at prepare 2, the "
+          f"second replays; counters {route_counters(card)}; both cases in "
+          f"{out['elapsed_s']:.1f} s", flush=True)
+    return out
+
+
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
@@ -1903,6 +2585,9 @@ def main() -> int:
     c4 = config4_phase(dev)
     x_launches, exact = exact_path_phase(dev)
     seq = seq_phase(dev)
+    w2 = config2_window_phase(dev)
+    w4 = config4_window_phase(dev)
+    wfb = window_fallback_phase(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1924,8 +2609,15 @@ def main() -> int:
         "replaces": "tigerbeetle_tpu/ops/pallas_kernels.py:80",
         "launches": launches,
         "launches_config4": c4["probe_launches"],
+        # On the window routes: launches the wrapper counted (eager
+        # windows and captures) and launches the card ran (replays too).
+        "launches_config2_window": w2["launches_counted"][0],
+        "ran_config2_window": w2["launches_ran"][0],
+        "launches_config4_window": w4["launches_counted"][0],
+        "ran_config4_window": w4["launches_ran"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
-                           two["max_abs_err"]),
+                           two["max_abs_err"],
+                           probe["window"]["max_abs_err"]),
         "ms": x["ms"],
         "plain_ms": x["plain_ms"],
         "bound_ms": x["bound_ms"],
@@ -1952,6 +2644,10 @@ def main() -> int:
         "replaces": ", ".join(GATHER_REPLACES),
         "launches": c4["gather_launches"],
         "launches_config2": c2_gathers,
+        "launches_config2_window": w2["launches_counted"][1],
+        "ran_config2_window": w2["launches_ran"][1],
+        "launches_config4_window": w4["launches_counted"][1],
+        "ran_config4_window": w4["launches_ran"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -1998,11 +2694,13 @@ def main() -> int:
           flush=True)
     print(json.dumps({"exact_path": {**exact, "launches": x_launches}}),
           flush=True)
+    print(json.dumps({"config2_window": w2}), flush=True)
+    print(json.dumps({"config4_window": w4}), flush=True)
+    print(json.dumps({"window_fallbacks": wfb}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # One card is what this run used, whatever the machine shows.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}), flush=True)
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

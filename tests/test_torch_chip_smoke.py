@@ -198,3 +198,91 @@ def test_seq_phase_rehearsed_on_the_cpu():
         assert len(numbers[k]) == 10 and min(numbers[k]) > 0, k
     assert 0 < min(numbers["config3_created"]) < 64
     assert 0 < numbers["config4_created"] < 64
+
+
+@pytest.mark.parametrize("route,W", [("chain", 3), ("super", 3),
+                                     ("super_deep", 2)])
+def test_window_launch_prediction_per_window(calls, route, W):
+    """One window on each route calls the probe and the row gather as
+    often as chip_smoke.py's window_launches predicts for one replay: a
+    tier run a prepare on the chain, one run over the flat window."""
+    led = DeviceLedger(a_cap=1 << 10, t_cap=1 << 14, device="cpu")
+    led.create_accounts([TT.Account(id=i, ledger=1, code=1)
+                         for i in range(1, 65)], 10**11)
+    rng = np.random.default_rng(9)
+    evs = [CS.uniform_batch(rng, 10**6 + 100 * b, 50, 64) for b in range(W)]
+    if route == "super_deep":
+        # A post in prepare 1 of a pending made in prepare 0.
+        evs[0]["flags"][0] = np.uint32(int(TT.TransferFlags.pending))
+        evs[1]["pid_lo"][0] = evs[0]["id_lo"][0]
+        evs[1]["flags"][0] = np.uint32(
+            int(TT.TransferFlags.post_pending_transfer))
+        for k in ("dr_lo", "cr_lo", "amt_lo", "ledger", "code"):
+            evs[1][k][0] = 0
+    tss = [10**12 + 1000 * b for b in range(W)]
+    before = dict(calls)
+    led.create_transfers_window(evs, tss, all_or_nothing=route == "super")
+    probes, gathers = CS.window_launches(route, W)
+    assert {k: calls[k] - before[k] for k in calls} == {
+        "probe": probes, "gather": gathers}
+    assert led.window_routes == {route: 1} and led.fallbacks == 0
+    assert led.windows.eager == {(route, W, 1024): 1}
+    # Every later window of the key is one replay on the card: the
+    # launches a replay runs are the wrappers' calls of that first run.
+    assert CS.graph_launches(led.windows) == ((probes, gathers),
+                                              (probes, gathers))
+
+
+def test_config2_window_phase_rehearsed_on_the_cpu(calls):
+    """The config-2 window phase at a small size on the CPU: checked
+    windows equal between two ledgers, the timed windows' results equal
+    to the per-batch path and the eager chain function; the wrappers'
+    calls are the phase's prediction."""
+    numbers = CS.config2_window_phase(
+        "cpu", n_accounts=300, batch=64, w_checked=3, w_timed=4,
+        timed_windows=2, caps=(1 << 10, 1 << 14))
+    want = [a + b for a, b in zip(numbers["launches_counted"],
+                                  numbers["cpu_ref_calls"])]
+    assert [calls["probe"], calls["gather"]] == want
+    assert numbers["launches_counted"] == numbers["launches_ran"]
+    assert numbers["transfers_per_s"] > 0 and numbers["idle_share"] is None
+
+
+def test_config4_window_phase_rehearsed_on_the_cpu(calls):
+    numbers = CS.config4_window_phase(
+        "cpu", batch=64, pairs=2, n_checked=2, n_timed=2,
+        caps=(1 << 10, 1 << 14))
+    want = [a + b for a, b in zip(numbers["launches_counted"],
+                                  numbers["cpu_ref_calls"])]
+    assert [calls["probe"], calls["gather"]] == want
+    assert numbers["graphs"] == {"eager": 1, "captures": 0, "replays": 0}
+    assert numbers["created_per_s"] > 0
+
+
+def test_window_fallback_phase_rehearsed_on_the_cpu():
+    """The fallback windows against a second ledger and the port's
+    oracle: the balancing prepare replays per batch after the chain's
+    prefix, and the poisoned successor replays."""
+    out = CS.window_fallback_phase("cpu", n_accounts=300, batch=64,
+                                   caps=(1 << 10, 1 << 14))
+    routes, chain_fb, last, _, window_fb = out["balancing"]
+    assert routes == {"chain": 1, "per_batch": 1}
+    assert chain_fb == {"e1_hard_flags": 1} and window_fb == 1
+    routes, chain_fb, _, _, window_fb = out["poisoned"]
+    assert routes["chain"] >= 2 and chain_fb["e2_collision"] >= 1
+
+
+def test_chip_smoke_runs_the_window_phases_last():
+    """main() runs the three window phases after the earlier ones and
+    prints their lines before the kernels line."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "seq_phase(", "config2_window_phase(", "config4_window_phase(",
+        "window_fallback_phase(", "'config2_window'", "'kernels'")]
+    assert order == sorted(order)

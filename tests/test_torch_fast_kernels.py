@@ -449,8 +449,9 @@ def test_non_plain_tiers_raise_not_implemented():
         _, out = TFK.create_transfers_fast(t_state, ev, TS0, 1,
                                            limit_rounds=rounds)
         assert not bool(out["fallback"]) and int(out["fix_rounds"]) == 1
-    for kw in ({"per_event": {}}, {"seg": {}}, {"ring_reset": True},
-               {"imported_mode": True}, {"balancing_mode": True}):
+    # The windows (seg, ring_reset) are ported: tests/test_torch_window.py.
+    for kw in ({"per_event": {}}, {"imported_mode": True},
+               {"balancing_mode": True}):
         for rounds in (1, TFK.LIMIT_FIXPOINT_ROUNDS):
             with pytest.raises(NotImplementedError, match="later slice"):
                 TFK.create_transfers_fast(t_state, ev, TS0, 1,

@@ -25,8 +25,17 @@ Tiers (`limit_rounds`):
          state (closing is native on every fixpoint tier) — run a
          K-round status fixpoint over exact per-event prefix balances.
          A cascade deeper than K reports `fix_unconverged`.
-The superbatch/window, imported and balancing tiers are later slices of
-the port.
+Windows (a commit window of W prepares in one call; `seg=` carries each
+lane's commit timestamp and its prepare's edges):
+  create_transfers_super       the plain tier over W·n_pad flat lanes;
+  create_transfers_super_deep  the fixpoint tier over them, at
+                               LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP rounds;
+  create_transfers_chain       one plain-tier run a prepare, prepare k's
+                               fallback poisoning every later one;
+each with `ring_reset=True` (the JAX package's `_ring` variants), which
+consumes the event ring from row 0.
+The imported and balancing tiers (and their window tiers) are later
+slices of the port.
 
 Every row gather goes through `row_gather` / `row_gather_multi` (the
 CUDA row-gather kernel on the card, `csrc/row_gather.cu`; tables read
@@ -114,6 +123,10 @@ _INF = 0x7FFFFFFF
 # escalates to the deep tier, then falls back.
 LIMIT_FIXPOINT_ROUNDS = 8
 LIMIT_FIXPOINT_ROUNDS_DEEP = 32
+# The deep window tier's budget (the JAX package's: config 4's windows of
+# 8 prepares converge within it); an unconverged window falls back to the
+# per-batch ladder, whose deep tier keeps 32 rounds.
+LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP = 24
 
 
 # --------------------------------------------------- cumulative reductions
@@ -379,19 +392,28 @@ def _packed_perm(rows2, order2, row_cap):
     return torch.argsort(combined, stable=True)
 
 
-def _chain_pass(status, linked, valid, idxs, n, N):
+def _chain_pass(status, linked, valid, idxs, n, N, seg_start=None,
+                chain_term=None):
     """Linked-chain first-failure broadcast (reference execute_create
     :3033-3150): returns (status, not_the_failure, my_first, in_chain)
     where not_the_failure marks members overridden to
     linked_event_failed. Pure in `status`: the fixpoint re-runs it per
-    round."""
+    round.
+
+    seg_start/chain_term (windows): seg_start marks each prepare's first
+    lane, so a chain left open at a prepare's end never absorbs the next
+    prepare's head, and chain_term each prepare's last valid lane, the
+    open-chain terminator. Without them (one batch) the terminator is
+    lane n - 1."""
     dev = status.device
     l_prev = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
                         linked[:-1]])
+    if seg_start is not None:
+        l_prev = l_prev & ~seg_start
     in_chain = linked | l_prev
     start = linked & ~l_prev
     chain_id = _cumsum(start.to(torch.int64))
-    is_last = idxs == (n - 1)
+    is_last = idxs == (n - 1) if chain_term is None else chain_term
     chain_open_evt = linked & is_last
     status = torch.where(chain_open_evt, _TS["linked_event_chain_open"],
                          status)
@@ -772,13 +794,10 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
     return out
 
 
-def _later_slices(per_event, seg, ring_reset, imported_mode,
-                  balancing_mode):
+def _later_slices(per_event, imported_mode, balancing_mode):
     later = [
         (per_event is not None,
          "per_event (the spmd join of the parallel/ slice)"),
-        (seg is not None, "seg (the superbatch and window-chain slice)"),
-        (ring_reset, "ring_reset (the superbatch and window-chain slice)"),
         (imported_mode, "imported_mode (the imported/balancing/closing "
                         "slice)"),
         (balancing_mode, "balancing_mode (the imported/balancing/closing "
@@ -788,7 +807,8 @@ def _later_slices(per_event, seg, ring_reset, imported_mode,
         if bad:
             raise NotImplementedError(
                 f"create_transfers_fast: {what} is a later slice of the "
-                "port; this slice runs the plain and limit fixpoint tiers")
+                "port; this slice runs the plain and limit fixpoint tiers "
+                "and their windows")
 
 
 def _ts_events(timestamp, n, N, device):
@@ -798,7 +818,7 @@ def _ts_events(timestamp, n, N, device):
 
 
 def _fixpoint_rounds(K, status, status_dead, inwin, didx, linked, valid,
-                     idxs, n, N, pv, pending, is_post, is_void, flags,
+                     idxs, chain, pv, pending, is_post, is_void, flags,
                      cand_dr, cand_cr, cand_close, cdr_ln, ccr_ln, alx,
                      al2_s, nl2_s, fs):
     """The K-round status fixpoint of the limit tiers (reference: the
@@ -812,12 +832,14 @@ def _fixpoint_rounds(K, status, status_dead, inwin, didx, linked, valid,
     the earliest event whose status disagrees with the sequential truth,
     so K rounds resolve any cascade shallower than K. Deaths fold into
     the same round's apply set (Gauss-Seidel), so one round advances a
-    full over -> death -> lost-relief wave.
+    full over -> death -> lost-relief wave. `chain` is the tail of
+    `_chain_pass`'s arguments: (n, N, seg_start, chain_term).
 
     A static loop of K rounds: an early exit would need a host sync per
     round and changes no result. Returns (over_dr, over_cr, cdr_ln,
     ccr_ln, dead, fix_converged, fix_rounds)."""
     dev = status.device
+    N = valid.shape[0]
     close_dr_f = _flag(flags, _F_CLOSE_DR)
     close_cr_f = _flag(flags, _F_CLOSE_CR)
     over_dr = torch.zeros_like(valid)
@@ -843,7 +865,7 @@ def _fixpoint_rounds(K, status, status_dead, inwin, didx, linked, valid,
         # definition did not create reads pending_transfer_not_found.
         st_r = torch.where(dead, status_dead, st_r)
         _, _, my_first_r, in_chain_r = _chain_pass(
-            st_r, linked, valid, idxs, n, N)
+            st_r, linked, valid, idxs, *chain)
         # Definition liveness at the use's execution point: dead iff it
         # failed on its own (-1) or its chain broke STRICTLY BEFORE the
         # use (the chain's first-failure position), else +INF.
@@ -855,7 +877,7 @@ def _fixpoint_rounds(K, status, status_dead, inwin, didx, linked, valid,
         # set. At a fixpoint new_dead == dead and the fold is an
         # identity.
         st_f = torch.where(new_dead & ~dead, status_dead, st_r)
-        st_c, _, _, _ = _chain_pass(st_f, linked, valid, idxs, n, N)
+        st_c, _, _, _ = _chain_pass(st_f, linked, valid, idxs, *chain)
         ap_r = valid & (st_c == _CREATED)
         mask8 = _apply_mask8(ap_r, pv, pending, is_post, is_void,
                              close_dr_f, close_cr_f, fs["p_cl_dr"],
@@ -929,11 +951,26 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
 
     timestamp/n: Python ints (the prepare timestamp and the batch's real
     event count). force_fallback: optional bool tensor that aborts the
-    batch unconditionally. per_event (the spmd join), seg, ring_reset,
-    imported_mode and balancing_mode raise NotImplementedError naming the
-    later slice that brings them."""
-    _later_slices(per_event, seg, ring_reset, imported_mode,
-                  balancing_mode)
+    batch unconditionally.
+
+    seg: a window of prepares in one call, {"ts_event": int64[N] each
+    lane's commit timestamp, "seg_start": bool[N] each prepare's first
+    lane, "chain_term": bool[N] each prepare's last valid lane}
+    (`ledger.stack_superbatch` / `stack_chain_window` build it). With
+    seg, timestamp and n are not read: nothing of the call depends on a
+    Python number, so a captured CUDA graph of it replays for any window
+    of its shapes. The eligibility proofs are whole-array reductions and
+    extend to the concatenated stream as they are.
+    ring_reset: consume the event ring from row 0 (the pipelined window
+    routes; a fallback leaves the ring count as it was).
+
+    per_event (the spmd join), imported_mode and balancing_mode raise
+    NotImplementedError naming the later slice that brings them.
+
+    Every state write is in place, the row counts and scalars included
+    (`copy_`): a call leaves each state tensor's storage where it was,
+    which a replayed CUDA graph relies on."""
+    _later_slices(per_event, imported_mode, balancing_mode)
     fixpoint = limit_rounds > 1
     acc = state["accounts"]
     xfr = state["transfers"]
@@ -945,7 +982,12 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     T_dump = xfr["u64"].shape[0] - 1
     idxs = torch.arange(N, dtype=torch.int64, device=dev)
     valid = ev["valid"]
-    ts_event = _ts_events(timestamp, n, N, dev)
+    if seg is None:
+        ts_event = _ts_events(timestamp, n, N, dev)
+        chain = (n, N, None, None)
+    else:
+        ts_event = seg["ts_event"]
+        chain = (n, N, seg["seg_start"], seg["chain_term"])
 
     flags = ev["flags"]
     linked = _flag(flags, _F_LINKED) & valid
@@ -1127,7 +1169,7 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
         (over_dr, over_cr, cdr_ln, ccr_ln, dead, fix_converged,
          fix_rounds) = _fixpoint_rounds(
             limit_rounds, status, status_dead, inwin, didx, linked, valid,
-            idxs, n, N, pv, pending, is_post, is_void, flags, cand_dr,
+            idxs, chain, pv, pending, is_post, is_void, flags, cand_dr,
             cand_cr, cand_close, cdr_ln, ccr_ln, alx, al2_s, nl2_s, fs)
         status = torch.where(over_dr, _TS["exceeds_credits"], status)
         status = torch.where(over_cr & ~over_dr, _TS["exceeds_debits"],
@@ -1141,7 +1183,7 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
 
     # ---------------- chains: segment first-failure broadcast ----------------
     status, not_the_failure, my_first, in_chain = _chain_pass(
-        status, linked, valid, idxs, n, N)
+        status, linked, valid, idxs, *chain)
     ts_actual = torch.where(not_the_failure, ts_event, ts_actual)
 
     status = torch.where(valid, status, 0)
@@ -1162,7 +1204,10 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     new_rows = xcount + row_off
 
     e7 = (xcount + n_created) > T_dump
-    ring_base = evr["count"].to(torch.int64)
+    # ring_reset: the window's rows go to the ring from row 0; the window
+    # routes read them before a later window can overwrite them.
+    ring_count = evr["count"].to(torch.int64)
+    ring_base = torch.zeros_like(ring_count) if ring_reset else ring_count
     e8 = (ring_base + n_created) > ev_cap(evr)
 
     transient = torch.zeros_like(valid)
@@ -1393,7 +1438,7 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     xfr["u64"][trow] = torch.where(ap[:, None], u64_rows, 0)
     xfr["u64"][flip_pos, XF_P32_POS["pstat"][0]] = pack32(
         torch.where(ap_pv, torch.where(is_post, _PS_POSTED, _PS_VOIDED), 0))
-    xfr["count"] = (xcount + torch.where(ok, n_created, 0)).to(torch.int32)
+    xfr["count"].copy_(xcount + torch.where(ok, n_created, 0))
     ht_write(state["xfer_ht"], xfer_pos, ev["id_hi"], ev["id_lo"],
              torch.where(created, new_rows, ORPHAN_VAL), ins_mask & ok)
     acc["bal"][tgt] = torch.where(real[:, None], vals, 0)
@@ -1401,11 +1446,10 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
         acc["u64"][torch.where(wrf, rows_sorted, A_dump), _AC_CF_COL] = \
             torch.where(wrf, new_word64, 0)
     evr["u64"][erow] = torch.where(ap[:, None], ev_u64_rows, 0)
-    evr["count"] = torch.where(ok, ring_base + n_created,
-                               ring_base).to(torch.int32)
-    state["xfer_key_max"] = key_max
-    state["pulse_next"] = pulse
-    state["commit_ts"] = commit_ts
+    evr["count"].copy_(torch.where(ok, ring_base + n_created, ring_count))
+    state["xfer_key_max"].copy_(key_max)
+    state["pulse_next"].copy_(pulse)
+    state["commit_ts"].copy_(commit_ts)
 
     fb_causes = {
         "e1_hard_flags": torch.any(e1_vec),
@@ -1449,13 +1493,75 @@ def create_transfers_fixpoint_deep(state, ev, timestamp, n,
                                  limit_rounds=LIMIT_FIXPOINT_ROUNDS_DEEP)
 
 
+# ================================================== commit windows
+
+def create_transfers_super(state, ev, seg, force_fallback=None,
+                           ring_reset=False):
+    """A window of prepares as ONE plain-tier run over their concatenated
+    lanes (`ledger.stack_superbatch`). Its eligibility is window-wide: a
+    cross-prepare id or pending reference falls the window back whole
+    (limit_only, for the deep window tier), with the state untouched."""
+    return create_transfers_fast(state, ev, 0, 0, force_fallback,
+                                 seg=seg, ring_reset=ring_reset)
+
+
+def create_transfers_super_deep(state, ev, seg, force_fallback=None,
+                                ring_reset=False):
+    """The window on the limit fixpoint tier at
+    LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP rounds: balance limits, closing
+    flags and in-window pending references (pend in one prepare, post or
+    void in a later one) resolve natively."""
+    return create_transfers_fast(
+        state, ev, 0, 0, force_fallback, seg=seg, ring_reset=ring_reset,
+        limit_rounds=LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP)
+
+
+_CHAIN_KEEP = ("r_status", "r_ts", "fallback", "created_count")
+
+
+def create_transfers_chain(state, ev_stack, seg_stack, force_fallback=None,
+                           ring_reset=False):
+    """W prepares stacked on a leading axis (`ledger.stack_chain_window`),
+    one plain-tier run each against the state the earlier ones left: the
+    JAX package's scan-form chain, as a Python loop. Prepare k's
+    `fallback` is prepare k + 1's force_fallback, so a fallback poisons
+    every later prepare and leaves their state untouched; the loop reads
+    no flag on the host, so the whole window is one stream of device work
+    (one CUDA graph on the card). Returns (state, outs) with r_status,
+    r_ts (W, n_pad), fallback, created_count (W,) and fb_causes {cause:
+    (W,)}.
+
+    ring_reset: the event ring is consumed from row 0 once a window (not
+    a prepare), unless force_fallback poisons the whole window."""
+    dev = state["accounts"]["u64"].device
+    poisoned = (torch.zeros((), dtype=torch.bool, device=dev)
+                if force_fallback is None else force_fallback)
+    if ring_reset:
+        count = state["events"]["count"]
+        count.copy_(torch.where(poisoned, count, 0))
+    outs = []
+    for k in range(ev_stack["id_lo"].shape[0]):
+        _, out = create_transfers_fast(
+            state, {key: v[k] for key, v in ev_stack.items()}, 0, 0,
+            force_fallback=poisoned,
+            seg={key: v[k] for key, v in seg_stack.items()})
+        poisoned = out["fallback"]
+        outs.append(out)
+    stacked = {key: torch.stack([o[key] for o in outs])
+               for key in _CHAIN_KEEP}
+    stacked["fb_causes"] = {c: torch.stack([o["fb_causes"][c] for o in outs])
+                            for c in outs[0]["fb_causes"]}
+    return state, stacked
+
+
 # ================================================== create_accounts (fast)
 
 def create_accounts_fast(state, ev, timestamp, n, imported_mode=False):
     """Vectorized create_accounts (reference :3613-3689). Eligibility: no
     imported flag (the imported tier is a later slice), no duplicate ids
-    in the batch, capacity suffices. Updates `state` in place; on
-    fallback only the dump rows are written."""
+    in the batch, capacity suffices. Updates `state` in place (its
+    tensors' storage included); on fallback only the dump rows are
+    written."""
     if imported_mode:
         raise NotImplementedError(
             "create_accounts_fast: imported_mode is a later slice of the "
@@ -1592,11 +1698,11 @@ def create_accounts_fast(state, ev, timestamp, n, imported_mode=False):
     # Masked lanes write uniform zero rows to the dump row.
     acc["u64"][arow] = torch.where(ap[:, None], u64_rows_a, 0)
     acc["bal"][arow] = 0
-    acc["count"] = (acount + torch.where(ok, n_created, 0)).to(torch.int32)
+    acc["count"].copy_(acount + torch.where(ok, n_created, 0))
     ht_write(state["acct_ht"], ht_pos, ev["id_hi"], ev["id_lo"], new_rows,
              ap)
-    state["acct_key_max"] = key_max
-    state["commit_ts"] = commit_ts
+    state["acct_key_max"].copy_(key_max)
+    state["commit_ts"].copy_(commit_ts)
 
     out = dict(
         r_status=torch.where(ok, status, 0),

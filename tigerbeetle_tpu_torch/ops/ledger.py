@@ -29,12 +29,25 @@ the mirror. No batch raises. Counters: `fallbacks` counts the batches
 the mirror served, `fallback_causes` the device tiers' causes at each
 final fallback.
 
+Commit windows (`create_transfers_window`, and pipelined:
+`submit_window` / `resolve_windows`) run W prepares in one device
+dispatch: the chain route by default (one plain-tier run a prepare, a
+fallback at prepare k committing [0, k) and replaying the rest), the flat
+`super_deep` tier for windows with closing flags, in-window pending
+references or in the limit-breach regime, and the flat `super` tier (with
+its escalation to `super_deep`) for all-or-nothing windows. On the card
+each window is one replay of a captured CUDA graph (`window_graph.py`);
+on the CPU the same functions run eagerly.
+
 Not ported here (later slices; on this path they are absent): the
 write-through mirror (`write_through`, `drain_mirror`, the fast-batch
-delta capture) and the lazy mirror containers (the oracle's own
-containers serve), the window chain (`submit_window`,
-`resolve_windows`), and the imported / balancing device tiers — such
-batches take the mirror here where the JAX package runs them natively.
+delta capture, window staging and the ring recycle) and the lazy mirror
+containers (the oracle's own containers serve), the partitioned attach
+mode, and the imported / balancing device tiers and their window tiers —
+such batches take the mirror here where the JAX package runs them
+natively, an imported window takes the per_batch route, and a balancing
+window the chain route, whose per-prepare fallback replays each
+balancing prepare on the exact path.
 
 The device is explicit: `DeviceLedger(device=None)` means CUDA and
 raises when no CUDA device is present; the tests pass `device="cpu"`.
@@ -54,6 +67,7 @@ from ..types import (
     CreateTransferResult,
     CreateTransferStatus,
     Transfer,
+    TransferFlags,
     TransferPendingStatus,
 )
 from . import u128
@@ -82,14 +96,18 @@ from .ev_layout import (
 )
 from .fast_kernels import (
     create_accounts_fast,
+    create_transfers_chain,
     create_transfers_fast,
     create_transfers_fixpoint,
     create_transfers_fixpoint_deep,
+    create_transfers_super,
+    create_transfers_super_deep,
 )
 from .fused_probe import ht_lookup_fused
 from .hash_table import ORPHAN_VAL, SLOTS, ht_init, ht_insert
 from .row_gather import row_gather_multi
 from .u64 import carrier, s64, u64
+from .window_graph import Harvest, WindowGraphs
 
 N_PAD = 8192
 assert N_PAD >= BATCH_MAX
@@ -301,6 +319,197 @@ def _host_bools(*flags) -> list:
     return [bool(x) for x in torch.stack(flags).tolist()]
 
 
+# ------------------------------------------------------------ commit windows
+
+# The packed window: every event lane, then the seg lanes, as one int64
+# lane matrix (bool lanes as 0/1; u64 as their int64 bit patterns).
+_EV_LANES = tuple(transfers_to_arrays([])) + ("valid",)
+_SEG_LANES = ("ts_event", "seg_start", "chain_term")
+_LANES = _EV_LANES + _SEG_LANES
+_BOOL_LANES = frozenset(("valid", "seg_start", "chain_term"))
+_I_VALID, _I_TS, _I_START, _I_TERM = (
+    _LANES.index(k) for k in ("valid",) + _SEG_LANES)
+
+
+def fill_window(lanes: np.ndarray, evs: list[dict], timestamps: list[int],
+                n_pad: int) -> None:
+    """Write K unpadded prepares into `lanes`, an int64 (lanes, K, n_pad)
+    array: the lane matrix of stack_chain_window's (ev, seg) and,
+    flattened to (lanes, K·n_pad), of stack_superbatch's, in one pass
+    over the inputs (the window routes write it straight into pinned host
+    memory)."""
+    assert len(evs) == len(timestamps) and evs
+    local = np.arange(n_pad, dtype=np.uint64)
+    for b, (e, ts) in enumerate(zip(evs, timestamps)):
+        n = len(e["id_lo"])
+        if n > n_pad:
+            raise ValueError(f"batch of {n} exceeds the padded shape {n_pad}")
+        row = lanes[:, b]
+        row[:, n:] = 0
+        for i, k in enumerate(_EV_LANES[:-1]):
+            a = np.asarray(e[k])
+            row[i, :n] = a.view(np.int64) if a.dtype == np.uint64 else a
+        row[_I_VALID, :n] = 1
+        row[_I_TS] = (np.uint64(ts) - np.uint64(n) + local
+                      + np.uint64(1)).view(np.int64)
+        row[[_I_START, _I_TERM], :n] = 0
+        row[_I_START, 0] = 1
+        if n:
+            row[_I_TERM, n - 1] = 1
+
+
+def unpack_window(lanes):
+    """The lane matrix on the device -> (ev, seg) of carrier tensors."""
+    out = {}
+    for i, k in enumerate(_LANES):
+        out[k] = lanes[i] != 0 if k in _BOOL_LANES else lanes[i]
+    return ({k: out[k] for k in _EV_LANES},
+            {k: out[k] for k in _SEG_LANES})
+
+
+def stack_chain_window(evs: list[dict], timestamps: list[int],
+                       n_pad: int = N_PAD):
+    """K unpadded prepares -> (K, n_pad)-stacked inputs of
+    create_transfers_chain, (ev, seg) in the JAX package's dtypes: row k
+    is prepare k padded to n_pad, its lanes given the commit timestamps
+    timestamps[k] - n_k + i + 1 (reference execute_create :3031), with
+    the seg lanes of one prepare. The lanes are fill_window's."""
+    lanes = np.empty((len(_LANES), len(evs), n_pad), dtype=np.int64)
+    fill_window(lanes, evs, timestamps, n_pad)
+    out = {}
+    for k, v in zip(_LANES, lanes):
+        if k in _BOOL_LANES:
+            out[k] = v != 0
+        elif k == "ts_event" or np.asarray(evs[0][k]).dtype == np.uint64:
+            out[k] = v.view(np.uint64)
+        else:
+            out[k] = v.astype(np.asarray(evs[0][k]).dtype)
+    return ({k: out[k] for k in _EV_LANES},
+            {k: out[k] for k in _SEG_LANES})
+
+
+def stack_superbatch(evs: list[dict], timestamps: list[int],
+                     n_pad: int = N_PAD):
+    """K unpadded prepares -> one flat superbatch: stack_chain_window's
+    lanes concatenated to K·n_pad, (ev, seg) for create_transfers_super
+    / _super_deep."""
+    ev, seg = stack_chain_window(evs, timestamps, n_pad)
+    return ({k: v.reshape(-1) for k, v in ev.items()},
+            {k: v.reshape(-1) for k, v in seg.items()})
+
+
+def _evs_pend_refs(evs: list[dict]) -> bool:
+    """Does any pending id in the window match any id in it? (Over the
+    unpadded prepares, the JAX package's pre-route.) True routes the
+    window to the deep window tier, whose fixpoint resolves in-window
+    references. Each u128 key is ranked in each of its halves over the
+    window's keys, and the two ranks (each below 2^32) pack into one
+    exact uint64 key, so the match is a 1-D set test (the JAX package's
+    row-wise np.unique over (hi, lo) pairs gives the same answer, more
+    slowly)."""
+    pid_hi = np.concatenate([np.asarray(e["pid_hi"]) for e in evs])
+    pid_lo = np.concatenate([np.asarray(e["pid_lo"]) for e in evs])
+    nz = (pid_hi != 0) | (pid_lo != 0)
+    if not nz.any():
+        return False
+    hi = np.concatenate([np.asarray(e["id_hi"]) for e in evs] + [pid_hi[nz]])
+    lo = np.concatenate([np.asarray(e["id_lo"]) for e in evs] + [pid_lo[nz]])
+    key = ((np.unique(hi, return_inverse=True)[1].astype(np.uint64) << 32)
+           | np.unique(lo, return_inverse=True)[1].astype(np.uint64))
+    n_ids = len(hi) - int(nz.sum())
+    return bool(np.isin(key[n_ids:], key[:n_ids]).any())
+
+
+def _has_flags(evs, bits: int) -> bool:
+    bit = np.uint32(bits)
+    return any((np.asarray(e["flags"]) & bit).any() for e in evs)
+
+
+def _has_closing(evs) -> bool:
+    return _has_flags(evs, TransferFlags.closing_debit
+                      | TransferFlags.closing_credit)
+
+
+def _has_balancing(evs) -> bool:
+    return _has_flags(evs, TransferFlags.balancing_debit
+                      | TransferFlags.balancing_credit)
+
+
+def _has_imported(evs) -> bool:
+    return _has_flags(evs, TransferFlags.imported)
+
+
+_WINDOW_FNS = {
+    "chain": create_transfers_chain,
+    "super": create_transfers_super,
+    "super_deep": create_transfers_super_deep,
+}
+# Outputs a window ticket keeps (the flat tiers add limit_only).
+_WINDOW_OUTS = ("r_status", "r_ts", "fallback", "created_count",
+                "fb_causes")
+
+
+def _window_call(route: str):
+    """The function a window route runs (and a CUDA graph captures):
+    unpack the lane matrix and run the route's window kernel, which
+    updates the state in place; returns its outputs."""
+    fn = _WINDOW_FNS[route]
+
+    def call(state, lanes, force_fallback):
+        ev, seg = unpack_window(lanes)
+        return fn(state, ev, seg, force_fallback)[1]
+
+    return call
+
+
+def _window_results(st, ts, ns, n_pad) -> list:
+    """Flat (or stacked) window statuses and timestamps -> one (status
+    uint32, timestamp uint64) pair a prepare."""
+    st = st.reshape(-1)
+    ts = ts.reshape(-1)
+    return [(st[b * n_pad:b * n_pad + n].astype(np.uint32),
+             ts[b * n_pad:b * n_pad + n].view(np.uint64).copy())
+            for b, n in enumerate(ns)]
+
+
+class WindowTicket:
+    """One pipelined window in flight: dispatched, its outputs being
+    copied to the host, nothing synced. resolve_windows() recovers, in
+    submission order, exactly the synchronous path's results, or replays
+    the poisoned suffix after a fallback (a poisoned window left the
+    state untouched)."""
+
+    __slots__ = ("evs", "tss", "ns", "n_pad", "route", "deep", "poison",
+                 "outs", "harvest", "results")
+
+    def __init__(self, evs, tss, ns, n_pad, route, deep, poison, outs):
+        self.evs = evs
+        self.tss = tss
+        self.ns = ns
+        self.n_pad = n_pad
+        # "chain" (per-prepare outputs) or "super_deep" (window-wide).
+        self.route = route
+        self.deep = deep
+        # The device flag the next in-flight window takes as
+        # force_fallback: the chain's last prepare's fallback (poisoning
+        # is transitive, so it is "any prepare fell back"), the flat
+        # tier's window flag.
+        self.poison = poison
+        self.outs = outs
+        self.harvest = None
+        self.results = None  # ("ok" | "redo", [(status, ts), ...])
+
+    def start_harvest(self) -> None:
+        """Start the non-blocking copies of the ticket's outputs into
+        pinned host buffers (idempotent). submit_window calls it right
+        after the dispatch: on the card the outputs are a graph's, and the
+        next replay of that graph overwrites them, so they are copied out
+        in stream order before it."""
+        if self.harvest is None:
+            self.harvest = Harvest(self.outs, _WINDOW_OUTS)
+            self.outs = None
+
+
 class DeviceLedger:
     """The device ledger state plus the batch entry points."""
 
@@ -347,10 +556,22 @@ class DeviceLedger:
         self._acct_row: dict[int, int] = {}
         self._xfer_row: dict[int, int] = {}
         self._events_seen_abs = 0
+        # Commit windows: windows per route, the per-cause prepares that
+        # fell out of a chain window, the last route and its latency
+        # class, windows that fell back; the pipelined windows in flight;
+        # the window graphs (on the card) and their counters.
+        self.window_routes: dict = {}
+        self.chain_batch_fallbacks: dict = {}
+        self.last_window_route: str | None = None
+        self.last_window_tier: str | None = None
+        self.window_fallbacks = 0
+        self._tickets: list[WindowTicket] = []
+        self.windows = WindowGraphs(self.device)
 
     # ------------------------------------------------------------- fast path
 
     def create_accounts(self, accounts: list[Account], timestamp: int):
+        self.resolve_windows()  # pipeline ordering
         if self._mirror_route():
             self.fallbacks += 1
             results = self.mirror.create_accounts(accounts, timestamp)
@@ -403,6 +624,7 @@ class DeviceLedger:
         next tier reruns the same batch, and the mirror the batch the
         last tier gave up. With raw=True the results are (status uint32,
         timestamp uint64) arrays on every route."""
+        self.resolve_windows()  # pipeline ordering
         if self._mirror_route():
             self.fallbacks += 1
             if transfers is None:
@@ -481,6 +703,7 @@ class DeviceLedger:
     def _gather_rows(self, table_key: str, store: dict, ids: list[int]):
         """Device-side id->row probe + one row gather launch for all the
         store's matrices: only the queried rows cross to the host."""
+        self.resolve_windows()  # pipeline ordering
         hi, lo = u128.from_ints(ids)
         found, rows = ht_lookup_fused(
             self.state[table_key],
@@ -537,6 +760,7 @@ class DeviceLedger:
         sliced to its live rows on the device before it crosses to the
         host. Also records the id -> device row maps the mirror regime
         pushes its deltas by."""
+        self.resolve_windows()  # pipeline ordering
         self._acct_row = {}
         self._xfer_row = {}
         sm = StateMachineOracle()
@@ -648,7 +872,10 @@ class DeviceLedger:
         """Rebuild the device state from a host oracle state. Both stores
         pack in applied-timestamp order, the canonical row order the state
         digest indexes; the hash tables are rebuilt by the JAX package's
-        insert sequence (ids in row order, then the orphans sorted)."""
+        insert sequence (ids in row order, then the orphans sorted).
+        The new state's storage drops the window graphs at the next
+        window (`WindowGraphs.check_state`)."""
+        self.resolve_windows()  # pipeline ordering
         accounts = sorted(sm.accounts.values(), key=lambda a: a.timestamp)
         transfers = [sm.transfers[t]
                      for t in sm.transfer_by_timestamp.values()]
@@ -896,6 +1123,235 @@ class DeviceLedger:
 
         self._set_scalars(sm)
 
+    # ------------------------------------------------------------- windows
+
+    def _pack(self, route: str, evs, timestamps, n_pad: int):
+        """The window's lane matrix on the device (the chain route's
+        stacked (lanes, K, n_pad), the flat tiers' (lanes, K·n_pad): the
+        same bytes)."""
+        K = len(evs)
+        shape = ((len(_LANES), K, n_pad) if route == "chain"
+                 else (len(_LANES), K * n_pad))
+        self.windows.check_state(self.state)
+        return self.windows.put(shape, lambda out: fill_window(
+            out.reshape(len(_LANES), K, n_pad), evs, timestamps, n_pad))
+
+    def _dispatch(self, route: str, lanes, n_pad: int, poison=None):
+        """One window on `route`: eagerly, or one replay of its graph on
+        the card. Returns the route's outputs."""
+        key = (route, lanes.shape[1] if route == "chain"
+               else lanes.shape[1] // n_pad, n_pad)
+        return self.windows.run(key, _window_call(route), self.state, lanes,
+                                poison)
+
+    def _count_route(self, route: str) -> None:
+        """One window dispatched via `route`; its latency class: scan (the
+        chain), fallback (per batch) or flat (a super tier)."""
+        self.window_routes[route] = self.window_routes.get(route, 0) + 1
+        self.last_window_route = route
+        self.last_window_tier = ("scan" if route == "chain" else
+                                 "fallback" if route == "per_batch"
+                                 else "flat")
+
+    def _note_chain_fb(self, out, k: int) -> None:
+        """Count the causes of the chain's fallback at prepare k (the first
+        one; later prepares carry only 'forced', the poison)."""
+        for cause, v in out["fb_causes"].items():
+            if v[k]:
+                self.fallback_causes[cause] = (
+                    self.fallback_causes.get(cause, 0) + 1)
+                self.chain_batch_fallbacks[cause] = (
+                    self.chain_batch_fallbacks.get(cause, 0) + 1)
+
+    def _resolve_chain_prefix(self, out, ns) -> tuple:
+        """A chain window's clean prefix from its harvested outputs:
+        (k, results), k the first prepare that fell back (W when none).
+        Prepares [0, k) committed on the device; the counters move here,
+        and replaying prepare k onward is the caller's."""
+        W = len(ns)
+        fb = out["fallback"]
+        k = int(np.argmax(fb)) if fb.any() else W
+        results = _window_results(out["r_status"][:k], out["r_ts"][:k],
+                                  ns[:k], out["r_status"].shape[1])
+        if k:
+            self.fast_batches += k
+            self._probe_succeeded()
+        if k < W:
+            self.window_fallbacks += 1
+            self._note_chain_fb(out, k)
+        return k, results
+
+    def _window_plan(self, evs):
+        """The route of a pipelined window, or None (the synchronous path
+        takes it): None for one prepare, in the mirror regime or with an
+        imported flag; super_deep for closing flags, in-window pending
+        references or the limit-breach regime; else the chain. The port
+        has no balancing window tier: a balancing window takes the chain,
+        whose per-prepare fallback replays each balancing prepare on the
+        exact path."""
+        if not (len(evs) > 1 and not self._mirror_route()):
+            return None
+        if _has_imported(evs):
+            return None
+        deep = not _has_balancing(evs) and (
+            self._fixpoint_first or _has_closing(evs)
+            or _evs_pend_refs(evs))
+        return ("super_deep" if deep else "chain",
+                _pad_bucket(max(len(e["id_lo"]) for e in evs)))
+
+    def submit_window(self, evs: list[dict], timestamps: list[int]):
+        """Pipelined commit window: dispatch it with no host sync, the
+        previous in-flight window's fallback flag as its force_fallback,
+        so a fallback anywhere poisons every later window in flight and
+        commit order survives without waiting. Returns a WindowTicket, or
+        None when the window is not eligible (the caller resolves and
+        takes create_transfers_window). Results and counters materialize
+        at resolve_windows()."""
+        plan = self._window_plan(evs)
+        if plan is None:
+            return None
+        route, n_pad = plan
+        prev = self._tickets[-1].poison if self._tickets else None
+        lanes = self._pack(route, evs, timestamps, n_pad)
+        outs = self._dispatch(route, lanes, n_pad, poison=prev)
+        self._count_route(route)
+        fb = outs["fallback"]
+        tk = WindowTicket(evs, timestamps, [len(e["id_lo"]) for e in evs],
+                          n_pad, route, route == "super_deep",
+                          (fb[-1] if route == "chain" else fb).clone(), outs)
+        tk.start_harvest()
+        self._tickets.append(tk)
+        return tk
+
+    def resolve_windows(self, count: int | None = None) -> None:
+        """Resolve in-flight windows in submission order: all of them, or
+        the oldest `count`. A chain window falls back per prepare: its
+        clean prefix stands, and the prepare that fell back and the
+        poisoned rest replay through create_transfers_window. A flat
+        window falls back whole and replays. Either way every later
+        window in flight was poisoned and replays too, in order, so a
+        redo consumes the whole pipeline."""
+        if not self._tickets:
+            return
+        if count is None:
+            tickets, self._tickets = self._tickets, []
+        else:
+            tickets = self._tickets[:count]
+            del self._tickets[:count]
+        redo = False
+        i = 0
+        while i < len(tickets):
+            tk = tickets[i]
+            i += 1
+            if redo:
+                tk.results = ("redo",
+                              self.create_transfers_window(tk.evs, tk.tss))
+                continue
+            out = tk.harvest.get()
+            if tk.route == "chain":
+                k, results = self._resolve_chain_prefix(out, tk.ns)
+                if k == len(tk.evs):
+                    tk.results = ("ok", results)
+                    continue
+                redo = True
+                tickets.extend(self._tickets)
+                self._tickets = []
+                results.extend(self.create_transfers_window(tk.evs[k:],
+                                                            tk.tss[k:]))
+                tk.results = ("redo", results)
+                continue
+            if out["fallback"]:
+                redo = True
+                self._note_fb(out)
+                tickets.extend(self._tickets)
+                self._tickets = []
+                tk.results = ("redo",
+                              self.create_transfers_window(tk.evs, tk.tss))
+                continue
+            if tk.deep:
+                self.deep_fixpoint_batches += len(tk.evs)
+            self.fast_batches += len(tk.evs)
+            self._probe_succeeded()
+            tk.results = ("ok", _window_results(out["r_status"], out["r_ts"],
+                                                tk.ns, tk.n_pad))
+
+    def create_transfers_window(self, evs: list[dict],
+                                timestamps: list[int],
+                                all_or_nothing: bool = False):
+        """K prepares (unpadded SoA dicts) in ONE device dispatch. Returns
+        one (status uint32, timestamp uint64) pair a prepare.
+
+        The default route is the chain: each prepare runs against the
+        state the earlier ones left, and a prepare that falls back does
+        so alone: the clean prefix stays committed, that prepare replays
+        per batch (the ladder and the exact path) and the rest re-windows.
+        Windows with closing flags, in-window pending references or in
+        the limit-breach regime take the flat super_deep tier, which falls
+        back whole with the state untouched, and then run per batch.
+        all_or_nothing=True (a replica's commit): always a flat tier
+        (super, escalating to super_deep when limit_only), and on a
+        fallback None with nothing applied. Imported windows run per
+        batch (None when all_or_nothing), as do balancing windows that
+        must be all or nothing: the port has no imported or balancing
+        window tier yet."""
+        self.resolve_windows()  # pipeline ordering
+        assert len(evs) == len(timestamps) and evs
+        ns = [len(e["id_lo"]) for e in evs]
+        W = len(evs)
+        if W > 1 and not self._mirror_route():
+            n_pad = _pad_bucket(max(ns))
+            imported = _has_imported(evs)
+            balancing = not imported and _has_balancing(evs)
+            deep_first = (not imported and not balancing
+                          and (self._fixpoint_first or _has_closing(evs)
+                               or _evs_pend_refs(evs)))
+            if all_or_nothing and (imported or balancing):
+                self.window_fallbacks += 1
+                return None
+            if not imported and not all_or_nothing and not deep_first:
+                lanes = self._pack("chain", evs, timestamps, n_pad)
+                outs = self._dispatch("chain", lanes, n_pad)
+                self._count_route("chain")
+                out = Harvest(outs, _WINDOW_OUTS).get()
+                k, results = self._resolve_chain_prefix(out, ns)
+                if k == W:
+                    return results
+                results.append(
+                    self.create_transfers_soa(evs[k], timestamps[k]))
+                if k + 1 < W:
+                    results.extend(self.create_transfers_window(
+                        evs[k + 1:], timestamps[k + 1:]))
+                return results
+            if not imported:
+                lanes = self._pack("super", evs, timestamps, n_pad)
+                if deep_first:
+                    self._count_route("super_deep")
+                    outs = self._dispatch("super_deep", lanes, n_pad)
+                    self.deep_fixpoint_batches += W
+                else:
+                    self._count_route("super")
+                    outs = self._dispatch("super", lanes, n_pad)
+                    if all(_host_bools(outs["fallback"],
+                                       outs["limit_only"])):
+                        # Limits or in-window pendings were the only
+                        # obstacle: the deep window tier resolves them
+                        # (the state is untouched).
+                        outs = self._dispatch("super_deep", lanes, n_pad)
+                        self.deep_fixpoint_batches += W
+                out = Harvest(outs, _WINDOW_OUTS).get()
+                if not out["fallback"]:
+                    self.fast_batches += W
+                    self._probe_succeeded()
+                    return _window_results(out["r_status"], out["r_ts"],
+                                           ns, n_pad)
+                self.window_fallbacks += 1
+                self._note_fb(out)
+        if all_or_nothing:
+            return None
+        self._count_route("per_batch")
+        return [self.create_transfers_soa(ev, ts)
+                for ev, ts in zip(evs, timestamps)]
+
     # ------------------------------------------------------------- pulse
 
     def pulse_needed(self, timestamp: int) -> bool:
@@ -904,6 +1360,7 @@ class DeviceLedger:
     def expire_pending_transfers(self, timestamp: int) -> int:
         """Expiry runs on the exact host path (rare, pulse-driven),
         through the mirror regime like a hard batch."""
+        self.resolve_windows()  # pipeline ordering
         sm = self.mirror if self.mirror is not None else self._enter_mirror()
         n = sm.expire_pending_transfers(timestamp)
         self._push_dirty()

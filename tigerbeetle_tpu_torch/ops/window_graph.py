@@ -1,0 +1,183 @@
+"""Commit windows as captured CUDA graphs.
+
+A window route of the ledger (`ledger.DeviceLedger.create_transfers_window`
+/ `submit_window`) runs one function over the ledger state and a packed
+window: thousands of small device ops a window, each of which PyTorch
+issues from the host one at a time when run eagerly. On CUDA tensors this
+module runs the window as ONE replay of a `torch.cuda.CUDAGraph` captured
+from that function, one graph a key (route, W, n_pad):
+
+  - the first window of a key runs eagerly: PyTorch's pre-capture warm-up,
+    which also builds and loads the CUDA kernels outside any capture;
+  - the second is captured (capture records and runs nothing) and the
+    graph is replayed once, so no window is applied twice;
+  - every later one is a replay.
+
+On the CPU every window runs eagerly: the same function, the same inputs.
+No switch chooses between the two; the device of the state does.
+
+What a replay relies on:
+  - inputs: the packed window (one int64 lane matrix, written straight
+    into pinned host memory) goes into a static device buffer, one a
+    shape, with one non-blocking copy a window (`put`); the previous
+    window's poison flag is copied device to device into the static
+    force_fallback buffer, so reading it takes no host sync;
+  - state: the tiers write every state tensor in place, so a window leaves
+    each tensor's storage where it was. A storage that moved (a state
+    rebuilt by `from_host`, one assigned from outside) changes the
+    state's pointer signature, and the next window drops every graph
+    (`drops` counts it) and starts over with an eager window;
+  - outputs: they live in the graph's memory pool, and the next replay of
+    the same graph overwrites them; `Harvest` copies them out in stream
+    order right after the dispatch;
+  - no host sync in the function: an op that is illegal under capture
+    raises out of the capture (capture_error_mode "global"); nothing
+    catches it and carries on eagerly.
+
+Counters a key: `eager`, `captures` and `replays` (the replay right after
+a capture included). The kernel wrappers' LAUNCHES move at eager windows
+and at captures only, so a kernel's launches on a window path are its
+wrapper count plus (replays - captures) times its launches a window.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensors(tree[k])
+    else:
+        yield tree
+
+
+def state_signature(state: dict) -> tuple:
+    """The storage of every state tensor: what a captured graph reads and
+    writes."""
+    return tuple(t.data_ptr() for t in _tensors(state))
+
+
+class Harvest:
+    """A dispatch's outputs ({name: tensor, "fb_causes": {cause:
+    tensor}}) copied out in stream order right after the dispatch:
+    non-blocking into pinned host buffers on the card (with an event
+    behind them), kept as they are on the CPU. `get()` waits for the
+    copies and returns numpy arrays."""
+
+    __slots__ = ("_host", "_event")
+
+    def __init__(self, outs: dict, names):
+        self._host = {}
+        self._event = None
+        cuda = False
+        for k in names:
+            for sub, v in (outs[k].items() if isinstance(outs[k], dict)
+                           else ((None, outs[k]),)):
+                if v.device.type == "cuda":
+                    cuda = True
+                    h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    h.copy_(v, non_blocking=True)
+                else:
+                    h = v
+                self._host[(k, sub)] = h
+        if cuda:
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def get(self) -> dict:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        out = {}
+        for (k, sub), h in self._host.items():
+            a = h.numpy()
+            if sub is None:
+                out[k] = a
+            else:
+                out.setdefault(k, {})[sub] = a
+        return out
+
+
+class WindowGraphs:
+    """A ledger's window graphs, static buffers and counters."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._graphs: dict = {}     # key -> (graph, static outputs)
+        self._seen: set = set()     # keys whose eager window ran
+        self._inputs: dict = {}     # lane-matrix shape -> static buffer
+        self._ff = torch.zeros((), dtype=torch.bool, device=device)
+        self._sig = None
+        self.eager: dict = {}
+        self.captures: dict = {}
+        self.replays: dict = {}
+        self.drops = 0
+
+    def drop(self) -> None:
+        """Forget every graph (a state storage moved)."""
+        self._graphs.clear()
+        self._seen.clear()
+        self.drops += 1
+
+    def check_state(self, state: dict) -> None:
+        sig = state_signature(state)
+        if self._sig is not None and sig != self._sig:
+            self.drop()
+        self._sig = sig
+
+    def put(self, shape: tuple, fill) -> torch.Tensor:
+        """The packed window on the device: `fill(array)` writes the int64
+        lane matrix of `shape` into host memory (pinned on the card), and
+        on the card one non-blocking copy moves it into the static buffer
+        of its shape."""
+        if not self.cuda:
+            lanes = np.empty(shape, dtype=np.int64)
+            fill(lanes)
+            return torch.from_numpy(lanes)
+        host = torch.empty(shape, dtype=torch.int64, pin_memory=True)
+        fill(host.numpy())
+        buf = self._inputs.get(shape)
+        if buf is None:
+            buf = torch.empty(shape, dtype=torch.int64, device=self.device)
+            self._inputs[shape] = buf
+        buf.copy_(host, non_blocking=True)
+        return buf
+
+    def run(self, key, call, state: dict, lanes: torch.Tensor, poison=None):
+        """call(state, lanes, force_fallback) for one window: eagerly on
+        the CPU and for a key's first window, captured and replayed once
+        for its second, replayed after that. `lanes` comes from `put`;
+        `poison` is the previous window's device fallback flag (None:
+        none). Returns the call's outputs (on the card, the graph's: copy
+        them out before the next replay of this key)."""
+        if not self.cuda:
+            ff = (torch.zeros((), dtype=torch.bool) if poison is None
+                  else poison)
+            self.eager[key] = self.eager.get(key, 0) + 1
+            return call(state, lanes, ff)
+        if poison is None:
+            self._ff.fill_(False)
+        else:
+            self._ff.copy_(poison)
+        hit = self._graphs.get(key)
+        if hit is not None:
+            graph, outs = hit
+            graph.replay()
+            self.replays[key] = self.replays.get(key, 0) + 1
+            return outs
+        if key not in self._seen:
+            self._seen.add(key)
+            self.eager[key] = self.eager.get(key, 0) + 1
+            return call(state, lanes, self._ff)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = call(state, lanes, self._ff)
+        self._graphs[key] = (graph, outs)
+        self.captures[key] = self.captures.get(key, 0) + 1
+        graph.replay()
+        self.replays[key] = self.replays.get(key, 0) + 1
+        return outs
