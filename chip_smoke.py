@@ -8,10 +8,10 @@ Drives the port's main paths — create_accounts and create_transfers on a
 config 2), through the limit fixpoint tiers and their escalation ladder
 (BASELINE config 4), through the exact path (the host-mirror regime) and
 through the commit-window routes (config 2 and config 4 as windows, each
-a replayed CUDA graph), and `run_create_*` through the sequential
-kernel — at the ledger's
-default capacities, and holds its three CUDA kernels against their plain
-PyTorch twins. Phases, each failing the run with a nonzero exit:
+a replayed CUDA graph), through the imported and balancing tiers (per
+batch and as windows), and `run_create_*` through the sequential
+kernel — at the ledger's default capacities, and holds its three CUDA
+kernels against their plain PyTorch twins. Phases, each failing the run with a nonzero exit:
 
   1. device   a CUDA card is present; its name and power limit are
               printed as nvidia-smi gives them;
@@ -62,8 +62,8 @@ PyTorch twins. Phases, each failing the run with a nonzero exit:
   7. exact    the exact path on a ledger on the card beside one on the
               CPU and the port's oracle: 10,000 accounts, 8 config-2
               batches, then a batch of each kind no device tier runs
-              (config 2 with balancing flags, accounts with a repeated
-              id, the pair-sum overflow, 8,190 pendings with a 1 s
+              (config 2 imported with a linked pair, accounts with a
+              repeated id, the pair-sum overflow, 8,190 pendings with a 1 s
               timeout and their expiry, the 40-wave limit cascade as the
               mirror's probe) and the config-2 batches over which the
               probe returns the ledger to its device tiers; after every
@@ -91,15 +91,33 @@ PyTorch twins. Phases, each failing the run with a nonzero exit:
  10. config-4 windows  windows of 4 pend/post-void pairs on the
               super_deep route, two deep: 2 checked against the CPU, 4
               timed, one profiled;
- 11. window fallbacks  a chain window with a balancing prepare (prefix
-              commits, that prepare per batch, the rest re-windowed) and
+ 11. window fallbacks  a window with a balancing prepare (on
+              super_balancing, the JAX ledger's route for it) and
               a pipelined window that falls back and poisons its
-              successor, each against a CPU ledger and the port's oracle.
+              successor, each against a CPU ledger and the port's oracle;
+ 12. imported  an imported migration beside a CPU ledger and the port's
+              oracle: 10,000 accounts imported at their user timestamps,
+              8,190-event imported batches (1 in 64 a pending posted in a
+              later batch) on the imported tier, one with regress lanes,
+              a lane at key_max, an account-timestamp collision and a
+              closing_debit pending (escalating to the imported fixpoint
+              tier); timed batches, one profiled; windows of 8 prepares
+              on super_imported (2 checked, 3 timed, one profiled); an
+              imported batch with a linked pair, on the exact path;
+ 13. balancing  config 4's accounts and pairs with 1 pend event in 8 a
+              balancing_debit or _credit above the headroom, up the
+              balancing ladder (8, then 32 rounds), beside a CPU ledger
+              and the oracle; timed pairs, one pend batch profiled;
+              windows of 8 prepares on super_balancing (24 rounds), two
+              deep (2 checked, 3 timed, one profiled).
+The window phases print the memory the caching allocator holds after
+each graph capture.
 
 Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"exact_path": ...}`, `{"config2_window": ...}`,
-`{"config4_window": ...}`, `{"window_fallbacks": ...}` and
-`{"kernels": [...]}` lines, and last `{"ok": true, "device": {...}}`.
+`{"config4_window": ...}`, `{"window_fallbacks": ...}`,
+`{"imported": ...}`, `{"balancing": ...}` and `{"kernels": [...]}`
+lines, and last `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
 """
 
@@ -136,11 +154,9 @@ ROW_KEY_BYTES = 16 * 8      # the key_hi and key_lo halves of a bucket row
 SECTOR_BYTES = 32           # the least a read from HBM moves
 U128_MAX = (1 << 128) - 1
 
-# The exact path: setup batches before the first hard batch, one event in
-# X_BAL_EVERY balancing in its balancing batch, and the waves of its
-# limit cascade (more than the 32-round tier resolves).
+# The exact path: setup batches before the first hard batch, and the
+# waves of its limit cascade (more than the 32-round tier resolves).
 X_SETUP_BATCHES = 8
-X_BAL_EVERY = 16
 X_CASCADE_CHAINS = 40
 # The sequential kernel: events of each batch held against the plain
 # twin, and the full-width batches (config 3 and a config-4 pair).
@@ -168,9 +184,15 @@ C4_JAX_COUNTERS = (13, 12, 8, 10, 0)
 #     account-role gather (balances and meta in one launch), the balance
 #     base of the application, the insert plan's bucket rows;
 #   a fixpoint tier (8 or 32 rounds): the same plus the in-window
-#     pending view (the application reuses the rounds' balance base).
-PROBES_PER_RUN = {"accounts": 1, "plain": 1, "fixpoint": 1}
-GATHERS_PER_RUN = {"accounts": 2, "plain": 4, "fixpoint": 5}
+#     pending view (the application reuses the rounds' balance base);
+#   an imported tier, plain or fixpoint (8 or 32 rounds): the plain
+#     tier's four (no in-window pending join, so no view); imported
+#     accounts run create_accounts_fast's two;
+#   a balancing tier (8 or 32 rounds): the fixpoint tier's five.
+PROBES_PER_RUN = {"accounts": 1, "plain": 1, "fixpoint": 1, "imported": 1,
+                  "balancing": 1}
+GATHERS_PER_RUN = {"accounts": 2, "plain": 4, "fixpoint": 5, "imported": 4,
+                   "balancing": 5}
 
 # Commit windows (the JAX package's benchmark.py): config 2 as chain
 # windows of SUPERBATCH_MAX prepares (:111, :125-189), config 4 as
@@ -191,6 +213,33 @@ FB_W = 4
 # window of 8 prepares is 65,536 lanes, so the probe takes 2 x 65,536
 # keys a table and the account-role gather 4 x 65,536 rows.
 WINDOW_LANES = C4_W_PAIRS * 2 * 8192
+
+# Imported migration (the JAX package's tests/test_imported_fast.py at
+# full width): 10,000 accounts imported at user timestamps from
+# IMP_A_TS0, then 8,190-event imported batches, 1 event in
+# IMP_PEND_EVERY a pending whose imported post comes in a later batch:
+# IMP_CHECKED batches against a CPU ledger and the oracle (the last with
+# the regress, key_max, collision and closing lanes), IMP_TIMED timed,
+# then windows of IMP_W prepares on super_imported (IMP_W_CHECKED
+# checked, IMP_W_TIMED timed).
+IMP_A_TS0 = 10**6
+IMP_PEND_EVERY = 64
+IMP_CHECKED = 3
+IMP_TIMED = 8
+IMP_W = 8
+IMP_W_CHECKED = 2
+IMP_W_TIMED = 3
+# Balancing: config 4's accounts and pairs, 1 pend event in BAL_EVERY a
+# balancing_debit or balancing_credit of BAL_AMOUNT, above any headroom
+# the pairs build; BAL_CHECKED pairs checked, BAL_TIMED timed, then
+# windows of BAL_W_PAIRS pairs on super_balancing, two deep.
+BAL_EVERY = 8
+BAL_AMOUNT = 10**9
+BAL_CHECKED = 3
+BAL_TIMED = 4
+BAL_W_PAIRS = 4
+BAL_W_CHECKED = 2
+BAL_W_TIMED = 3
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -440,8 +489,9 @@ def exact_path_plan(Account, Transfer, AccountFlags, TransferFlags, rng,
     steps, op one of "accounts", "transfers" (events as SoA) or "expire"
     (events None), hard for the steps of the hard sequence. n_accounts accounts and setup_batches uniform batches; then a
     batch of each hard kind, in the host-mirror regime the first one
-    opens: uniform traffic with one event in X_BAL_EVERY balancing
-    (debit and credit by turns); new accounts with one id repeated (the
+    opens: uniform traffic imported at ascending user timestamps with
+    one linked pair (an imported batch with a chain: the imported tiers
+    fall back, as the JAX package's do); new accounts with one id repeated (the
     cascade's and the overflow's accounts among them); the cascade's
     funding; the pair-sum overflow of the JAX package's
     tests/test_fast_path.py (pend 2^127, post it, pend 2^127 - 10, then
@@ -487,11 +537,10 @@ def exact_path_plan(Account, Transfer, AccountFlags, TransferFlags, rng,
         add(f"setup {b}", "transfers", uniform(batch), batch + 1000)
 
     ev = uniform(batch)
-    k = np.arange(batch) % X_BAL_EVERY == 0
-    ev["flags"][k] = np.where(np.arange(k.sum()) % 2 == 0,
-                              int(TF.balancing_debit),
-                              int(TF.balancing_credit))
-    add("balancing", "transfers", ev, batch + 1000, hard=True)
+    ev["flags"][:] = int(TF.imported)
+    ev["flags"][10] |= int(TF.linked)
+    ev["ts"] = np.arange(ts + 1, ts + 1 + batch, dtype=np.uint64)
+    add("imported chain", "transfers", ev, batch + 1000, hard=True)
 
     c_acc, c_funds, c_events = cascade_steps(
         Account, Transfer, AccountFlags, TF, k_chains=X_CASCADE_CHAINS)
@@ -1930,7 +1979,8 @@ def window_launches(route: str, W: int) -> tuple:
     on a flat tier."""
     if route == "chain":
         return PROBES_PER_RUN["plain"] * W, GATHERS_PER_RUN["plain"] * W
-    kind = "fixpoint" if route == "super_deep" else "plain"
+    kind = {"super_deep": "fixpoint", "super_imported": "imported",
+            "super_balancing": "balancing"}.get(route, "plain")
     return PROBES_PER_RUN[kind], GATHERS_PER_RUN[kind]
 
 
@@ -2208,6 +2258,7 @@ def config2_window_phase(dev, n_accounts: int = N_ACCOUNTS,
           f"{card.windows.captures}, replays {card.windows.replays})",
           flush=True)
     graphs = [graph_launches(card.windows)]
+    memory = graph_memory(card)
     # The CPU reference's plain-twin calls (a rehearsal on the CPU counts
     # them beside the card ledger's).
     ref_calls = tuple(graph_launches(ref.windows)[0][i]
@@ -2317,6 +2368,7 @@ def config2_window_phase(dev, n_accounts: int = N_ACCOUNTS,
         trace_probes=trace["probes"], trace_gathers=trace["gathers"],
         breakdown=parts,
         launches_counted=wrap, launches_ran=ran, cpu_ref_calls=ref_calls,
+        reserved_at_capture={**memory, **graph_memory(G)},
         checked_s=checked_s, elapsed_s=time.perf_counter() - t0)
     print(f"config-2 windows of {w_timed}: {timed_windows} windows (two "
           f"deep) in {g_elapsed:.4f} s = {numbers['transfers_per_s']:.0f} "
@@ -2329,7 +2381,9 @@ def config2_window_phase(dev, n_accounts: int = N_ACCOUNTS,
           f"ms; idle share {numbers['idle_share']}; launches counted {wrap}"
           f", run {ran}; a window's host steps (ms) {parts['host_ms']}, "
           f"its replay's span on the card {parts['replay_spans_ms']} ms, "
-          f"issue (ms) {parts.get('issue_ms')}", flush=True)
+          f"issue (ms) {parts.get('issue_ms')}; memory reserved before and "
+          f"after each capture {numbers['reserved_at_capture']}",
+          flush=True)
     return numbers
 
 
@@ -2431,6 +2485,7 @@ def config4_window_phase(dev, batch: int = BATCH, pairs: int = C4_W_PAIRS,
         graphs=dict(eager=len(card.windows.eager),
                     captures=sum(card.windows.captures.values()),
                     replays=sum(card.windows.replays.values())),
+        reserved_at_capture=graph_memory(card),
         checked_s=checked_s, elapsed_total_s=time.perf_counter() - t0)
     print(f"config-4 windows of {2 * pairs}: {n_timed} windows (two deep) "
           f"in {elapsed:.4f} s = {window_ms:.3f} ms/window, "
@@ -2439,7 +2494,8 @@ def config4_window_phase(dev, batch: int = BATCH, pairs: int = C4_W_PAIRS,
           f"{numbers['idle_share']}; launches counted {counted}, run {ran}; "
           f"a window's host steps (ms) {parts['host_ms']}, its replay's "
           f"span on the card {parts['replay_spans_ms']} ms, issue (ms) "
-          f"{parts.get('issue_ms')}", flush=True)
+          f"{parts.get('issue_ms')}; memory reserved before and after each "
+          f"capture {numbers['reserved_at_capture']}", flush=True)
     return numbers
 
 
@@ -2449,10 +2505,9 @@ def window_fallback_phase(dev, n_accounts: int = N_ACCOUNTS,
     """The window fallbacks, each on a fresh ledger on `dev` beside one on
     the CPU and the port's oracle fed the same prepares:
 
-      balancing  a chain window whose prepare 1 carries a balancing_credit
-                 lane: prepare 0 commits, prepare 1 replays per batch on
-                 the exact path, and the rest re-windows (in the mirror
-                 regime that prepare 1 opened: per batch);
+      balancing  a window whose prepare 1 carries a balancing_credit
+                 lane: the JAX ledger's route, its balancing window tier
+                 (super_balancing), takes it whole on the device;
       poisoned   two windows in flight, the first with a repeated id in
                  its prepare 2: the chain commits prepares 0-1, prepare 2
                  replays per batch and the rest re-windows, and the
@@ -2503,14 +2558,12 @@ def window_fallback_phase(dev, n_accounts: int = N_ACCOUNTS,
     compare_windows("balancing window", card, ref, got, want)
     compare_windows("balancing window (oracle)", card, card, got,
                     oracle(sm, [(evs, tss)])[0])
-    check(card.window_routes == {"chain": 1, "per_batch": 1}
-          and card.chain_batch_fallbacks == {"e1_hard_flags": 1}
-          and card.fallbacks == depth - 1,
+    check(card.window_routes == {"super_balancing": 1}
+          and card.window_fallbacks == 0 and card.fallbacks == 0,
           f"balancing window: counters {route_counters(card)}")
     out["balancing"] = route_counters(card)[:5]
-    print(f"balancing window: prepare 0 on the chain, prepare 1 per batch, "
-          f"the rest re-windowed; counters {route_counters(card)}",
-          flush=True)
+    print(f"balancing window: on super_balancing whole; counters "
+          f"{route_counters(card)}", flush=True)
 
     card, ref, sm = trio()
     windows = [window(), window()]
@@ -2532,6 +2585,651 @@ def window_fallback_phase(dev, n_accounts: int = N_ACCOUNTS,
           f"second replays; counters {route_counters(card)}; both cases in "
           f"{out['elapsed_s']:.1f} s", flush=True)
     return out
+
+
+class ImportedFeed:
+    """An imported migration's traffic: accounts 1..n_accounts imported
+    at user timestamps IMP_A_TS0 + id, then uniform batches imported at
+    strictly ascending user timestamps, each batch's between the last
+    prepare timestamp and its own. 1 event in IMP_PEND_EVERY is an
+    imported pending; a batch made with post=True first posts (imported,
+    the whole amount) the pendings not posted yet."""
+
+    def __init__(self, rng, n_accounts: int, batch: int, TF):
+        self.rng = rng
+        self.n_accounts = n_accounts
+        self.batch = batch
+        self.TF = TF
+        self.next_id = 10**7
+        self.ts = 10**12     # the last prepare timestamp
+        self.pool = []       # pendings not posted yet
+
+    def accounts(self, Account, AccountFlags):
+        imp = int(AccountFlags.imported)
+        return [Account(id=i, ledger=1, code=1, flags=imp,
+                        timestamp=IMP_A_TS0 + i)
+                for i in range(1, self.n_accounts + 1)]
+
+    def next_batch(self, post: bool = True):
+        """(SoA events, prepare timestamp) of the next batch."""
+        TF, n = self.TF, self.batch
+        ev = uniform_batch(self.rng, self.next_id, n, self.n_accounts)
+        self.next_id += n
+        lane = np.arange(n)
+        pend = lane % IMP_PEND_EVERY == IMP_PEND_EVERY - 1
+        ev["flags"][:] = int(TF.imported)
+        ev["flags"][pend] |= int(TF.pending)
+        posts = self.pool[:n // 2] if post else []
+        k = len(posts)
+        if k:
+            self.pool = self.pool[k:]
+            top = np.uint64((1 << 64) - 1)
+            ev["flags"][:k] = int(TF.imported | TF.post_pending_transfer)
+            ev["pid_lo"][:k] = posts
+            for f in ("dr_lo", "cr_lo"):
+                ev[f][:k] = 0
+            ev["amt_hi"][:k] = top
+            ev["amt_lo"][:k] = top
+            ev["ledger"][:k] = 0
+            ev["code"][:k] = 0
+        self.pool += ev["id_lo"][pend & (lane >= k)].tolist()
+        ev["ts"] = np.arange(self.ts + 1, self.ts + 1 + n, dtype=np.uint64)
+        self.ts += n + 1000
+        return ev, self.ts
+
+
+def tier_runs(led, ev, call):
+    """Run call(), one create_transfers call of the events `ev` on `led`;
+    returns (its result,
+    {tier kind: runs}), read from the ladder's state before the call and
+    its counters after (ops/ledger.py create_transfers_arrays): an
+    imported batch runs the imported tier and one tier deeper a rung it
+    escalates; a balancing batch the balancing tier (its deep one alone
+    in the deep-first regime) and one deeper a rung; any other batch the
+    plain / fixpoint ladder (`run_tiers`)."""
+    from tigerbeetle_tpu_torch.ops.ledger import _has_balancing, _has_imported
+
+    esc = led.escalations
+    if _has_imported([ev]):
+        out = call()
+        return out, {"imported": 1 + led.escalations - esc}
+    if _has_balancing([ev]):
+        deep_first = led._bal_deep_first
+        out = call()
+        return out, {"balancing": 1 if deep_first
+                     else 1 + led.escalations - esc}
+    out, (plain, fix) = run_tiers(led, call)
+    return out, {"plain": plain, "fixpoint": fix}
+
+
+def predicted(runs: dict) -> tuple:
+    return (sum(PROBES_PER_RUN[k] * n for k, n in runs.items()),
+            sum(GATHERS_PER_RUN[k] * n for k, n in runs.items()))
+
+
+class Trio:
+    """A ledger on `dev`, one on the CPU and the port's oracle, fed the
+    same batches: every batch's statuses and timestamps equal on all
+    three, the digest and the counters equal between the ledgers, and
+    the kernels launched as the tier runs predict (the card's wrappers;
+    none on the CPU)."""
+
+    def __init__(self, dev, caps, label):
+        from tigerbeetle_tpu_torch import DeviceLedger
+        from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+
+        self.card = DeviceLedger(a_cap=caps[0], t_cap=caps[1], device=dev)
+        self.ref = DeviceLedger(a_cap=caps[0], t_cap=caps[1], device="cpu")
+        self.sm = StateMachineOracle()
+        self.label = label
+        self.cuda = torch.device(dev).type == "cuda"
+        self.predicted = [0, 0]
+
+    def _launches(self):
+        from tigerbeetle_tpu_torch.ops import fused_probe
+        from tigerbeetle_tpu_torch.ops import row_gather as RG
+        return fused_probe.LAUNCHES, RG.LAUNCHES
+
+    def _check(self, label, got, exp, want):
+        for name, res in (("the oracle", want), ("the CPU ledger", exp)):
+            check(np.array_equal(got[0], res[0])
+                  and np.array_equal(got[1], res[1]),
+                  f"{label}: statuses or timestamps differ from {name}'s")
+        counters = (ladder_counters(self.card), self.card._bal_deep_first,
+                    dict(self.card.fallback_causes))
+        check(counters == (ladder_counters(self.ref),
+                           self.ref._bal_deep_first,
+                           dict(self.ref.fallback_causes)),
+              f"{label}: counters differ: card {counters}")
+        check(ledger_digest(self.card) == ledger_digest(self.ref),
+              f"{label}: state digests differ")
+
+    def accounts(self, label, accounts, ts):
+        from tigerbeetle_tpu_torch.ops.ledger import results_to_arrays
+
+        before = self._launches()
+        got = results_to_arrays(self.card.create_accounts(accounts, ts))
+        ran = tuple(a - b for a, b in zip(self._launches(), before))
+        want_runs = predicted({"accounts": 1})
+        check(not self.cuda or ran == want_runs,
+              f"{label}: probe and row gather launched {ran}, the tier "
+              f"predicts {want_runs}")
+        self.predicted = [a + b for a, b in zip(self.predicted, want_runs)]
+        self._check(label, got,
+                    results_to_arrays(self.ref.create_accounts(accounts, ts)),
+                    results_to_arrays(self.sm.create_accounts(accounts, ts)))
+        return got
+
+    def transfers(self, label, ev, ts, mirror=False):
+        """One batch; returns (its statuses, {tier kind: runs})."""
+        from tigerbeetle_tpu_torch.ops.batch import transfers_from_arrays
+        from tigerbeetle_tpu_torch.ops.ledger import results_to_arrays
+
+        before = self._launches()
+        fb = self.card.fallbacks
+        got, runs = tier_runs(self.card, ev, lambda: (
+            self.card.create_transfers_soa(ev, ts)))
+        ran = tuple(a - b for a, b in zip(self._launches(), before))
+        check((self.card.fallbacks > fb) == mirror,
+              f"{label}: {'no' if mirror else 'a'} mirror batch, "
+              f"counters {ladder_counters(self.card)}")
+        if not mirror:
+            check(not self.cuda or ran == predicted(runs),
+                  f"{label}: probe and row gather launched {ran}, the tier "
+                  f"runs {runs} predict {predicted(runs)}")
+            self.predicted = [a + b for a, b in
+                              zip(self.predicted, predicted(runs))]
+        self._check(label, got, self.ref.create_transfers_soa(ev, ts),
+                    results_to_arrays(self.sm.create_transfers(
+                        transfers_from_arrays(ev), ts)))
+        return got[0], runs
+
+    def windows(self, label, windows, pipelined=False):
+        """Windows on the card and the CPU ledger (two deep when
+        pipelined, else one at a time), each prepare also on the
+        oracle; returns the card's results."""
+        from tigerbeetle_tpu_torch.ops.batch import transfers_from_arrays
+        from tigerbeetle_tpu_torch.ops.ledger import results_to_arrays
+
+        def drive(led):
+            if pipelined:
+                return drive_pipelined(led, windows)
+            return [led.create_transfers_window(*w) for w in windows]
+
+        got = drive(self.card)
+        want = drive(self.ref)
+        flat = [p for w in got for p in w]
+        compare_windows(label, self.card, self.ref, flat,
+                        [p for w in want for p in w])
+        compare_windows(f"{label} (oracle)", self.card, self.card, flat,
+                        [results_to_arrays(self.sm.create_transfers(
+                            transfers_from_arrays(ev), ts))
+                         for evs, tss in windows
+                         for ev, ts in zip(evs, tss)])
+        return got
+
+
+def timed_batches(dev, trio, batches, label):
+    """Each batch on the trio's card ledger alone, synced around each;
+    its tier runs join the trio's launch prediction. Returns (ms per
+    batch, validated transfers/s, {tier kind: runs})."""
+    ms, n_events, runs = [], 0, {}
+    for ev, ts in batches:
+        sync(dev)
+        t = time.perf_counter()
+        (st, _), r = tier_runs(trio.card, ev, lambda: (
+            trio.card.create_transfers_soa(ev, ts)))
+        sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        n_events += len(st)
+        for k, v in r.items():
+            runs[k] = runs.get(k, 0) + v
+        trio.predicted = [a + b for a, b in zip(trio.predicted,
+                                                predicted(r))]
+    total = sum(ms) / 1e3
+    print(f"{label}: {len(ms)} batches in {total:.4f} s = "
+          f"{n_events / total:.0f} validated transfers/s "
+          f"({np.mean(ms):.3f} ms/batch; each {[round(m, 3) for m in ms]}); "
+          f"tier runs {runs}", flush=True)
+    return float(np.mean(ms)), n_events / total, runs
+
+
+class counted_replays:
+    """While open, the trio's card ledger's create_transfers_soa (what a
+    window that falls back whole replays per batch) counts its tier runs
+    into the trio's launch prediction."""
+
+    def __init__(self, trio):
+        self.trio = trio
+
+    def __enter__(self):
+        trio = self.trio
+        soa = trio.card.create_transfers_soa
+
+        def counted(ev, ts):
+            out, runs = tier_runs(trio.card, ev, lambda: soa(ev, ts))
+            trio.predicted = [a + b for a, b in zip(trio.predicted,
+                                                    predicted(runs))]
+            return out
+
+        trio.card.create_transfers_soa = counted
+
+    def __exit__(self, *exc):
+        del self.trio.card.create_transfers_soa
+
+
+def poisoned_replay(led, key) -> None:
+    """One replay of the ledger's graph for `key` with force_fallback set:
+    the window's kernels run, every prepare falls back and the state is
+    left as it was (checked). On the CPU (no graphs) nothing runs."""
+    if key not in led.windows._graphs:
+        return
+    graph, outs = led.windows._graphs[key]
+    before = ledger_digest(led)
+    led.windows._ff.fill_(True)
+    graph.replay()
+    led.windows._ff.fill_(False)
+    check(bool(outs["fallback"].all()) and ledger_digest(led) == before,
+          f"{key}: a poisoned replay committed or changed the state")
+
+
+def graph_memory(led) -> dict:
+    """The bytes the caching allocator held just before and just after
+    each of the ledger's graph captures, by key (empty on the CPU)."""
+    return {f"{k[0]},{k[1]},{k[2]}": list(v)
+            for k, v in led.windows.reserved.items()}
+
+
+def imported_phase(dev, n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
+                   n_checked: int = IMP_CHECKED, n_timed: int = IMP_TIMED,
+                   w: int = IMP_W, w_checked: int = IMP_W_CHECKED,
+                   w_timed: int = IMP_W_TIMED,
+                   caps: tuple = (A_CAP, T_CAP)) -> dict:
+    """An imported migration (ImportedFeed) on a ledger on `dev` beside
+    one on the CPU and the port's oracle (Trio): the accounts on the
+    imported accounts tier; n_checked imported batches on the imported
+    tier, the last with in-batch regress lanes, a lane at the state's
+    key_max, one at the user timestamp of an account imported just
+    before it (the collision), and a closing_debit pending (which
+    escalates to the imported fixpoint tier); n_timed batches on the
+    card alone and one profiled; windows of w prepares on super_imported
+    (w_checked checked, w_timed timed, one profiled), each a replay of
+    its graph from the key's second window on; last, an imported batch
+    with a linked pair, which falls back to the exact path. Returns the
+    numbers."""
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.types import (
+        Account, AccountFlags, CreateAccountStatus, CreateTransferStatus,
+        TransferFlags)
+
+    t0 = time.perf_counter()
+    TF = TransferFlags
+    names = {int(s): s.name for s in CreateTransferStatus}
+    feed = ImportedFeed(np.random.default_rng(60), n_accounts, batch, TF)
+    fused_probe.LAUNCHES = 0
+    RG.LAUNCHES = 0
+    trio = Trio(dev, caps, "imported")
+    accounts = feed.accounts(Account, AccountFlags)
+    for lo in range(0, n_accounts, BATCH):
+        chunk = accounts[lo:lo + BATCH]
+        st, ts = trio.accounts(f"imported accounts {lo}", chunk,
+                               10**11 + lo + len(chunk))
+        check(bool((st == int(CreateAccountStatus.created)).all())
+              and ts.tolist() == [a.timestamp for a in chunk],
+              f"imported accounts {lo}: not created at their user "
+              "timestamps")
+    check(trio.card.fast_batches == -(-n_accounts // BATCH)
+          and trio.card.fallbacks == 0,
+          f"imported accounts: counters {ladder_counters(trio.card)}")
+
+    for b in range(n_checked - 1):
+        st, runs = trio.transfers(f"imported batch {b}", *feed.next_batch())
+        check(runs == {"imported": 1},
+              f"imported batch {b}: tier runs {runs}")
+    # The checked batch with the extras. Its lanes' user timestamps will
+    # be base + lane.
+    key_max = int(trio.card.state["xfer_key_max"]) & ((1 << 64) - 1)
+    base = feed.ts + 1
+    coll_lane, close_lane = 500 % batch, 700 % batch
+    x_acct = Account(id=n_accounts + 1, ledger=1, code=1,
+                     flags=int(AccountFlags.imported),
+                     timestamp=base + coll_lane)
+    trio.accounts("imported account in the transfers' range", [x_acct],
+                  base + coll_lane + 1)
+    ev, ts = feed.next_batch()
+    regress = [r % batch for r in (200, 201, 202)]
+    for r in regress:
+        ev["ts"][r] = ev["ts"][r - 7]
+    at_key_max = 300 % batch
+    ev["ts"][at_key_max] = key_max
+    ev["flags"][close_lane] = int(TF.imported | TF.pending
+                                  | TF.closing_debit)
+    closed = ev["dr_lo"][close_lane]
+    for i in (close_lane + 3, close_lane + 5):
+        ev["dr_lo"][i % batch] = closed
+        ev["cr_lo"][i % batch] = closed % n_accounts + 1
+    st, runs = trio.transfers("imported extras", ev, ts)
+    got = {k: names[int(st[i])] for k, i in (
+        ("regress", regress[0]), ("key_max", at_key_max),
+        ("collision", coll_lane), ("closing", close_lane))}
+    check(got == {"regress": "imported_event_timestamp_must_not_regress",
+                  "key_max": "imported_event_timestamp_must_not_regress",
+                  "collision": "imported_event_timestamp_must_not_regress",
+                  "closing": "created"}
+          and runs == {"imported": 2},
+          f"imported extras: statuses {got}, tier runs {runs}")
+    later = [i for i in range(close_lane + 1, batch)
+             if ev["dr_lo"][i] == closed
+             and int(ev["flags"][i]) & int(TF.post_pending_transfer) == 0]
+    check(len(later) >= 2
+          and all(names[int(st[i])] == "debit_account_already_closed"
+                  for i in later),
+          "imported extras: a debit of the closed account did not fail")
+    checked_s = time.perf_counter() - t0
+    print(f"imported: {n_checked} batches checked against the CPU and the "
+          f"oracle in {checked_s:.1f} s; extras {got}, {len(later)} debits "
+          f"of the closed account failed; counters "
+          f"{ladder_counters(trio.card)}", flush=True)
+
+    def window():
+        evs, tss = [], []
+        for j in range(w):
+            ev, ts = feed.next_batch(post=j == 0)
+            evs.append(ev)
+            tss.append(ts)
+        return evs, tss
+
+    mem0 = torch.cuda.memory_reserved() if trio.cuda else None
+    trio.windows(f"imported windows of {w}",
+                 [window() for _ in range(w_checked)])
+    check(trio.card.window_routes == {"super_imported": w_checked}
+          and trio.card.window_fallbacks == 0,
+          f"imported windows: counters {route_counters(trio.card)}")
+    checked_s = time.perf_counter() - t0
+    del trio.ref, trio.sm   # the card alone from here
+
+    batch_ms, tps, runs = timed_batches(
+        dev, trio, [feed.next_batch() for _ in range(n_timed)],
+        f"imported batches of {batch} (card alone)")
+    check(runs == {"imported": n_timed}, f"imported timed: tier runs {runs}")
+    prof = [feed.next_batch()]
+    trace = window_trace(
+        dev, lambda: timed_batches(dev, trio, prof, "imported profiled"),
+        f"imported batch of {batch} (profiled)")
+    check(trace["busy_ms"] is None
+          or (trace["probes"], trace["gathers"]) == predicted(
+              {"imported": 1}),
+          f"imported batch trace: {trace}")
+    timed = [window() for _ in range(w_timed)]
+    sync(dev)
+    t1 = time.perf_counter()
+    for evs, tss in timed:
+        trio.card.create_transfers_window(evs, tss)
+    sync(dev)
+    w_elapsed = time.perf_counter() - t1
+    prof_w = window()
+    w_trace = window_trace(
+        dev, lambda: trio.card.create_transfers_window(*prof_w),
+        f"imported window of {w} (one replay)")
+    check_trace("imported window", w_trace, "super_imported", w)
+    check(trio.card.window_routes == {"super_imported": w_checked
+                                      + w_timed + 1}
+          and trio.card.window_fallbacks == 0
+          and trio.card.fallbacks == 0,
+          f"imported windows: counters {route_counters(trio.card)}")
+    counted, ran = graph_launches(trio.card.windows)
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+    want = tuple(a + b for a, b in zip(trio.predicted, counted))
+    check(not trio.cuda or launches == want,
+          f"imported: the wrappers counted {launches} launches, the tier "
+          f"runs and windows predict {want}")
+    double_entry(trio.card)
+    counters = ladder_counters(trio.card)
+    routes = dict(trio.card.window_routes)
+    reserved = graph_memory(trio.card)
+    pred = tuple(trio.predicted)
+    del trio
+
+    # Last, on fresh ledgers: an imported batch with a linked pair falls
+    # back to the exact path, as on the JAX package's imported tiers.
+    chain = Trio(dev, caps, "imported chain")
+    feed = ImportedFeed(np.random.default_rng(61), n_accounts, batch, TF)
+    for lo in range(0, n_accounts, BATCH):
+        chunk = accounts[lo:lo + BATCH]
+        chain.accounts(f"imported accounts {lo}", chunk,
+                       10**11 + lo + len(chunk))
+    ev, ts = feed.next_batch()
+    ev["flags"][10] |= int(TF.linked)
+    chain.transfers("imported chain", ev, ts, mirror=True)
+    check(chain.card.fallback_causes == {"e1_hard_flags": 1},
+          f"imported chain: causes {chain.card.fallback_causes}")
+    del chain
+    window_ms = w_elapsed / w_timed * 1e3
+    numbers = dict(
+        batch_ms=batch_ms, transfers_per_s=tps,
+        batch_busy_ms=trace["busy_ms"],
+        batch_idle_share=(None if trace["busy_ms"] is None
+                          else 1 - trace["busy_ms"] / batch_ms),
+        window=w, window_ms=window_ms,
+        window_transfers_per_s=w_timed * w * batch / w_elapsed,
+        window_busy_ms=w_trace["busy_ms"],
+        window_idle_share=(None if w_trace["busy_ms"] is None
+                           else 1 - w_trace["busy_ms"] / window_ms),
+        launches=launches, launches_ran=tuple(
+            a + b for a, b in zip(pred, ran)),
+        counters=counters, routes=routes, reserved_before_windows=mem0,
+        reserved_at_capture=reserved,
+        checked_s=checked_s, elapsed_s=time.perf_counter() - t0)
+    print(f"imported: {batch_ms:.3f} ms/batch ({tps:.0f} transfers/s), "
+          f"batch busy {trace['busy_ms']} ms (idle "
+          f"{numbers['batch_idle_share']}); windows of {w}: "
+          f"{window_ms:.3f} ms/window "
+          f"({numbers['window_transfers_per_s']:.0f} transfers/s), busy "
+          f"{w_trace['busy_ms']} ms (idle {numbers['window_idle_share']}); "
+          f"launches {launches} (as predicted), ran {numbers['launches_ran']}"
+          f"; memory reserved before the windows {mem0}, before and after "
+          f"each capture {numbers['reserved_at_capture']}; "
+          f"{numbers['elapsed_s']:.1f} s; {card_line_or_cpu(dev)}",
+          flush=True)
+    return numbers
+
+
+def card_line_or_cpu(dev) -> str:
+    return card_line() if torch.device(dev).type == "cuda" else "CPU"
+
+
+def balancing_pair(rng, next_id: int, TF, n: int = BATCH,
+                   window: bool = False):
+    """A config-4 pair (config4_pair) whose pend batch carries, 1 event
+    in BAL_EVERY, a balancing_debit or balancing_credit (by turns) of
+    BAL_AMOUNT, above any headroom: each clamps to what is left, so the
+    clamps cascade through the batch. One batch at a time the post/void
+    batch posts or voids the balancing pendings too (their stored
+    amounts are the clamps). In a window (window=True) those lanes are
+    plain transfers instead: a window whose post refers to a balancing
+    pending of the same window falls back (the in-window view reads the
+    nominal amount)."""
+    pend, rev, nxt = config4_pair(rng, next_id, TF, n)
+    lane = np.arange(n)
+    bal = lane % BAL_EVERY == 0
+    pend["flags"][bal] |= np.where(lane[bal] // BAL_EVERY % 2 == 0,
+                                   int(TF.balancing_debit),
+                                   int(TF.balancing_credit)).astype(np.uint32)
+    pend["amt_lo"][bal] = BAL_AMOUNT
+    if window:
+        # Between odd (unlimited) accounts: no limit decision reads them.
+        k = int(bal.sum())
+        dr = 2 * rng.integers(0, C4_ACCOUNTS // 2, k, dtype=np.uint64) + 1
+        rev["dr_lo"][bal] = dr
+        rev["cr_lo"][bal] = (dr + 1) % C4_ACCOUNTS + 1
+        rev["amt_hi"][bal] = 0
+        rev["amt_lo"][bal] = rng.integers(1, 100, k).astype(np.uint64)
+        rev["pid_lo"][bal] = 0
+        rev["flags"][bal] = 0
+        rev["ledger"][bal] = 1
+        rev["code"][bal] = 1
+    return pend, rev, nxt
+
+
+def balancing_phase(dev, batch: int = BATCH, n_checked: int = BAL_CHECKED,
+                    n_timed: int = BAL_TIMED, pairs: int = BAL_W_PAIRS,
+                    w_checked: int = BAL_W_CHECKED,
+                    w_timed: int = BAL_W_TIMED,
+                    caps: tuple = (A_CAP, T_CAP)) -> dict:
+    """Balancing on config 4's accounts (balancing_pair), on a ledger on
+    `dev` beside one on the CPU and the port's oracle (Trio): n_checked
+    pairs, each pend batch up the balancing ladder (8 rounds, then 32,
+    then the 32-round tier first in its deep-first regime), each
+    post/void batch up the limit ladder; n_timed pairs on the card alone
+    and one pend batch profiled; then windows of `pairs` pairs on
+    super_balancing (24 rounds), submitted and resolved two deep:
+    w_checked checked, w_timed timed, one profiled. Returns the
+    numbers."""
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.ops.ledger import _pad_bucket
+    from tigerbeetle_tpu_torch.types import (
+        Account, AccountFlags, CreateTransferStatus, TransferFlags)
+
+    t0 = time.perf_counter()
+    TF = TransferFlags
+    created = int(CreateTransferStatus.created)
+    rng = np.random.default_rng(70)
+    state = dict(ts=10**12, next_id=10**7)
+    fused_probe.LAUNCHES = 0
+    RG.LAUNCHES = 0
+    trio = Trio(dev, caps, "balancing")
+    trio.accounts("balancing accounts",
+                  config4_accounts(Account, AccountFlags), C4_ACCOUNTS)
+
+    def pair(window=False):
+        pend, rev, state["next_id"] = balancing_pair(
+            rng, state["next_id"], TF, batch, window)
+        out = [(pend, state["ts"] + batch + 10),
+               (rev, state["ts"] + 2 * (batch + 10))]
+        state["ts"] += 2 * (batch + 10)
+        return out
+
+    all_runs = []
+    for i in range(n_checked):
+        (pend, t_p), (rev, t_r) = pair()
+        st, runs = trio.transfers(f"balancing pend {i}", pend, t_p)
+        all_runs.append(runs)
+        st2, runs2 = trio.transfers(f"balancing post/void {i}", rev, t_r)
+        print(f"balancing pair {i}: pend {int((st == created).sum())} "
+              f"created on {runs}, post/void {int((st2 == created).sum())} "
+              f"on {runs2}; counters {ladder_counters(trio.card)}, "
+              f"balancing deep-first {trio.card._bal_deep_first}",
+              flush=True)
+    check(trio.card.fallbacks == 0 and trio.card.fixpoint_batches > 0,
+          f"balancing: counters {ladder_counters(trio.card)}")
+    double_entry(trio.card)
+
+    def window():
+        evs, tss = [], []
+        for _ in range(pairs):
+            for ev, ts in pair(window=True):
+                evs.append(ev)
+                tss.append(ts)
+        return evs, tss
+
+    mem0 = torch.cuda.memory_reserved() if trio.cuda else None
+    with counted_replays(trio):
+        trio.windows(f"balancing windows of {2 * pairs}",
+                     [window() for _ in range(w_checked)], pipelined=True)
+    checked_s = time.perf_counter() - t0
+    del trio.ref, trio.sm   # the card alone from here
+
+    timed = [pair() for _ in range(n_timed)]
+    before = ladder_counters(trio.card)
+    ms = {"pend": [], "post/void": []}
+    for (pend, t_p), (rev, t_r) in timed:
+        for kind, ev, at in (("pend", pend, t_p), ("post/void", rev, t_r)):
+            ms[kind].append(timed_batches(dev, trio, [(ev, at)],
+                                          f"balancing {kind}")[0])
+    prof_pend, prof_rev = pair()
+    trace = window_trace(
+        dev, lambda: timed_batches(dev, trio, [prof_pend], "profiled"),
+        f"balancing pend batch of {batch} (profiled)")
+    timed_batches(dev, trio, [prof_rev], "balancing post/void")
+    check(trio.card.fallbacks == 0,
+          f"balancing timed: counters {ladder_counters(trio.card)}")
+    delta = tuple(a - b for a, b in zip(ladder_counters(trio.card), before))
+
+    timed_w = [window() for _ in range(w_timed)]
+    sync(dev)
+    t1 = time.perf_counter()
+    with counted_replays(trio):
+        res = drive_pipelined(trio.card, timed_w)
+    sync(dev)
+    w_elapsed = time.perf_counter() - t1
+    n_w_created = sum(int((st == created).sum()) for w in res for st, _ in w)
+    # A window whose clamp cascade outruns the 24 rounds falls back whole
+    # (the state untouched), is dispatched again on the synchronous path,
+    # falls back again and runs per batch: the JAX ledger's route.
+    routes = dict(trio.card.window_routes)
+    k = routes.get("per_batch", 0)
+    n_windows = w_checked + w_timed
+    check(routes == {"super_balancing": n_windows + k,
+                     **({"per_batch": k} if k else {})}
+          and trio.card.window_fallbacks == 2 * k and k < n_windows
+          and trio.card.fallbacks == 0,
+          f"balancing windows: counters {route_counters(trio.card)}")
+    # One window's device work: a poisoned replay of the route's graph
+    # (force_fallback set: every kernel of a committing window runs, the
+    # state is untouched).
+    w_trace = window_trace(
+        dev, lambda: poisoned_replay(
+            trio.card, ("super_balancing", 2 * pairs, _pad_bucket(batch))),
+        f"balancing window of {2 * pairs} (one poisoned replay)")
+    check_trace("balancing window", w_trace, "super_balancing", 2 * pairs)
+    counted, ran = graph_launches(trio.card.windows)
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+    want = tuple(a + b for a, b in zip(trio.predicted, counted))
+    check(not trio.cuda or launches == want,
+          f"balancing: the wrappers counted {launches} launches, the tier "
+          f"runs and windows predict {want}")
+    double_entry(trio.card)
+    pend_mean = float(np.mean(ms["pend"]))
+    window_ms = w_elapsed / w_timed * 1e3
+    numbers = dict(
+        pend_ms=pend_mean, post_void_ms=float(np.mean(ms["post/void"])),
+        pend_transfers_per_s=batch / pend_mean * 1e3,
+        pend_busy_ms=trace["busy_ms"],
+        pend_idle_share=(None if trace["busy_ms"] is None
+                         else 1 - trace["busy_ms"] / pend_mean),
+        pend_runs=all_runs, counters_delta=delta,
+        window=2 * pairs, window_ms=window_ms, window_fallbacks=k,
+        window_transfers_per_s=w_timed * 2 * pairs * batch / w_elapsed,
+        window_created_per_s=n_w_created / w_elapsed,
+        window_busy_ms=w_trace["busy_ms"],
+        window_idle_share=(None if w_trace["busy_ms"] is None
+                           else 1 - w_trace["busy_ms"] / window_ms),
+        launches=launches, launches_ran=tuple(
+            a + b for a, b in zip(trio.predicted, ran)),
+        window_launches_counted=counted, window_launches_ran=ran,
+        counters=ladder_counters(trio.card),
+        routes=dict(trio.card.window_routes),
+        reserved_before_windows=mem0,
+        reserved_at_capture=graph_memory(trio.card),
+        checked_s=checked_s, elapsed_s=time.perf_counter() - t0)
+    print(f"balancing: pend {pend_mean:.3f} ms/batch "
+          f"({numbers['pend_transfers_per_s']:.0f} transfers/s), post/void "
+          f"{numbers['post_void_ms']:.3f} ms/batch; pend busy "
+          f"{trace['busy_ms']} ms (idle {numbers['pend_idle_share']}); "
+          f"counters over the timed run {delta}; windows of {2 * pairs}: "
+          f"{window_ms:.3f} ms/window, {k} of {n_windows} fell back to "
+          f"the per-batch ladder "
+          f"({numbers['window_transfers_per_s']:.0f} transfers/s), busy "
+          f"{w_trace['busy_ms']} ms (idle {numbers['window_idle_share']}); "
+          f"launches {launches} (as predicted), ran "
+          f"{numbers['launches_ran']}; memory reserved "
+          f"before the windows {mem0}, before and after each capture "
+          f"{numbers['reserved_at_capture']}; "
+          f"{numbers['elapsed_s']:.1f} s; {card_line_or_cpu(dev)}",
+          flush=True)
+    return numbers
 
 
 def build_all():
@@ -2588,6 +3286,8 @@ def main() -> int:
     w2 = config2_window_phase(dev)
     w4 = config4_window_phase(dev)
     wfb = window_fallback_phase(dev)
+    imp = imported_phase(dev)
+    bal = balancing_phase(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -2615,6 +3315,10 @@ def main() -> int:
         "ran_config2_window": w2["launches_ran"][0],
         "launches_config4_window": w4["launches_counted"][0],
         "ran_config4_window": w4["launches_ran"][0],
+        "launches_imported": imp["launches"][0],
+        "ran_imported": imp["launches_ran"][0],
+        "launches_balancing": bal["launches"][0],
+        "ran_balancing": bal["launches_ran"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -2648,6 +3352,10 @@ def main() -> int:
         "ran_config2_window": w2["launches_ran"][1],
         "launches_config4_window": w4["launches_counted"][1],
         "ran_config4_window": w4["launches_ran"][1],
+        "launches_imported": imp["launches"][1],
+        "ran_imported": imp["launches_ran"][1],
+        "launches_balancing": bal["launches"][1],
+        "ran_balancing": bal["launches_ran"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -2697,6 +3405,8 @@ def main() -> int:
     print(json.dumps({"config2_window": w2}), flush=True)
     print(json.dumps({"config4_window": w4}), flush=True)
     print(json.dumps({"window_fallbacks": wfb}), flush=True)
+    print(json.dumps({"imported": imp}), flush=True)
+    print(json.dumps({"balancing": bal}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

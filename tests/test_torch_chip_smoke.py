@@ -180,7 +180,7 @@ def test_exact_path_phase_rehearsed_on_the_cpu():
     assert (fixpoint, deep, escalations) == (0, 1, 2)
     assert fallbacks == timing["mirror_batches"] - 1  # expiry is no batch
     assert [h["label"] for h in timing["hard"]] == [
-        "balancing", "repeated account id", "pair-sum overflow",
+        "imported chain", "repeated account id", "pair-sum overflow",
         "pendings, timeout 1 s", "expiry", "cascade (the probe)"]
     assert timing["hard"][0]["to_host_ms"] > 0
 
@@ -201,7 +201,9 @@ def test_seq_phase_rehearsed_on_the_cpu():
 
 
 @pytest.mark.parametrize("route,W", [("chain", 3), ("super", 3),
-                                     ("super_deep", 2)])
+                                     ("super_deep", 2),
+                                     ("super_imported", 2),
+                                     ("super_balancing", 3)])
 def test_window_launch_prediction_per_window(calls, route, W):
     """One window on each route calls the probe and the row gather as
     often as chip_smoke.py's window_launches predicts for one replay: a
@@ -219,6 +221,12 @@ def test_window_launch_prediction_per_window(calls, route, W):
             int(TT.TransferFlags.post_pending_transfer))
         for k in ("dr_lo", "cr_lo", "amt_lo", "ledger", "code"):
             evs[1][k][0] = 0
+    if route == "super_imported":
+        for b, ev in enumerate(evs):
+            ev["flags"][:] = np.uint32(int(TT.TransferFlags.imported))
+            ev["ts"] = np.arange(1, 51, dtype=np.uint64) + 10**11 + 100 * b
+    if route == "super_balancing":
+        evs[2]["flags"][7] = np.uint32(int(TT.TransferFlags.balancing_debit))
     tss = [10**12 + 1000 * b for b in range(W)]
     before = dict(calls)
     led.create_transfers_window(evs, tss, all_or_nothing=route == "super")
@@ -261,13 +269,14 @@ def test_config4_window_phase_rehearsed_on_the_cpu(calls):
 
 def test_window_fallback_phase_rehearsed_on_the_cpu():
     """The fallback windows against a second ledger and the port's
-    oracle: the balancing prepare replays per batch after the chain's
-    prefix, and the poisoned successor replays."""
+    oracle: the window with a balancing prepare runs whole on
+    super_balancing (the JAX ledger's route for it), and the poisoned
+    successor replays."""
     out = CS.window_fallback_phase("cpu", n_accounts=300, batch=64,
                                    caps=(1 << 10, 1 << 14))
     routes, chain_fb, last, _, window_fb = out["balancing"]
-    assert routes == {"chain": 1, "per_batch": 1}
-    assert chain_fb == {"e1_hard_flags": 1} and window_fb == 1
+    assert routes == {"super_balancing": 1}
+    assert chain_fb == {} and window_fb == 0
     routes, chain_fb, _, _, window_fb = out["poisoned"]
     assert routes["chain"] >= 2 and chain_fb["e2_collision"] >= 1
 
@@ -286,3 +295,50 @@ def test_chip_smoke_runs_the_window_phases_last():
         "seq_phase(", "config2_window_phase(", "config4_window_phase(",
         "window_fallback_phase(", "'config2_window'", "'kernels'")]
     assert order == sorted(order)
+
+
+def test_imported_phase_rehearsed_on_the_cpu(calls):
+    """The imported phase at a small size with both ledgers on the CPU:
+    every batch and window equal to the CPU ledger's and the oracle's,
+    the extras batch's regress, key_max, collision and closing lanes as
+    the script expects (the closing pending escalating once to the
+    imported fixpoint tier), the windows on super_imported, the chain
+    batch on the exact path; the wrappers' calls are the tier runs' and
+    the windows' prediction."""
+    numbers = CS.imported_phase("cpu", n_accounts=300, batch=256,
+                                n_checked=3, n_timed=2, w=3, w_checked=2,
+                                w_timed=2, caps=(1 << 10, 1 << 15))
+    assert numbers["routes"] == {"super_imported": 5}
+    fast, fixpoint, deep, escalations, fallbacks = numbers["counters"]
+    assert (fixpoint, deep, escalations, fallbacks) == (1, 0, 1, 0)
+    assert numbers["batch_ms"] > 0 and numbers["window_ms"] > 0
+    assert numbers["batch_idle_share"] is None
+
+
+def test_balancing_phase_rehearsed_on_the_cpu(calls):
+    """The balancing phase at a small size on the CPU: every pend batch
+    on the balancing tier, the windows on super_balancing two deep, all
+    equal to the CPU ledger's and the oracle's, none on the mirror."""
+    numbers = CS.balancing_phase("cpu", batch=256, n_checked=3, n_timed=2,
+                                 pairs=2, w_checked=2, w_timed=2,
+                                 caps=(1 << 10, 1 << 15))
+    assert numbers["routes"] == {"super_balancing": 4}
+    assert numbers["window_fallbacks"] == 0
+    assert all(set(r) == {"balancing"} for r in numbers["pend_runs"])
+    assert numbers["counters"][4] == 0
+    assert numbers["window_ms"] > 0 and numbers["pend_ms"] > 0
+
+
+def test_balancing_pair_marks_one_pend_event_in_eight():
+    rng = np.random.default_rng(1)
+    TF = TT.TransferFlags
+    pend, rev, _ = CS.balancing_pair(rng, 10**7, TF, 64)
+    bal = (pend["flags"] & np.uint32(TF.balancing_debit
+                                     | TF.balancing_credit)) != 0
+    assert bal.tolist() == [i % CS.BAL_EVERY == 0 for i in range(64)]
+    assert (pend["amt_lo"][bal] == CS.BAL_AMOUNT).all()
+    assert (rev["pid_lo"][bal] == pend["id_lo"][bal]).all()
+    _, rev_w, _ = CS.balancing_pair(np.random.default_rng(1), 10**7, TF, 64,
+                                    window=True)
+    assert (rev_w["pid_lo"][bal] == 0).all()
+    assert (rev_w["flags"][bal] == 0).all()

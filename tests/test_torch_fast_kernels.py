@@ -439,29 +439,35 @@ def test_fallback_batches_leave_state_unchanged(case):
 
 
 def test_non_plain_tiers_raise_not_implemented():
+    """Only the spmd join (per_event, the parallel/ slice) is left to
+    port: the limit fixpoint, imported and balancing tiers and the
+    imported accounts tier run (their parity: tests/test_torch_fixpoint.py,
+    test_torch_imported.py, test_torch_balancing.py; windows:
+    test_torch_window.py)."""
     state = JL.init_state(64, 256)
     t_state = state_from_numpy(_np(state), "cpu")
     ev = events_to_device(JL.pad_transfer_events(
         JB.transfers_to_arrays([_xfer(1, 1, 2, 3)]), 16), "cpu")
-    # The limit fixpoint tiers are ported: limit_rounds > 1 runs.
-    for rounds in (TFK.LIMIT_FIXPOINT_ROUNDS,
-                   TFK.LIMIT_FIXPOINT_ROUNDS_DEEP):
-        _, out = TFK.create_transfers_fast(t_state, ev, TS0, 1,
-                                           limit_rounds=rounds)
-        assert not bool(out["fallback"]) and int(out["fix_rounds"]) == 1
-    # The windows (seg, ring_reset) are ported: tests/test_torch_window.py.
-    for kw in ({"per_event": {}}, {"imported_mode": True},
-               {"balancing_mode": True}):
-        for rounds in (1, TFK.LIMIT_FIXPOINT_ROUNDS):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                TFK.create_transfers_fast(t_state, ev, TS0, 1,
-                                          limit_rounds=rounds, **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TFK.per_event_status(t_state, ev, ev["ts"], imported_ctx={})
+    for kw in ({"limit_rounds": TFK.LIMIT_FIXPOINT_ROUNDS},
+               {"limit_rounds": TFK.LIMIT_FIXPOINT_ROUNDS_DEEP},
+               {"imported_mode": True},
+               {"imported_mode": True,
+                "limit_rounds": TFK.LIMIT_FIXPOINT_ROUNDS},
+               {"balancing_mode": True,
+                "limit_rounds": TFK.LIMIT_FIXPOINT_ROUNDS}):
+        _, out = TFK.create_transfers_fast(
+            state_from_numpy(_np(state), "cpu"), ev, TS0, 1, **kw)
+        assert not bool(out["fallback"]), kw
+        assert int(out["fix_rounds"]) == (kw.get("limit_rounds", 1) > 1), kw
+    for rounds in (1, TFK.LIMIT_FIXPOINT_ROUNDS):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            TFK.create_transfers_fast(t_state, ev, TS0, 1,
+                                      limit_rounds=rounds, per_event={})
     aev = events_to_device(JL.pad_account_events(
         JB.accounts_to_arrays([_acct(1)]), 16), "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TFK.create_accounts_fast(t_state, aev, TS0, 1, imported_mode=True)
+    _, out = TFK.create_accounts_fast(t_state, aev, TS0, 1,
+                                      imported_mode=True)
+    assert not bool(out["fallback"]) and int(out["created_count"]) == 1
 
 
 @pytest.mark.parametrize("seed", [21, 22, 23])

@@ -510,11 +510,10 @@ def test_hard_regime_and_probe_recovery():
 
 def test_fast_path_hard_batches_on_the_exact_path():
     """The scenarios of the JAX package's test_fast_path.py (hard batches,
-    the pair-sum overflow): a balancing batch, which the JAX ledger runs
-    on its balancing tier, opens the port's mirror regime (the port has
-    no balancing tier yet); the overflow falls back in both. Statuses,
-    timestamps and digests equal the JAX ledger's and the oracle's after
-    every batch; the counters are compared where both fall back."""
+    the pair-sum overflow): a balancing batch runs on the balancing tier
+    in both ledgers; the overflow falls back in both. Statuses,
+    timestamps, digests and counters equal the JAX ledger's and the
+    oracle's after every batch."""
     port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
     jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
     sm = StateMachineOracle()
@@ -546,11 +545,11 @@ def test_fast_path_hard_batches_on_the_exact_path():
         ts += len(evs) + 7
         _run_all([(fn, evs, ts)], port, jax_led, sm)
         assert device_state_digest(port.state) == jax_digest(jax_led.state)
+        assert _counters(port) == _counters(jax_led)
         if k == 1:
             assert port.fixpoint_batches == jax_led.fixpoint_batches == 1
         if k == 2:
-            assert port.fallbacks == 1 and jax_led.fallbacks == 0
-            assert port.fallback_causes["e1_hard_flags"] == 1
+            assert port.fallbacks == 0 and port.fixpoint_batches == 2
     assert port.lookup_transfers([14]) == []
     assert _state(port.to_host()) == _state(sm)
 
@@ -602,12 +601,13 @@ def test_duplicate_account_ids_fall_back_in_both():
 
 
 def test_imported_batches_take_the_exact_path():
-    """Imported transfers and accounts (the JAX package runs them on its
-    imported tiers; the port has none yet): the port's device tier falls
-    back (E1) on the transfers and the mirror answers both batches as
-    the oracle does, past timestamps, a regressing one, a collision with
-    an account's timestamp and a missing flag among them."""
+    """Imported transfers and accounts run on the imported tiers, as in
+    the JAX ledger (no exact path: the name is the route's before the
+    port had them), answering as the oracle does: past timestamps, a
+    regressing one, a collision with an account's timestamp and a
+    missing flag among them; the counters equal the JAX ledger's."""
     port = DeviceLedger(a_cap=A_CAP, t_cap=T_CAP, device="cpu")
+    jax_led = JL.DeviceLedger(a_cap=A_CAP, t_cap=T_CAP)
     sm = StateMachineOracle()
     IA, IT = AF.imported, TF.imported
     xfers = [Transfer(id=1000 + i, debit_account_id=1 + i % 4,
@@ -624,9 +624,10 @@ def test_imported_batches_take_the_exact_path():
                                   for i in range(1, 9)], TS0),
              ("create_transfers", xfers, TS0 + 10**6),
              ("create_accounts", accts, TS0 + 2 * 10**6)]
-    _run_all(steps, port, None, sm)
-    assert (port.fast_batches, port.fallbacks) == (1, 2)
-    assert port.fallback_causes == {"e1_hard_flags": 1}
+    _run_all(steps, port, jax_led, sm)
+    assert (port.fast_batches, port.fallbacks) == (3, 0)
+    assert _counters(port) == _counters(jax_led)
+    assert port.fallback_causes == {}
     assert sm.transfers_key_max == TS0 + 1000 + 3 * 11
     assert _state(port.to_host()) == _state(sm)
 

@@ -7,9 +7,9 @@ the JAX package's `_create_transfers_super*` / `_create_transfers_chain`
 the whole state (hash tables included) and the digest must be equal.
 The ledger's window routes (`create_transfers_window`, `submit_window`
 / `resolve_windows`) run beside the JAX package's DeviceLedger and the
-oracle: the same results, the same state digest, and the same route
-counters where the window carries no imported or balancing flag (the
-port has no window tier for those yet).
+oracle: the same results, the same state digest (on imported windows
+the oracle's: see test_imported_window_runs_per_batch), and the same
+route counters.
 
 Inputs are made with numpy from a seed: a_cap 2^12, prepares of at most
 256 events, one pad bucket (1024), windows of at most 4 prepares, so the
@@ -348,12 +348,11 @@ class Trio:
                  for r in self.sm.create_transfers(b, ts)]
                 for b, ts in zip(batches, tss)]
 
-    def check_state(self, routes=True):
+    def check_state(self):
         assert (device_state_digest(self.port.state)
                 == jax_digest(self.jax.state)
                 == oracle_state_digest(self.sm, A_CAP))
-        if routes:
-            assert _counters(self.port) == _counters(self.jax)
+        assert _counters(self.port) == _counters(self.jax)
 
 
 def _as_pairs(results):
@@ -533,11 +532,11 @@ def test_chain_route_per_batch_fallback_and_poisoning():
 
 
 def test_balancing_window_falls_back_per_prepare():
-    """No balancing window tier yet: a balancing prepare in a window takes
-    the chain, which commits the prepares before it, replays it per batch
-    (the exact path) and re-windows the rest; the results equal the
-    oracle's and the JAX package's (which runs the window on its
-    balancing tier, so the routes differ)."""
+    """A balancing prepare in a window: the window takes the balancing
+    window tier (super_balancing), as in the JAX ledger, with no
+    per-prepare fallback; results, digest and every route and ladder
+    counter equal the JAX package's and the oracle's. (The name is the
+    route's before the port had a balancing window tier.)"""
     trio = Trio()
     batches, tss = _window("clean", seed=4)
     batches[1][3] = _x(11_003, 9, 10, 50, flags=TF.balancing_credit)
@@ -545,35 +544,38 @@ def test_balancing_window_falls_back_per_prepare():
     got = trio.port.create_transfers_window(_arrays(batches), tss)
     ref = trio.jax.create_transfers_window(_arrays(batches), tss)
     assert _as_pairs(got) == _as_pairs(ref) == want
-    assert trio.port.window_routes == {"chain": 1, "per_batch": 1}
-    assert trio.port.chain_batch_fallbacks == {"e1_hard_flags": 1}
-    assert trio.port.fast_batches == 2 + 1 and trio.port.fallbacks == 2
-    trio.check_state(routes=False)
+    assert trio.port.window_routes == {"super_balancing": 1}
+    assert trio.port.chain_batch_fallbacks == {}
+    assert trio.port.fast_batches == 2 + 3 and trio.port.fallbacks == 0
+    trio.check_state()
 
 
 def test_imported_window_runs_per_batch():
-    """An imported window runs per batch (the exact path answers it);
-    all_or_nothing gives None with nothing applied. The results equal the
-    oracle's and the JAX package's imported window tier's."""
+    """An imported window takes the imported window tier
+    (super_imported), as in the JAX ledger, all_or_nothing too; results
+    and every route and ladder counter equal the JAX package's and the
+    oracle's. The state is the oracle's: the JAX package's imported tiers
+    leave commit_ts at the prepare timestamp, where the oracle and the
+    port keep the last imported one; the rest of the JAX ledger's state
+    is the port's. (The name is the route's before the port had an
+    imported window tier.)"""
     trio = Trio()
     imp = [_x(70_000 + i, 1 + i, 2 + i, 5, flags=TF.imported,
-              timestamp=TS0 + 5000 + i) for i in range(4)]
-    batches = [imp[:2], imp[2:]]
-    tss = [TS0 + 9000, TS0 + 9100]
-    before = device_state_digest(trio.port.state)
-    assert trio.port.create_transfers_window(_arrays(batches), tss,
-                                             all_or_nothing=True) is None
-    assert device_state_digest(trio.port.state) == before
-    want = trio.oracle(batches, tss)
-    got = trio.port.create_transfers_window(_arrays(batches), tss)
-    ref = trio.jax.create_transfers_window(_arrays(batches), tss)
-    assert _as_pairs(got) == _as_pairs(ref) == want
-    assert trio.port.window_routes == {"per_batch": 1}
-    # The state is the oracle's. (The JAX package's imported window tier
-    # leaves commit_ts at the prepare timestamp, where the oracle and the
-    # JAX package's own per-batch path keep the last imported one.)
-    assert device_state_digest(trio.port.state) == oracle_state_digest(
-        trio.sm, A_CAP)
+              timestamp=TS0 + 5000 + i) for i in range(8)]
+    for aon, batches, tss in (
+            (True, [imp[:2], imp[2:4]], [TS0 + 9000, TS0 + 9100]),
+            (False, [imp[4:6], imp[6:]], [TS0 + 9200, TS0 + 9300])):
+        want = trio.oracle(batches, tss)
+        got = trio.port.create_transfers_window(_arrays(batches), tss, aon)
+        ref = trio.jax.create_transfers_window(_arrays(batches), tss, aon)
+        assert _as_pairs(got) == _as_pairs(ref) == want
+    assert trio.port.window_routes == {"super_imported": 2}
+    assert _counters(trio.port) == _counters(trio.jax)
+    digest = device_state_digest(trio.port.state)
+    assert digest == oracle_state_digest(trio.sm, A_CAP)
+    assert digest == jax_digest(dict(
+        trio.jax.state, commit_ts=jax.numpy.uint64(TS0 + 5007)))
+    assert trio.sm.commit_timestamp == TS0 + 5007
 
 
 # --------------------------------------------------------- in-place state
@@ -679,3 +681,22 @@ def test_pend_ref_pre_route_matches_the_jax_package(case):
     want = JL._evs_pend_refs(evs)
     assert TL._evs_pend_refs(evs) is want
     assert want is (case in ("exact", "same_prepare"))
+
+
+def test_window_graph_cache_is_bounded():
+    """A ledger keeps at most MAX_GRAPHS captured graphs: the least
+    recently replayed one goes (and its key starts over eagerly) before
+    another is captured. The bookkeeping alone (no graph on the CPU)."""
+    from tigerbeetle_tpu_torch.ops import window_graph as WG
+
+    wg = WG.WindowGraphs(torch.device("cpu"))
+    keys = [("chain", w, PAD) for w in range(2, 2 + WG.MAX_GRAPHS)]
+    for k in keys:
+        wg._seen.add(k)
+        wg._graphs[k] = (None, None)
+    # Replaying the oldest key makes the second one the least recent.
+    wg._graphs[keys[0]] = wg._graphs.pop(keys[0])
+    wg._make_room()
+    assert len(wg._graphs) == WG.MAX_GRAPHS - 1 and wg.evictions == 1
+    assert keys[1] not in wg._graphs and keys[1] not in wg._seen
+    assert keys[0] in wg._graphs

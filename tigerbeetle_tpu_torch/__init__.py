@@ -5,7 +5,8 @@ The JAX package `tigerbeetle_tpu` stays the reference; this package
 computes the same results from the same inputs, bit for bit, and
 imports nothing of it (nor of JAX). It holds the create_transfers /
 create_accounts main path on a device ledger, through the plain tier and
-the limit fixpoint tiers of the escalation ladder, the exact path
+the limit fixpoint tiers of the escalation ladder, the imported and
+balancing tiers (per batch and as windows), the exact path
 behind them (the host-mirror regime on the port's copy of the oracle,
 `oracle/`, and the sequential create kernels), and commit windows of
 many prepares, each one replay of a CUDA graph on the card

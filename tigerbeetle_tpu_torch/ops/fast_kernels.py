@@ -25,17 +25,31 @@ Tiers (`limit_rounds`):
          state (closing is native on every fixpoint tier) — run a
          K-round status fixpoint over exact per-event prefix balances.
          A cascade deeper than K reports `fix_unconverged`.
+  imported_mode   the imported tiers, plain (1) and fixpoint (8, 32):
+         the real imported-event rules (`imported_batch_ctx`), the
+         in-batch regress as a left-to-right maxima chain (closed form
+         on the plain tier, joining the rounds on the fixpoint ones); no
+         in-batch pending join; a chain beside an imported event falls
+         back.
+  balancing_mode  the balancing tiers (8, 32 rounds): the clamp of
+         balancing_debit/credit joins the limit fixpoint, with the six
+         balance-overflow statuses evaluated exactly.
 Windows (a commit window of W prepares in one call; `seg=` carries each
 lane's commit timestamp and its prepare's edges):
-  create_transfers_super       the plain tier over W·n_pad flat lanes;
-  create_transfers_super_deep  the fixpoint tier over them, at
-                               LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP rounds;
-  create_transfers_chain       one plain-tier run a prepare, prepare k's
-                               fallback poisoning every later one;
-each with `ring_reset=True` (the JAX package's `_ring` variants), which
-consumes the event ring from row 0.
-The imported and balancing tiers (and their window tiers) are later
-slices of the port.
+  create_transfers_super            the plain tier over W·n_pad flat
+                                    lanes;
+  create_transfers_super_deep       the fixpoint tier over them, at
+                                    LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP
+                                    rounds;
+  create_transfers_super_imported   the plain imported tier over them;
+  create_transfers_super_balancing  the balancing tier over them, at
+                                    LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP
+                                    rounds;
+  create_transfers_chain            one plain-tier run a prepare, prepare
+                                    k's fallback poisoning every later
+                                    one;
+each but super_imported with `ring_reset=True` (the JAX package's `_ring`
+variants), which consumes the event ring from row 0.
 
 Every row gather goes through `row_gather` / `row_gather_multi` (the
 CUDA row-gather kernel on the card, `csrc/row_gather.cu`; tables read
@@ -95,6 +109,7 @@ from .ev_layout import (
     XF_P32,
     XF_P32_POS,
     XF_U64,
+    XF_U64_IDX,
     ev_cap,
     pack32,
     xf_named,
@@ -107,16 +122,20 @@ from .u64 import (
     U64_MAX,
     s64,
     srl,
+    ucummax,
     ucummin,
     ugt,
     ule,
+    ult,
     umax,
     umax_reduce,
     umin,
     umin_reduce,
+    usearchsorted,
 )
 
 _INF = 0x7FFFFFFF
+_SIGN = -(1 << 63)
 
 # The order-dependent-limits tiers: a K-round status fixpoint resolves
 # headroom-proof breaches natively; a cascade deeper than K waves
@@ -554,12 +573,15 @@ def _inwin_def_view(ev, ts_event, didx, dr_rowc, cr_rowc):
     return out
 
 
-def _pv_eval(ev, p, p_found, p_dr, p_cr, ts_event):
+def _pv_eval(ev, p, p_found, p_dr, p_cr, ts_event, imported_ctx=None):
     """Post/void evaluation (reference :4053-4112): sentinel amount
     resolution + the ordered check list. Returns (pv_status,
-    pv_status_nf, pv_amt_hi, pv_amt_lo), where pv_status_nf is the
-    dead/missing-definition variant: the same sequence with the lookup
-    missing."""
+    pv_status_nf, pv_amt_hi, pv_amt_lo, pv_tail), where pv_status_nf is
+    the dead/missing-definition variant (the same sequence with the
+    lookup missing) and pv_tail the checks after the imported regress
+    position, the source of the caller's precedence-override codes.
+    imported_ctx (the imported tiers): the regress check against the
+    state, at its precedence position."""
     flags = ev["flags"]
     pending = _flag(flags, _F_PENDING)
     is_post = _flag(flags, _F_POST)
@@ -604,18 +626,64 @@ def _pv_eval(ev, p, p_found, p_dr, p_cr, ts_event):
         (p["pstat"] == _PS_VOIDED, _TS["pending_transfer_already_voided"]),
         (p["pstat"] == _PS_EXPIRED, _TS["pending_transfer_expired"]),
         (p_expires_due, _TS["pending_transfer_expired"]),
+    ]
+    if imported_ctx is not None:
+        # Regress against the state (key_max and the account-timestamp
+        # collision); the in-batch part is the caller's maxima chain.
+        pv_checks.append((_flag(flags, _F_IMPORTED) & (
+            ule(ev["ts"], imported_ctx["key_max"])
+            | imported_ctx["acct_ts_collision"]),
+            _TS["imported_event_timestamp_must_not_regress"]))
+    pv_tail = [
         (_flag(p_dr["flags"], _A_CLOSED) & ~is_void,
          _TS["debit_account_already_closed"]),
         (_flag(p_cr["flags"], _A_CLOSED) & ~is_void,
          _TS["credit_account_already_closed"]),
     ]
+    pv_checks = pv_checks + pv_tail
     # A use whose in-batch definition turns out dead: the pending
     # transfer does not exist, so earlier-precedence field checks still
     # win and the rest reads pending_transfer_not_found.
     pv_status_nf = _first_failure(
         pv_checks[:6] + [(torch.ones_like(pid_zero),
                           _TS["pending_transfer_not_found"])])
-    return _first_failure(pv_checks), pv_status_nf, pv_amt_hi, pv_amt_lo
+    return (_first_failure(pv_checks), pv_status_nf, pv_amt_hi, pv_amt_lo,
+            pv_tail)
+
+
+def imported_batch_ctx(state, ev, ts_event, valid, idxs, seg_start=None):
+    """The imported tiers' per-event context (reference :3052-3063
+    wrapper, :3800-3833 rules): each prepare's homogeneity reference
+    (its first lane's flag) and commit timestamp (its valid lanes'
+    largest ts_event), whether the user timestamp collides with an
+    account's, and the state's transfer key_max.
+
+    The account timestamp column is ascending over the live rows (rows
+    are stored in applied-timestamp order), so the collision is one
+    search: rows at or after the count read as u64::MAX, which user
+    timestamps (<= 2^63 - 1) never equal. The search runs on the
+    bit-63-flipped keys (`usearchsorted`), where that padding sorts
+    last."""
+    acc = state["accounts"]
+    N = idxs.shape[0]
+    imp_lane = _flag(ev["flags"], _F_IMPORTED)
+    seg_start_arr = idxs == 0 if seg_start is None else seg_start
+    start_idx = _cummax(torch.where(seg_start_arr, idxs, -1))
+    batch_imported = imp_lane[torch.clamp(start_idx, min=0)]
+    seg_id = _cumsum(seg_start_arr.to(torch.int64)) - 1
+    # Segment max in unsigned order: an amax over bit-63-flipped values.
+    flipped = torch.where(valid, ts_event, 0) ^ _SIGN
+    seg_max = torch.full((N,), _SIGN, dtype=torch.int64, device=idxs.device)
+    seg_max = seg_max.scatter_reduce(0, seg_id, flipped, "amax")
+    seg_bts = seg_max[seg_id] ^ _SIGN
+    au = acc["u64"]
+    live = torch.arange(au.shape[0], device=au.device) < acc["count"]
+    acct_ts = torch.where(live, au[:, AC_U64_IDX["ts"]], U64_MAX)
+    pos = torch.clamp(usearchsorted(acct_ts, ev["ts"]),
+                      max=acct_ts.shape[0] - 1)
+    coll = imp_lane & (acct_ts[pos] == ev["ts"]) & (ev["ts"] != 0)
+    return dict(batch_imported=batch_imported, batch_ts=seg_bts,
+                acct_ts_collision=coll, key_max=state["xfer_key_max"])
 
 
 def per_event_status(state, ev, ts_event, inwin=None, didx=None,
@@ -635,12 +703,14 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
     orphaned): then the definition is not created and the table row is
     the sequential-truth target. The outputs then also carry the gated
     inwin, didx and `status_pre_dead` (the status if the definition
-    turns out dead). imported_ctx (the imported tier's event rules)
-    raises NotImplementedError: it is a later slice of the port."""
-    if imported_ctx is not None:
-        raise NotImplementedError(
-            "per_event_status: imported_ctx is a later slice of the port "
-            "(the imported/balancing/closing slice)")
+    turns out dead).
+
+    imported_ctx (the imported tiers; `imported_batch_ctx`): the real
+    imported-event rules (reference :3052-3063, :3800-3833) in place of
+    the "imported unexpected" rejection, and `after_regress_codes`, the
+    codes checked after the regress position. The order-dependent part
+    of the regress rule (against transfers created earlier in the
+    batch) is the caller's maxima chain."""
     acc = state["accounts"]
     xfr = state["transfers"]
     A_dump = acc["u64"].shape[0] - 1
@@ -700,8 +770,8 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
     exists_status, exists_ts = _ct_eval_exists(ev, e, p)
 
     imported = _flag(flags, _F_IMPORTED)
-    pv_status, pv_status_nf, pv_amt_hi, pv_amt_lo = _pv_eval(
-        ev, p, p_found, p_dr, p_cr, ts_event)
+    pv_status, pv_status_nf, pv_amt_hi, pv_amt_lo, pv_tail = _pv_eval(
+        ev, p, p_found, p_dr, p_cr, ts_event, imported_ctx)
     amt_res_hi = torch.where(pv, pv_amt_hi, ev["amt_hi"])
     amt_res_lo = torch.where(pv, pv_amt_lo, ev["amt_lo"])
 
@@ -734,11 +804,30 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
          _TS["accounts_must_have_the_same_ledger"]),
         (ev["ledger"] != dr["ledger"],
          _TS["transfer_must_have_the_same_ledger_as_accounts"]),
+    ]
+    reg_post_regress = []
+    if imported_ctx is not None:
+        # The imported rules at the reference's precedence position
+        # (:3800-3833): regress against the state, postdate both
+        # accounts, no timeout.
+        reg_checks.append((imported & (
+            ule(ev["ts"], imported_ctx["key_max"])
+            | imported_ctx["acct_ts_collision"]),
+            _TS["imported_event_timestamp_must_not_regress"]))
+        reg_post_regress = [
+            (imported & ule(ev["ts"], dr["ts"]),
+             _TS["imported_event_timestamp_must_postdate_debit_account"]),
+            (imported & ule(ev["ts"], cr["ts"]),
+             _TS["imported_event_timestamp_must_postdate_credit_account"]),
+            (imported & (ev["timeout"] != 0),
+             _TS["imported_event_timeout_must_be_zero"]),
+        ]
+    reg_tail = [
         (_flag(dr["flags"], _A_CLOSED), _TS["debit_account_already_closed"]),
         (_flag(cr["flags"], _A_CLOSED), _TS["credit_account_already_closed"]),
         (ovf_timeout, _TS["overflows_timeout"]),
     ]
-    reg_status = _first_failure(reg_checks)
+    reg_status = _first_failure(reg_checks + reg_post_regress + reg_tail)
 
     pre = _first_failure([
         ((flags & _TF_PADDING) != 0, _TS["reserved_flag"]),
@@ -747,7 +836,7 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
          _TS["id_must_not_be_int_max"]),
     ])
 
-    def wrap(pv_branch):
+    def wrap(pv_branch, ctx=None):
         """The status with the given post/void branch, wrapped in the
         exists / orphan / pre-check / timestamp / imported rules; returns
         (status, inner)."""
@@ -758,16 +847,35 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
         inner = torch.where(pre != _CREATED, pre, inner)
         status = torch.where(~imported & (ev["ts"] != 0),
                              _TS["timestamp_must_be_zero"], inner)
-        # Imported batches fall back (E1) before these statuses can
-        # matter; an imported flag here is always a mismatch (reference
-        # execute_create :3052-3063).
-        status = torch.where(imported, _TS["imported_event_not_expected"],
+        if ctx is None:
+            # Without the context an imported batch falls back (E1)
+            # before these statuses can matter; an imported flag here is
+            # always a mismatch (reference execute_create :3052-3063).
+            return torch.where(imported, _TS["imported_event_not_expected"],
+                               status), inner
+        # The wrapper rules: per-prepare homogeneity, timestamp range,
+        # must-not-advance against the prepare's commit timestamp.
+        ts_valid = (ev["ts"] != 0) & ule(ev["ts"], U63_MAX)
+        status = torch.where(
+            imported & ts_valid & ~ult(ev["ts"], ctx["batch_ts"]),
+            _TS["imported_event_timestamp_must_not_advance"], status)
+        status = torch.where(imported & ~ts_valid,
+                             _TS["imported_event_timestamp_out_of_range"],
                              status)
+        status = torch.where(
+            imported != ctx["batch_imported"],
+            torch.where(imported, _TS["imported_event_not_expected"],
+                        _TS["imported_event_expected"]), status)
         return status, inner
 
-    status, inner = wrap(pv_status)
+    status, inner = wrap(pv_status, imported_ctx)
     ts_inner = torch.where(e_found & (inner == _TS["exists"]), exists_ts,
                            ts_event)
+    if imported_ctx is not None:
+        # A created imported event keeps its USER timestamp (the stored
+        # row, the result and the history row; reference :3800-3833).
+        ts_inner = torch.where((inner == _CREATED) & imported, ev["ts"],
+                               ts_inner)
     ts_actual = torch.where(status == inner, ts_inner, ts_event)
 
     # Closed-check-stripped status (the fixpoint tiers re-derive the
@@ -787,6 +895,12 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
         dr_found=dr_found, cr_found=cr_found, p_found=p_found,
         _gathers=(dr, cr, p, p_dr, p_cr),
     )
+    if imported_ctx is not None:
+        # Every code checked after the regress position (the caller's
+        # in-batch maxima chain outranks them), from the same lists the
+        # statuses come from.
+        out["after_regress_codes"] = tuple(sorted({
+            code for _, code in reg_post_regress + reg_tail + pv_tail}))
     if inwin is not None:
         out["inwin"] = inwin
         out["didx"] = didx
@@ -794,21 +908,11 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
     return out
 
 
-def _later_slices(per_event, imported_mode, balancing_mode):
-    later = [
-        (per_event is not None,
-         "per_event (the spmd join of the parallel/ slice)"),
-        (imported_mode, "imported_mode (the imported/balancing/closing "
-                        "slice)"),
-        (balancing_mode, "balancing_mode (the imported/balancing/closing "
-                         "slice)"),
-    ]
-    for bad, what in later:
-        if bad:
-            raise NotImplementedError(
-                f"create_transfers_fast: {what} is a later slice of the "
-                "port; this slice runs the plain and limit fixpoint tiers "
-                "and their windows")
+def _later_slices(per_event):
+    if per_event is not None:
+        raise NotImplementedError(
+            "create_transfers_fast: per_event (the spmd join of the "
+            "parallel/ slice) is a later slice of the port")
 
 
 def _ts_events(timestamp, n, N, device):
@@ -817,10 +921,72 @@ def _ts_events(timestamp, n, N, device):
     return torch.arange(N, dtype=torch.int64, device=device) + base
 
 
+def _maxima_low(st, valid, imp):
+    """The imported tiers' in-batch regress: an imported event regresses
+    iff its user timestamp is at or below the running max of every
+    timestamp applied before it (the state's key_max, then each
+    otherwise-valid event's actual timestamp). The applied set is exactly
+    the strict left-to-right maxima of the otherwise-valid sequence (a
+    failed event never advances the max, and an event at or below ANY
+    earlier otherwise-valid timestamp is at or below the applied max), so
+    one exclusive running max decides every regress status. imp: {lane
+    (imported lanes), ts (user timestamps), actual (each lane's applied
+    timestamp), key_max}. Returns (lanes at or below the running max,
+    otherwise-valid lanes)."""
+    base_ok = valid & (st == _CREATED)
+    key_max = imp["key_max"]
+    run_incl = ucummax(torch.where(base_ok, imp["actual"], 0))
+    run_excl = umax(key_max, torch.cat([key_max[None], run_incl[:-1]]))
+    return imp["lane"] & valid & ule(imp["ts"], run_excl), base_ok
+
+
+def _in_codes(st, codes):
+    hit = torch.zeros_like(st, dtype=torch.bool)
+    for code in codes:
+        hit = hit | (st == code)
+    return hit
+
+
+def _limb_over(lft):
+    """Carry-out of a 4-limb sum (each limb < 2^34): the sum >= 2^128."""
+    c = srl(lft[0], 32)
+    c = srl(lft[1] + c, 32)
+    c = srl(lft[2] + c, 32)
+    return srl(lft[3] + c, 32) > 0
+
+
+def _pre_field(m, f):
+    """(hi, lo) of field f of a (4 fields, 4 limbs, N) limb matrix."""
+    i = _FI[f]
+    return m[i, 2] | (m[i, 3] << 32), m[i, 0] | (m[i, 1] << 32)
+
+
+def _bal_clamp(amt_hi, amt_lo, bal_dr_ln, bal_cr_ln, dr_f, cr_f):
+    """The balancing clamp (reference :3840-3853) of the NOMINAL amount
+    against pre-event balances: min(amount, debit headroom cpos - (dp +
+    dpos)) for balancing_debit, then min with the credit headroom dpos -
+    (cp + cpos) for balancing_credit (saturating). dr_f / cr_f: field
+    name -> (hi, lo) of the debit / credit account. min composes, so
+    re-clamping the nominal each round cannot ratchet below the
+    sequential truth."""
+    a_hi, a_lo = amt_hi, amt_lo
+    b_hi, b_lo, _ = u128.add(*dr_f("dp"), *dr_f("dpos"))
+    av_hi, av_lo = u128.sat_sub(*dr_f("cpos"), b_hi, b_lo)
+    m_hi, m_lo = u128.min_(a_hi, a_lo, av_hi, av_lo)
+    a_hi = torch.where(bal_dr_ln, m_hi, a_hi)
+    a_lo = torch.where(bal_dr_ln, m_lo, a_lo)
+    b_hi, b_lo, _ = u128.add(*cr_f("cp"), *cr_f("cpos"))
+    av_hi, av_lo = u128.sat_sub(*cr_f("dpos"), b_hi, b_lo)
+    m_hi, m_lo = u128.min_(a_hi, a_lo, av_hi, av_lo)
+    a_hi = torch.where(bal_cr_ln, m_hi, a_hi)
+    a_lo = torch.where(bal_cr_ln, m_lo, a_lo)
+    return a_hi, a_lo
+
+
 def _fixpoint_rounds(K, status, status_dead, inwin, didx, linked, valid,
                      idxs, chain, pv, pending, is_post, is_void, flags,
                      cand_dr, cand_cr, cand_close, cdr_ln, ccr_ln, alx,
-                     al2_s, nl2_s, fs):
+                     al2_s, nl2_s, fs, imp=None, bal=None):
     """The K-round status fixpoint of the limit tiers (reference: the
     exceeds_credits/debits checks read the balances of every SUCCESSFUL
     earlier event, src/state_machine.zig:3903-3904; closed state
@@ -835,9 +1001,24 @@ def _fixpoint_rounds(K, status, status_dead, inwin, didx, linked, valid,
     full over -> death -> lost-relief wave. `chain` is the tail of
     `_chain_pass`'s arguments: (n, N, seg_start, chain_term).
 
+    imp (the imported fixpoint tiers; {lane, ts, actual, key_max,
+    codes}): the in-batch regress (`_maxima_low`) joins the rounds, since
+    the applied set it runs over evolves with the closed and limit
+    decisions; regress outranks every code checked after it (`codes`
+    and the limit codes).
+
+    bal (the balancing tiers; {dr_ln, cr_ln, amt_hi, amt_lo, ovf_cand}):
+    each round re-clamps every balancing event's nominal amount against
+    the previous round's pre-event balances (`_bal_clamp`), threads the
+    clamped amounts into the delta lanes and the limit checks, evaluates
+    the six balance-overflow statuses exactly (reference :3856-3884) and
+    converges only once the amounts are stable. Round 0 clamps against
+    the pre-batch balances (bal["amt0"]).
+
     A static loop of K rounds: an early exit would need a host sync per
-    round and changes no result. Returns (over_dr, over_cr, cdr_ln,
-    ccr_ln, dead, fix_converged, fix_rounds)."""
+    round and changes no result. Returns a dict: over_dr, over_cr,
+    cdr_ln, ccr_ln, dead, reg_low, ovf_code, amt_hi, amt_lo (the
+    converged amounts; bal only), fix_converged, fix_rounds."""
     dev = status.device
     N = valid.shape[0]
     close_dr_f = _flag(flags, _F_CLOSE_DR)
@@ -845,22 +1026,42 @@ def _fixpoint_rounds(K, status, status_dead, inwin, didx, linked, valid,
     over_dr = torch.zeros_like(valid)
     over_cr = torch.zeros_like(valid)
     dead = torch.zeros_like(valid)
+    reg_low = torch.zeros_like(valid)
+    ovf_code = torch.zeros_like(status)
     fix_converged = torch.ones((), dtype=torch.bool, device=dev)
     fix_rounds = torch.zeros((), dtype=torch.int64, device=dev)
     excl_head = torch.full((1,), -1, dtype=torch.int64, device=dev)
+    if bal is not None:
+        amt_hi, amt_lo = bal["amt0"]
     for rnd in range(K):
         # Round 0 always runs; a later round counts only when the
         # previous one had not converged.
         fix_rounds = fix_rounds + (1 if rnd == 0
                                    else (~fix_converged).to(torch.int64))
-        st_r = torch.where(over_dr, _TS["exceeds_credits"], status)
+        st_r = torch.where(ovf_code != 0, ovf_code, status)
+        st_r = torch.where(over_dr, _TS["exceeds_credits"], st_r)
         st_r = torch.where(over_cr & ~over_dr, _TS["exceeds_debits"], st_r)
-        # The closed codes precede the limit codes sequentially (:3837
-        # before :3904): applied after, so they win; dr before cr.
+        # The closed codes precede the overflow and limit codes
+        # sequentially (:3837 before :3856/:3904): applied after, so they
+        # win; dr before cr.
         st_r = torch.where(cdr_ln, _TS["debit_account_already_closed"],
                            st_r)
         st_r = torch.where(ccr_ln & ~cdr_ln,
                            _TS["credit_account_already_closed"], st_r)
+        if imp is not None:
+            # Regress outranks every code checked after its position
+            # (applied last, so it wins); the override only hits lanes
+            # that could never apply either way, which leaves the
+            # maxima chain as it is.
+            low, base_ok = _maxima_low(st_r, valid, imp)
+            after = _in_codes(st_r, imp["codes"] + (
+                _TS["exceeds_credits"], _TS["exceeds_debits"]))
+            new_reg_low = low & (base_ok | after)
+            st_r = torch.where(
+                new_reg_low, _TS["imported_event_timestamp_must_not_regress"],
+                st_r)
+        else:
+            new_reg_low = reg_low
         # In-batch deaths from the PREVIOUS round: a use whose
         # definition did not create reads pending_transfer_not_found.
         st_r = torch.where(dead, status_dead, st_r)
@@ -896,7 +1097,15 @@ def _fixpoint_rounds(K, status, status_dead, inwin, didx, linked, valid,
         closed_pre = closed_pre_s[fs["inv"]]
         new_cdr = cand_close & closed_pre[:N]
         new_ccr = cand_close & closed_pre[N:]
-        fls = _sorted_lanes(m_s, fs["cr_side"], al2_s, nl2_s)
+        if bal is not None:
+            # The amounts vary by round (the clamp): the current limbs
+            # in sorted space replace the hoisted al2_s (the same on
+            # non-balancing lanes).
+            al_ev = torch.stack(_to_limbs(amt_hi, amt_lo))
+            al_use = torch.cat([al_ev, al_ev], dim=1)[:, fs["perm"]]
+        else:
+            al_use = al2_s
+        fls = _sorted_lanes(m_s, fs["cr_side"], al_use, nl2_s)
         fcs = _cumsum(fls, dim=2)
         foff = torch.where(
             fs["seg_start"] > 0,
@@ -909,26 +1118,74 @@ def _fixpoint_rounds(K, status, status_dead, inwin, didx, linked, valid,
         pre_ev = pre[:, :, fs["inv"]]
         pre_dr = pre_ev[:, :, :N]
         pre_cr = pre_ev[:, :, N:]
+        if bal is not None:
+            # Clamp FIRST, then the overflow checks, then the limit
+            # checks, all with the clamped amount against the same
+            # pre-event balances: the sequential order (:3840-3904).
+            new_hi, new_lo = _bal_clamp(
+                bal["amt_hi"], bal["amt_lo"], bal["dr_ln"], bal["cr_ln"],
+                lambda f: _pre_field(pre_dr, f),
+                lambda f: _pre_field(pre_cr, f))
+            alx_r = _to_limbs(new_hi, new_lo)
+            amt_stable = torch.all((new_hi == amt_hi) & (new_lo == amt_lo))
+            amt_hi, amt_lo = new_hi, new_lo
+
+            def sum_ovf(m, f1, f2=None):
+                return _limb_over([m[_FI[f1], j]
+                                   + (m[_FI[f2], j] if f2 else 0)
+                                   + alx_r[j] for j in range(4)])
+
+            # The six balance-overflow statuses, exact. They sit between
+            # the clamp and overflows_timeout sequentially, so they
+            # override a CREATED or an overflows_timeout base status.
+            new_ovf = torch.zeros_like(status)
+            for cond, code in reversed([
+                    (pending & sum_ovf(pre_dr, "dp"),
+                     _TS["overflows_debits_pending"]),
+                    (pending & sum_ovf(pre_cr, "cp"),
+                     _TS["overflows_credits_pending"]),
+                    (sum_ovf(pre_dr, "dpos"), _TS["overflows_debits_posted"]),
+                    (sum_ovf(pre_cr, "cpos"),
+                     _TS["overflows_credits_posted"]),
+                    (sum_ovf(pre_dr, "dp", "dpos"), _TS["overflows_debits"]),
+                    (sum_ovf(pre_cr, "cp", "cpos"),
+                     _TS["overflows_credits"])]):
+                new_ovf = torch.where(bal["ovf_cand"] & cond, code, new_ovf)
+            no_ovf = new_ovf == 0
+        else:
+            alx_r = alx
+            amt_stable = True
+            new_ovf = ovf_code
+            no_ovf = True
 
         def over(pre_evt, held1, held2, against):
             # (held1_pre + held2_pre + amount) > against_pre, 5 limbs.
             h1, h2, ag = _FI[held1], _FI[held2], _FI[against]
-            lft = [pre_evt[h1, j] + pre_evt[h2, j] + alx[j]
+            lft = [pre_evt[h1, j] + pre_evt[h2, j] + alx_r[j]
                    for j in range(4)]
             return _u128_over(*lft,
                               pre_evt[ag, 2] | (pre_evt[ag, 3] << 32),
                               pre_evt[ag, 0] | (pre_evt[ag, 1] << 32))
 
-        new_over_dr = cand_dr & over(pre_dr, "dp", "dpos", "cpos")
-        new_over_cr = cand_cr & over(pre_cr, "cp", "cpos", "dpos")
+        new_over_dr = cand_dr & no_ovf & over(pre_dr, "dp", "dpos", "cpos")
+        new_over_cr = cand_cr & no_ovf & over(pre_cr, "cp", "cpos", "dpos")
         fix_converged = torch.all((new_over_dr == over_dr)
                                   & (new_over_cr == over_cr)
+                                  & (new_ovf == ovf_code)
                                   & (new_dead == dead)
                                   & (new_cdr == cdr_ln)
-                                  & (new_ccr == ccr_ln))
+                                  & (new_ccr == ccr_ln)
+                                  & (new_reg_low == reg_low)) & amt_stable
         over_dr, over_cr, dead = new_over_dr, new_over_cr, new_dead
         cdr_ln, ccr_ln = new_cdr, new_ccr
-    return over_dr, over_cr, cdr_ln, ccr_ln, dead, fix_converged, fix_rounds
+        reg_low = new_reg_low
+        ovf_code = new_ovf
+    out = dict(over_dr=over_dr, over_cr=over_cr, cdr_ln=cdr_ln,
+               ccr_ln=ccr_ln, dead=dead, reg_low=reg_low, ovf_code=ovf_code,
+               fix_converged=fix_converged, fix_rounds=fix_rounds)
+    if bal is not None:
+        out["amt_hi"], out["amt_lo"] = amt_hi, amt_lo
+    return out
 
 
 def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
@@ -964,14 +1221,45 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     ring_reset: consume the event ring from row 0 (the pipelined window
     routes; a fallback leaves the ring count as it was).
 
-    per_event (the spmd join), imported_mode and balancing_mode raise
-    NotImplementedError naming the later slice that brings them.
+    imported_mode: imported events natively (reference :3052-3063
+    wrapper, :3800-3833 rules; `imported_batch_ctx`). The one
+    order-dependent rule, an imported timestamp above every timestamp
+    applied before it in the batch too, is the closed-form maxima chain
+    (`_maxima_low`) on the plain tier and joins the rounds on the
+    fixpoint tiers. A linked chain in a batch with an imported event
+    falls back (a rollback rewinds the running max), as do collisions
+    (no in-batch pending join on these tiers); closing flags, voids of
+    closing pendings and potential limit breaches escalate from the
+    plain imported tier to the imported fixpoint tiers. A created
+    imported event stores and reports its user timestamp, and the
+    state's commit_ts is the last applied event's actual timestamp, the
+    oracle's value (the JAX package keeps the prepare timestamp there).
+
+    balancing_mode (limit_rounds > 1): balancing_debit/credit natively
+    (reference :3840-3853). The clamp reads the pre-event balances the
+    fixpoint derives each round, so it joins the rounds (see
+    `_fixpoint_rounds`); the converged amounts flow into the stored rows,
+    the event ring and the application. The headroom and amount-sum
+    proofs are skipped (the nominal amount is near-always AMOUNT_MAX; the
+    rounds evaluate the six overflow statuses exactly). An imported flag
+    is hard, and so is an in-batch pending reference whose definition is
+    itself balancing (the view reads its nominal amount, the stored one
+    is the clamp).
+
+    per_event (the spmd join) raises NotImplementedError: a later slice.
 
     Every state write is in place, the row counts and scalars included
     (`copy_`): a call leaves each state tensor's storage where it was,
     which a replayed CUDA graph relies on."""
-    _later_slices(per_event, imported_mode, balancing_mode)
+    _later_slices(per_event)
+    assert not (imported_mode and balancing_mode), \
+        "the imported and balancing tiers do not compose"
+    assert not balancing_mode or limit_rounds > 1, \
+        "balancing_mode rides the limit fixpoint"
     fixpoint = limit_rounds > 1
+    # The in-batch pending join: every fixpoint tier but the imported
+    # ones (an imported definition's stored timestamp is the user's).
+    join = fixpoint and not imported_mode
     acc = state["accounts"]
     xfr = state["transfers"]
     evr = state["events"]
@@ -997,7 +1285,10 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     pv = is_post | is_void
     timeout_ns = ev["timeout"] * NS_PER_S
 
-    if fixpoint:
+    imported_ctx = (imported_batch_ctx(state, ev, ts_event, valid, idxs,
+                                       chain[2])
+                    if imported_mode else None)
+    if join:
         # The precise dup/join split + the in-batch pending substitution.
         e2, inwin_raw, didx = _dup_and_pend_join(ev, valid, pv, idxs, N)
         per_event = per_event_status(state, ev, ts_event, inwin=inwin_raw,
@@ -1011,10 +1302,15 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     else:
         # The combined collision check: any collision (a same-kind
         # duplicate or an in-batch pending reference) escalates to the
-        # fixpoint tier.
+        # fixpoint tier on the plain tier, and is hard on the imported
+        # tiers.
         e2 = _combined_dup_keys(ev, valid, pv)
-        per_event = per_event_status(state, ev, ts_event)
-        status = per_event["status_pre"]
+        per_event = per_event_status(state, ev, ts_event,
+                                     imported_ctx=imported_ctx)
+        inwin = torch.zeros_like(valid)
+        didx = torch.zeros_like(idxs)
+        status_dead = per_event["status_pre"]
+        status = per_event["status_nc" if fixpoint else "status_pre"]
     dr_rowc = per_event["dr_row"]
     cr_rowc = per_event["cr_row"]
     p_rowc = per_event["p_row"]
@@ -1023,12 +1319,39 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     amt_res_lo = per_event["amt_res_lo"]
     ts_actual = per_event["ts_pre"]
     dr, cr, p, p_dr, p_cr = per_event["_gathers"]
+    if imported_mode:
+        imp = dict(lane=_flag(flags, _F_IMPORTED), ts=ev["ts"],
+                   codes=per_event["after_regress_codes"],
+                   key_max=state["xfer_key_max"])
+        # The running max takes every applied event's actual timestamp:
+        # the user's for an imported one, ts_event otherwise.
+        imp["actual"] = torch.where(imp["lane"], ev["ts"], ts_event)
+    if imported_mode and not fixpoint:
+        # In-batch regress, in closed form. Codes checked after the
+        # regress position yield to it when the event also regresses
+        # in-batch (it can never apply either way).
+        low, base_ok = _maxima_low(status, valid, imp)
+        override = low & (base_ok | _in_codes(status, imp["codes"]))
+        status = torch.where(
+            override, _TS["imported_event_timestamp_must_not_regress"],
+            status)
+        ts_actual = torch.where(override, ts_event, ts_actual)
 
     # ---------------- eligibility ----------------
-    # E1: imported and balancing flags are hard. Closing flags (and, E5,
-    # voids of closing pendings) escalate on the plain tier and run
-    # natively on the fixpoint tiers.
-    e1_vec = valid & _flag(flags, _F_IMPORTED | _F_BAL_DR | _F_BAL_CR)
+    # E1: imported and balancing flags are hard, but on their own tiers.
+    # Closing flags (and, E5, voids of closing pendings) escalate on the
+    # plain tiers and run natively on the fixpoint tiers.
+    if imported_mode:
+        # Balancing stays hard; so does a linked chain anywhere in a
+        # batch with an imported event (a rollback rewinds the running
+        # max, a non-imported member's ts_event included).
+        impchain = torch.any(valid & imp["lane"]) & torch.any(linked)
+        e1_vec = valid & (_flag(flags, _F_BAL_DR | _F_BAL_CR) | impchain)
+    elif balancing_mode:
+        e1_vec = valid & (_flag(flags, _F_IMPORTED) | (
+            inwin & _flag(flags[didx], _F_BAL_DR | _F_BAL_CR)))
+    else:
+        e1_vec = valid & _flag(flags, _F_IMPORTED | _F_BAL_DR | _F_BAL_CR)
     e_close_vec = (torch.zeros_like(valid) if fixpoint
                    else valid & _flag(flags, _F_CLOSE_DR | _F_CLOSE_CR))
 
@@ -1058,16 +1381,22 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
                           balm[:, ag] | (balm[:, ag + 1] << 32))
         return _flag(aflags_full, limit_bit) & not_dump & over
 
-    # ONE segment sum covers both sides' worst-case loads (credit rows
-    # offset by A_rows); integer index_add_ is deterministic.
-    rows2l = torch.cat([dr_rowc, cr_rowc + A_rows])
-    s2 = torch.zeros((2 * A_rows, 4), dtype=torch.int64, device=dev)
-    s2.index_add_(0, rows2l, torch.cat([ral, ral]))
-    e3 = torch.any(torch.stack([
-        _breach([s2[:A_rows, j] for j in range(4)],
-                "dp", "dpos", "cpos", _A_DR_LIMIT),
-        _breach([s2[A_rows:, j] for j in range(4)],
-                "cp", "cpos", "dpos", _A_CR_LIMIT)]))
+    if balancing_mode:
+        # The proof is meaningless under balancing (nominal amounts are
+        # near-always AMOUNT_MAX) and the balancing route never reads its
+        # outcome: e3 is the fixpoint's convergence below.
+        e3 = torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        # ONE segment sum covers both sides' worst-case loads (credit
+        # rows offset by A_rows); integer index_add_ is deterministic.
+        rows2l = torch.cat([dr_rowc, cr_rowc + A_rows])
+        s2 = torch.zeros((2 * A_rows, 4), dtype=torch.int64, device=dev)
+        s2.index_add_(0, rows2l, torch.cat([ral, ral]))
+        e3 = torch.any(torch.stack([
+            _breach([s2[:A_rows, j] for j in range(4)],
+                    "dp", "dpos", "cpos", _A_DR_LIMIT),
+            _breach([s2[A_rows:, j] for j in range(4)],
+                    "cp", "cpos", "dpos", _A_CR_LIMIT)]))
     # The proof's outcome survives the fixpoint override below: the
     # ledger drops back to the plain tier only once the proof would pass.
     proof_breach = e3
@@ -1105,7 +1434,12 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     e5_vec = (valid & is_void & p_found
               & _flag(p["flags"], _F_CLOSE_DR | _F_CLOSE_CR))
     hard_any = torch.any(torch.stack([e1_vec, *pair_ovfs]))
-    e145 = hard_any | ovf | (s4 > 0)
+    # Under balancing the amount-sum proof is bypassed (AMOUNT_MAX
+    # nominals always trip it; the applied amounts are the clamps): the
+    # rounds evaluate the six overflow statuses exactly instead.
+    sum_ovf = (torch.zeros((), dtype=torch.bool, device=dev)
+               if balancing_mode else ovf | (s4 > 0))
+    e145 = hard_any | sum_ovf
 
     if fixpoint:
         # ---- the status-independent sorted entry space of the rounds
@@ -1166,20 +1500,62 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
             torch.where(pv, p_dr["flags"], dr["flags"]), _A_CLOSED)
         ccr_ln = cand_close & _flag(
             torch.where(pv, p_cr["flags"], cr["flags"]), _A_CLOSED)
-        (over_dr, over_cr, cdr_ln, ccr_ln, dead, fix_converged,
-         fix_rounds) = _fixpoint_rounds(
+        bal = None
+        if balancing_mode:
+            bal_dr_ln = valid & ~pv & _flag(flags, _F_BAL_DR)
+            bal_cr_ln = valid & ~pv & _flag(flags, _F_BAL_CR)
+            bal = dict(
+                dr_ln=bal_dr_ln, cr_ln=bal_cr_ln, amt_hi=amt_res_hi,
+                amt_lo=amt_res_lo,
+                # Round 0 clamps against the pre-batch balances (exact
+                # for every event whose accounts see no earlier in-batch
+                # delta).
+                amt0=_bal_clamp(amt_res_hi, amt_res_lo, bal_dr_ln,
+                                bal_cr_ln, lambda f: dr[f],
+                                lambda f: cr[f]),
+                ovf_cand=valid & ~pv & (
+                    (status == _CREATED)
+                    | (status == _TS["overflows_timeout"])))
+        fx = _fixpoint_rounds(
             limit_rounds, status, status_dead, inwin, didx, linked, valid,
             idxs, chain, pv, pending, is_post, is_void, flags, cand_dr,
-            cand_cr, cand_close, cdr_ln, ccr_ln, alx, al2_s, nl2_s, fs)
-        status = torch.where(over_dr, _TS["exceeds_credits"], status)
-        status = torch.where(over_cr & ~over_dr, _TS["exceeds_debits"],
-                             status)
-        status = torch.where(cdr_ln, _TS["debit_account_already_closed"],
-                             status)
-        status = torch.where(ccr_ln & ~cdr_ln,
+            cand_cr, cand_close, cdr_ln, ccr_ln, alx, al2_s, nl2_s, fs,
+            imp=imp if imported_mode else None, bal=bal)
+        status = torch.where(fx["ovf_code"] != 0, fx["ovf_code"], status)
+        status = torch.where(fx["over_dr"], _TS["exceeds_credits"], status)
+        status = torch.where(fx["over_cr"] & ~fx["over_dr"],
+                             _TS["exceeds_debits"], status)
+        status = torch.where(fx["cdr_ln"],
+                             _TS["debit_account_already_closed"], status)
+        status = torch.where(fx["ccr_ln"] & ~fx["cdr_ln"],
                              _TS["credit_account_already_closed"], status)
-        status = torch.where(dead, status_dead, status)
-        e3 = ~fix_converged
+        if imported_mode:
+            # Regress precedes the closed / overflow / limit positions:
+            # applied after them, so it wins.
+            status = torch.where(
+                fx["reg_low"],
+                _TS["imported_event_timestamp_must_not_regress"], status)
+            ts_actual = torch.where(fx["reg_low"], ts_event, ts_actual)
+        status = torch.where(fx["dead"], status_dead, status)
+        if imported_mode:
+            # The rounds can flip an imported lane either way, so its
+            # timestamp follows the FINAL status: created -> the user
+            # timestamp, exists -> the stored row's (ts_pre), any other
+            # failure -> ts_event.
+            ts_actual = torch.where(
+                imp["lane"] & (status != _TS["exists"]),
+                torch.where(status == _CREATED, ev["ts"], ts_event),
+                ts_actual)
+        if balancing_mode:
+            # The converged clamps become the applied and stored amounts
+            # (rows, the event ring's amt, the application); areq keeps
+            # the nominal.
+            amt_res_hi = torch.where(bal["dr_ln"] | bal["cr_ln"],
+                                     fx["amt_hi"], amt_res_hi)
+            amt_res_lo = torch.where(bal["dr_ln"] | bal["cr_ln"],
+                                     fx["amt_lo"], amt_res_lo)
+        fix_rounds = fx["fix_rounds"]
+        e3 = ~fx["fix_converged"]
 
     # ---------------- chains: segment first-failure broadcast ----------------
     status, not_the_failure, my_first, in_chain = _chain_pass(
@@ -1222,10 +1598,17 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
         state["xfer_ht"], ev["id_hi"], ev["id_lo"], ins_mask)
 
     if fixpoint:
-        # e2 is precise same-kind duplicates (a real fallback); only an
-        # unconverged cascade escalates (to the deeper tier).
+        # e2 is precise same-kind duplicates (a real fallback; on the
+        # imported tiers any collision); only an unconverged cascade
+        # escalates (to the deeper tier).
         others = e145 | e2 | e7 | e8 | ~ins_ok
         escalatable = e3
+    elif imported_mode:
+        # The plain imported tier: closing flags, voids of closing
+        # pendings and potential limit breaches escalate to the imported
+        # fixpoint tier; collisions stay hard (no join there).
+        others = e145 | e2 | e7 | e8 | ~ins_ok
+        escalatable = e3 | torch.any(torch.stack([e_close_vec, e5_vec]))
     else:
         others = e145 | e7 | e8 | ~ins_ok
         escalatable = (e3 | e2
@@ -1249,7 +1632,7 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     # zeros to the dump row, so the duplicate-index scatters stay
     # deterministic.
     trow = torch.where(ap, new_rows, T_dump)
-    flip_row = torch.where(inwin, trow[didx], p_rowc) if fixpoint else p_rowc
+    flip_row = torch.where(inwin, trow[didx], p_rowc) if join else p_rowc
     flip_pos = torch.where(ap_pv, flip_row, T_dump)
     ud128z = u128.is_zero(ev["ud128_hi"], ev["ud128_lo"])
     stores = dict(
@@ -1305,6 +1688,11 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
                               _flag(flags, _F_CLOSE_CR), fs["p_cl_dr"],
                               fs["p_cl_cr"])
         m_s2 = torch.cat([mask8f, mask8f])[perm]
+        if balancing_mode:
+            # The final amounts carry the converged clamps (al2_s holds
+            # the nominal ones).
+            al_ev2 = torch.stack(al)
+            al2_s = torch.cat([al_ev2, al_ev2], dim=1)[:, perm]
         lanes_sorted = _sorted_lanes(m_s2, fs["cr_side"], al2_s, nl2_s)
     else:
         ap_reg = ap & ~pv & ~pending
@@ -1411,7 +1799,12 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     key_max = torch.where(any_applied,
                           umax(state["xfer_key_max"], last_actual),
                           state["xfer_key_max"])
-    commit_ts = torch.where(any_applied, last_ts, state["commit_ts"])
+    # commit_ts: the last applied event's timestamp, its actual one on the
+    # imported tiers (the oracle's; the applied actual timestamps rise
+    # strictly in stream order, so the last is the largest).
+    commit_ts = torch.where(any_applied,
+                            last_actual if imported_mode else last_ts,
+                            state["commit_ts"])
 
     # Pulse scheduling: the exact sequential evolution in closed form
     # (oracle min-update and reset). Per applied event in order, a
@@ -1455,7 +1848,7 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
         "e1_hard_flags": torch.any(e1_vec),
         "e2_collision": e2,
         "e3_limit": e3,
-        "e4_overflow": torch.any(torch.stack(pair_ovfs)) | ovf | (s4 > 0),
+        "e4_overflow": torch.any(torch.stack(pair_ovfs)) | sum_ovf,
         "e5_void_closing": torch.any(e5_vec),
         "closing": torch.any(e_close_vec),
         "capacity": e7 | e8 | ~ins_ok,
@@ -1493,6 +1886,52 @@ def create_transfers_fixpoint_deep(state, ev, timestamp, n,
                                  limit_rounds=LIMIT_FIXPOINT_ROUNDS_DEEP)
 
 
+def create_transfers_imported(state, ev, timestamp, n, force_fallback=None):
+    """The plain imported tier (create_transfers_imported_jit): native
+    imported rules and the in-batch maxima chain; `limit_only` sends
+    closing flags, voids of closing pendings and potential limit
+    breaches to the imported fixpoint tier."""
+    return create_transfers_fast(state, ev, timestamp, n, force_fallback,
+                                 imported_mode=True)
+
+
+def create_transfers_imported_fixpoint(state, ev, timestamp, n,
+                                       force_fallback=None):
+    """The imported fixpoint tier, 8 rounds
+    (create_transfers_imported_fixpoint_jit): the imported rules and
+    the closing / limit fixpoint in one run, the maxima chain joining the
+    rounds."""
+    return create_transfers_fast(state, ev, timestamp, n, force_fallback,
+                                 limit_rounds=LIMIT_FIXPOINT_ROUNDS,
+                                 imported_mode=True)
+
+
+def create_transfers_imported_fixpoint_deep(state, ev, timestamp, n,
+                                            force_fallback=None):
+    """The imported fixpoint tier at 32 rounds
+    (create_transfers_imported_fixpoint_deep_jit)."""
+    return create_transfers_fast(state, ev, timestamp, n, force_fallback,
+                                 limit_rounds=LIMIT_FIXPOINT_ROUNDS_DEEP,
+                                 imported_mode=True)
+
+
+def create_transfers_balancing(state, ev, timestamp, n, force_fallback=None):
+    """The balancing tier, 8 rounds (create_transfers_balancing_jit):
+    balancing_debit/credit clamps ride the limit fixpoint."""
+    return create_transfers_fast(state, ev, timestamp, n, force_fallback,
+                                 limit_rounds=LIMIT_FIXPOINT_ROUNDS,
+                                 balancing_mode=True)
+
+
+def create_transfers_balancing_deep(state, ev, timestamp, n,
+                                    force_fallback=None):
+    """The balancing tier at 32 rounds
+    (create_transfers_balancing_deep_jit)."""
+    return create_transfers_fast(state, ev, timestamp, n, force_fallback,
+                                 limit_rounds=LIMIT_FIXPOINT_ROUNDS_DEEP,
+                                 balancing_mode=True)
+
+
 # ================================================== commit windows
 
 def create_transfers_super(state, ev, seg, force_fallback=None,
@@ -1514,6 +1953,27 @@ def create_transfers_super_deep(state, ev, seg, force_fallback=None,
     return create_transfers_fast(
         state, ev, 0, 0, force_fallback, seg=seg, ring_reset=ring_reset,
         limit_rounds=LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP)
+
+
+def create_transfers_super_imported(state, ev, seg, force_fallback=None):
+    """The window on the plain imported tier: homogeneity per prepare,
+    the maxima chain across the whole window (key_max carries across
+    prepares). A window with a linked chain, a collision or anything the
+    plain imported tier escalates falls back whole. Synchronous windows
+    only, as in the JAX package (no ring variant)."""
+    return create_transfers_fast(state, ev, 0, 0, force_fallback, seg=seg,
+                                 imported_mode=True)
+
+
+def create_transfers_super_balancing(state, ev, seg, force_fallback=None,
+                                     ring_reset=False):
+    """The window on the balancing tier at
+    LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP rounds (clamp cascades stack across
+    prepares like limit waves); an unconverged window falls back whole,
+    to the per-batch balancing ladder."""
+    return create_transfers_fast(
+        state, ev, 0, 0, force_fallback, seg=seg, ring_reset=ring_reset,
+        limit_rounds=LIMIT_FIXPOINT_ROUNDS_WINDOW_DEEP, balancing_mode=True)
 
 
 _CHAIN_KEEP = ("r_status", "r_ts", "fallback", "created_count")
@@ -1558,14 +2018,15 @@ def create_transfers_chain(state, ev_stack, seg_stack, force_fallback=None,
 
 def create_accounts_fast(state, ev, timestamp, n, imported_mode=False):
     """Vectorized create_accounts (reference :3613-3689). Eligibility: no
-    imported flag (the imported tier is a later slice), no duplicate ids
-    in the batch, capacity suffices. Updates `state` in place (its
-    tensors' storage included); on fallback only the dump rows are
-    written."""
-    if imported_mode:
-        raise NotImplementedError(
-            "create_accounts_fast: imported_mode is a later slice of the "
-            "port (the imported/balancing/closing slice)")
+    duplicate ids in the batch, capacity suffices, and no imported flag
+    unless imported_mode: that tier runs the imported rules natively
+    (reference :3648-3667: regress against acct_key_max and any transfer
+    timestamp, the in-batch maxima chain, the wrapper rules), a linked
+    chain beside an imported account falling back (a rollback rewinds
+    the running max). An imported account stores its user timestamp,
+    and commit_ts becomes the last created account's actual timestamp
+    (the oracle's). Updates `state` in place (its tensors' storage
+    included); on fallback only the dump rows are written."""
     acc = state["accounts"]
     dev = acc["u64"].device
     A_dump = acc["u64"].shape[0] - 1
@@ -1583,6 +2044,8 @@ def create_accounts_fast(state, ev, timestamp, n, imported_mode=False):
     e_rowc = torch.where(e_found, e_row.to(torch.int64), A_dump)
 
     e1 = torch.any(valid & imported)
+    if imported_mode:
+        e1 = e1 & torch.any(linked)
     tag = valid & ~((ev["id_hi"] == 0) & (ev["id_lo"] == 0))
     e2 = _dup_keys(ev["id_hi"], ev["id_lo"], tag)
     fallback_pre = e1 | e2
@@ -1629,15 +2092,65 @@ def create_accounts_fast(state, ev, timestamp, n, imported_mode=False):
         (ev["ledger"] == 0, _AS["ledger_must_not_be_zero"]),
         (ev["code"] == 0, _AS["code_must_not_be_zero"]),
     ]
+    if imported_mode:
+        # Regress against the state: the accounts' key_max, or a
+        # collision with any TRANSFER timestamp. The transfer ts column
+        # is ascending over the live rows (applied-timestamp order), the
+        # rest reads as u64::MAX: one search on the flipped keys (see
+        # imported_batch_ctx). The in-batch part is the maxima chain
+        # below.
+        xfr = state["transfers"]
+        xu = xfr["u64"]
+        live = torch.arange(xu.shape[0], device=dev) < xfr["count"]
+        xfer_ts = torch.where(live, xu[:, XF_U64_IDX["ts"]], U64_MAX)
+        pos = torch.clamp(usearchsorted(xfer_ts, ev["ts"]),
+                          max=xfer_ts.shape[0] - 1)
+        coll = (xfer_ts[pos] == ev["ts"]) & (ev["ts"] != 0)
+        checks.append((imported & (ule(ev["ts"], state["acct_key_max"])
+                                   | coll),
+                       _AS["imported_event_timestamp_must_not_regress"]))
     inner = _first_failure(checks)
     inner = torch.where(inner == 0, exists_status, inner)
     ts_inner = torch.where(inner == _AS["exists"], exists_ts, ts_event)
+    if imported_mode:
+        ts_inner = torch.where((inner == _CREATED) & imported, ev["ts"],
+                               ts_inner)
 
     status = torch.where(~imported & (ev["ts"] != 0),
                          _AS["timestamp_must_be_zero"], inner)
-    status = torch.where(imported, _AS["imported_event_not_expected"],
-                         status)
+    if imported_mode:
+        # The wrapper rules (reference execute_create :3052-3063):
+        # homogeneity against the first event's flag, timestamp range,
+        # must-not-advance against the batch's commit timestamp.
+        ts_valid = (ev["ts"] != 0) & ule(ev["ts"], U63_MAX)
+        status = torch.where(imported & ts_valid & ~ult(ev["ts"], timestamp),
+                             _AS["imported_event_timestamp_must_not_advance"],
+                             status)
+        status = torch.where(imported & ~ts_valid,
+                             _AS["imported_event_timestamp_out_of_range"],
+                             status)
+        status = torch.where(
+            imported != imported[0],
+            torch.where(imported, _AS["imported_event_not_expected"],
+                        _AS["imported_event_expected"]), status)
+    else:
+        status = torch.where(imported, _AS["imported_event_not_expected"],
+                             status)
     ts_actual = torch.where(status == inner, ts_inner, ts_event)
+
+    if imported_mode:
+        # In-batch regress: the maxima chain over the otherwise-valid
+        # sequence (see `_maxima_low`); no check follows the regress
+        # position for accounts, so only otherwise-valid events yield.
+        low, base_ok = _maxima_low(
+            status, valid,
+            dict(lane=imported, ts=ev["ts"], key_max=state["acct_key_max"],
+                 actual=torch.where(imported, ev["ts"], ts_event)))
+        override = low & base_ok
+        status = torch.where(
+            override, _AS["imported_event_timestamp_must_not_regress"],
+            status)
+        ts_actual = torch.where(override, ts_event, ts_actual)
 
     l_prev = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
                         linked[:-1]])
@@ -1678,7 +2191,7 @@ def create_accounts_fast(state, ev, timestamp, n, imported_mode=False):
 
     named_vals = {"id_hi": ev["id_hi"], "id_lo": ev["id_lo"],
                   "ud128_hi": ev["ud128_hi"], "ud128_lo": ev["ud128_lo"],
-                  "ud64": ev["ud64"], "ts": ts_event,
+                  "ud64": ev["ud64"], "ts": ts_actual,
                   "ud32": ev["ud32"], "ledger": ev["ledger"],
                   "code": ev["code"], "flags": flags}
     u64_rows_a = torch.stack(
@@ -1688,11 +2201,14 @@ def create_accounts_fast(state, ev, timestamp, n, imported_mode=False):
            for pr in AC_P32],
         dim=1)
 
-    last_ts = umax_reduce(torch.where(created, ts_event, 0))
+    # A created account's actual timestamp is its ts_event unless it is
+    # imported; key_max and commit_ts take the last (the largest).
+    last_actual = umax_reduce(torch.where(created, ts_actual, 0))
     any_applied = torch.any(created) & ok
-    key_max = torch.where(any_applied, umax(state["acct_key_max"], last_ts),
+    key_max = torch.where(any_applied,
+                          umax(state["acct_key_max"], last_actual),
                           state["acct_key_max"])
-    commit_ts = torch.where(any_applied, last_ts, state["commit_ts"])
+    commit_ts = torch.where(any_applied, last_actual, state["commit_ts"])
 
     # ---------------- state writes (in place) ----------------
     # Masked lanes write uniform zero rows to the dump row.

@@ -12,7 +12,11 @@ reruns on the 8-round limit fixpoint tier, and one whose cascade is
 deeper than 8 rounds (`fix_unconverged`) on the 32-round tier. After a
 batch resolved on a fixpoint tier, later batches go to the fixpoint
 tiers first until a batch shows no headroom breach; after a deep
-escalation, the deep tier first for DEEP_PROBE_INTERVAL batches.
+escalation, the deep tier first for DEEP_PROBE_INTERVAL batches. A batch
+with an imported flag climbs the imported ladder instead (the plain
+imported tier, then the imported fixpoint tiers), and one with a
+balancing flag the balancing ladder (8, then 32 rounds, with its own
+deep-first regime); imported accounts run the imported accounts tier.
 
 A batch that no device tier can run (a tier that falls back leaves the
 state untouched) takes the exact host path, the host-mirror regime of
@@ -33,21 +37,24 @@ Commit windows (`create_transfers_window`, and pipelined:
 `submit_window` / `resolve_windows`) run W prepares in one device
 dispatch: the chain route by default (one plain-tier run a prepare, a
 fallback at prepare k committing [0, k) and replaying the rest), the flat
-`super_deep` tier for windows with closing flags, in-window pending
-references or in the limit-breach regime, and the flat `super` tier (with
-its escalation to `super_deep`) for all-or-nothing windows. On the card
-each window is one replay of a captured CUDA graph (`window_graph.py`);
-on the CPU the same functions run eagerly.
+`super_imported` tier for imported windows (synchronous only, as in the
+JAX package), `super_balancing` for balancing windows, `super_deep` for
+windows with closing flags, in-window pending references or in the
+limit-breach regime, and the flat `super` tier (with its escalation to
+`super_deep`) for all-or-nothing windows. On the card each window is one
+replay of a captured CUDA graph (`window_graph.py`); on the CPU the same
+functions run eagerly.
+
+One difference from the JAX package, deliberate: after an imported
+batch or window the state's commit_ts is the last applied imported
+timestamp, the oracle's value, where the JAX package's imported tiers
+leave the prepare timestamp (see `fast_kernels.create_transfers_fast`).
 
 Not ported here (later slices; on this path they are absent): the
 write-through mirror (`write_through`, `drain_mirror`, the fast-batch
 delta capture, window staging and the ring recycle) and the lazy mirror
-containers (the oracle's own containers serve), the partitioned attach
-mode, and the imported / balancing device tiers and their window tiers —
-such batches take the mirror here where the JAX package runs them
-natively, an imported window takes the per_batch route, and a balancing
-window the chain route, whose per-prepare fallback replays each
-balancing prepare on the exact path.
+containers (the oracle's own containers serve), and the partitioned
+attach mode.
 
 The device is explicit: `DeviceLedger(device=None)` means CUDA and
 raises when no CUDA device is present; the tests pass `device="cpu"`.
@@ -62,6 +69,7 @@ from ..constants import BATCH_MAX, NS_PER_S
 from ..oracle.state_machine import AccountEventRecord, StateMachineOracle
 from ..types import (
     Account,
+    AccountFlags,
     CreateAccountResult,
     CreateAccountStatus,
     CreateTransferResult,
@@ -96,12 +104,19 @@ from .ev_layout import (
 )
 from .fast_kernels import (
     create_accounts_fast,
+    create_transfers_balancing,
+    create_transfers_balancing_deep,
     create_transfers_chain,
     create_transfers_fast,
     create_transfers_fixpoint,
     create_transfers_fixpoint_deep,
+    create_transfers_imported,
+    create_transfers_imported_fixpoint,
+    create_transfers_imported_fixpoint_deep,
     create_transfers_super,
+    create_transfers_super_balancing,
     create_transfers_super_deep,
+    create_transfers_super_imported,
 )
 from .fused_probe import ht_lookup_fused
 from .hash_table import ORPHAN_VAL, SLOTS, ht_init, ht_insert
@@ -443,6 +458,8 @@ _WINDOW_FNS = {
     "chain": create_transfers_chain,
     "super": create_transfers_super,
     "super_deep": create_transfers_super_deep,
+    "super_imported": create_transfers_super_imported,
+    "super_balancing": create_transfers_super_balancing,
 }
 # Outputs a window ticket keeps (the flat tiers add limit_only).
 _WINDOW_OUTS = ("r_status", "r_ts", "fallback", "created_count",
@@ -534,6 +551,9 @@ class DeviceLedger:
         self.escalations = 0
         self.fallbacks = 0
         self._deep_first = 0
+        # The balancing tiers' own deep-first regime (after a balancing
+        # batch escalated to 32 rounds).
+        self._bal_deep_first = 0
         # Adaptive routing: after a batch resolved breaches on a fixpoint
         # tier, later batches dispatch the fixpoint tiers first (skipping
         # the headroom proof that would fail anyway) until a breach-free
@@ -580,8 +600,12 @@ class DeviceLedger:
         n = len(accounts)
         ev = pad_account_events(accounts_to_arrays(accounts),
                                 n_pad=_pad_bucket(n))
+        # Imported accounts run the imported accounts tier.
+        imported = bool((np.asarray(ev["flags"])
+                         & np.uint32(AccountFlags.imported)).any())
         self.state, out = create_accounts_fast(
-            self.state, events_to_device(ev, self.device), timestamp, n)
+            self.state, events_to_device(ev, self.device), timestamp, n,
+            imported_mode=imported)
         if bool(out["fallback"]):
             # The state is unchanged: the batch runs on the mirror.
             return self._fallback_accounts(accounts, timestamp)
@@ -603,15 +627,23 @@ class DeviceLedger:
         out — no per-event Python."""
         return self.create_transfers_arrays(ev, timestamp, raw=True)
 
-    def _escalate_fixpoint(self, evd, timestamp, n):
+    def _escalate_fixpoint(self, evd, timestamp, n, balancing=False,
+                           imported=False):
         """The 8-round tier reported a cascade deeper than its budget (and
-        no other obstacle): rerun on the 32-round tier and enter the
-        deep-first regime. Returns (fallback, out) of the deep run."""
-        self.state, out = create_transfers_fixpoint_deep(
-            self.state, evd, timestamp, n)
+        no other obstacle): rerun on the 32-round tier of the same kind
+        and enter its deep-first regime (balancing keeps its own counter;
+        the imported tiers have none). Returns (fallback, out) of the
+        deep run."""
+        deep = (create_transfers_balancing_deep if balancing
+                else create_transfers_imported_fixpoint_deep if imported
+                else create_transfers_fixpoint_deep)
+        self.state, out = deep(self.state, evd, timestamp, n)
         self.deep_fixpoint_batches += 1
         self.escalations += 1
-        self._deep_first = self.DEEP_PROBE_INTERVAL
+        if balancing:
+            self._bal_deep_first = self.DEEP_PROBE_INTERVAL
+        elif not imported:
+            self._deep_first = self.DEEP_PROBE_INTERVAL
         return bool(out["fallback"]), out
 
     def create_transfers_arrays(self, ev: dict, timestamp: int,
@@ -635,7 +667,46 @@ class DeviceLedger:
         n = len(ev["id_lo"])
         evd = events_to_device(
             pad_transfer_events(ev, n_pad=_pad_bucket(n)), self.device)
-        if self._fixpoint_first:
+        if _has_imported([ev]):
+            # The imported tier; closing flags, voids of closing pendings
+            # and potential limit breaches escalate to the imported
+            # fixpoint tiers, chains and collisions go to the exact path.
+            self.state, out = create_transfers_imported(
+                self.state, evd, timestamp, n)
+            fallback, limit_only = _host_bools(out["fallback"],
+                                               out["limit_only"])
+            if fallback and limit_only:
+                self.escalations += 1
+                self.state, out = create_transfers_imported_fixpoint(
+                    self.state, evd, timestamp, n)
+                fallback, unconverged = _host_bools(out["fallback"],
+                                                    out["fix_unconverged"])
+                if fallback and unconverged:
+                    fallback, out = self._escalate_fixpoint(
+                        evd, timestamp, n, imported=True)
+                if not fallback:
+                    self.fixpoint_batches += 1
+        elif _has_balancing([ev]):
+            # Balancing clamps ride the fixpoint: straight to the
+            # balancing tier, with the shallow -> deep ladder and its own
+            # deep-first regime.
+            if self._bal_deep_first > 0:
+                self._bal_deep_first -= 1
+                self.state, out = create_transfers_balancing_deep(
+                    self.state, evd, timestamp, n)
+                self.deep_fixpoint_batches += 1
+                fallback = bool(out["fallback"])
+            else:
+                self.state, out = create_transfers_balancing(
+                    self.state, evd, timestamp, n)
+                fallback, unconverged = _host_bools(out["fallback"],
+                                                    out["fix_unconverged"])
+                if fallback and unconverged:
+                    fallback, out = self._escalate_fixpoint(
+                        evd, timestamp, n, balancing=True)
+            if not fallback:
+                self.fixpoint_batches += 1
+        elif self._fixpoint_first:
             # The workload has been breaching balance limits: go straight
             # to the fixpoint tiers, and to the deep one while cascades
             # have been exceeding the shallow budget (re-probing the
@@ -1184,19 +1255,20 @@ class DeviceLedger:
     def _window_plan(self, evs):
         """The route of a pipelined window, or None (the synchronous path
         takes it): None for one prepare, in the mirror regime or with an
-        imported flag; super_deep for closing flags, in-window pending
-        references or the limit-breach regime; else the chain. The port
-        has no balancing window tier: a balancing window takes the chain,
-        whose per-prepare fallback replays each balancing prepare on the
-        exact path."""
+        imported flag (the synchronous path's super_imported tier takes
+        it); super_balancing for balancing flags; super_deep for closing
+        flags, in-window pending references or the limit-breach regime;
+        else the chain."""
         if not (len(evs) > 1 and not self._mirror_route()):
             return None
         if _has_imported(evs):
             return None
-        deep = not _has_balancing(evs) and (
+        balancing = _has_balancing(evs)
+        deep = not balancing and (
             self._fixpoint_first or _has_closing(evs)
             or _evs_pend_refs(evs))
-        return ("super_deep" if deep else "chain",
+        return ("super_balancing" if balancing
+                else "super_deep" if deep else "chain",
                 _pad_bucket(max(len(e["id_lo"]) for e in evs)))
 
     def submit_window(self, evs: list[dict], timestamps: list[int]):
@@ -1285,15 +1357,15 @@ class DeviceLedger:
         state the earlier ones left, and a prepare that falls back does
         so alone: the clean prefix stays committed, that prepare replays
         per batch (the ladder and the exact path) and the rest re-windows.
-        Windows with closing flags, in-window pending references or in
-        the limit-breach regime take the flat super_deep tier, which falls
-        back whole with the state untouched, and then run per batch.
-        all_or_nothing=True (a replica's commit): always a flat tier
-        (super, escalating to super_deep when limit_only), and on a
-        fallback None with nothing applied. Imported windows run per
-        batch (None when all_or_nothing), as do balancing windows that
-        must be all or nothing: the port has no imported or balancing
-        window tier yet."""
+        Windows the chain cannot serve take a flat tier, which falls back
+        whole with the state untouched, and then run per batch: imported
+        windows super_imported, balancing windows super_balancing (their
+        own tiers, not counted as deep escalations), windows with closing
+        flags, in-window pending references or in the limit-breach
+        regime super_deep. all_or_nothing=True (a replica's commit):
+        always a flat tier (super, escalating to super_deep when
+        limit_only, unless a flag picks the tier), and on a fallback None
+        with nothing applied."""
         self.resolve_windows()  # pipeline ordering
         assert len(evs) == len(timestamps) and evs
         ns = [len(e["id_lo"]) for e in evs]
@@ -1305,10 +1377,7 @@ class DeviceLedger:
             deep_first = (not imported and not balancing
                           and (self._fixpoint_first or _has_closing(evs)
                                or _evs_pend_refs(evs)))
-            if all_or_nothing and (imported or balancing):
-                self.window_fallbacks += 1
-                return None
-            if not imported and not all_or_nothing and not deep_first:
+            if not (imported or balancing or all_or_nothing or deep_first):
                 lanes = self._pack("chain", evs, timestamps, n_pad)
                 outs = self._dispatch("chain", lanes, n_pad)
                 self._count_route("chain")
@@ -1322,30 +1391,35 @@ class DeviceLedger:
                     results.extend(self.create_transfers_window(
                         evs[k + 1:], timestamps[k + 1:]))
                 return results
-            if not imported:
-                lanes = self._pack("super", evs, timestamps, n_pad)
-                if deep_first:
-                    self._count_route("super_deep")
+            lanes = self._pack("super", evs, timestamps, n_pad)
+            if imported or balancing:
+                # Their own tiers (a balancing window at the deep window
+                # budget); an unconverged balancing window falls back to
+                # the per-batch balancing ladder.
+                route = "super_imported" if imported else "super_balancing"
+                self._count_route(route)
+                outs = self._dispatch(route, lanes, n_pad)
+            elif deep_first:
+                self._count_route("super_deep")
+                outs = self._dispatch("super_deep", lanes, n_pad)
+                self.deep_fixpoint_batches += W
+            else:
+                self._count_route("super")
+                outs = self._dispatch("super", lanes, n_pad)
+                if all(_host_bools(outs["fallback"], outs["limit_only"])):
+                    # Limits or in-window pendings were the only
+                    # obstacle: the deep window tier resolves them (the
+                    # state is untouched).
                     outs = self._dispatch("super_deep", lanes, n_pad)
                     self.deep_fixpoint_batches += W
-                else:
-                    self._count_route("super")
-                    outs = self._dispatch("super", lanes, n_pad)
-                    if all(_host_bools(outs["fallback"],
-                                       outs["limit_only"])):
-                        # Limits or in-window pendings were the only
-                        # obstacle: the deep window tier resolves them
-                        # (the state is untouched).
-                        outs = self._dispatch("super_deep", lanes, n_pad)
-                        self.deep_fixpoint_batches += W
-                out = Harvest(outs, _WINDOW_OUTS).get()
-                if not out["fallback"]:
-                    self.fast_batches += W
-                    self._probe_succeeded()
-                    return _window_results(out["r_status"], out["r_ts"],
-                                           ns, n_pad)
-                self.window_fallbacks += 1
-                self._note_fb(out)
+            out = Harvest(outs, _WINDOW_OUTS).get()
+            if not out["fallback"]:
+                self.fast_batches += W
+                self._probe_succeeded()
+                return _window_results(out["r_status"], out["r_ts"], ns,
+                                       n_pad)
+            self.window_fallbacks += 1
+            self._note_fb(out)
         if all_or_nothing:
             return None
         self._count_route("per_batch")

@@ -98,3 +98,16 @@ def umin_reduce(x, dim=None):
 
 def ucummin(x, dim: int = -1):
     return _flip(torch.cummin(_flip(x), dim=dim).values)
+
+
+def ucummax(x, dim: int = -1):
+    return _flip(torch.cummax(_flip(x), dim=dim).values)
+
+
+def usearchsorted(sorted_u, x):
+    """Left insertion points of the u64 values `x` in the ascending u64
+    column `sorted_u` (torch.searchsorted in signed order, on the
+    bit-63-flipped keys: unflipped, u64::MAX padding is -1 and would sort
+    first)."""
+    return torch.searchsorted(_flip(sorted_u).contiguous(),
+                              _flip(x).contiguous())

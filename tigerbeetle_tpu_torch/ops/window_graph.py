@@ -34,8 +34,17 @@ What a replay relies on:
     raises out of the capture (capture_error_mode "global"); nothing
     catches it and carries on eagerly.
 
+Each graph keeps its own memory pool, its window's peak working set, so
+the graphs' memory grows with the keys: a ledger keeps at most
+MAX_GRAPHS of them, dropping the least recently replayed one (after a
+sync) before it captures another; a dropped key starts over with an
+eager window.
+
 Counters a key: `eager`, `captures` and `replays` (the replay right after
-a capture included). The kernel wrappers' LAUNCHES move at eager windows
+a capture included); `reserved`, the bytes the caching allocator held
+(`torch.cuda.memory_reserved`) just before and just after the key's
+capture, whose difference is the graph's pool; and `evictions`, the
+graphs dropped for room. The kernel wrappers' LAUNCHES move at eager windows
 and at captures only, so a kernel's launches on a window path are its
 wrapper count plus (replays - captures) times its launches a window.
 """
@@ -44,6 +53,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+# The graphs a ledger keeps (see the module note): an 8-prepare window's
+# pool held at most ~0.4 GB on an H100, a 32-prepare chain's ~1.2 GB
+# (chip_smoke.py's window phases, PERF.md).
+MAX_GRAPHS = 8
 
 
 def _tensors(tree):
@@ -115,13 +129,27 @@ class WindowGraphs:
         self.eager: dict = {}
         self.captures: dict = {}
         self.replays: dict = {}
+        self.reserved: dict = {}
         self.drops = 0
+        self.evictions = 0
 
     def drop(self) -> None:
         """Forget every graph (a state storage moved)."""
         self._graphs.clear()
         self._seen.clear()
         self.drops += 1
+
+    def _make_room(self) -> None:
+        """Drop least recently replayed graphs until one more fits. The
+        sync lets every queued replay and output copy of a dropped graph
+        finish before its pool is given back."""
+        while len(self._graphs) >= MAX_GRAPHS:
+            if self.cuda:
+                torch.cuda.synchronize(self.device)
+            old = next(iter(self._graphs))
+            del self._graphs[old]
+            self._seen.discard(old)
+            self.evictions += 1
 
     def check_state(self, state: dict) -> None:
         sig = state_signature(state)
@@ -163,8 +191,9 @@ class WindowGraphs:
             self._ff.fill_(False)
         else:
             self._ff.copy_(poison)
-        hit = self._graphs.get(key)
+        hit = self._graphs.pop(key, None)
         if hit is not None:
+            self._graphs[key] = hit   # now the most recently replayed
             graph, outs = hit
             graph.replay()
             self.replays[key] = self.replays.get(key, 0) + 1
@@ -173,11 +202,15 @@ class WindowGraphs:
             self._seen.add(key)
             self.eager[key] = self.eager.get(key, 0) + 1
             return call(state, lanes, self._ff)
+        self._make_room()
+        before = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             outs = call(state, lanes, self._ff)
         self._graphs[key] = (graph, outs)
         self.captures[key] = self.captures.get(key, 0) + 1
+        self.reserved[key] = (before,
+                              torch.cuda.memory_reserved(self.device))
         graph.replay()
         self.replays[key] = self.replays.get(key, 0) + 1
         return outs
