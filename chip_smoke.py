@@ -9,9 +9,12 @@ config 2), through the limit fixpoint tiers and their escalation ladder
 (BASELINE config 4), through the exact path (the host-mirror regime) and
 through the commit-window routes (config 2 and config 4 as windows, each
 a replayed CUDA graph), through the imported and balancing tiers (per
-batch and as windows), and `run_create_*` through the sequential
-kernel — at the ledger's default capacities, and holds its three CUDA
-kernels against their plain PyTorch twins. Phases, each failing the run with a nonzero exit:
+batch and as windows), `run_create_*` through the sequential kernel,
+and the serving path (`tigerbeetle_tpu_torch.StateMachine`, wire bodies
+in, reply bytes out, on the device engine with its write-through mirror
+and on the kernel engine) — at the ledger's default capacities, and
+holds its three CUDA kernels against their plain PyTorch twins. Phases,
+each failing the run with a nonzero exit:
 
   1. device   a CUDA card is present; its name and power limit are
               printed as nvidia-smi gives them;
@@ -110,14 +113,25 @@ kernels against their plain PyTorch twins. Phases, each failing the run with a n
               and the oracle; timed pairs, one pend batch profiled;
               windows of 8 prepares on super_balancing (24 rounds), two
               deep (2 checked, 3 timed, one profiled).
+ 14. serving  `StateMachine(engine="device")` at the ledger's default
+              capacities, wire bodies of 8,189 events in, reply bytes
+              out, with its write-through host mirror, beside the port's
+              "oracle"-engine StateMachine on the CPU (every reply equal
+              byte for byte; the mirror's digest equal to the device's
+              after every checked body and window): config-2 bodies one
+              at a time (timed beside a ledger without write-through),
+              commit windows of 8 synchronous and pipelined two deep with
+              staging (recycle_events on for part), config-4 bodies, a
+              hard body on the mirror, a pulse, every query; then
+              "kernel"-engine commits of config-3 bodies (create_seq).
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
 Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"exact_path": ...}`, `{"config2_window": ...}`,
 `{"config4_window": ...}`, `{"window_fallbacks": ...}`,
-`{"imported": ...}`, `{"balancing": ...}` and `{"kernels": [...]}`
-lines, and last `{"ok": true, "device": {...}}`.
+`{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}` and
+`{"kernels": [...]}` lines, and last `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
 """
 
@@ -240,6 +254,21 @@ BAL_TIMED = 4
 BAL_W_PAIRS = 4
 BAL_W_CHECKED = 2
 BAL_W_TIMED = 3
+# The serving phase: bodies of SV_BODY events (a multi-batch body's
+# trailer takes one 128-byte element of the 1 MiB message: BATCH - 1
+# events fit, as in the JAX package's serving benchmark); windows of SV_W
+# bodies; 1 account in SV_HISTORY_EVERY keeps history; config 4's
+# accounts from SV_C4_ACCT0 + 1.
+SV_BODY = BATCH - 1
+SV_CHECKED = 3
+SV_TIMED = 6
+SV_W = 8
+SV_W_SYNC = 3
+SV_W_PIPED = 2
+SV_C4_PAIRS = 2
+SV_KERNEL = 2
+SV_HISTORY_EVERY = 64
+SV_C4_ACCT0 = 20_000
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -2836,7 +2865,7 @@ def poisoned_replay(led, key) -> None:
 def graph_memory(led) -> dict:
     """The bytes the caching allocator held just before and just after
     each of the ledger's graph captures, by key (empty on the CPU)."""
-    return {f"{k[0]},{k[1]},{k[2]}": list(v)
+    return {",".join(map(str, k)): list(v)
             for k, v in led.windows.reserved.items()}
 
 
@@ -3232,6 +3261,482 @@ def balancing_phase(dev, batch: int = BATCH, n_checked: int = BAL_CHECKED,
     return numbers
 
 
+# ------------------------------------------------------- the serving phase
+
+def wire_body(evs) -> bytes:
+    """Transfer events (SoA dicts, one an inner batch) -> one multi-batch
+    create_transfers wire body."""
+    from tigerbeetle_tpu_torch import multi_batch
+    from tigerbeetle_tpu_torch.ops.batch import TRANSFER_WIRE
+
+    parts = []
+    for ev in evs:
+        rec = np.zeros(len(ev["id_lo"]), dtype=TRANSFER_WIRE)
+        for k in TRANSFER_WIRE.names:
+            rec[k] = ev[k]
+        parts.append(rec.tobytes())
+    return multi_batch.encode(parts, 128)
+
+
+def accounts_body(accounts) -> bytes:
+    from tigerbeetle_tpu_torch import multi_batch
+    return multi_batch.encode([b"".join(a.pack() for a in accounts)], 128)
+
+
+def offset_accounts(ev: dict, off: int) -> dict:
+    """The events with their non-zero account ids moved up by `off`."""
+    ev = dict(ev)
+    for k in ("dr_lo", "cr_lo"):
+        ev[k] = np.where(ev[k] != 0, ev[k] + np.uint64(off), ev[k])
+    return ev
+
+
+class Serving:
+    """A StateMachine on `dev` beside the port's "oracle"-engine
+    StateMachine on the CPU, fed the same wire bodies: every reply equal
+    byte for byte; `check_digest` holds the card's write-through mirror
+    (drained) to the device state's digest and to the CPU engine's."""
+
+    def __init__(self, card, ref, a_cap: int):
+        self.card = card
+        self.ref = ref
+        self.a_cap = a_cap
+        self.ts = 10**12
+        self.bodies = 0
+
+    def next_ts(self, n: int) -> int:
+        self.ts += n + 1000
+        return self.ts
+
+    def same(self, label, got, want) -> None:
+        check(got == want, f"{label}: the card's reply differs from the "
+              "CPU oracle engine's")
+        self.bodies += 1
+
+    def commit(self, label, op, body, ts) -> bytes:
+        got = self.card.commit(op, body, ts)
+        self.same(label, got, self.ref.commit(op, body, ts))
+        return got
+
+    def check_digest(self, label, with_ref: bool = False) -> None:
+        """The drained mirror's digest equal to the device state's (and,
+        with_ref, to the CPU engine's state's: a second pack, ~8 µs a
+        transfer on the host)."""
+        from tigerbeetle_tpu_torch.ops.state_epoch import (
+            device_state_digest, oracle_state_digest)
+
+        mirror = oracle_state_digest(self.card.state, self.a_cap)
+        check(mirror == device_state_digest(self.card.led.state),
+              f"{label}: the mirror's digest differs from the device's")
+        check(not with_ref
+              or mirror == oracle_state_digest(self.ref.state, self.a_cap),
+              f"{label}: the mirror's digest differs from the CPU engine's")
+
+
+def drive_serving(card, windows, stage: bool) -> list:
+    """Commit windows through stage_ / submit_ / resolve_commit_window[s],
+    two deep (submit k, stage k + 1, resolve k - 1); a window the
+    pipeline declines commits synchronously after it drains. Returns the
+    replies of every window in order."""
+    from tigerbeetle_tpu_torch.types import Operation
+
+    op = Operation.create_transfers
+    replies, in_flight = [], 0
+    if stage and windows:
+        card.stage_commit_window(op, *windows[0])
+    for i, (bodies, tss) in enumerate(windows):
+        rec = card.submit_commit_window(op, bodies, tss)
+        if rec is None:
+            replies.extend(r["replies"] for r in
+                           card.resolve_commit_windows())
+            in_flight = 0
+            replies.append(card.commit_window(op, bodies, tss))
+            continue
+        in_flight += 1
+        if stage and i + 1 < len(windows):
+            card.stage_commit_window(op, *windows[i + 1])
+        if in_flight > 1:
+            done = card.resolve_commit_windows(count=1)
+            in_flight -= len(done)
+            replies.extend(r["replies"] for r in done)
+    replies.extend(r["replies"] for r in card.resolve_commit_windows())
+    return replies
+
+
+def serving_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
+                  n_checked: int = SV_CHECKED, n_timed: int = SV_TIMED,
+                  w: int = SV_W, w_sync: int = SV_W_SYNC,
+                  w_piped: int = SV_W_PIPED, c4_pairs: int = SV_C4_PAIRS,
+                  n_kernel: int = SV_KERNEL,
+                  caps: tuple = (A_CAP, T_CAP)) -> dict:
+    """The serving path: `StateMachine(engine="device")` at the ledger's
+    full capacity on `dev`, wire bodies in and reply bytes out, beside
+    the port's "oracle"-engine StateMachine on the CPU fed the same
+    bodies (every reply equal byte for byte):
+
+      - n_accounts accounts (1 in SV_HISTORY_EVERY with history);
+      - n_checked config-2 bodies of `body` events one at a time, each
+        checked (the kernels' launches as the plain tier and one delta
+        gather predict; the mirror's digest against the device's), then
+        n_timed bodies timed, each beside the same batch on a
+        DeviceLedger without write-through (the write-through's cost),
+        and the drain of their queued deltas;
+      - w_sync synchronous commit_window windows of w bodies (the first
+        checked by digest), timed, one more profiled; then windows
+        through stage_ / submit_ / resolve_commit_window two deep: w_piped
+        staged, 2 profiled; then with recycle_events on (the ring window
+        kernels, their key warmed by 2 windows) w_piped a turn, staged,
+        inline (overlap_staging off), inline, staged: transfers/s, idle
+        share, host_stall_fraction and the drain for each;
+      - c4_pairs config-4 pairs, a pend body with 1 s timeouts, then one
+        hard body (a repeated id: the mirror, no to_host), a pulse past
+        the timeouts, and one request of every query operation;
+      - then n_kernel config-3 bodies on a "kernel"-engine StateMachine on
+        `dev` (the sequential kernel, csrc/create_seq.cu) beside a CPU
+        oracle engine.
+
+    The mirror's digest is checked against the device's after every
+    checked body and window. Returns the numbers."""
+    from tigerbeetle_tpu_torch import DeviceLedger, StateMachine
+    from tigerbeetle_tpu_torch import multi_batch
+    from tigerbeetle_tpu_torch.ops import create_seq, fused_probe
+    from tigerbeetle_tpu_torch.ops import ledger as L
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.ops.batch import transfers_soa_from_bytes
+    from tigerbeetle_tpu_torch.ops.batch import encode_create_results
+    from tigerbeetle_tpu_torch.types import (
+        Account, AccountFilter, AccountFilterFlags, AccountFlags,
+        ChangeEventsFilter, Operation, QueryFilter, TransferFlags)
+
+    t0 = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    O = Operation
+    TF = TransferFlags
+    rng = np.random.default_rng(70)
+    fused_probe.LAUNCHES = RG.LAUNCHES = create_seq.LAUNCHES = 0
+    gathers0, d2h0 = L.DELTA_GATHERS, L.D2H_BYTES
+
+    sv = Serving(StateMachine("device", a_cap=caps[0], t_cap=caps[1],
+                              device=dev),
+                 StateMachine("oracle", device="cpu"), caps[0])
+    card, led = sv.card, sv.card.led
+    plain = DeviceLedger(a_cap=caps[0], t_cap=caps[1], device=dev)
+    hist = int(AccountFlags.history)
+    accounts = [Account(id=i, ledger=1, code=1 + i % 3,
+                        user_data_32=i % 7,
+                        flags=hist if i % SV_HISTORY_EVERY == 0 else 0)
+                for i in range(1, n_accounts + 1)]
+    for lo in range(0, n_accounts, body):
+        chunk = accounts[lo:lo + body]
+        ts = sv.next_ts(len(chunk))
+        sv.commit(f"accounts {lo}", O.create_accounts,
+                  accounts_body(chunk), ts)
+        plain.create_accounts(chunk, ts)
+    sv.check_digest("accounts", with_ref=True)
+    n_acct_bodies = -(-n_accounts // body)
+
+    next_id = [10**8]
+
+    def c2_body():
+        ev = uniform_batch(rng, next_id[0], body, n_accounts)
+        next_id[0] += body
+        return ev, wire_body([ev])
+
+    # ---- one body at a time: checked
+    for b in range(n_checked):
+        ev, raw = c2_body()
+        ts = sv.next_ts(body)
+        before = (fused_probe.LAUNCHES, RG.LAUNCHES)
+        reply = card.commit(O.create_transfers, raw, ts)
+        ran = (fused_probe.LAUNCHES - before[0], RG.LAUNCHES - before[1])
+        want_ran = (PROBES_PER_RUN["plain"], GATHERS_PER_RUN["plain"] + 1)
+        check(not cuda or ran == want_ran,
+              f"serving body {b}: probe and row gather launched {ran}, the "
+              f"plain tier and one delta gather predict {want_ran}")
+        sv.same(f"serving body {b}", reply,
+                sv.ref.commit(O.create_transfers, raw, ts))
+        plain.create_transfers_soa(ev, ts)
+        sv.check_digest(f"serving body {b}", with_ref=True)
+    check(led.fallbacks == 0
+          and led.fast_batches == n_acct_bodies + n_checked,
+          f"serving: counters {ladder_counters(led)}")
+
+    # ---- one body at a time: timed beside a ledger without write-through.
+    # The previous body's delta drains (timed on its own) before each, as
+    # a read between commits would drain it: its pinned buffers go back
+    # to the caching host allocator for the next body's copy.
+    wt_ms, plain_ms, drain_ms, timed = [], [], [], []
+    d2h_batches = L.D2H_BYTES
+    for b in range(n_timed):
+        ev, raw = c2_body()
+        ts = sv.next_ts(body)
+        inner = transfers_soa_from_bytes(multi_batch.decode(raw, 128)[0])
+        t = time.perf_counter()
+        led.drain_mirror()
+        drain_ms.append((time.perf_counter() - t) * 1e3)
+        sync(dev)
+        t = time.perf_counter()
+        st, ts_out = plain.create_transfers_soa(inner, ts)
+        sync(dev)
+        plain_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        reply = card.commit(O.create_transfers, raw, ts)
+        sync(dev)
+        wt_ms.append((time.perf_counter() - t) * 1e3)
+        check(multi_batch.decode(reply, 16)[0]
+              == encode_create_results(st, ts_out),
+              f"serving timed body {b}: the card's reply differs from the "
+              "ledger's without write-through")
+        timed.append((raw, ts, reply))
+    d2h_batch = (L.D2H_BYTES - d2h_batches) / max(1, n_timed)
+    t = time.perf_counter()
+    led.drain_mirror()
+    drain_ms = drain_ms[1:] + [(time.perf_counter() - t) * 1e3]
+    for b, (raw, ts, reply) in enumerate(timed):
+        sv.same(f"serving timed body {b}", reply,
+                sv.ref.commit(O.create_transfers, raw, ts))
+    del plain, timed
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"serving: one {body}-event body a commit: "
+          f"{np.mean(wt_ms):.3f} ms with write-through (each "
+          f"{[round(m, 3) for m in wt_ms]}), {np.mean(plain_ms):.3f} ms on "
+          f"a ledger without (each {[round(m, 3) for m in plain_ms]}); "
+          f"drain {np.mean(drain_ms):.3f} ms a batch (each "
+          f"{[round(m, 3) for m in drain_ms]}); {d2h_batch:.0f} bytes "
+          f"device to host a batch", flush=True)
+
+    # ---- windows
+    def c2_window():
+        bodies, tss = [], []
+        for _ in range(w):
+            _, raw = c2_body()
+            bodies.append(raw)
+            tss.append(sv.next_ts(body))
+        return bodies, tss
+
+    def ref_window(label, window, replies):
+        for k, (raw, ts) in enumerate(zip(*window)):
+            sv.same(f"{label} body {k}", replies[k],
+                    sv.ref.commit(O.create_transfers, raw, ts))
+
+    sync_ms = []
+    for i in range(w_sync):
+        window = c2_window()
+        d2h = L.D2H_BYTES
+        sync(dev)
+        t = time.perf_counter()
+        replies = card.commit_window(O.create_transfers, *window)
+        sync(dev)
+        sync_ms.append((time.perf_counter() - t) * 1e3)
+        d2h_window = L.D2H_BYTES - d2h
+        ref_window(f"serving window {i}", window, replies)
+        if i == 0:
+            sv.check_digest("serving window 0", with_ref=True)
+    # The profiler's own cost lands on the host clock of a traced run, so
+    # walls come from untraced runs and busy ms from traced ones.
+    window = c2_window()
+    out = {}
+    sync_trace = window_trace(dev, lambda: out.setdefault(
+        "r", card.commit_window(O.create_transfers, *window)),
+        "serving sync window traced")
+    ref_window("serving traced window", window, out["r"])
+    # The key's first window runs eagerly, its second is captured: the
+    # last is a replay.
+    sync_window_ms = sync_ms[-1]
+
+    piped, busy_window = {}, None
+    # Staging on and off with the ring kernels in turns: staged, inline,
+    # inline, staged.
+    for mode, recycle, stage, n_win in (
+            ("staged", False, True, w_piped),
+            ("traced", False, True, 2),
+            ("ring_warmup", True, True, 2),
+            ("staged_ring", True, True, w_piped),
+            ("inline_ring", True, False, w_piped),
+            ("inline_ring_2", True, False, w_piped),
+            ("staged_ring_2", True, True, w_piped)):
+        led.recycle_events = recycle
+        led.overlap_staging = stage
+        # The ring windows' key warms up (eager, then captured) before it
+        # is timed.
+        windows = [c2_window() for _ in range(n_win)]
+        stats0 = dict(led.staging_stats)
+        d2h = L.D2H_BYTES
+        if mode == "traced":
+            out = {}
+            trace = window_trace(dev, lambda: out.setdefault(
+                "r", drive_serving(card, windows, stage)),
+                "serving pipelined (traced)")
+            replies = out["r"]
+            if trace["busy_ms"] is not None:
+                busy_window = trace["busy_ms"] / n_win
+        else:
+            sync(dev)
+            t = time.perf_counter()
+            replies = drive_serving(card, windows, stage)
+            sync(dev)
+            wall = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        led.drain_mirror()
+        drain = (time.perf_counter() - t) * 1e3
+        st = {k: led.staging_stats[k] - stats0[k] for k in stats0}
+        for k, (window, reply) in enumerate(zip(windows, replies)):
+            ref_window(f"serving {mode} window {k}", window, reply)
+        check(not recycle or int(led.state["events"]["count"]) == 0,
+              f"serving {mode}: the ring was not recycled")
+        if mode in ("traced", "ring_warmup"):
+            continue
+        piped[mode] = dict(
+            ms_per_window=wall / n_win,
+            transfers_per_s=n_win * w * body / (wall / 1e3),
+            host_stall_fraction=(st["stall_ms"] / st["work_ms"]
+                                 if st["work_ms"] else None),
+            staged=st["staged"], misses=st["misses"],
+            stall_ms=st["stall_ms"], work_ms=st["work_ms"],
+            drain_ms_per_window=drain / n_win,
+            d2h_bytes_per_window=(L.D2H_BYTES - d2h) / n_win)
+        print(f"serving pipelined ({mode}): {piped[mode]}", flush=True)
+    for v in piped.values():
+        v["busy_ms_per_window"] = busy_window
+        v["idle_share"] = (None if busy_window is None
+                           else 1 - busy_window / v["ms_per_window"])
+    sv.check_digest("serving pipelined windows")
+    led.recycle_events = False
+    led.overlap_staging = True
+    reserved_at_capture = graph_memory(led)
+    reserved = (torch.cuda.memory_reserved(dev) if cuda else None)
+
+    # ---- config 4, a hard body, a pulse, the queries
+    c4 = [Account(id=SV_C4_ACCT0 + i, ledger=1, code=1,
+                  flags=(int(AccountFlags.debits_must_not_exceed_credits)
+                         if i % 2 == 0 else 0))
+          for i in range(1, C4_ACCOUNTS + 1)]
+    sv.commit("config-4 accounts", O.create_accounts, accounts_body(c4),
+              sv.next_ts(len(c4)))
+    nid = 10**10
+    for p in range(c4_pairs):
+        pend, rev, nid = config4_pair(rng, nid, TF, body)
+        for label, ev in (("pend", offset_accounts(pend, SV_C4_ACCT0)),
+                          ("post/void", rev)):
+            sv.commit(f"config-4 pair {p} {label}", O.create_transfers,
+                      wire_body([ev]), sv.next_ts(body))
+    fb0 = led.fallbacks
+    expiring = uniform_batch(rng, nid, 64, n_accounts)
+    nid += 64
+    expiring["flags"][:] = int(TF.pending)
+    expiring["timeout"][:] = 1
+    sv.commit("expiring pendings", O.create_transfers, wire_body([expiring]),
+              sv.next_ts(64))
+    hard = uniform_batch(rng, nid, body, n_accounts)
+    hard["id_lo"][-1] = hard["id_lo"][0]      # a repeated id: the mirror
+    raw = wire_body([hard])
+    ts = sv.next_ts(body)
+    sync(dev)
+    t = time.perf_counter()
+    reply = card.commit(O.create_transfers, raw, ts)
+    sync(dev)
+    hard_ms = (time.perf_counter() - t) * 1e3
+    sv.same("hard body", reply, sv.ref.commit(O.create_transfers, raw, ts))
+    check(led.fallbacks == fb0 + 1, f"hard body: fallbacks {led.fallbacks}")
+    sv.check_digest("hard body")
+    ts = sv.ts + 2 * 10**9
+    sv.ts = ts
+    check(card.pulse_needed(ts) and sv.ref.pulse_needed(ts),
+          "serving: no pulse is due past the pendings' timeouts")
+    sv.commit("pulse", O.pulse, b"", ts)
+    sv.check_digest("pulse")
+    hist_id = SV_HISTORY_EVERY
+    both = int(AccountFilterFlags.debits | AccountFilterFlags.credits)
+    ids = [1, 2, hist_id, n_accounts + 5]
+    xids = [10**8, 10**8 + 1, 10**8 + body, 12345]
+    queries = [
+        (O.lookup_accounts, multi_batch.encode(
+            [b"".join(i.to_bytes(16, "little") for i in ids)], 16)),
+        (O.lookup_transfers, multi_batch.encode(
+            [b"".join(i.to_bytes(16, "little") for i in xids)], 16)),
+        (O.get_account_transfers, multi_batch.encode([AccountFilter(
+            account_id=hist_id, limit=50, flags=both).pack()], 128)),
+        (O.get_account_balances, multi_batch.encode([AccountFilter(
+            account_id=hist_id, limit=50, flags=both).pack()], 128)),
+        (O.query_accounts, multi_batch.encode([QueryFilter(
+            user_data_32=3, code=2, limit=40).pack()], 64)),
+        (O.query_transfers, multi_batch.encode([QueryFilter(
+            ledger=1, limit=40, flags=1).pack()], 64)),
+        (O.get_change_events, ChangeEventsFilter(limit=60).pack()),
+    ]
+    q_bytes = {}
+    t = time.perf_counter()
+    for op, raw in queries:
+        q_bytes[op.name] = len(sv.commit(f"query {op.name}", op, raw, ts))
+    query_s = time.perf_counter() - t
+    check(all(q_bytes.values()), f"serving queries: an empty reply {q_bytes}")
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+    delta_gathers = L.DELTA_GATHERS - gathers0
+    counters = ladder_counters(led)
+    routes = dict(led.window_routes)
+    evictions = led.windows.evictions
+    host_mem = (torch.cuda.host_memory_stats()
+                if cuda and hasattr(torch.cuda, "host_memory_stats") else {})
+    led.shutdown_staging()
+    sv_bodies = sv.bodies
+    del sv, card, led
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- the kernel engine
+    kern = Serving(StateMachine("kernel", device=dev),
+                   StateMachine("oracle", device="cpu"), caps[0])
+    k_accounts = [Account(id=i, ledger=1, code=1) for i in range(1, 1001)]
+    kern.commit("kernel accounts", O.create_accounts,
+                accounts_body(k_accounts), kern.next_ts(len(k_accounts)))
+    k_spans = []
+    for b in range(n_kernel):
+        ev = config3_batch(rng, b, n=body)
+        kern.commit(f"kernel body {b}", O.create_transfers, wire_body([ev]),
+                    kern.next_ts(body))
+        k_spans.append(dict(create_seq.SPANS))
+    kernel_launches = create_seq.LAUNCHES
+    check(not cuda or (launches[0] > 0 and launches[1] > 0
+                       and kernel_launches > 0),
+          f"serving: launches probe/gather {launches}, create_seq "
+          f"{kernel_launches}")
+    numbers = dict(
+        body_events=body, bodies_checked_against_cpu=sv_bodies + kern.bodies,
+        commit_ms=float(np.mean(wt_ms)), commit_ms_each=wt_ms,
+        no_write_through_ms=float(np.mean(plain_ms)),
+        no_write_through_ms_each=plain_ms,
+        write_through_cost_ms=float(np.mean(wt_ms) - np.mean(plain_ms)),
+        drain_ms_per_batch=float(np.mean(drain_ms)),
+        drain_ms_each=drain_ms, d2h_bytes_per_batch=d2h_batch,
+        d2h_bytes_per_sync_window=d2h_window,
+        sync_window_ms=sync_window_ms, sync_window_ms_each=sync_ms,
+        sync_window_transfers_per_s=w * body / (sync_window_ms / 1e3),
+        sync_window_busy_ms=sync_trace["busy_ms"],
+        sync_window_idle_share=(None if sync_trace["busy_ms"] is None
+                                else 1 - sync_trace["busy_ms"]
+                                / sync_window_ms),
+        pipelined=piped, hard_body_ms=hard_ms, query_s=query_s,
+        query_reply_bytes=q_bytes,
+        launches=launches, delta_gathers=delta_gathers,
+        create_seq_launches=kernel_launches,
+        create_seq_kernel_ms=[s["kernel"] for s in k_spans],
+        create_seq_prefetch_ms=[s["prefetch"] for s in k_spans],
+        create_seq_apply_ms=[s["apply"] for s in k_spans],
+        counters=counters, routes=routes, graph_evictions=evictions,
+        reserved_at_capture=reserved_at_capture, memory_reserved=reserved,
+        pinned_host={k: v for k, v in host_mem.items() if "bytes" in k},
+        elapsed_s=time.perf_counter() - t0)
+    print(f"serving: {numbers['bodies_checked_against_cpu']} replies equal "
+          f"to the CPU oracle engine's; launches probe/gather {launches} "
+          f"(delta gathers {delta_gathers}), create_seq {kernel_launches}; "
+          f"hard body {hard_ms:.1f} ms; sync window of {w} "
+          f"{sync_window_ms:.3f} ms; routes {routes}, graph evictions "
+          f"{evictions}; {numbers['elapsed_s']:.1f} s; "
+          f"{card_line_or_cpu(dev)}", flush=True)
+    return numbers
+
+
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
@@ -3288,6 +3793,7 @@ def main() -> int:
     wfb = window_fallback_phase(dev)
     imp = imported_phase(dev)
     bal = balancing_phase(dev)
+    srv = serving_phase(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -3319,6 +3825,7 @@ def main() -> int:
         "ran_imported": imp["launches_ran"][0],
         "launches_balancing": bal["launches"][0],
         "ran_balancing": bal["launches_ran"][0],
+        "launches_serving": srv["launches"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -3356,6 +3863,10 @@ def main() -> int:
         "ran_imported": imp["launches_ran"][1],
         "launches_balancing": bal["launches"][1],
         "ran_balancing": bal["launches_ran"][1],
+        # The serving phase's launches, the write-through delta gathers
+        # (one launch each) among them.
+        "launches_serving": srv["launches"][1],
+        "launches_serving_delta": srv["delta_gathers"],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -3385,6 +3896,8 @@ def main() -> int:
         "replaces": "tigerbeetle_tpu/ops/create_kernels.py:664, "
                     "tigerbeetle_tpu/ops/create_kernels.py:792",
         "launches": seq["launches"],
+        # The serving phase's "kernel"-engine commits.
+        "launches_serving": srv["create_seq_launches"],
         "max_abs_err": seq["max_abs_err"],
         "ms": seq["ms"],
         "plain_ms": seq["plain_ms"],
@@ -3407,6 +3920,7 @@ def main() -> int:
     print(json.dumps({"window_fallbacks": wfb}), flush=True)
     print(json.dumps({"imported": imp}), flush=True)
     print(json.dumps({"balancing": bal}), flush=True)
+    print(json.dumps({"serving": srv}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -342,3 +342,49 @@ def test_balancing_pair_marks_one_pend_event_in_eight():
                                     window=True)
     assert (rev_w["pid_lo"][bal] == 0).all()
     assert (rev_w["flags"][bal] == 0).all()
+
+
+def test_serving_phase_rehearsed_on_the_cpu(calls):
+    """The serving phase at a small size on the CPU: StateMachine on the
+    device engine (its ledger on the CPU) beside the CPU oracle engine,
+    every reply equal and the mirror's digest equal to the device's
+    where the phase checks it; the windows on the chain route (the ring
+    kernels with recycle_events), one hard body on the mirror, every
+    query answered; then the kernel engine's commits. The wrappers'
+    calls include one row gather a write-through delta that fetched
+    transfer rows."""
+    numbers = CS.serving_phase("cpu", n_accounts=300, body=120, n_checked=2,
+                               n_timed=2, w=3, w_sync=3, w_piped=2,
+                               c4_pairs=1, n_kernel=1,
+                               caps=(1 << 10, 1 << 15))
+    assert numbers["routes"] == {"chain": 18}
+    assert numbers["counters"][4] == 1           # the hard body
+    assert numbers["delta_gathers"] > 0
+    assert calls["gather"] >= numbers["delta_gathers"]
+    assert all(numbers["query_reply_bytes"].values())
+    assert set(numbers["pipelined"]) == {"staged", "staged_ring",
+                                         "inline_ring", "inline_ring_2",
+                                         "staged_ring_2"}
+    assert numbers["pipelined"]["staged"]["staged"] == 2
+    assert numbers["pipelined"]["inline_ring"]["staged"] == 0
+    assert numbers["pipelined"]["inline_ring"]["host_stall_fraction"] == 1.0
+    assert numbers["d2h_bytes_per_batch"] > 0
+    assert numbers["bodies_checked_against_cpu"] > 40
+
+
+def test_chip_smoke_runs_the_serving_phase_last():
+    """main() runs the serving phase after the balancing phase and
+    prints its line before the kernels line, whose three kernels carry
+    the serving phase's launches."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "balancing_phase(", "serving_phase(", "'serving'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_serving'") == 3
+

@@ -27,7 +27,10 @@ def test_importing_the_port_loads_no_jax():
         "ledger, tigerbeetle_tpu_torch.ops.state_epoch, "
         "tigerbeetle_tpu_torch.oracle, tigerbeetle_tpu_torch.ops.batch, "
         "tigerbeetle_tpu_torch.ops.create_kernels, "
-        "tigerbeetle_tpu_torch.ops.create_seq\n"
+        "tigerbeetle_tpu_torch.ops.create_seq, "
+        "tigerbeetle_tpu_torch.ops.lazy_mirror, "
+        "tigerbeetle_tpu_torch.multi_batch, "
+        "tigerbeetle_tpu_torch.state_machine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -56,6 +59,15 @@ def test_port_sources_name_no_jax_module(path):
     assert "import onchip" not in text and "from onchip" not in text
 
 
+def test_the_serving_modules_are_the_ports_own():
+    """The serving path's modules exist in the port and import nothing
+    of the JAX package (the AST check above covers their sources): the
+    StateMachine, the multi-batch codec and the lazy mirror."""
+    for name in ("state_machine.py", "multi_batch.py",
+                 "ops/lazy_mirror.py"):
+        assert (PORT / name) in _sources(), name
+
+
 def test_port_modules_import_no_triton_or_build_at_import():
     code = (
         "import sys, tigerbeetle_tpu_torch.ops.fused_probe as fp\n"
@@ -64,6 +76,7 @@ def test_port_modules_import_no_triton_or_build_at_import():
         "import tigerbeetle_tpu_torch.ops.create_seq as cs\n"
         "import tigerbeetle_tpu_torch.ops.create_kernels\n"
         "import tigerbeetle_tpu_torch.oracle\n"
+        "import tigerbeetle_tpu_torch.state_machine\n"
         "assert cs._launch == {}\n"
         "assert 'triton' not in sys.modules\n"
         "assert fp._build._libs == {}\n")

@@ -13,10 +13,15 @@ many prepares, each one replay of a CUDA graph on the card
 (`ops/window_graph.py`), with three hand-written
 CUDA kernels: the two-choice hash probe (`csrc/ht_probe.cu`), the row
 gather (`csrc/row_gather.cu`) and the sequential kernel
-(`csrc/create_seq.cu`).
+(`csrc/create_seq.cu`). Its serving entry point is `StateMachine`
+(`state_machine.py`): wire bodies in, reply bytes out, on the device
+ledger with a write-through host mirror (`ops/lazy_mirror.py`), on the
+sequential kernel, or on the oracle.
 """
 
 from .convert import state_from_numpy, state_to_numpy
 from .ops.ledger import DeviceLedger
+from .state_machine import StateMachine
 
-__all__ = ["DeviceLedger", "state_from_numpy", "state_to_numpy"]
+__all__ = ["DeviceLedger", "StateMachine", "state_from_numpy",
+           "state_to_numpy"]

@@ -1,6 +1,7 @@
-"""Host-side packing of event objects into SoA numpy arrays, and the
-prefetch that builds the sequential kernels' inputs (a port of the JAX
-package's `ops/batch.py`).
+"""Host-side packing of event objects into SoA numpy arrays, the wire
+codec of the serving path (`transfers_soa_from_bytes`,
+`encode_create_results`), and the prefetch that builds the sequential
+kernels' inputs (a port of the JAX package's `ops/batch.py`).
 
 The arrays keep the JAX package's host dtypes (u64 limbs as uint64, the
 32-bit fields as uint32), so one dict feeds either ledger; the device
@@ -51,6 +52,72 @@ def _limbs(xs):
     hi = np.array([x >> 64 for x in xs], dtype=np.uint64)
     lo = np.array([x & _MASK64 for x in xs], dtype=np.uint64)
     return hi, lo
+
+
+# ------------------------------------------------------- vectorized wire codec
+#
+# The serving path's body decode / result encode as single numpy frombuffer /
+# tobytes passes over structured views of the 128-byte wire records
+# (reference layout: src/tigerbeetle.zig:85-116 Transfer, :483-493
+# CreateTransfersResult) — no per-event Python objects on the commit path.
+
+TRANSFER_WIRE = np.dtype({
+    "names": [
+        "id_lo", "id_hi", "dr_lo", "dr_hi", "cr_lo", "cr_hi",
+        "amt_lo", "amt_hi", "pid_lo", "pid_hi", "ud128_lo", "ud128_hi",
+        "ud64", "ud32", "timeout", "ledger", "code", "flags", "ts",
+    ],
+    "formats": [
+        "<u8", "<u8", "<u8", "<u8", "<u8", "<u8",
+        "<u8", "<u8", "<u8", "<u8", "<u8", "<u8",
+        "<u8", "<u4", "<u4", "<u4", "<u2", "<u2", "<u8",
+    ],
+    "offsets": [
+        0, 8, 16, 24, 32, 40,
+        48, 56, 64, 72, 80, 88,
+        96, 104, 108, 112, 116, 118, 120,
+    ],
+    "itemsize": 128,
+})
+
+RESULT_WIRE = np.dtype({
+    "names": ["ts", "status", "reserved"],
+    "formats": ["<u8", "<u4", "<u4"],
+    "offsets": [0, 8, 12],
+    "itemsize": 16,
+})
+
+
+def transfers_soa_from_bytes(body: bytes) -> dict:
+    """128-byte wire records -> the kernel's SoA event dict, one
+    vectorized pass (the u16 wire fields widen to the kernel's u32).
+
+    The u64/u32 columns are read-only VIEWS into `body` (every consumer —
+    padding, delta capture, object fallback — only reads them; the next
+    copy is the padded kernel input itself, so copying here would double
+    the decode traffic)."""
+    rec = np.frombuffer(body, dtype=TRANSFER_WIRE)
+    return dict(
+        id_hi=rec["id_hi"], id_lo=rec["id_lo"],
+        dr_hi=rec["dr_hi"], dr_lo=rec["dr_lo"],
+        cr_hi=rec["cr_hi"], cr_lo=rec["cr_lo"],
+        amt_hi=rec["amt_hi"], amt_lo=rec["amt_lo"],
+        pid_hi=rec["pid_hi"], pid_lo=rec["pid_lo"],
+        ud128_hi=rec["ud128_hi"], ud128_lo=rec["ud128_lo"],
+        ud64=rec["ud64"], ud32=rec["ud32"],
+        timeout=rec["timeout"], ledger=rec["ledger"],
+        code=rec["code"].astype(np.uint32),
+        flags=rec["flags"].astype(np.uint32),
+        ts=rec["ts"],
+    )
+
+
+def encode_create_results(st: np.ndarray, ts: np.ndarray) -> bytes:
+    """(status codes u32, timestamps u64) -> dense 16-byte result records."""
+    out = np.zeros(len(st), dtype=RESULT_WIRE)
+    out["ts"] = ts
+    out["status"] = st
+    return out.tobytes()
 
 
 def transfers_to_arrays(transfers) -> dict:

@@ -50,11 +50,24 @@ batch or window the state's commit_ts is the last applied imported
 timestamp, the oracle's value, where the JAX package's imported tiers
 leave the prepare timestamp (see `fast_kernels.create_transfers_fast`).
 
-Not ported here (later slices; on this path they are absent): the
-write-through mirror (`write_through`, `drain_mirror`, the fast-batch
-delta capture, window staging and the ring recycle) and the lazy mirror
-containers (the oracle's own containers serve), and the partitioned
-attach mode.
+Write-through mode (`DeviceLedger(write_through=sm)`, the serving path
+under `StateMachine(engine="device")`): `sm`, a host oracle, is kept in
+permanent lockstep with the device. A device batch or window gathers its
+bounded delta on the card (the appended transfer and event rows, and the
+touched accounts' ids and pending timestamps as one row-gather launch),
+copies it into pinned host memory without waiting, and queues it as a
+columnar chunk; `drain_mirror` registers the chunks in the lazy mirror
+containers (`lazy_mirror.py`) at the next read. Hard batches run on the
+mirror itself (no `to_host`) and push what they dirtied. Pipelined
+windows gather on device-computed starts right after their dispatch;
+`stage_window` packs the next window on a stager thread; with
+`recycle_events` the event ring rewinds after every batch and window
+(the ring window kernels on the pipelined route).
+
+Not ported here (later slices): the durable flush columns
+(`retain_flush_columns` / `take_flush_columns`), the VERIFY spot check
+(`_verify_mirror_spot` / `MirrorDivergence`), the tracer hook and the
+partitioned attach mode.
 
 The device is explicit: `DeviceLedger(device=None)` means CUDA and
 raises when no CUDA device is present; the tests pass `device="cpu"`.
@@ -62,10 +75,13 @@ raises when no CUDA device is present; the tests pass `device="cpu"`.
 
 from __future__ import annotations
 
+import time
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
-from ..constants import BATCH_MAX, NS_PER_S
+from ..constants import BATCH_MAX, NS_PER_S, TIMESTAMP_MIN
 from ..oracle.state_machine import AccountEventRecord, StateMachineOracle
 from ..types import (
     Account,
@@ -89,15 +105,18 @@ from .ev_layout import (
     AC_NCOLS,
     AC_P32_POS,
     AC_U64_IDX,
+    EV_I32,
     EV_NCOLS,
     EV_P32_POS,
     EV_U64_IDX,
+    XF_I32,
     XF_NCOLS,
     XF_P32_POS,
     XF_U64_IDX,
     ac_named,
     bal_col,
     ev_cap,
+    ev_col,
     ev_named,
     pack32,
     xf_named,
@@ -120,6 +139,12 @@ from .fast_kernels import (
 )
 from .fused_probe import ht_lookup_fused
 from .hash_table import ORPHAN_VAL, SLOTS, ht_init, ht_insert
+from .lazy_mirror import (
+    DeltaChunk,
+    LazyEventList,
+    LazyTransferDict,
+    apply_account_finals,
+)
 from .row_gather import row_gather_multi
 from .u64 import carrier, s64, u64
 from .window_graph import Harvest, WindowGraphs
@@ -466,15 +491,17 @@ _WINDOW_OUTS = ("r_status", "r_ts", "fallback", "created_count",
                 "fb_causes")
 
 
-def _window_call(route: str):
+def _window_call(route: str, ring: bool = False):
     """The function a window route runs (and a CUDA graph captures):
-    unpack the lane matrix and run the route's window kernel, which
-    updates the state in place; returns its outputs."""
+    unpack the lane matrix and run the route's window kernel (its ring
+    variant with `ring`), which updates the state in place; returns its
+    outputs."""
     fn = _WINDOW_FNS[route]
+    kw = {"ring_reset": True} if ring else {}
 
     def call(state, lanes, force_fallback):
         ev, seg = unpack_window(lanes)
-        return fn(state, ev, seg, force_fallback)[1]
+        return fn(state, ev, seg, force_fallback, **kw)[1]
 
     return call
 
@@ -489,6 +516,307 @@ def _window_results(st, ts, ns, n_pad) -> list:
             for b, n in enumerate(ns)]
 
 
+# ------------------------------------------------- write-through deltas
+
+# Transient statuses poison the transfer id (reference:
+# src/tigerbeetle.zig:320-399); the write-through delta mirrors the
+# device's orphan inserts on the host with them.
+_TRANSIENT_ARR = np.fromiter(
+    (int(s) for s in CreateTransferStatus if s.transient()),
+    dtype=np.uint32)
+_CREATED = np.uint32(int(CreateTransferStatus.created))
+_F_PENDING = int(TransferFlags.pending)
+# Windows free of these flags fetch half the delta (the event rows): the
+# transfer rows are a function of the inputs, statuses and timestamps
+# (`_synth_t_cols`).
+_F_NOT_SYNTH = np.uint32(int(
+    TransferFlags.post_pending_transfer | TransferFlags.void_pending_transfer
+    | TransferFlags.imported | TransferFlags.balancing_debit
+    | TransferFlags.balancing_credit))
+# Delta gather sizes (rows): point batches, one prepare, a window of 8.
+_DELTA_BUCKETS = (256, N_PAD, 8 * N_PAD)
+_DER_KEYS = ("dr_id_hi", "dr_id_lo", "cr_id_hi", "cr_id_lo", "p_ts")
+_HOST_LAYOUT = {"t": (xf_named, XF_U64_IDX, frozenset(XF_I32)),
+                "e": (ev_named, EV_U64_IDX, frozenset(EV_I32))}
+
+# The write-through deltas' row-gather launches (one a full delta
+# gather) and the bytes they copied device to host: chip_smoke.py reads
+# them a batch and a window.
+DELTA_GATHERS = 0
+D2H_BYTES = 0
+
+
+def _host_named(which: str, mat: np.ndarray) -> dict:
+    """An int64-carried row matrix on the host -> named columns in the
+    JAX package's host dtypes (u64 lanes as uint64, 32-bit lanes as
+    uint32 / int32): the one place the delta leaves the carrier."""
+    named, u64s, signed = _HOST_LAYOUT[which]
+    out = {}
+    for k, v in named({"u64": mat}).items():
+        out[k] = (v.view(np.uint64) if k in u64s
+                  else v.astype(np.int32 if k in signed else np.uint32))
+    return out
+
+
+def _rows(mat, start, size: int):
+    """Rows [start, start + size) of a row matrix as a new tensor. A host
+    int start slices; a device start (a pipelined window's, computed on
+    the card) selects arange + start, so nothing crosses to the host and
+    the window needs no sync."""
+    if isinstance(start, int):
+        return mat[start:start + size].clone()
+    idx = torch.arange(size, dtype=torch.int64, device=mat.device) + start
+    return mat.index_select(0, idx)
+
+
+def _delta_gather_body(state, t_start, e_start, size_t: int, size_e: int):
+    """The device side of one write-through delta: fixed-size slices of
+    the appended transfer and event rows, and the derived gathers — the
+    touched accounts' ids and the pending transfers' timestamps — as ONE
+    row-gather launch of two tables (account rows at the events' dr/cr
+    rows, transfer rows at their p_rows)."""
+    global DELTA_GATHERS
+    acc, xfr, evr = state["accounts"], state["transfers"], state["events"]
+    t = _rows(xfr["u64"], t_start, size_t)
+    e = _rows(evr["u64"], e_start, size_e)
+    er = {"u64": e}
+    assert (AC_U64_IDX["id_hi"], AC_U64_IDX["id_lo"]) == (0, 1)
+    ids, p = row_gather_multi(
+        (acc["u64"], xfr["u64"]),
+        (torch.cat([ev_col(er, "dr_row"), ev_col(er, "cr_row")]),
+         torch.clamp(ev_col(er, "p_row"), min=0)))
+    DELTA_GATHERS += 1
+    der = torch.stack([ids[:size_e, 0], ids[:size_e, 1], ids[size_e:, 0],
+                       ids[size_e:, 1], p[:, XF_U64_IDX["ts"]]], dim=1)
+    return {"t": t, "e": e, "der": der}
+
+
+def _window_start(store: dict, created, size: int, length: int):
+    """A window's delta slice start on the device: its rows are the
+    store's last `created` ones, clamped as `_delta_fetch_start` clamps."""
+    return torch.clamp(store["count"].to(torch.int64)
+                       - created.to(torch.int64), 0, length - size)
+
+
+def _xfer_delta_gather_window(state, created, size_t: int, size_e: int):
+    """A pipelined window's delta gather, its starts computed on the card
+    from the post-window counts; the resolver recomputes the same
+    offsets from the host counters."""
+    xfr, evr = state["transfers"], state["events"]
+    return _delta_gather_body(
+        state, _window_start(xfr, created, size_t, xfr["u64"].shape[0]),
+        _window_start(evr, created, size_e, ev_cap(evr) + 1),
+        size_t, size_e)
+
+
+def _ev_delta_gather_window(state, created, size_e: int):
+    """The half-width window gather: the event rows only (the per-event
+    balance snapshots); the transfer rows and touched ids of a window
+    with no post/void, imported or balancing flag synthesize on the host
+    (`_synth_t_cols` / `_synth_der_cols`)."""
+    evr = state["events"]
+    return _ev_delta_gather_host(
+        state, _window_start(evr, created, size_e, ev_cap(evr) + 1), size_e)
+
+
+def _ev_delta_gather_host(state, e_start, size_e: int):
+    return {"e": _rows(state["events"]["u64"], e_start, size_e)}
+
+
+class _DeltaFetchHandle:
+    """One delta gather in flight. Its device rows are copied into pinned
+    host buffers by non-blocking copies with an event behind them
+    (`window_graph.Harvest`): at construction, or with eager_copy=False
+    (the pipelined windows) at `start_copy`, which the drain calls, so
+    the copy stays off the commit path. `_resolve` waits for the event
+    before any host view is read; `slice_cols` returns exact-size copies,
+    so the pinned buffers go back to PyTorch's caching host allocator
+    once every chunk over them has loaded (at most 32 unloaded,
+    `DeviceLedger._track_pending_cols`)."""
+
+    __slots__ = ("_dev", "_harvest", "_host", "t0", "_t_off", "_e_off")
+
+    def __init__(self, dev_out, t0, t_off, e_off, eager_copy=True):
+        self._dev = dev_out
+        self._harvest = None
+        self._host = None
+        self.t0 = t0
+        self._t_off = t_off
+        self._e_off = e_off
+        if eager_copy:
+            self.start_copy()
+
+    def start_copy(self) -> None:
+        """Start the device-to-host copies (idempotent)."""
+        global D2H_BYTES
+        if self._harvest is None and self._host is None:
+            dev, self._dev = self._dev, None
+            D2H_BYTES += sum(v.numel() * v.element_size()
+                             for v in dev.values())
+            self._harvest = Harvest(dev, tuple(dev))
+
+    def _resolve(self) -> dict:
+        host = self._host
+        if host is None:
+            self.start_copy()
+            raw, self._harvest = self._harvest.get(), None
+            host = self._host = {k: _host_named(k, raw[k])
+                                 for k in ("t", "e") if k in raw}
+            if "der" in raw:
+                der = raw["der"].view(np.uint64)
+                host["der"] = {k: der[:, i] for i, k in enumerate(_DER_KEYS)}
+        return host
+
+    def slice_cols(self, which: str, rel: int, n: int) -> dict:
+        cols = self._resolve()[which]
+        o = (self._t_off if which == "t" else self._e_off) + rel
+        return {k: v[o:o + n].copy() for k, v in cols.items()}
+
+
+class _ColsView:
+    """Lazily loaded named columns: the one mapping surface the drain and
+    the lazy mirror read, for device-fetched and host-synthesized
+    chunks alike."""
+
+    __slots__ = ("_d",)
+
+    def _load(self) -> dict:
+        raise NotImplementedError
+
+    def load(self) -> dict:
+        d = self._d
+        if d is None:
+            d = self._d = self._load()
+        return d
+
+    @property
+    def loaded(self) -> bool:
+        return self._d is not None
+
+    def __getitem__(self, key):
+        return self.load()[key]
+
+    def __contains__(self, key):
+        return key in self.load()
+
+    def keys(self):
+        return self.load().keys()
+
+    def values(self):
+        return self.load().values()
+
+    def items(self):
+        return self.load().items()
+
+    def __iter__(self):
+        return iter(self.load())
+
+    def __len__(self):
+        return len(self.load())
+
+
+class _LazyCols(_ColsView):
+    """Columns over a _DeltaFetchHandle slice (device-fetched)."""
+
+    __slots__ = ("_handle", "_which", "_rel", "_n")
+
+    def __init__(self, handle, which, rel, n):
+        self._handle = handle
+        self._which = which
+        self._rel = rel
+        self._n = n
+        self._d = None
+
+    def _load(self) -> dict:
+        d = self._handle.slice_cols(self._which, self._rel, self._n)
+        self._handle = None
+        return d
+
+
+def _synth_t_cols(ev: dict, st_np, ts_b: int) -> dict:
+    """The created transfer rows' named columns rebuilt from the batch's
+    inputs (batches with no post/void, imported or balancing flag:
+    amounts are literal and nothing inherits from a pending). Equal bit
+    for bit to the rows the device tier writes (expires = ts + timeout
+    for a pending with a timeout, pstat pending or none)."""
+    n_b = len(st_np)
+    idx = np.nonzero(np.asarray(st_np) == _CREATED)[0]
+
+    def col(name):
+        return np.asarray(ev[name])[idx]
+
+    ts_event = (np.uint64(ts_b) - np.uint64(n_b)
+                + idx.astype(np.uint64) + np.uint64(1))
+    flags = col("flags")
+    pending = (flags & np.uint32(_F_PENDING)) != 0
+    timeout = col("timeout")
+    expires = np.where(
+        pending & (timeout != 0),
+        ts_event + timeout.astype(np.uint64) * np.uint64(NS_PER_S),
+        np.uint64(0))
+    cols = {n: col(n) for n in
+            ("id_hi", "id_lo", "dr_hi", "dr_lo", "cr_hi", "cr_lo",
+             "amt_hi", "amt_lo", "pid_hi", "pid_lo", "ud128_hi",
+             "ud128_lo", "ud64", "ud32", "timeout", "ledger", "code",
+             "flags")}
+    cols["ts"] = ts_event
+    cols["expires"] = expires
+    cols["pstat"] = np.where(
+        pending, np.int32(int(TransferPendingStatus.pending)),
+        np.int32(int(TransferPendingStatus.none)))
+    zrow = np.zeros(len(idx), np.int32)  # device-internal row indices
+    cols["dr_row"] = zrow
+    cols["cr_row"] = zrow
+    return cols
+
+
+def _synth_der_cols(ev: dict, st_np) -> dict:
+    """The derived columns of such a batch: the touched accounts' ids are
+    the inputs' debit/credit ids; p_ts is unused (no posts or voids)."""
+    idx = np.nonzero(np.asarray(st_np) == _CREATED)[0]
+    return {
+        "dr_id_hi": np.asarray(ev["dr_hi"])[idx],
+        "dr_id_lo": np.asarray(ev["dr_lo"])[idx],
+        "cr_id_hi": np.asarray(ev["cr_hi"])[idx],
+        "cr_id_lo": np.asarray(ev["cr_lo"])[idx],
+        "p_ts": np.zeros(len(idx), np.uint64),
+    }
+
+
+class _SynthCols(_ColsView):
+    """Host-synthesized named columns: _LazyCols' surface with no device
+    buffer behind it."""
+
+    __slots__ = ("_builder", "_args")
+
+    def __init__(self, builder, *args):
+        self._builder = builder
+        self._args = args
+        self._d = None
+
+    def _load(self) -> dict:
+        d = self._builder(*self._args)
+        self._builder = self._args = None
+        return d
+
+
+def _batch_delta_stats(ev: dict, st_np):
+    """(created count, orphan ids) of one batch's statuses: the
+    per-prepare summary both capture paths queue from."""
+    orph_mask = np.isin(st_np, _TRANSIENT_ARR)
+    orphan_ids = ([(int(ev["id_hi"][i]) << 64) | int(ev["id_lo"][i])
+                   for i in np.nonzero(orph_mask)[0]]
+                  if orph_mask.any() else [])
+    return int((st_np == _CREATED).sum()), orphan_ids
+
+
+def _delta_bucket(n_new: int) -> int:
+    for size in _DELTA_BUCKETS:
+        if n_new <= size:
+            return size
+    return size
+
+
 class WindowTicket:
     """One pipelined window in flight: dispatched, its outputs being
     copied to the host, nothing synced. resolve_windows() recovers, in
@@ -497,9 +825,10 @@ class WindowTicket:
     state untouched)."""
 
     __slots__ = ("evs", "tss", "ns", "n_pad", "route", "deep", "poison",
-                 "outs", "harvest", "results")
+                 "outs", "harvest", "results", "gather", "size", "e_only")
 
-    def __init__(self, evs, tss, ns, n_pad, route, deep, poison, outs):
+    def __init__(self, evs, tss, ns, n_pad, route, deep, poison, outs,
+                 gather=None, size=(0, 0), e_only=False):
         self.evs = evs
         self.tss = tss
         self.ns = ns
@@ -515,6 +844,12 @@ class WindowTicket:
         self.outs = outs
         self.harvest = None
         self.results = None  # ("ok" | "redo", [(status, ts), ...])
+        # Write-through: the window's delta gather (issued right after
+        # the dispatch, on the device's counts), its (size_t, size_e),
+        # and whether it is the half-width event-only one.
+        self.gather = gather
+        self.size = size
+        self.e_only = e_only
 
     def start_harvest(self) -> None:
         """Start the non-blocking copies of the ticket's outputs into
@@ -538,11 +873,18 @@ class DeviceLedger:
     DEEP_PROBE_INTERVAL = 8
 
     def __init__(self, a_cap: int = 1 << 17, t_cap: int = 1 << 21,
-                 device=None):
+                 write_through=None, device=None):
         self.device = resolve_device(device)
         self.a_cap = a_cap
         self.t_cap = t_cap
         self.state = init_state(a_cap, t_cap, device=self.device)
+        # The event ring's host cursor (its device row count).
+        self._events_pushed = 0
+        # Serving with history kept elsewhere: the ring's consumed rows
+        # are recycled after every batch and window (the ring is a
+        # per-batch transport), and pipelined windows take the ring
+        # window kernels, which consume it from row 0.
+        self.recycle_events = False
         self.fast_batches = 0
         self.fixpoint_batches = 0
         self.deep_fixpoint_batches = 0
@@ -564,10 +906,9 @@ class DeviceLedger:
         # tier never reach it).
         self.fallback_causes: dict = {}
         # The host-mirror regime: a live oracle mirror of the device
-        # state, reused across consecutive hard batches, so each costs an
-        # oracle apply and a push of what it dirtied instead of a full
-        # state sync both ways.
-        self.mirror = None
+        # state (`mirror`, set below), reused across consecutive hard
+        # batches, so each costs an oracle apply and a push of what it
+        # dirtied instead of a full state sync both ways.
         self._mirror_batches = 0
         self._probe_pending = False
         # id -> device row of the mirror's objects (set by to_host /
@@ -587,6 +928,41 @@ class DeviceLedger:
         self.window_fallbacks = 0
         self._tickets: list[WindowTicket] = []
         self.windows = WindowGraphs(self.device)
+        # Window staging: a one-worker stager packs the NEXT window into
+        # pinned host memory while the current one runs; submit_window
+        # consumes a staged pack of exactly its window, else packs
+        # inline (the same bytes). overlap_staging=False packs inline
+        # always. staging_stats: windows through submit_window, staged
+        # packs consumed, misses, and the host time the dispatch path
+        # waited on the pack (stall_ms) against the pack work wherever
+        # it ran (work_ms).
+        self.overlap_staging = True
+        self._staged = None
+        self._stager = None
+        self.staging_stats = {"windows": 0, "staged": 0, "misses": 0,
+                              "stall_ms": 0.0, "work_ms": 0.0}
+        # Write-through mode (the serving path): `write_through` is a host
+        # oracle kept in permanent lockstep with the device. Device
+        # batches queue their bounded device-to-host delta as columnar
+        # chunks (`_mirror_chunks`), which `drain_mirror` materializes
+        # into it at the next read; hard batches run on it directly and
+        # push what they dirtied back down. The mirror is never dropped.
+        self.mirror = write_through
+        self._wt = write_through is not None
+        self._op_seq = 0
+        self._mirror_chunks: list = []
+        # Unloaded delta columns still holding device rows (at most 32).
+        self._pending_cols: list = []
+        # Device transfer rows, queued chunks included (len(_xfer_row)
+        # lags it until the next drain).
+        self._xfer_rows_dev = 0
+        if self._wt:
+            self._enable_dev_tracking(write_through)
+            self._hard_regime = False
+            if (write_through.accounts or write_through.transfers
+                    or write_through.account_events):
+                # A restored state: rebuild the device tables from it.
+                self.from_host(write_through)
 
     # ------------------------------------------------------------- fast path
 
@@ -594,6 +970,7 @@ class DeviceLedger:
         self.resolve_windows()  # pipeline ordering
         if self._mirror_route():
             self.fallbacks += 1
+            self.drain_mirror()
             results = self.mirror.create_accounts(accounts, timestamp)
             self._push_dirty()
             return results
@@ -611,10 +988,14 @@ class DeviceLedger:
             return self._fallback_accounts(accounts, timestamp)
         self.fast_batches += 1
         self._probe_succeeded()
-        st = out["r_status"][:n].cpu().tolist()
-        ts = out["r_ts"][:n].cpu().tolist()
-        return [CreateAccountResult(timestamp=ts[i],
-                                    status=_CAS_BY_CODE[st[i]])
+        st = out["r_status"][:n].cpu().numpy().astype(np.uint32)
+        ts = out["r_ts"][:n].cpu().numpy().view(np.uint64)
+        if self._wt:
+            self._apply_fast_delta_accounts(st)
+        st_l = st.tolist()
+        ts_l = ts.tolist()
+        return [CreateAccountResult(timestamp=ts_l[i],
+                                    status=_CAS_BY_CODE[st_l[i]])
                 for i in range(n)]
 
     def create_transfers(self, transfers: list[Transfer], timestamp: int):
@@ -661,6 +1042,7 @@ class DeviceLedger:
             self.fallbacks += 1
             if transfers is None:
                 transfers = transfers_from_arrays(ev)
+            self.drain_mirror()
             results = self.mirror.create_transfers(transfers, timestamp)
             self._push_dirty()
             return results_to_arrays(results) if raw else results
@@ -761,6 +1143,8 @@ class DeviceLedger:
         self._probe_succeeded()
         st = out["r_status"][:n].cpu().numpy().astype(np.uint32)
         ts = out["r_ts"][:n].cpu().numpy().view(np.uint64)
+        if self._wt:
+            self._capture_fast_delta_transfers(ev, st)
         if raw:
             return st, ts
         st_l = st.tolist()
@@ -832,6 +1216,8 @@ class DeviceLedger:
         host. Also records the id -> device row maps the mirror regime
         pushes its deltas by."""
         self.resolve_windows()  # pipeline ordering
+        if self._wt:
+            self.drain_mirror()
         self._acct_row = {}
         self._xfer_row = {}
         sm = StateMachineOracle()
@@ -887,8 +1273,16 @@ class DeviceLedger:
         sm.transfers_key_max = u64(st["xfer_key_max"]) or None
         sm.pulse_next_timestamp = u64(st["pulse_next"])
         sm.commit_timestamp = u64(st["commit_ts"])
-        sm.account_events = self._events_to_host(acc, xfr)
-        self._events_seen_abs = sm.events_base + len(sm.account_events)
+        if self._wt and self.recycle_events:
+            # The ring is recycled after every batch: the write-through
+            # mirror holds the history.
+            sm.account_events = list(self.mirror.account_events)
+            sm.events_base = self.mirror.events_base
+        else:
+            sm.account_events = self._events_to_host(acc, xfr)
+            self._events_pushed = len(sm.account_events)
+            self._events_seen_abs = sm.events_base + len(sm.account_events)
+        self._xfer_rows_dev = len(self._xfer_row)
         return sm
 
     def _events_to_host(self, acc, xfr) -> list:
@@ -947,6 +1341,11 @@ class DeviceLedger:
         The new state's storage drops the window graphs at the next
         window (`WindowGraphs.check_state`)."""
         self.resolve_windows()  # pipeline ordering
+        # Queued deltas drain into the old mirror first: kept when `sm`
+        # is that mirror, dropped with it when `sm` replaces it.
+        if self.mirror is not None:
+            self.drain_mirror()
+        self._mirror_chunks = []
         accounts = sorted(sm.accounts.values(), key=lambda a: a.timestamp)
         transfers = [sm.transfers[t]
                      for t in sm.transfer_by_timestamp.values()]
@@ -978,7 +1377,9 @@ class DeviceLedger:
         assert n_e <= ev_cap(st["events"]), "e_cap exceeded"
         self._write_rows(st["events"], np.arange(n_e),
                          self._event_cols(sm.account_events), n_e)
+        self._events_pushed = n_e
         self._events_seen_abs = sm.events_base + n_e
+        self._xfer_rows_dev = len(self._xfer_row)
         # Everything is device-resident now.
         for c in (sm.accounts, sm.transfers, sm.pending_status, sm.expiry,
                   sm.orphaned):
@@ -1023,7 +1424,12 @@ class DeviceLedger:
         keeping the mirror until a tier takes a batch: the pushes kept
         the device in sync and a tier that falls back changes nothing, so
         a failed probe reuses the mirror with no rebuild."""
-        if self.mirror is None:
+        if self._wt:
+            # The mirror always exists: the hard-regime flag carries the
+            # hysteresis.
+            if not self._hard_regime:
+                return False
+        elif self.mirror is None:
             return False
         self._mirror_batches += 1
         if self._mirror_batches > self.MIRROR_PROBE_INTERVAL:
@@ -1033,8 +1439,13 @@ class DeviceLedger:
 
     def _probe_succeeded(self) -> None:
         """A device tier took a batch: a held mirror is stale now (the
-        tier changed the device state), so it is dropped."""
-        self.mirror = None
+        tier changed the device state), so it is dropped. A write-through
+        mirror is permanent (the tier's delta reaches it): only the hard
+        regime ends."""
+        if self._wt:
+            self._hard_regime = False
+        else:
+            self.mirror = None
         self._probe_pending = False
         self._mirror_batches = 0
 
@@ -1058,10 +1469,36 @@ class DeviceLedger:
     @staticmethod
     def _enable_dev_tracking(sm: StateMachineOracle) -> None:
         """Turn on the device-push dirty channel of a mirror's containers
-        (off by default: nothing else would clear it)."""
+        (off by default: nothing else would clear it), and swap in the
+        lazy columnar containers (`lazy_mirror.py`) the write-through
+        delta registers created rows in without building objects."""
+        sm.transfers = LazyTransferDict.adopt(sm.transfers)
+        sm.account_events = LazyEventList.adopt(sm.account_events)
         for c in (sm.accounts, sm.transfers, sm.pending_status, sm.expiry,
                   sm.orphaned):
             c.track_dev = True
+            c.dirty_dev.clear()
+
+    def _maybe_recycle_ring(self) -> None:
+        """With recycle_events, every ring row has been consumed (applied
+        to the mirror or taken from it), so the ring's count rewinds to 0
+        in place — unless pipelined windows are in flight, which still
+        append at the current count; the pipeline's resolve recycles."""
+        if not (self._wt and self.recycle_events):
+            return
+        if self._tickets or self._events_pushed == 0:
+            return
+        self.state["events"]["count"].fill_(0)
+        self._events_pushed = 0
+
+    def _clear_dirty_dev(self) -> None:
+        """What a delta just applied to the mirror came from the device,
+        so the next _push_dirty must not push it back (an orphan id
+        inserted twice would take two hash-table slots). The durable
+        channel (.dirty) is left alone."""
+        sm = self.mirror
+        for c in (sm.accounts, sm.transfers, sm.pending_status, sm.expiry,
+                  sm.orphaned):
             c.dirty_dev.clear()
 
     def _note_fb(self, out) -> None:
@@ -1077,9 +1514,13 @@ class DeviceLedger:
 
     def _mirror_for_fallback(self) -> StateMachineOracle:
         self.fallbacks += 1
+        self.drain_mirror()
         if self._probe_pending:
             self._probe_pending = False
             self._mirror_batches = 1  # the probe failed: the regime goes on
+        if self._wt and not self._hard_regime:
+            self._hard_regime = True
+            self._mirror_batches = 1
         return self.mirror if self.mirror is not None else self._enter_mirror()
 
     def _fallback_transfers(self, transfers, timestamp):
@@ -1190,30 +1631,323 @@ class DeviceLedger:
                                             next_row + len(new_events)),
                              self._event_cols(new_events),
                              next_row + len(new_events))
+            self._events_pushed += len(new_events)
         self._events_seen_abs += len(new_events)
+        self._maybe_recycle_ring()
 
         self._set_scalars(sm)
+        # Chunks drain before every push, so the row map counts the
+        # device's transfer rows again.
+        self._xfer_rows_dev = len(self._xfer_row)
+
+    # ------------------------------------------------ write-through deltas
+
+    def _delta_fetch_start(self, n_new: int) -> _DeltaFetchHandle:
+        """Gather one bounded delta on the device — the n_new appended
+        transfer and event rows at the host cursors and the derived
+        columns — and start its copy to the host. Fixed sizes (256 /
+        N_PAD / 8·N_PAD rows) keep the pinned buffers to three shapes.
+        The columns resolve at the drain, off the commit path."""
+        t0 = self._xfer_rows_dev
+        e0 = self._events_pushed
+        t_len = self.state["transfers"]["u64"].shape[0]
+        e_len = ev_cap(self.state["events"]) + 1
+        size = _delta_bucket(n_new)
+        size_t, size_e = min(size, t_len), min(size, e_len)
+        assert n_new <= size_t and n_new <= size_e
+        t_start = max(0, min(t0, t_len - size_t))
+        e_start = max(0, min(e0, e_len - size_e))
+        out = _delta_gather_body(self.state, t_start, e_start, size_t,
+                                 size_e)
+        return _DeltaFetchHandle(out, t0, t0 - t_start, e0 - e_start)
+
+    def _ev_delta_fetch_start(self, n_new: int) -> _DeltaFetchHandle:
+        """The half-width fetch: the event rows only."""
+        e0 = self._events_pushed
+        e_len = ev_cap(self.state["events"]) + 1
+        size_e = min(_delta_bucket(n_new), e_len)
+        assert n_new <= size_e
+        e_start = max(0, min(e0, e_len - size_e))
+        out = _ev_delta_gather_host(self.state, e_start, size_e)
+        return _DeltaFetchHandle(out, self._xfer_rows_dev, 0, e0 - e_start)
+
+    def _track_pending_cols(self, *cols) -> None:
+        """At most 32 unloaded delta fetches may hold buffers; past that
+        the oldest load (their copies have long finished)."""
+        self._pending_cols = [cs for cs in self._pending_cols
+                              if not cs[0].loaded]
+        self._pending_cols.append(cols)
+        while len(self._pending_cols) > 32:
+            for c in self._pending_cols.pop(0):
+                c.load()
+
+    def _queue_chunk(self, tc, ec, derc, t0: int, n_new: int,
+                     orphan_ids) -> None:
+        """Queue one batch's delta for the drain (n_new 0: its orphans
+        only, if any) and advance the host cursors."""
+        op_no = self._op_seq
+        self._op_seq += 1
+        if n_new:
+            self._track_pending_cols(tc, ec, derc)
+            self._mirror_chunks.append((tc, ec, derc, t0, n_new,
+                                        orphan_ids, op_no))
+            self._xfer_rows_dev += n_new
+            self._events_pushed += n_new
+            self._events_seen_abs += n_new
+        elif orphan_ids:
+            self._mirror_chunks.append((None, None, None, 0, 0, orphan_ids,
+                                        op_no))
+
+    def _capture_fast_delta_transfers(self, ev: dict, st_np) -> None:
+        """Write-through of one device batch, deferred: fetch its bounded
+        delta and queue it as a columnar chunk, which drain_mirror
+        materializes into the mirror at the next read."""
+        n_new, orphan_ids = _batch_delta_stats(ev, st_np)
+        if n_new:
+            h = self._delta_fetch_start(n_new)
+            self._queue_chunk(_LazyCols(h, "t", 0, n_new),
+                              _LazyCols(h, "e", 0, n_new),
+                              _LazyCols(h, "der", 0, n_new), h.t0, n_new,
+                              orphan_ids)
+            self._clear_dirty_dev()
+            self._maybe_recycle_ring()
+        else:
+            self._queue_chunk(None, None, None, 0, 0, orphan_ids)
+            self._clear_dirty_dev()
+
+    def _window_chunks(self, evs, st_slices, timestamps, e_only: bool,
+                       handle) -> None:
+        """Queue one chunk a prepare over a window's fetch (its created
+        rows are contiguous, in commit order). e_only: the transfer and
+        derived columns synthesize on the host."""
+        off = 0
+        for b, (ev, st) in enumerate(zip(evs, st_slices)):
+            n_new, orphan_ids = _batch_delta_stats(ev, st)
+            if not n_new:
+                self._queue_chunk(None, None, None, 0, 0, orphan_ids)
+                continue
+            if e_only:
+                tc = _SynthCols(_synth_t_cols, ev, st, timestamps[b])
+                derc = _SynthCols(_synth_der_cols, ev, st)
+            else:
+                tc = _LazyCols(handle, "t", off, n_new)
+                derc = _LazyCols(handle, "der", off, n_new)
+            self._queue_chunk(tc, _LazyCols(handle, "e", off, n_new),
+                              derc, handle.t0 + off, n_new, orphan_ids)
+            off += n_new
+
+    def _capture_window_delta(self, evs: list, st_slices: list,
+                              timestamps: list) -> None:
+        """Write-through of a synchronous window: ONE fetch for the
+        window's created rows (the window kernels append them
+        contiguously in commit order) a group of at most 8·N_PAD rows,
+        split into one chunk a prepare. A window with no post/void,
+        imported or balancing flag fetches the event rows only (the
+        rest synthesizes on the host)."""
+        e_only = all(not (np.asarray(ev["flags"]) & _F_NOT_SYNTH).any()
+                     for ev in evs)
+        news = [int((np.asarray(st) == _CREATED).sum()) for st in st_slices]
+        lo = 0
+        while lo < len(evs):
+            hi, total = lo, 0
+            while hi < len(evs) and (hi == lo
+                                     or total + news[hi] <= 8 * N_PAD):
+                total += news[hi]
+                hi += 1
+            handle = None
+            if total:
+                handle = (self._ev_delta_fetch_start(total) if e_only
+                          else self._delta_fetch_start(total))
+            self._window_chunks(evs[lo:hi], st_slices[lo:hi],
+                                timestamps[lo:hi], e_only, handle)
+            lo = hi
+        self._clear_dirty_dev()
+        self._maybe_recycle_ring()
+
+    def _register_window_capture(self, tk: WindowTicket,
+                                 st_slices) -> None:
+        """Write-through of a pipelined window at its resolve: its gather
+        was issued at submit with device-computed starts; the offsets
+        into it are recomputed here from the host cursors, by the same
+        clamps."""
+        if self.recycle_events:
+            # A ring window consumed the ring from row 0.
+            self._events_pushed = 0
+        handle = None
+        if any((np.asarray(st) == _CREATED).any() for st in st_slices):
+            t0, e0 = self._xfer_rows_dev, self._events_pushed
+            size_t, size_e = tk.size
+            t_len = self.state["transfers"]["u64"].shape[0]
+            e_len = ev_cap(self.state["events"]) + 1
+            t_start = max(0, min(t0, t_len - size_t))
+            e_start = max(0, min(e0, e_len - size_e))
+            handle = _DeltaFetchHandle(tk.gather, t0, t0 - t_start,
+                                       e0 - e_start, eager_copy=False)
+        tk.gather = None
+        self._window_chunks(tk.evs[:len(st_slices)], st_slices, tk.tss,
+                            tk.e_only, handle)
+        self._clear_dirty_dev()
+
+    def drain_mirror(self) -> None:
+        """Materialize every queued delta into the host mirror. Called
+        before any read of the mirror (the state machine's reads, a hard
+        batch, expiry, to_host); a no-op when nothing is queued."""
+        self.resolve_windows()  # pipeline ordering
+        if not self._mirror_chunks:
+            return
+        chunks, self._mirror_chunks = self._mirror_chunks, []
+        # Start every pending copy first, so the later chunks' bytes move
+        # while the earlier ones register.
+        for cols in chunks:
+            for c in cols[:3]:
+                if (cols[4] and isinstance(c, _LazyCols) and not c.loaded
+                        and c._handle is not None):
+                    c._handle.start_copy()
+                    break
+        for t, e, der, t0, n_new, orphan_ids, _op in chunks:
+            for oid in orphan_ids:
+                self.mirror.orphaned.add(oid)
+            if n_new:
+                self._materialize_delta_transfers(t, e, der, t0, n_new)
+        self._clear_dirty_dev()
+
+    def _materialize_delta_transfers(self, t, e, der, t0: int,
+                                     n_new: int) -> None:
+        """Register one chunk with the mirror columnarly: the created
+        transfers as lazy rows of its LazyTransferDict, the touched
+        accounts' final states in one vectorized pass, the history as one
+        lazy segment; the pending-status flips (order-dependent pulse
+        bookkeeping) as a loop over that subset only. Every value a
+        reader sees is the oracle's (oracle `_create_transfer`)."""
+        sm = self.mirror
+        ids = [(h << 64) | lo
+               for h, lo in zip(t["id_hi"].tolist(), t["id_lo"].tolist())]
+        ts_list = e["ts"].tolist()
+        chunk = DeltaChunk(t, e, der, sm, ids)
+        transfers = sm.transfers
+        assert isinstance(transfers, LazyTransferDict), \
+            "a write-through mirror holds a LazyTransferDict"
+        transfers.register(ids, chunk)
+        sm.transfer_by_timestamp.update(zip(ts_list, ids))
+        self._xfer_row.update(zip(ids, range(t0, t0 + n_new)))
+        last_ts = ts_list[-1]
+        if sm.transfers_key_max is None or last_ts > sm.transfers_key_max:
+            sm.transfers_key_max = last_ts
+        sm.commit_timestamp = last_ts
+
+        sm.accounts.dirty.update(apply_account_finals(sm, e, der))
+
+        pstat_np = np.asarray(e["pstat"])
+        flips = np.nonzero(pstat_np != 0)[0]
+        if flips.size:
+            P = TransferPendingStatus
+            pend_code = int(P.pending)
+            pstat_l = pstat_np[flips].tolist()
+            ts_l = np.asarray(e["ts"])[flips].tolist()
+            pts_l = np.asarray(der["p_ts"])[flips].tolist()
+            timeout_l = np.asarray(t["timeout"])[flips].tolist()
+            pending_raw = sm.pending_status
+            pset = dict.__setitem__
+            touched: list = []
+            for j, pstat in enumerate(pstat_l):
+                if pstat == pend_code:
+                    ts = ts_l[j]
+                    pset(pending_raw, ts, P.pending)
+                    touched.append(ts)
+                    timeout = timeout_l[j]
+                    if timeout:
+                        expires_at = ts + timeout * NS_PER_S
+                        sm.expiry[ts] = expires_at
+                        if expires_at < sm.pulse_next_timestamp:
+                            sm.pulse_next_timestamp = expires_at
+                else:  # a post or void releases its pending
+                    pts = pts_l[j]
+                    pset(pending_raw, pts, P(pstat))
+                    touched.append(pts)
+                    # expiry[pts] is pts + timeout while the pending is
+                    # live with a timeout, absent otherwise.
+                    ea = sm.expiry.pop(pts, None)
+                    if ea is not None and sm.pulse_next_timestamp == ea:
+                        sm.pulse_next_timestamp = TIMESTAMP_MIN
+            pending_raw.dirty.update(touched)
+
+        sm.account_events.extend_lazy(chunk, n_new)
+
+    def _apply_fast_delta_accounts(self, st_np) -> None:
+        """Write-through of one device accounts batch (oracle
+        `_create_account`'s success path): its new rows, sliced on the
+        device, as Account objects. Queued transfer chunks drain first,
+        so the mirror's commit timestamp stays monotonic."""
+        self.drain_mirror()
+        sm = self.mirror
+        n_new = int((st_np == np.uint32(int(CreateAccountStatus.created)))
+                    .sum())
+        if n_new == 0:
+            return
+        a0 = len(self._acct_row)
+        acc = self.state["accounts"]
+        named = ac_named({k: acc[k][a0:a0 + n_new].cpu().numpy()
+                          for k in ("u64", "bal")})
+        a = {k: (v.view(np.uint64) if k in AC_U64_IDX else v).tolist()
+             for k, v in named.items()}
+        for k in range(n_new):
+            aid = (a["id_hi"][k] << 64) | a["id_lo"][k]
+            acct = Account(
+                id=aid,
+                debits_pending=_balance_int(a, "dp", k),
+                debits_posted=_balance_int(a, "dpos", k),
+                credits_pending=_balance_int(a, "cp", k),
+                credits_posted=_balance_int(a, "cpos", k),
+                user_data_128=(a["ud128_hi"][k] << 64) | a["ud128_lo"][k],
+                user_data_64=a["ud64"][k],
+                user_data_32=a["ud32"][k],
+                ledger=a["ledger"][k],
+                code=a["code"][k],
+                flags=a["flags"][k],
+                timestamp=a["ts"][k],
+            )
+            sm.accounts[aid] = acct
+            sm.account_by_timestamp[acct.timestamp] = aid
+            self._acct_row[aid] = a0 + k
+            if (sm.accounts_key_max is None
+                    or acct.timestamp > sm.accounts_key_max):
+                sm.accounts_key_max = acct.timestamp
+            sm.commit_timestamp = acct.timestamp
+        self._clear_dirty_dev()
 
     # ------------------------------------------------------------- windows
 
-    def _pack(self, route: str, evs, timestamps, n_pad: int):
-        """The window's lane matrix on the device (the chain route's
-        stacked (lanes, K, n_pad), the flat tiers' (lanes, K·n_pad): the
-        same bytes)."""
+    def _pack_window(self, route: str, evs, timestamps, n_pad: int):
+        """The window's lane matrix in host memory (pinned on the card;
+        the chain route's stacked (lanes, K, n_pad), the flat tiers'
+        (lanes, K·n_pad): the same bytes) and the ns it took. The stager
+        thread runs it: it reads and writes no ledger state."""
+        t0 = time.perf_counter_ns()
         K = len(evs)
         shape = ((len(_LANES), K, n_pad) if route == "chain"
                  else (len(_LANES), K * n_pad))
-        self.windows.check_state(self.state)
-        return self.windows.put(shape, lambda out: fill_window(
+        host = self.windows.host_lanes(shape, lambda out: fill_window(
             out.reshape(len(_LANES), K, n_pad), evs, timestamps, n_pad))
+        return host, time.perf_counter_ns() - t0
 
-    def _dispatch(self, route: str, lanes, n_pad: int, poison=None):
-        """One window on `route`: eagerly, or one replay of its graph on
-        the card. Returns the route's outputs."""
+    def _pack(self, route: str, evs, timestamps, n_pad: int, host=None):
+        """The window's lane matrix on the device: `host` (a staged pack)
+        or one packed here, copied in on the main stream."""
+        if host is None:
+            host, _ = self._pack_window(route, evs, timestamps, n_pad)
+        self.windows.check_state(self.state)
+        return self.windows.upload(host)
+
+    def _dispatch(self, route: str, lanes, n_pad: int, poison=None,
+                  ring: bool = False):
+        """One window on `route` (its ring kernel with `ring`): eagerly,
+        or one replay of its graph on the card. Returns the route's
+        outputs."""
         key = (route, lanes.shape[1] if route == "chain"
-               else lanes.shape[1] // n_pad, n_pad)
-        return self.windows.run(key, _window_call(route), self.state, lanes,
-                                poison)
+               else lanes.shape[1] // n_pad, n_pad) + (("ring",) if ring
+                                                        else ())
+        return self.windows.run(key, _window_call(route, ring), self.state,
+                                lanes, poison)
 
     def _count_route(self, route: str) -> None:
         """One window dispatched via `route`; its latency class: scan (the
@@ -1254,15 +1988,23 @@ class DeviceLedger:
 
     def _window_plan(self, evs):
         """The route of a pipelined window, or None (the synchronous path
-        takes it): None for one prepare, in the mirror regime or with an
+        takes it): None for one prepare, in the mirror regime, with an
         imported flag (the synchronous path's super_imported tier takes
-        it); super_balancing for balancing flags; super_deep for closing
-        flags, in-window pending references or the limit-breach regime;
-        else the chain."""
+        it) or, writing through, with more created rows than one delta
+        gather holds; super_balancing for balancing flags; super_deep for
+        closing flags, in-window pending references or the limit-breach
+        regime; else the chain. Shared by stage_window and submit_window,
+        so a staged pack is the one submit_window would pack."""
         if not (len(evs) > 1 and not self._mirror_route()):
             return None
         if _has_imported(evs):
             return None
+        if self._wt:
+            t_len = self.state["transfers"]["u64"].shape[0]
+            e_len = ev_cap(self.state["events"]) + 1
+            if sum(len(e["id_lo"]) for e in evs) > min(32 * N_PAD, t_len,
+                                                       e_len):
+                return None
         balancing = _has_balancing(evs)
         deep = not balancing and (
             self._fixpoint_first or _has_closing(evs)
@@ -1271,26 +2013,149 @@ class DeviceLedger:
                 else "super_deep" if deep else "chain",
                 _pad_bucket(max(len(e["id_lo"]) for e in evs)))
 
+    def stage_window(self, evs: list[dict], timestamps: list[int]) -> bool:
+        """Pack the NEXT window into pinned host memory on the stager
+        thread while the current one runs. The next submit_window of the
+        same window (the same prepare dicts, the same timestamps, the same
+        route) takes the staged pack; anything else packs inline, the
+        same bytes. The stager reads no ledger state and moves nothing to
+        the device: the copy in stays on the main stream at submit.
+        Returns True when a pack was staged."""
+        if not self.overlap_staging:
+            return False
+        plan = self._window_plan(evs)
+        if plan is None:
+            self._staged = None
+            return False
+        route, n_pad = plan
+        if self._stager is None:
+            self._stager = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="tb-window-stager")
+        fut = self._stager.submit(self._pack_window, route, list(evs),
+                                  list(timestamps), n_pad)
+        # Strong references keep the prepare dicts' identities stable.
+        self._staged = (list(evs), [int(t) for t in timestamps], route,
+                        n_pad, fut)
+        return True
+
+    def _consume_staged(self, evs, timestamps, route: str, n_pad: int):
+        """The staged pack if it is exactly this window on this route,
+        else None (the caller packs inline). A hit charges only the wait
+        on the stager to stall_ms."""
+        staged, self._staged = self._staged, None
+        if staged is None:
+            return None
+        s_evs, s_tss, s_route, s_n_pad, fut = staged
+        if not (s_route == route and s_n_pad == n_pad
+                and len(s_evs) == len(evs)
+                and all(a is b for a, b in zip(s_evs, evs))
+                and s_tss == [int(t) for t in timestamps]):
+            self.staging_stats["misses"] += 1
+            fut.cancel()
+            return None
+        t0 = time.perf_counter_ns()
+        host, pack_ns = fut.result()
+        wait_ns = time.perf_counter_ns() - t0
+        st = self.staging_stats
+        st["staged"] += 1
+        st["stall_ms"] += wait_ns / 1e6
+        st["work_ms"] += max(pack_ns, wait_ns) / 1e6
+        return host
+
+    def staged_matches(self, evs: list[dict],
+                       timestamps: list[int]) -> bool:
+        """True when the staged pack is exactly this window (the test
+        _consume_staged applies, route aside)."""
+        staged = self._staged
+        if staged is None:
+            return False
+        s_evs, s_tss = staged[0], staged[1]
+        return (len(s_evs) == len(evs)
+                and all(a is b for a, b in zip(s_evs, evs))
+                and s_tss == [int(t) for t in timestamps])
+
+    def staging_summary(self) -> dict:
+        """Windows through submit_window, staged packs consumed, misses,
+        and host_stall_fraction = stall_ms / work_ms: 1.0 when every pack
+        ran inline, near 0 when the packs hid behind the device."""
+        st = self.staging_stats
+        frac = (st["stall_ms"] / st["work_ms"]) if st["work_ms"] else None
+        return {
+            "overlap": bool(self.overlap_staging),
+            "windows": st["windows"],
+            "staged": st["staged"],
+            "misses": st["misses"],
+            "stall_ms": round(st["stall_ms"], 3),
+            "work_ms": round(st["work_ms"], 3),
+            "host_stall_fraction": (round(frac, 4)
+                                    if frac is not None else None),
+        }
+
+    def shutdown_staging(self) -> None:
+        """Drop a staged, undispatched window and stop the stager thread
+        (a staged window that never dispatched never commits)."""
+        self._staged = None
+        if self._stager is not None:
+            self._stager.shutdown(wait=True, cancel_futures=True)
+            self._stager = None
+
     def submit_window(self, evs: list[dict], timestamps: list[int]):
         """Pipelined commit window: dispatch it with no host sync, the
         previous in-flight window's fallback flag as its force_fallback,
         so a fallback anywhere poisons every later window in flight and
         commit order survives without waiting. Returns a WindowTicket, or
         None when the window is not eligible (the caller resolves and
-        takes create_transfers_window). Results and counters materialize
-        at resolve_windows()."""
+        takes create_transfers_window). Results, the write-through
+        capture and counters materialize at resolve_windows().
+
+        Writing through, the window's delta gather is issued right after
+        the dispatch (eagerly, outside the window's graph) on
+        device-computed starts, and its copy to the host waits for the
+        drain. With recycle_events the window takes its route's ring
+        kernel, which consumes the event ring from row 0, so the pipeline
+        needs no recycle between windows."""
         plan = self._window_plan(evs)
         if plan is None:
+            self._staged = None
             return None
         route, n_pad = plan
+        ns = [len(e["id_lo"]) for e in evs]
         prev = self._tickets[-1].poison if self._tickets else None
-        lanes = self._pack(route, evs, timestamps, n_pad)
-        outs = self._dispatch(route, lanes, n_pad, poison=prev)
+        host = self._consume_staged(evs, timestamps, route, n_pad)
+        if host is None:
+            t0 = time.perf_counter_ns()
+            host, _ = self._pack_window(route, evs, timestamps, n_pad)
+            dur_ms = (time.perf_counter_ns() - t0) / 1e6
+            self.staging_stats["stall_ms"] += dur_ms
+            self.staging_stats["work_ms"] += dur_ms
+        self.staging_stats["windows"] += 1
+        lanes = self._pack(route, evs, timestamps, n_pad, host=host)
+        outs = self._dispatch(route, lanes, n_pad, poison=prev,
+                              ring=self._wt and self.recycle_events)
         self._count_route(route)
         fb = outs["fallback"]
-        tk = WindowTicket(evs, timestamps, [len(e["id_lo"]) for e in evs],
-                          n_pad, route, route == "super_deep",
-                          (fb[-1] if route == "chain" else fb).clone(), outs)
+        gather, size, e_only = None, (0, 0), False
+        if self._wt:
+            t_len = self.state["transfers"]["u64"].shape[0]
+            e_len = ev_cap(self.state["events"]) + 1
+            for rows in (N_PAD, 8 * N_PAD, 32 * N_PAD):
+                if sum(ns) <= rows:
+                    break
+            size = (min(rows, t_len), min(rows, e_len))
+            e_only = all(not (np.asarray(e["flags"]) & _F_NOT_SYNTH).any()
+                         for e in evs)
+            # The chain's per-prepare counts sum on the device (a poisoned
+            # prepare counts 0), so a partial window's gather covers its
+            # committed prefix.
+            created = (outs["created_count"].sum() if route == "chain"
+                       else outs["created_count"])
+            gather = (_ev_delta_gather_window(self.state, created, size[1])
+                      if e_only else
+                      _xfer_delta_gather_window(self.state, created, *size))
+        tk = WindowTicket(evs, timestamps, ns, n_pad, route,
+                          route == "super_deep",
+                          (fb[-1] if route == "chain" else fb).clone(), outs,
+                          gather=gather, size=size, e_only=e_only)
         tk.start_harvest()
         self._tickets.append(tk)
         return tk
@@ -1322,6 +2187,11 @@ class DeviceLedger:
             out = tk.harvest.get()
             if tk.route == "chain":
                 k, results = self._resolve_chain_prefix(out, tk.ns)
+                if self._wt:
+                    # In ring mode this also rewinds the host cursor, as
+                    # the chain reset the device ring, even when k == 0.
+                    self._register_window_capture(
+                        tk, [st for st, _ in results])
                 if k == len(tk.evs):
                     tk.results = ("ok", results)
                     continue
@@ -1340,12 +2210,16 @@ class DeviceLedger:
                 tk.results = ("redo",
                               self.create_transfers_window(tk.evs, tk.tss))
                 continue
+            results = _window_results(out["r_status"], out["r_ts"], tk.ns,
+                                      tk.n_pad)
+            if self._wt:
+                self._register_window_capture(tk, [st for st, _ in results])
             if tk.deep:
                 self.deep_fixpoint_batches += len(tk.evs)
             self.fast_batches += len(tk.evs)
             self._probe_succeeded()
-            tk.results = ("ok", _window_results(out["r_status"], out["r_ts"],
-                                                tk.ns, tk.n_pad))
+            tk.results = ("ok", results)
+        self._maybe_recycle_ring()
 
     def create_transfers_window(self, evs: list[dict],
                                 timestamps: list[int],
@@ -1383,6 +2257,9 @@ class DeviceLedger:
                 self._count_route("chain")
                 out = Harvest(outs, _WINDOW_OUTS).get()
                 k, results = self._resolve_chain_prefix(out, ns)
+                if self._wt and k:
+                    self._capture_window_delta(
+                        evs[:k], [st for st, _ in results], timestamps[:k])
                 if k == W:
                     return results
                 results.append(
@@ -1416,8 +2293,12 @@ class DeviceLedger:
             if not out["fallback"]:
                 self.fast_batches += W
                 self._probe_succeeded()
-                return _window_results(out["r_status"], out["r_ts"], ns,
-                                       n_pad)
+                results = _window_results(out["r_status"], out["r_ts"], ns,
+                                          n_pad)
+                if self._wt:
+                    self._capture_window_delta(
+                        evs, [st for st, _ in results], timestamps)
+                return results
             self.window_fallbacks += 1
             self._note_fb(out)
         if all_or_nothing:
@@ -1435,6 +2316,7 @@ class DeviceLedger:
         """Expiry runs on the exact host path (rare, pulse-driven),
         through the mirror regime like a hard batch."""
         self.resolve_windows()  # pipeline ordering
+        self.drain_mirror()
         sm = self.mirror if self.mirror is not None else self._enter_mirror()
         n = sm.expire_pending_transfers(timestamp)
         self._push_dirty()

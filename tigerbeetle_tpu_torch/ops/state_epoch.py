@@ -7,6 +7,11 @@ same bits as the JAX package's `device_state_digest` and
 `oracle_state_digest`, so a port state compares directly with a JAX
 state or an oracle state.
 
+The host side (`pack_oracle_state`, `oracle_state_digest`, `combine`,
+`diverging_components`) is the JAX package's too: an oracle state packed
+through the ledger's own row packers and folded the same way, the
+write-through mirror's check against the card.
+
 Covered: the accounts u64 matrix, the balance-limb matrix, the
 transfers u64 matrix (minus the non-canonical `expires` and row-cache
 columns) and the scalar vector (row counts, key maxima, commit_ts).
@@ -20,6 +25,7 @@ wrap-around.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ev_layout import XF_NCOLS, XF_P32_POS, XF_U64_IDX
@@ -106,3 +112,86 @@ def device_state_digest(state: dict) -> dict:
     names = sorted(comps)
     vals = torch.stack([comps[k] for k in names]).cpu().tolist()
     return {k: u64(v) for k, v in zip(names, vals)}
+
+
+# ------------------------------------------------------ host digests
+
+def pack_oracle_state(sm, a_cap: int) -> dict:
+    """Pack an oracle state's digested components through the ledger's
+    canonical host packers (the `from_host` rebuild path), as numpy
+    uint64 matrices of the live rows only (the fold is capacity-blind).
+    Accounts in applied-timestamp order, transfers in commit order: the
+    device's row order."""
+    from ..types import TransferPendingStatus
+    from .ev_layout import AC_NCOLS
+    from .ledger import _pack_account_rows, _pack_transfer_rows
+
+    accounts = sorted(sm.accounts.values(), key=lambda a: a.timestamp)
+    if accounts:
+        a_u64, a_bal = _pack_account_rows(accounts)
+    else:
+        a_u64 = np.zeros((0, AC_NCOLS), dtype=np.uint64)
+        a_bal = np.zeros((0, 16), dtype=np.uint64)
+    acct_row = {a.id: r for r, a in enumerate(accounts)}
+    transfers = [sm.transfers[tid]
+                 for tid in sm.transfer_by_timestamp.values()]
+    if transfers:
+        x_u64 = _pack_transfer_rows(
+            transfers,
+            lambda o: int(sm.pending_status.get(
+                o.timestamp, TransferPendingStatus.none)),
+            lambda aid, dump: acct_row.get(aid, dump),
+            a_cap)
+    else:
+        x_u64 = np.zeros((0, XF_NCOLS), dtype=np.uint64)
+    return dict(
+        accounts=dict(u64=a_u64, bal=a_bal,
+                      count=np.int32(len(accounts))),
+        transfers=dict(u64=x_u64, count=np.int32(len(transfers))),
+        acct_key_max=np.uint64(sm.accounts_key_max or 0),
+        xfer_key_max=np.uint64(sm.transfers_key_max or 0),
+        commit_ts=np.uint64(sm.commit_timestamp),
+    )
+
+
+def oracle_state_digest(sm, a_cap: int) -> dict:
+    """The expected digest of an oracle state: the same fold over its
+    canonical pack (on CPU tensors), bit-comparable with
+    `device_state_digest`."""
+    pack = pack_oracle_state(sm, a_cap)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a).astype(np.uint64).view(
+            np.int64).copy())
+
+    state = {
+        store: {k: t(v) for k, v in pack[store].items()}
+        for store in ("accounts", "transfers")}
+    for k in ("acct_key_max", "xfer_key_max", "commit_ts"):
+        state[k] = t(pack[k])
+    return device_state_digest(state)
+
+
+def _mix_int(x: int) -> int:
+    x &= MASK64
+    x ^= x >> 30
+    x = (x * u64(_MIX1)) & MASK64
+    x ^= x >> 27
+    x = (x * u64(_MIX2)) & MASK64
+    x ^= x >> 31
+    return x
+
+
+def combine(comps: dict) -> int:
+    """One u64 digest over the component dict (key-sorted, so dict
+    ordering never matters)."""
+    d = 0
+    for k in sorted(comps):
+        d = _mix_int(d ^ (int(comps[k]) & MASK64))
+    return d
+
+
+def diverging_components(got: dict, want: dict) -> list[str]:
+    """Component names where two digest dicts disagree."""
+    return sorted(k for k in set(got) | set(want)
+                  if got.get(k) != want.get(k))

@@ -18,8 +18,9 @@ No switch chooses between the two; the device of the state does.
 
 What a replay relies on:
   - inputs: the packed window (one int64 lane matrix, written straight
-    into pinned host memory) goes into a static device buffer, one a
-    shape, with one non-blocking copy a window (`put`); the previous
+    into pinned host memory, by a stager thread when the ledger staged
+    it) goes into a static device buffer, one a shape, with one
+    non-blocking copy a window on the main stream (`upload`); the previous
     window's poison flag is copied device to device into the static
     force_fallback buffer, so reading it takes no host sync;
   - state: the tiers write every state tensor in place, so a window leaves
@@ -39,6 +40,11 @@ the graphs' memory grows with the keys: a ledger keeps at most
 MAX_GRAPHS of them, dropping the least recently replayed one (after a
 sync) before it captures another; a dropped key starts over with an
 eager window.
+
+A key is (route, W, n_pad), plus "ring" for the ring window kernels
+(they consume the event ring from row 0: another graph). A write-through
+ledger's delta gather runs eagerly right after the dispatch, outside the
+graph, so it adds no key.
 
 Counters a key: `eager`, `captures` and `replays` (the replay right after
 a capture included); `reserved`, the bytes the caching allocator held
@@ -157,17 +163,25 @@ class WindowGraphs:
             self.drop()
         self._sig = sig
 
-    def put(self, shape: tuple, fill) -> torch.Tensor:
-        """The packed window on the device: `fill(array)` writes the int64
-        lane matrix of `shape` into host memory (pinned on the card), and
-        on the card one non-blocking copy moves it into the static buffer
-        of its shape."""
+    def host_lanes(self, shape: tuple, fill) -> torch.Tensor:
+        """`fill(array)` writes the int64 lane matrix of `shape` into host
+        memory, pinned on the card. Touches no device and no buffer of
+        this object, so a stager thread may call it."""
         if not self.cuda:
             lanes = np.empty(shape, dtype=np.int64)
             fill(lanes)
             return torch.from_numpy(lanes)
         host = torch.empty(shape, dtype=torch.int64, pin_memory=True)
         fill(host.numpy())
+        return host
+
+    def upload(self, host: torch.Tensor) -> torch.Tensor:
+        """The packed window on the device: on the card one non-blocking
+        copy on the current stream moves `host` into the static buffer of
+        its shape (after every replay already queued that reads it)."""
+        if not self.cuda:
+            return host
+        shape = tuple(host.shape)
         buf = self._inputs.get(shape)
         if buf is None:
             buf = torch.empty(shape, dtype=torch.int64, device=self.device)
