@@ -10,9 +10,12 @@ config 2), through the limit fixpoint tiers and their escalation ladder
 through the commit-window routes (config 2 and config 4 as windows, each
 a replayed CUDA graph), through the imported and balancing tiers (per
 batch and as windows), `run_create_*` through the sequential kernel,
-and the serving path (`tigerbeetle_tpu_torch.StateMachine`, wire bodies
+the serving path (`tigerbeetle_tpu_torch.StateMachine`, wire bodies
 in, reply bytes out, on the device engine with its write-through mirror
-and on the kernel engine) — at the ledger's default capacities, and
+and on the kernel engine) and the serving supervisor in front of it
+(`tigerbeetle_tpu_torch.ServingSupervisor`: verified epochs, injected
+faults and bounded replay recovery, the chaos seeds, the admission
+plane) — at the ledger's default capacities, and
 holds its three CUDA kernels against their plain PyTorch twins. Phases,
 each failing the run with a nonzero exit:
 
@@ -124,14 +127,29 @@ each failing the run with a nonzero exit:
               staging (recycle_events on for part), config-4 bodies, a
               hard body on the mirror, a pulse, every query; then
               "kernel"-engine commits of config-3 bodies (create_seq).
+ 15. supervisor  `ServingSupervisor` at the ledger's default capacities
+              with VERIFY on, fed windows of 8,190-event config-2
+              prepares over 10,000 accounts: (a) clean, windows of 4 and
+              of 8 synchronous and pipelined two deep, each timed beside
+              the same window on a bare write-through ledger, an epoch
+              verified after each width (its drain, oracle replay, two
+              digests and mirror audit timed), zero recoveries; (b)
+              injected faults on windows of 2 (an in-place bit flip after
+              a graph capture, a poisoned delta chunk, dispatches failing
+              within and past the retry budget, a fallback storm), each
+              recovered to parity, memory read after each recovery; (c)
+              the chaos harness's gate seeds on the card, each summary
+              equal to the CPU's; (d) the admission plane at the JAX
+              package's bench_admission parameters. (a) and (b) end with
+              an independent oracle replay of everything submitted.
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
 Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"exact_path": ...}`, `{"config2_window": ...}`,
 `{"config4_window": ...}`, `{"window_fallbacks": ...}`,
-`{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}` and
-`{"kernels": [...]}` lines, and last `{"ok": true, "device": {...}}`.
+`{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}`,
+`{"supervisor": ...}` and `{"kernels": [...]}` lines, and last `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
 """
 
@@ -269,6 +287,10 @@ SV_C4_PAIRS = 2
 SV_KERNEL = 2
 SV_HISTORY_EVERY = 64
 SV_C4_ACCT0 = 20_000
+# The supervisor phase: (a)'s window widths (prepares a window), (c)'s
+# chaos seeds (the chaos harness's gate seeds).
+SP_WIDTHS = (4, 8)
+SP_CHAOS_SEEDS = (1, 2, 3, 7)
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -3737,6 +3759,493 @@ def serving_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
     return numbers
 
 
+# ----------------------------------------------------- the supervisor phase
+
+class SupervisedRun:
+    """A ServingSupervisor at its own capacities on `dev`, the script of
+    everything submitted to it (for the independent oracle audit) and the
+    config-2 prepares it is fed: `body` uniform transfers over accounts
+    1..n_accounts, as Transfer objects, the chaos harness's timestamps
+    (each prepare's commit timestamp clears its events' by 10)."""
+
+    def __init__(self, dev, caps, n_accounts: int, body: int, seed: int,
+                 flight_dir: str, **kw):
+        from tigerbeetle_tpu_torch import ServingSupervisor
+        from tigerbeetle_tpu_torch.trace import FlightRecorder
+        from tigerbeetle_tpu_torch.types import Account
+
+        self.dev = dev
+        self.sup = ServingSupervisor(
+            caps[0], caps[1], device=dev, seed=seed, sleep=lambda s: None,
+            flight_recorder=FlightRecorder(dump_dir=flight_dir), **kw)
+        self.rng = np.random.default_rng(seed)
+        self.n_accounts = n_accounts
+        self.body = body
+        self.script: list = []
+        self.next_id = 10**8
+        self.ts = 10**6
+        self.accounts = [Account(id=i, ledger=1, code=1)
+                         for i in range(1, n_accounts + 1)]
+        for lo in range(0, n_accounts, BATCH):
+            chunk = self.accounts[lo:lo + BATCH]
+            self.ts += len(chunk) + 10
+            self.sup.create_accounts(chunk, self.ts)
+            self.script.append(("accounts", chunk, self.ts))
+
+    def window(self, w: int):
+        """(batches, timestamps) of one window of w config-2 prepares."""
+        from tigerbeetle_tpu_torch.ops.batch import transfers_from_arrays
+
+        batches, tss = [], []
+        for _ in range(w):
+            ev = uniform_batch(self.rng, self.next_id, self.body,
+                               self.n_accounts)
+            self.next_id += self.body
+            self.ts += self.body + 10
+            batches.append(transfers_from_arrays(ev))
+            tss.append(self.ts)
+        return batches, tss
+
+    def commit(self, window) -> float:
+        """create_transfers_window; its ms (host clock, synced)."""
+        sync(self.dev)
+        t = time.perf_counter()
+        self.sup.create_transfers_window(*window)
+        sync(self.dev)
+        self.script.append(("window", *window))
+        return (time.perf_counter() - t) * 1e3
+
+    def pipelined(self, windows) -> float:
+        """submit_transfers_window for each, then drain_pipeline (two deep:
+        the supervisor resolves the oldest at depth); ms a window."""
+        sync(self.dev)
+        t = time.perf_counter()
+        for window in windows:
+            self.sup.submit_transfers_window(*window)
+        self.sup.drain_pipeline()
+        sync(self.dev)
+        self.script.extend(("window", *window) for window in windows)
+        return (time.perf_counter() - t) * 1e3 / len(windows)
+
+    def audit(self, label) -> None:
+        """The independent audit (the chaos harness's): a fresh oracle
+        replays the whole script; the supervisor's history must equal its
+        answers, and its state the verified epoch base, whose digest the
+        last verify_epoch held the device state to."""
+        from tigerbeetle_tpu_torch.testing.chaos import (AUDITED_FIELDS,
+                                                         oracle_history)
+
+        sup = self.sup
+        check(not sup.log or sup.verify_epoch(),
+              f"{label}: the last epoch did not verify")
+        expected, oracle = oracle_history(self.script)
+        check(sup.history == expected,
+              f"{label}: the supervisor's history differs from an "
+              "independent oracle replay of its script")
+        for field in AUDITED_FIELDS:
+            check(getattr(oracle, field) == getattr(sup.epoch_base, field),
+                  f"{label}: the verified state differs from the "
+                  f"independent oracle's on {field}")
+
+
+def memory_now(dev) -> dict:
+    """The caching allocator's bytes on the card: allocated, reserved,
+    and the peak allocated since the last reading (which resets it)."""
+    if torch.device(dev).type != "cuda":
+        return {}
+    out = {"allocated": torch.cuda.memory_allocated(dev),
+           "reserved": torch.cuda.memory_reserved(dev),
+           "peak_allocated": torch.cuda.max_memory_allocated(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    return out
+
+
+def graph_counts(led) -> tuple:
+    wg = led.windows
+    return (sum(wg.eager.values()), sum(wg.captures.values()),
+            sum(wg.replays.values()))
+
+
+def window_kind(led, before: tuple) -> str:
+    """How `led` ran the window since its graph counters read `before`:
+    eager, capture (captured and replayed once), replay; "host" when no
+    device window ran (the mirror's per-batch route)."""
+    d = [a - b for a, b in zip(graph_counts(led), before)]
+    return ("capture" if d[1] else "replay" if d[2] else "eager" if d[0]
+            else "host")
+
+
+def supervisor_clean(dev, caps, n_accounts, body, widths,
+                     flight_dir) -> dict:
+    """(a) The full-width supervisor, VERIFY on at the default spot rate,
+    beside a bare write-through ledger fed the same windows in turns: for
+    each width w, two windows to warm the graph key (eager, capture;
+    their ms kept apart), two synchronous windows and two pipelined ones
+    timed (bare, supervisor; supervisor, bare; supervisor, bare), then
+    one verify_epoch, its parts timed. Zero recoveries; the independent
+    audit at the end."""
+    from tigerbeetle_tpu_torch import DeviceLedger
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.ops.batch import transfers_to_arrays
+    from tigerbeetle_tpu_torch.oracle.state_machine import (
+        StateMachineOracle)
+
+    run = SupervisedRun(dev, caps, n_accounts, body, seed=81,
+                        flight_dir=flight_dir, epoch_interval=100)
+    sup = run.sup
+    bare = DeviceLedger(caps[0], caps[1], write_through=StateMachineOracle(),
+                        device=dev)
+    for kind, accounts, ts in run.script:
+        bare.create_accounts(accounts, ts)
+
+    def bare_sync(window) -> tuple:
+        sync(dev)
+        t = time.perf_counter()
+        out = bare.create_transfers_window(
+            [transfers_to_arrays(b) for b in window[0]], window[1])
+        sync(dev)
+        return (time.perf_counter() - t) * 1e3, out
+
+    def bare_piped(windows) -> float:
+        sync(dev)
+        t = time.perf_counter()
+        drive_pipelined(bare, [([transfers_to_arrays(b) for b in batches],
+                                tss) for batches, tss in windows])
+        sync(dev)
+        return (time.perf_counter() - t) * 1e3 / len(windows)
+
+    def sup_sync(window) -> tuple:
+        before = graph_counts(sup.led)
+        ms = run.commit(window)
+        return ms, window_kind(sup.led, before)
+
+    out = {}
+    for w in widths:
+        warm, kinds = [], []
+        sync_ms = {"supervisor": [], "bare": []}
+        for k in range(2):
+            window = run.window(w)
+            bare_ms, _ = bare_sync(window)
+            warm.append(sup_sync(window) + (bare_ms,))
+        for k in range(2):
+            window = run.window(w)
+            if k == 0:
+                bare_ms, bare_out = bare_sync(window)
+            ms, kind = sup_sync(window)
+            if k == 1:
+                bare_ms, bare_out = bare_sync(window)
+            sync_ms["supervisor"].append(ms)
+            sync_ms["bare"].append(bare_ms)
+            kinds.append(kind)
+            check(sup.history[-1] == [[(int(t), int(s)) for s, t in
+                                       zip(st.tolist(), ts.tolist())]
+                                      for st, ts in bare_out],
+                  f"supervisor window of {w}: results differ from the bare "
+                  "ledger's")
+        piped_ms = {}
+        windows = [run.window(w) for _ in range(2)]
+        piped_ms["supervisor"] = run.pipelined(windows)
+        piped_ms["bare"] = bare_piped(windows)
+        before = (fused_probe.LAUNCHES, RG.LAUNCHES)
+        t = time.perf_counter()
+        check(sup.verify_epoch(), f"supervisor windows of {w}: the epoch "
+              "did not verify")
+        verify_ms = (time.perf_counter() - t) * 1e3
+        verify_launches = (fused_probe.LAUNCHES - before[0],
+                           RG.LAUNCHES - before[1])
+        out[w] = dict(warm_ms_kind_bare_ms=warm, sync_kinds=kinds,
+                      sync_ms=sync_ms, piped_ms=piped_ms,
+                      sync_cost_ms=float(np.mean(sync_ms["supervisor"])
+                                         - np.mean(sync_ms["bare"])),
+                      piped_cost_ms=(piped_ms["supervisor"]
+                                     - piped_ms["bare"]),
+                      verify_ms=verify_ms, verify_parts_ms=dict(sup.epoch_ms),
+                      verify_launches=verify_launches,
+                      transfers=len(sup.epoch_base.transfers))
+        print(f"supervisor (a) windows of {w}: {out[w]}", flush=True)
+    run.audit("supervisor (a)")
+    st = sup.stats()
+    check(st["recoveries"] == {} and st["checksum_mismatches"] == 0
+          and st["retries"] == 0 and st["ledger"]["host_fallbacks"] == 0,
+          f"supervisor (a): a clean run recovered or fell back: {st}")
+    out["epochs_verified"] = st["epochs_verified"]
+    out["routes"] = st["ledger"]["routes"]["windows"]
+    out["staging"] = st["ledger"]["staging"]
+    sup.led.release()
+    bare.release()
+    return out
+
+
+def supervisor_faults(dev, caps, n_accounts, body, flight_dir) -> dict:
+    """(b) Injected faults at full width, windows of 2 config-2 prepares,
+    an epoch every 2 windows, VERIFY on with every drained row audited:
+    a dispatch failing three times (past the retry budget; first, while
+    the state to rebuild is small), a bit flipped in place in a live
+    account balance after the window key was captured (a replay then runs
+    over it; the state digest catches it at the next epoch), a dispatch
+    failing twice (within the budget), a poisoned delta chunk (the
+    drain's spot audit catches it, naming the op and the field) and a
+    fallback storm. Every fault recovers to parity; memory is read after
+    each recovery; each window's ms is kept with how its ledger ran it
+    and the ms of the epoch check it triggered."""
+    from tigerbeetle_tpu_torch.serving import RetryPolicy
+    from tigerbeetle_tpu_torch.testing.chaos import (
+        ChaosDispatchFailure, inject_state_bitflip, poison_delta_fetch)
+
+    fails = {"left": 0}
+
+    def hook(win, what):
+        if what == "window" and fails["left"]:
+            fails["left"] -= 1
+            raise ChaosDispatchFailure(f"injected (window {win})")
+
+    run = SupervisedRun(
+        dev, caps, n_accounts, body, seed=82, flight_dir=flight_dir,
+        epoch_interval=2,
+        retry=RetryPolicy(max_retries=2, base_delay_s=1e-3,
+                          max_delay_s=4e-3), fault_hook=hook)
+    sup = run.sup
+    sup.led.verify_spot_rate = 1.0
+    windows, memory = [], []
+
+    def step(label, fail=0):
+        """One window; its ms, how its ledger ran it, and the ms of the
+        epoch check it triggered (None when none ran)."""
+        fails["left"] = fail
+        n_rec = len(sup.recovery_ms)
+        led = sup.led
+        before = graph_counts(led)
+        sup.epoch_ms = {}
+        ms = run.commit(run.window(2))
+        kind = (window_kind(led, before) if sup.led is led
+                else "recovered")
+        windows.append((label, kind, ms,
+                        sum(sup.epoch_ms.values()) if sup.epoch_ms
+                        else None))
+        if len(sup.recovery_ms) > n_rec:
+            memory.append((sup.recovery_ms[-1]["cause"], memory_now(dev)))
+
+    memory.append(("start", memory_now(dev)))
+    step("w0 exhausted", fail=3)           # three failures: recovery
+    check(sup.last_recovery["cause"] == "dispatch_exhausted",
+          f"supervisor (b): {sup.last_recovery}")
+    step("w1")                             # captured; the epoch verifies
+    cuda = torch.device(dev).type == "cuda"
+    led = sup.led
+    wg = led.windows
+    sig = led.state["accounts"]["bal"].data_ptr()
+    replays = sum(wg.replays.values())
+    check(sup.counters["epochs_verified"] == 1
+          and (not cuda or sum(wg.captures.values()) == 1),
+          "supervisor (b): no window key was captured before the bit flip")
+    flip = {"target": "accounts_bal", "row_pick": 3, "col_pick": 5,
+            "bit": 11}
+    check(inject_state_bitflip(led, flip), "supervisor (b): nothing to flip")
+    check(led.state["accounts"]["bal"].data_ptr() == sig,
+          "supervisor (b): the bit flip moved the balance storage")
+    step("w2 after the flip")              # a replay over the flipped cell
+    check(not cuda or (sum(wg.replays.values()) > replays
+                       and wg.drops == 0),
+          "supervisor (b): no replay ran over the flipped state")
+    step("w3")                             # the epoch: state_digest
+    check(sup.last_recovery["cause"] == "state_digest"
+          and sup.counters["checksum_mismatches"] == 1,
+          f"supervisor (b): the bit flip was not caught by the digest: "
+          f"{sup.last_recovery}")
+    step("w4 after recovery", fail=2)      # two failures: retried
+    poison = {"key": "amt_lo", "row_pick": 0, "bit": 3}
+    check(poison_delta_fetch(sup.led, poison), "supervisor (b): no queued "
+          "delta chunk to poison")
+    step("w5 poisoned")                    # the epoch: mirror_divergence
+    detail = sup.last_recovery["detail"]
+    check(sup.last_recovery["cause"] == "mirror_divergence"
+          and "op " in detail and "amount" in detail,
+          f"supervisor (b): the poisoned chunk was not caught by the spot "
+          f"audit: {sup.last_recovery}")
+    led = sup.led
+    led._hard_regime = True                # a fallback storm
+    led._mirror_batches = led.MIRROR_PROBE_INTERVAL - 3
+    fb0 = led.fallbacks
+    step("w6 storm")
+    check(sup.led.fallbacks >= fb0 + 2, "supervisor (b): the storm's "
+          "prepares did not run on the mirror")
+    step("w7 after the storm")             # the epoch verifies
+    run.audit("supervisor (b)")
+    st = sup.stats()
+    want = {"state_digest": 1, "mirror_divergence": 1,
+            "dispatch_exhausted": 1}
+    check(st["recoveries"] == want and st["retries"] == 5
+          and st["checksum_mismatches"] == 1
+          and st["replayed_windows"] == 4,
+          f"supervisor (b): counters {st}")
+    alloc = [m["allocated"] for c, m in memory if m]
+    if alloc:
+        check(max(alloc[1:]) - alloc[1] < 512 << 20,
+              f"supervisor (b): memory grows with the recoveries: {memory}")
+    out = dict(windows=windows, recoveries=list(sup.recovery_ms),
+               memory=memory, counters={k: st[k] for k in (
+                   "retries", "backoff_s", "replayed_windows",
+                   "epochs_verified", "checksum_mismatches", "recoveries")},
+               flight_dumps=st["flight"]["dumps"])
+    print(f"supervisor (b): {out}", flush=True)
+    sup.led.release()
+    return out
+
+
+def supervisor_chaos(dev, seeds) -> dict:
+    """(c) The chaos harness's seeds at its own size, every drained row
+    audited, on `dev` and on the CPU: the card's summary must equal the
+    CPU's (which the tests hold to the JAX package's)."""
+    from tigerbeetle_tpu_torch.testing.chaos import run_chaos_seed
+
+    out = {}
+    for seed in seeds:
+        t = time.perf_counter()
+        got = run_chaos_seed(seed, device=dev)
+        ms = (time.perf_counter() - t) * 1e3
+        want = run_chaos_seed(seed, device="cpu")
+        check(got == want, f"chaos seed {seed}: the card's summary {got} "
+              f"differs from the CPU's {want}")
+        out[seed] = dict(got, ms=ms)
+    print(f"supervisor (c) chaos: {out}", flush=True)
+    return out
+
+
+def supervisor_admission(dev, flight_dir, rounds=24, sessions=100_000,
+                         reqs_per_round=96, seed=83) -> dict:
+    """(d) The admission plane at the JAX package's bench_admission
+    parameters (tigerbeetle_tpu/benchmark.py:651-726) in front of a
+    supervisor on `dev`: Zipfian sessions at ~2x the pump's capacity on a
+    virtual clock. Conservation holds, the supervisor's history equals an
+    oracle replay of the admitted script, the epoch verifies, nothing
+    recovers."""
+    from tigerbeetle_tpu_torch import ServingSupervisor
+    from tigerbeetle_tpu_torch.admission import (AdmissionClass,
+                                                 AdmissionPlane, VirtualClock)
+    from tigerbeetle_tpu_torch.trace import FlightRecorder, Tracer
+    from tigerbeetle_tpu_torch.types import Account, Transfer
+    from tigerbeetle_tpu_torch.utils.zipfian import ZipfianGenerator
+
+    n_accounts, txns_per_req, tick_s = 128, 4, 0.020
+    classes = (
+        AdmissionClass("critical", 0, slo_ms=100.0, deadline_ms=400.0),
+        AdmissionClass("standard", 1, slo_ms=200.0, deadline_ms=600.0),
+        AdmissionClass("batch", 2, slo_ms=300.0, deadline_ms=300.0),
+    )
+    clock = VirtualClock()
+    sup = ServingSupervisor(a_cap=1 << 10, t_cap=1 << 15,
+                            epoch_interval=16, sleep=lambda s: None,
+                            seed=seed, tracer=Tracer(pid=0), device=dev,
+                            flight_recorder=FlightRecorder(
+                                dump_dir=flight_dir))
+    plane = AdmissionPlane(
+        sup, classes=classes, prepare_max=64, window_prepares=2,
+        max_windows_per_pump=2, session_credits=4, max_queue=4096,
+        burn_window_ticks=4, burn_budget=0.25, cool_ticks=4,
+        clock=clock, seed=seed, head_rate=0.05)
+    plane.open_accounts([Account(id=i, ledger=1, code=1)
+                         for i in range(1, n_accounts + 1)],
+                        n_accounts + 10)
+    zipf = ZipfianGenerator(sessions, theta=1.1, seed=seed)
+    rng = np.random.default_rng(seed)
+    next_id = 10 ** 6
+    t0 = time.perf_counter()
+    for _round in range(rounds):
+        for s in zipf.draw(reqs_per_round).tolist():
+            sid = int(s) + 1
+            m = sid % 10
+            cls = ("critical" if m == 0
+                   else "standard" if m <= 3 else "batch")
+            evs = []
+            for _ in range(txns_per_req):
+                dr = int(rng.integers(1, n_accounts + 1))
+                evs.append(Transfer(
+                    id=next_id, debit_account_id=dr,
+                    credit_account_id=dr % n_accounts + 1,
+                    amount=int(rng.integers(1, 100)), ledger=1, code=1))
+                next_id += 1
+            plane.submit(sid, evs, cls=cls)
+        plane.pump()
+        clock.advance(tick_s)
+    plane.drain()
+    sync(dev)
+    wall_s = time.perf_counter() - t0
+    st = plane.stats()
+    check(st["conservation"]["ok"] and st["conservation"]["queued"] == 0,
+          f"admission: conservation {st['conservation']}")
+    hist, _ = plane.oracle_history()
+    check(hist == sup.history, "admission: the supervisor's history differs "
+          "from an oracle replay of the admitted script")
+    check(sup.verify_epoch() and sup.counters["recoveries"] == {},
+          f"admission: {sup.stats()}")
+    sup.led.release()
+    out = dict(
+        classes={k: {f: v[f] for f in ("submitted", "admitted", "shed")}
+                 for k, v in st["classes"].items()},
+        admit_wait_ms={k: v["admit_wait_ms"]
+                       for k, v in st["classes"].items()},
+        shed_level=st["shed_level"], conservation=st["conservation"],
+        windows_dispatched=st["windows_dispatched"],
+        events_admitted=st["events_admitted"],
+        sustained_admitted_eps_virtual=st["events_admitted"]
+        / (rounds * tick_s),
+        admitted_eps_wall=st["events_admitted"] / wall_s, wall_s=wall_s)
+    print(f"supervisor (d) admission: {out}", flush=True)
+    return out
+
+
+def supervisor_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = BATCH,
+                     caps: tuple = (A_CAP, T_CAP),
+                     widths: tuple = SP_WIDTHS,
+                     chaos_seeds: tuple = SP_CHAOS_SEEDS,
+                     admission: dict | None = None) -> dict:
+    """The serving supervisor (`tigerbeetle_tpu_torch.ServingSupervisor`)
+    on `dev`: (a) clean at full width, (b) injected faults at full width,
+    (c) the chaos seeds, (d) the admission plane. VERIFY is on for the
+    phase; the flight dumps of (a), (b) and (d) go to a temporary
+    directory, removed at the end (the chaos harness's to its default,
+    under the temporary directory). The probe's and the row gather's
+    launches count from 0 at the phase's start, the VERIFY audits'
+    lookups among them (`verify_launches`: those of (a)'s epoch
+    checks)."""
+    import shutil
+    import tempfile
+
+    from tigerbeetle_tpu_torch import constants
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+
+    t0 = time.perf_counter()
+    was_verify = constants.VERIFY
+    constants.set_verify(True)
+    flight_dir = tempfile.mkdtemp(prefix="tb_flight_")
+    fused_probe.LAUNCHES = RG.LAUNCHES = 0
+    try:
+        clean = supervisor_clean(dev, caps, n_accounts, body, widths,
+                                 flight_dir)
+        faults = supervisor_faults(dev, caps, n_accounts, body, flight_dir)
+        chaos = supervisor_chaos(dev, chaos_seeds)
+        adm = supervisor_admission(dev, flight_dir, **(admission or {}))
+        launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+        dumps = len(list(Path(flight_dir).glob("FLIGHT_*.json")))
+    finally:
+        constants.set_verify(was_verify)
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+    cuda = torch.device(dev).type == "cuda"
+    check(not cuda or (launches[0] > 0 and launches[1] > 0),
+          f"supervisor: launches probe/gather {launches}")
+    check(dumps == 3, f"supervisor: {dumps} flight dumps, 3 recoveries")
+    numbers = dict(clean=clean, faults=faults, chaos=chaos, admission=adm,
+                   launches=launches, flight_dumps=dumps,
+                   elapsed_s=time.perf_counter() - t0)
+    print(f"supervisor: launches probe/gather {launches}; "
+          f"{dumps} flight dumps; {numbers['elapsed_s']:.1f} s; "
+          f"{card_line_or_cpu(dev)}", flush=True)
+    return numbers
+
+
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
@@ -3794,6 +4303,7 @@ def main() -> int:
     imp = imported_phase(dev)
     bal = balancing_phase(dev)
     srv = serving_phase(dev)
+    sup = supervisor_phase(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -3826,6 +4336,9 @@ def main() -> int:
         "launches_balancing": bal["launches"][0],
         "ran_balancing": bal["launches_ran"][0],
         "launches_serving": srv["launches"][0],
+        # The supervisor phase's launches, its VERIFY audits' lookups
+        # among them.
+        "launches_supervisor": sup["launches"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -3867,6 +4380,7 @@ def main() -> int:
         # (one launch each) among them.
         "launches_serving": srv["launches"][1],
         "launches_serving_delta": srv["delta_gathers"],
+        "launches_supervisor": sup["launches"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -3921,6 +4435,7 @@ def main() -> int:
     print(json.dumps({"imported": imp}), flush=True)
     print(json.dumps({"balancing": bal}), flush=True)
     print(json.dumps({"serving": srv}), flush=True)
+    print(json.dumps({"supervisor": sup}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

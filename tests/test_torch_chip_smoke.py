@@ -388,3 +388,57 @@ def test_chip_smoke_runs_the_serving_phase_last():
     assert order == sorted(order)
     assert main.count("'launches_serving'") == 3
 
+
+
+def test_supervisor_phase_rehearsed_on_the_cpu(calls):
+    """The supervisor phase at a small size on the CPU: (a) clean windows
+    of 2 and 4 prepares, synchronous and pipelined, beside a bare
+    write-through ledger, with epochs verified and zero recoveries; (b)
+    the in-place bit flip caught by the state digest, the poisoned chunk
+    by the spot audit, a dispatch retried within its budget and one
+    recovered past it, a fallback storm, each recovered to parity; (c) a
+    chaos seed equal on the "card" (here the CPU) and the CPU; (d) the
+    admission plane conserving every request. Every VERIFY audit's
+    lookups call the probe and the row gather."""
+    numbers = CS.supervisor_phase(
+        "cpu", n_accounts=100, body=64, caps=(1 << 10, 1 << 14),
+        widths=(2, 4), chaos_seeds=(3,), admission=dict(rounds=4))
+    clean, faults = numbers["clean"], numbers["faults"]
+    assert clean["epochs_verified"] == 2
+    assert clean["routes"] == {"chain": 12}
+    assert clean["staging"]["staged"] == 4
+    for w in (2, 4):
+        assert sorted(clean[w]["verify_parts_ms"]) == sorted(
+            ("drain", "replay", "device_digest", "oracle_digest",
+             "mirror_audit"))
+        assert len(clean[w]["sync_ms"]["supervisor"]) == 2
+    assert faults["counters"]["recoveries"] == {
+        "state_digest": 1, "mirror_divergence": 1, "dispatch_exhausted": 1}
+    assert faults["counters"]["retries"] == 5
+    assert faults["counters"]["replayed_windows"] == 4
+    assert [w[1] for w in faults["windows"]] == [
+        "recovered", "eager", "eager", "recovered", "eager", "recovered",
+        "host", "eager"]
+    assert [r["cause"] for r in faults["recoveries"]] == [
+        "dispatch_exhausted", "state_digest", "mirror_divergence"]
+    assert numbers["chaos"][3]["recoveries"] == {}
+    assert numbers["admission"]["conservation"]["ok"]
+    assert numbers["flight_dumps"] == 3
+    assert calls["probe"] > 0 and calls["gather"] > 0
+
+
+def test_chip_smoke_runs_the_supervisor_phase_last():
+    """main() runs the supervisor phase after the serving phase and prints
+    its line before the kernels line; the probe and the row gather carry
+    its launches."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "serving_phase(", "supervisor_phase(", "'supervisor'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_supervisor'") == 2

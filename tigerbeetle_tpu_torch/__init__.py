@@ -16,12 +16,17 @@ gather (`csrc/row_gather.cu`) and the sequential kernel
 (`csrc/create_seq.cu`). Its serving entry point is `StateMachine`
 (`state_machine.py`): wire bodies in, reply bytes out, on the device
 ledger with a write-through host mirror (`ops/lazy_mirror.py`), on the
-sequential kernel, or on the oracle.
+sequential kernel, or on the oracle. In front of a write-through ledger
+`ServingSupervisor` (`serving.py`) retries dispatches, verifies epochs
+against the oracle and recovers by bounded replay; `admission.py` admits
+and sheds client requests into its windows; `trace/` is the tracing
+core; `testing/chaos.py` the seeded single-chip chaos harness.
 """
 
 from .convert import state_from_numpy, state_to_numpy
 from .ops.ledger import DeviceLedger
+from .serving import ServingSupervisor
 from .state_machine import StateMachine
 
-__all__ = ["DeviceLedger", "StateMachine", "state_from_numpy",
-           "state_to_numpy"]
+__all__ = ["DeviceLedger", "ServingSupervisor", "StateMachine",
+           "state_from_numpy", "state_to_numpy"]

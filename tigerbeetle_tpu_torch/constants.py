@@ -26,3 +26,17 @@ NS_PER_S = 1_000_000_000
 def timestamp_valid(timestamp: int) -> bool:
     """reference: src/lsm/timestamp_range.zig:36-39"""
     return TIMESTAMP_MIN <= timestamp <= TIMESTAMP_MAX
+
+
+# Extra-check mode (reference: constants.verify, src/fuzz_tests.zig:11-16):
+# expensive cross-structure invariant checks, off on the serving path and
+# switched on by the chaos harness and the tests. Call sites read
+# `constants.VERIFY` through the module (never `from ... import VERIFY`,
+# which would freeze the value). Set only by `set_verify`: the port reads
+# no environment variable.
+VERIFY = False
+
+
+def set_verify(on: bool) -> None:
+    global VERIFY
+    VERIFY = bool(on)

@@ -64,10 +64,20 @@ windows gather on device-computed starts right after their dispatch;
 `recycle_events` the event ring rewinds after every batch and window
 (the ring window kernels on the pipelined route).
 
+Supervision (the serving supervisor, `serving.py`, owns such a ledger):
+`recovery_stats` holds the supervisor's counters and `fallback_stats()`
+reports them beside the routing counters; `tracer` (a NullTracer unless
+the supervisor installs its own) receives the window_stage spans and the
+host_stall_fraction gauge of the pipelined route; with
+`constants.VERIFY` on, every drain audits device rows against the
+mirror through the device lookups (`_verify_mirror_spot`, raising
+`MirrorDivergence`), `verify_spot_rate` rows of each chunk (0.0: two
+rows of the newest chunk; >= 1.0: every row of every chunk); `release()`
+gives a quarantined ledger's device memory back.
+
 Not ported here (later slices): the durable flush columns
-(`retain_flush_columns` / `take_flush_columns`), the VERIFY spot check
-(`_verify_mirror_spot` / `MirrorDivergence`), the tracer hook and the
-partitioned attach mode.
+(`retain_flush_columns` / `take_flush_columns`) and the partitioned
+attach mode.
 
 The device is explicit: `DeviceLedger(device=None)` means CUDA and
 raises when no CUDA device is present; the tests pass `device="cpu"`.
@@ -75,14 +85,18 @@ raises when no CUDA device is present; the tests pass `device="cpu"`.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from .. import constants
 from ..constants import BATCH_MAX, NS_PER_S, TIMESTAMP_MIN
 from ..oracle.state_machine import AccountEventRecord, StateMachineOracle
+from ..trace import Event, NullTracer
 from ..types import (
     Account,
     AccountFlags,
@@ -159,6 +173,21 @@ PAD_BUCKETS = (1024, 2048, 4096, N_PAD)
 _CTS_BY_CODE = {int(m): m for m in CreateTransferStatus}
 _CAS_BY_CODE = {int(m): m for m in CreateAccountStatus}
 _MASK64 = (1 << 64) - 1
+
+
+class MirrorDivergence(AssertionError):
+    """VERIFY spot-check failure: a device-resident row disagrees with
+    the host mirror. Subclasses AssertionError (fail-loudly consumers keep
+    working); the serving supervisor catches it specifically and routes to
+    bounded replay recovery."""
+
+
+def default_recovery_stats() -> dict:
+    """The zero-valued recovery-counter record every ledger carries (the
+    serving supervisor swaps in its live dict; see fallback_stats)."""
+    return {"retries": 0, "backoff_s": 0.0, "replayed_windows": 0,
+            "epochs_verified": 0, "checksum_mismatches": 0,
+            "recoveries": {}}
 
 
 def _pad_bucket(n: int) -> int:
@@ -941,6 +970,14 @@ class DeviceLedger:
         self._stager = None
         self.staging_stats = {"windows": 0, "staged": 0, "misses": 0,
                               "stall_ms": 0.0, "work_ms": 0.0}
+        # Supervision: the serving supervisor installs its live counter
+        # dict and its tracer here; a standalone ledger keeps zeros and
+        # the null tracer. verify_spot_rate: the VERIFY drain audit's
+        # sampling (0.0: two rows of the newest chunk; >= 1.0: every row
+        # of every chunk).
+        self.recovery_stats: dict = default_recovery_stats()
+        self.tracer = NullTracer()
+        self.verify_spot_rate = 0.0
         # Write-through mode (the serving path): `write_through` is a host
         # oracle kept in permanent lockstep with the device. Device
         # batches queue their bounded device-to-host delta as columnar
@@ -1810,6 +1847,71 @@ class DeviceLedger:
             if n_new:
                 self._materialize_delta_transfers(t, e, der, t0, n_new)
         self._clear_dirty_dev()
+        if constants.VERIFY:
+            self._verify_drained(chunks)
+
+    def _verify_drained(self, chunks) -> None:
+        """Extra-check mode: spot-audit device rows against the just-
+        drained mirror (the write-through contract). Two rows of the
+        newest chunk by default; with verify_spot_rate >= 1.0 every row
+        of every chunk (the chaos runs), so "auditor-clean" is
+        exhaustive. The lookups launch the probe and the row gather."""
+        rate = self.verify_spot_rate
+        checked = 0
+        for t, e, der, t0, n_new, _, op_no in reversed(chunks):
+            if not n_new:
+                continue
+            k = n_new if rate >= 1.0 else min(2, n_new)
+            xfer_ids = [u128.to_int(t["id_hi"][i], t["id_lo"][i])
+                        for i in range(k)]
+            # Plus a stable anchor, the oldest transfer, so drift on rows
+            # the batch never touched (stale pending flips, bad pushes)
+            # is caught too.
+            if checked == 0 and self.mirror.transfers:
+                xfer_ids.append(next(iter(self.mirror.transfers)))
+            self._verify_mirror_spot(
+                [u128.to_int(der["dr_id_hi"][i], der["dr_id_lo"][i])
+                 for i in range(k)],
+                xfer_ids,
+                ctx=f"op {op_no}, device rows {t0}..{t0 + n_new}")
+            checked += 1
+            if rate < 1.0:
+                break
+
+    def _verify_mirror_spot(self, acct_ids: list, xfer_ids: list,
+                            ctx: str = "") -> None:
+        """VERIFY check: device-resident rows and the host mirror must
+        agree object for object after a drain. A divergence raises
+        MirrorDivergence naming the op that produced the chunk and every
+        differing field."""
+        sm = self.mirror
+        where = f" at {ctx}" if ctx else ""
+
+        def diff(got, want) -> str:
+            if got is None:
+                return "object missing on device"
+            if want is None:
+                return "object missing in mirror"
+            return "differing fields: " + ", ".join(
+                f"{f.name}(device={getattr(got, f.name)!r}, "
+                f"mirror={getattr(want, f.name)!r})"
+                for f in dataclasses.fields(got)
+                if getattr(got, f.name) != getattr(want, f.name))
+
+        got_a = {a.id: a for a in self.lookup_accounts(acct_ids)}
+        for aid in acct_ids:
+            got, want = got_a.get(aid), sm.accounts.get(aid)
+            if got != want:
+                raise MirrorDivergence(
+                    f"verify: device/mirror divergence on account "
+                    f"{aid}{where}: {diff(got, want)}")
+        got_t = {t.id: t for t in self.lookup_transfers(xfer_ids)}
+        for tid in xfer_ids:
+            got, want = got_t.get(tid), sm.transfers.get(tid)
+            if got != want:
+                raise MirrorDivergence(
+                    f"verify: device/mirror divergence on transfer "
+                    f"{tid}{where}: {diff(got, want)}")
 
     def _materialize_delta_transfers(self, t, e, der, t0: int,
                                      n_new: int) -> None:
@@ -2060,6 +2162,8 @@ class DeviceLedger:
         st["staged"] += 1
         st["stall_ms"] += wait_ns / 1e6
         st["work_ms"] += max(pack_ns, wait_ns) / 1e6
+        self.tracer.record_span(Event.window_stage, t0, wait_ns,
+                                mode="overlapped", route=route)
         return host
 
     def staged_matches(self, evs: list[dict],
@@ -2099,6 +2203,52 @@ class DeviceLedger:
             self._stager.shutdown(wait=True, cancel_futures=True)
             self._stager = None
 
+    def release(self) -> None:
+        """Give a quarantined ledger's memory back (the supervisor calls
+        it before a recovery builds the replacement): the stager stops,
+        the device work queued so far finishes, so no copy still writes
+        into a pinned buffer, and the window graphs, tickets, queued
+        deltas and state go. The ledger is unusable after this."""
+        self.shutdown_staging()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.windows = None
+        self._tickets = []
+        self._mirror_chunks = []
+        self._pending_cols = []
+        self.state = None
+        self.mirror = None
+        # The mirror's chunks and the mirror reference each other: collect
+        # the cycle now, so the device rows behind its unloaded chunks go
+        # with it.
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def fallback_stats(self) -> dict:
+        """Host-visible routing, fallback and recovery counters: "zero
+        host fallbacks" is a measured invariant. device_telemetry is None:
+        no partitioned router exists in this package yet."""
+        return {
+            "host_fallbacks": self.fallbacks,
+            "window_fallbacks": self.window_fallbacks,
+            "fast_batches": self.fast_batches,
+            "fixpoint_batches": self.fixpoint_batches,
+            "deep_fixpoint_batches": self.deep_fixpoint_batches,
+            "escalations": self.escalations,
+            "causes": dict(self.fallback_causes),
+            # Windows per route and the per-cause prepares that fell out
+            # of a chain window.
+            "routes": {"windows": dict(self.window_routes),
+                       "chain_batch_fallbacks": dict(
+                           self.chain_batch_fallbacks)},
+            "staging": self.staging_summary(),
+            "device_telemetry": None,
+            "recovery": {
+                k: (dict(v) if isinstance(v, dict) else v)
+                for k, v in self.recovery_stats.items()},
+        }
+
     def submit_window(self, evs: list[dict], timestamps: list[int]):
         """Pipelined commit window: dispatch it with no host sync, the
         previous in-flight window's fallback flag as its force_fallback,
@@ -2122,13 +2272,21 @@ class DeviceLedger:
         ns = [len(e["id_lo"]) for e in evs]
         prev = self._tickets[-1].poison if self._tickets else None
         host = self._consume_staged(evs, timestamps, route, n_pad)
+        st = self.staging_stats
         if host is None:
+            # An inline pack: its whole cost is a stall the dispatch
+            # waited on.
             t0 = time.perf_counter_ns()
             host, _ = self._pack_window(route, evs, timestamps, n_pad)
-            dur_ms = (time.perf_counter_ns() - t0) / 1e6
-            self.staging_stats["stall_ms"] += dur_ms
-            self.staging_stats["work_ms"] += dur_ms
-        self.staging_stats["windows"] += 1
+            dur_ns = time.perf_counter_ns() - t0
+            st["stall_ms"] += dur_ns / 1e6
+            st["work_ms"] += dur_ns / 1e6
+            self.tracer.record_span(Event.window_stage, t0, dur_ns,
+                                    mode="inline", route=route)
+        st["windows"] += 1
+        if st["work_ms"]:
+            self.tracer.gauge(Event.host_stall_fraction,
+                              round(st["stall_ms"] / st["work_ms"], 6))
         lanes = self._pack(route, evs, timestamps, n_pad, host=host)
         outs = self._dispatch(route, lanes, n_pad, poison=prev,
                               ring=self._wt and self.recycle_events)
