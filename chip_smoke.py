@@ -15,7 +15,8 @@ in, reply bytes out, on the device engine with its write-through mirror
 and on the kernel engine) and the serving supervisor in front of it
 (`tigerbeetle_tpu_torch.ServingSupervisor`: verified epochs, injected
 faults and bounded replay recovery, the chaos seeds, the admission
-plane) — at the ledger's default capacities, and
+plane) and the durable layer under it (the LSM forest in a data file,
+checkpoints, a restart) — at the ledger's default capacities, and
 holds its three CUDA kernels against their plain PyTorch twins. Phases,
 each failing the run with a nonzero exit:
 
@@ -142,6 +143,21 @@ each failing the run with a nonzero exit:
               equal to the CPU's; (d) the admission plane at the JAX
               package's bench_admission parameters. (a) and (b) end with
               an independent oracle replay of everything submitted.
+ 16. durable  the durable layer, as a replica commits minus consensus:
+              `StateMachine(engine="device")` at the ledger's default
+              capacities with a `DurableState` on a `FileStorage` data
+              file at the default `StorageLayout()` (a 512 MiB grid of
+              64 KiB blocks), 10,000 accounts and 48 config-2 bodies of
+              8,189 events (singles, windows of 8 pipelined two deep and
+              synchronous, a closing, an imported, a hard and two
+              post/void bodies, a pulse), after every op the replica's
+              flush policy, a compaction beat, a checkpoint every 16 ops;
+              beside two CPU twins, each in a process of its own: every
+              reply equal to the oracle engine's, the data file equal
+              byte for byte to the device engine's after every
+              checkpoint; lookups and the five queries served from the
+              forest; a restart from the file (digest held, journal
+              replayed, 8 more ops).
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -149,7 +165,8 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"exact_path": ...}`, `{"config2_window": ...}`,
 `{"config4_window": ...}`, `{"window_fallbacks": ...}`,
 `{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}`,
-`{"supervisor": ...}` and `{"kernels": [...]}` lines, and last `{"ok": true, "device": {...}}`.
+`{"supervisor": ...}`, `{"durable": ...}` and `{"kernels": [...]}` lines,
+and last `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
 """
 
@@ -291,6 +308,21 @@ SV_C4_ACCT0 = 20_000
 # chaos seeds (the chaos harness's gate seeds).
 SP_WIDTHS = (4, 8)
 SP_CHAOS_SEEDS = (1, 2, 3, 7)
+
+# The durable phase (the JAX package's replica commit loop minus
+# consensus, vsr/replica.py:926-942 and :1084-1180): DU_OPS config-2
+# bodies of SV_BODY events over N_ACCOUNTS accounts after the account
+# bodies, a checkpoint every DU_CHECKPOINT ops (vsr/replica.py:87), DU_W
+# bodies a window; 1 event in DU_PEND_EVERY a pending (a 1 s timeout on
+# half of them); then a restart from the last checkpoint, the journal's
+# later ops replayed, and DU_AFTER more ops; lookups of DU_LOOKUPS ids.
+DU_OPS = 48
+DU_CHECKPOINT = 16
+DU_W = 8
+DU_PEND_EVERY = 16
+DU_AFTER = 8
+DU_LOOKUPS = BATCH
+DU_TURNS = 6
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -823,22 +855,24 @@ def time_ms(fn, reps: int = 50, rounds: int = 5) -> float:
     return float(np.median(per))
 
 
-def device_profile(fn, reps: int = 20, attempts: int = 3):
+def device_profile(fn, reps: int = 20, attempts: int = 4):
     """(device-busy ms per call, {name: (ms per call, launches per
     call)}) of fn() from a torch.profiler trace of `reps` calls;
-    (None, {}) when the trace holds no device time. A trace that comes
-    back empty (the profiler now and then drops a short window's device
-    events) is taken again, up to `attempts` traces."""
+    (None, {}) when no trace holds device time. The profiler now and
+    then drops device events from a trace, a few or nearly all of them,
+    so traces are taken until the fullest (the most device events) has
+    come twice, up to `attempts` traces, and the fullest is kept."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    by_name = {}
+    best, best_n, seen = {}, 0, 0
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        by_name, n_events = {}, 0
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -846,26 +880,45 @@ def device_profile(fn, reps: int = 20, attempts: int = 3):
             if us:
                 ms, n = by_name.get(e.key, (0.0, 0.0))
                 by_name[e.key] = (ms + us / 1e3 / reps, n + e.count / reps)
-        if by_name:
+                n_events += e.count
+        if n_events > best_n:
+            best, best_n, seen = by_name, n_events, 1
+        elif n_events == best_n and n_events:
+            seen += 1
+        if seen >= 2:
             break
-    if not by_name:
+    if not best:
         return None, {}
-    return sum(v[0] for v in by_name.values()), by_name
+    return sum(v[0] for v in best.values()), best
 
 
-def kernel_ms(fn, tag: str, attempts: int = 3) -> float:
+def kernel_ms(fn, tag: str, reps: int = 20, attempts: int = 4) -> float:
     """Device ms per call of the one kernel named like `tag` that fn()
-    launches once a call, from a torch.profiler trace. A trace that
-    holds the kernel fewer or more times than the calls made (the
-    profiler now and then drops device events) is taken again, up to
-    `attempts` traces."""
+    launches once a call, from a torch.profiler trace of `reps` calls.
+    The profiler now and then drops device events, so a trace that
+    holds the kernel fewer times than the calls made is taken again,
+    up to `attempts` traces; when none holds every launch, the ms is
+    the mean over the launches the fullest trace recorded, if it holds
+    at least half of them. A trace that holds the kernel more often
+    than once a call, or under more than one name, fails."""
+    best = None
     for _ in range(attempts):
-        _, names = device_profile(fn, attempts=1)
+        _, names = device_profile(fn, reps=reps, attempts=1)
         hits = [v for k, v in names.items() if tag in k]
-        if len(hits) == 1 and abs(hits[0][1] - 1) < 1e-9:
+        check(len(hits) <= 1 and all(n < 1 + 1e-9 for _, n in hits),
+              f"the trace of {tag} holds its kernel more than once a "
+              f"call: { {k: v[1] for k, v in names.items() if tag in k} }")
+        if hits and abs(hits[0][1] - 1) < 1e-9:
             return hits[0][0]
-    check(False, f"the traces of {tag} never held its kernel once a call: "
-          f"{ {k: v[1] for k, v in names.items()} }")
+        if hits and (best is None or hits[0][1] > best[1]):
+            best = hits[0]
+    check(best is not None and best[1] >= 0.5,
+          f"the traces of {tag} held its kernel in fewer than half of the "
+          f"calls: {best}")
+    print(f"{tag}: the fullest of {attempts} traces held "
+          f"{best[1] * reps:.0f} of {reps} launches; ms is their mean",
+          flush=True)
+    return best[0] / best[1]
 
 
 def cycling(fn, arg_sets):
@@ -1998,12 +2051,8 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
     got = create_seq.create_transfers_seq(tin_g)
     err = max(err, seq_compare("config-3 full width", got, want))
     bound_ms = seq_bytes(tin_g, got) / HBM_BYTES_PER_S * 1e3
-    busy, by_name = device_profile(
-        lambda: create_seq.create_transfers_seq(tin_g), reps=3)
-    hits = [v for k, v in by_name.items() if "create_transfers_seq" in k]
-    check(len(hits) == 1 and abs(hits[0][1] - 1) < 1e-9,
-          f"the trace holds the kernel {hits} times a call")
-    ms = hits[0][0]
+    ms = kernel_ms(lambda: create_seq.create_transfers_seq(tin_g),
+                   "create_transfers_seq", reps=3)
     numbers.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, ns_per_event=ms * 1e6 / n_full,
                    elapsed_s=time.perf_counter() - t0)
@@ -4246,6 +4295,758 @@ def supervisor_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = BATCH,
     return numbers
 
 
+# ------------------------------------------------------- the durable phase
+
+class DurableReplica:
+    """A StateMachine committing through a replica's loop minus consensus
+    (the JAX package's vsr/replica.py `_post_commit` and `_checkpoint`),
+    its forest in `storage`'s grid zone. After every op: the ledger's
+    flush columns (one prepare's worth in a window) through the column
+    flush when the mirror is quiescent, else a drain and the object
+    flush; the cache upsert; one compaction beat. Every `interval` ops a
+    checkpoint: drain, the stale columns popped, the root written to the
+    other snapshot slot, the superblock flipped, the host history pruned.
+    `spans` holds each op's path, flush ms, beat ms and grid blocks in
+    use; `ckpts` each checkpoint's op, ms and root bytes."""
+
+    def __init__(self, sm, storage, durable, sb, op: int, interval: int):
+        self.sm, self.storage, self.durable, self.sb = sm, storage, durable, sb
+        self.op = op
+        self.interval = interval
+        self.spans: list = []
+        self.ckpts: list = []
+        self.roots: list = []
+        sm.attach_durable(durable)
+
+    @classmethod
+    def format(cls, sm, storage, interval: int) -> "DurableReplica":
+        """A fresh data file (the storage part of the JAX package's
+        Replica.format, vsr/replica.py:249-274): the empty forest's root
+        in snapshot slot 0 and the genesis superblock."""
+        from tigerbeetle_tpu_torch import StateMachine
+        from tigerbeetle_tpu_torch.vsr.checksum import checksum
+        from tigerbeetle_tpu_torch.vsr.durable import DurableState
+        from tigerbeetle_tpu_torch.vsr.superblock import SuperBlock
+
+        root = DurableState(storage).checkpoint(
+            StateMachine("oracle", device="cpu").state)
+        storage.write("snapshot", 0, root)
+        sb = SuperBlock(cluster=1, replica_id=0, replica_count=1,
+                        snapshot_slot=0, snapshot_size=len(root),
+                        snapshot_checksum=checksum(root, domain=b"ckptroot"))
+        sb.store(storage)
+        return cls(sm, storage, DurableState(storage), sb, 0, interval)
+
+    @classmethod
+    def reopen(cls, make_sm, storage, interval: int, dev):
+        """Restart from the data file: the superblock's quorum, the root
+        it names (checksum held), `DurableState.open`, then the state
+        setter of a new StateMachine, which rebuilds the device ledger.
+        Returns the replica, the open's ms and the rebuild's ms."""
+        from tigerbeetle_tpu_torch.vsr.checksum import checksum
+        from tigerbeetle_tpu_torch.vsr.durable import DurableState
+        from tigerbeetle_tpu_torch.vsr.superblock import SuperBlock
+
+        sb = SuperBlock.load(storage)
+        check(sb is not None, "durable: no superblock quorum on reopen")
+        lay = storage.layout
+        root = storage.read("snapshot", sb.snapshot_slot
+                            * lay.snapshot_size_max, sb.snapshot_size)
+        check(checksum(root, domain=b"ckptroot") == sb.snapshot_checksum,
+              "durable: the checkpoint root fails its checksum")
+        durable = DurableState(storage)
+        t = time.perf_counter()
+        state = durable.open(root, load_events=False)
+        open_ms = (time.perf_counter() - t) * 1e3
+        sm = make_sm()
+        sync(dev)
+        t = time.perf_counter()
+        sm.state = state
+        sync(dev)
+        rebuild_ms = (time.perf_counter() - t) * 1e3
+        return (cls(sm, storage, durable, sb, sb.op_checkpoint, interval),
+                open_ms, rebuild_ms)
+
+    def blocks(self) -> int:
+        grid = self.durable.grid
+        return grid.block_count - sum(grid.free)
+
+    def post_commit(self, chunk_count=None) -> None:
+        from tigerbeetle_tpu_torch.vsr.durable import mirror_quiescent
+
+        self.op += 1
+        sm, led = self.sm, self.sm.led
+        t0 = time.perf_counter()
+        cols = (led.take_flush_columns(chunk_count) if led is not None
+                else None)
+        raw = sm.raw_state
+        if cols and not mirror_quiescent(raw,
+                                         self.durable.events_persisted):
+            # Interleaved history (a hard body, accounts, an expiry): the
+            # drain, then the object path flushes everything.
+            check(chunk_count is None,
+                  f"durable op {self.op}: a window met a dirty mirror")
+            sm.state
+            cols = None
+        sm.cache_upsert(*self.durable.flush(raw, flush_columns=cols))
+        t1 = time.perf_counter()
+        self.durable.compact_beat(self.op)
+        t2 = time.perf_counter()
+        self.spans.append(dict(op=self.op,
+                               path="columns" if cols else "object",
+                               flush_ms=(t1 - t0) * 1e3,
+                               beat_ms=(t2 - t1) * 1e3,
+                               blocks=self.blocks()))
+        if self.op % self.interval == 0:
+            self.checkpoint()
+
+    def checkpoint(self) -> None:
+        from tigerbeetle_tpu_torch.vsr.checksum import checksum
+
+        t = time.perf_counter()
+        state = self.sm.state              # drains the mirror first
+        if self.sm.led is not None:
+            self.sm.led.take_flush_columns()   # stale after the drain
+        root = self.durable.checkpoint(state)
+        lay = self.storage.layout
+        check(len(root) <= lay.snapshot_size_max,
+              "durable: the checkpoint root exceeds its slot")
+        slot = 1 - self.sb.snapshot_slot
+        self.storage.write("snapshot", slot * lay.snapshot_size_max, root)
+        sb = self.sb
+        sb.snapshot_slot = slot
+        sb.snapshot_size = len(root)
+        sb.snapshot_checksum = checksum(root, domain=b"ckptroot")
+        sb.op_checkpoint = sb.commit_min = sb.commit_max = self.op
+        sb.store(self.storage)
+        state.prune_account_events(self.durable.events_persisted)
+        self.ckpts.append(dict(op=self.op, root_bytes=len(root),
+                               ms=(time.perf_counter() - t) * 1e3))
+        self.roots.append(root)
+
+    def commit(self, op, body: bytes, ts: int) -> bytes:
+        reply = self.sm.commit(op, body, ts)
+        self.post_commit()
+        return reply
+
+    def commit_window(self, op, bodies, tss) -> list:
+        """A window as the replica commits one (all_or_nothing): each
+        prepare's flush takes its own chunks; a window the ledger
+        declines commits op by op."""
+        out = self.sm.commit_window(op, bodies, tss, all_or_nothing=True)
+        if out is None:
+            return [self.commit(op, b, t) for b, t in zip(bodies, tss)]
+        replies, shape = out
+        for k in shape:
+            self.post_commit(k)
+        return replies
+
+    def pipelined(self, op, windows) -> list:
+        """Windows submitted two deep; each prepare's flush after its
+        window resolves (every prepare here creates rows, so its chunks
+        are its shape). A host engine commits them op by op."""
+        if self.sm.led is None:
+            return [self.commit(op, b, t) for bodies, tss in windows
+                    for b, t in zip(bodies, tss)]
+        replies, in_flight = [], 0
+
+        def finish(recs):
+            for rec in recs:
+                for reply, k in zip(rec["replies"], rec["shape"]):
+                    replies.append(reply)
+                    self.post_commit(k)
+
+        for bodies, tss in windows:
+            rec = self.sm.submit_commit_window(op, bodies, tss)
+            check(rec is not None, "durable: a pipelined window declined")
+            in_flight += 1
+            if in_flight > 1:
+                done = self.sm.resolve_commit_windows(count=1)
+                in_flight -= len(done)
+                finish(done)
+        finish(self.sm.resolve_commit_windows())
+        return replies
+
+
+class DurableTraffic:
+    """The durable phase's wire bodies: config 2 (uniform transfers over
+    n_accounts accounts) with u64 user data >= 2^63, 1 event in
+    DU_PEND_EVERY a pending (half with a 1 s timeout); a closing body
+    (its first events closing_debit pendings), an imported body (user
+    timestamps), a resolve body (posts and voids of the oldest pendings,
+    voids of the closing ones first), a hard body (a repeated id)."""
+
+    def __init__(self, seed: int, n_accounts: int, body: int):
+        self.rng = np.random.default_rng(seed)
+        self.n_accounts = n_accounts
+        self.body = body
+        self.next_id = 10**9
+        self.ts = 10**12
+        self.pending: list = []     # (id, closing)
+
+    def next_ts(self, n: int) -> int:
+        self.ts += n + 1000
+        return self.ts
+
+    def accounts(self) -> list:
+        from tigerbeetle_tpu_torch.types import Account, AccountFlags
+
+        hist = int(AccountFlags.history)
+        out = []
+        for lo in range(0, self.n_accounts, self.body):
+            accts = [Account(id=i, ledger=1, code=1 + i % 3,
+                             user_data_32=i % 7,
+                             user_data_64=(1 << 63) + i % 5,
+                             flags=hist if i % SV_HISTORY_EVERY == 0 else 0)
+                     for i in range(lo + 1,
+                                    min(lo + self.body, self.n_accounts) + 1)]
+            out.append((accounts_body(accts), self.next_ts(len(accts))))
+        return out
+
+    def _batch(self) -> dict:
+        ev = uniform_batch(self.rng, self.next_id, self.body,
+                           self.n_accounts)
+        self.next_id += self.body
+        n = self.body
+        ev["ud64"] = (self.rng.integers(0, 4, n).astype(np.uint64)
+                      | np.uint64(1 << 63))
+        ev["ud128_hi"] = np.full(n, 1 << 63, dtype=np.uint64)
+        ev["ud128_lo"] = self.rng.integers(0, 2**62, n).astype(np.uint64)
+        ev["ud32"] = self.rng.integers(0, 5, n).astype(np.uint32)
+        ev["code"] = self.rng.integers(1, 4, n).astype(np.uint32)
+        return ev
+
+    def plain(self) -> bytes:
+        from tigerbeetle_tpu_torch.types import TransferFlags as TF
+
+        ev = self._batch()
+        pend = np.nonzero(np.arange(self.body) % DU_PEND_EVERY == 1)[0]
+        ev["flags"][pend] = int(TF.pending)
+        ev["timeout"][pend[::2]] = 1
+        self.pending.extend((int(ev["id_lo"][i]), False) for i in pend)
+        return wire_body([ev])
+
+    def closing(self, k: int = 4) -> bytes:
+        from tigerbeetle_tpu_torch.types import TransferFlags as TF
+
+        ev = self._batch()
+        ev["dr_lo"][:k] = np.arange(1, k + 1, dtype=np.uint64)
+        ev["cr_lo"][:k] = np.arange(k + 1, 2 * k + 1, dtype=np.uint64)
+        ev["flags"][:k] = int(TF.closing_debit | TF.pending)
+        self.pending[:0] = [(int(i), True) for i in ev["id_lo"][:k]]
+        return wire_body([ev])
+
+    def imported(self) -> bytes:
+        """Imported transfers at user timestamps after the last commit
+        and before this body's."""
+        from tigerbeetle_tpu_torch.types import TransferFlags as TF
+
+        ev = self._batch()
+        ev["flags"][:] = int(TF.imported)
+        ev["ts"] = np.uint64(self.ts + 1) + np.arange(self.body,
+                                                       dtype=np.uint64)
+        return wire_body([ev])
+
+    def resolve(self) -> bytes:
+        from tigerbeetle_tpu_torch.types import TransferFlags as TF
+
+        ev = self._batch()
+        k = min(len(self.pending), self.body // 2)
+        take, self.pending = self.pending[:k], self.pending[k:]
+        void = np.array([c or j % 3 == 0 for j, (_, c) in enumerate(take)],
+                        dtype=bool)
+        for f in ("dr_lo", "cr_lo", "ud128_hi", "ud128_lo", "ud64", "ud32",
+                  "code", "ledger"):
+            ev[f][:k] = 0
+        ev["pid_lo"][:k] = [p for p, _ in take]
+        # The full amount: 0 for a void, AMOUNT_MAX for a post.
+        ev["amt_lo"][:k] = np.where(void, 0, 2**64 - 1)
+        ev["amt_hi"][:k] = np.where(void, 0, 2**64 - 1)
+        ev["flags"][:k] = np.where(void, int(TF.void_pending_transfer),
+                                   int(TF.post_pending_transfer))
+        return wire_body([ev])
+
+    def hard(self) -> bytes:
+        ev = self._batch()
+        ev["id_lo"][-1] = ev["id_lo"][0]
+        return wire_body([ev])
+
+
+def durable_plan(acct_ops: int, n_ops: int, w: int, interval: int,
+                 turns: int) -> list:
+    """The ops after the account bodies, as (kind, n ops): singles to
+    the first checkpoint (`turns` plain ones first, timed beside a ledger
+    without the forest; then a closing, an imported and a resolve body),
+    two windows pipelined two deep to the second, a synchronous window,
+    a hard body, a resolve body, a pulse and singles to the third; the
+    rest of the n_ops bodies after it (the journal a restart replays)."""
+    check(2 * w == interval and interval - w >= 3
+          and interval - acct_ops >= turns + 3,
+          "durable: the plan does not fit its checkpoints")
+    plan = [("timed", turns), ("closing", 1), ("imported", 1),
+            ("resolve", 1), ("plain", interval - acct_ops - turns - 3),
+            ("pipelined", 2 * w), ("window", w), ("hard", 1),
+            ("resolve", 1), ("pulse", 1), ("plain", interval - w - 3)]
+    bodies = sum(n for kind, n in plan if kind != "pulse")
+    check(n_ops > bodies, "durable: no ops left after the last checkpoint")
+    plan.append(("journal", n_ops - bodies))
+    return [(kind, n) for kind, n in plan if n]
+
+
+def zone_digests(rep) -> dict:
+    """What a replica's checkpoints made durable, digested: its roots,
+    its data file's grid zone, snapshot zone and superblock copies, and
+    every tree's memtable."""
+    import hashlib
+
+    lay = rep.storage.layout
+    out = {"roots": list(rep.roots)}
+    for zone, size in (
+            ("grid", lay.grid_block_count * lay.grid_block_size),
+            ("snapshot", 2 * lay.snapshot_size_max),
+            ("superblock", 4 * 4096)):
+        h = hashlib.blake2b()
+        for off in range(0, size, 64 << 20):
+            h.update(rep.storage.read(zone, off, min(64 << 20, size - off)))
+        out[zone] = h.hexdigest()
+    for name, tree in rep.durable.forest.trees.items():
+        h = hashlib.blake2b()
+        for k, v in sorted(tree.memtable.items()):
+            h.update(k + v)
+        out[f"memtable {name}"] = h.hexdigest()
+    return out
+
+
+def tree_digests(forest) -> dict:
+    """Every tree's row count and a digest of its whole contents: the
+    logical state of a forest."""
+    import hashlib
+
+    out = {}
+    for name, tree in forest.trees.items():
+        h, n = hashlib.blake2b(), 0
+        for k, v in tree.scan(b"\x00" * tree.key_size,
+                              b"\xff" * tree.key_size):
+            h.update(k + v)
+            n += 1
+        out[name] = (n, h.hexdigest())
+    return out
+
+
+def _twin_main(conn, engine: str, layout, caps, interval: int,
+               threads: int) -> None:
+    """A CPU twin of the durable phase's replica, in its own process:
+    `engine` "device" (the port's device engine on the CPU) or "oracle";
+    commands in over `conn`, each answered with (True, result) or
+    (False, the traceback)."""
+    import traceback
+
+    from tigerbeetle_tpu_torch import StateMachine
+    from tigerbeetle_tpu_torch.types import Operation as Op
+    from tigerbeetle_tpu_torch.vsr.storage import MemoryStorage
+
+    torch.set_num_threads(threads)
+    sm = (StateMachine("device", a_cap=caps[0], t_cap=caps[1], device="cpu")
+          if engine == "device" else StateMachine("oracle", device="cpu"))
+    rep = DurableReplica.format(sm, MemoryStorage(layout), interval)
+    calls = {
+        "commit": lambda op, *a: rep.commit(Op(op), *a),
+        "commit_window": lambda op, *a: rep.commit_window(Op(op), *a),
+        "pipelined": lambda op, *a: rep.pipelined(Op(op), *a),
+        "read": lambda op, *a: rep.sm.commit(Op(op), *a),
+        "pulse_needed": lambda ts: rep.sm.pulse_needed(ts),
+        "files": lambda: zone_digests(rep),
+        "trees": lambda: tree_digests(rep.durable.forest),
+        "checkpoint_ms": lambda: [c["ms"] for c in rep.ckpts],
+    }
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            return
+        name, args = msg
+        try:
+            conn.send((True, calls[name](*args)))
+        except Exception:
+            conn.send((False, traceback.format_exc()))
+
+
+class Twin:
+    """The phase's end of a `_twin_main` process (spawned: the parent
+    holds the card). `send` starts a command, `recv` waits for it."""
+
+    def __init__(self, ctx, engine: str, layout, caps, interval: int):
+        self.engine = engine
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(
+            target=_twin_main, daemon=True,
+            args=(child, engine, layout, caps, interval,
+                  min(2, torch.get_num_threads())))
+        self.proc.start()
+        child.close()
+
+    def send(self, name: str, *args) -> None:
+        self.conn.send((name, args))
+
+    def recv(self):
+        try:
+            ok, out = self.conn.recv()
+        except EOFError:
+            ok, out = False, "the process ended"
+        check(ok, f"durable: the CPU {self.engine} twin failed:\n{out}")
+        return out
+
+    def call(self, name: str, *args):
+        self.send(name, *args)
+        return self.recv()
+
+    def stop(self) -> None:
+        try:
+            self.conn.send(None)
+        except (BrokenPipeError, OSError):
+            pass
+        self.proc.join(timeout=60)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+
+
+def durable_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
+                  n_ops: int = DU_OPS, w: int = DU_W,
+                  interval: int = DU_CHECKPOINT, n_after: int = DU_AFTER,
+                  n_lookups: int = DU_LOOKUPS, turns: int = DU_TURNS,
+                  layout=None, caps: tuple = (A_CAP, T_CAP)) -> dict:
+    """The durable layer on `dev`: `StateMachine(engine="device")` with a
+    `DurableState` on a `FileStorage` data file at `layout` (default
+    `StorageLayout()`: a 1,024-slot WAL of 1 MiB messages, a 512 MiB grid
+    of 64 KiB blocks; ~1.7 GB, sparse) in a temporary directory,
+    committed through `DurableReplica` beside two twins on the CPU, each
+    in its own process with its own forest, that get the same bodies at
+    the same time: the port's device engine (the same flush path: its
+    roots, grid zone, snapshot zone, superblock and memtables must equal
+    the card's byte for byte after every checkpoint) and the oracle
+    engine (every reply, the card's too, equal to its reply bytes; at
+    the last checkpoint every tree's contents equal the card's).
+
+    The ops follow `durable_plan` (n_ops bodies of `body` events after
+    the account bodies): singles, windows of w pipelined two deep, a
+    synchronous all_or_nothing window, a hard body on the mirror, a
+    pulse past the pendings' 1 s timeouts, a checkpoint every
+    `interval` ops. The first `turns` bodies are timed beside a ledger
+    without the forest (the same bodies, in turns). After the journal's
+    ops: lookups of n_lookups transfer and account ids from the forest,
+    cold and warm (VERIFY on for one op: the cache against the trees),
+    the five queries, each equal to the twins' bytes. Then the restart:
+    the file closed, reopened from its superblock and root, the device
+    ledger rebuilt (its digest equal to the one at the checkpoint), the
+    journal replayed (replies and digest equal to the first run's),
+    n_after more ops beside the twins. Returns the numbers."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from tigerbeetle_tpu_torch.vsr.storage import StorageLayout
+
+    t_phase = time.perf_counter()
+    layout = layout or StorageLayout()
+    tmp = tempfile.mkdtemp(prefix="tb_durable_")
+    ctx = multiprocessing.get_context("spawn")
+    twins: list = []
+    try:
+        twins = [Twin(ctx, engine, layout, caps, interval)
+                 for engine in ("device", "oracle")]
+        return _durable_run(
+            dev, twins, f"{tmp}/replica.tigerbeetle", layout, caps, t_phase,
+            n_accounts=n_accounts, body=body, n_ops=n_ops, w=w,
+            interval=interval, n_after=n_after, n_lookups=n_lookups,
+            turns=turns)
+    finally:
+        for t in twins:
+            t.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _durable_run(dev, twins, path, layout, caps, t_phase, *, n_accounts,
+                 body, n_ops, w, interval, n_after, n_lookups,
+                 turns) -> dict:
+    """durable_phase's body, with its twins started."""
+    from tigerbeetle_tpu_torch import StateMachine, constants, multi_batch
+    from tigerbeetle_tpu_torch.ops import create_seq, fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.ops.state_epoch import device_state_digest
+    from tigerbeetle_tpu_torch.types import (
+        AccountFilter, AccountFilterFlags, ChangeEventsFilter, Operation,
+        QueryFilter)
+    from tigerbeetle_tpu_torch.vsr.storage import FileStorage
+
+    O = Operation
+    CT = O.create_transfers
+    twin = twins[0]
+    cuda = torch.device(dev).type == "cuda"
+    fused_probe.LAUNCHES = RG.LAUNCHES = 0
+    seq0 = create_seq.LAUNCHES
+
+    def device_sm(d):
+        return StateMachine("device", a_cap=caps[0], t_cap=caps[1],
+                            device=d)
+
+    card = DurableReplica.format(
+        device_sm(dev), FileStorage(path, layout, create=True), interval)
+    bare = device_sm(dev)
+    tr = DurableTraffic(90, n_accounts, body)
+    replies_at: dict = {}        # op -> the card's reply
+    journal: list = []           # the ops after the last checkpoint
+    digests: dict = {}           # op -> device digest at a checkpoint
+    zone_checks = []
+
+    def same(label, got: list) -> bytes:
+        check(all(g == got[-1] for g in got),
+              f"durable {label}: the replies differ from the CPU oracle "
+              "engine's")
+        return got[0]
+
+    def check_files(label) -> None:
+        """After a checkpoint: the card's data file against the CPU
+        device-engine twin's, zone by zone, its memtables and roots."""
+        t = time.perf_counter()
+        twin.send("files")
+        mine = zone_digests(card)
+        theirs = twin.recv()
+        for key in mine:
+            check(mine[key] == theirs[key],
+                  f"durable {label}: the {key} differs from the CPU "
+                  "device engine's")
+        zone_checks.append((time.perf_counter() - t) * 1e3)
+
+    def run(name, op, *args) -> list:
+        """One op (or window) on the card and on both twins at once: the
+        replies, the card's first."""
+        n_ckpt = len(card.roots)
+        for t in twins:
+            t.send(name, int(op), *args)
+        got = [getattr(card, name)(op, *args)] + [t.recv() for t in twins]
+        if len(card.roots) > n_ckpt:
+            check_files(f"checkpoint at op {card.op}")
+            digests[card.op] = device_state_digest(card.sm.led.state)
+        return got
+
+    # ---- the account bodies
+    for raw, ts in tr.accounts():
+        same("accounts", run("commit", O.create_accounts, raw, ts))
+        bare.commit(O.create_accounts, raw, ts)
+    plan = durable_plan(card.op, n_ops, w, interval, turns)
+
+    # ---- the ops to the last checkpoint
+    commit_ms, bare_ms = [], []
+    for kind, n in plan:
+        if kind == "timed":
+            for i in range(n):
+                raw, ts = tr.plain(), tr.next_ts(body)
+                for t in twins:
+                    t.send("commit", int(CT), raw, ts)
+                got = {}
+                for who in (("bare", "card") if i % 2 else ("card", "bare")):
+                    sm = bare if who == "bare" else card.sm
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    got[who] = sm.commit(CT, raw, ts)
+                    sync(dev)
+                    (bare_ms if who == "bare" else commit_ms).append(
+                        (time.perf_counter() - t0) * 1e3)
+                card.post_commit()
+                check(got["card"] == got["bare"],
+                      "durable: the forest changed a reply")
+                same("timed", [got["card"]] + [t.recv() for t in twins])
+            bare.led.shutdown_staging()
+            bare.led.release()
+            bare = None
+            if cuda:
+                torch.cuda.empty_cache()
+        elif kind in ("pipelined", "window"):
+            windows = [(bodies, [tr.next_ts(body) for _ in bodies])
+                       for bodies in ([tr.plain() for _ in range(w)]
+                                      for _ in range(n // w))]
+            got = (run("pipelined", CT, windows) if kind == "pipelined"
+                   else run("commit_window", CT, *windows[0]))
+            check(got[0] == got[1] == got[2],
+                  f"durable {kind}: the replies differ from the CPU oracle "
+                  "engine's")
+        elif kind == "pulse":
+            tr.ts += 2 * 10**9
+            ts = tr.ts
+            check(card.sm.pulse_needed(ts) and all(
+                t.call("pulse_needed", ts) for t in twins),
+                  "durable: no pulse due past the pendings' timeouts")
+            run("commit", O.pulse, b"", ts)
+        else:
+            for _ in range(n):
+                raw = getattr(tr, "plain" if kind == "journal"
+                              else kind)()
+                ts = tr.next_ts(body)
+                if kind == "journal":
+                    journal.append((raw, ts))
+                fb0 = card.sm.led.fallbacks
+                op_no = card.op + 1
+                replies_at[op_no] = same(kind, run("commit", CT, raw, ts))
+                check(kind != "hard" or card.sm.led.fallbacks == fb0 + 1,
+                      "durable: the hard body did not run on the mirror")
+    check(len(card.roots) == 3 and len(zone_checks) == 3,
+          f"durable: {len(card.roots)} checkpoints")
+    last_ckpt = card.roots[-1]
+    digest_end = device_state_digest(card.sm.led.state)
+
+    # ---- every tree's contents against the oracle engine's forest
+    t = time.perf_counter()
+    twins[1].send("trees")
+    mine = tree_digests(card.durable.forest)
+    theirs = twins[1].recv()
+    for name in mine:
+        check(mine[name] == theirs[name],
+              f"durable: tree {name} differs from the oracle engine's")
+    trees_ms = (time.perf_counter() - t) * 1e3
+    rows = {name: n for name, (n, _) in mine.items()}
+
+    # ---- reads from the forest (nothing drains the card's mirror)
+    chunks0 = len(card.sm.led._mirror_chunks)
+    xids = [int(x) for x in tr.rng.choice(
+        np.arange(10**9, tr.next_id), n_lookups, replace=False)]
+    aids = [int(x) for x in tr.rng.integers(1, n_accounts + 1, n_lookups)]
+
+    def read(op, raw, label):
+        for t in twins:
+            t.send("read", int(op), raw, tr.ts)
+        sync(dev)
+        t0 = time.perf_counter()
+        got = card.sm.commit(op, raw, tr.ts)
+        ms = (time.perf_counter() - t0) * 1e3
+        same(label, [got] + [t.recv() for t in twins])
+        check(len(got) > 0, f"durable {label}: an empty reply")
+        return ms
+
+    lookup_ms = {}
+    for op, ids in ((O.lookup_transfers, xids), (O.lookup_accounts, aids)):
+        raw = multi_batch.encode(
+            [b"".join(i.to_bytes(16, "little") for i in ids)], 16)
+        cache = (card.sm._xfer_cache if op == O.lookup_transfers
+                 else card.sm._acct_cache)
+        card.sm._acct_cache.clear()
+        card.sm._xfer_cache.clear()
+        card.durable.grid.cache.clear()
+        cold = read(op, raw, f"{op.name} cold")
+        constants.set_verify(op == O.lookup_transfers)
+        try:
+            warm = read(op, raw, f"{op.name} warm")
+        finally:
+            constants.set_verify(False)
+        lookup_ms[op.name] = dict(cold_ms=cold, warm_ms=warm,
+                                  cache=dict(cache.stats()))
+    both = int(AccountFilterFlags.debits | AccountFilterFlags.credits)
+    hist_id = SV_HISTORY_EVERY
+    queries = [
+        (O.get_account_transfers, multi_batch.encode([AccountFilter(
+            account_id=hist_id, limit=200, flags=both).pack()], 128)),
+        (O.get_account_balances, multi_batch.encode([AccountFilter(
+            account_id=hist_id, limit=200, flags=both).pack()], 128)),
+        (O.query_accounts, multi_batch.encode([QueryFilter(
+            user_data_32=3, code=2, limit=200).pack()], 64)),
+        (O.query_transfers, multi_batch.encode([QueryFilter(
+            user_data_64=(1 << 63) + 2, code=3, limit=200,
+            flags=1).pack()], 64)),
+        (O.get_change_events, ChangeEventsFilter(limit=200).pack()),
+    ]
+    query_ms = {op.name: read(op, raw, op.name) for op, raw in queries}
+    check(len(card.sm.led._mirror_chunks) == chunks0,
+          "durable: a read drained the mirror")
+
+    before = card
+    print_durable_ops("durable (first run)", before)
+
+    # ---- restart from the data file
+    sync(dev)
+    card.sm.led.shutdown_staging()
+    card.sm.led.release()
+    card.sm = None
+    card.storage.close()
+    if cuda:
+        torch.cuda.empty_cache()
+    storage = FileStorage(path, layout)
+    card, open_ms, rebuild_ms = DurableReplica.reopen(
+        lambda: device_sm(dev), storage, interval, dev)
+    check(card.op == interval * 3 and card.roots == []
+          and storage.read("snapshot", card.sb.snapshot_slot
+                           * layout.snapshot_size_max,
+                           card.sb.snapshot_size) == last_ckpt,
+          "durable: the reopened superblock names another checkpoint")
+    check(device_state_digest(card.sm.led.state) == digests[card.op],
+          "durable: the rebuilt ledger's digest differs from the "
+          "checkpoint's")
+    memory = memory_now(dev)
+    for raw, ts in journal:
+        got = card.commit(CT, raw, ts)
+        check(got == replies_at[card.op],
+              f"durable: replayed op {card.op}'s reply differs")
+    check(device_state_digest(card.sm.led.state) == digest_end,
+          "durable: the digest after the replay differs")
+    for _ in range(n_after):
+        raw, ts = tr.plain(), tr.next_ts(body)
+        same("after the restart", run("commit", CT, raw, ts))
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+    check(not cuda or (launches[0] > 0 and launches[1] > 0),
+          f"durable: launches probe/gather {launches}")
+    check(create_seq.LAUNCHES == seq0, "durable: create_seq launched")
+    twin_ckpt_ms = twin.call("checkpoint_ms")
+    storage.close()
+
+    print_durable_ops("durable (after the restart)", card)
+    spans = before.spans + card.spans
+    by_path = {p: [s["flush_ms"] for s in spans if s["path"] == p]
+               for p in ("columns", "object")}
+    numbers = dict(
+        ops=card.op, bodies=n_ops + n_after, events_per_body=body,
+        plan=plan, layout=dict(slot_count=layout.slot_count,
+                               message_size_max=layout.message_size_max,
+                               grid_block_size=layout.grid_block_size,
+                               grid_block_count=layout.grid_block_count,
+                               file_bytes=layout.size),
+        commit_ms_forest=commit_ms, commit_ms_bare=bare_ms,
+        flush_ms_columns=by_path["columns"], flush_ms_object=by_path["object"],
+        beat_ms=[s["beat_ms"] for s in spans],
+        blocks=[s["blocks"] for s in spans],
+        checkpoints=before.ckpts, twin_checkpoint_ms=twin_ckpt_ms,
+        zone_check_ms=zone_checks, trees_ms=trees_ms,
+        tree_rows=rows, lookups=lookup_ms, query_ms=query_ms,
+        undrained_chunks_at_reads=chunks0,
+        open_ms=open_ms, rebuild_ms=rebuild_ms, memory_after_rebuild=memory,
+        launches=launches, elapsed_s=time.perf_counter() - t_phase)
+    print(f"durable: {numbers['ops']} ops, every reply equal to the CPU "
+          f"oracle engine's, 3 checkpoints byte-equal to the CPU device "
+          f"engine's; flush {np.mean(by_path['columns']):.1f} ms (columns, "
+          f"{len(by_path['columns'])} ops) / {np.mean(by_path['object']):.1f}"
+          f" ms (object, {len(by_path['object'])}); checkpoints "
+          f"{[round(c['ms'], 1) for c in before.ckpts]} ms, roots "
+          f"{[c['root_bytes'] for c in before.ckpts]} B; open "
+          f"{open_ms:.1f} ms, rebuild {rebuild_ms:.1f} ms; lookups "
+          f"{ {k: (round(v['cold_ms'], 1), round(v['warm_ms'], 1)) for k, v in lookup_ms.items()} }"
+          f" ms cold/warm; queries "
+          f"{ {k: round(v, 1) for k, v in query_ms.items()} } ms; commit "
+          f"{np.mean(commit_ms):.1f} ms with the forest, "
+          f"{np.mean(bare_ms):.1f} without; memory after the rebuild "
+          f"{memory}; launches probe/gather {launches}; "
+          f"{numbers['elapsed_s']:.1f} s; {card_line_or_cpu(dev)}",
+          flush=True)
+    return numbers
+
+
+def print_durable_ops(label, rep) -> None:
+    """One line an op: its flush path and ms, beat ms, grid blocks."""
+    for sp in rep.spans:
+        print(f"{label} op {sp['op']}: {sp['path']} flush "
+              f"{sp['flush_ms']:.1f} ms, beat {sp['beat_ms']:.1f} ms, "
+              f"{sp['blocks']} blocks", flush=True)
+    for c in rep.ckpts:
+        print(f"{label} checkpoint at op {c['op']}: {c['ms']:.1f} ms, root "
+              f"{c['root_bytes']} B", flush=True)
+
+
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
@@ -4304,6 +5105,7 @@ def main() -> int:
     bal = balancing_phase(dev)
     srv = serving_phase(dev)
     sup = supervisor_phase(dev)
+    dur = durable_phase(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -4339,6 +5141,9 @@ def main() -> int:
         # The supervisor phase's launches, its VERIFY audits' lookups
         # among them.
         "launches_supervisor": sup["launches"][0],
+        # The durable phase's: the card's device tiers, its windows'
+        # eager runs and captures, and the write-through delta gathers.
+        "launches_durable": dur["launches"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -4381,6 +5186,7 @@ def main() -> int:
         "launches_serving": srv["launches"][1],
         "launches_serving_delta": srv["delta_gathers"],
         "launches_supervisor": sup["launches"][1],
+        "launches_durable": dur["launches"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -4410,8 +5216,10 @@ def main() -> int:
         "replaces": "tigerbeetle_tpu/ops/create_kernels.py:664, "
                     "tigerbeetle_tpu/ops/create_kernels.py:792",
         "launches": seq["launches"],
-        # The serving phase's "kernel"-engine commits.
+        # The serving phase's "kernel"-engine commits; none on the
+        # durable phase (its StateMachine runs the device engine).
         "launches_serving": srv["create_seq_launches"],
+        "launches_durable": 0,
         "max_abs_err": seq["max_abs_err"],
         "ms": seq["ms"],
         "plain_ms": seq["plain_ms"],
@@ -4436,6 +5244,7 @@ def main() -> int:
     print(json.dumps({"balancing": bal}), flush=True)
     print(json.dumps({"serving": srv}), flush=True)
     print(json.dumps({"supervisor": sup}), flush=True)
+    print(json.dumps({"durable": dur}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -442,3 +442,53 @@ def test_chip_smoke_runs_the_supervisor_phase_last():
         "serving_phase(", "supervisor_phase(", "'supervisor'", "'kernels'")]
     assert order == sorted(order)
     assert main.count("'launches_supervisor'") == 2
+
+
+def test_durable_phase_rehearsed_on_the_cpu(calls):
+    """The durable phase at a small size on the CPU (`TEST_LAYOUT`, 200
+    accounts, 24 bodies of 100 events, windows of 4, a checkpoint every
+    8 ops): every reply equal to the oracle engine's, the data file equal
+    byte for byte to the CPU device engine's after each of the three
+    checkpoints, both flush paths taken, reads served from the forest,
+    the restart's digest and replayed journal held. The device tiers and
+    the delta gathers call the probe and the row gather."""
+    from tigerbeetle_tpu_torch.vsr.storage import TEST_LAYOUT
+
+    numbers = CS.durable_phase(
+        "cpu", n_accounts=200, body=100, n_ops=24, w=4, interval=8,
+        n_after=2, n_lookups=64, turns=2, layout=TEST_LAYOUT,
+        caps=(1 << 10, 1 << 14))
+    assert numbers["ops"] == 2 + 24 + 1 + 2     # accounts, bodies, pulse
+    assert [kind for kind, _ in numbers["plan"]] == [
+        "timed", "closing", "imported", "resolve", "plain", "pipelined",
+        "window", "hard", "resolve", "pulse", "plain", "journal"]
+    assert [c["op"] for c in numbers["checkpoints"]] == [8, 16, 24]
+    assert len(numbers["zone_check_ms"]) == 3
+    assert numbers["flush_ms_columns"] and numbers["flush_ms_object"]
+    assert len(numbers["commit_ms_forest"]) == len(
+        numbers["commit_ms_bare"]) == 2
+    assert sorted(numbers["query_ms"]) == sorted(
+        ("get_account_transfers", "get_account_balances", "query_accounts",
+         "query_transfers", "get_change_events"))
+    assert numbers["tree_rows"]["transfers"] > 2000
+    assert numbers["tree_rows"]["xfer_by_imported"] > 0
+    assert numbers["tree_rows"]["xfer_by_closing"] > 0
+    assert numbers["tree_rows"]["expiry"] >= 0
+    assert calls["probe"] > 0 and calls["gather"] > 0
+
+
+def test_chip_smoke_runs_the_durable_phase_after_the_supervisor():
+    """main() runs the durable phase after the supervisor phase, prints
+    its line before the kernels line, and every kernel carries its
+    launches on it."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "supervisor_phase(", "durable_phase(", "'durable'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_durable'") == 3

@@ -36,7 +36,17 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.trace, tigerbeetle_tpu_torch.serving, "
         "tigerbeetle_tpu_torch.admission, "
         "tigerbeetle_tpu_torch.utils.zipfian, "
-        "tigerbeetle_tpu_torch.testing.chaos\n"
+        "tigerbeetle_tpu_torch.testing.chaos, tigerbeetle_tpu_torch.ewah, "
+        "tigerbeetle_tpu_torch.lsm, tigerbeetle_tpu_torch.lsm.query, "
+        "tigerbeetle_tpu_torch.lsm.scan, "
+        "tigerbeetle_tpu_torch.lsm.manifest_level, "
+        "tigerbeetle_tpu_torch.lsm.cache_map, "
+        "tigerbeetle_tpu_torch.lsm.k_way_merge, "
+        "tigerbeetle_tpu_torch.lsm.zig_zag_merge, "
+        "tigerbeetle_tpu_torch.lsm.schema, tigerbeetle_tpu_torch.vsr, "
+        "tigerbeetle_tpu_torch.vsr.durable, "
+        "tigerbeetle_tpu_torch.vsr.storage, "
+        "tigerbeetle_tpu_torch.vsr.superblock\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -95,6 +105,22 @@ def test_port_sources_read_no_environment(path):
             assert node.id not in ("environ", "getenv"), (path, node.id)
 
 
+def test_the_durable_modules_are_the_ports_own():
+    """The durable layer's modules exist in the port (the AST check above
+    covers their sources): the EWAH codec, `vsr/` (checksum, header,
+    storage, superblock, durable) and `lsm/` (schema, cache map, grid,
+    manifest levels, tables, trees, the forest, the merges, scans and
+    the forest queries)."""
+    for name in ("ewah.py", "vsr/__init__.py", "vsr/checksum.py",
+                 "vsr/header.py", "vsr/storage.py", "vsr/superblock.py",
+                 "vsr/durable.py", "lsm/__init__.py", "lsm/schema.py",
+                 "lsm/cache_map.py", "lsm/grid.py", "lsm/manifest_level.py",
+                 "lsm/table.py", "lsm/tree.py", "lsm/forest.py",
+                 "lsm/k_way_merge.py", "lsm/zig_zag_merge.py",
+                 "lsm/scan.py", "lsm/query.py"):
+        assert (PORT / name) in _sources(), name
+
+
 def test_port_modules_import_no_triton_or_build_at_import():
     code = (
         "import sys, tigerbeetle_tpu_torch.ops.fused_probe as fp\n"
@@ -107,6 +133,8 @@ def test_port_modules_import_no_triton_or_build_at_import():
         "import tigerbeetle_tpu_torch.serving\n"
         "import tigerbeetle_tpu_torch.admission\n"
         "import tigerbeetle_tpu_torch.testing.chaos\n"
+        "import tigerbeetle_tpu_torch.vsr.durable\n"
+        "import tigerbeetle_tpu_torch.lsm.query\n"
         "assert cs._launch == {}\n"
         "assert 'triton' not in sys.modules\n"
         "assert fp._build._libs == {}\n")

@@ -75,9 +75,16 @@ mirror through the device lookups (`_verify_mirror_spot`, raising
 rows of the newest chunk; >= 1.0: every row of every chunk); `release()`
 gives a quarantined ledger's device memory back.
 
-Not ported here (later slices): the durable flush columns
-(`retain_flush_columns` / `take_flush_columns`) and the partitioned
-attach mode.
+Durable flush columns (`retain_flush_columns`, which
+`StateMachine.attach_durable` turns on): every queued chunk is also
+retained, at capture, as a flush entry `(t, e, der, n_new,
+events_seen_abs, orphan_ids)` that `take_flush_columns(count)` pops for
+`vsr/durable.py`'s column flush, so flushing needs no drain. One entry a
+batch that created rows or poisoned ids, and with all_or_nothing
+windows one a prepare, empty ones too, so a replica attributes entries
+to prepares by position.
+
+Not ported here (a later slice): the partitioned attach mode.
 
 The device is explicit: `DeviceLedger(device=None)` means CUDA and
 raises when no CUDA device is present; the tests pass `device="cpu"`.
@@ -988,6 +995,10 @@ class DeviceLedger:
         self._wt = write_through is not None
         self._op_seq = 0
         self._mirror_chunks: list = []
+        # The durable flusher's entries (retain_flush_columns), in op
+        # order, popped by take_flush_columns.
+        self.retain_flush_columns = False
+        self._flush_columns: list = []
         # Unloaded delta columns still holding device rows (at most 32).
         self._pending_cols: list = []
         # Device transfer rows, queued chunks included (len(_xfer_row)
@@ -1719,11 +1730,20 @@ class DeviceLedger:
                 c.load()
 
     def _queue_chunk(self, tc, ec, derc, t0: int, n_new: int,
-                     orphan_ids) -> None:
+                     orphan_ids, exact: bool = False) -> None:
         """Queue one batch's delta for the drain (n_new 0: its orphans
-        only, if any) and advance the host cursors."""
+        only, if any) and advance the host cursors. With
+        retain_flush_columns the same columns are retained for the
+        durable flush, and `exact` retains an entry even for a batch
+        that created nothing and poisoned nothing (the all_or_nothing
+        windows' one entry a prepare)."""
         op_no = self._op_seq
         self._op_seq += 1
+        if self.retain_flush_columns and (n_new or orphan_ids or exact):
+            # abs_start: the chunk's absolute event index, the flusher's
+            # double-flush watermark.
+            self._flush_columns.append(
+                (tc, ec, derc, n_new, self._events_seen_abs, orphan_ids))
         if n_new:
             self._track_pending_cols(tc, ec, derc)
             self._mirror_chunks.append((tc, ec, derc, t0, n_new,
@@ -1753,7 +1773,7 @@ class DeviceLedger:
             self._clear_dirty_dev()
 
     def _window_chunks(self, evs, st_slices, timestamps, e_only: bool,
-                       handle) -> None:
+                       handle, exact: bool = False) -> None:
         """Queue one chunk a prepare over a window's fetch (its created
         rows are contiguous, in commit order). e_only: the transfer and
         derived columns synthesize on the host."""
@@ -1761,7 +1781,8 @@ class DeviceLedger:
         for b, (ev, st) in enumerate(zip(evs, st_slices)):
             n_new, orphan_ids = _batch_delta_stats(ev, st)
             if not n_new:
-                self._queue_chunk(None, None, None, 0, 0, orphan_ids)
+                self._queue_chunk(None, None, None, 0, 0, orphan_ids,
+                                  exact)
                 continue
             if e_only:
                 tc = _SynthCols(_synth_t_cols, ev, st, timestamps[b])
@@ -1774,7 +1795,8 @@ class DeviceLedger:
             off += n_new
 
     def _capture_window_delta(self, evs: list, st_slices: list,
-                              timestamps: list) -> None:
+                              timestamps: list,
+                              exact_chunks: bool = False) -> None:
         """Write-through of a synchronous window: ONE fetch for the
         window's created rows (the window kernels append them
         contiguously in commit order) a group of at most 8·N_PAD rows,
@@ -1796,7 +1818,8 @@ class DeviceLedger:
                 handle = (self._ev_delta_fetch_start(total) if e_only
                           else self._delta_fetch_start(total))
             self._window_chunks(evs[lo:hi], st_slices[lo:hi],
-                                timestamps[lo:hi], e_only, handle)
+                                timestamps[lo:hi], e_only, handle,
+                                exact_chunks)
             lo = hi
         self._clear_dirty_dev()
         self._maybe_recycle_ring()
@@ -1824,6 +1847,22 @@ class DeviceLedger:
         self._window_chunks(tk.evs[:len(st_slices)], st_slices, tk.tss,
                             tk.e_only, handle)
         self._clear_dirty_dev()
+
+    def take_flush_columns(self, count: int = None) -> list:
+        """Pop the retained flush entries for the durable flusher's
+        column path: all of them (count=None), or exactly the oldest
+        `count` (one prepare's worth in a window commit, so each op's
+        flush carries that op's effects only)."""
+        if count is None:
+            cols, self._flush_columns = self._flush_columns, []
+            return cols
+        # A short pop would hand later ops' rows to this one and show only
+        # as a distant byte divergence between replicas: fail here.
+        assert len(self._flush_columns) >= count, \
+            (len(self._flush_columns), count)
+        cols = self._flush_columns[:count]
+        self._flush_columns = self._flush_columns[count:]
+        return cols
 
     def drain_mirror(self) -> None:
         """Materialize every queued delta into the host mirror. Called
@@ -2215,6 +2254,7 @@ class DeviceLedger:
         self.windows = None
         self._tickets = []
         self._mirror_chunks = []
+        self._flush_columns = []
         self._pending_cols = []
         self.state = None
         self.mirror = None
@@ -2455,7 +2495,8 @@ class DeviceLedger:
                                           n_pad)
                 if self._wt:
                     self._capture_window_delta(
-                        evs, [st for st, _ in results], timestamps)
+                        evs, [st for st, _ in results], timestamps,
+                        exact_chunks=all_or_nothing)
                 return results
             self.window_fallbacks += 1
             self._note_fb(out)

@@ -17,14 +17,18 @@ multi-batch trailer, src/vsr/multi_batch.zig). Engines:
   - "oracle": the pure-Python oracle.
 
 `device=None` means the card, and raises without one; the tests pass
-"cpu". Not ported here (later slices): the LSM read path
-(`attach_durable`, `cache_upsert`, `raw_state`).
+"cpu".
 
-Queries are served from incrementally-maintained secondary indexes — the
-host analog of the reference's 33 LSM index trees (tree ids at
-src/state_machine.zig:45-90). Index lists are keyed by field value and hold
-timestamps in ascending commit order (imported-timestamp regression checks
-guarantee inserts are timestamp-monotonic per groove).
+Standalone, queries are served from incrementally-maintained secondary
+indexes over the host state — the host analog of the reference's 33 LSM
+index trees (tree ids at src/state_machine.zig:45-90). Index lists are
+keyed by field value and hold timestamps in ascending commit order
+(imported-timestamp regression checks guarantee inserts are
+timestamp-monotonic per groove). With a durable forest attached
+(`attach_durable`), lookups and queries are served from the forest
+(`lsm/query.py`) behind bounded object caches, and never drain the
+device engine's mirror; `cache_upsert` keeps the caches coherent after
+each durable flush, and `raw_state` hands the flush the undrained state.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import time as _time
 
 import numpy as np
 
-from . import multi_batch
+from . import constants, multi_batch
 from .constants import (
     MESSAGE_BODY_SIZE_MAX,
     TIMESTAMP_MAX,
@@ -162,6 +166,11 @@ class StateMachine:
         self._acct_indexed = 0
         self._events_by_ts: dict[int, AccountEventRecord] = {}
         self._events_indexed = 0
+        # The forest read path (attach_durable): ForestQuery and the
+        # bounded object caches; None standalone.
+        self._fq = None
+        self._acct_cache = None
+        self._xfer_cache = None
         # Per-operation commit timing table (op name -> count/total/max).
         self.metrics: dict[str, dict] = {}
         # Pipelined commit windows awaiting resolution (submit_commit_window).
@@ -171,7 +180,60 @@ class StateMachine:
         # ledger's staged pack can be consumed by identity.
         self._staged_window = None
 
+    # -------------------------------------------------------- LSM serving
+
+    def attach_durable(self, durable, *, cache_sets: int = 1024,
+                       ways: int = 8) -> None:
+        """Serve reads from `durable`'s LSM forest behind a bounded object
+        cache (reference: groove object cache + prefetch,
+        src/lsm/groove.zig:885,996,1339). Queries route through
+        ForestQuery; lookups hit the cache first and fall through to the
+        object trees on a miss. At most 2 * cache_sets * ways cached
+        objects. On the device engine the event ring becomes a per-batch
+        transport (recycle_events: the history lives in the forest) and
+        the ledger retains its delta columns for the durable flush
+        (retain_flush_columns)."""
+        from .lsm.cache_map import ObjectCache
+        from .lsm.query import ForestQuery
+
+        self._fq = ForestQuery(durable.forest)
+        self._acct_cache = ObjectCache(sets=cache_sets, ways=ways)
+        self._xfer_cache = ObjectCache(sets=cache_sets, ways=ways)
+        if self.led is not None:
+            self.led.recycle_events = True
+            self.led.retain_flush_columns = True
+
+    def cache_upsert(self, acct_ids, xfer_ids) -> None:
+        """Cache coherence after a durable flush. Device engine: the
+        flush consumed device delta columns (the mirror holds no objects
+        for them yet), so the flushed ids are dropped and the next read
+        misses into the just-written trees, with no drain. Host engines:
+        the cached copies are refreshed from the state."""
+        if self._fq is None:
+            return
+        if self.led is not None:
+            for aid in acct_ids:
+                self._acct_cache.remove(aid)
+            for tid in xfer_ids:
+                self._xfer_cache.remove(tid)
+            return
+        for aid in acct_ids:
+            a = self.state.accounts.get(aid)
+            if a is not None:
+                self._acct_cache.put(aid, a)
+        for tid in xfer_ids:
+            t = self.state.transfers.get(tid)
+            if t is not None:
+                self._xfer_cache.put(tid, t)
+
     # ------------------------------------------------------------- state
+
+    @property
+    def raw_state(self) -> StateMachineOracle:
+        """The state WITHOUT draining the device engine's deferred mirror:
+        for the durable flush only, which consumes the delta columns
+        directly. Every object-level reader uses `state`."""
+        return self._state
 
     @property
     def state(self) -> StateMachineOracle:
@@ -205,6 +267,9 @@ class StateMachine:
         self._acct_indexed = 0
         self._events_by_ts = {}
         self._events_indexed = 0
+        if self._acct_cache is not None:
+            self._acct_cache.clear()
+            self._xfer_cache.clear()
 
     # ------------------------------------------------------------- creates
 
@@ -227,10 +292,48 @@ class StateMachine:
     # ------------------------------------------------------------- lookups
 
     def lookup_accounts(self, ids: list[int]) -> list[Account]:
+        if self._fq is not None:
+            return self._lookup_batched(
+                ids, self._acct_cache, "accounts", Account)
         return [self.state.accounts[i] for i in ids if i in self.state.accounts]
 
     def lookup_transfers(self, ids: list[int]) -> list[Transfer]:
+        if self._fq is not None:
+            return self._lookup_batched(
+                ids, self._xfer_cache, "transfers", Transfer)
         return [self.state.transfers[i] for i in ids if i in self.state.transfers]
+
+    def _lookup_batched(self, ids, cache, tree_name, cls) -> list:
+        """Cache hits first; all misses go to the object tree as one
+        batched fan-out (Tree.get_many) and refill the cache: a cold
+        batch costs one read round an LSM level, not one read an id
+        (reference: src/lsm/groove.zig:996,1339)."""
+        hit: dict = {}
+        misses = []
+        for i in ids:
+            obj = cache.get(i)
+            if obj is not None:
+                hit[i] = obj
+            elif i not in hit:
+                misses.append(i)
+        tree = self._fq.forest.trees[tree_name]
+        if misses:
+            unique = list(dict.fromkeys(misses))
+            got = tree.get_many([i.to_bytes(16, "big") for i in unique])
+            for i in unique:
+                raw = got.get(i.to_bytes(16, "big"))
+                if raw is not None:
+                    obj = cls.unpack(raw)
+                    cache.put(i, obj)
+                    hit[i] = obj
+        if constants.VERIFY and hit:
+            # Extra-check mode: cached objects match their tree copies
+            # (both are updated at the durable flush boundary).
+            for i, obj in list(hit.items())[:4]:
+                raw = tree.get(i.to_bytes(16, "big"))
+                assert raw is not None and cls.unpack(raw) == obj, \
+                    f"verify: cache/tree divergence on {tree_name} {i}"
+        return [hit[i] for i in ids if i in hit]
 
     # ------------------------------------------------------------- indexes
 
@@ -317,6 +420,8 @@ class StateMachine:
     def get_account_transfers(self, f: AccountFilter) -> list[Transfer]:
         """reference: src/state_machine.zig:3294-3310 + scan construction
         :1737-1831 (debits OR credits, AND user_data/code, range, limit)."""
+        if self._fq is not None:
+            return self._fq.get_account_transfers(f)
         if not self._account_filter_valid(f):
             return []
         limit = min(f.limit,
@@ -329,6 +434,8 @@ class StateMachine:
         """reference: src/state_machine.zig:1568-1666, 3312-3357 — the same
         transfer scan, mapped through account_events history rows; only for
         accounts with flags.history."""
+        if self._fq is not None:
+            return self._fq.get_account_balances(f)
         if not self._account_filter_valid(f):
             return []
         account = self.state.accounts.get(f.account_id)
@@ -406,6 +513,8 @@ class StateMachine:
 
     def query_accounts(self, f: QueryFilter) -> list[Account]:
         """reference: src/state_machine.zig:3359-3375 + :2054-2124."""
+        if self._fq is not None:
+            return self._fq.query_accounts(f)
         if not self._query_filter_valid(f):
             return []
         cap = OPERATION_SPECS[Operation.query_accounts].result_max()
@@ -413,6 +522,8 @@ class StateMachine:
                 for ts in self._query(f, "accounts", cap)]
 
     def query_transfers(self, f: QueryFilter) -> list[Transfer]:
+        if self._fq is not None:
+            return self._fq.query_transfers(f)
         if not self._query_filter_valid(f):
             return []
         cap = OPERATION_SPECS[Operation.query_transfers].result_max()
@@ -431,6 +542,8 @@ class StateMachine:
         )
         if not valid:
             return []
+        if self._fq is not None:
+            return self._fq.get_change_events(f)
         self._refresh_indexes()
         ts_min = f.timestamp_min or 1
         ts_max = f.timestamp_max or TIMESTAMP_MAX
