@@ -16,7 +16,9 @@ and on the kernel engine) and the serving supervisor in front of it
 (`tigerbeetle_tpu_torch.ServingSupervisor`: verified epochs, injected
 faults and bounded replay recovery, the chaos seeds, the admission
 plane) and the durable layer under it (the LSM forest in a data file,
-checkpoints, a restart) — at the ledger's default capacities, and
+checkpoints, a restart) and the replica server over it (`main.py
+start`, clients over TCP, a crash and restart, a 3-replica cluster) —
+at the ledger's default capacities, and
 holds its three CUDA kernels against their plain PyTorch twins. Phases,
 each failing the run with a nonzero exit:
 
@@ -130,8 +132,8 @@ each failing the run with a nonzero exit:
               "kernel"-engine commits of config-3 bodies (create_seq).
  15. supervisor  `ServingSupervisor` at the ledger's default capacities
               with VERIFY on, fed windows of 8,190-event config-2
-              prepares over 10,000 accounts: (a) clean, windows of 4 and
-              of 8 synchronous and pipelined two deep, each timed beside
+              prepares over 10,000 accounts: (a) clean, windows of 8
+              synchronous and pipelined two deep, each timed beside
               the same window on a bare write-through ledger, an epoch
               verified after each width (its drain, oracle replay, two
               digests and mirror audit timed), zero recoveries; (b)
@@ -147,17 +149,27 @@ each failing the run with a nonzero exit:
               `StateMachine(engine="device")` at the ledger's default
               capacities with a `DurableState` on a `FileStorage` data
               file at the default `StorageLayout()` (a 512 MiB grid of
-              64 KiB blocks), 10,000 accounts and 48 config-2 bodies of
-              8,189 events (singles, windows of 8 pipelined two deep and
-              synchronous, a closing, an imported, a hard and two
-              post/void bodies, a pulse), after every op the replica's
-              flush policy, a compaction beat, a checkpoint every 16 ops;
-              beside two CPU twins, each in a process of its own: every
-              reply equal to the oracle engine's, the data file equal
-              byte for byte to the device engine's after every
-              checkpoint; lookups and the five queries served from the
-              forest; a restart from the file (digest held, journal
-              replayed, 8 more ops).
+              64 KiB blocks), 10,000 accounts and 18 config-2 bodies of
+              8,189 events (singles, windows of 4 pipelined two deep, a
+              closing, an imported, a post/void and a hard body), after
+              every op the replica's flush policy, a compaction beat, a
+              checkpoint at op 16; beside two CPU twins, each in a
+              process of its own: every reply equal to the oracle
+              engine's, the data file equal byte for byte to the device
+              engine's after the checkpoint; lookups and the five
+              queries served from the forest; a restart from the file
+              (digest held, ops 17-20 replayed).
+ 17. replica  the replica server through its entry points: `python -m
+              tigerbeetle_tpu_torch format`, `main.main(["start", ...])`
+              in a child process (the device engine on the card, the
+              native storage engine's asynchronous WAL), 8 clients of
+              `vsr/client.py` sending 48 bodies of 8,189 events after
+              10,000 accounts, a SIGKILL after op 35 and a restart on the
+              file, lookups, a query and a duplicate, SIGTERM, `inspect
+              --digest`; every reply equal to a CPU oracle twin fed the
+              WAL; a 3-replica cluster of device engines on the card (a
+              primary crash, a view change, a catch-up) equal to an
+              oracle cluster on the CPU.
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -165,8 +177,9 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"exact_path": ...}`, `{"config2_window": ...}`,
 `{"config4_window": ...}`, `{"window_fallbacks": ...}`,
 `{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}`,
-`{"supervisor": ...}`, `{"durable": ...}` and `{"kernels": [...]}` lines,
-and last `{"ok": true, "device": {...}}`.
+`{"supervisor": ...}`, `{"durable": ...}`, `{"replica": ...}`,
+`{"phase_seconds": ...}` and `{"kernels": [...]}` lines, and last
+`{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
 """
 
@@ -293,20 +306,22 @@ BAL_W_TIMED = 3
 # trailer takes one 128-byte element of the 1 MiB message: BATCH - 1
 # events fit, as in the JAX package's serving benchmark); windows of SV_W
 # bodies; 1 account in SV_HISTORY_EVERY keeps history; config 4's
-# accounts from SV_C4_ACCT0 + 1.
+# accounts from SV_C4_ACCT0 + 1. SV_TIMED, SV_KERNEL and SP_WIDTHS are
+# cut (from 6, 2 and (4, 8)) to keep the whole script within its time
+# with the replica phase (PERF.md section 4).
 SV_BODY = BATCH - 1
 SV_CHECKED = 3
-SV_TIMED = 6
+SV_TIMED = 4
 SV_W = 8
 SV_W_SYNC = 3
 SV_W_PIPED = 2
 SV_C4_PAIRS = 2
-SV_KERNEL = 2
+SV_KERNEL = 1
 SV_HISTORY_EVERY = 64
 SV_C4_ACCT0 = 20_000
 # The supervisor phase: (a)'s window widths (prepares a window), (c)'s
 # chaos seeds (the chaos harness's gate seeds).
-SP_WIDTHS = (4, 8)
+SP_WIDTHS = (8,)
 SP_CHAOS_SEEDS = (1, 2, 3, 7)
 
 # The durable phase (the JAX package's replica commit loop minus
@@ -316,13 +331,17 @@ SP_CHAOS_SEEDS = (1, 2, 3, 7)
 # bodies a window; 1 event in DU_PEND_EVERY a pending (a 1 s timeout on
 # half of them); then a restart from the last checkpoint, the journal's
 # later ops replayed, and DU_AFTER more ops; lookups of DU_LOOKUPS ids.
-DU_OPS = 48
+# A regression check of the stand-in, the replica phase carrying the
+# full-size forest through the real loop: 33 bodies, checkpoints at 16
+# and at 32 (the end of the forest's first bar), the restart replaying
+# ops 33-36 and 2 ops after it (PERF.md section 4 lists the cut).
+DU_OPS = 33
 DU_CHECKPOINT = 16
-DU_W = 8
+DU_W = 4
 DU_PEND_EVERY = 16
-DU_AFTER = 8
+DU_AFTER = 2
 DU_LOOKUPS = BATCH
-DU_TURNS = 6
+DU_TURNS = 2
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -2146,13 +2165,9 @@ def drive_pipelined(led, windows) -> list:
     return results
 
 
-def window_trace(dev, fn, label: str) -> dict:
-    """One call of fn() under torch.profiler: its device-busy ms, its
-    device ops and its probe and row-gather kernel counts (None where the
-    trace holds no device time, and on the CPU)."""
-    if torch.device(dev).type != "cuda":
-        fn()
-        return dict(busy_ms=None, ops=None, probes=None, gathers=None)
+def _trace_by_name(dev, fn) -> dict:
+    """{kernel or op name: (device ms, launches)} from a torch.profiler
+    trace of one call of fn()."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
@@ -2167,22 +2182,61 @@ def window_trace(dev, fn, label: str) -> dict:
         if us:
             m, n = by_name.get(e.key, (0.0, 0))
             by_name[e.key] = (m + us / 1e3, n + e.count)
-    if not by_name:
+    return by_name
+
+
+def _kernel_counts(by_name: dict) -> tuple:
+    return (sum(v[1] for k, v in by_name.items() if "ht_probe_kernel" in k),
+            sum(v[1] for k, v in by_name.items() if "row_gather" in k))
+
+
+def window_trace(dev, fn, label: str, replay=None, want=None,
+                 attempts: int = 4) -> dict:
+    """One call of fn() under torch.profiler: its device-busy ms, its
+    device ops and its probe and row-gather kernel counts (None where the
+    trace holds no device time, and on the CPU). The profiler now and
+    then drops device events from a trace, and fn() commits a window, so
+    it runs once: where its trace's kernel counts differ from `want`,
+    `replay` (a call that runs the same kernels and leaves the state as
+    it was: a poisoned replay of the window's graph) is traced up to
+    attempts - 1 times, and the first trace holding `want`, else the one
+    holding the most of those kernels, is kept."""
+    if torch.device(dev).type != "cuda":
+        fn()
+        return dict(busy_ms=None, ops=None, probes=None, gathers=None)
+    best = _trace_by_name(dev, fn)
+    taken = 1
+    if replay is not None and want is not None:
+        while _kernel_counts(best) != tuple(want) and taken < attempts:
+            got = _trace_by_name(dev, replay)
+            taken += 1
+            if (_kernel_counts(got) == tuple(want)
+                    or sum(_kernel_counts(got)) > sum(_kernel_counts(best))):
+                best = got
+    if not best:
         print(f"{label}: the trace holds no device time", flush=True)
         return dict(busy_ms=None, ops=None, probes=None, gathers=None)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    out = dict(busy_ms=sum(v[0] for v in by_name.values()),
-               ops=sum(v[1] for v in by_name.values()),
-               probes=sum(v[1] for k, v in by_name.items()
-                          if "ht_probe_kernel" in k),
-               gathers=sum(v[1] for k, v in by_name.items()
-                           if "row_gather" in k))
+    top = sorted(best.items(), key=lambda kv: -kv[1][0])[:8]
+    probes, gathers = _kernel_counts(best)
+    out = dict(busy_ms=sum(v[0] for v in best.values()),
+               ops=sum(v[1] for v in best.values()),
+               probes=probes, gathers=gathers, traces=taken)
     print(f"{label}: device busy {out['busy_ms']} ms, {out['ops']} device "
           f"ops, probe kernels {out['probes']}, row-gather kernels "
-          f"{out['gathers']}; top (ms, count): "
+          f"{out['gathers']} ({taken} trace(s)); top (ms, count): "
           + "; ".join(f"{k[:60]} {v[0]:.4f} x{v[1]}" for k, v in top),
           flush=True)
     return out
+
+
+def last_graph_replay(led):
+    """A call that replays, poisoned, the window graph the ledger replayed
+    last when it is called (nothing where the ledger holds no graph, as
+    on the CPU)."""
+    def replay():
+        if led.windows._graphs:
+            poisoned_replay(led, next(reversed(led.windows._graphs)))
+    return replay
 
 
 def check_trace(label, trace, route, W) -> None:
@@ -2394,7 +2448,9 @@ def config2_window_phase(dev, n_accounts: int = N_ACCOUNTS,
         g_res[len(windows) - 2] = G.create_transfers_window(*prof_w)
 
     trace = window_trace(dev, profiled,
-                         f"config-2 window of {w_timed} (one replay)")
+                         f"config-2 window of {w_timed} (one replay)",
+                         replay=last_graph_replay(G),
+                         want=window_launches("chain", w_timed))
     check_trace("config-2 window", trace, "chain", w_timed)
 
     # The same prepares one batch at a time on P (timed over the windows
@@ -2554,7 +2610,9 @@ def config4_window_phase(dev, batch: int = BATCH, pairs: int = C4_W_PAIRS,
                           for w in res for st, _ in w)
     prof_w = window()
     trace = window_trace(dev, lambda: card.create_transfers_window(*prof_w),
-                         f"config-4 window of {2 * pairs} (one replay)")
+                         f"config-4 window of {2 * pairs} (one replay)",
+                         replay=last_graph_replay(card),
+                         want=window_launches("super_deep", 2 * pairs))
     check_trace("config-4 window", trace, "super_deep", 2 * pairs)
     double_entry(card)
     parts = window_breakdown(dev, card, "super_deep", prof_w)
@@ -3071,7 +3129,9 @@ def imported_phase(dev, n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
     prof_w = window()
     w_trace = window_trace(
         dev, lambda: trio.card.create_transfers_window(*prof_w),
-        f"imported window of {w} (one replay)")
+        f"imported window of {w} (one replay)",
+        replay=last_graph_replay(trio.card),
+        want=window_launches("super_imported", w))
     check_trace("imported window", w_trace, "super_imported", w)
     check(trio.card.window_routes == {"super_imported": w_checked
                                       + w_timed + 1}
@@ -3279,10 +3339,15 @@ def balancing_phase(dev, batch: int = BATCH, n_checked: int = BAL_CHECKED,
     # One window's device work: a poisoned replay of the route's graph
     # (force_fallback set: every kernel of a committing window runs, the
     # state is untouched).
+    def balancing_replay():
+        poisoned_replay(trio.card,
+                        ("super_balancing", 2 * pairs, _pad_bucket(batch)))
+
     w_trace = window_trace(
-        dev, lambda: poisoned_replay(
-            trio.card, ("super_balancing", 2 * pairs, _pad_bucket(batch))),
-        f"balancing window of {2 * pairs} (one poisoned replay)")
+        dev, balancing_replay,
+        f"balancing window of {2 * pairs} (one poisoned replay)",
+        replay=balancing_replay,
+        want=window_launches("super_balancing", 2 * pairs))
     check_trace("balancing window", w_trace, "super_balancing", 2 * pairs)
     counted, ran = graph_launches(trio.card.windows)
     launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
@@ -4574,19 +4639,20 @@ class DurableTraffic:
 
 def durable_plan(acct_ops: int, n_ops: int, w: int, interval: int,
                  turns: int) -> list:
-    """The ops after the account bodies, as (kind, n ops): singles to
-    the first checkpoint (`turns` plain ones first, timed beside a ledger
-    without the forest; then a closing, an imported and a resolve body),
-    two windows pipelined two deep to the second, a synchronous window,
-    a hard body, a resolve body, a pulse and singles to the third; the
-    rest of the n_ops bodies after it (the journal a restart replays)."""
-    check(2 * w == interval and interval - w >= 3
-          and interval - acct_ops >= turns + 3,
+    """The ops after the account bodies, as (kind, n ops), to two
+    checkpoints (at the card's interval of 16 the second falls where the
+    forest's first bar of 32 ops ends): singles to the first (`turns`
+    plain ones first, timed beside a ledger without the forest; then a
+    closing, an imported and a resolve body), then two windows pipelined
+    two deep, a synchronous window, a hard body, a resolve body, a pulse
+    and singles to the second; then the rest of the n_ops bodies (the
+    journal a restart replays)."""
+    check(3 * w + 3 <= interval and interval - acct_ops >= turns + 3,
           "durable: the plan does not fit its checkpoints")
     plan = [("timed", turns), ("closing", 1), ("imported", 1),
             ("resolve", 1), ("plain", interval - acct_ops - turns - 3),
             ("pipelined", 2 * w), ("window", w), ("hard", 1),
-            ("resolve", 1), ("pulse", 1), ("plain", interval - w - 3)]
+            ("resolve", 1), ("pulse", 1), ("plain", interval - 3 * w - 3)]
     bodies = sum(n for kind, n in plan if kind != "pulse")
     check(n_ops > bodies, "durable: no ops left after the last checkpoint")
     plan.append(("journal", n_ops - bodies))
@@ -4889,7 +4955,7 @@ def _durable_run(dev, twins, path, layout, caps, t_phase, *, n_accounts,
                 replies_at[op_no] = same(kind, run("commit", CT, raw, ts))
                 check(kind != "hard" or card.sm.led.fallbacks == fb0 + 1,
                       "durable: the hard body did not run on the mirror")
-    check(len(card.roots) == 3 and len(zone_checks) == 3,
+    check(len(card.roots) == 2 and len(zone_checks) == 2,
           f"durable: {len(card.roots)} checkpoints")
     last_ckpt = card.roots[-1]
     digest_end = device_state_digest(card.sm.led.state)
@@ -4971,7 +5037,7 @@ def _durable_run(dev, twins, path, layout, caps, t_phase, *, n_accounts,
     storage = FileStorage(path, layout)
     card, open_ms, rebuild_ms = DurableReplica.reopen(
         lambda: device_sm(dev), storage, interval, dev)
-    check(card.op == interval * 3 and card.roots == []
+    check(card.op == 2 * interval and card.roots == []
           and storage.read("snapshot", card.sb.snapshot_slot
                            * layout.snapshot_size_max,
                            card.sb.snapshot_size) == last_ckpt,
@@ -5018,7 +5084,7 @@ def _durable_run(dev, twins, path, layout, caps, t_phase, *, n_accounts,
         open_ms=open_ms, rebuild_ms=rebuild_ms, memory_after_rebuild=memory,
         launches=launches, elapsed_s=time.perf_counter() - t_phase)
     print(f"durable: {numbers['ops']} ops, every reply equal to the CPU "
-          f"oracle engine's, 3 checkpoints byte-equal to the CPU device "
+          f"oracle engine's, 2 checkpoints byte-equal to the CPU device "
           f"engine's; flush {np.mean(by_path['columns']):.1f} ms (columns, "
           f"{len(by_path['columns'])} ops) / {np.mean(by_path['object']):.1f}"
           f" ms (object, {len(by_path['object'])}); checkpoints "
@@ -5045,6 +5111,965 @@ def print_durable_ops(label, rep) -> None:
     for c in rep.ckpts:
         print(f"{label} checkpoint at op {c['op']}: {c['ms']:.1f} ms, root "
               f"{c['root_bytes']} B", flush=True)
+
+
+# ------------------------------------------------------- the replica phase
+
+RP_CLIENTS = 8              # one request in flight each: the pipeline's 8
+RP_BODIES = 6               # create_transfers bodies a client
+RP_KILL_AT = 35             # SIGKILL once a client holds this op's reply
+RP_GET_LIMIT = 200
+RP_TIMEOUT_S = 300.0        # a client's patience (a restart takes ~20 s)
+RC_OPS = 24                 # the cluster's ops, its accounts body first
+RC_BODY = 500               # events a cluster body: TEST_LAYOUT's 64 KiB
+RC_CRASH_AT = 12            # the primary crashes once this op committed
+RC_SEED = 17
+RC_CAPS = (1 << 12, 1 << 14)
+SERVER_SPANS = ("commit_execute", "commit_compact", "commit_checkpoint",
+                "journal_recover")
+
+
+def _launch_counts() -> tuple:
+    from tigerbeetle_tpu_torch.ops import create_seq, fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+
+    return fused_probe.LAUNCHES, RG.LAUNCHES, create_seq.LAUNCHES
+
+
+def _server_main(conn, argv, log_path) -> None:
+    """The replica server, in a child process: `tigerbeetle_tpu_torch.
+    main.main(argv)` (`start`) with this harness's taps around it, its
+    output appended to log_path. Over `conn` it reports, as they happen:
+    ("open", ...) once `Replica.open` returned (the kernel wrappers'
+    counts set to 0 just before it, after the warmup; the storage's
+    native and async engines; the engine and device; open, forest-open,
+    ledger-rebuild, journal-scan and WAL-replay ms; the ops it committed
+    from the journal), ("span", name, ms, op, window) for the replica's commit,
+    compaction and checkpoint spans, ("flush", ms) and ("beat", ms) for
+    each durable flush and compaction beat, ("prepare", op, operation)
+    after each prepare it makes as the primary, ("commit", op, launches)
+    after each op; and ("exit", ...) when the main loop returned on
+    SIGTERM (the counts, the memory the allocator reserved at its peak,
+    the replica's op and commit_min, the windows it committed)."""
+    import os
+
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    from tigerbeetle_tpu_torch import StateMachine, main as tb_main
+    from tigerbeetle_tpu_torch.ops import create_seq, fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.trace.tracer import Tracer
+    from tigerbeetle_tpu_torch.vsr.durable import DurableState
+    from tigerbeetle_tpu_torch.vsr.journal import Journal
+    from tigerbeetle_tpu_torch.vsr.replica import Replica
+
+    holder, timing = [], {}
+
+    def cuda_sync():
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    def timed(cls, name, key, after=None):
+        orig = getattr(cls, name)
+
+        def wrapper(self, *args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return orig(self, *args, **kwargs)
+            finally:
+                ms = (time.perf_counter() - t) * 1e3
+                timing[key] = timing.get(key, 0.0) + ms
+                if after is not None:
+                    after(ms)
+        setattr(cls, name, wrapper)
+
+    timed(DurableState, "open", "durable_open_ms")
+    timed(Journal, "recover", "recover_ms")
+    # The WAL suffix's commits at open: a primary re-adopts each journaled
+    # prepare (its self-ack commits it), anyone else replays them.
+    timed(Replica, "_primary_adopt_canonical", "replay_ms")
+    timed(Replica, "_commit_journal", "replay_ms")
+    timed(DurableState, "flush", "flush_ms",
+          lambda ms: conn.send(("flush", ms)))
+    timed(DurableState, "compact_beat", "beat_ms",
+          lambda ms: conn.send(("beat", ms)))
+    prop = StateMachine.state
+
+    def set_state(self, value):
+        cuda_sync()
+        t = time.perf_counter()
+        prop.fset(self, value)
+        cuda_sync()
+        timing["rebuild_ms"] = (timing.get("rebuild_ms", 0.0)
+                                + (time.perf_counter() - t) * 1e3)
+    StateMachine.state = property(prop.fget, set_state)
+    record = Tracer._record
+
+    def tap(self, ev, start, dur, tags, tid):
+        record(self, ev, start, dur, tags, tid)
+        if ev.name in SERVER_SPANS:
+            conn.send(("span", ev.name, dur / 1e6, tags.get("op"),
+                       tags.get("window")))
+    Tracer._record = tap
+    open_ = Replica.open
+
+    def opened(self):
+        holder.append(self)
+        fused_probe.LAUNCHES = RG.LAUNCHES = create_seq.LAUNCHES = 0
+        for k in list(timing):
+            timing[k] = 0.0
+        t = time.perf_counter()
+        open_(self)
+        cuda_sync()
+        sm, st = self.state_machine, self.storage
+        conn.send(("open", dict(
+            native=st.native is not None, aio=st.aio is not None,
+            engine=sm.engine, device=str(sm.device),
+            op_checkpoint=self.superblock.op_checkpoint, op=self.op,
+            commit_min=self.commit_min,
+            replayed=self.commit_min - self.superblock.op_checkpoint,
+            open_ms=(time.perf_counter() - t) * 1e3, **timing,
+            launches=_launch_counts())))
+    Replica.open = opened
+    post = Replica._post_commit
+
+    def posted(self, prepare, result, chunk_count=None):
+        post(self, prepare, result, chunk_count)
+        conn.send(("commit", prepare.header.op, _launch_counts()))
+    Replica._post_commit = posted
+    prepare = Replica._primary_prepare
+
+    def prepared(self, operation, body, **kwargs):
+        op = self.op
+        prepare(self, operation, body, **kwargs)
+        if self.op > op:
+            conn.send(("prepare", self.op, int(operation)))
+    Replica._primary_prepare = prepared
+
+    try:
+        rc = tb_main.main(argv)
+    except BaseException:
+        import traceback
+
+        conn.send(("error", traceback.format_exc()))
+        raise
+    rep = holder[-1] if holder else None
+    conn.send(("exit", dict(
+        rc=rc, op=rep.op if rep else None,
+        commit_min=rep.commit_min if rep else None,
+        windows=rep._windows_committed if rep else None,
+        launches=_launch_counts(),
+        max_reserved=(torch.cuda.max_memory_reserved()
+                      if torch.cuda.is_initialized() else 0))))
+    conn.close()
+
+
+class ServerChild:
+    """A `_server_main` process and a thread collecting its reports."""
+
+    def __init__(self, ctx, argv, log_path):
+        self.msgs: list = []
+        self.ready = threading.Event()
+        self.exited = threading.Event()
+        recv, send = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_server_main, daemon=True,
+                                args=(send, argv, log_path))
+        self.t0 = time.perf_counter()
+        self.proc.start()
+        send.close()
+        self.reader = threading.Thread(target=self._read, args=(recv,),
+                                       daemon=True)
+        self.reader.start()
+
+    def _read(self, recv) -> None:
+        while True:
+            try:
+                msg = recv.recv()
+            except (EOFError, OSError):
+                break
+            self.msgs.append((time.perf_counter(), msg))
+            if msg[0] == "open":
+                self.ready.set()
+            elif msg[0] in ("exit", "error"):
+                self.exited.set()
+                self.ready.set()
+        self.ready.set()
+        self.exited.set()
+
+    def info(self, kind: str):
+        got = [m for _, m in self.msgs if m[0] == kind]
+        return got[-1][1] if got else None
+
+    def stop(self, sig: str, timeout: float = 300.0) -> None:
+        if sig == "kill":
+            self.proc.kill()
+        else:
+            self.proc.terminate()
+        self.proc.join(timeout)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        self.reader.join(60)
+
+
+class UtilSampler:
+    """`nvidia-smi --query-gpu=utilization.gpu` every 100 ms (NVIDIA's
+    own sampling, coarse) until stop(); nothing on the CPU."""
+
+    def __init__(self, on: bool):
+        self.samples: list = []
+        self.proc = None
+        if on:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "100", "-i", "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+            self.thread = threading.Thread(target=self._read, daemon=True)
+            self.thread.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            try:
+                self.samples.append(int(line.strip()))
+            except ValueError:
+                pass
+
+    def stop(self) -> dict:
+        if self.proc is not None:
+            self.proc.terminate()
+            self.proc.wait(30)
+            self.thread.join(30)
+        s = self.samples
+        return dict(source="nvidia-smi utilization.gpu, 100 ms samples "
+                    "(coarse)",
+                    samples=len(s), mean_pct=float(np.mean(s)) if s else None,
+                    p50_pct=float(np.median(s)) if s else None,
+                    busy_share=(sum(1 for x in s if x > 0) / len(s)
+                                if s else None))
+
+
+def wait_watching(event, server, timeout_s: float, what: str, fail) -> None:
+    """Wait for `event`; fail at once, with the server's log, if the
+    server process ends first or reports an error."""
+    t_end = time.perf_counter() + timeout_s
+    while not event.wait(1.0):
+        if server.info("error") is not None or not server.proc.is_alive():
+            fail(f"the server ended while waiting for {what}: "
+                 f"{server.info('error')}")
+        if time.perf_counter() > t_end:
+            fail(f"timed out waiting for {what}")
+
+
+def wait_settled(server, quiet_s: float, timeout_s: float, fail) -> None:
+    """Wait until `server` has committed every op it prepared and has
+    reported no prepare or commit for quiet_s seconds: the expiry pulses
+    a primary prepares on its own while its pipeline is empty have run
+    out."""
+    t_end = time.perf_counter() + timeout_s
+    while True:
+        got = [(t, m) for t, m in list(server.msgs)
+               if m[0] in ("prepare", "commit")]
+        prepared = max((m[1] for _, m in got if m[0] == "prepare"),
+                       default=0)
+        committed = max((m[1] for _, m in got if m[0] == "commit"),
+                        default=0)
+        last = got[-1][0] if got else server.t0
+        if committed >= prepared and time.perf_counter() - last >= quiet_s:
+            return
+        if server.info("error") is not None or not server.proc.is_alive():
+            fail(f"the server ended while settling: {server.info('error')}")
+        if time.perf_counter() > t_end:
+            fail("timed out waiting for the server to settle")
+        time.sleep(0.2)
+
+
+def _client_run(port, client_id, items, out, kill_op, kill_ev) -> None:
+    """One client thread: `items` ((operation, body) pairs) one at a time
+    through the port's `vsr.client.Client`; each reply recorded with its
+    send and receive times. Sets kill_ev once a reply's op reaches
+    kill_op."""
+    from tigerbeetle_tpu_torch.vsr.client import Client
+
+    c = Client(cluster=0, client_id=client_id,
+               replica_addresses=[("127.0.0.1", port)])
+    try:
+        for op, body in items:
+            t0 = time.perf_counter()
+            c.request(op, body, timeout_s=RP_TIMEOUT_S)
+            m = c._reply
+            out.append(dict(client=client_id, request=m.header.request,
+                            op=m.header.op, operation=int(op),
+                            reply_operation=m.header.operation, sent=t0,
+                            got=time.perf_counter(), raw=m.pack(),
+                            body_bytes=len(body)))
+            if kill_op is not None and m.header.op >= kill_op:
+                kill_ev.set()
+    except Exception as exc:   # re-raised by the phase
+        out.append(dict(client=client_id, error=repr(exc)))
+    finally:
+        c.close()
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _module_cli(*args, timeout=600):
+    """`python -m tigerbeetle_tpu_torch <args>` from the repo root."""
+    return subprocess.run(
+        [sys.executable, "-m", "tigerbeetle_tpu_torch", *args],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=timeout)
+
+
+def checkpoint_trees(storage) -> tuple:
+    """(op_checkpoint, tree_digests) of the forest the superblock's
+    checkpoint root names, opened afresh from `storage`."""
+    from tigerbeetle_tpu_torch.vsr.checksum import checksum
+    from tigerbeetle_tpu_torch.vsr.durable import DurableState
+    from tigerbeetle_tpu_torch.vsr.replica import _split_root
+    from tigerbeetle_tpu_torch.vsr.superblock import SuperBlock
+
+    sb = SuperBlock.load(storage)
+    root = storage.read("snapshot", sb.snapshot_slot
+                        * storage.layout.snapshot_size_max, sb.snapshot_size)
+    assert checksum(root, domain=b"ckptroot") == sb.snapshot_checksum
+    durable = DurableState(storage)
+    durable.open(_split_root(root)[0], load_events=False)
+    return sb.op_checkpoint, tree_digests(durable.forest)
+
+
+class _Capture:
+    """A bus that keeps what a replica sends to clients."""
+
+    def __init__(self):
+        self.replies: dict = {}
+
+    def send_to_replica(self, dst, msg) -> None:
+        pass
+
+    def send_to_client(self, client_id, msg) -> None:
+        self.replies[(client_id, msg.header.request)] = msg.pack()
+
+
+class _StillTime:
+    """A clock that never moves: the twin commits prepares that carry
+    their timestamps, and never ticks."""
+
+    def monotonic(self) -> int:
+        return 0
+
+    def realtime(self) -> int:
+        return 0
+
+
+class ReplicaTwin:
+    """The server's WAL read in op order with the port's Journal, its
+    prepares committed with their own headers (timestamps among them)
+    through a solo `Replica` on the oracle engine, on the CPU, over a
+    `MemoryStorage` of the same layout. `commit_from(path, upto)` takes
+    the ops up to `upto` (all of them when None) that it has not taken
+    yet, so it can start on the prefix a killed server left while its
+    successor writes later slots; the ops it took before must still be
+    there, checksum for checksum. `result()`: every reply it sent by
+    (client, request), each op's (client, request), and the trees of its
+    last checkpoint beside those of the server's file."""
+
+    def __init__(self, small: bool):
+        from tigerbeetle_tpu_torch import StateMachine
+        from tigerbeetle_tpu_torch.vsr.replica import Replica
+        from tigerbeetle_tpu_torch.vsr.storage import (
+            MemoryStorage, StorageLayout, TEST_LAYOUT)
+
+        self.layout = TEST_LAYOUT if small else StorageLayout()
+        self.mem = MemoryStorage(self.layout)
+        Replica.format(self.mem, cluster=0, replica_id=0, replica_count=1)
+        self.bus = _Capture()
+        self.rep = Replica(cluster=0, replica_id=0, replica_count=1,
+                           storage=self.mem, bus=self.bus,
+                           time=_StillTime(),
+                           state_machine_factory=lambda: StateMachine(
+                               "oracle", device="cpu"))
+        self.rep.open()
+        self.ops: list = []
+        self.checksums: list = []
+        self.ms = 0.0
+        self.card = None
+
+    def commit_from(self, path: str, upto=None) -> int:
+        from tigerbeetle_tpu_torch.vsr.journal import Journal
+        from tigerbeetle_tpu_torch.vsr.storage import FileStorage
+
+        t = time.perf_counter()
+        card = FileStorage(path, self.layout)
+        try:
+            journal = Journal(card)
+            slots = journal.recover()
+            n_ops = journal.op_max() if upto is None else upto
+            rep = self.rep
+            for op in range(1, n_ops + 1):
+                m = journal.read_prepare(op)
+                assert m is not None, f"WAL op {op} is missing"
+                if op <= len(self.checksums):
+                    assert m.header.checksum == self.checksums[op - 1], \
+                        f"WAL op {op} changed under the twin"
+                    continue
+                rep.journal.append(m)
+                rep.op = rep.commit_max = op
+                rep._commit_journal(op)
+                assert rep.commit_min == op, f"the twin stopped at op {op}"
+                self.checksums.append(m.header.checksum)
+                self.ops.append((op, m.header.client, m.header.request,
+                                 m.header.operation))
+            if upto is None:
+                self.card = dict(
+                    faulty=sum(1 for s_ in slots
+                               if s_.state.value != "clean"),
+                    trees=checkpoint_trees(card))
+        finally:
+            card.close()
+        self.ms += (time.perf_counter() - t) * 1e3
+        return len(self.ops)
+
+    def result(self) -> dict:
+        twin_ckpt, twin_trees = checkpoint_trees(self.mem)
+        card_ckpt, card_trees = self.card["trees"]
+        return dict(replies=self.bus.replies, faulty=self.card["faulty"],
+                    n_ops=len(self.ops), ops=self.ops,
+                    card_ckpt=card_ckpt, card_trees=card_trees,
+                    twin_ckpt=twin_ckpt, twin_trees=twin_trees, ms=self.ms)
+
+
+def cluster_bodies(seed: int, n_ops: int, body: int) -> list:
+    """The cluster's requests: one accounts body (body accounts, ids
+    1..body), then n_ops - 1 config-2 transfer bodies over them."""
+    from tigerbeetle_tpu_torch.types import Account, Operation
+
+    tr = DurableTraffic(seed, body, body)
+    out = [(Operation.create_accounts, accounts_body(
+        [Account(id=i, ledger=1, code=1) for i in range(1, body + 1)]))]
+    out += [(Operation.create_transfers, tr.plain())
+            for _ in range(n_ops - 1)]
+    return out
+
+
+def run_cluster(factory, seed: int, n_ops: int, body: int,
+                crash_at: int) -> dict:
+    """A 3-replica in-process cluster (the port's `testing/cluster.py`,
+    TEST_LAYOUT, simulated time and network) through `factory`'s state
+    machines: the bodies one request at a time from one client, the
+    primary crashed once op crash_at committed (a view change follows),
+    restarted after the last op (it catches up), then settled: every
+    replica's state and checkpoints equal (the cluster's own checkers)
+    and its state digest. Returns the replies, the digests, each
+    replica's commit windows and the view."""
+    from tigerbeetle_tpu_torch import constants
+    from tigerbeetle_tpu_torch.ops.state_epoch import (
+        combine, oracle_state_digest)
+    from tigerbeetle_tpu_torch.testing.cluster import Cluster
+
+    verify = constants.VERIFY
+    t = time.perf_counter()
+    try:
+        cluster = Cluster(seed=seed, replica_count=3,
+                          state_machine_factory=factory)
+        client = cluster.client(77)
+        victim = None
+        for i, (op, raw) in enumerate(cluster_bodies(seed, n_ops, body)):
+            client.request(op, raw)
+            ok = cluster.run(6000, until=lambda: client.idle)
+            check(ok, f"cluster: op {i + 1} stuck: {cluster.debug_status()}")
+            if i + 1 == crash_at:
+                victim = cluster.replicas[0].primary_index()
+                cluster.crash(victim)
+        cluster.restart(victim)
+        cluster.settle(6000)
+        digests = [combine(oracle_state_digest(r.state_machine.state,
+                                               RC_CAPS[0]))
+                   for r in cluster.replicas]
+        return dict(
+            replies=[m.pack() for m in client.replies], digests=digests,
+            windows=[r._windows_committed for r in cluster.replicas],
+            view=cluster.replicas[0].view, victim=victim,
+            commit=[r.commit_min for r in cluster.replicas],
+            checkpoints=[r.superblock.op_checkpoint
+                         for r in cluster.replicas],
+            ms=(time.perf_counter() - t) * 1e3)
+    finally:
+        constants.set_verify(verify)
+
+
+def _replica_twin_proc(conn) -> None:
+    """The CPU side of the replica phase, in a process of its own:
+    ("twin_begin", path, small, upto) -> a ReplicaTwin takes ops up to
+    `upto` (their count); ("twin_end", path) -> it takes the rest, its
+    result(); ("cluster", seed, n_ops, body, crash_at) -> run_cluster on
+    oracle-engine state machines. Each answer (True, result) or (False,
+    the traceback)."""
+    import traceback
+
+    from tigerbeetle_tpu_torch import StateMachine
+
+    torch.set_num_threads(2)
+    twin = None
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            return
+        name, args = msg
+        try:
+            if name == "twin_begin":
+                path, small, upto = args
+                twin = ReplicaTwin(small)
+                out = twin.commit_from(path, upto)
+            elif name == "twin_end":
+                twin.commit_from(args[0])
+                out = twin.result()
+            else:
+                out = run_cluster(
+                    lambda: StateMachine("oracle", device="cpu"), *args)
+            conn.send((True, out))
+        except Exception:
+            conn.send((False, traceback.format_exc()))
+
+
+def commit_span_stats(spans) -> dict:
+    """Window sizes and commit ms by size from commit_execute spans
+    ((ms, window) pairs)."""
+    by = {}
+    for ms, w in spans:
+        by.setdefault(int(w or 1), []).append(ms)
+    return {str(w): dict(n=len(v), mean_ms=float(np.mean(v)),
+                         max_ms=float(np.max(v)))
+            for w, v in sorted(by.items())}
+
+
+def trace_windows(path: str) -> dict:
+    """Commit windows from a dumped Chrome trace's commit_execute spans:
+    {window size: count}."""
+    doc = json.loads(Path(path).read_text())
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    out = {}
+    for e in events:
+        if e.get("name") == "commit_execute" and e.get("ph") == "X":
+            w = int((e.get("args") or {}).get("window", 1))
+            out[str(w)] = out.get(str(w), 0) + 1
+    return out
+
+
+def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
+                  n_clients: int = RP_CLIENTS, n_bodies: int = RP_BODIES,
+                  kill_at: int = RP_KILL_AT, n_lookups: int = None,
+                  rc_ops: int = RC_OPS, rc_body: int = RC_BODY,
+                  rc_crash_at: int = RC_CRASH_AT) -> dict:
+    """The replica server on `dev`, through the entry points a user
+    calls: (a) `python -m tigerbeetle_tpu_torch format` a data file (the
+    default `StorageLayout()`: a 1,024-slot WAL of 1 MiB messages, a
+    512 MiB grid; on the CPU the small layout); (b) `main.main(["start",
+    ...])` in a child process (`_server_main`), the device engine at the
+    serving capacities (2^17 / 2^21; on the CPU `--platform cpu --small`:
+    the small layout and capacities);
+    it must run on `dev` with the native storage engine and its
+    asynchronous engine live; (c) n_clients clients of the port's
+    `vsr/client.py`, one request in flight each: 2 accounts bodies
+    (n_accounts accounts), then n_bodies `body`-event config-2 transfer
+    bodies each (u64 user data >= 2^63, 1 event in 16 a pending, half of
+    them with a 1 s timeout); (d) the child SIGKILLed as soon as a client
+    holds op kill_at's reply, a new child started on the file, the
+    clients resending what they had in flight; (e) one lookup past every
+    timeout and the server settled (it pulses while its pipeline is
+    empty: at least one expiry pulse must commit), lookups of n_lookups
+    account and transfer ids (the most whose worst-case reply fits a
+    message), a get_account_transfers, then one client's last request
+    again, whose reply must be the cached bytes with the server's op
+    unmoved; (f)
+    SIGTERM, then `inspect --digest` exits 0 with no corrupt superblock
+    copy and 0 faulty WAL slots; (g) on the CPU in a process of its own,
+    the WAL's prepares committed through an oracle-engine replica (from
+    the kill on, the prefix the clients saw committed; after (f), the
+    rest): every reply the clients got equal to its, byte for byte, no
+    (client, request) prepared twice, the last checkpoint's trees equal
+    to the file's; (h) meanwhile a 3-replica cluster of device engines on `dev`
+    (`run_cluster`), equal to an oracle-engine cluster on the CPU.
+    Returns the numbers."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from tigerbeetle_tpu_torch import StateMachine, multi_batch
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+    from tigerbeetle_tpu_torch.types import (
+        AccountFilter, AccountFilterFlags, Operation as O)
+    from tigerbeetle_tpu_torch.vsr.replica import _reply_fits
+    from tigerbeetle_tpu_torch.vsr.storage import StorageLayout, TEST_LAYOUT
+
+    cuda = torch.device(dev).type == "cuda"
+    small = not cuda
+    layout = TEST_LAYOUT if small else StorageLayout()
+    if n_lookups is None:
+        n_lookups = next(
+            n for n in range(BATCH, 0, -1)
+            if _reply_fits(O.lookup_transfers, len(multi_batch.encode(
+                [b"\x00" * 16 * n], 16)), layout.message_size_max))
+    phase_s = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tb_replica_")
+    path = f"{tmp}/0_0.tigerbeetle"
+    trace_path = f"{tmp}/trace.json"
+    log_path = f"{tmp}/server.log"
+    ctx = multiprocessing.get_context("spawn")
+    servers, sampler, twin_proc = [], None, None
+    twin_conn = None
+
+    def log_tail() -> str:
+        return (Path(log_path).read_text()[-6000:]
+                if Path(log_path).exists() else "")
+
+    def fail_log(msg):
+        check(False, f"replica: {msg}\nserver log tail:\n{log_tail()}")
+
+    try:
+        # (a) format
+        t = time.perf_counter()
+        flags = ["--small"] if small else []
+        out = _module_cli("format", "--cluster=0", "--replica=0",
+                          "--replica-count=1", *flags, path)
+        check(out.returncode == 0, f"replica: format failed:\n{out.stderr}")
+        phase_s["format"] = time.perf_counter() - t
+        # The CPU side's process starts now, to be up when it is needed.
+        twin_conn, child = ctx.Pipe()
+        twin_proc = ctx.Process(target=_replica_twin_proc, args=(child,),
+                                daemon=True)
+        twin_proc.start()
+        child.close()
+
+        # (b) start
+        port = _free_port()
+        argv = ["start", f"--addresses=127.0.0.1:{port}", "--replica=0",
+                "--engine=device", f"--trace={trace_path}", *flags, path]
+        if not cuda:
+            argv.insert(1, "--platform=cpu")
+        t = time.perf_counter()
+        servers.append(ServerChild(ctx, argv, log_path))
+        srv = servers[-1]
+        wait_watching(srv.ready, srv, 900, "the server to open", fail_log)
+        if srv.info("open") is None:
+            fail_log("the server never opened")
+        opened = srv.info("open")
+        check(opened["native"] and opened["aio"],
+              f"replica: the native storage engine was not live: {opened}")
+        check(opened["engine"] == "device"
+              and opened["device"].startswith("cuda" if cuda else "cpu"),
+              f"replica: the server ran {opened['engine']} on "
+              f"{opened['device']}")
+        phase_s["start"] = time.perf_counter() - t
+
+        # (c) clients
+        tr = DurableTraffic(91, n_accounts, body)
+        acct_items = [(O.create_accounts, raw) for raw, _ in tr.accounts()]
+        bodies = [[(O.create_transfers, tr.plain()) for _ in range(n_bodies)]
+                  for _ in range(n_clients)]
+        # The accounts go first, from a client of their own (a client's
+        # requests number from 1 in its session), then the n_clients.
+        acct_id = 999
+        acct_recs: list = []
+        ids = [1000 + i for i in range(n_clients)]
+        records = [[] for _ in range(n_clients)]
+        kill_ev = threading.Event()
+        sampler = UtilSampler(cuda)
+        t = time.perf_counter()
+        acct_done = threading.Event()
+        acct = threading.Thread(target=lambda: (_client_run(
+            port, acct_id, acct_items, acct_recs, None, None),
+            acct_done.set()), daemon=True)
+        acct.start()
+        wait_watching(acct_done, srv, 2 * RP_TIMEOUT_S,
+                      "the accounts bodies", fail_log)
+        if any("error" in r for r in acct_recs):
+            fail_log(f"the accounts bodies failed: {acct_recs}")
+        t_transfers = time.perf_counter()
+        threads = [threading.Thread(
+            target=_client_run, daemon=True,
+            args=(port, ids[i], bodies[i], records[i], kill_at, kill_ev))
+            for i in range(n_clients)]
+        for th in threads:
+            th.start()
+        wait_watching(kill_ev, srv, 1800, f"the reply of op {kill_at}",
+                      fail_log)
+
+        # (d) SIGKILL and restart
+        t_kill = time.perf_counter()
+        srv.stop("kill")
+        first = srv
+        # (g) begins: the CPU twin takes the ops the clients saw committed
+        # before the kill while the next server writes later slots.
+        upto = max(r["op"] for rs in records + [acct_recs] for r in rs
+                   if "op" in r)
+        twin_conn.send(("twin_begin", (path, small, upto)))
+        phase_s["serve_to_kill"] = t_kill - t
+        servers.append(ServerChild(ctx, argv, log_path))
+        srv = servers[-1]
+        wait_watching(srv.ready, srv, 900, "the restarted server to open",
+                      fail_log)
+        if srv.info("open") is None:
+            fail_log("the restarted server never opened")
+        t_ready = time.perf_counter()
+        reopened = srv.info("open")
+        all_done = threading.Event()
+        threading.Thread(target=lambda: ([th.join() for th in threads],
+                                         all_done.set()), daemon=True).start()
+        wait_watching(all_done, srv, 1800, "the clients", fail_log)
+        t_done = time.perf_counter()
+        util = sampler.stop()
+        sampler = None
+        phase_s["restart_to_done"] = t_done - t_kill
+        recs = acct_recs + [r for rs in records for r in rs]
+        errors = [r for r in recs if "error" in r]
+        if errors:
+            fail_log(f"client errors: {errors}")
+        check(all(r["reply_operation"] == r["operation"] for r in recs),
+              "replica: a reply answers another operation")
+        check(len(recs) == len(acct_items) + n_clients * n_bodies,
+              f"replica: {len(recs)} replies")
+
+        # (e) reads and a duplicate. First a lookup, sent once every
+        # pending's 1 s timeout has passed, moves the server's prepare
+        # timestamp past them all (a primary pulses on the timestamp of
+        # its last prepare); the expiry pulses it then prepares run out
+        # before the reads, so that nothing but the duplicate reaches the
+        # server after the last read.
+        t = time.perf_counter()
+        time.sleep(max(0.0, t_done + 1.5 - t))
+        reads, settle = [], []
+        rng = np.random.default_rng(5)
+        xids = [int(x) for x in rng.choice(
+            np.arange(10**9, tr.next_id), n_lookups, replace=False)]
+        aids = [int(x) for x in rng.integers(1, n_accounts + 1, n_lookups)]
+        both = int(AccountFilterFlags.debits | AccountFilterFlags.credits)
+        read_items = [
+            (O.lookup_accounts, multi_batch.encode(
+                [b"".join(i.to_bytes(16, "little") for i in aids)], 16)),
+            (O.lookup_transfers, multi_batch.encode(
+                [b"".join(i.to_bytes(16, "little") for i in xids)], 16)),
+            (O.get_account_transfers, multi_batch.encode([AccountFilter(
+                account_id=SV_HISTORY_EVERY, limit=RP_GET_LIMIT,
+                flags=both).pack()], 128))]
+        from tigerbeetle_tpu_torch.vsr.client import Client
+
+        c = Client(cluster=0, client_id=ids[0],
+                   replica_addresses=[("127.0.0.1", port)])
+        c.request_number = max(r["request"] for r in records[0])
+        try:
+            t0 = time.perf_counter()
+            c.request(O.lookup_accounts, multi_batch.encode(
+                [(1).to_bytes(16, "little")], 16), timeout_s=RP_TIMEOUT_S)
+            settle.append(dict(client=ids[0], request=c._reply.header.request,
+                               op=c._reply.header.op,
+                               operation=int(O.lookup_accounts), sent=t0,
+                               got=time.perf_counter(), raw=c._reply.pack()))
+            wait_settled(srv, 2.0, RP_TIMEOUT_S, fail_log)
+            phase_s["settle"] = time.perf_counter() - t0
+            for op, raw in read_items:
+                t0 = time.perf_counter()
+                c.request(op, raw, timeout_s=RP_TIMEOUT_S)
+                m = c._reply
+                reads.append(dict(client=ids[0], request=m.header.request,
+                                  op=m.header.op, operation=int(op),
+                                  sent=t0, got=time.perf_counter(),
+                                  raw=m.pack(), body_bytes=len(raw)))
+            check(all(len(r["raw"]) > 256 for r in reads),
+                  "replica: an empty read reply")
+            last = reads[-1]
+            c.request_number -= 1
+            c.request(read_items[-1][0], read_items[-1][1],
+                      timeout_s=RP_TIMEOUT_S)
+            dup_same = c._reply.pack() == last["raw"]
+        finally:
+            c.close()
+        check(dup_same, "replica: the duplicate's reply is not the cached "
+              "one")
+        phase_s["reads"] = time.perf_counter() - t
+
+        # (f) SIGTERM and inspect
+        srv.stop("term")
+        final = srv.info("exit")
+        if final is None or final["rc"] != 0:
+            fail_log(f"the server did not stop cleanly: {final}")
+        check(final["op"] == last["op"] and final["commit_min"] == last["op"],
+              f"replica: the duplicate moved the server to op "
+              f"{final['op']} (last op {last['op']})")
+        # (g) the CPU twin takes the rest of the stopped server's WAL,
+        # beside (f) and (h).
+        t_twin = time.perf_counter()
+        twin_conn.send(("twin_end", (path,)))
+        twin_conn.send(("cluster", (RC_SEED, rc_ops, rc_body, rc_crash_at)))
+        t = time.perf_counter()
+        ins = _module_cli("inspect", "--digest", *flags, path)
+        lines = ins.stdout.splitlines()
+        jline = [ln for ln in lines if ln.startswith("journal:")]
+        check(ins.returncode == 0 and not any("CORRUPT" in ln for ln in lines)
+              and jline and ", 0 faulty," in jline[0]
+              and any(ln.startswith("digest: checkpoint_op=") for ln in lines),
+              f"replica: inspect failed ({ins.returncode}):\n{ins.stdout}"
+              f"{ins.stderr}")
+        phase_s["inspect"] = time.perf_counter() - t
+
+        # (h) the cluster on dev, while the CPU side runs
+        t = time.perf_counter()
+        fused_probe.LAUNCHES = RG.LAUNCHES = 0
+        card_cluster = run_cluster(
+            lambda: StateMachine("device", a_cap=RC_CAPS[0],
+                                 t_cap=RC_CAPS[1], device=dev),
+            RC_SEED, rc_ops, rc_body, rc_crash_at)
+        cluster_launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+        phase_s["cluster_card"] = time.perf_counter() - t
+        answers = []
+        for _ in range(3):
+            ok, got = twin_conn.recv()
+            check(ok, f"replica: the CPU side failed:\n{got}")
+            answers.append(got)
+        twin_prefix, twin, cpu_cluster = answers
+        check(twin_prefix == upto, f"replica: the twin took {twin_prefix} "
+              f"ops before the restart, not {upto}")
+        phase_s["twin_wait"] = time.perf_counter() - t
+        phase_s["twin_and_cluster_cpu"] = time.perf_counter() - t_twin
+    finally:
+        if sampler is not None:
+            sampler.stop()
+        for s in servers:
+            if s.proc.is_alive():
+                s.stop("kill")
+        if twin_conn is not None:
+            try:
+                twin_conn.send(None)
+            except (BrokenPipeError, OSError):
+                pass
+        if twin_proc is not None:
+            twin_proc.join(60)
+            if twin_proc.is_alive():
+                twin_proc.kill()
+                twin_proc.join()
+        trace_file = Path(trace_path)
+        trace_w = trace_windows(trace_path) if trace_file.exists() else {}
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- the twin's verdicts
+    every = recs + settle + reads
+    for r in every:
+        want = twin["replies"].get((r["client"], r["request"]))
+        check(want == r["raw"],
+              f"replica: the reply to client {r['client']} request "
+              f"{r['request']} (op {r['op']}) differs from the CPU "
+              "oracle twin's")
+    keys = [(c_, q) for _, c_, q, _ in twin["ops"] if c_]
+    check(len(keys) == len(set(keys)),
+          "replica: a request was prepared twice")
+    check(twin["faulty"] == 0, "replica: the twin's WAL scan found faults")
+    pulses = [op for op, _, _, o in twin["ops"] if o == int(O.pulse)]
+    check(pulses, "replica: the server committed no expiry pulse")
+    check(twin["card_ckpt"] == twin["twin_ckpt"]
+          and twin["card_trees"] == twin["twin_trees"],
+          f"replica: the trees at checkpoint {twin['card_ckpt']} differ "
+          f"from the oracle twin's at {twin['twin_ckpt']}")
+    # ---- the cluster's
+    cc, oc = card_cluster, cpu_cluster
+    check(len(set(cc["digests"])) == 1,
+          f"replica cluster: digests differ between replicas: {cc}")
+    check(cc["replies"] == oc["replies"] and cc["digests"] == oc["digests"],
+          "replica cluster: the card's cluster differs from the CPU "
+          "oracle cluster")
+    check(not cuda or (cluster_launches[0] > 0 and cluster_launches[1] > 0),
+          f"replica cluster: launches probe/gather {cluster_launches}")
+    check(max(cc["windows"]) > 0 or not cuda,
+          f"replica cluster: no replica formed a commit window: {cc}")
+
+    # ---- the server's numbers
+    def stream(server, kind):
+        return [m for _, m in server.msgs if m[0] == kind]
+
+    spans = {name: [] for name in SERVER_SPANS}
+    for s in (first, srv):
+        for _, name, ms, op, w in stream(s, "span"):
+            spans[name].append((ms, w))
+    # The killed child's counts: its last report.
+    first_commits = stream(first, "commit")
+    launches_first = first_commits[-1][2] if first_commits else (0, 0, 0)
+    launches = tuple(a + b for a, b in zip(launches_first,
+                                           final["launches"]))
+    check(not cuda or (launches[0] > 0 and launches[1] > 0),
+          f"replica: the server's launches probe/gather {launches}")
+    check(launches[2] == 0, "replica: create_seq launched on the server")
+    xfer = [r for r in recs if r["operation"] == int(O.create_transfers)]
+    lat = np.array([r["got"] - r["sent"] for r in every]) * 1e3
+    pre = [r for r in xfer if r["got"] <= t_kill]
+    post = [r for r in xfer if r["got"] >= t_ready]
+    steady = {}
+    for label, rs, t_a in (("before_kill", pre, t_transfers),
+                           ("after_restart", post, t_ready)):
+        if rs:
+            span_s = max(r["got"] for r in rs) - t_a
+            steady[label] = dict(
+                requests=len(rs), seconds=span_s,
+                requests_per_s=len(rs) / span_s,
+                transfers_per_s=len(rs) * body / span_s)
+    xlat = np.array([r["got"] - r["sent"] for r in pre]) * 1e3
+    ckpt = [ms for ms, _ in spans["commit_checkpoint"]]
+    flushes = [m[1] for s in (first, srv) for m in stream(s, "flush")]
+    beats = [m[1] for s in (first, srv) for m in stream(s, "beat")]
+    numbers = dict(
+        clients=n_clients, bodies=n_clients * n_bodies,
+        events_per_body=body, transfers=n_clients * n_bodies * body,
+        ops=final["op"], kill_at_op=kill_at, pulse_ops=pulses,
+        latency_ms=dict(p50=float(np.percentile(lat, 50)),
+                        p99=float(np.percentile(lat, 99)),
+                        max=float(lat.max())),
+        transfer_latency_before_kill_ms=(dict(
+            p50=float(np.percentile(xlat, 50)),
+            p99=float(np.percentile(xlat, 99)),
+            max=float(xlat.max())) if len(xlat) else None),
+        steady=steady,
+        windows_server=commit_span_stats(spans["commit_execute"]),
+        windows_trace_after_restart=trace_w,
+        windows_cluster=cc["windows"],
+        flush_ms=dict(mean=float(np.mean(flushes)), max=float(max(flushes)),
+                      n=len(flushes)) if flushes else None,
+        beat_ms=dict(mean=float(np.mean(beats)), max=float(max(beats)),
+                     n=len(beats)) if beats else None,
+        checkpoint_ms=ckpt,
+        open_first=opened, open_restart=reopened,
+        replayed_ops=reopened["replayed"],
+        max_reserved=final["max_reserved"],
+        utilization=util, launches=launches,
+        launches_replica=cluster_launches,
+        reads_ms={O(r["operation"]).name: (r["got"] - r["sent"]) * 1e3
+                  for r in reads},
+        n_lookups=n_lookups, twin_ms=twin["ms"],
+        cluster=dict(ops=rc_ops, body=rc_body, crash_at=rc_crash_at,
+                     view=cc["view"], windows=cc["windows"],
+                     checkpoints=cc["checkpoints"], card_ms=cc["ms"],
+                     cpu_ms=oc["ms"]),
+        phase_seconds=phase_s, elapsed_s=time.perf_counter() - t_phase)
+    print(f"replica: {numbers['ops']} ops, {len(every)} replies equal to the "
+          f"CPU oracle twin's; SIGKILL after op {kill_at}, "
+          f"{reopened['replayed']} ops replayed on open "
+          f"({reopened['open_ms']:.1f} ms: forest "
+          f"{reopened.get('durable_open_ms', 0):.1f}, rebuild "
+          f"{reopened.get('rebuild_ms', 0):.1f}, replay "
+          f"{reopened.get('replay_ms', 0):.1f}); latency p50/p99/max "
+          f"{numbers['latency_ms']}; steady {steady}; windows server "
+          f"{numbers['windows_server']} cluster {cc['windows']}; launches "
+          f"server {launches} cluster {cluster_launches}; "
+          f"{numbers['elapsed_s']:.1f} s; {card_line_or_cpu(dev)}",
+          flush=True)
+    return numbers
 
 
 def build_all():
@@ -5088,25 +6113,48 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    phase_seconds, marks = {}, [t0]
+
+    def lap(name) -> None:
+        marks.append(time.perf_counter())
+        phase_seconds[name] = marks[-1] - marks[-2]
+
     build_all()
+    lap("build_all")
     probe_fx = probe_fixtures(dev)
     gather_fx = gather_fixtures(dev)
     probe = probe_phase(probe_fx)
     gather = gather_phase(gather_fx)
     del probe_fx, gather_fx
+    lap("probe_gather_phases")
     launches, c2_gathers, main_probe_ms, c2 = main_path_phase(dev)
+    lap("main_path_phase")
     c4 = config4_phase(dev)
+    lap("config4_phase")
     x_launches, exact = exact_path_phase(dev)
+    lap("exact_path_phase")
     seq = seq_phase(dev)
+    lap("seq_phase")
     w2 = config2_window_phase(dev)
+    lap("config2_window_phase")
     w4 = config4_window_phase(dev)
+    lap("config4_window_phase")
     wfb = window_fallback_phase(dev)
+    lap("window_fallback_phase")
     imp = imported_phase(dev)
+    lap("imported_phase")
     bal = balancing_phase(dev)
+    lap("balancing_phase")
     srv = serving_phase(dev)
+    lap("serving_phase")
     sup = supervisor_phase(dev)
+    lap("supervisor_phase")
     dur = durable_phase(dev)
-    print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
+    lap("durable_phase")
+    rep = replica_phase(dev)
+    lap("replica_phase")
+    phase_seconds["total"] = time.perf_counter() - t0
+    print(f"all phases passed in {phase_seconds['total']:.1f} s",
           flush=True)
 
     # ms / plain_ms / library_ms: device time per call from the profiler
@@ -5144,6 +6192,10 @@ def main() -> int:
         # The durable phase's: the card's device tiers, its windows'
         # eager runs and captures, and the write-through delta gathers.
         "launches_durable": dur["launches"][0],
+        # The replica phase's: the server's (its device engine, both
+        # runs of the child) and the 3-replica cluster's on the card.
+        "launches_replica_server": rep["launches"][0],
+        "launches_replica": rep["launches_replica"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -5187,6 +6239,8 @@ def main() -> int:
         "launches_serving_delta": srv["delta_gathers"],
         "launches_supervisor": sup["launches"][1],
         "launches_durable": dur["launches"][1],
+        "launches_replica_server": rep["launches"][1],
+        "launches_replica": rep["launches_replica"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -5220,6 +6274,7 @@ def main() -> int:
         # durable phase (its StateMachine runs the device engine).
         "launches_serving": srv["create_seq_launches"],
         "launches_durable": 0,
+        "launches_replica": rep["launches"][2],
         "max_abs_err": seq["max_abs_err"],
         "ms": seq["ms"],
         "plain_ms": seq["plain_ms"],
@@ -5245,6 +6300,8 @@ def main() -> int:
     print(json.dumps({"serving": srv}), flush=True)
     print(json.dumps({"supervisor": sup}), flush=True)
     print(json.dumps({"durable": dur}), flush=True)
+    print(json.dumps({"replica": rep}), flush=True)
+    print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -445,25 +445,26 @@ def test_chip_smoke_runs_the_supervisor_phase_last():
 
 
 def test_durable_phase_rehearsed_on_the_cpu(calls):
-    """The durable phase at a small size on the CPU (`TEST_LAYOUT`, 200
-    accounts, 24 bodies of 100 events, windows of 4, a checkpoint every
-    8 ops): every reply equal to the oracle engine's, the data file equal
-    byte for byte to the CPU device engine's after each of the three
-    checkpoints, both flush paths taken, reads served from the forest,
+    """The durable phase on the CPU at the card's plan, with small bodies
+    (`TEST_LAYOUT`, 200 accounts, 33 bodies of 100 events, windows of 4,
+    a checkpoint every 16 ops): every reply equal to the oracle engine's,
+    the data file equal byte for byte to the CPU device engine's after
+    each of the two checkpoints, the second at 32, where the forest's
+    first bar has ended, both flush paths taken, reads served from the forest,
     the restart's digest and replayed journal held. The device tiers and
     the delta gathers call the probe and the row gather."""
     from tigerbeetle_tpu_torch.vsr.storage import TEST_LAYOUT
 
     numbers = CS.durable_phase(
-        "cpu", n_accounts=200, body=100, n_ops=24, w=4, interval=8,
-        n_after=2, n_lookups=64, turns=2, layout=TEST_LAYOUT,
-        caps=(1 << 10, 1 << 14))
-    assert numbers["ops"] == 2 + 24 + 1 + 2     # accounts, bodies, pulse
+        "cpu", n_accounts=200, body=100, n_ops=CS.DU_OPS, w=CS.DU_W,
+        interval=CS.DU_CHECKPOINT, n_after=CS.DU_AFTER, n_lookups=64,
+        turns=CS.DU_TURNS, layout=TEST_LAYOUT, caps=(1 << 10, 1 << 14))
+    assert numbers["ops"] == 2 + 33 + 1 + 2     # accounts, bodies, pulse
     assert [kind for kind, _ in numbers["plan"]] == [
         "timed", "closing", "imported", "resolve", "plain", "pipelined",
         "window", "hard", "resolve", "pulse", "plain", "journal"]
-    assert [c["op"] for c in numbers["checkpoints"]] == [8, 16, 24]
-    assert len(numbers["zone_check_ms"]) == 3
+    assert [c["op"] for c in numbers["checkpoints"]] == [16, 32]
+    assert len(numbers["zone_check_ms"]) == 2
     assert numbers["flush_ms_columns"] and numbers["flush_ms_object"]
     assert len(numbers["commit_ms_forest"]) == len(
         numbers["commit_ms_bare"]) == 2
@@ -492,3 +493,48 @@ def test_chip_smoke_runs_the_durable_phase_after_the_supervisor():
         "supervisor_phase(", "durable_phase(", "'durable'", "'kernels'")]
     assert order == sorted(order)
     assert main.count("'launches_durable'") == 3
+
+
+def test_replica_phase_rehearsed_on_the_cpu(calls):
+    """The replica phase at a small size on the CPU: `format`, `start
+    --platform cpu --small` in a child process on the native storage
+    engine, 4 clients of 5 bodies of 100 events, the SIGKILL once a
+    client holds op 19's reply (three past the checkpoint at 16) and the
+    restart replaying the WAL suffix, an expiry pulse, the reads and the
+    duplicate, `inspect --digest`, every reply equal to the CPU oracle
+    twin's and the checkpoint's trees to its; a 3-replica cluster of
+    device engines (its crashed primary catching up through commit
+    windows) equal to an oracle cluster."""
+    numbers = CS.replica_phase(
+        "cpu", n_accounts=64, body=100, n_clients=4, n_bodies=5,
+        kill_at=19, rc_ops=8, rc_body=50, rc_crash_at=4)
+    assert numbers["ops"] >= 1 + 20 + 3     # accounts, bodies, reads
+    assert numbers["replayed_ops"] >= 1
+    opened = numbers["open_restart"]
+    assert opened["native"] and opened["aio"] and opened["engine"] == "device"
+    assert opened["op_checkpoint"] == 16
+    assert max(numbers["windows_cluster"]) >= 1
+    assert numbers["cluster"]["view"] >= 1
+    assert sorted(numbers["reads_ms"]) == [
+        "get_account_transfers", "lookup_accounts", "lookup_transfers"]
+    assert numbers["windows_server"] and numbers["checkpoint_ms"]
+    assert numbers["pulse_ops"]
+    assert calls["probe"] > 0 and calls["gather"] > 0
+
+
+def test_chip_smoke_runs_the_replica_phase_last():
+    """main() runs the replica phase after the durable phase, prints its
+    line and the phases' seconds before the kernels line, and every
+    kernel carries the replica path's launches on it."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "durable_phase(", "replica_phase(", "'replica'", "'phase_seconds'",
+        "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_replica':") == 3

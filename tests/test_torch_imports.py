@@ -46,7 +46,22 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.lsm.schema, tigerbeetle_tpu_torch.vsr, "
         "tigerbeetle_tpu_torch.vsr.durable, "
         "tigerbeetle_tpu_torch.vsr.storage, "
-        "tigerbeetle_tpu_torch.vsr.superblock\n"
+        "tigerbeetle_tpu_torch.vsr.superblock, "
+        "tigerbeetle_tpu_torch.main, tigerbeetle_tpu_torch.native, "
+        "tigerbeetle_tpu_torch.multiversion, "
+        "tigerbeetle_tpu_torch.vsr.journal, "
+        "tigerbeetle_tpu_torch.vsr.client_sessions, "
+        "tigerbeetle_tpu_torch.vsr.clock, "
+        "tigerbeetle_tpu_torch.vsr.fault_detector, "
+        "tigerbeetle_tpu_torch.vsr.repair_budget, "
+        "tigerbeetle_tpu_torch.vsr.grid_scrubber, "
+        "tigerbeetle_tpu_torch.vsr.snapshot, "
+        "tigerbeetle_tpu_torch.vsr.replica, "
+        "tigerbeetle_tpu_torch.vsr.message_bus, "
+        "tigerbeetle_tpu_torch.vsr.client, "
+        "tigerbeetle_tpu_torch.clients.common, "
+        "tigerbeetle_tpu_torch.testing.cluster, "
+        "tigerbeetle_tpu_torch.trace.merge\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -138,6 +153,41 @@ def test_port_modules_import_no_triton_or_build_at_import():
         "assert cs._launch == {}\n"
         "assert 'triton' not in sys.modules\n"
         "assert fp._build._libs == {}\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_replica_modules_are_the_ports_own():
+    """The replica server's modules exist in the port (the AST checks
+    above cover their sources): the entry points, the native storage
+    engine's binding and its C++ sources, the release tracker, the
+    journal, client sessions, clock, fault detector, repair budget, grid
+    scrubber, snapshot codec, replica, message bus, client, the typed
+    client helpers, the in-process cluster and the trace merge."""
+    for name in ("main.py", "__main__.py", "native.py", "multiversion.py",
+                 "vsr/journal.py", "vsr/client_sessions.py", "vsr/clock.py",
+                 "vsr/fault_detector.py", "vsr/repair_budget.py",
+                 "vsr/grid_scrubber.py", "vsr/snapshot.py",
+                 "vsr/replica.py", "vsr/message_bus.py", "vsr/client.py",
+                 "clients/__init__.py", "clients/common.py",
+                 "testing/cluster.py", "trace/merge.py"):
+        assert (PORT / name) in _sources(), name
+    for name in ("storage_engine.cpp", "blake2b.h"):
+        assert (PORT / "csrc" / name).exists(), name
+
+
+def test_the_native_engine_builds_at_first_use_only():
+    """Importing the replica, the storage and the entry points builds
+    nothing: `g++` runs at the first `native.load()`, into the port's own
+    build directory."""
+    code = (
+        "import tigerbeetle_tpu_torch.native as nat\n"
+        "import tigerbeetle_tpu_torch.vsr.storage\n"
+        "import tigerbeetle_tpu_torch.vsr.replica\n"
+        "import tigerbeetle_tpu_torch.main\n"
+        "assert nat._lib is None and not nat._tried\n"
+        "assert nat.library_path().startswith(nat.BUILD_DIR)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,6 +1,7 @@
-"""The constants the create_transfers path, the oracle and the wire need
-(a copy of the JAX package's `constants.py` subset; reference:
-src/config.zig, src/tigerbeetle.zig)."""
+"""The constants the create_transfers path, the oracle, the wire and the
+replica need (a copy of the JAX package's `constants.py`; reference:
+src/config.zig, src/tigerbeetle.zig). The cluster-critical ones must
+match across every replica: `config_fingerprint` digests them."""
 
 MESSAGE_SIZE_MAX = 1024 * 1024
 HEADER_SIZE = 256
@@ -22,6 +23,13 @@ TIMESTAMP_MAX = U63_MAX
 
 NS_PER_S = 1_000_000_000
 
+# VSR (reference: src/config.zig:153-163).
+JOURNAL_SLOT_COUNT = 1024
+PIPELINE_PREPARE_QUEUE_MAX = 8
+CLIENTS_MAX = 64
+SUPERBLOCK_COPIES = 4
+VSR_OPERATIONS_RESERVED = 128
+
 
 def timestamp_valid(timestamp: int) -> bool:
     """reference: src/lsm/timestamp_range.zig:36-39"""
@@ -40,3 +48,19 @@ VERIFY = False
 def set_verify(on: bool) -> None:
     global VERIFY
     VERIFY = bool(on)
+
+
+def config_fingerprint(extra: tuple = ()) -> int:
+    """Fingerprint of the cluster-critical configuration (the reference's
+    ConfigCluster, src/config.zig:153-163): the protocol constants here
+    plus `extra`, the replica's storage geometry (WAL slot count, message
+    size, grid block size). Replicas exchange it on pings and refuse a
+    mismatched peer's traffic. Equal to the JAX package's for the same
+    constants and layout, so replicas of both packages agree."""
+    import hashlib
+
+    material = ",".join(str(x) for x in (
+        MESSAGE_SIZE_MAX, MESSAGE_BODY_SIZE_MAX, BATCH_MAX,
+        PIPELINE_PREPARE_QUEUE_MAX, TIMESTAMP_MAX, *extra))
+    return int.from_bytes(
+        hashlib.blake2b(material.encode(), digest_size=8).digest(), "little")

@@ -1,0 +1,418 @@
+"""Process entry point: `python -m tigerbeetle_tpu_torch <command>`.
+
+reference: src/tigerbeetle/main.zig (commands :146-186) + cli.zig. A copy
+of the JAX package's `main.py` for these commands:
+
+  format     --cluster=N --replica=I --replica-count=N [--small] <path>
+  start      --addresses=a:p,b:p,... --replica=I [--engine=device|kernel|oracle]
+             [--platform=cpu] [--small] [--trace=PATH] [--statsd=host:port] <path>
+  inspect    [--small] [--integrity] [--digest] <path>
+
+`start` serves on the card (CUDA) unless `--platform cpu` is given, and
+raises where there is no card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _parse_addresses(text: str) -> list[tuple[str, int]]:
+    out = []
+    for part in text.split(","):
+        host, _, port = part.rpartition(":")
+        out.append((host or "127.0.0.1", int(port)))
+    return out
+
+
+def cmd_format(args) -> int:
+    from .vsr.replica import Replica
+    from .vsr.storage import FileStorage, StorageLayout, TEST_LAYOUT
+
+    layout = TEST_LAYOUT if args.small else StorageLayout()
+    storage = FileStorage(args.path, layout=layout, create=True)
+    Replica.format(storage, cluster=args.cluster, replica_id=args.replica,
+                   replica_count=args.replica_count)
+    storage.sync()
+    storage.close()
+    print(f"formatted {args.path}: cluster={args.cluster} "
+          f"replica={args.replica}/{args.replica_count}")
+    return 0
+
+
+class _WallTime:
+    def monotonic(self) -> int:
+        import time
+
+        return time.monotonic_ns()
+
+    def realtime(self) -> int:
+        import time
+
+        return time.time_ns()
+
+
+def cmd_start(args) -> int:
+    # Shutdown rides a signal FLAG from the very top: a SIGINT landing
+    # during storage open / warmup / journal recovery must still reach
+    # the main loop as an orderly stop (and dump the trace), not die as
+    # a KeyboardInterrupt mid-construction. The only remaining unsafe
+    # window is the interpreter's own module imports before this line.
+    import signal as _signal
+
+    stop: list = []
+    prev_int = _signal.signal(_signal.SIGINT, lambda *_: stop.append(1))
+    prev_term = _signal.signal(_signal.SIGTERM, lambda *_: stop.append(1))
+    from .state_machine import StateMachine
+    from .vsr.message_bus import MessageBus
+    from .vsr.replica import Replica
+    from .vsr.storage import FileStorage, StorageLayout, TEST_LAYOUT
+
+    addresses = _parse_addresses(args.addresses)
+    layout = TEST_LAYOUT if args.small else StorageLayout()
+    storage = FileStorage(args.path, layout=layout)
+
+    replica_holder: list = []
+
+    def on_message(msg):
+        replica_holder[0].on_message(msg)
+
+    # --platform cpu is the CPU's way in; without it the state machine
+    # lives on the card, and StateMachine raises where there is none.
+    device = args.platform
+    tracer = None
+    if args.trace or args.statsd:
+        from .trace import StatsD, Tracer
+
+        statsd = None
+        if args.statsd:
+            host, sep, port = args.statsd.rpartition(":")
+            if not sep or not port.isdigit():
+                print(f"error: --statsd expects host:port, got {args.statsd!r}")
+                return 2
+            statsd = StatsD(host or "127.0.0.1", int(port))
+        # pid = replica id: merged cluster traces get one process track
+        # per replica (trace/merge.py).
+        tracer = Tracer(statsd=statsd, pid=args.replica,
+                        emit_interval_s=args.trace_emit_interval)
+    bus = MessageBus(cluster=args.cluster, on_message=on_message,
+                     replica_addresses=addresses, replica_id=args.replica,
+                     listen=True, listen_port=args.listen_port,
+                     tracer=tracer)
+    # Production capacities match the DeviceLedger defaults (the
+    # static-allocation bound, reference: config.zig limits); --small
+    # keeps test clusters light. Shared by the serving factory AND the
+    # warmup so the pre-compiled executables always match serving shapes.
+    a_cap = (1 << 12) if args.small else (1 << 17)
+    t_cap = (1 << 14) if args.small else (1 << 21)
+    replica = Replica(
+        cluster=args.cluster, replica_id=args.replica,
+        replica_count=len(addresses), storage=storage, bus=bus,
+        time=_WallTime(), tracer=tracer,
+        state_machine_factory=lambda: StateMachine(
+            engine=args.engine, a_cap=a_cap, t_cap=t_cap, device=device))
+    replica_holder.append(replica)
+    if args.engine == "device":
+        # Build the serving kernels and launch them once BEFORE accepting
+        # connections: the first nvcc build must not land on a client
+        # request's timeout budget.
+        from .ops.ledger import warmup_kernels
+
+        warm_s = warmup_kernels(a_cap=a_cap, t_cap=t_cap, device=device)
+        print(f"kernels warm in {warm_s:.1f}s", flush=True)
+    replica.open()
+    print(f"replica {args.replica} listening on "
+          f"{addresses[args.replica][0]}:{addresses[args.replica][1]} "
+          f"(cluster={args.cluster}, engine={args.engine})", flush=True)
+    # The reference main loop: tick + io.run_for_ns
+    # (src/tigerbeetle/main.zig:522-525). Shutdown rides the signal
+    # FLAG installed at the top of cmd_start, not KeyboardInterrupt: a
+    # SIGINT delivered while the interpreter is inside a C callback
+    # raises there and is swallowed as "exception ignored in callback" —
+    # the loop would never see it and the server would ignore the
+    # shutdown.
+    try:
+        last_commit = -1
+        while not stop:
+            bus.poll(0.01)
+            replica.tick()
+            if replica.commit_min != last_commit:
+                # Progress marker: a supervisor reads these from the
+                # replica log to wait for every replica to catch up to
+                # the cluster commit level before delivering SIGINT (a
+                # lagging backup stopped mid-catch-up would dump a
+                # commit-free trace).
+                last_commit = replica.commit_min
+                print(f"commit={last_commit}", flush=True)
+    except KeyboardInterrupt:
+        pass  # belt and braces: a late-registered handler race
+    finally:
+        _signal.signal(_signal.SIGINT, prev_int)
+        _signal.signal(_signal.SIGTERM, prev_term)
+    if tracer is not None:
+        tracer.flush_statsd()
+        if args.trace:
+            tracer.dump_chrome_trace(args.trace)
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    """Render superblock and WAL-slot dumps — against a healthy file OR
+    a deliberately corrupted one: every bad checksum is FLAGGED in the
+    output, never raised (an inspector that dies on the damage it exists
+    to show is useless). Exit 1 when the file is unopenable (no
+    superblock quorum / corrupt active checkpoint root)."""
+    from .vsr.journal import Journal
+    from .vsr.checksum import checksum
+    from .vsr.storage import (SUPERBLOCK_COPIES, SUPERBLOCK_COPY_SIZE,
+                              FileStorage, StorageLayout, TEST_LAYOUT)
+    from .vsr.superblock import SuperBlock
+
+    layout = TEST_LAYOUT if args.small else StorageLayout()
+    storage = FileStorage(args.path, layout=layout)
+    # Per-copy superblock dump (the quorum rule tolerates torn/corrupt
+    # copies — show which ones).
+    for copy in range(SUPERBLOCK_COPIES):
+        raw = storage.read(
+            "superblock", copy * SUPERBLOCK_COPY_SIZE, SUPERBLOCK_COPY_SIZE)
+        sb_copy = SuperBlock.unpack_copy(raw)
+        if sb_copy is None:
+            print(f"superblock copy {copy}: CORRUPT (bad checksum)")
+        else:
+            print(f"superblock copy {copy}: seq={sb_copy.sequence} "
+                  f"view={sb_copy.view} "
+                  f"checkpoint_op={sb_copy.op_checkpoint}")
+    sb = SuperBlock.load(storage)
+    root_ok = False
+    if sb is None:
+        print("superblock: no quorum (unformatted or corrupt)")
+    else:
+        print(f"superblock: cluster={sb.cluster} replica={sb.replica_id}/"
+              f"{sb.replica_count} seq={sb.sequence} view={sb.view} "
+              f"checkpoint_op={sb.op_checkpoint} commit_max={sb.commit_max}")
+        if sb.sync_op:
+            print(f"superblock: MID-REBUILD — state-sync install to op "
+                  f"{sb.sync_op} was interrupted; only `recover "
+                  "--from-cluster` may open this file")
+        if sb.snapshot_size <= layout.snapshot_size_max:
+            root = storage.read(
+                "snapshot", sb.snapshot_slot * layout.snapshot_size_max,
+                sb.snapshot_size)
+            root_ok = checksum(root, domain=b"ckptroot") \
+                == sb.snapshot_checksum
+        print(f"snapshot: slot={sb.snapshot_slot} size={sb.snapshot_size} "
+              f"root={'ok' if root_ok else 'CORRUPT (bad checksum)'}")
+    journal = Journal(storage)
+    try:
+        slots = journal.recover()
+    except Exception as e:  # defensive: the dump must outlive bad bytes
+        print(f"journal: scan FAILED ({e!r})")
+        slots = []
+    clean = sum(1 for s in slots if s.state.value == "clean")
+    faulty = sum(1 for s in slots if s.state.value == "faulty")
+    print(f"journal: {clean} clean, {faulty} faulty, "
+          f"{len(slots) - clean - faulty} unknown; op_max={journal.op_max()}")
+    # WAL-slot dump: every slot holding a prepare (or failing to).
+    for slot, s in enumerate(slots):
+        if s.state.value == "clean" and s.header is None:
+            continue  # formatted-empty
+        if s.header is not None:
+            where = f"op={s.header.op} view={s.header.view}"
+        else:
+            where = "no valid header"
+        mark = {"clean": "ok", "faulty": "CORRUPT (bad checksum)",
+                "unknown": "CORRUPT (unrecognizable)"}[s.state.value]
+        print(f"wal slot {slot:4d}: {where} {mark}")
+    if sb is None or not root_ok:
+        return 1
+    if args.digest:
+        return _inspect_digest(storage, sb)
+    if args.integrity:
+        return _inspect_integrity(storage, sb)
+    return 0
+
+
+def _inspect_digest(storage, sb) -> int:
+    """State-epoch digest of the checkpointed forest (ops/state_epoch):
+    bit-identical across replicas at the same op_checkpoint, so two
+    offline data files can be compared without byte-diffing grids — the
+    vortex rebuild scenario's acceptance check."""
+    from .ops.state_epoch import combine, oracle_state_digest
+    from .vsr.durable import DurableState
+    from .vsr.replica import _split_root
+
+    root = storage.read(
+        "snapshot", sb.snapshot_slot * storage.layout.snapshot_size_max,
+        sb.snapshot_size)
+    forest_root, _ = _split_root(root)
+    try:
+        state = DurableState(storage).open(forest_root, load_events=False)
+    except Exception as e:
+        print(f"digest: forest open FAILED ({e!r})")
+        return 1
+    comps = oracle_state_digest(state, a_cap=1 << 12)
+    for k in sorted(comps):
+        print(f"digest {k}: {comps[k]:016x}")
+    print(f"digest: checkpoint_op={sb.op_checkpoint} "
+          f"combined={combine(comps):016x}")
+    return 0
+
+
+def _inspect_integrity(storage, sb) -> int:
+    """Full-file verification (reference: src/tigerbeetle/inspect_integrity
+    .zig): checkpoint root checksum, every grid block reachable from the
+    root (manifest -> index -> value, enumerated tolerantly so ALL faults
+    are reported, not just the first), the session table's reply slots, and
+    a state rebuild from the forest."""
+    from .vsr import durable as durable_mod
+    from .vsr.checksum import checksum
+    from .vsr.client_sessions import ClientSessions
+    from .vsr.durable import DurableState
+    from .vsr.replica import _split_root
+
+    faults = 0
+    root = storage.read(
+        "snapshot", sb.snapshot_slot * storage.layout.snapshot_size_max,
+        sb.snapshot_size)
+    if checksum(root, domain=b"ckptroot") != sb.snapshot_checksum:
+        print("integrity: checkpoint root CORRUPT")
+        return 1
+    forest_root, sessions_blob = _split_root(root)
+
+    # Walk the reachability graph block by block, continuing past faults.
+    block_size = storage.layout.grid_block_size
+
+    def read_block(address, size):
+        raw = storage.read("grid", address.index * block_size, size)
+        if checksum(raw, domain=b"blk") != address.checksum:
+            return None
+        return raw
+
+    from .lsm.forest import chain_next, chain_payload
+
+    blocks = checked = 0
+    link = durable_mod.checkpoint_manifest(forest_root)
+    manifest_payload = b""
+    while link is not None:
+        manifest_addr, manifest_size = link
+        blocks += 1
+        raw_chain = read_block(manifest_addr, manifest_size)
+        if raw_chain is None:
+            faults += 1
+            print(f"integrity: manifest block {manifest_addr.index} CORRUPT")
+            manifest_payload = None
+            break
+        checked += 1
+        manifest_payload += chain_payload(raw_chain)
+        link = chain_next(raw_chain)
+    if manifest_payload is not None:
+        for name, key_size, info in durable_mod.manifest_children(manifest_payload):
+            blocks += 1
+            index_raw = read_block(info.index_address, info.index_size)
+            if index_raw is None:
+                faults += 1
+                print(f"integrity: grid block {info.index_address.index} "
+                      f"({name} index) CORRUPT")
+                continue
+            checked += 1
+            for address, size in durable_mod.index_children(index_raw, key_size):
+                blocks += 1
+                if read_block(address, size) is None:
+                    faults += 1
+                    print(f"integrity: grid block {address.index} "
+                          f"({name}) CORRUPT")
+                else:
+                    checked += 1
+
+    durable = DurableState(storage)
+    try:
+        state = durable.open(forest_root)
+    except Exception as e:
+        print(f"integrity: forest open FAILED ({e})")
+        state = None
+        faults += 1
+    sessions = ClientSessions(storage)
+    sessions.restore(sessions_blob)
+    for client in sessions.missing_replies():
+        # The slot may legitimately hold a NEWER reply than the checkpoint
+        # recorded (post-checkpoint commits rewrite it; WAL replay
+        # reconciles on open). Only garbage is a fault.
+        from .vsr.header import Message
+
+        entry = sessions.get(client)
+        raw = storage.read(
+            "client_replies",
+            entry["slot"] * storage.layout.message_size_max,
+            storage.layout.message_size_max)
+        try:
+            msg = Message.unpack(raw)
+            newer_ok = msg.valid() and msg.header.client == client
+        except Exception:
+            newer_ok = False
+        if not newer_ok:
+            faults += 1
+            print(f"integrity: reply slot for client {client} CORRUPT")
+    state_summary = ("state unreadable" if state is None else
+                     f"{len(state.accounts)} accounts, "
+                     f"{len(state.transfers)} transfers")
+    print(f"integrity: {checked}/{blocks} grid blocks valid, "
+          f"{state_summary}, {len(sessions.entries)} sessions, "
+          f"{faults} fault(s)")
+    return 1 if faults else 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="tigerbeetle_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("format")
+    p.add_argument("--cluster", type=int, default=0)
+    p.add_argument("--replica", type=int, required=True)
+    p.add_argument("--replica-count", type=int, required=True)
+    p.add_argument("--small", action="store_true",
+                   help="small test layout (32-slot WAL)")
+    p.add_argument("path")
+    p.set_defaults(fn=cmd_format)
+
+    p = sub.add_parser("start")
+    p.add_argument("--addresses", required=True)
+    p.add_argument("--replica", type=int, required=True)
+    p.add_argument("--cluster", type=int, default=0)
+    p.add_argument("--engine", choices=("device", "kernel", "oracle"),
+                   default="device")
+    p.add_argument("--platform", choices=("cuda", "cpu"), default=None,
+                   help="where the state machine lives (default: the "
+                        "card, CUDA)")
+    p.add_argument("--small", action="store_true")
+    p.add_argument("--trace", default=None,
+                   help="dump a Chrome trace JSON here on shutdown")
+    p.add_argument("--statsd", default=None,
+                   help="emit DogStatsD metrics to host:port")
+    p.add_argument("--trace-emit-interval", type=float, default=10.0,
+                   help="seconds between StatsD timing-aggregate flushes "
+                        "(gauges reset after each emit)")
+    p.add_argument("--listen-port", type=int, default=None,
+                   help="bind this port instead of the advertised one "
+                        "(lets a fault proxy sit in front)")
+    p.add_argument("path")
+    p.set_defaults(fn=cmd_start)
+
+    p = sub.add_parser("inspect")
+    p.add_argument("--small", action="store_true")
+    p.add_argument("--integrity", action="store_true",
+                   help="verify every reachable grid block, reply slot, "
+                   "and the state rebuild (exit 1 on any fault)")
+    p.add_argument("--digest", action="store_true",
+                   help="print the checkpointed forest's state-epoch "
+                        "digest (bit-comparable across replicas at the "
+                        "same checkpoint)")
+    p.add_argument("path")
+    p.set_defaults(fn=cmd_inspect)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

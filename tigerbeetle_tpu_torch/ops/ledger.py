@@ -2549,3 +2549,61 @@ def _transfer_from_row(x, r: int, tid) -> Transfer:
         flags=int(x["flags"][r]),
         timestamp=int(x["ts"][r]) & _MASK64,
     )
+
+
+def warmup_kernels(a_cap: int = 1 << 17, t_cap: int = 1 << 21,
+                   device=None) -> float:
+    """Build the device engine's CUDA kernels and run them once on a
+    throwaway ledger at the serving capacities, so that no client request
+    pays for the first `nvcc` build or the first launch (the JAX
+    package's warmup compiles its jitted programs the same way). A breach
+    batch first (the limit fixpoint tier, before any batch can put the
+    throwaway ledger on the host mirror), then a plain and a two-phase
+    batch. On the CPU nothing is built. Returns the elapsed seconds."""
+    import threading
+
+    from . import _build
+
+    t0 = time.time()
+    device = resolve_device(device)
+    if device.type == "cuda":
+        errors: list = []
+
+        def build(name):
+            try:
+                _build.build(name)
+            except Exception as exc:   # re-raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=build, args=(name,))
+                   for name in ("ht_probe", "row_gather")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+    led = DeviceLedger(a_cap=a_cap, t_cap=t_cap, device=device)
+    led.create_accounts(
+        [Account(id=1, ledger=1, code=1), Account(id=2, ledger=1, code=1),
+         Account(id=3, ledger=1, code=1,
+                  flags=int(AccountFlags.debits_must_not_exceed_credits))],
+        1_000)
+    led.create_transfers(
+        [Transfer(id=4, debit_account_id=3, credit_account_id=2, amount=1,
+                   ledger=1, code=1)],
+        2_000)
+    assert led.fixpoint_batches == 1, "breach batch must warm the fixpoint"
+    led.create_transfers(
+        [Transfer(id=1, debit_account_id=1, credit_account_id=2, amount=1,
+                   ledger=1, code=1),
+         Transfer(id=2, debit_account_id=1, credit_account_id=2, amount=1,
+                   ledger=1, code=1, flags=int(TransferFlags.pending), timeout=3600),
+         Transfer(id=3, pending_id=2, amount=1, ledger=1, code=1,
+                   flags=int(TransferFlags.post_pending_transfer))],
+        3_000)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    led.shutdown_staging()
+    led.release()
+    return time.time() - t0

@@ -17,6 +17,8 @@ from both packages merge.
   and head sampling.
 - `flight_recorder.py` — the bounded ring of per-window records dumped
   as a JSON artifact on recovery.
+- `merge.py`  — cluster-wide trace merge (pid=replica, common timeline),
+  exact offline span quantiles, critical paths and causal assembly.
 """
 
 from .context import (TraceContext, fmt_span_id, fmt_trace_id,
@@ -24,6 +26,9 @@ from .context import (TraceContext, fmt_span_id, fmt_trace_id,
 from .event import CATALOG, TID_BASE, Event, EventKind, EventSpec, lookup
 from .flight_recorder import FlightRecorder, merge_flight_records
 from .histogram import Histogram
+from .merge import (CRITICAL_PATH_STAGES, assemble_traces, causal_edges,
+                    critical_path, estimate_clock_offsets,
+                    merge_trace_files, merge_traces, span_quantile)
 from .statsd import StatsD, TimingAggregates
 from .tracer import NullTracer, Tracer
 
@@ -32,6 +37,9 @@ __all__ = [
     "TraceContext", "fmt_span_id", "fmt_trace_id", "head_sampled",
     "mint_context", "mint_trace_id",
     "FlightRecorder", "merge_flight_records",
-    "Histogram", "StatsD", "TimingAggregates",
+    "Histogram", "CRITICAL_PATH_STAGES", "critical_path",
+    "assemble_traces", "causal_edges", "estimate_clock_offsets",
+    "merge_trace_files", "merge_traces", "span_quantile",
+    "StatsD", "TimingAggregates",
     "NullTracer", "Tracer",
 ]

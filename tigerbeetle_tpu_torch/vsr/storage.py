@@ -11,9 +11,13 @@ docs/internals/data_file.md:11-97). Zones:
   snapshot     2 x snapshot_size_max  (A/B checkpoint-root slots)
   grid         grid_block_count x grid_block_size (LSM copy-on-write blocks)
 
-The IO interface is synchronous. `FileStorage` does plain `os.pread` /
-`os.pwrite` file IO, the same bytes the JAX package's native C++ engine
-writes; that engine and its async WAL writes are not ported here.
+`FileStorage` is served by the native C++ engine (`native.py`,
+csrc/storage_engine.cpp) when it builds: pread/pwrite through it, and
+through its submission engine the asynchronous grid writes, the
+journal's asynchronous WAL pairs (`write_pair_async`, `io_poll`,
+`io_reap`) and read-ahead (`read_submit` / `read_fetch`). Without a
+toolchain it falls back to plain `os.pread` / `os.pwrite`, synchronous,
+the same bytes. `MemoryStorage` is synchronous.
 """
 
 from __future__ import annotations
@@ -169,22 +173,72 @@ class MemoryStorage(Storage):
 
 
 class FileStorage(Storage):
-    """File-backed storage with plain `os.pread` / `os.pwrite` (reference:
-    src/storage.zig read_sectors/write_sectors). Synchronous: every write
-    has landed in the file when `write` returns, and `sync` fsyncs. The
-    file is created sparse at the layout's size."""
+    """File-backed storage, served by the native C++ engine when available
+    (csrc/storage_engine.cpp via ctypes; reference: src/storage.zig
+    read_sectors/write_sectors). Falls back to os.pread/pwrite."""
 
     def __init__(self, path: str, layout: StorageLayout = StorageLayout(),
-                 create: bool = False):
+                 create: bool = False, async_grid: bool = True):
+        from .. import native as native_mod
+
         self.layout = layout
         self.path = path
+        self.native = None
+        # Async grid-zone writes through the native submission engine
+        # (reference: the io_uring layer, src/io/linux.zig): LSM block
+        # writes (compaction, flush) no longer block the replica loop.
+        # Correctness: grid blocks are immutable copy-on-write and cached
+        # at write, so the only read that could race a pending write is a
+        # cold/bypass read — those drain first (`_drain_grid`); sync()
+        # drains + fsyncs (the checkpoint barrier).
+        self.aio = None
+        self._grid_pending: dict[int, tuple[int, int]] = {}  # token -> (pos, end)
+        self._read_pending: set[int] = set()  # read-ahead tokens in flight
+        if native_mod.available():
+            self.native = native_mod.NativeFile(path, layout.size, create)
+            self.fd = -1
+            if async_grid:
+                self.aio = native_mod.AsyncEngine(self.native)
+            return
         flags = os.O_RDWR | (os.O_CREAT if create else 0)
         self.fd = os.open(path, flags, 0o644)
         if create:
             os.ftruncate(self.fd, layout.size)
 
+    def _drain_grid(self, pos: int = None, size: int = None) -> None:
+        """Settle pending grid writes overlapping [pos, pos+size) — or all
+        of them. Waits only on the overlapping grid tokens, never on
+        unrelated in-flight ops (the journal's async WAL pairs share the
+        engine; a cold grid read must not stall behind them)."""
+        if self.aio is None or not self._grid_pending:
+            return
+        if pos is None:
+            tokens = list(self._grid_pending)
+        else:
+            end = pos + size
+            tokens = [tok for tok, (p, e) in self._grid_pending.items()
+                      if p < end and pos < e]
+            if not tokens:
+                return
+        for token in tokens:
+            del self._grid_pending[token]
+            self._reap_grid(token)
+
+    def _reap_grid(self, token: int) -> None:
+        try:
+            self.aio.fetch(token)
+        except OSError:
+            # Same contract as the drain barrier: a lost grid write
+            # means durability is compromised (sticky in the engine).
+            raise RuntimeError(
+                "async write failed (sticky): storage compromised")
+
     def read(self, zone: str, offset: int, size: int) -> bytes:
         pos = self._check(zone, offset, size)
+        if zone == "grid":
+            self._drain_grid(pos, size)
+        if self.native is not None:
+            return self.native.read(pos, size)
         data = os.pread(self.fd, size, pos)
         if len(data) < size:
             data += b"\x00" * (size - len(data))
@@ -192,10 +246,108 @@ class FileStorage(Storage):
 
     def write(self, zone: str, offset: int, data: bytes) -> None:
         pos = self._check(zone, offset, len(data))
+        if zone == "grid" and self.aio is not None:
+            token = self.aio.submit_write_tracked(pos, data)
+            self._grid_pending[token] = (pos, pos + len(data))
+            return
+        if self.native is not None:
+            self.native.write(pos, data)
+            return
         os.pwrite(self.fd, data, pos)
 
+    def write_pair_async(self, zone1: str, off1: int, data1: bytes,
+                         zone2: str, off2: int, data2: bytes):
+        if self.aio is None:
+            return None
+        pos1 = self._check(zone1, off1, len(data1))
+        pos2 = self._check(zone2, off2, len(data2))
+        return self.aio.submit_write_pair(pos1, data1, pos2, data2)
+
+    def io_poll(self) -> list:
+        """Completion tokens for OTHER subsystems (the journal's WAL
+        pairs). Completed grid-write records are reaped here as a side
+        effect — left unfetched they would pile up in the engine and
+        crowd real tokens out of the poll window (a stalled WAL callback
+        is a stalled commit)."""
+        if self.aio is None:
+            return []
+        out = []
+        for token in self.aio.poll():
+            if token in self._grid_pending:
+                del self._grid_pending[token]
+                self._reap_grid(token)
+            elif token not in self._read_pending:
+                # Read-ahead tokens stay in the engine until their
+                # owner fetches them (tbio_poll is non-consuming).
+                out.append(token)
+        return out
+
+    def io_reap(self, token) -> None:
+        assert self.aio is not None
+        self.aio.fetch(token)
+
+    def read_batch(self, zone: str, reqs: list) -> list:
+        if self.aio is None or len(reqs) <= 1:
+            return [self.read(zone, off, size) for off, size in reqs]
+        positions = []
+        for off, size in reqs:
+            pos = self._check(zone, off, size)
+            if zone == "grid":
+                self._drain_grid(pos, size)
+            positions.append(pos)
+        tokens = [self.aio.submit_read(pos, size)
+                  for pos, (_, size) in zip(positions, reqs)]
+        out = []
+        for tok, (_, size) in zip(tokens, reqs):
+            data = self.aio.fetch(tok, size)
+            if len(data) < size:
+                data += b"\x00" * (size - len(data))
+            out.append(data)
+        return out
+
+    def read_submit(self, zone: str, reqs: list):
+        if self.aio is None:
+            return None
+        tokens = []
+        for off, size in reqs:
+            pos = self._check(zone, off, size)
+            if zone == "grid":
+                self._drain_grid(pos, size)
+            token = self.aio.submit_read(pos, size)
+            self._read_pending.add(token)
+            tokens.append(token)
+        return tokens
+
+    def read_fetch(self, token, size: int) -> bytes:
+        self._read_pending.discard(token)
+        data = self.aio.fetch(token, size)
+        if len(data) < size:
+            data += b"\x00" * (size - len(data))
+        return data
+
     def sync(self) -> None:
+        if self.aio is not None:
+            # Reap tracked grid tokens first (drain alone would leave
+            # their completion records unfetched in the engine), then the
+            # engine-wide durability barrier.
+            self._drain_grid()
+            self.aio.drain(sync=True)
+            return
+        if self.native is not None:
+            self.native.sync()
+            return
         os.fsync(self.fd)
 
     def close(self) -> None:
+        if self.aio is not None:
+            try:
+                self.aio.drain(sync=True)
+            finally:
+                # Even a failed final drain must release the worker
+                # threads and the fd.
+                self.aio.close()
+                self.aio = None
+        if self.native is not None:
+            self.native.close()
+            return
         os.close(self.fd)
