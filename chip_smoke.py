@@ -17,7 +17,8 @@ and on the kernel engine) and the serving supervisor in front of it
 faults and bounded replay recovery, the chaos seeds, the admission
 plane) and the durable layer under it (the LSM forest in a data file,
 checkpoints, a restart) and the replica server over it (`main.py
-start`, clients over TCP, a crash and restart, a 3-replica cluster) —
+start`, clients over TCP, a crash and restart, a 3-replica cluster) and
+the load harness (`main.py benchmark`) —
 at the ledger's default capacities, and
 holds its three CUDA kernels against their plain PyTorch twins. Phases,
 each failing the run with a nonzero exit:
@@ -169,7 +170,22 @@ each failing the run with a nonzero exit:
               --digest`; every reply equal to a CPU oracle twin fed the
               WAL; a 3-replica cluster of device engines on the card (a
               primary crash, a view change, a catch-up) equal to an
-              oracle cluster on the CPU.
+              oracle cluster on the CPU. The server writes an AOF
+              (`start --aof`), whose frames after the restart must be
+              ops 1.. in order, each the WAL's prepare at its op, and
+              serves /metrics (`--metrics-port 0`), scraped once: its
+              exposition parses and its commit counter covers every op
+              the restarted server committed.
+ 18. benchmark  the port's load harness through its entry points:
+              `main.main(["benchmark", "--transfer-count", "98280"])`
+              and the same with `--zipfian` (config 2 and the Zipfian
+              workload, 12 batches of 8,190 as one window of 12 on the
+              chain route, one graph replay after the warm-up): every
+              transfer accepted, no fallback, debits equal to credits,
+              the route and depths from `benchmark.CONFIG_ROUTES`;
+              `parity_config5` on the card (the ledger equal to the
+              oracle); `bench_config6_serving(batches=8)` (one pipelined
+              window of 8 bodies) accepting 8 x 8,189 transfers.
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -178,7 +194,8 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"config4_window": ...}`, `{"window_fallbacks": ...}`,
 `{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}`,
 `{"supervisor": ...}`, `{"durable": ...}`, `{"replica": ...}`,
-`{"phase_seconds": ...}` and `{"kernels": [...]}` lines, and last
+`{"benchmark": ...}`, `{"phase_seconds": ...}` and `{"kernels": [...]}`
+lines, and last
 `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
 """
@@ -308,14 +325,17 @@ BAL_W_TIMED = 3
 # bodies; 1 account in SV_HISTORY_EVERY keeps history; config 4's
 # accounts from SV_C4_ACCT0 + 1. SV_TIMED, SV_KERNEL and SP_WIDTHS are
 # cut (from 6, 2 and (4, 8)) to keep the whole script within its time
-# with the replica phase (PERF.md section 4).
+# with the replica phase, and SV_CHECKED, SV_TIMED and SV_C4_PAIRS (from
+# 3, 4 and 2) with the benchmark phase (PERF.md section 4). SV_W_SYNC
+# stays 3: the third synchronous window is the first replay, the one
+# timed.
 SV_BODY = BATCH - 1
-SV_CHECKED = 3
-SV_TIMED = 4
+SV_CHECKED = 2
+SV_TIMED = 2
 SV_W = 8
 SV_W_SYNC = 3
 SV_W_PIPED = 2
-SV_C4_PAIRS = 2
+SV_C4_PAIRS = 1
 SV_KERNEL = 1
 SV_HISTORY_EVERY = 64
 SV_C4_ACCT0 = 20_000
@@ -3520,10 +3540,10 @@ def serving_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
       - w_sync synchronous commit_window windows of w bodies (the first
         checked by digest), timed, one more profiled; then windows
         through stage_ / submit_ / resolve_commit_window two deep: w_piped
-        staged, 2 profiled; then with recycle_events on (the ring window
-        kernels, their key warmed by 2 windows) w_piped a turn, staged,
-        inline (overlap_staging off), inline, staged: transfers/s, idle
-        share, host_stall_fraction and the drain for each;
+        staged; then with recycle_events on (the ring window kernels,
+        their key warmed by 2 windows) w_piped staged, then w_piped
+        inline (overlap_staging off): transfers/s, host_stall_fraction
+        and the drain for each;
       - c4_pairs config-4 pairs, a pend body with 1 s timeouts, then one
         hard body (a repeated id: the mirror, no to_host), a pulse past
         the timeouts, and one request of every query operation;
@@ -3681,47 +3701,39 @@ def serving_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
     # last is a replay.
     sync_window_ms = sync_ms[-1]
 
-    piped, busy_window = {}, None
-    # Staging on and off with the ring kernels in turns: staged, inline,
-    # inline, staged.
+    piped = {}
+    # Staging on and off with the ring kernels: staged, then inline.
     for mode, recycle, stage, n_win in (
             ("staged", False, True, w_piped),
-            ("traced", False, True, 2),
             ("ring_warmup", True, True, 2),
             ("staged_ring", True, True, w_piped),
-            ("inline_ring", True, False, w_piped),
-            ("inline_ring_2", True, False, w_piped),
-            ("staged_ring_2", True, True, w_piped)):
+            ("inline_ring", True, False, w_piped)):
         led.recycle_events = recycle
         led.overlap_staging = stage
         # The ring windows' key warms up (eager, then captured) before it
         # is timed.
         windows = [c2_window() for _ in range(n_win)]
-        stats0 = dict(led.staging_stats)
+        # Each mode's staging counters count from zero: the difference
+        # of two cumulative float sums is not the sum of the mode's own
+        # increments, and an inline mode's stall and work must come out
+        # equal to the last bit.
+        led.staging_stats.update(windows=0, staged=0, misses=0,
+                                 stall_ms=0.0, work_ms=0.0)
         d2h = L.D2H_BYTES
-        if mode == "traced":
-            out = {}
-            trace = window_trace(dev, lambda: out.setdefault(
-                "r", drive_serving(card, windows, stage)),
-                "serving pipelined (traced)")
-            replies = out["r"]
-            if trace["busy_ms"] is not None:
-                busy_window = trace["busy_ms"] / n_win
-        else:
-            sync(dev)
-            t = time.perf_counter()
-            replies = drive_serving(card, windows, stage)
-            sync(dev)
-            wall = (time.perf_counter() - t) * 1e3
+        sync(dev)
+        t = time.perf_counter()
+        replies = drive_serving(card, windows, stage)
+        sync(dev)
+        wall = (time.perf_counter() - t) * 1e3
         t = time.perf_counter()
         led.drain_mirror()
         drain = (time.perf_counter() - t) * 1e3
-        st = {k: led.staging_stats[k] - stats0[k] for k in stats0}
+        st = dict(led.staging_stats)
         for k, (window, reply) in enumerate(zip(windows, replies)):
             ref_window(f"serving {mode} window {k}", window, reply)
         check(not recycle or int(led.state["events"]["count"]) == 0,
               f"serving {mode}: the ring was not recycled")
-        if mode in ("traced", "ring_warmup"):
+        if mode == "ring_warmup":
             continue
         piped[mode] = dict(
             ms_per_window=wall / n_win,
@@ -3733,10 +3745,6 @@ def serving_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
             drain_ms_per_window=drain / n_win,
             d2h_bytes_per_window=(L.D2H_BYTES - d2h) / n_win)
         print(f"serving pipelined ({mode}): {piped[mode]}", flush=True)
-    for v in piped.values():
-        v["busy_ms_per_window"] = busy_window
-        v["idle_share"] = (None if busy_window is None
-                           else 1 - busy_window / v["ms_per_window"])
     sv.check_digest("serving pipelined windows")
     led.recycle_events = False
     led.overlap_staging = True
@@ -5125,6 +5133,8 @@ RC_BODY = 500               # events a cluster body: TEST_LAYOUT's 64 KiB
 RC_CRASH_AT = 12            # the primary crashes once this op committed
 RC_SEED = 17
 RC_CAPS = (1 << 12, 1 << 14)
+BM_TRANSFERS = 12 * BATCH   # main.py benchmark: one window of 12
+BM_SERVING_BATCHES = 8      # bench_config6_serving: one window of 8
 SERVER_SPANS = ("commit_execute", "commit_compact", "commit_checkpoint",
                 "journal_recover")
 
@@ -5609,7 +5619,9 @@ def run_cluster(factory, seed: int, n_ops: int, body: int,
 def _replica_twin_proc(conn) -> None:
     """The CPU side of the replica phase, in a process of its own:
     ("twin_begin", path, small, upto) -> a ReplicaTwin takes ops up to
-    `upto` (their count); ("twin_end", path) -> it takes the rest, its
+    `upto` (their count); ("twin_more", path, upto) -> it takes the ops
+    up to `upto` it has not taken (the count); ("twin_end", path) -> it
+    takes the rest, its
     result(); ("cluster", seed, n_ops, body, crash_at) -> run_cluster on
     oracle-engine state machines. Each answer (True, result) or (False,
     the traceback)."""
@@ -5629,6 +5641,8 @@ def _replica_twin_proc(conn) -> None:
                 path, small, upto = args
                 twin = ReplicaTwin(small)
                 out = twin.commit_from(path, upto)
+            elif name == "twin_more":
+                out = twin.commit_from(*args)
             elif name == "twin_end":
                 twin.commit_from(args[0])
                 out = twin.result()
@@ -5693,8 +5707,9 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
     SIGTERM, then `inspect --digest` exits 0 with no corrupt superblock
     copy and 0 faulty WAL slots; (g) on the CPU in a process of its own,
     the WAL's prepares committed through an oracle-engine replica (from
-    the kill on, the prefix the clients saw committed; after (f), the
-    rest): every reply the clients got equal to its, byte for byte, no
+    the kill on, the prefix the clients saw committed; once the clients
+    are done, what they saw committed since; after (f), the rest): every
+    reply the clients got equal to its, byte for byte, no
     (client, request) prepared twice, the last checkpoint's trees equal
     to the file's; (h) meanwhile a 3-replica cluster of device engines on `dev`
     (`run_cluster`), equal to an oracle-engine cluster on the CPU.
@@ -5724,6 +5739,7 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
     tmp = tempfile.mkdtemp(prefix="tb_replica_")
     path = f"{tmp}/0_0.tigerbeetle"
     trace_path = f"{tmp}/trace.json"
+    aof_path = f"{tmp}/0_0.aof"
     log_path = f"{tmp}/server.log"
     ctx = multiprocessing.get_context("spawn")
     servers, sampler, twin_proc = [], None, None
@@ -5754,7 +5770,8 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
         # (b) start
         port = _free_port()
         argv = ["start", f"--addresses=127.0.0.1:{port}", "--replica=0",
-                "--engine=device", f"--trace={trace_path}", *flags, path]
+                "--engine=device", f"--trace={trace_path}",
+                f"--aof={aof_path}", "--metrics-port=0", *flags, path]
         if not cuda:
             argv.insert(1, "--platform=cpu")
         t = time.perf_counter()
@@ -5839,6 +5856,11 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
               "replica: a reply answers another operation")
         check(len(recs) == len(acct_items) + n_clients * n_bodies,
               f"replica: {len(recs)} replies")
+        # The twin takes the ops the clients saw committed while the
+        # reads, the SIGTERM and inspect run (its replay is the phase's
+        # longest path).
+        upto_done = max(r["op"] for r in recs)
+        twin_conn.send(("twin_more", (path, upto_done)))
 
         # (e) reads and a duplicate. First a lookup, sent once every
         # pending's 1 s timeout has passed, moves the server's prepare
@@ -5897,6 +5919,15 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
         check(dup_same, "replica: the duplicate's reply is not the cached "
               "one")
         phase_s["reads"] = time.perf_counter() - t
+        # One scrape of the restarted server's /metrics: it counts every
+        # op it committed, from its checkpoint (the WAL replay at open
+        # included) to the last reply the clients got.
+        scraped = scrape_metrics(Path(log_path).read_text())
+        commits = sum(v for _, v in scraped.get("tb_tpu_commits_total", []))
+        check(commits >= last["op"] - reopened["op_checkpoint"],
+              f"replica: /metrics counts {commits} commits, the restarted "
+              f"server committed ops {reopened['op_checkpoint'] + 1}.."
+              f"{last['op']}")
 
         # (f) SIGTERM and inspect
         srv.stop("term")
@@ -5906,6 +5937,10 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
         check(final["op"] == last["op"] and final["commit_min"] == last["op"],
               f"replica: the duplicate moved the server to op "
               f"{final['op']} (last op {last['op']})")
+        aof_ops = aof_against_wal(aof_path, path, layout)
+        check(aof_ops == final["commit_min"],
+              f"replica: the AOF holds {aof_ops} ops, the server "
+              f"committed {final['commit_min']}")
         # (g) the CPU twin takes the rest of the stopped server's WAL,
         # beside (f) and (h).
         t_twin = time.perf_counter()
@@ -5932,13 +5967,15 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
         cluster_launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
         phase_s["cluster_card"] = time.perf_counter() - t
         answers = []
-        for _ in range(3):
+        for _ in range(4):
             ok, got = twin_conn.recv()
             check(ok, f"replica: the CPU side failed:\n{got}")
             answers.append(got)
-        twin_prefix, twin, cpu_cluster = answers
+        twin_prefix, twin_more, twin, cpu_cluster = answers
         check(twin_prefix == upto, f"replica: the twin took {twin_prefix} "
               f"ops before the restart, not {upto}")
+        check(twin_more == upto_done, f"replica: the twin took {twin_more} "
+              f"ops once the clients were done, not {upto_done}")
         phase_s["twin_wait"] = time.perf_counter() - t
         phase_s["twin_and_cluster_cpu"] = time.perf_counter() - t_twin
     finally:
@@ -6051,7 +6088,8 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
         launches_replica=cluster_launches,
         reads_ms={O(r["operation"]).name: (r["got"] - r["sent"]) * 1e3
                   for r in reads},
-        n_lookups=n_lookups, twin_ms=twin["ms"],
+        n_lookups=n_lookups, twin_ms=twin["ms"], aof_ops=aof_ops,
+        metrics_commits=commits,
         cluster=dict(ops=rc_ops, body=rc_body, crash_at=rc_crash_at,
                      view=cc["view"], windows=cc["windows"],
                      checkpoints=cc["checkpoints"], card_ms=cc["ms"],
@@ -6070,6 +6108,147 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
           f"{numbers['elapsed_s']:.1f} s; {card_line_or_cpu(dev)}",
           flush=True)
     return numbers
+
+
+def scrape_metrics(server_log: str) -> dict:
+    """One scrape of the endpoint the last server in `server_log`
+    announced (`start --metrics-port`), parsed with the port's
+    parse_prometheus (which raises on a malformed line)."""
+    import re
+    import urllib.request
+
+    from tigerbeetle_tpu_torch.metrics import parse_prometheus
+
+    urls = re.findall(r"metrics on (http://\S+/metrics)", server_log)
+    check(bool(urls), "replica: the server announced no /metrics")
+    with urllib.request.urlopen(urls[-1], timeout=60) as r:
+        check(r.status == 200, f"replica: /metrics answered {r.status}")
+        return parse_prometheus(r.read().decode())
+
+
+def aof_against_wal(aof_path: str, data_path: str, layout) -> int:
+    """The AOF's frames (`start --aof`) are ops 1, 2, ... in order, each
+    the prepare the data file's WAL holds at its op (header checksum and
+    body), every op the WAL's ring still holds (all of them at the
+    default layout's 1,024 slots); returns the number of frames."""
+    from tigerbeetle_tpu_torch.aof import AOF
+    from tigerbeetle_tpu_torch.vsr.journal import Journal
+    from tigerbeetle_tpu_torch.vsr.storage import FileStorage
+
+    frames = list(AOF.iterate(aof_path))
+    check([m.header.op for m in frames] == list(range(1, len(frames) + 1)),
+          "replica: the AOF's ops are not 1.. in order")
+    storage = FileStorage(data_path, layout)
+    try:
+        journal = Journal(storage)
+        journal.recover()
+        for m in frames:
+            if m.header.op <= journal.op_max() - journal.slot_count:
+                continue   # its slot holds a later op
+            w = journal.read_prepare(m.header.op)
+            check(w is not None and w.header.checksum == m.header.checksum
+                  and w.body == m.body,
+                  f"replica: AOF op {m.header.op} differs from the WAL's")
+    finally:
+        storage.close()
+    return len(frames)
+
+
+def benchmark_phase(dev, transfers: int = BM_TRANSFERS,
+                    serving_batches: int = BM_SERVING_BATCHES) -> dict:
+    """The port's load harness through its entry points on `dev`:
+    `main.main(["benchmark", ...])` uniform and `--zipfian` (stdout
+    parsed: every transfer accepted; the ledger's fallbacks 0, debits
+    equal to credits; the route and window depths from
+    benchmark.CONFIG_ROUTES), `parity_config5` (True) and
+    `bench_config6_serving(batches=serving_batches)` (every transfer
+    accepted, no fallback). Returns tx/s, ms a window and the wrappers'
+    launches (counted; with the graph replays, ran)."""
+    import contextlib
+    import io
+
+    from tigerbeetle_tpu_torch import benchmark as B, main as tb_main
+    from tigerbeetle_tpu_torch.ops import fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+
+    cuda = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    fused_probe.LAUNCHES = RG.LAUNCHES = 0
+    ledgers = []
+    make = B._make_ledger
+
+    def tapped(*args, **kwargs):
+        ledgers.append(make(*args, **kwargs))
+        return ledgers[-1]
+
+    B._make_ledger = tapped
+    out, ran = {}, [0, 0]
+    try:
+        for label, key, extra in (("uniform", "config2", []),
+                                  ("zipfian", "zipfian", ["--zipfian"])):
+            buf = io.StringIO()
+            argv = ["benchmark", "--transfer-count", str(transfers), *extra]
+            if not cuda:
+                argv += ["--platform", "cpu"]
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = tb_main.main(argv)
+            wall = time.perf_counter() - t
+            check(rc == 0, f"benchmark {label}: rc {rc}")
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            led = ledgers[-1]
+            check(line["transfers"] == transfers,
+                  f"benchmark {label}: {line['transfers']} of {transfers} "
+                  "transfers accepted")
+            check(led.fallbacks == 0 and led.window_fallbacks == 0,
+                  f"benchmark {label}: fallbacks {led.fallback_stats()}")
+            double_entry(led)
+            route = B.CONFIG_ROUTES[key]
+            want_route = "chain" if cuda else "per_batch"
+            check(route["route"] == want_route,
+                  f"benchmark {label}: route {route}")
+            windows = len(range(0, transfers // BATCH,
+                                max(route["window_depths"])))
+            counted, graph_ran = graph_launches(led.windows)
+            ran = [ran[i] + graph_ran[i] for i in range(2)]
+            out[label] = dict(
+                **line, route=route["route"],
+                window_depths=route["window_depths"],
+                ms_per_window=(line["transfers"] * 1e3 / windows
+                               / line["load_accepted_tx_per_s"]),
+                wall_s=wall, graphs=dict(
+                    eager=sum(led.windows.eager.values()),
+                    captures=sum(led.windows.captures.values()),
+                    replays=sum(led.windows.replays.values())))
+            led.release()
+            ledgers.clear()
+            print(f"benchmark {label}: {out[label]}", flush=True)
+    finally:
+        B._make_ledger = make
+    t = time.perf_counter()
+    check(B.parity_config5(device=dev) is True,
+          "benchmark: parity_config5 differs from the oracle")
+    out["parity_config5_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    accepted, elapsed, latency = B.bench_config6_serving(
+        batches=serving_batches, device=dev)
+    check(accepted == serving_batches * (BATCH - 1),
+          f"benchmark serving: {accepted} of "
+          f"{serving_batches * (BATCH - 1)} transfers accepted")
+    out["serving"] = dict(
+        transfers=accepted, seconds=elapsed,
+        load_accepted_tx_per_s=accepted / elapsed,
+        route=B.CONFIG_DIAGNOSTICS["config6"]["routes"]["windows"],
+        latency_ms={k: v for k, v in (latency or {}).items()
+                    if k != "histogram"}, wall_s=time.perf_counter() - t)
+    launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
+    check(not cuda or (launches[0] > 0 and launches[1] > 0),
+          f"benchmark: launches probe/gather {launches}")
+    out.update(launches=launches, launches_ran_windows=tuple(ran),
+               elapsed_s=time.perf_counter() - t_phase,
+               card=card_line_or_cpu(dev))
+    print(f"benchmark: {out}", flush=True)
+    return out
 
 
 def build_all():
@@ -6153,6 +6332,8 @@ def main() -> int:
     lap("durable_phase")
     rep = replica_phase(dev)
     lap("replica_phase")
+    bm = benchmark_phase(dev)
+    lap("benchmark_phase")
     phase_seconds["total"] = time.perf_counter() - t0
     print(f"all phases passed in {phase_seconds['total']:.1f} s",
           flush=True)
@@ -6196,6 +6377,10 @@ def main() -> int:
         # runs of the child) and the 3-replica cluster's on the card.
         "launches_replica_server": rep["launches"][0],
         "launches_replica": rep["launches_replica"][0],
+        # The benchmark phase's: counted (eager windows, captures, the
+        # per-batch and serving runs); ran adds the window replays.
+        "launches_benchmark": bm["launches"][0],
+        "ran_benchmark_windows": bm["launches_ran_windows"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -6241,6 +6426,8 @@ def main() -> int:
         "launches_durable": dur["launches"][1],
         "launches_replica_server": rep["launches"][1],
         "launches_replica": rep["launches_replica"][1],
+        "launches_benchmark": bm["launches"][1],
+        "ran_benchmark_windows": bm["launches_ran_windows"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -6301,6 +6488,7 @@ def main() -> int:
     print(json.dumps({"supervisor": sup}), flush=True)
     print(json.dumps({"durable": dur}), flush=True)
     print(json.dumps({"replica": rep}), flush=True)
+    print(json.dumps({"benchmark": bm}), flush=True)
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

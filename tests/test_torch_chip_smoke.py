@@ -357,14 +357,13 @@ def test_serving_phase_rehearsed_on_the_cpu(calls):
                                n_timed=2, w=3, w_sync=3, w_piped=2,
                                c4_pairs=1, n_kernel=1,
                                caps=(1 << 10, 1 << 15))
-    assert numbers["routes"] == {"chain": 18}
+    assert numbers["routes"] == {"chain": 12}
     assert numbers["counters"][4] == 1           # the hard body
     assert numbers["delta_gathers"] > 0
     assert calls["gather"] >= numbers["delta_gathers"]
     assert all(numbers["query_reply_bytes"].values())
     assert set(numbers["pipelined"]) == {"staged", "staged_ring",
-                                         "inline_ring", "inline_ring_2",
-                                         "staged_ring_2"}
+                                         "inline_ring"}
     assert numbers["pipelined"]["staged"]["staged"] == 2
     assert numbers["pipelined"]["inline_ring"]["staged"] == 0
     assert numbers["pipelined"]["inline_ring"]["host_stall_fraction"] == 1.0
@@ -538,3 +537,43 @@ def test_chip_smoke_runs_the_replica_phase_last():
         "'kernels'")]
     assert order == sorted(order)
     assert main.count("'launches_replica':") == 3
+
+
+def test_benchmark_phase_rehearsed_on_the_cpu(calls, monkeypatch):
+    """The benchmark phase at a small size on the CPU: `main.main(
+    ["benchmark", ...])` uniform and Zipfian (one 8,190-event batch each
+    after a one-batch warm-up, one batch a dispatch on the CPU), every
+    transfer accepted with no fallback and debits equal to credits;
+    parity_config5 true; bench_config6_serving accepting every transfer
+    of its 2 bodies."""
+    from tigerbeetle_tpu_torch import benchmark
+
+    monkeypatch.setattr(benchmark, "B_CHUNK", 1)
+    numbers = CS.benchmark_phase("cpu", transfers=CS.BATCH,
+                                 serving_batches=2)
+    for label in ("uniform", "zipfian"):
+        got = numbers[label]
+        assert got["transfers"] == CS.BATCH
+        assert got["route"] == "per_batch" and got["window_depths"] == [1]
+        assert got["load_accepted_tx_per_s"] > 0
+    assert numbers["serving"]["transfers"] == 2 * (CS.BATCH - 1)
+    assert numbers["card"] == "CPU"
+    assert calls["probe"] > 0 and calls["gather"] > 0
+
+
+def test_chip_smoke_runs_the_benchmark_phase_after_the_replica_phase():
+    """main() runs the benchmark phase after the replica phase and
+    prints its line before the phases' seconds and the kernels line,
+    whose probe and row-gather entries carry its launches."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "replica_phase(", "benchmark_phase(", "'benchmark'",
+        "'phase_seconds'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_benchmark':") == 2

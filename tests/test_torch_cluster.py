@@ -8,7 +8,8 @@ sync across two checkpoints and two packet-chaos seeds. The replies the
 client got (in commit order: each carries its op and its prepare's
 checksum), every live replica's final state encoding, views, ops and
 commit numbers must be equal; each cluster also runs its own convergence
-and storage checkers.
+and storage checkers. A rebuild from the cluster of a replica whose data
+file was destroyed runs the same way.
 """
 
 import pytest
@@ -151,6 +152,25 @@ def _state_sync(run):
     c.settle(6000)
 
 
+def _rebuild(run):
+    """A replica's data file is destroyed past a WAL wrap, traffic goes
+    on, and the replica rebuilds from the cluster (the in-process form of
+    `recover --from-cluster`): a checkpoint installed over state sync,
+    the suffix repaired, the grid certified, then a voter again."""
+    c = run.cluster
+    run.drive(Operation.create_accounts, _accounts([1, 2]))
+    for k in range(40):
+        run.drive(Operation.create_transfers, _transfers([(100 + k, 1, 2, 1)]))
+    c.settle()
+    victim = (c.replicas[0].primary_index() + 1) % 3
+    c.destroy_data_file(victim)
+    for k in range(5):
+        run.drive(Operation.create_transfers, _transfers([(300 + k, 1, 2, 1)]))
+    rebuilt = c.rebuild(victim)
+    assert rebuilt._rebuild_synced and rebuilt._rebuild_certified
+    c.settle()
+
+
 def _chaos(run):
     run.drive(Operation.create_accounts, _accounts([1, 2]))
     for k in range(10):
@@ -166,6 +186,7 @@ CASES = {
     "crash_restart": (3, 3, None, _crash_restart),
     "nack_repair": (21, 6, None, _nack),
     "state_sync": (28, 3, None, _state_sync),
+    "rebuild": (31, 3, None, _rebuild),
     "chaos_11": (11, 3, CHAOS, _chaos),
     "chaos_12": (12, 3, CHAOS, _chaos),
 }

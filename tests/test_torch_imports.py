@@ -61,7 +61,11 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.vsr.client, "
         "tigerbeetle_tpu_torch.clients.common, "
         "tigerbeetle_tpu_torch.testing.cluster, "
-        "tigerbeetle_tpu_torch.trace.merge\n"
+        "tigerbeetle_tpu_torch.trace.merge, "
+        "tigerbeetle_tpu_torch.trace.slo, tigerbeetle_tpu_torch.benchmark, "
+        "tigerbeetle_tpu_torch.aof, tigerbeetle_tpu_torch.metrics, "
+        "tigerbeetle_tpu_torch.repl, tigerbeetle_tpu_torch.cdc, "
+        "tigerbeetle_tpu_torch.amqp\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -102,6 +106,15 @@ def test_the_serving_modules_are_the_ports_own():
                  "trace/histogram.py", "trace/statsd.py", "trace/tracer.py",
                  "trace/flight_recorder.py", "utils/zipfian.py",
                  "testing/chaos.py"):
+        assert (PORT / name) in _sources(), name
+
+
+def test_the_operators_modules_are_the_ports_own():
+    """The benchmark harness and the operator's side of the server exist
+    in the port (the AST check above covers their sources, the import
+    check above their imports)."""
+    for name in ("benchmark.py", "aof.py", "trace/slo.py", "metrics.py",
+                 "repl.py", "cdc.py", "amqp.py"):
         assert (PORT / name) in _sources(), name
 
 

@@ -12,10 +12,12 @@ data file the JAX replica wrote, opened and carried on by the port's.
 
 import random
 import shutil
+import time as _clock
 
 import pytest
 
 import tigerbeetle_tpu  # noqa: F401  (enables JAX x64)
+from tigerbeetle_tpu import native as J_native
 from tigerbeetle_tpu.state_machine import StateMachine as J_StateMachine
 from tigerbeetle_tpu.vsr import header as J_header
 from tigerbeetle_tpu.vsr import storage as J_storage
@@ -42,6 +44,20 @@ S = 10**9
 needs_native = pytest.mark.skipif(
     "not P_native.available()",
     reason="no C++ toolchain for the native engine")
+
+
+@pytest.fixture
+def jax_native():
+    """The JAX package's native engine, loaded whole. That package links its
+    library in place at first use (`g++ -o native/libtb_storage.so`) and
+    remembers a failed load for the life of the process, so a test worker
+    that loads it while another worker is still linking it reads a partial
+    file and would run on plain file IO. Wait for the link to end and load
+    again."""
+    deadline = _clock.monotonic() + 180
+    while J_native.load() is None and _clock.monotonic() < deadline:
+        _clock.sleep(0.5)
+        J_native._tried = False
 
 
 class _Bus:
@@ -261,7 +277,7 @@ def test_replica_stream_crash_and_duplicate_equal(engine):
 
 
 @needs_native
-def test_backup_windows_from_native_data_file(tmp_path):
+def test_backup_windows_from_native_data_file(tmp_path, jax_native):
     """A backup (replica 1 of 3) of each package on a native-engine
     FileStorage takes the primary's prepares; its prepare_oks wait for
     the WAL writes (deferred to the next tick). One commit message then
@@ -324,7 +340,7 @@ def test_backup_windows_from_native_data_file(tmp_path):
 
 
 @needs_native
-def test_jax_data_file_opened_by_the_port(tmp_path):
+def test_jax_data_file_opened_by_the_port(tmp_path, jax_native):
     """A data file the JAX replica wrote (native engine, oracle engine,
     a checkpoint and journaled ops past it) is opened by the port's
     replica, which replays the same ops and answers the next requests as

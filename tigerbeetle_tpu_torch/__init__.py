@@ -20,8 +20,14 @@ sequential kernel, or on the oracle. In front of a write-through ledger
 `ServingSupervisor` (`serving.py`) retries dispatches, verifies epochs
 against the oracle and recovers by bounded replay; `admission.py` admits
 and sheds client requests into its windows; `trace/` is the tracing
-core; `testing/chaos.py` the seeded single-chip chaos harness.
+core; `testing/chaos.py` the seeded single-chip chaos harness;
+`benchmark.py` the load harness (`main.py benchmark`); `aof.py`,
+`metrics.py`, `repl.py`, `cdc.py` and `amqp.py` the operator's side of
+the server (`main.py`).
 """
+
+__version__ = "0.1.0"
+
 
 from .convert import state_from_numpy, state_to_numpy
 from .ops.ledger import DeviceLedger

@@ -3,18 +3,29 @@
 reference: src/tigerbeetle/main.zig (commands :146-186) + cli.zig. A copy
 of the JAX package's `main.py` for these commands:
 
-  format     --cluster=N --replica=I --replica-count=N [--small] <path>
-  start      --addresses=a:p,b:p,... --replica=I [--engine=device|kernel|oracle]
-             [--platform=cpu] [--small] [--trace=PATH] [--statsd=host:port] <path>
-  inspect    [--small] [--integrity] [--digest] <path>
+  format       --cluster=N --replica=I --replica-count=N [--small] <path>
+  start        --addresses=a:p,b:p,... --replica=I
+               [--engine=device|kernel|oracle] [--platform=cpu] [--small]
+               [--trace=PATH] [--statsd=host:port] [--metrics-port=P]
+               [--aof=PATH] <path>
+  recover      <aof> <path>  |  --from-cluster --addresses=... <path>
+  repl         --addresses=... [--cluster=N]
+  benchmark    [--transfer-count=N] [--account-count=N] [--zipfian]
+               [--platform=cpu]
+  inspect      [--small] [--integrity] [--digest] <path>
+  amqp         --addresses=... --amqp=host:port
+  multiversion [--small] <path>
+  version
 
-`start` serves on the card (CUDA) unless `--platform cpu` is given, and
-raises where there is no card.
+`start` and `benchmark` run on the card (CUDA) unless `--platform cpu`
+is given, and raise where there is no card. `recover` replays on the
+oracle engine, host code, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -82,7 +93,7 @@ def cmd_start(args) -> int:
     # lives on the card, and StateMachine raises where there is none.
     device = args.platform
     tracer = None
-    if args.trace or args.statsd:
+    if args.trace or args.statsd or args.metrics_port is not None:
         from .trace import StatsD, Tracer
 
         statsd = None
@@ -93,13 +104,19 @@ def cmd_start(args) -> int:
                 return 2
             statsd = StatsD(host or "127.0.0.1", int(port))
         # pid = replica id: merged cluster traces get one process track
-        # per replica (trace/merge.py).
+        # per replica (trace/merge.py). --metrics-port implies a
+        # recording tracer: the endpoint exposes its registry.
         tracer = Tracer(statsd=statsd, pid=args.replica,
                         emit_interval_s=args.trace_emit_interval)
     bus = MessageBus(cluster=args.cluster, on_message=on_message,
                      replica_addresses=addresses, replica_id=args.replica,
                      listen=True, listen_port=args.listen_port,
                      tracer=tracer)
+    aof = None
+    if args.aof:
+        from .aof import AOF
+
+        aof = AOF(args.aof)
     # Production capacities match the DeviceLedger defaults (the
     # static-allocation bound, reference: config.zig limits); --small
     # keeps test clusters light. Shared by the serving factory AND the
@@ -109,7 +126,7 @@ def cmd_start(args) -> int:
     replica = Replica(
         cluster=args.cluster, replica_id=args.replica,
         replica_count=len(addresses), storage=storage, bus=bus,
-        time=_WallTime(), tracer=tracer,
+        time=_WallTime(), tracer=tracer, aof=aof,
         state_machine_factory=lambda: StateMachine(
             engine=args.engine, a_cap=a_cap, t_cap=t_cap, device=device))
     replica_holder.append(replica)
@@ -121,6 +138,30 @@ def cmd_start(args) -> int:
 
         warm_s = warmup_kernels(a_cap=a_cap, t_cap=t_cap, device=device)
         print(f"kernels warm in {warm_s:.1f}s", flush=True)
+    metrics_server = None
+    if args.metrics_port is not None:
+        from .metrics import MetricsServer, render_prometheus
+        from .trace import burn_rates, evaluate, load_objectives
+
+        try:
+            slo_cfg = load_objectives()
+        except (OSError, ValueError) as e:
+            print(f"warning: SLO objectives unavailable: {e}", flush=True)
+            slo_cfg = None
+
+        def _exposition() -> str:
+            rows = burn = None
+            if slo_cfg is not None:
+                rows = evaluate(tracer, slo_cfg["objectives"],
+                                emit_to=tracer)
+                burn = burn_rates([rows], slo_cfg["burn_window_runs"],
+                                  slo_cfg["burn_budget"])
+            return render_prometheus(tracer, slo_rows=rows, burn=burn)
+
+        metrics_server = MetricsServer(_exposition,
+                                       port=args.metrics_port)
+        print(f"metrics on http://127.0.0.1:{metrics_server.port}/metrics",
+              flush=True)
     replica.open()
     print(f"replica {args.replica} listening on "
           f"{addresses[args.replica][0]}:{addresses[args.replica][1]} "
@@ -150,11 +191,198 @@ def cmd_start(args) -> int:
     finally:
         _signal.signal(_signal.SIGINT, prev_int)
         _signal.signal(_signal.SIGTERM, prev_term)
+    if metrics_server is not None:
+        metrics_server.close()
+    if aof is not None:
+        aof.close()
     if tracer is not None:
         tracer.flush_statsd()
         if args.trace:
             tracer.dump_chrome_trace(args.trace)
     return 0
+
+
+def cmd_repl(args) -> int:
+    from .repl import run_repl
+    from .vsr.client import Client
+
+    client = Client(cluster=args.cluster, client_id=args.client_id,
+                    replica_addresses=_parse_addresses(args.addresses))
+    try:
+        run_repl(client)
+    finally:
+        client.close()
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    from .benchmark import bench_config2, bench_config_zipfian
+
+    batches = max(1, args.transfer_count // 8190)
+    if args.zipfian:
+        accepted, elapsed = bench_config_zipfian(
+            batches, account_count=args.account_count, theta=args.theta,
+            device=args.platform)
+    else:
+        accepted, elapsed = bench_config2(
+            batches, account_count=args.account_count,
+            device=args.platform)
+    print(json.dumps({
+        "load_accepted_tx_per_s": round(accepted / elapsed, 1),
+        "transfers": accepted,
+        "seconds": round(elapsed, 3),
+    }))
+    return 0
+
+
+def _recover_from_cluster(args) -> int:
+    """Rebuild a blank/lost data file from the cluster's live peers
+    (reference: src/vsr/replica_reformat.zig): solicit the newest durable
+    checkpoint over the state-sync path, install it staged (the
+    superblock's sync_op record makes a crash mid-install restart the
+    rebuild instead of leaving a half-written file), repair the WAL
+    suffix through normal VSR repair, certify the installed grid with a
+    full scrub tour, then exit 0 — `start` rejoins as a voter. The
+    rebuild commits on the oracle engine (host code), as the JAX
+    package's does."""
+    import signal as _signal
+    import time as _time
+
+    from .state_machine import StateMachine
+    from .vsr.message_bus import MessageBus
+    from .vsr.replica import Replica
+    from .vsr.storage import FileStorage, StorageLayout, TEST_LAYOUT
+
+    if not args.addresses:
+        print("error: recover --from-cluster requires --addresses")
+        return 2
+    addresses = _parse_addresses(args.addresses)
+    if args.replica_count != len(addresses):
+        print(f"error: --replica-count={args.replica_count} but "
+              f"--addresses lists {len(addresses)} replicas")
+        return 2
+    layout = TEST_LAYOUT if args.small else StorageLayout()
+    storage = FileStorage(args.path, layout=layout, create=True)
+    holder: list = []
+    bus = MessageBus(cluster=args.cluster,
+                     on_message=lambda m: holder[0].on_message(m),
+                     replica_addresses=addresses, replica_id=args.replica,
+                     listen=True, listen_port=args.listen_port)
+    replica = Replica(
+        cluster=args.cluster, replica_id=args.replica,
+        replica_count=args.replica_count, storage=storage, bus=bus,
+        time=_WallTime(),
+        state_machine_factory=lambda: StateMachine(engine="oracle",
+                                                   device="cpu"))
+    holder.append(replica)
+    replica.open_rebuild()
+    print(f"rebuild: replica {args.replica} rebuilding from cluster "
+          f"{args.cluster} ({len(addresses) - 1} peers)", flush=True)
+    stop: list = []
+    prev_int = _signal.signal(_signal.SIGINT, lambda *_: stop.append(1))
+    prev_term = _signal.signal(_signal.SIGTERM, lambda *_: stop.append(1))
+    t0 = _time.monotonic()
+    deadline = t0 + args.timeout_s if args.timeout_s else None
+    last_progress, last_print = "", 0.0
+    try:
+        while not replica.rebuild_complete and not stop:
+            bus.poll(0.01)
+            replica.tick()
+            now = _time.monotonic()
+            progress = replica.rebuild_progress()
+            if progress != last_progress and now - last_print >= 0.2:
+                last_progress, last_print = progress, now
+                print(f"rebuild: {progress}", flush=True)
+            if deadline is not None and now > deadline:
+                print(f"rebuild: TIMED OUT after {args.timeout_s:.0f}s "
+                      f"({progress})", flush=True)
+                return 1
+    finally:
+        _signal.signal(_signal.SIGINT, prev_int)
+        _signal.signal(_signal.SIGTERM, prev_term)
+        bus.close()
+        storage.sync()
+        storage.close()
+    if not replica.rebuild_complete:
+        print(f"rebuild: interrupted ({replica.rebuild_progress()}); "
+              "re-run recover --from-cluster to resume", flush=True)
+        return 1
+    replica.finish_rebuild()
+    sb = replica.superblock
+    print(f"rebuilt {args.path} from cluster: checkpoint op "
+          f"{sb.op_checkpoint}, commit {replica.commit_min}, "
+          f"{'state-synced' if replica._rebuild_synced else 'WAL-repaired'}"
+          f", grid certified, in {_time.monotonic() - t0:.1f}s",
+          flush=True)
+    return 0
+
+
+def cmd_recover(args) -> int:
+    """Rebuild a fresh data file from an append-only file (reference:
+    `tigerbeetle recover` replaying src/aof.zig frames) — or, with
+    --from-cluster, from the cluster's live peers over state sync. The
+    replay runs on the oracle engine (host code), as the JAX package's
+    does."""
+    if args.from_cluster:
+        if args.path is None:  # only one positional given
+            args.path = args.aof
+        if args.path is None:
+            print("error: recover --from-cluster requires <path>")
+            return 2
+        return _recover_from_cluster(args)
+    if args.aof is None or args.path is None:
+        print("error: recover requires <aof> <path> "
+              "(or --from-cluster <path>)")
+        return 2
+    import struct as _struct
+
+    from .aof import recover
+    from .state_machine import StateMachine
+    from .vsr.checksum import checksum
+    from .vsr.client_sessions import ClientSessions
+    from .vsr.durable import DurableState
+    from .vsr.replica import Replica
+    from .vsr.storage import FileStorage, StorageLayout, TEST_LAYOUT
+    from .vsr.superblock import SuperBlock
+
+    sm = StateMachine(engine="oracle", device="cpu")
+    applied = recover(args.aof, sm)
+    layout = TEST_LAYOUT if args.small else StorageLayout()
+    storage = FileStorage(args.path, layout=layout, create=True)
+    Replica.format(storage, cluster=args.cluster, replica_id=args.replica,
+                   replica_count=args.replica_count)
+    # Persist the replayed state as a fresh forest checkpoint (the recovered
+    # oracle's dirty sets cover every object, so this writes everything).
+    # The root carries the sessions trailer like every checkpoint root
+    # (empty: AOF replay has no client sessions to preserve).
+    durable = DurableState(storage)
+    sessions_blob = ClientSessions(storage).pack()
+    root = (durable.checkpoint(sm.state)
+            + sessions_blob + _struct.pack("<I", len(sessions_blob)))
+    storage.write("snapshot", 0, root)
+    sb = SuperBlock.load(storage)
+    sb.snapshot_slot = 0
+    sb.snapshot_size = len(root)
+    sb.snapshot_checksum = checksum(root, domain=b"ckptroot")
+    sb.store(storage)
+    storage.sync()
+    storage.close()
+    print(f"recovered {applied} ops from {args.aof} into {args.path}")
+    return 0
+
+
+def _open_superblock(args):
+    """(storage, superblock) for a path/--small pair, or (storage, None)
+    with the shared no-quorum error printed."""
+    from .vsr.storage import FileStorage, StorageLayout, TEST_LAYOUT
+    from .vsr.superblock import SuperBlock
+
+    layout = TEST_LAYOUT if args.small else StorageLayout()
+    storage = FileStorage(args.path, layout=layout)
+    sb = SuperBlock.load(storage)
+    if sb is None:
+        print("superblock: no quorum (unformatted or corrupt)")
+    return storage, sb
 
 
 def cmd_inspect(args) -> int:
@@ -362,6 +590,102 @@ def _inspect_integrity(storage, sb) -> int:
     return 1 if faults else 0
 
 
+def cmd_amqp(args) -> int:
+    """CDC pump: poll a live cluster's change events, publish to an AMQP
+    broker with confirms (reference: `tigerbeetle amqp`, src/cdc/runner.zig)."""
+    import time as _time
+
+    from .cdc import AmqpProgress, AmqpSink, CDCRunner, FileProgress
+    from .types import ChangeEvent, ChangeEventsFilter, Operation
+    from .vsr.client import Client
+
+    client = Client(cluster=args.cluster, client_id=args.client_id,
+                    replica_addresses=_parse_addresses(args.addresses))
+
+    class _ClusterSource:
+        def get_change_events(self, f: ChangeEventsFilter):
+            raw = client.query(Operation.get_change_events, f)
+            return [ChangeEvent.unpack(raw[i:i + 384])
+                    for i in range(0, len(raw), 384)]
+
+    host, sep, port = args.amqp.rpartition(":")
+    if not sep or not port.isdigit() or not host:
+        print(f"--amqp must be host:port, got {args.amqp!r}")
+        return 1
+    amqp_kwargs = dict(user=args.user, password=args.password,
+                       virtual_host=args.vhost)
+    # Durable progress (reference: the broker-resident progress-tracker
+    # queue, src/cdc/runner.zig:34): by default the watermark lives in
+    # the broker and a restarted runner resumes exactly after the
+    # confirmed stream; --timestamp-last overrides, --progress-file uses
+    # a local sidecar instead. Built before the sink so a failed locker
+    # declare strands no connection (and vice versa).
+    progress_close = None
+    if args.progress_file:
+        progress = FileProgress(args.progress_file)
+    else:
+        progress = AmqpProgress(host, int(port), cluster=args.cluster,
+                                **amqp_kwargs)
+        progress_close = progress.close
+    try:
+        sink = AmqpSink(host, int(port), exchange=args.exchange,
+                        cluster=args.cluster, lock=not args.no_lock,
+                        **amqp_kwargs)
+    except BaseException:
+        if progress_close:
+            progress_close()
+        raise
+    runner = CDCRunner(_ClusterSource(), sink, progress=progress)
+    runner.recover()
+    if args.timestamp_last:
+        # Operator override (reference: recovery_mode .override): seed
+        # the watermark AND persist it, so the next restart resumes from
+        # the confirmed stream, not from the override again.
+        runner.timestamp_processed = args.timestamp_last
+        progress.store(args.timestamp_last)
+    try:
+        while True:
+            n = runner.run_until_idle()
+            if n:
+                print(f"published {n} (total {runner.published}, "
+                      f"watermark {runner.timestamp_processed})")
+            if args.once:
+                return 0
+            _time.sleep(args.poll_interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        runner.close()
+        sink.close()
+        if progress_close:
+            progress_close()
+        client.close()
+
+
+def cmd_multiversion(args) -> int:
+    """Inspect a data file's checkpoint release vs this binary
+    (reference: `tigerbeetle multiversion` + the re-exec decision,
+    src/multiversion.zig)."""
+    from .multiversion import RELEASE, ReleaseTracker, release_str
+
+    _storage, sb = _open_superblock(args)
+    if sb is None:
+        return 1
+    compatible = ReleaseTracker().compatible(sb.release)
+    print(f"binary release:     {release_str(RELEASE)}")
+    print(f"data file release:  {release_str(sb.release)} "
+          f"(checkpoint op {sb.op_checkpoint})")
+    print(f"compatible:         {'yes' if compatible else 'NO — upgrade path required'}")
+    return 0 if compatible else 1
+
+
+def cmd_version(args) -> int:
+    from . import __version__
+
+    print(f"tigerbeetle-tpu-torch {__version__}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tigerbeetle_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -392,11 +716,55 @@ def main(argv=None) -> int:
     p.add_argument("--trace-emit-interval", type=float, default=10.0,
                    help="seconds between StatsD timing-aggregate flushes "
                         "(gauges reset after each emit)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve Prometheus text metrics on this HTTP "
+                        "port (0 = ephemeral); implies a recording "
+                        "tracer")
+    p.add_argument("--aof", default=None,
+                   help="append committed prepares to this AOF path")
     p.add_argument("--listen-port", type=int, default=None,
                    help="bind this port instead of the advertised one "
                         "(lets a fault proxy sit in front)")
     p.add_argument("path")
     p.set_defaults(fn=cmd_start)
+
+    p = sub.add_parser("recover")
+    p.add_argument("--cluster", type=int, default=0)
+    p.add_argument("--replica", type=int, required=True)
+    p.add_argument("--replica-count", type=int, required=True)
+    p.add_argument("--small", action="store_true")
+    p.add_argument("--from-cluster", action="store_true",
+                   help="rebuild the data file from live peers over "
+                        "state sync instead of an AOF (usage: recover "
+                        "--from-cluster --addresses=... <path>)")
+    p.add_argument("--addresses", default=None,
+                   help="cluster addresses (--from-cluster)")
+    p.add_argument("--listen-port", type=int, default=None,
+                   help="bind this port instead of the advertised one "
+                        "(--from-cluster; lets a fault proxy sit in "
+                        "front)")
+    p.add_argument("--timeout-s", type=float, default=0,
+                   help="--from-cluster: give up after this many "
+                        "seconds (0 = wait forever)")
+    p.add_argument("aof", nargs="?", default=None)
+    p.add_argument("path", nargs="?", default=None)
+    p.set_defaults(fn=cmd_recover)
+
+    p = sub.add_parser("repl")
+    p.add_argument("--addresses", required=True)
+    p.add_argument("--cluster", type=int, default=0)
+    p.add_argument("--client-id", type=int, default=1)
+    p.set_defaults(fn=cmd_repl)
+
+    p = sub.add_parser("benchmark")
+    p.add_argument("--transfer-count", type=int, default=100_000)
+    p.add_argument("--account-count", type=int, default=10_000)
+    p.add_argument("--zipfian", action="store_true",
+                   help="Zipfian hot-account workload (reference default)")
+    p.add_argument("--theta", type=float, default=0.99)
+    p.add_argument("--platform", choices=("cuda", "cpu"), default=None,
+                   help="where the ledger lives (default: the card, CUDA)")
+    p.set_defaults(fn=cmd_benchmark)
 
     p = sub.add_parser("inspect")
     p.add_argument("--small", action="store_true")
@@ -409,6 +777,36 @@ def main(argv=None) -> int:
                         "same checkpoint)")
     p.add_argument("path")
     p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser("amqp")
+    p.add_argument("--addresses", required=True)
+    p.add_argument("--cluster", type=int, default=0)
+    p.add_argument("--client-id", type=int, default=0xCDC)
+    p.add_argument("--amqp", required=True, help="broker host:port")
+    p.add_argument("--exchange", default="tb.cdc")
+    p.add_argument("--user", default="guest")
+    p.add_argument("--password", default="guest")
+    p.add_argument("--vhost", default="/")
+    p.add_argument("--poll-interval", type=float, default=1.0)
+    p.add_argument("--once", action="store_true",
+                   help="one pump pass, then exit")
+    p.add_argument("--timestamp-last", type=int, default=0,
+                   help="resume after this change-event timestamp")
+    p.add_argument("--progress-file", default=None,
+                   help="persist/resume the watermark in this file "
+                        "(default: a durable queue in the broker)")
+    p.add_argument("--no-lock", action="store_true",
+                   help="skip the exclusive locker queue (allows "
+                        "concurrent runners — duplicates likely)")
+    p.set_defaults(fn=cmd_amqp)
+
+    p = sub.add_parser("multiversion")
+    p.add_argument("--small", action="store_true")
+    p.add_argument("path")
+    p.set_defaults(fn=cmd_multiversion)
+
+    p = sub.add_parser("version")
+    p.set_defaults(fn=cmd_version)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -19,6 +19,8 @@ from both packages merge.
   as a JSON artifact on recovery.
 - `merge.py`  — cluster-wide trace merge (pid=replica, common timeline),
   exact offline span quantiles, critical paths and causal assembly.
+- `slo.py`    — objectives from perf/slo.json, evaluation against live
+  histograms, and run-granular burn-rate accounting.
 """
 
 from .context import (TraceContext, fmt_span_id, fmt_trace_id,
@@ -29,6 +31,8 @@ from .histogram import Histogram
 from .merge import (CRITICAL_PATH_STAGES, assemble_traces, causal_edges,
                     critical_path, estimate_clock_offsets,
                     merge_trace_files, merge_traces, span_quantile)
+from .slo import (Objective, burn_rates, evaluate, evaluate_bench_record,
+                  load_objectives)
 from .statsd import StatsD, TimingAggregates
 from .tracer import NullTracer, Tracer
 
@@ -40,6 +44,7 @@ __all__ = [
     "Histogram", "CRITICAL_PATH_STAGES", "critical_path",
     "assemble_traces", "causal_edges", "estimate_clock_offsets",
     "merge_trace_files", "merge_traces", "span_quantile",
-    "StatsD", "TimingAggregates",
+    "Objective", "burn_rates", "evaluate", "evaluate_bench_record",
+    "load_objectives", "StatsD", "TimingAggregates",
     "NullTracer", "Tracer",
 ]
