@@ -186,6 +186,19 @@ each failing the run with a nonzero exit:
               `parity_config5` on the card (the ledger equal to the
               oracle); `bench_config6_serving(batches=8)` (one pipelined
               window of 8 bodies) accepting 8 x 8,189 transfers.
+ 19. drivers  the test drivers on the card: (a) the VOPR swarm,
+              `testing.vopr.run_swarm_seed` on the device engine (seeds
+              515 and 626) and on the kernel engine (101 and 202), each
+              a whole simulated cluster under crashes, partitions and
+              packet loss, its summary and every audited (events,
+              results) pair equal to an oracle-engine twin on the CPU;
+              (b) the fuzzers `device_ledger` (seeds 4 and 5, 15
+              iterations), `state_machine` (seed 9, 30), `durability`
+              (seed 1, 6) and `storage_faults` (seed 1, 2) through
+              `testing.fuzz.run`; (c) `python -m tigerbeetle_tpu_torch
+              cfo --max-runs 8 --seed 7`, 8 clean runs of the JAX
+              package's selection; (d) `devhub` recording the benchmark
+              phase's line and rendering it with (c)'s artifact.
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -194,7 +207,8 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"config4_window": ...}`, `{"window_fallbacks": ...}`,
 `{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}`,
 `{"supervisor": ...}`, `{"durable": ...}`, `{"replica": ...}`,
-`{"benchmark": ...}`, `{"phase_seconds": ...}` and `{"kernels": [...]}`
+`{"benchmark": ...}`, `{"drivers": ...}`, `{"phase_seconds": ...}` and
+`{"kernels": [...]}`
 lines, and last
 `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
@@ -205,8 +219,10 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -4332,7 +4348,6 @@ def supervisor_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = BATCH,
     lookups among them (`verify_launches`: those of (a)'s epoch
     checks)."""
     import shutil
-    import tempfile
 
     from tigerbeetle_tpu_torch import constants
     from tigerbeetle_tpu_torch.ops import fused_probe
@@ -4816,7 +4831,6 @@ def durable_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
     n_after more ops beside the twins. Returns the numbers."""
     import multiprocessing
     import shutil
-    import tempfile
 
     from tigerbeetle_tpu_torch.vsr.storage import StorageLayout
 
@@ -5135,6 +5149,18 @@ RC_SEED = 17
 RC_CAPS = (1 << 12, 1 << 14)
 BM_TRANSFERS = 12 * BATCH   # main.py benchmark: one window of 12
 BM_SERVING_BATCHES = 8      # bench_config6_serving: one window of 8
+# The drivers phase: the JAX package's VOPR soak seeds of the device and
+# kernel engines (tests/test_vopr.py), the fuzzers at its test sizes
+# (tests/test_fuzz.py: name, seed, iterations), and the cfo run whose
+# selection, worked out from the JAX package's draws, is CFO_COUNTS.
+DV_DEVICE_SEEDS = (515, 626)
+DV_KERNEL_SEEDS = (101, 202)
+DV_FUZZ = (("device_ledger", 4, 15), ("device_ledger", 5, 15),
+           ("state_machine", 9, 30), ("durability", 1, 6),
+           ("storage_faults", 1, 2))
+CFO_SEED, CFO_RUNS = 7, 8
+CFO_COUNTS = {"chaos": 1, "fuzz:durability": 1, "fuzz:ewah": 1,
+              "fuzz:lsm_manifest_level": 1, "vopr": 4}
 SERVER_SPANS = ("commit_execute", "commit_compact", "commit_checkpoint",
                 "journal_recover")
 
@@ -5161,8 +5187,6 @@ def _server_main(conn, argv, log_path) -> None:
     after each op; and ("exit", ...) when the main loop returned on
     SIGTERM (the counts, the memory the allocator reserved at its peak,
     the replica's op and commit_min, the windows it committed)."""
-    import os
-
     fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
     os.dup2(fd, 1)
     os.dup2(fd, 2)
@@ -5716,7 +5740,6 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
     Returns the numbers."""
     import multiprocessing
     import shutil
-    import tempfile
 
     from tigerbeetle_tpu_torch import StateMachine, multi_batch
     from tigerbeetle_tpu_torch.ops import fused_probe
@@ -6251,6 +6274,158 @@ def benchmark_phase(dev, transfers: int = BM_TRANSFERS,
     return out
 
 
+def _zero_launches() -> None:
+    from tigerbeetle_tpu_torch.ops import create_seq, fused_probe
+    from tigerbeetle_tpu_torch.ops import row_gather as RG
+
+    fused_probe.LAUNCHES = RG.LAUNCHES = create_seq.LAUNCHES = 0
+
+
+def vopr_twins(dev, seed: int, engine: str) -> dict:
+    """`run_swarm_seed(seed, engine, device=dev)` beside its CPU twin on
+    the oracle engine, each with a recording auditor: the summaries
+    (engine aside) and every audited (events, results) pair must be
+    equal. Returns the summary, the seconds of each run and the
+    wrappers' launches in the run on `dev`."""
+    from tigerbeetle_tpu_torch.testing import vopr
+
+    audited = {}
+    auditor = vopr.Auditor
+
+    def recording(key):
+        class Recording(auditor):
+            def check(self, events, results):
+                audited[key].append(
+                    ([e.pack() for e in events], [r.pack() for r in results]))
+                super().check(events, results)
+        audited[key] = []
+        return Recording
+
+    out = {}
+    try:
+        for key, eng, where in (("card", engine, dev),
+                                ("twin", "oracle", "cpu")):
+            vopr.Auditor = recording(key)
+            if key == "card":
+                _zero_launches()
+            t = time.perf_counter()
+            summary = vopr.run_swarm_seed(seed, engine=eng, device=where)
+            out[f"{key}_s"] = time.perf_counter() - t
+            if key == "card":
+                launches = _launch_counts()
+            check(summary.pop("engine") == eng,
+                  f"vopr seed {seed}: engine drawn, not {eng}")
+            out[key] = summary
+    finally:
+        vopr.Auditor = auditor
+    label = f"vopr seed {seed} ({engine})"
+    check(out["card"] == out["twin"],
+          f"{label}: {out['card']} against the CPU's {out['twin']}")
+    check(audited["card"] == audited["twin"],
+          f"{label}: the audited replies differ from the CPU twin's")
+    return dict(seed=seed, engine=engine, audited=out["card"]["audited"],
+                replica_count=out["card"]["replica_count"],
+                steps=out["card"]["steps"], card_s=out["card_s"],
+                twin_s=out["twin_s"], launches=launches)
+
+
+def drivers_phase(dev, bm: dict, device_seeds=DV_DEVICE_SEEDS,
+                  kernel_seeds=DV_KERNEL_SEEDS, fuzz_runs=DV_FUZZ) -> dict:
+    """The port's test drivers on `dev`: (a) VOPR seeds on the device and
+    kernel engines against oracle twins on the CPU, (b) the fuzzers
+    through `fuzz.run(..., device=dev)`, (c) `cfo --max-runs 8 --seed 7`
+    through the module's command line (CFO_COUNTS, every run clean), (d)
+    `devhub` recording `bm` (the benchmark phase's line) with (c)'s
+    artifact. Returns each part's seconds, the seeds, the launches of
+    (a) and (b) and cfo's counts."""
+    from tigerbeetle_tpu_torch.testing import fuzz
+
+    cuda = torch.device(dev).type == "cuda"
+    platform = [] if cuda else ["--platform", "cpu"]
+    t_phase = time.perf_counter()
+    out, launches = {}, [0, 0, 0]
+
+    def add(counts) -> None:
+        for i in range(3):
+            launches[i] += counts[i]
+
+    t = time.perf_counter()
+    vopr = []
+    for engine, seeds in (("device", device_seeds),
+                          ("kernel", kernel_seeds)):
+        for seed in seeds:
+            run = vopr_twins(dev, seed, engine)
+            probes, gathers, seqs = run["launches"]
+            moved = (probes, gathers) if engine == "device" else (seqs,)
+            check(not cuda or all(moved),
+                  f"vopr seed {seed} ({engine}): launches probe/gather/"
+                  f"create_seq {run['launches']}")
+            add(run["launches"])
+            vopr.append(run)
+            print(f"drivers vopr: {run}", flush=True)
+    out["vopr"] = vopr
+    out["vopr_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    fuzzed = []
+    for name, seed, iterations in fuzz_runs:
+        _zero_launches()
+        t_one = time.perf_counter()
+        fuzz.run(name, seed, iterations, device=dev)
+        run = dict(name=name, seed=seed, iterations=iterations,
+                   seconds=time.perf_counter() - t_one,
+                   launches=_launch_counts())
+        add(run["launches"])
+        fuzzed.append(run)
+        print(f"drivers fuzz: {run}", flush=True)
+    out["fuzz"] = fuzzed
+    out["fuzz_s"] = time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        cfo_dir = os.path.join(tmp, "cfo")
+        os.mkdir(cfo_dir)
+        artifact = os.path.join(cfo_dir, "CFO_chip.json")
+        proc = _module_cli("cfo", "--max-runs", str(CFO_RUNS), "--seed",
+                           str(CFO_SEED), "--artifact", artifact, *platform)
+        check(proc.returncode == 0,
+              f"cfo: rc {proc.returncode}: {proc.stdout[-2000:]}"
+              f"{proc.stderr[-2000:]}")
+        with open(artifact) as f:
+            cfo = json.load(f)
+        check(cfo["runs_clean"] == CFO_RUNS and cfo["runs_failing"] == 0,
+              f"cfo: {cfo}")
+        check(cfo["counts"] == CFO_COUNTS,
+              f"cfo: counts {cfo['counts']}, the selection gives "
+              f"{CFO_COUNTS}")
+        out["cfo"] = dict(counts=cfo["counts"], elapsed_s=cfo["elapsed_s"],
+                          wall_s=time.perf_counter() - t)
+
+        t = time.perf_counter()
+        record = os.path.join(tmp, "benchmark.json")
+        with open(record, "w") as f:
+            json.dump(bm, f)
+        page = os.path.join(tmp, "devhub.html")
+        proc = _module_cli("devhub", "--record", record, "--history",
+                           os.path.join(tmp, "history.jsonl"), "--out",
+                           page, "--cfo-dir", cfo_dir)
+        check(proc.returncode == 0 and "devhub: 1 runs" in proc.stdout,
+              f"devhub: rc {proc.returncode}: {proc.stdout[-2000:]}"
+              f"{proc.stderr[-2000:]}")
+        with open(page) as f:
+            html = f.read()
+        check("continuous fuzzing" in html and "CFO_chip.json" in html,
+              "devhub: the page lacks the cfo artifact")
+        out["devhub_s"] = time.perf_counter() - t
+
+    check(not cuda or all(n > 0 for n in launches),
+          f"drivers: launches probe/gather/create_seq {launches}")
+    out.update(launches=tuple(launches), elapsed_s=time.perf_counter()
+               - t_phase, card=card_line_or_cpu(dev))
+    print(f"drivers: {out}", flush=True)
+    return out
+
+
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
@@ -6334,6 +6509,8 @@ def main() -> int:
     lap("replica_phase")
     bm = benchmark_phase(dev)
     lap("benchmark_phase")
+    drv = drivers_phase(dev, bm)
+    lap("drivers_phase")
     phase_seconds["total"] = time.perf_counter() - t0
     print(f"all phases passed in {phase_seconds['total']:.1f} s",
           flush=True)
@@ -6381,6 +6558,9 @@ def main() -> int:
         # per-batch and serving runs); ran adds the window replays.
         "launches_benchmark": bm["launches"][0],
         "ran_benchmark_windows": bm["launches_ran_windows"][0],
+        # The drivers phase's: its device-engine VOPR seeds and the
+        # device_ledger fuzzer.
+        "launches_drivers": drv["launches"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -6428,6 +6608,7 @@ def main() -> int:
         "launches_replica": rep["launches_replica"][1],
         "launches_benchmark": bm["launches"][1],
         "ran_benchmark_windows": bm["launches_ran_windows"][1],
+        "launches_drivers": drv["launches"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -6462,6 +6643,9 @@ def main() -> int:
         "launches_serving": srv["create_seq_launches"],
         "launches_durable": 0,
         "launches_replica": rep["launches"][2],
+        # The drivers phase's: its kernel-engine VOPR seeds and the
+        # state_machine and storage_faults fuzzers.
+        "launches_drivers": drv["launches"][2],
         "max_abs_err": seq["max_abs_err"],
         "ms": seq["ms"],
         "plain_ms": seq["plain_ms"],
@@ -6489,6 +6673,7 @@ def main() -> int:
     print(json.dumps({"durable": dur}), flush=True)
     print(json.dumps({"replica": rep}), flush=True)
     print(json.dumps({"benchmark": bm}), flush=True)
+    print(json.dumps({"drivers": drv}), flush=True)
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

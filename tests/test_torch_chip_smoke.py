@@ -577,3 +577,65 @@ def test_chip_smoke_runs_the_benchmark_phase_after_the_replica_phase():
         "'phase_seconds'", "'kernels'")]
     assert order == sorted(order)
     assert main.count("'launches_benchmark':") == 2
+
+
+def test_drivers_phase_rehearsed_on_the_cpu(calls, monkeypatch):
+    """The drivers phase at one seed a part on the CPU: a device-engine
+    and a kernel-engine VOPR seed each equal to its oracle twin (summary
+    and audited pairs), the fuzzers of the phase at a few iterations,
+    `cfo --max-runs 8 --seed 7 --platform cpu` through the module's
+    command line with the counts the JAX package's selection gives, and
+    `devhub` over the benchmark line and cfo's artifact. The device seed
+    and the device_ledger fuzzer reach the probe's and the row gather's
+    plain twins, the kernel seed and the state_machine fuzzer the
+    sequential kernel's."""
+    from tigerbeetle_tpu_torch.ops import create_seq
+
+    seq = []
+    run = create_seq._run
+
+    def counted(kind, *args):
+        seq.append(kind)
+        return run(kind, *args)
+
+    monkeypatch.setattr(create_seq, "_run", counted)
+    numbers = CS.drivers_phase(
+        "cpu", {"value": 1.0, "launches": [1, 2]}, device_seeds=(626,),
+        kernel_seeds=(101,), fuzz_runs=(("device_ledger", 4, 3),
+                                        ("state_machine", 9, 5),
+                                        ("durability", 1, 2),
+                                        ("storage_faults", 1, 1)))
+    assert [(r["seed"], r["engine"]) for r in numbers["vopr"]] == [
+        (626, "device"), (101, "kernel")]
+    assert [r["audited"] for r in numbers["vopr"]] == [34, 51]
+    assert [f["name"] for f in numbers["fuzz"]] == [
+        "device_ledger", "state_machine", "durability", "storage_faults"]
+    assert numbers["cfo"]["counts"] == CS.CFO_COUNTS
+    assert numbers["launches"] == (0, 0, 0)    # plain twins on the CPU
+    assert numbers["card"] == "CPU"
+    assert calls["probe"] > 0 and calls["gather"] > 0
+    assert len(seq) > 0
+
+
+def test_chip_smoke_runs_the_drivers_phase_after_the_benchmark_phase():
+    """main() runs the drivers phase on the benchmark phase's line,
+    prints its line before the phases' seconds and the kernels line, and
+    every kernel carries the drivers phase's launches; the phase holds
+    the JAX package's soak seeds and test sizes."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "benchmark_phase(", "drivers_phase(dev, bm)", "'drivers'",
+        "'phase_seconds'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_drivers':") == 3
+    assert CS.DV_DEVICE_SEEDS == (515, 626)
+    assert CS.DV_KERNEL_SEEDS == (101, 202)
+    assert ("device_ledger", 4, 15) in CS.DV_FUZZ
+    assert ("state_machine", 9, 30) in CS.DV_FUZZ
+    assert not hasattr(CS, "test_drivers_phase")

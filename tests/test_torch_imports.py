@@ -65,7 +65,13 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.trace.slo, tigerbeetle_tpu_torch.benchmark, "
         "tigerbeetle_tpu_torch.aof, tigerbeetle_tpu_torch.metrics, "
         "tigerbeetle_tpu_torch.repl, tigerbeetle_tpu_torch.cdc, "
-        "tigerbeetle_tpu_torch.amqp\n"
+        "tigerbeetle_tpu_torch.amqp, tigerbeetle_tpu_torch.testing, "
+        "tigerbeetle_tpu_torch.testing.workload, "
+        "tigerbeetle_tpu_torch.testing.vopr, "
+        "tigerbeetle_tpu_torch.testing.fuzz, "
+        "tigerbeetle_tpu_torch.testing.vortex, "
+        "tigerbeetle_tpu_torch.testing.snap, tigerbeetle_tpu_torch.devhub, "
+        "tigerbeetle_tpu_torch.trace.alerts\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -118,6 +124,31 @@ def test_the_operators_modules_are_the_ports_own():
         assert (PORT / name) in _sources(), name
 
 
+def test_the_drivers_modules_are_the_ports_own():
+    """The test drivers exist in the port (the AST checks above cover
+    their sources, the import checks their imports): the workload and
+    auditor, the VOPR swarm, the fuzzer registry, vortex, snapshot
+    assertions, devhub and the alert rules it reads."""
+    for name in ("testing/workload.py", "testing/vopr.py",
+                 "testing/fuzz.py", "testing/vortex.py", "testing/snap.py",
+                 "devhub.py", "trace/alerts.py"):
+        assert (PORT / name) in _sources(), name
+
+
+def test_the_drivers_name_the_ports_package_and_no_fixed_path():
+    """vortex spawns `python -m tigerbeetle_tpu_torch` from the
+    checkout's own root; no driver names a fixed directory."""
+    import tigerbeetle_tpu_torch.testing.vortex as vortex
+
+    assert vortex.MODULE == "tigerbeetle_tpu_torch"
+    assert pathlib.Path(vortex.REPO_ROOT) == REPO
+    for name in ("testing/vortex.py", "testing/fuzz.py", "testing/vopr.py",
+                 "devhub.py", "main.py"):
+        text = (PORT / name).read_text()
+        assert 'cwd="/' not in text and '"-m", "tigerbeetle_tpu"' \
+            not in text, name
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_port_sources_read_no_environment(path):
     """No `os.environ` / `os.getenv` / `os.putenv` anywhere in the port or
@@ -163,6 +194,9 @@ def test_port_modules_import_no_triton_or_build_at_import():
         "import tigerbeetle_tpu_torch.testing.chaos\n"
         "import tigerbeetle_tpu_torch.vsr.durable\n"
         "import tigerbeetle_tpu_torch.lsm.query\n"
+        "import tigerbeetle_tpu_torch.testing.vopr\n"
+        "import tigerbeetle_tpu_torch.testing.fuzz\n"
+        "import tigerbeetle_tpu_torch.main\n"
         "assert cs._launch == {}\n"
         "assert 'triton' not in sys.modules\n"
         "assert fp._build._libs == {}\n")

@@ -125,6 +125,32 @@ def test_checksum_native_equal():
             assert P_native.checksum_native(data, _SEED + domain) == want
 
 
+def test_overlapping_grid_writes_land_in_order(tmp_path):
+    """The native engine's workers may run two in-flight writes in either
+    order, so a grid write first settles any pending write it overlaps:
+    the later bytes land. Disjoint writes stay in flight together."""
+    if not P_native.available():
+        pytest.skip("no C++ toolchain for the native engine")
+    fs = P_storage.FileStorage(str(tmp_path / "grid"), LAYOUT, create=True)
+    assert fs.aio is not None
+    want = bytearray(4096)
+    rng = random.Random(5)
+    for i in range(64):
+        off, n = rng.randrange(2048), rng.randrange(1, 900)
+        data = bytes([i + 1]) * n
+        fs.write("grid", off, data)
+        want[off:off + n] = data
+        spans = sorted(fs._grid_pending.values())
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])), spans
+    fs.write("grid", 3000, b"x" * 10)
+    fs.write("grid", 3500, b"y" * 10)
+    assert len(fs._grid_pending) >= 2
+    want[3000:3010], want[3500:3510] = b"x" * 10, b"y" * 10
+    fs.sync()
+    assert fs.read("grid", 0, 4096) == bytes(want)
+    fs.close()
+
+
 @pytest.mark.parametrize("path", ["python", "native"])
 def test_journal_zones_and_recovery_equal(path, tmp_path, monkeypatch):
     """Eight chained prepares (half of them carrying a trace context)

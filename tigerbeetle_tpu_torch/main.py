@@ -15,11 +15,18 @@ of the JAX package's `main.py` for these commands:
   inspect      [--small] [--integrity] [--digest] <path>
   amqp         --addresses=... --amqp=host:port
   multiversion [--small] <path>
+  fuzz         list | smoke | <name> [seed] [--iterations=N]
+               [--platform=cpu]
+  devhub       [--record=bench.json] [--history=PATH] [--out=PATH]
+               [--cfo-dir=DIR] [--strict]
+  cfo          [--kind=mix|fuzz|vopr|chaos] [--seed=S] [--max-runs=N]
+               [--budget-s=S] [--traffic=SHAPE] [--failures-file=PATH]
+               [--artifact=PATH] [--platform=cpu]
   version
 
-`start` and `benchmark` run on the card (CUDA) unless `--platform cpu`
-is given, and raise where there is no card. `recover` replays on the
-oracle engine, host code, as the JAX package's does.
+`start`, `benchmark`, `fuzz` and `cfo` run on the card (CUDA) unless
+`--platform cpu` is given, and raise where there is no card. `recover`
+replays on the oracle engine, host code, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -679,6 +686,149 @@ def cmd_multiversion(args) -> int:
     return 0 if compatible else 1
 
 
+def cmd_fuzz(args) -> int:
+    """Run a named fuzzer with a seed (reference: `zig build fuzz --
+    <name> <seed>`, src/fuzz_tests.zig registry)."""
+    from .testing import fuzz
+
+    if args.name == "list":
+        for name in fuzz.FUZZERS:
+            print(name)
+        return 0
+    if args.name != "smoke" and args.name not in fuzz.FUZZERS:
+        print(f"unknown fuzzer {args.name!r}; `fuzz list` shows them")
+        return 1
+    fuzz.run(args.name, args.seed, args.iterations, device=args.platform)
+    print(f"fuzz {args.name} seed={args.seed}: OK")
+    return 0
+
+
+def cmd_devhub(args) -> int:
+    """Record bench results + render the metrics dashboard (reference:
+    src/scripts/devhub.zig + devhub.tigerbeetle.com)."""
+    from . import devhub
+
+    if args.record:
+        with open(args.record) as f:
+            devhub.record(args.history, json.load(f))
+    entries = devhub.load(args.history)
+    regress = devhub.regressions(entries)
+    n = devhub.render(args.history, args.out, cfo_dir=args.cfo_dir,
+                      entries=entries, regress=regress)
+    for key, r in regress.items():
+        print(f"devhub: REGRESSION {key}: {r['latest']:,.0f} is "
+              f"{r['ratio']:.2f}x of trailing median {r['baseline']:,.0f}")
+    print(f"devhub: {n} runs -> {args.out}")
+    # Nonzero on regression so CI can gate on it (reference: the devhub
+    # run IS the nightly perf gate, src/scripts/devhub.zig:174-237).
+    return 2 if regress and args.strict else 0
+
+
+def cmd_cfo(args) -> int:
+    """Continuous fuzzing orchestrator: interleave random single-
+    component fuzzer runs with WHOLE-CLUSTER VOPR swarm seeds (random
+    topology + fault config + audited workload), recording failing
+    seeds and a results artifact (reference: src/scripts/cfo.zig —
+    fleet machines run fuzzers AND VOPR 24/7, failing seeds pushed to
+    devhubdb). Every run's device state lives on `--platform` (default:
+    the card); the selection draws are the JAX package's."""
+    import random as _random
+    import time as _time
+
+    from .testing import fuzz
+    from .testing.chaos import TRAFFIC_SHAPES, run_chaos_seed
+    from .testing.vopr import run_swarm_seed
+
+    device = args.platform
+    on = " --platform cpu" if device == "cpu" else ""
+    if args.kind == "chaos" and args.seed is not None and not args.max_runs:
+        # `cfo --kind chaos --seed S` IS the documented reproduction
+        # command for a failing chaos seed: one run of exactly S.
+        args.max_runs = 1
+    rng = (_random.Random(args.seed) if args.seed is not None
+           else _random.SystemRandom())
+    deadline = (_time.monotonic() + args.budget_s) if args.budget_s else None
+    names = list(fuzz.FUZZERS)
+    counts: dict = {}
+    failing: list = []
+    t0 = _time.monotonic()
+    runs = failures = 0
+    try:
+        while deadline is None or _time.monotonic() < deadline:
+            if args.kind in ("fuzz", "vopr", "chaos"):
+                kind = args.kind
+            else:
+                # Mix: the cluster seeds are the expensive, high-yield
+                # side; keep them a steady ~1/3 of the stream, with the
+                # serving-chaos seeds a further ~1/6.
+                roll = rng.random()
+                kind = ("vopr" if roll < (1 / 3)
+                        else "chaos" if roll < (1 / 2) else "fuzz")
+            seed = (args.seed if args.seed is not None
+                    and args.max_runs == 1 else rng.randrange(1 << 30))
+            # Chaos traffic shape: explicit --traffic pins it; the
+            # random stream interleaves the adversarial shapes with the
+            # uniform workload about half the time (seed-deterministic).
+            traffic = None
+            if kind == "chaos":
+                if getattr(args, "traffic", None):
+                    traffic = args.traffic
+                elif args.seed is None or args.max_runs != 1:
+                    traffic = rng.choice((None, None, None)
+                                         + TRAFFIC_SHAPES)
+            name = kind if kind != "fuzz" else rng.choice(names)
+            if kind == "chaos" and traffic:
+                name = f"chaos:{traffic}"
+            key = f"fuzz:{name}" if kind == "fuzz" else name
+            try:
+                if kind == "vopr":
+                    run_swarm_seed(seed, device=device)
+                elif kind == "chaos":
+                    run_chaos_seed(seed, traffic=traffic, device=device)
+                else:
+                    fuzz.run(name, seed, device=device)
+                runs += 1
+                counts[key] = counts.get(key, 0) + 1
+            except Exception as e:  # record and keep hunting
+                failures += 1
+                # Each record carries ITS OWN exact reproduction command
+                # (the fuzzer name cannot be re-derived from the seed).
+                repro = (
+                    f"python -m tigerbeetle_tpu_torch cfo --kind vopr "
+                    f"--seed {seed} --max-runs 1{on}" if kind == "vopr"
+                    else f"python -m tigerbeetle_tpu_torch cfo --kind chaos "
+                    f"--seed {seed}"
+                    + (f" --traffic {traffic}" if traffic else "") + on
+                    if kind == "chaos"
+                    else f"python -m tigerbeetle_tpu_torch fuzz {name} "
+                    f"{seed}{on}")
+                failing.append({"kind": kind, "name": name, "seed": seed,
+                                "error": repr(e)[:300],
+                                "reproduce": repro})
+                line = f"{name} {seed} {e!r}"
+                print(f"FAIL {line}\n  reproduce: {repro}", flush=True)
+                if args.failures_file:
+                    with open(args.failures_file, "a") as f:
+                        f.write(line + "\n")
+            if args.max_runs and runs + failures >= args.max_runs:
+                break
+    except KeyboardInterrupt:
+        pass
+    if args.artifact:
+        with open(args.artifact, "w") as f:
+            json.dump({
+                "runs_clean": runs, "runs_failing": failures,
+                "elapsed_s": round(_time.monotonic() - t0, 1),
+                "counts": dict(sorted(counts.items())),
+                "failing": failing,
+            }, f, indent=1)
+            f.write("\n")
+    print(f"cfo: {runs} clean, {failures} failing "
+          f"(reproduce: python -m tigerbeetle_tpu_torch fuzz <name> <seed>"
+          f" / cfo --kind vopr --seed <seed> --max-runs 1)")
+    return 1 if failures else 0
+
+
 def cmd_version(args) -> int:
     from . import __version__
 
@@ -804,6 +954,58 @@ def main(argv=None) -> int:
     p.add_argument("--small", action="store_true")
     p.add_argument("path")
     p.set_defaults(fn=cmd_multiversion)
+
+    p = sub.add_parser("fuzz")
+    p.add_argument("name", help="fuzzer name, 'smoke' (all briefly), "
+                   "or 'list'")
+    p.add_argument("seed", type=int, nargs="?", default=0)
+    p.add_argument("--iterations", type=int, default=None)
+    p.add_argument("--platform", choices=("cuda", "cpu"), default=None,
+                   help="where the fuzzers' device state lives (default: "
+                        "the card, CUDA)")
+    p.set_defaults(fn=cmd_fuzz)
+
+    p = sub.add_parser("devhub")
+    p.add_argument("--record", default=None,
+                   help="bench JSON file to append to the history")
+    p.add_argument("--history", default="devhub_history.jsonl")
+    p.add_argument("--out", default="devhub.html")
+    p.add_argument("--cfo-dir", default="cfo",
+                   help="directory of CFO sweep artifacts to surface")
+    p.add_argument("--strict", action="store_true",
+                   help="exit 2 when a metric regressed vs its trailing "
+                        "median (the nightly perf gate)")
+    p.set_defaults(fn=cmd_devhub)
+
+    p = sub.add_parser("cfo")
+    p.add_argument("--budget-s", type=float, default=0,
+                   help="stop after this many seconds (0 = run forever)")
+    p.add_argument("--max-runs", type=int, default=0)
+    p.add_argument("--kind", choices=["mix", "fuzz", "vopr", "chaos"],
+                   default="mix",
+                   help="mix (default): fuzzer registry + VOPR cluster "
+                        "swarm + serving-chaos seeds interleaved; or "
+                        "one side only (chaos = seeded device-fault "
+                        "injection against the serving supervisor, "
+                        "testing/chaos.py)")
+    p.add_argument("--failures-file", default=None,
+                   help="append failing (fuzzer, seed) pairs here")
+    p.add_argument("--artifact", default=None,
+                   help="write a JSON results artifact here")
+    p.add_argument("--seed", type=int, default=None,
+                   help="deterministic selection; with --max-runs 1 the "
+                        "seed IS the run seed (reproduction)")
+    p.add_argument("--traffic", default=None,
+                   choices=["hot_skew", "pending_storm",
+                            "open_close_burst"],
+                   help="pin a named adversarial traffic shape for "
+                        "chaos runs (testing/chaos.py TrafficShape); "
+                        "default: the random stream interleaves shapes "
+                        "with the uniform workload")
+    p.add_argument("--platform", choices=("cuda", "cpu"), default=None,
+                   help="where every run's device state lives (default: "
+                        "the card, CUDA)")
+    p.set_defaults(fn=cmd_cfo)
 
     p = sub.add_parser("version")
     p.set_defaults(fn=cmd_version)

@@ -21,6 +21,8 @@ from both packages merge.
   exact offline span quantiles, critical paths and causal assembly.
 - `slo.py`    — objectives from perf/slo.json, evaluation against live
   histograms, and run-granular burn-rate accounting.
+- `alerts.py` — the burn-rate alert rules of perf/slo.json, parsed and
+  checked (the rules devhub lists; the alert engine is not ported).
 """
 
 from .context import (TraceContext, fmt_span_id, fmt_trace_id,

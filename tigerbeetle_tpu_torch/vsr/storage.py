@@ -247,6 +247,10 @@ class FileStorage(Storage):
     def write(self, zone: str, offset: int, data: bytes) -> None:
         pos = self._check(zone, offset, len(data))
         if zone == "grid" and self.aio is not None:
+            # The engine's workers may run two in-flight writes in either
+            # order: settle any pending write this one overlaps first, so
+            # the later write's bytes are the ones that land.
+            self._drain_grid(pos, len(data))
             token = self.aio.submit_write_tracked(pos, data)
             self._grid_pending[token] = (pos, pos + len(data))
             return
