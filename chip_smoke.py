@@ -18,7 +18,8 @@ faults and bounded replay recovery, the chaos seeds, the admission
 plane) and the durable layer under it (the LSM forest in a data file,
 checkpoints, a restart) and the replica server over it (`main.py
 start`, clients over TCP, a crash and restart, a 3-replica cluster) and
-the load harness (`main.py benchmark`) —
+the load harness (`main.py benchmark`), the test drivers, the
+performance observatory and the replicated-state mesh route —
 at the ledger's default capacities, and
 holds its three CUDA kernels against their plain PyTorch twins. Phases,
 each failing the run with a nonzero exit:
@@ -199,6 +200,28 @@ each failing the run with a nonzero exit:
               cfo --max-runs 8 --seed 7`, 8 clean runs of the JAX
               package's selection; (d) `devhub` recording the benchmark
               phase's line and rendering it with (c)'s artifact.
+ 20. observatory  the performance observatory (the JAX package's
+              testing/observatory_smoke.py), each leg with its negative
+              arm: (a) `DispatchProfiler` at 1/1 on the full-width
+              supervisor, after a warm-up, chain windows of 8 (graph
+              replays) and per-batch windows (a series each, a Chrome
+              trace of a replayed window), the static cost model on the
+              card at that shape (its launches counted apart) and the
+              roofline fractions of the flat and chain tiers; (b) `MemWatch` green at the budget's caps, static
+              equal to measured with the worst-case pack staged, the
+              doubled-t_cap leak red, the full caps' stores and the
+              allocator's stats with the graph pools; (c) the alert
+              engine's page, its resolution, its silent disabled arm and
+              a dead rule's ValueError; (d) the observatory on against
+              off, the median of 60 pairs of runs in turns within 1.05,
+              and its own time within 1.05.
+ 21. sharded  `ShardedRouter` on meshes of 1 and 8 logical shards on the
+              card, full-width batches of every mode (config 2, a
+              config-4 pair, balancing, imported) from one 2^17 / 2^21
+              state, each step equal to the single-chip step on the card
+              and a CPU twin (results and digest), launches as
+              `sharded_launches` predicts; `shard_loss_scenario` seeds 2
+              and 10 (2 reroutes each).
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -207,8 +230,8 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"config4_window": ...}`, `{"window_fallbacks": ...}`,
 `{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}`,
 `{"supervisor": ...}`, `{"durable": ...}`, `{"replica": ...}`,
-`{"benchmark": ...}`, `{"drivers": ...}`, `{"phase_seconds": ...}` and
-`{"kernels": [...]}`
+`{"benchmark": ...}`, `{"drivers": ...}`, `{"observatory": ...}`,
+`{"sharded": ...}`, `{"phase_seconds": ...}` and `{"kernels": [...]}`
 lines, and last
 `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
@@ -217,6 +240,7 @@ Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -288,6 +312,19 @@ PROBES_PER_RUN = {"accounts": 1, "plain": 1, "fixpoint": 1, "imported": 1,
                   "balancing": 1}
 GATHERS_PER_RUN = {"accounts": 2, "plain": 4, "fixpoint": 5, "imported": 4,
                    "balancing": 5}
+
+
+# The replicated-state mesh route (parallel/full_sharded.py): a sharded
+# step runs per_event_status once a shard (one probe launch, the
+# transfer-role and the account-role gathers) and the single-chip tail
+# once a distinct device, which re-gathers those two role rows, makes
+# the tier's other gathers and launches no probe. So on S shards of one
+# device a step launches S probes and 2S + G gathers, G the mode's
+# GATHERS_PER_RUN (a mode is the tier of its name); an escalated step
+# adds the fixpoint step's. A degraded (single-chip) step launches the
+# tier's PROBES_PER_RUN / GATHERS_PER_RUN.
+def sharded_launches(mode: str, shards: int) -> tuple:
+    return shards, 2 * shards + GATHERS_PER_RUN[mode]
 
 # Commit windows (the JAX package's benchmark.py): config 2 as chain
 # windows of SUPERBATCH_MAX prepares (:111, :125-189), config 4 as
@@ -378,6 +415,29 @@ DU_PEND_EVERY = 16
 DU_AFTER = 2
 DU_LOOKUPS = BATCH
 DU_TURNS = 2
+
+# The observatory phase: (a) the profiler on a full-width supervisor,
+# OB_CHAIN_WINDOWS windows of OB_W prepares and OB_FLAT_WINDOWS of one;
+# (b) and (d) at the caps of the port's budget (trace/membudget.json,
+# the JAX package's perf/membudget_r01.json caps); (d) OB_WINDOWS windows
+# of OB_SHAPE and an epoch a run, OB_OVERHEAD_PAIRS pairs of runs (one
+# of each arm) after a warm pair (the JAX package's observatory smoke
+# ran 5 reps an arm; a run's time moves ~12% between runs on the card's
+# host, so a median resolves 5% only over many pairs; a full-width run's
+# final verify_epoch alone costs 12-55 s of host Python, so (d) cannot
+# run at full width).
+OB_W = 8
+OB_CHAIN_WINDOWS = 4
+OB_FLAT_WINDOWS = 3
+OB_WINDOWS = 6
+OB_SHAPE = (48, 48)
+OB_OVERHEAD_PAIRS = 60
+# The sharded phase: meshes of 1 and 8 logical shards on the card,
+# SH_C2_BATCHES config-2 batches, then one batch of each other mode;
+# shard_loss_scenario's seeds.
+SH_MESHES = (1, 8)
+SH_C2_BATCHES = 2
+SH_LOSS_SEEDS = (2, 10)
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -4243,9 +4303,16 @@ def supervisor_chaos(dev, seeds) -> dict:
         got = run_chaos_seed(seed, device=dev)
         ms = (time.perf_counter() - t) * 1e3
         want = run_chaos_seed(seed, device="cpu")
-        check(got == want, f"chaos seed {seed}: the card's summary {got} "
-              f"differs from the CPU's {want}")
-        out[seed] = dict(got, ms=ms)
+        # A seed that draws the mesh scenario runs it on each device's
+        # default mesh (the card's devices; 8 CPU shards): its reroutes
+        # must agree, its mesh size and dropped device's name differ.
+        loss = (got.pop("shard_loss", None), want.pop("shard_loss", None))
+        check(got == want and (loss[0] is None) == (loss[1] is None)
+              and (loss[0] is None or loss[0]["reroutes"]
+                   == loss[1]["reroutes"] == 2),
+              f"chaos seed {seed}: the card's summary {got} {loss[0]} "
+              f"differs from the CPU's {want} {loss[1]}")
+        out[seed] = dict(got, ms=ms, shard_loss=loss[0])
     print(f"supervisor (c) chaos: {out}", flush=True)
     return out
 
@@ -6426,6 +6493,649 @@ def drivers_phase(dev, bm: dict, device_seeds=DV_DEVICE_SEEDS,
     return out
 
 
+# ------------------------------------------------- the observatory phase
+
+def _ob_window(sup, rng, tid: int, ts: int, shape) -> int:
+    """One window of uniform transfers over accounts 1..8 (amount 1), one
+    prepare of each size in `shape` (the JAX package's observatory smoke
+    workload); returns the next id."""
+    from tigerbeetle_tpu_torch.types import Transfer
+
+    batches = []
+    for n in shape:
+        b = []
+        for _ in range(n):
+            dr, cr = (int(x) for x in rng.choice(np.arange(1, 9), 2,
+                                                 replace=False))
+            b.append(Transfer(id=tid, debit_account_id=dr,
+                              credit_account_id=cr, amount=1, ledger=1,
+                              code=1))
+            tid += 1
+        batches.append(b)
+    sup.create_transfers_window(batches,
+                                [ts + i * 10**6 for i in range(len(shape))])
+    return tid
+
+
+def _ob_supervisor(dev, caps, tracer=None, **kw):
+    """A supervisor at `caps` on `dev` with accounts 1..8."""
+    from tigerbeetle_tpu_torch import ServingSupervisor
+    from tigerbeetle_tpu_torch.types import Account
+
+    sup = ServingSupervisor(caps[0], caps[1], epoch_interval=4,
+                            tracer=tracer, device=dev, **kw)
+    sup.create_accounts([Account(id=i, ledger=1, code=1)
+                         for i in range(1, 9)], 10**9)
+    return sup
+
+
+def observatory_profiler(dev, caps, n_accounts, body, w, chain_windows,
+                         flat_windows, tmp) -> tuple:
+    """(a) The dispatch profiler at sampling 1/1 on a full-width
+    supervisor: windows of `w` config-2 prepares (the chain route; the
+    last captured by torch.profiler into a Chrome trace) and windows of
+    one prepare (the per-batch route), then the profile record: the
+    static cost model at the sampled shape (`caps`, `w` prepares of
+    `body`) on a scratch ledger on `dev` (its launches counted apart),
+    the sampled series, the roofline fractions. The profiler is attached
+    after a warm-up (the chain key's eager and captured windows, one
+    per-batch window), so on the card every sampled chain window is a
+    graph replay of the costed shape. Returns (summary, the run: its
+    ledger is measured next)."""
+    from tigerbeetle_tpu_torch.trace import (DispatchProfiler, Tracer,
+                                             profile_probe)
+
+    cuda = torch.device(dev).type == "cuda"
+    tracer = Tracer()
+    prof = DispatchProfiler(tracer=tracer, sample_every=1)
+    run = SupervisedRun(dev, caps, n_accounts, body, seed=91,
+                        flight_dir=os.path.join(tmp, "flight"),
+                        tracer=tracer, epoch_interval=100)
+    _zero_launches()
+    kinds, ms = [], []
+    for _ in range(2):
+        before = graph_counts(run.sup.led)
+        ms.append(run.commit(run.window(w)))
+        kinds.append(window_kind(run.sup.led, before))
+    ms.append(run.commit(run.window(1)))
+    run.sup.profiler = prof
+    for k in range(chain_windows):
+        if k == chain_windows - 1:
+            # Only around a replay: CUPTI under a graph capture can hang.
+            check(not cuda or kinds[-1] in ("capture", "replay"),
+                  f"observatory (a): window {k} would not replay: {kinds}")
+            prof.capture_once(os.path.join(tmp, "capture"))
+        before = graph_counts(run.sup.led)
+        ms.append(run.commit(run.window(w)))
+        kinds.append(window_kind(run.sup.led, before))
+    check(not cuda or kinds[2:] == ["replay"] * chain_windows,
+          f"observatory (a): a sampled chain window was no replay: {kinds}")
+    for _ in range(flat_windows):
+        ms.append(run.commit(run.window(1)))
+    launches = _launch_counts()[:2]
+    t = time.perf_counter()
+    rec = profile_probe(tracer=tracer, profiler=prof, depth=w, device=dev,
+                        caps=caps, batch=body)
+    cost_s = time.perf_counter() - t
+    measured = rec["dispatch_device_time"]
+    routes = {m["route"] for m in measured.values() if m["count"]}
+    check({"chain", "per_batch"} <= routes,
+          f"observatory (a): dispatch_device_time lacks a route: {routes}")
+    check(all(m["count"] and m["p50_us"] and m["p50_us"] > 0
+              for m in measured.values()), f"observatory (a): {measured}")
+    check(prof.samples == prof.dispatches == chain_windows + flat_windows,
+          f"observatory (a): sampler {prof.stats()}")
+    tiers = rec["cost_model"]["tiers"]
+    fractions = {}
+    for tier in ("flat", "chain"):
+        row = tiers.get(tier) or {}
+        check(row.get("flops") and row.get("hbm_bytes"),
+              f"observatory (a): no FLOPs / bytes for {tier}: {row}")
+        frac = (rec["roofline"].get(tier) or {}).get("fraction")
+        check(frac is not None and 0.0 < frac < float("inf"),
+              f"observatory (a): no finite roofline fraction for {tier}")
+        fractions[tier] = frac
+        # The scratch run's launches: one tier run (flat) or one a
+        # prepare (chain at depth w), counted apart from the path's.
+        runs = 1 if tier == "flat" else rec["cost_model"]["depth"]
+        want = ({"ht_probe": PROBES_PER_RUN["plain"] * runs,
+                 "row_gather": GATHERS_PER_RUN["plain"] * runs}
+                if cuda else {"ht_probe": 0, "row_gather": 0})
+        check(row["launches"] == want,
+              f"observatory (a): cost model {tier} launches "
+              f"{row['launches']}, expected {want}")
+    cap = prof.capture_result or {}
+    check(cap.get("ok") and os.path.getsize(cap["path"]) > 0,
+          f"observatory (a): capture {cap}")
+    with open(cap["path"]) as f:
+        trace_events = len(json.load(f).get("traceEvents", []))
+    p3 = type(prof)(sample_every=3)
+    for _ in range(7):
+        p3.time(lambda: 0, route="r", tier="t")
+    check((p3.dispatches, p3.samples) == (7, 3), f"1-in-3: {p3.stats()}")
+    series = {k: {"count": m["count"], "p50_us": m["p50_us"],
+                  "p99_us": m["p99_us"]} for k, m in measured.items()}
+    out = dict(window_kinds=kinds, window_ms=ms, launches=launches,
+               series=series, fractions=fractions,
+               roofline={t: {k: v for k, v in r.items() if k != "route"}
+                         for t, r in rec["roofline"].items()},
+               cost_model={t: {k: r.get(k) for k in (
+                   "instructions", "flops", "hbm_bytes", "kernel_bytes",
+                   "roofline_seconds", "launches")}
+                   for t, r in tiers.items()},
+               cost_model_s=cost_s, capture_trace_events=trace_events)
+    print(f"observatory (a) profiler: fractions {fractions}, "
+          f"p50/p99 us {series}", flush=True)
+    return out, run
+
+
+def _staged_worst_case(dev, a_cap: int, t_cap: int):
+    """A bare ledger holding the worst-case staged pack: a window of
+    STAGED_PACK_DEPTH prepares at the largest pad bucket, packed by the
+    stager (no device work)."""
+    from tigerbeetle_tpu_torch import DeviceLedger
+    from tigerbeetle_tpu_torch.trace.memwatch import STAGED_PACK_DEPTH
+
+    led = DeviceLedger(a_cap, t_cap, device=dev)
+    led.overlap_staging = True
+    n = 4097                                       # pads to 8,192
+    evs = [soa(np.arange(1 + k * n, 1 + (k + 1) * n), np.ones(n),
+               np.full(n, 2), np.ones(n), np.zeros(n))
+           for k in range(STAGED_PACK_DEPTH)]
+    check(led.stage_window(evs, [10**9 + k * 10**4
+                                 for k in range(len(evs))]),
+          "observatory (b): the worst-case window was not staged")
+    led._staged[-1].result()
+    return led
+
+
+def observatory_memwatch(dev, run, caps) -> dict:
+    """(b) Memory watermarks: a supervisor at the budget's caps audits
+    green at every verified epoch, its state stores equal to the static
+    ledger's; with the worst-case pack staged every measured component
+    equals the static one and audits green, and the doubled-t_cap leak
+    REDs on the grown stores and the total; the full-width run's ledger
+    (`run`) equals its static ledger on every store; the allocator's
+    stats with the window graphs' pools."""
+    from tigerbeetle_tpu_torch.trace import Tracer
+    from tigerbeetle_tpu_torch.trace.event import Event
+    from tigerbeetle_tpu_torch.trace.memwatch import (
+        MemWatch, check_budget, device_memory_stats, load_budget,
+        measure_ledger, static_ledger)
+
+    budget = load_budget()
+    bc = (budget["caps"]["a_cap"], budget["caps"]["t_cap"])
+    tracer = Tracer()
+    mw = MemWatch(tracer=tracer)
+    sup = _ob_supervisor(dev, bc, tracer, memwatch=mw)
+    rng = np.random.default_rng(21)
+    tid, ts = 1, 2 * 10**9
+    for _ in range(4):
+        tid = _ob_window(sup, rng, tid, ts, (32,))
+        ts += 10**7
+    check(sup.verify_epoch(), "observatory (b): the epoch did not verify")
+    check(mw.observations >= 1 and mw.reds == []
+          and mw.last["budget_ok"] is True, f"observatory (b): {mw.stats()}")
+    check(Event.memory_watermark_bytes.name in tracer.emitted
+          and Event.memory_budget_headroom_bytes.name in tracer.emitted,
+          "observatory (b): the watermark gauges were not emitted")
+    static = static_ledger(*bc)["components"]
+    for name, pin in static.items():
+        if name.startswith("state."):
+            check(mw.last["components"][name] == pin,
+                  f"observatory (b): {name} measured "
+                  f"{mw.last['components'][name]}, static {pin}")
+    sup.led.release()
+    led = _staged_worst_case(dev, *bc)
+    staged = measure_ledger(led)
+    led.shutdown_staging()
+    led.release()
+    check(static.pop("telemetry_block") == 0
+          and staged["components"] == static,
+          f"observatory (b): measured {staged['components']} against "
+          f"static {static}")
+    check(check_budget(staged, budget) == [],
+          "observatory (b): the worst case audits red")
+    leaked = _staged_worst_case(dev, bc[0], 2 * bc[1])
+    reds = check_budget(measure_ledger(leaked), budget)
+    leaked.shutdown_staging()
+    leaked.release()
+    check(len(reds) == 3 and any("'state.transfers'" in r for r in reds)
+          and any("'state.events'" in r for r in reds)
+          and any("total watermark" in r for r in reds),
+          f"observatory (b): the leak audited {reds}")
+    full = measure_ledger(run.sup.led)["components"]
+    want = static_ledger(*caps)["components"]
+    check(all(full[k] == v for k, v in want.items() if k.startswith("state.")),
+          f"observatory (b): full caps measured {full}, static {want}")
+    stats = device_memory_stats(run.sup.led)
+    out = dict(observations=mw.observations,
+               headroom_bytes=mw.last["headroom_bytes"],
+               worst_case_bytes=staged["total_bytes"],
+               budget_bytes=budget["total_bytes"], leak_reds=len(reds),
+               full_caps_bytes=sum(v for k, v in full.items()
+                                   if k.startswith("state.")),
+               device_memory_stats=stats)
+    print(f"observatory (b) memwatch: {out}", flush=True)
+    return out
+
+
+def observatory_alerts(tmp) -> dict:
+    """(c) The alert engine: a seeded latency burn fires the page rule
+    (typed alert, runbook anchor, alert:<rule> tail retention, a flight
+    artifact); the same burn with the rule disabled stays silent; a
+    healthy stretch resolves it after its hysteresis; a rule naming an
+    undeclared objective is a load-time ValueError."""
+    from tigerbeetle_tpu_torch.trace import (AlertEngine, FlightRecorder,
+                                             Tracer, load_alert_rules,
+                                             mint_context)
+    from tigerbeetle_tpu_torch.trace.event import Event
+    from tigerbeetle_tpu_torch.trace.slo import DEFAULT_SLO_PATH
+
+    loaded = load_alert_rules()
+    rules = {r.name: r for r in loaded["rules"]}
+    check(rules["window_latency_burn"].severity == "page",
+          "observatory (c): window_latency_burn is not a page")
+
+    def burn(eng, tracer, n_ticks, dur_ms):
+        for i in range(n_ticks):
+            tracer.record_span(Event.window_commit, tracer.now_ns(),
+                               int(dur_ms * 1e6), ctx=mint_context(7, i),
+                               route="chain", tier="scan")
+            eng.tick()
+
+    tracer = Tracer()
+    flight = FlightRecorder(pid=0, tracer=tracer,
+                            dump_dir=os.path.join(tmp, "alerts"))
+    eng = AlertEngine(tracer=tracer, flight=flight, tick_every=1)
+    burn(eng, tracer, 8, 600.0)
+    alert = eng.active.get("window_latency_burn")
+    check(alert is not None and alert.severity == "page"
+          and "monitoring.md#alert-window-latency-burn" in alert.runbook
+          and alert.value and alert.value > 400.0
+          and alert.fast_burn_rate >= 0.5 and alert.trace_ids
+          and flight.dumps == 1 and alert.flight_path
+          and os.path.exists(alert.flight_path),
+          f"observatory (c): the burn did not page: {eng.stats()}")
+    check(any(r == "alert:window_latency_burn"
+              for r in tracer.kept_traces.values()),
+          "observatory (c): the exemplar trace was not kept")
+    check("dispatch_latency_burn" not in eng.active,
+          "observatory (c): an unfed rule fired")
+    burn(eng, tracer, rules["window_latency_burn"].hysteresis, 1.0)
+    check("window_latency_burn" not in eng.active
+          and eng.fired[0].resolved_tick is not None,
+          f"observatory (c): not resolved: {eng.stats()}")
+    tracer2 = Tracer()
+    flight2 = FlightRecorder(pid=0, tracer=tracer2,
+                             dump_dir=os.path.join(tmp, "alerts2"))
+    eng2 = AlertEngine([r for r in loaded["rules"]
+                        if r.name != "window_latency_burn"],
+                       loaded["objectives"], tracer=tracer2, flight=flight2,
+                       tick_every=1)
+    burn(eng2, tracer2, 8, 600.0)
+    check(not eng2.active and flight2.dumps == 0,
+          f"observatory (c): the disabled arm fired: {eng2.stats()}")
+    with open(DEFAULT_SLO_PATH) as f:
+        cfg = json.load(f)
+    cfg["alerts"] = [dict(cfg["alerts"][0], objective="no_such_objective")]
+    dead = os.path.join(tmp, "slo_dead.json")
+    with open(dead, "w") as f:
+        json.dump(cfg, f)
+    try:
+        load_alert_rules(dead)
+        check(False, "observatory (c): a dead rule loaded")
+    except ValueError as e:
+        check("no_such_objective" in str(e), f"observatory (c): {e}")
+    out = dict(fired=len(eng.fired), fired_tick=eng.fired[0].fired_tick,
+               resolved_tick=eng.fired[0].resolved_tick,
+               trace_ids=len(eng.fired[0].trace_ids))
+    print(f"observatory (c) alerts: {out}", flush=True)
+    return out
+
+
+def _timed_observatory(tracer, spent: list) -> dict:
+    """The whole observatory at its production decimations (the profiler
+    at 1-in-8, the memwatch, the alert engine at tick_every 4), each hook
+    timed where the supervisor calls it: spent[0] gathers the wall time
+    of the observatory's own work, the profiler's wait for the device on
+    a sampled dispatch included and the dispatch it wraps excluded."""
+    from tigerbeetle_tpu_torch.trace import (AlertEngine, DispatchProfiler,
+                                             MemWatch)
+
+    hooks = dict(profiler=DispatchProfiler(tracer=tracer, sample_every=8),
+                 memwatch=MemWatch(tracer=tracer),
+                 alert_engine=AlertEngine(tracer=tracer, tick_every=4))
+
+    def timed(fn, wraps_thunk: bool):
+        def call(*args, **kw):
+            inner = [0.0]
+            if wraps_thunk:
+                thunk = args[0]
+
+                def timed_thunk():
+                    t1 = time.perf_counter()
+                    try:
+                        return thunk()
+                    finally:
+                        inner[0] += time.perf_counter() - t1
+                args = (timed_thunk,) + args[1:]
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t - inner[0]
+        return call
+
+    hooks["profiler"].time = timed(hooks["profiler"].time, True)
+    hooks["memwatch"].observe = timed(hooks["memwatch"].observe, False)
+    hooks["alert_engine"].tick = timed(hooks["alert_engine"].tick, False)
+    return hooks
+
+
+def observatory_overhead(dev, pairs: int = OB_OVERHEAD_PAIRS) -> dict:
+    """(d) The whole observatory on against off, on supervisors at the
+    budget's caps. A pair: two fresh supervisors, each warmed without the
+    observatory (its window key's eager and captured windows and an
+    epoch: a one-off of each supervisor, with the most jitter), the
+    observatory then attached to one; then both take OB_WINDOWS windows
+    of OB_SHAPE prepares and a verified epoch, in turns call by call (the
+    order flipped every call), each call timed on the host clock, the
+    epoch to a synced device. The host's speed drifts between runs on
+    the card's machine (a run's time moves ~18%), and the turns give both
+    arms the same stretch of it. One warm pair first.
+
+    Held to the budget's profiler.overhead_ratio_max: on the card, the
+    median over the pairs of the on arm's time over the off arm's (the
+    JAX package's criterion, on many pairs); everywhere, the
+    observatory's own time (its hooks timed where the supervisor calls
+    them, `_timed_observatory`): the on arm's time over the same less
+    that, summed over the pairs."""
+    from tigerbeetle_tpu_torch.trace import Tracer, load_budget
+
+    cuda = torch.device(dev).type == "cuda"
+    budget = load_budget()
+    ratio_max = budget["profiler"]["overhead_ratio_max"]
+    bc = (budget["caps"]["a_cap"], budget["caps"]["t_cap"])
+
+    class Arm:
+        def __init__(self, on: bool):
+            self.tracer = Tracer()
+            self.spent = [0.0]
+            self.sup = _ob_supervisor(dev, bc, self.tracer)
+            self.rng = np.random.default_rng(22)
+            self.tid, self.ts = 1, 2 * 10**9
+            for _ in range(2):
+                self.window()
+            check(self.sup.verify_epoch(),
+                  "observatory (d): the warm epoch failed")
+            self.hooks = {}
+            if on:
+                self.hooks = _timed_observatory(self.tracer, self.spent)
+                self.sup.profiler = self.hooks["profiler"]
+                self.sup.memwatch = self.hooks["memwatch"]
+                self.sup.alert_engine = self.hooks["alert_engine"]
+                self.sup.alert_engine.bind(self.sup.tracer, self.sup.flight)
+
+        def window(self) -> None:
+            self.tid = _ob_window(self.sup, self.rng, self.tid, self.ts,
+                                  OB_SHAPE)
+            self.ts += 10**7
+
+        def epoch(self) -> None:
+            check(self.sup.verify_epoch(), "observatory (d): the epoch failed")
+            sync(dev)
+
+    def pair() -> tuple:
+        arms = {True: Arm(True), False: Arm(False)}
+        dt = {True: 0.0, False: 0.0}
+        # No collector pause inside the clock, in either arm.
+        gc.collect()
+        gc.disable()
+        try:
+            sync(dev)
+            for k in range(OB_WINDOWS + 1):
+                for on in ((True, False) if k % 2 else (False, True)):
+                    arm = arms[on]
+                    t0 = time.perf_counter()
+                    if k < OB_WINDOWS:
+                        arm.window()
+                    else:
+                        arm.epoch()
+                    dt[on] += time.perf_counter() - t0
+        finally:
+            gc.enable()
+        hooks = arms[True].hooks
+        check(hooks["profiler"].samples >= 1
+              and hooks["memwatch"].observations >= 1
+              and hooks["alert_engine"].ticks >= 1,
+              "observatory (d): a hook was not driven")
+        for arm in arms.values():
+            # Its memory goes back to the caching allocator, not the
+            # driver: the next pair's allocations do not wait on cudaMalloc.
+            arm.sup.led.shutdown_staging()
+        return dt[True], dt[False], arms[True].spent[0]
+
+    pair()
+    runs = [pair() for _ in range(pairs)]
+    paired = sorted(on / off for on, off, _ in runs)
+    ab = float(np.median(paired))
+    on_s = sum(on for on, _, _ in runs)
+    own = on_s / (on_s - sum(spent for _, _, spent in runs))
+    check(not cuda or ab <= ratio_max,
+          f"observatory (d): with the observatory on a run takes {ab:.4f}x "
+          f"as long (median of {pairs} pairs), above {ratio_max}")
+    check(own <= ratio_max,
+          f"observatory (d): the observatory's own time makes a run "
+          f"{own:.4f}x as long, above {ratio_max}")
+    out = dict(ratio=ab, own_ratio=own, ratio_max=ratio_max, pairs=pairs,
+               paired_quartiles=[float(q) for q in np.quantile(
+                   paired, (0.25, 0.5, 0.75))],
+               observatory_ms_median=float(np.median(
+                   [spent for _, _, spent in runs])) * 1e3,
+               on_ms_median=float(np.median([r[0] for r in runs])) * 1e3,
+               off_ms_median=float(np.median([r[1] for r in runs])) * 1e3)
+    print(f"observatory (d) overhead: {out}", flush=True)
+    return out
+
+
+def observatory_phase(dev, caps: tuple = (A_CAP, T_CAP),
+                      n_accounts: int = N_ACCOUNTS, body: int = BATCH,
+                      w: int = OB_W, chain_windows: int = OB_CHAIN_WINDOWS,
+                      flat_windows: int = OB_FLAT_WINDOWS,
+                      pairs: int = OB_OVERHEAD_PAIRS) -> dict:
+    """The performance observatory on `dev`, its four legs (the JAX
+    package's testing/observatory_smoke.py), each with its negative arm:
+    (a) the profiler at full width, (b) the memory watermarks, (c) the
+    alert engine, (d) the overhead of the whole observatory."""
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        out["profiler"], run = observatory_profiler(
+            dev, caps, n_accounts, body, w, chain_windows, flat_windows, tmp)
+        out["profiler_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["memwatch"] = observatory_memwatch(dev, run, caps)
+        run.sup.led.release()
+        out["memwatch_s"] = time.perf_counter() - t
+        out["alerts"] = observatory_alerts(tmp)
+    t = time.perf_counter()
+    out["overhead"] = observatory_overhead(dev, pairs)
+    out["overhead_s"] = time.perf_counter() - t
+    out["launches"] = out["profiler"]["launches"]
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    out["card"] = card_line_or_cpu(dev)
+    print(f"observatory: {out['elapsed_s']:.1f} s", flush=True)
+    return out
+
+
+# ------------------------------------------------------ the sharded phase
+
+def _clone_state(state: dict, device) -> dict:
+    return {k: (_clone_state(v, device) if isinstance(v, dict)
+                else v.to(device, copy=True)) for k, v in state.items()}
+
+
+def sharded_steps(rng, n_accounts: int, batch: int, c2_batches: int):
+    """The phase's batches, (label, SoA events, prepare timestamp) in
+    commit order: config 2 over accounts C4_ACCOUNTS + 1.., a config-4
+    pend / post-void pair, a balancing pend batch (config 4's, 1 event in
+    BAL_EVERY balancing) and an imported batch (user timestamps between
+    the last prepare's and its own)."""
+    from tigerbeetle_tpu_torch.types import TransferFlags as TF
+
+    out, ts = [], 10**9
+    for b in range(c2_batches):
+        ev = uniform_batch(rng, 10**7 + b * batch, batch, n_accounts)
+        ev["dr_lo"] += np.uint64(C4_ACCOUNTS)
+        ev["cr_lo"] += np.uint64(C4_ACCOUNTS)
+        ts += batch + 10
+        out.append(("config2", ev, ts))
+    pend, rev, nxt = config4_pair(rng, 2 * 10**7, TF, batch)
+    for label, ev in (("config4_pend", pend), ("config4_post_void", rev)):
+        ts += batch + 10
+        out.append((label, ev, ts))
+    bal, _, nxt = balancing_pair(rng, nxt, TF, batch)
+    ts += batch + 10
+    out.append(("balancing", bal, ts))
+    imp = uniform_batch(rng, nxt, batch, n_accounts)
+    imp["dr_lo"] += np.uint64(C4_ACCOUNTS)
+    imp["cr_lo"] += np.uint64(C4_ACCOUNTS)
+    imp["flags"][:] = int(TF.imported)
+    imp["ts"] = np.arange(ts + 1, ts + 1 + batch, dtype=np.uint64)
+    ts += batch + 1000
+    out.append(("imported", imp, ts))
+    return out
+
+
+def sharded_phase(dev, caps: tuple = (A_CAP, T_CAP),
+                  n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
+                  meshes: tuple = SH_MESHES, c2_batches: int = SH_C2_BATCHES,
+                  loss_seeds: tuple = SH_LOSS_SEEDS) -> dict:
+    """The replicated-state mesh route on `dev`: ShardedRouter on a mesh
+    of each size in `meshes` (logical shards on the one card), fed
+    full-width batches of every mode (`sharded_steps`) from one ledger
+    state (config 4's accounts and n_accounts plain ones), each step's
+    results and state digest equal to the single-chip
+    create_transfers_fast on `dev` and on a CPU twin (both through a
+    router whose only device is lost: its single-chip step), and the
+    kernels launched as `sharded_launches` predicts; then
+    shard_loss_scenario on the card's default mesh for `loss_seeds`,
+    exactly 2 reroutes each."""
+    from tigerbeetle_tpu_torch import DeviceLedger
+    from tigerbeetle_tpu_torch.ops.ledger import _pad_bucket, pad_transfer_events
+    from tigerbeetle_tpu_torch.ops.state_epoch import device_state_digest
+    from tigerbeetle_tpu_torch.parallel.full_sharded import (ShardedRouter,
+                                                             shard_batch)
+    from tigerbeetle_tpu_torch.parallel.shard_utils import Mesh, replicate
+    from tigerbeetle_tpu_torch.testing.chaos import shard_loss_scenario
+    from tigerbeetle_tpu_torch.types import Account, AccountFlags
+
+    cuda = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    accounts = (config4_accounts(Account, AccountFlags)
+                + [Account(id=C4_ACCOUNTS + i, ledger=1, code=1)
+                   for i in range(1, n_accounts + 1)])
+    led = DeviceLedger(caps[0], caps[1], device=dev)
+    ts = 10**6
+    for lo in range(0, len(accounts), BATCH):
+        chunk = accounts[lo:lo + BATCH]
+        ts += len(chunk) + 10
+        led.create_accounts(chunk, ts)
+    base, led.state = led.state, None
+    routers = {}
+    for s in meshes:
+        mesh = Mesh([dev] * s)
+        routers[f"sharded_{s}"] = [ShardedRouter(mesh),
+                                   replicate(mesh, _clone_state(base, dev))]
+    for key, where in (("single", dev), ("cpu_twin", "cpu")):
+        mesh = Mesh([where])
+        router = ShardedRouter(mesh)
+        router.drop_device(mesh.devices[0])
+        routers[key] = [router, (_clone_state(base, where),)]
+    del base
+    digest0 = {k: device_state_digest(r[1][0]) for k, r in routers.items()}
+    check(len({json.dumps(d, sort_keys=True) for d in digest0.values()})
+          == 1, "sharded: the starting states differ")
+
+    launches, predicted, steps = [0, 0], [0, 0], []
+    modes_run = set()
+    t_steps = {k: 0.0 for k in routers}
+    for label, ev, ts in sharded_steps(np.random.default_rng(73),
+                                       n_accounts, batch, c2_batches):
+        n = len(ev["id_lo"])
+        evp = pad_transfer_events(ev, _pad_bucket(n))
+        results = {}
+        for key, entry in routers.items():
+            router, state = entry
+            esc = router.escalations
+            shards = shard_batch(router.mesh, evp)
+            _zero_launches()
+            sync(dev)
+            t = time.perf_counter()
+            state, out, fell = router.step(state, shards, ts, n)
+            sync(dev)
+            t_steps[key] += time.perf_counter() - t
+            entry[1] = state
+            ran = [router.route(evp)] + (["fixpoint"]
+                                         if router.escalations > esc else [])
+            if key.startswith("sharded"):
+                got = _launch_counts()[:2]
+                want = [0, 0]
+                for mode in ran:
+                    p, g = sharded_launches(mode, router.mesh.size)
+                    want[0] += p
+                    want[1] += g
+                modes_run.update(ran)
+                check(not cuda or tuple(got) == tuple(want),
+                      f"sharded {key} {label}: launches {got}, the route "
+                      f"{ran} predicts {want}")
+                for i in range(2):
+                    launches[i] += got[i]
+                    predicted[i] += want[i]
+            results[key] = (out["r_status"][:n].cpu(), out["r_ts"][:n].cpu(),
+                            fell, device_state_digest(state[0]), ran)
+        want = results["cpu_twin"]
+        for key, got in results.items():
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                  and got[2] == want[2] and got[3] == want[3]
+                  and got[4] == want[4],
+                  f"sharded {label}: {key} differs from the CPU twin "
+                  f"(fell back {got[2]} / {want[2]}, route {got[4]} / "
+                  f"{want[4]})")
+        steps.append(dict(label=label, route=want[4], fell_back=want[2],
+                          created=int((want[0] == 0xFFFFFFFF).sum())))
+        print(f"sharded {label}: {steps[-1]}", flush=True)
+    check(modes_run == {"plain", "fixpoint", "balancing", "imported"},
+          f"sharded: the modes run were {sorted(modes_run)}")
+    stats = {k: r[0].stats() for k, r in routers.items()}
+    routers.clear()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    loss = {}
+    t = time.perf_counter()
+    for seed in loss_seeds:
+        _zero_launches()
+        got = shard_loss_scenario(seed, device=dev)
+        check(got["reroutes"] == 2, f"sharded: shard_loss seed {seed}: {got}")
+        loss[seed] = dict(got, launches=_launch_counts()[:2])
+    loss_s = time.perf_counter() - t
+    print(f"sharded shard_loss: {loss}", flush=True)
+    out = dict(steps=steps, stats=stats, launches=tuple(launches),
+               predicted=tuple(predicted),
+               escalations={k: s["escalations"] for k, s in stats.items()},
+               host_fallbacks={k: s["host_fallbacks"]
+                               for k, s in stats.items()},
+               step_s=t_steps, shard_loss=loss, shard_loss_s=loss_s,
+               elapsed_s=time.perf_counter() - t_phase,
+               card=card_line_or_cpu(dev))
+    print(f"sharded: escalations {out['escalations']}, host fallbacks "
+          f"{out['host_fallbacks']}, launches {out['launches']}", flush=True)
+    return out
+
+
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
@@ -6511,6 +7221,10 @@ def main() -> int:
     lap("benchmark_phase")
     drv = drivers_phase(dev, bm)
     lap("drivers_phase")
+    obs = observatory_phase(dev)
+    lap("observatory_phase")
+    shd = sharded_phase(dev)
+    lap("sharded_phase")
     phase_seconds["total"] = time.perf_counter() - t0
     print(f"all phases passed in {phase_seconds['total']:.1f} s",
           flush=True)
@@ -6561,6 +7275,14 @@ def main() -> int:
         # The drivers phase's: its device-engine VOPR seeds and the
         # device_ledger fuzzer.
         "launches_drivers": drv["launches"][0],
+        # The observatory phase's profiled full-width windows (the
+        # supervisor's path; its cost model's scratch runs apart, below);
+        # the sharded phase's router steps on meshes of 1 and 8.
+        "launches_observatory": obs["launches"][0],
+        "launches_cost_model": sum(
+            r["launches"]["ht_probe"]
+            for r in obs["profiler"]["cost_model"].values()),
+        "launches_sharded": shd["launches"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -6609,6 +7331,11 @@ def main() -> int:
         "launches_benchmark": bm["launches"][1],
         "ran_benchmark_windows": bm["launches_ran_windows"][1],
         "launches_drivers": drv["launches"][1],
+        "launches_observatory": obs["launches"][1],
+        "launches_cost_model": sum(
+            r["launches"]["row_gather"]
+            for r in obs["profiler"]["cost_model"].values()),
+        "launches_sharded": shd["launches"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -6674,6 +7401,8 @@ def main() -> int:
     print(json.dumps({"replica": rep}), flush=True)
     print(json.dumps({"benchmark": bm}), flush=True)
     print(json.dumps({"drivers": drv}), flush=True)
+    print(json.dumps({"observatory": obs}, default=str), flush=True)
+    print(json.dumps({"sharded": shd}, default=str), flush=True)
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
-"""The port's single-chip chaos harness (`tigerbeetle_tpu_torch/testing/
-chaos.py`) against the JAX package's (`tigerbeetle_tpu/testing/chaos.py`,
-its mesh scenarios off), on the CPU.
+"""The port's chaos harness (`tigerbeetle_tpu_torch/testing/chaos.py`)
+against the JAX package's (`tigerbeetle_tpu/testing/chaos.py`), on the
+CPU.
 
 For the gate seeds and for each traffic shape, the port's
-`run_chaos_seed(seed)` must return the JAX package's summary: the faults
-injected, the recoveries by cause, the retries and the backoff, the
-windows replayed and the epochs verified. Each run holds itself to a
-clean oracle replay (history and device state) and fails on any silent
-corruption. The plan, the traffic shapes and the Zipfian generator are
-compared draw for draw.
+`run_chaos_seed(seed)` must return the JAX package's summary, both with
+the mesh scenarios off: the faults injected, the recoveries by cause,
+the retries and the backoff, the windows replayed and the epochs
+verified. Each run holds itself to a clean oracle replay (history and
+device state) and fails on any silent corruption. At both defaults the
+seed's generator draws whether the mesh scenarios run, in the same place
+in both packages: the supervisor part of the summary must still be the
+JAX package's, for a seed that draws them and one that does not (the
+JAX package's three mesh scenarios replaced by recorders; the port's
+shard_loss scenario is held to the JAX package's in
+tests/test_torch_sharded.py). The plan, the traffic shapes and the
+Zipfian generator are compared draw for draw.
 """
 
 import dataclasses
@@ -36,7 +42,8 @@ torch.set_num_threads(1)
     (5, "hot_skew"), (5, "pending_storm"), (5, "open_close_burst")])
 def test_chaos_seed_summary_equals_the_jax_packages(seed, traffic):
     was_t, was_j = TC.VERIFY, JC.VERIFY
-    got = TCH.run_chaos_seed(seed, traffic=traffic, device="cpu")
+    got = TCH.run_chaos_seed(seed, traffic=traffic, mesh_scenario=False,
+                             device="cpu")
     want = JCH.run_chaos_seed(seed, traffic=traffic, mesh_scenario=False)
     assert got == want
     # VERIFY is restored, and the port read no environment variable for
@@ -44,6 +51,45 @@ def test_chaos_seed_summary_equals_the_jax_packages(seed, traffic):
     assert (TC.VERIFY, JC.VERIFY) == (was_t, was_j)
     if set(got["faults"]) & TCH.CORRUPTION_KINDS:
         assert sum(got["recoveries"].values()) >= 1
+
+
+MESH_KEYS = ("shard_loss", "shard_resync", "reshard")
+
+
+@pytest.mark.parametrize("seed, draws", [(4, False), (2, True)])
+def test_default_seed_draws_the_mesh_scenario_as_the_jax_package(
+        seed, draws, monkeypatch):
+    """Both at their defaults: the same mesh draw from the seed's
+    generator, so the same traffic (every generated batch recorded) and
+    the same supervisor summary."""
+    called = []
+    for name in ("shard_loss_scenario", "shard_resync_scenario",
+                 "reshard_chaos_scenario"):
+        monkeypatch.setattr(JCH, name,
+                            lambda s, _n=name: called.append((_n, s))
+                            or {"stub": _n})
+    traffic = {TCH: [], JCH: []}
+    for mod, log in traffic.items():
+        def recording(*args, _gen=mod._chaos_workload, _log=log):
+            events, nid = _gen(*args)
+            _log.append([dataclasses.asdict(e) for e in events])
+            return events, nid
+        monkeypatch.setattr(mod, "_chaos_workload", recording)
+    got = TCH.run_chaos_seed(seed, device="cpu")
+    want = JCH.run_chaos_seed(seed)
+    assert traffic[TCH] == traffic[JCH] and traffic[TCH]
+    assert called == ([("shard_loss_scenario", seed),
+                       ("shard_resync_scenario", seed),
+                       ("reshard_chaos_scenario", seed)] if draws else [])
+    assert set(want) & set(MESH_KEYS) == (set(MESH_KEYS) if draws
+                                          else set())
+    assert {k: v for k, v in got.items() if k not in MESH_KEYS} == \
+        {k: v for k, v in want.items() if k not in MESH_KEYS}
+    if draws:
+        assert got["shard_loss"] == {"devices": 8, "dropped": "cpu",
+                                     "reroutes": 2}
+    else:
+        assert "shard_loss" not in got
 
 
 @pytest.mark.parametrize("seed", range(12))

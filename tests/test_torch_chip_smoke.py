@@ -639,3 +639,86 @@ def test_chip_smoke_runs_the_drivers_phase_after_the_benchmark_phase():
     assert ("device_ledger", 4, 15) in CS.DV_FUZZ
     assert ("state_machine", 9, 30) in CS.DV_FUZZ
     assert not hasattr(CS, "test_drivers_phase")
+
+
+def test_observatory_phase_rehearsed_on_the_cpu(calls):
+    """The observatory phase at a small size on the CPU: (a) profiled
+    chain windows of 2 and per-batch windows land a series for each
+    route, the cost model's flat and chain rows and finite roofline
+    fractions, and a Chrome trace; (b) the budget's audit green, static
+    equal to measured with the worst-case pack staged, the leak's three
+    REDs; (c) the page alert fired, resolved, its disabled arm silent;
+    (d) the observatory's own time within the budget's ceiling (the
+    on-against-off median is held on the card only)."""
+    numbers = CS.observatory_phase(
+        "cpu", caps=(1 << 10, 1 << 13), n_accounts=100, body=64, w=2,
+        chain_windows=3, flat_windows=2, pairs=1)
+    prof = numbers["profiler"]
+    assert {s.split("route:")[1].split(",")[0]
+            for s in prof["series"]} >= {"chain", "per_batch"}
+    assert set(prof["fractions"]) == {"flat", "chain"}
+    assert prof["capture_trace_events"] > 0
+    assert prof["launches"] == (0, 0)          # plain twins on the CPU
+    mem = numbers["memwatch"]
+    assert mem["leak_reds"] == 3 and mem["observations"] >= 1
+    assert mem["worst_case_bytes"] == mem["budget_bytes"]
+    assert mem["device_memory_stats"][0]["stats"] is None
+    assert numbers["alerts"]["fired"] == 1
+    assert numbers["alerts"]["resolved_tick"] is not None
+    assert numbers["overhead"]["ratio_max"] == 1.05
+    assert calls["probe"] > 0 and calls["gather"] > 0
+
+
+def test_sharded_phase_rehearsed_on_the_cpu():
+    """The sharded phase at a small size on the CPU: meshes of 1 and 8
+    logical CPU shards, every mode run, each step equal to the
+    single-chip step and the CPU twin; both shard-loss seeds reroute
+    twice."""
+    numbers = CS.sharded_phase("cpu", caps=(1 << 10, 1 << 13),
+                               n_accounts=100, batch=200)
+    labels = [s["label"] for s in numbers["steps"]]
+    assert labels == ["config2", "config2", "config4_pend",
+                      "config4_post_void", "balancing", "imported"]
+    assert all(s["created"] > 0 for s in numbers["steps"])
+    assert not any(s["fell_back"] for s in numbers["steps"])
+    assert set(numbers["stats"]) == {"sharded_1", "sharded_8", "single",
+                                     "cpu_twin"}
+    assert numbers["stats"]["single"]["shard_loss_reroutes"] == 6
+    assert numbers["stats"]["sharded_8"]["shard_loss_reroutes"] == 0
+    assert (numbers["escalations"]["sharded_8"]
+            == numbers["escalations"]["cpu_twin"])
+    assert numbers["launches"] == (0, 0)        # plain twins on the CPU
+    assert numbers["predicted"][0] > 0
+    assert all(v["reroutes"] == 2 and v["devices"] == 8
+               for v in numbers["shard_loss"].values())
+
+
+def test_sharded_launch_prediction():
+    """A sharded step launches a probe a shard and the per-event stage's
+    two gathers a shard beside the tier's own (the CPU counts of
+    tests/test_torch_sharded.py)."""
+    assert CS.sharded_launches("plain", 8) == (8, 20)
+    assert CS.sharded_launches("fixpoint", 1) == (1, 7)
+    assert CS.sharded_launches("imported", 2) == (2, 8)
+    assert CS.sharded_launches("balancing", 8) == (8, 21)
+
+
+def test_chip_smoke_runs_the_observatory_and_sharded_phases_last():
+    """main() runs the observatory and sharded phases after the drivers
+    phase, prints their lines before the phases' seconds and the kernels
+    line, and the probe and the row gather carry their launches."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "drivers_phase(dev, bm)", "observatory_phase(dev)",
+        "sharded_phase(dev)", "'observatory'", "'sharded'",
+        "'phase_seconds'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_sharded':") == 2
+    assert main.count("'launches_observatory':") == 2
+    assert CS.SH_MESHES == (1, 8)

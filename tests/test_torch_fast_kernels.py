@@ -439,11 +439,12 @@ def test_fallback_batches_leave_state_unchanged(case):
 
 
 def test_non_plain_tiers_raise_not_implemented():
-    """Only the spmd join (per_event, the parallel/ slice) is left to
-    port: the limit fixpoint, imported and balancing tiers and the
-    imported accounts tier run (their parity: tests/test_torch_fixpoint.py,
-    test_torch_imported.py, test_torch_balancing.py; windows:
-    test_torch_window.py)."""
+    """No tier is left to port: the limit fixpoint, imported and
+    balancing tiers, the imported accounts tier and the spmd join (a
+    per_event bundle computed elsewhere, the parallel/ route) run, none
+    raises NotImplementedError (their parity: tests/test_torch_fixpoint.py,
+    test_torch_imported.py, test_torch_balancing.py,
+    test_torch_sharded.py; windows: test_torch_window.py)."""
     state = JL.init_state(64, 256)
     t_state = state_from_numpy(_np(state), "cpu")
     ev = events_to_device(JL.pad_transfer_events(
@@ -460,9 +461,13 @@ def test_non_plain_tiers_raise_not_implemented():
         assert not bool(out["fallback"]), kw
         assert int(out["fix_rounds"]) == (kw.get("limit_rounds", 1) > 1), kw
     for rounds in (1, TFK.LIMIT_FIXPOINT_ROUNDS):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TFK.create_transfers_fast(t_state, ev, TS0, 1,
-                                      limit_rounds=rounds, per_event={})
+        s = state_from_numpy(_np(state), "cpu")
+        pe = TFK.per_event_status(s, ev, TFK._ts_events(TS0, 1, 16, "cpu"))
+        pe.pop("_gathers")
+        _, out = TFK.create_transfers_fast(s, ev, TS0, 1,
+                                           limit_rounds=rounds, per_event=pe)
+        assert not bool(out["fallback"]), rounds
+        assert int(out["created_count"]) == 0   # accounts 1, 2 absent
     aev = events_to_device(JL.pad_account_events(
         JB.accounts_to_arrays([_acct(1)]), 16), "cpu")
     _, out = TFK.create_accounts_fast(t_state, aev, TS0, 1,

@@ -71,7 +71,12 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.testing.fuzz, "
         "tigerbeetle_tpu_torch.testing.vortex, "
         "tigerbeetle_tpu_torch.testing.snap, tigerbeetle_tpu_torch.devhub, "
-        "tigerbeetle_tpu_torch.trace.alerts\n"
+        "tigerbeetle_tpu_torch.trace.alerts, "
+        "tigerbeetle_tpu_torch.trace.memwatch, "
+        "tigerbeetle_tpu_torch.trace.profiler, "
+        "tigerbeetle_tpu_torch.parallel, "
+        "tigerbeetle_tpu_torch.parallel.shard_utils, "
+        "tigerbeetle_tpu_torch.parallel.full_sharded\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -133,6 +138,21 @@ def test_the_drivers_modules_are_the_ports_own():
                  "testing/fuzz.py", "testing/vortex.py", "testing/snap.py",
                  "devhub.py", "trace/alerts.py"):
         assert (PORT / name) in _sources(), name
+
+
+def test_the_observatory_and_mesh_modules_are_the_ports_own():
+    """The performance observatory (the dispatch profiler, the memory
+    watermarks and the alert engine, with the port's own budget file)
+    and the replicated-state mesh route exist in the port (the AST
+    checks above cover their sources, the import check their imports)."""
+    for name in ("trace/profiler.py", "trace/memwatch.py",
+                 "trace/alerts.py", "parallel/__init__.py",
+                 "parallel/shard_utils.py", "parallel/full_sharded.py"):
+        assert (PORT / name) in _sources(), name
+    assert (PORT / "trace" / "membudget.json").is_file()
+    from tigerbeetle_tpu_torch.trace.alerts import AlertEngine  # noqa: F401
+    import tigerbeetle_tpu_torch.ops.fast_kernels as fk
+    assert not hasattr(fk, "_later_slices")
 
 
 def test_the_drivers_name_the_ports_package_and_no_fixed_path():

@@ -839,15 +839,16 @@ def test_tracer_hook_records_window_stages():
 def test_observatory_hooks_are_driven():
     """The profiler, memwatch and alert-engine hooks (None by default)
     are called where the JAX supervisor calls them: the profiler around
-    each synchronous window dispatch with its late route and tier, the
+    each synchronous window dispatch with its late route and tier and
+    the ledger's device (a sample waits for it), the
     memwatch at each verified epoch, the alert engine once a committed
     window; stats() carries their records."""
     calls = []
 
     class Profiler:
-        def time(self, thunk, route, tier):
+        def time(self, thunk, route, tier, device):
             out = thunk()
-            calls.append(("profile", route(), tier()))
+            calls.append(("profile", route(), tier(), device.type))
             return out
 
         def stats(self):
@@ -878,7 +879,7 @@ def test_observatory_hooks_are_driven():
                          for i in range(1, 9)], 1_000)
     batches, tss = _simple_window(1_000, 10**9)
     sup.create_transfers_window([[port(e) for e in batches[0]]], tss)
-    assert calls == [("bind",), ("profile", "per_batch", "fallback"),
+    assert calls == [("bind",), ("profile", "per_batch", "fallback", "cpu"),
                      ("tick",), ("memwatch", "cpu")]
     assert sup.stats()["observatory"] == {
         "profiler": {"sampled": 1}, "memwatch": {"observed": 1},

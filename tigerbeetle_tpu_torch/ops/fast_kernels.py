@@ -893,6 +893,10 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
         amt_res_hi=amt_res_hi, amt_res_lo=amt_res_lo,
         dr_row=dr_rowc, cr_row=cr_rowc, p_row=p_rowc,
         dr_found=dr_found, cr_found=cr_found, p_found=p_found,
+        # Own-id probe results: the sharded tail's in-window join gates
+        # the substitution on the definition's id being absent from the
+        # table (live or orphaned).
+        e_found=e_found, o_found=o_found,
         _gathers=(dr, cr, p, p_dr, p_cr),
     )
     if imported_ctx is not None:
@@ -906,13 +910,6 @@ def per_event_status(state, ev, ts_event, inwin=None, didx=None,
         out["didx"] = didx
         out["status_pre_dead"] = wrap(pv_status_nf)[0]
     return out
-
-
-def _later_slices(per_event):
-    if per_event is not None:
-        raise NotImplementedError(
-            "create_transfers_fast: per_event (the spmd join of the "
-            "parallel/ slice) is a later slice of the port")
 
 
 def _ts_events(timestamp, n, N, device):
@@ -1246,12 +1243,18 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     itself balancing (the view reads its nominal amount, the stored one
     is the clamp).
 
-    per_event (the spmd join) raises NotImplementedError: a later slice.
+    per_event: a per_event_status bundle computed elsewhere, without its
+    '_gathers' (`parallel/full_sharded.py` computes it a shard at a time
+    and gathers it over the mesh); the tail re-gathers the touched rows.
+    On the fixpoint tiers but the imported ones (the spmd join), the
+    in-batch pending join is computed here over the whole batch and its
+    substitution re-applied to the re-gathered view; a use whose
+    definition's id collides with the table stays a hard fallback.
 
     Every state write is in place, the row counts and scalars included
     (`copy_`): a call leaves each state tensor's storage where it was,
     which a replayed CUDA graph relies on."""
-    _later_slices(per_event)
+    spmd = per_event is not None
     assert not (imported_mode and balancing_mode), \
         "the imported and balancing tiers do not compose"
     assert not balancing_mode or limit_rounds > 1, \
@@ -1285,10 +1288,39 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     pv = is_post | is_void
     timeout_ns = ev["timeout"] * NS_PER_S
 
+    assert not (spmd and seg is not None), "a sharded batch is one prepare"
+    assert not (spmd and imported_mode and not fixpoint), \
+        "the sharded imported tail always runs the fixpoint rounds"
     imported_ctx = (imported_batch_ctx(state, ev, ts_event, valid, idxs,
                                        chain[2])
-                    if imported_mode else None)
-    if join:
+                    if imported_mode and not spmd else None)
+    if spmd and join:
+        # The spmd join: the bundle was computed a shard at a time without
+        # the batch-global join. The join runs here over the whole batch;
+        # the substitution gate (the definition's id absent from the
+        # table) reads the bundle's own-id probe lanes, and a use whose
+        # definition collides with the table folds into e2 (hard). The
+        # unsubstituted status is the dead-definition variant: for a
+        # gated use the table lookup missed, the missing-definition
+        # sequence.
+        e2, inwin_raw, didx = _dup_and_pend_join(ev, valid, pv, idxs, N)
+        eo = (per_event["e_found"].to(torch.uint8)
+              | (per_event["o_found"].to(torch.uint8) << 1))
+        inwin = inwin_raw & (eo[didx] == 0)
+        e2 = e2 | torch.any(inwin_raw & (eo != 0))
+        didx = torch.where(inwin, didx, 0)
+        status_dead = per_event["status_pre"]
+        status = per_event["status_nc"]
+    elif spmd:
+        # Sharded plain and imported tails: any id / pid collision (an
+        # in-batch pending reference included) escalates (plain) or is
+        # hard (imported), as on the single-chip tiers.
+        e2 = _combined_dup_keys(ev, valid, pv)
+        inwin = torch.zeros_like(valid)
+        didx = torch.zeros_like(idxs)
+        status_dead = per_event["status_pre"]
+        status = per_event["status_nc" if fixpoint else "status_pre"]
+    elif join:
         # The precise dup/join split + the in-batch pending substitution.
         e2, inwin_raw, didx = _dup_and_pend_join(ev, valid, pv, idxs, N)
         per_event = per_event_status(state, ev, ts_event, inwin=inwin_raw,
@@ -1318,7 +1350,38 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     amt_res_hi = per_event["amt_res_hi"]
     amt_res_lo = per_event["amt_res_lo"]
     ts_actual = per_event["ts_pre"]
-    dr, cr, p, p_dr, p_cr = per_event["_gathers"]
+    if not spmd:
+        dr, cr, p, p_dr, p_cr = per_event["_gathers"]
+    else:
+        # Re-gather the touched rows here (the shards' bundle stays
+        # compact), with the in-window substitution re-applied to the
+        # pending view under the spmd join.
+        (p,) = _xfer_gather_multi(xfr, [p_rowc])
+        if join:
+            p2 = _inwin_def_view(ev, ts_event, didx, dr_rowc, cr_rowc)
+            p = {k: torch.where(inwin, p2[k], v) for k, v in p.items()}
+            p_found = p_found | inwin
+        dr, cr, p_dr, p_cr = _acct_gather_multi(
+            acc, [dr_rowc, cr_rowc, p["dr_row"], p["cr_row"]],
+            [per_event["dr_found"], per_event["cr_found"], p_found, p_found])
+        if join:
+            # The shards evaluated a substituted use against a missing
+            # pending, so its only pending-dependent status is
+            # pending_transfer_not_found (every check before it is
+            # pending-independent): re-run the post/void evaluation on the
+            # substituted view for exactly those lanes, closed codes
+            # stripped as on every fixpoint tier (the rounds re-derive
+            # them), the resolved amount with it.
+            pv_status_s, _, pv_amt_hi_s, pv_amt_lo_s, _ = _pv_eval(
+                ev, p, p_found, p_dr, p_cr, ts_event)
+            fix = inwin & pv & (status == _TS["pending_transfer_not_found"])
+            is_cl_s = ((pv_status_s == _TS["debit_account_already_closed"])
+                       | (pv_status_s
+                          == _TS["credit_account_already_closed"]))
+            status = torch.where(
+                fix, torch.where(is_cl_s, _CREATED, pv_status_s), status)
+            amt_res_hi = torch.where(inwin & pv, pv_amt_hi_s, amt_res_hi)
+            amt_res_lo = torch.where(inwin & pv, pv_amt_lo_s, amt_res_lo)
     if imported_mode:
         imp = dict(lane=_flag(flags, _F_IMPORTED), ts=ev["ts"],
                    codes=per_event["after_regress_codes"],

@@ -32,7 +32,9 @@ Stream object is made), and the checks are direct comparisons.
 
 Routing is by the device of the tensors alone: CUDA tensors launch the
 kernel (or raise), CPU tensors run the plain twin. `LAUNCHES` counts
-kernel launches and nothing else.
+kernel launches and nothing else. `COST`, None but while the
+observatory's cost model counts a tier run (`trace/profiler.py`), takes
+each call and charges it `bound_bytes`: a dispatch mode sees no kernel.
 """
 
 from __future__ import annotations
@@ -40,9 +42,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .hash_table import SLOTS, ht_lookup
+from .hash_table import SLOTS, _buckets, ht_lookup
 
 LAUNCHES = 0
+COST = None
+ROW_KEY_BYTES = 16 * 8      # the key_hi and key_lo halves of a bucket row
+SECTOR_BYTES = 32           # the least a read from device memory moves
 
 MAX_SEGMENTS = 2
 
@@ -68,8 +73,30 @@ def ht_lookup_fused_multi(segments):
     """Probe each (table, k_hi, k_lo) of `segments` (at most
     MAX_SEGMENTS) for its int64-carried u128 keys, in ONE kernel launch.
     Returns one (found, val) pair a segment, in order."""
-    global LAUNCHES, _launch
     segments = list(segments)
+    if COST is not None:
+        return COST.kernel("ht_probe", _probe_multi, bound_bytes, segments)
+    return _probe_multi(segments)
+
+
+def bound_bytes(segments, outs) -> int:
+    """The bytes one probe of `segments` must move (its PERF.md bound):
+    the keys in and (found, val) out once each; the key halves of every
+    bucket row a non-zero key hashes to (one row when both choices
+    coincide); one 32-byte sector of the val half per key found."""
+    total = 0
+    for (table, k_hi, k_lo), (found, _) in zip(segments, outs):
+        b1, b2 = _buckets(k_hi, k_lo, table["packed"].shape[0] - 1)
+        live = (k_hi != 0) | (k_lo != 0)
+        rows = int((live.to(torch.int64)
+                    * (1 + (b1 != b2).to(torch.int64))).sum())
+        total += (k_hi.numel() * (16 + 5) + rows * ROW_KEY_BYTES
+                  + int(found.sum()) * SECTOR_BYTES)
+    return total
+
+
+def _probe_multi(segments):
+    global LAUNCHES, _launch
     if not 1 <= len(segments) <= MAX_SEGMENTS:
         raise ValueError(f"ht_lookup_fused: {len(segments)} segments; one "
                          f"launch takes 1 to {MAX_SEGMENTS}")

@@ -41,7 +41,9 @@ it is refused on an int64 table.
 
 Routing is by the device of the tensors alone: CUDA tensors launch the
 kernel (or raise), CPU tensors run the plain twin. `LAUNCHES` counts
-kernel launches and nothing else.
+kernel launches and nothing else. `COST`, None but while the
+observatory's cost model counts a tier run (`trace/profiler.py`), takes
+each call and charges it `bound_bytes`: a dispatch mode sees no kernel.
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ import torch
 from . import _build
 
 LAUNCHES = 0
+COST = None
 
+SECTOR_BYTES = 32           # the least a read from device memory moves
 FULL_MASK = 0xFFFFFFFF
 MAX_SEGMENTS = 4
 _INDEX_DTYPES = (torch.int32, torch.int64)
@@ -124,6 +128,30 @@ def row_gather_multi(tables, rows, masks=None):
     (clamped), masked per 32-bit word by its mask (None: every bit), in
     ONE kernel launch. `rows` is one index tensor shared by every table
     or a sequence of one per table. Returns the outputs in order."""
+    if COST is not None:
+        return COST.kernel("row_gather", _gather_multi, bound_bytes,
+                           tables, rows, masks)
+    return _gather_multi(tables, rows, masks)
+
+
+def bound_bytes(tables, rows, masks, outs) -> int:
+    """The bytes one gather must move (its PERF.md bound): each index
+    set read once, and for each table the output written once and each
+    distinct gathered row read once in 32-byte sectors (a masked gather
+    reads the row's words all the same)."""
+    tables, rows, masks = _segments(tables, rows, masks)
+    total = sum(r.numel() * r.element_size()
+                for r in {id(r): r for r in rows}.values())
+    for t, r in zip(tables, rows):
+        row_bytes = t.shape[1] * t.element_size()
+        distinct = int(torch.unique(
+            r.to(torch.int64).clamp(0, t.shape[0] - 1)).numel())
+        sectors = -(-row_bytes // SECTOR_BYTES)
+        total += r.numel() * row_bytes + distinct * sectors * SECTOR_BYTES
+    return total
+
+
+def _gather_multi(tables, rows, masks):
     global LAUNCHES, _launch
     tables, rows, masks = _segments(tables, rows, masks)
     dev = tables[0].device

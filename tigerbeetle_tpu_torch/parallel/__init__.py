@@ -1,0 +1,13 @@
+"""Device-mesh parallelism for batch validation.
+
+The reference's intra-batch axis is the 8190-event hot loop (reference:
+docs/ARCHITECTURE.md:358-362). The port maps it onto an in-process mesh
+of devices (`shard_utils.Mesh`): the full create_transfers kernel runs
+sharded — per-event validation on each shard's slice of the batch, the
+compact per-event bundle all-gathered, and the deterministic global tail
+replicated (parallel/full_sharded.py).
+"""
+
+from .full_sharded import make_sharded_create_transfers, shard_batch
+
+__all__ = ["make_sharded_create_transfers", "shard_batch"]

@@ -440,14 +440,17 @@ class ServingSupervisor:
 
     def _profiled(self, thunk):
         """Wrap one window dispatch thunk in the sampled profiler, when
-        one is attached (route and tier resolve late, through callables)."""
+        one is attached (route and tier resolve late, through callables;
+        a sample waits for the ledger's device to finish its queued
+        work)."""
         prof = self.profiler
         if prof is None:
             return thunk
         return lambda: prof.time(
             thunk,
             route=lambda: self.led.last_window_route or "unknown",
-            tier=lambda: self.led.last_window_tier or "-")
+            tier=lambda: self.led.last_window_tier or "-",
+            device=self.led.device)
 
     def _observatory_tick(self) -> None:
         """Advance the alert engine one committed window, when one is

@@ -1,6 +1,8 @@
 """Seeded device-fault injection for the serving pipeline (a port of the
-JAX package's `testing/chaos.py`, single-chip scenarios; the mesh
-scenarios wait for the port's `parallel/`).
+JAX package's `testing/chaos.py`: the single-chip scenarios and the
+replicated-state mesh scenario, `shard_loss_scenario`; the sharded-state
+scenarios, shard_resync and reshard, wait for the port's partitioned
+router).
 
 A deterministic `FaultPlan(seed)` injects device-state bit flips,
 dispatch failures and timeouts, poisoned delta fetches and forced
@@ -40,7 +42,7 @@ import numpy as np
 
 from .. import constants
 from ..ops import state_epoch
-from ..ops.u64 import s64
+from ..ops.u64 import s64, u64
 from ..oracle.state_machine import StateMachineOracle
 from ..serving import (DispatchTimeout, RetryPolicy, ServingSupervisor,
                        TransientDispatchError)
@@ -377,22 +379,33 @@ AUDITED_FIELDS = ("accounts", "transfers", "pending_status", "orphaned",
 def run_chaos_seed(seed: int, *, windows: int = 8,
                    batches_per_window: int = 2, events_per_batch: int = 48,
                    kinds=FAULT_KINDS, epoch_interval: int | None = None,
+                   mesh_scenario: bool | None = None,
                    traffic: str | None = None, tracer=None,
                    device=None) -> dict:
     """One seed-deterministic audited chaos run against the serving
     supervisor, with VERIFY on and every drained row spot-audited.
     Raises on any silent corruption (the run must either recover to
     bit-exact oracle parity or have failed loudly already); returns a
-    summary dict on success. `device` None means the card."""
+    summary dict on success. `device` None means the card.
+
+    mesh_scenario None draws it from the seed's generator, as the JAX
+    package does (a steady quarter of the seeds); a seed that runs it
+    also runs `shard_loss_scenario` on the default mesh of `device`,
+    under the summary's ``shard_loss`` key."""
     rng = random.Random(seed)
     if epoch_interval is None:
         epoch_interval = rng.choice((2, 3, 4))
+    if mesh_scenario is None:
+        mesh_scenario = rng.random() < 0.25
     was_verify = constants.VERIFY
     constants.set_verify(True)
     try:
-        return _run_supervisor_chaos(
+        summary = _run_supervisor_chaos(
             seed, rng, windows, batches_per_window, events_per_batch,
             kinds, epoch_interval, tracer, traffic=traffic, device=device)
+        if mesh_scenario:
+            summary["shard_loss"] = shard_loss_scenario(seed, device=device)
+        return summary
     finally:
         constants.set_verify(was_verify)
 
@@ -470,6 +483,69 @@ def _run_supervisor_chaos(seed, rng, windows, batches_per_window,
                 epochs_verified=sup.counters["epochs_verified"],
                 checksum_mismatches=sup.counters["checksum_mismatches"],
                 audited_ops=len(expected))
+
+
+# ------------------------------------------------- shard-loss scenario
+
+def shard_loss_scenario(seed: int, mesh=None, device=None) -> dict:
+    """Drop a mesh device mid-run: ShardedRouter must re-route to the
+    single-chip step with exact results, count the reroutes, and route
+    back after restore. `mesh` None: every CUDA device (`device` None),
+    or 8 logical shards on the CPU (`device="cpu"`). Each call builds its
+    own router."""
+    from ..ops.batch import transfers_to_arrays
+    from ..ops.ledger import DeviceLedger, pad_transfer_events
+    from ..parallel.full_sharded import ShardedRouter, shard_batch
+    from ..parallel.shard_utils import default_mesh, replicate
+
+    rng = random.Random(seed ^ 0x5AFE)
+    if mesh is None:
+        mesh = default_mesh(device)
+    router = ShardedRouter(mesh)
+
+    n_accounts = 12
+    accounts = [Account(id=i, ledger=1, code=1)
+                for i in range(1, n_accounts + 1)]
+    led = DeviceLedger(a_cap=1 << 8, t_cap=1 << 11, device=mesh.devices[0])
+    led.create_accounts(accounts, 1_000)
+    oracle = StateMachineOracle()
+    oracle.create_accounts(accounts, 1_000)
+    state = replicate(mesh, led.state)
+    led.state = None  # the router's state now
+
+    ts = 10 ** 9
+    next_id = 10_000
+    dropped = None
+    for step_i in range(4):
+        if step_i == 1:
+            dropped = mesh.devices[rng.randrange(mesh.size)]
+            router.drop_device(dropped)
+        if step_i == 3:
+            router.restore_devices()
+        events = []
+        for _ in range(24):
+            dr = rng.randrange(1, n_accounts + 1)
+            cr = dr % n_accounts + 1
+            events.append(Transfer(
+                id=next_id, debit_account_id=dr, credit_account_id=cr,
+                amount=rng.randrange(1, 100), ledger=1, code=1))
+            next_id += 1
+        n = len(events)
+        ts += n + 10
+        evp = pad_transfer_events(transfers_to_arrays(events), 1024)
+        state, out, fell = router.step(state, shard_batch(mesh, evp), ts, n)
+        assert not fell, f"chaos seed {seed}: unexpected shard fallback"
+        got = [(u64(t), int(s)) for s, t in zip(
+            out["r_status"][:n].tolist(), out["r_ts"][:n].tolist())]
+        want = [(r.timestamp, int(r.status))
+                for r in oracle.create_transfers(events, ts)]
+        assert got == want, \
+            (f"chaos seed {seed}: shard-loss step {step_i} diverged "
+             f"(lost={sorted(map(str, router.lost_devices))})")
+    reroutes = router.shard_loss_reroutes
+    assert reroutes == 2, reroutes  # exactly the degraded steps
+    return dict(devices=int(mesh.size), dropped=str(dropped),
+                reroutes=reroutes)
 
 
 # ------------------------------------------------------------- gate
