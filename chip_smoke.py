@@ -165,7 +165,7 @@ each failing the run with a nonzero exit:
               tigerbeetle_tpu_torch format`, `main.main(["start", ...])`
               in a child process (the device engine on the card, the
               native storage engine's asynchronous WAL), 8 clients of
-              `vsr/client.py` sending 48 bodies of 8,189 events after
+              `vsr/client.py` sending 40 bodies of 8,189 events after
               10,000 accounts, a SIGKILL after op 35 and a restart on the
               file, lookups, a query and a duplicate, SIGTERM, `inspect
               --digest`; every reply equal to a CPU oracle twin fed the
@@ -209,11 +209,11 @@ each failing the run with a nonzero exit:
               card at that shape (its launches counted apart) and the
               roofline fractions of the flat and chain tiers; (b) `MemWatch` green at the budget's caps, static
               equal to measured with the worst-case pack staged, the
-              doubled-t_cap leak red, the full caps' stores and the
+              16-fold-t_cap leak red, the full caps' stores and the
               allocator's stats with the graph pools; (c) the alert
               engine's page, its resolution, its silent disabled arm and
               a dead rule's ValueError; (d) the observatory on against
-              off, the median of 60 pairs of runs in turns within 1.05,
+              off, the median of 30 pairs of runs in turns within 1.05,
               and its own time within 1.05.
  21. sharded  `ShardedRouter` on meshes of 1 and 8 logical shards on the
               card, full-width batches of every mode (config 2, a
@@ -222,6 +222,25 @@ each failing the run with a nonzero exit:
               and a CPU twin (results and digest), launches as
               `sharded_launches` predicts; `shard_loss_scenario` seeds 2
               and 10 (2 reroutes each).
+ 22. partitioned  the partitioned-state mesh route: `PartitionedRouter`
+              on a mesh of 8 logical shards of the card at 2^17 / 2^21
+              (config 4's accounts and 10,000 plain ones), a
+              `DeviceLedger` attached (`attach_partitioned`): (a) 4
+              config-2 chain windows of 8 x 8,190 through submit_window /
+              resolve_windows (eager, captured, replayed; the last under
+              torch.profiler for the idle share); (b) a window poisoned
+              at prepare 3 by a config-4 limit cascade, a clean window in
+              flight behind it (both replay; the telemetry names e3_limit
+              then forced); (c) a balancing, an imported and a plain
+              prepare through the synchronous path, per batch; every
+              result equal to the port's oracle on the host and the
+              partitioned digest to the oracle's after each window and
+              leg, no host fallback; (d) the first window's telemetry
+              block against a host count; (e) `shard_resync_scenario`
+              seeds 2 and 10 on the card's default mesh; (f) the bytes a
+              shard against the replicated route and memwatch's static
+              ledger; (g) the launches as `partitioned_launches`
+              predicts.
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -231,19 +250,21 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}`,
 `{"supervisor": ...}`, `{"durable": ...}`, `{"replica": ...}`,
 `{"benchmark": ...}`, `{"drivers": ...}`, `{"observatory": ...}`,
-`{"sharded": ...}`, `{"phase_seconds": ...}` and `{"kernels": [...]}`
-lines, and last
+`{"sharded": ...}`, `{"partitioned": ...}`, `{"phase_seconds": ...}`
+and `{"kernels": [...]}` lines, and last
 `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -325,6 +346,23 @@ GATHERS_PER_RUN = {"accounts": 2, "plain": 4, "fixpoint": 5, "imported": 4,
 # tier's PROBES_PER_RUN / GATHERS_PER_RUN.
 def sharded_launches(mode: str, shards: int) -> tuple:
     return shards, 2 * shards + GATHERS_PER_RUN[mode]
+
+
+# The partitioned-state mesh route (parallel/partitioned.py), read from
+# the code: a prepare on S logical shards of one device reads each
+# shard's exchanged rows (a transfer-row gather a shard, an account- and
+# balance-row gather a shard), plans each shard's id inserts (a
+# bucket-row gather a shard: ht_plan), builds the mini-state's two hash
+# tables (ht_insert: a bucket-row gather each), judges once on the mini
+# (per_event_status: the probe and the transfer-role and account-role
+# gathers; the tail: the mode's GATHERS_PER_RUN, its re-gathers among
+# them), then reads the judged mini's rows for the write-back (one gather
+# of four tables) and the flush (one gather). So a prepare launches the
+# mode's PROBES_PER_RUN probes and 3S + G + 6 gathers, G the mode's
+# GATHERS_PER_RUN; an escalated step adds the fixpoint step's; a chain
+# window of W runs W plain prepares.
+def partitioned_launches(mode: str, shards: int) -> tuple:
+    return PROBES_PER_RUN[mode], 3 * shards + GATHERS_PER_RUN[mode] + 6
 
 # Commit windows (the JAX package's benchmark.py): config 2 as chain
 # windows of SUPERBATCH_MAX prepares (:111, :125-189), config 4 as
@@ -431,13 +469,23 @@ OB_CHAIN_WINDOWS = 4
 OB_FLAT_WINDOWS = 3
 OB_WINDOWS = 6
 OB_SHAPE = (48, 48)
-OB_OVERHEAD_PAIRS = 60
+OB_OVERHEAD_PAIRS = 30
 # The sharded phase: meshes of 1 and 8 logical shards on the card,
 # SH_C2_BATCHES config-2 batches, then one batch of each other mode;
 # shard_loss_scenario's seeds.
 SH_MESHES = (1, 8)
 SH_C2_BATCHES = 2
 SH_LOSS_SEEDS = (2, 10)
+# The partitioned phase: a mesh of PT_SHARDS logical shards on the card,
+# PT_WINDOWS config-2 chain windows of PT_W prepares (the first eager, the
+# second captured, then replays), a window of PT_W poisoned at prepare
+# PT_POISON_AT and a clean one in flight behind it, an imported, a
+# balancing and a plain per-batch prepare; shard_resync_scenario's seeds.
+PT_SHARDS = 8
+PT_W = 8
+PT_WINDOWS = 4
+PT_POISON_AT = 3
+PT_RESYNC_SEEDS = (2, 10)
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -2191,7 +2239,11 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
 def window_launches(route: str, W: int) -> tuple:
     """(probe, row gather) launches of one window on `route`: one tier
     run a prepare on the chain (plain tier), one over all W·n_pad lanes
-    on a flat tier."""
+    on a flat tier, one partitioned plain prepare a prepare on the
+    partitioned chain (PT_SHARDS shards)."""
+    if route == "partitioned_chain":
+        p, g = partitioned_launches("plain", PT_SHARDS)
+        return p * W, g * W
     if route == "chain":
         return PROBES_PER_RUN["plain"] * W, GATHERS_PER_RUN["plain"] * W
     kind = {"super_deep": "fixpoint", "super_imported": "imported",
@@ -4303,16 +4355,25 @@ def supervisor_chaos(dev, seeds) -> dict:
         got = run_chaos_seed(seed, device=dev)
         ms = (time.perf_counter() - t) * 1e3
         want = run_chaos_seed(seed, device="cpu")
-        # A seed that draws the mesh scenario runs it on each device's
-        # default mesh (the card's devices; 8 CPU shards): its reroutes
-        # must agree, its mesh size and dropped device's name differ.
+        # A seed that draws the mesh scenarios runs them on each device's
+        # default mesh (the card's devices; 8 CPU shards): the reroutes
+        # and the resyncs must agree; the mesh size, the dropped device's
+        # name and the flight dump's differ.
         loss = (got.pop("shard_loss", None), want.pop("shard_loss", None))
+        resync = (got.pop("shard_resync", None),
+                  want.pop("shard_resync", None))
         check(got == want and (loss[0] is None) == (loss[1] is None)
               and (loss[0] is None or loss[0]["reroutes"]
-                   == loss[1]["reroutes"] == 2),
+                   == loss[1]["reroutes"] == 2)
+              and (resync[0] is None) == (loss[0] is None)
+              and (resync[1] is None) == (loss[1] is None)
+              and (resync[0] is None or resync[0]["resyncs"]
+                   == resync[1]["resyncs"] == 1),
               f"chaos seed {seed}: the card's summary {got} {loss[0]} "
-              f"differs from the CPU's {want} {loss[1]}")
-        out[seed] = dict(got, ms=ms, shard_loss=loss[0])
+              f"{resync[0]} differs from the CPU's {want} {loss[1]} "
+              f"{resync[1]}")
+        out[seed] = dict(got, ms=ms, shard_loss=loss[0],
+                         shard_resync=resync[0])
     print(f"supervisor (c) chaos: {out}", flush=True)
     return out
 
@@ -5205,7 +5266,7 @@ def print_durable_ops(label, rep) -> None:
 # ------------------------------------------------------- the replica phase
 
 RP_CLIENTS = 8              # one request in flight each: the pipeline's 8
-RP_BODIES = 6               # create_transfers bodies a client
+RP_BODIES = 5               # create_transfers bodies a client
 RP_KILL_AT = 35             # SIGKILL once a client holds this op's reply
 RP_GET_LIMIT = 200
 RP_TIMEOUT_S = 300.0        # a client's patience (a restart takes ~20 s)
@@ -6653,7 +6714,7 @@ def observatory_memwatch(dev, run, caps) -> dict:
     """(b) Memory watermarks: a supervisor at the budget's caps audits
     green at every verified epoch, its state stores equal to the static
     ledger's; with the worst-case pack staged every measured component
-    equals the static one and audits green, and the doubled-t_cap leak
+    equals the static one and audits green, and the 16-fold-t_cap leak
     REDs on the grown stores and the total; the full-width run's ledger
     (`run`) equals its static ledger on every store; the allocator's
     stats with the window graphs' pools."""
@@ -6696,7 +6757,9 @@ def observatory_memwatch(dev, run, caps) -> dict:
           f"static {static}")
     check(check_budget(staged, budget) == [],
           "observatory (b): the worst case audits red")
-    leaked = _staged_worst_case(dev, bc[0], 2 * bc[1])
+    # The budget pins the partitioned attach mode's state too: t_cap
+    # grows 16-fold before the total passes it.
+    leaked = _staged_worst_case(dev, bc[0], 16 * bc[1])
     reds = check_budget(measure_ledger(leaked), budget)
     leaked.shutdown_staging()
     leaked.release()
@@ -7135,6 +7198,404 @@ def sharded_phase(dev, caps: tuple = (A_CAP, T_CAP),
           f"{out['host_fallbacks']}, launches {out['launches']}", flush=True)
     return out
 
+class _WrapperCalls:
+    """The kernel wrappers' calls through their cost hooks (`COST`), on
+    the CPU, where LAUNCHES stays put: the calls where the path would
+    launch the kernels, one a wrapper call."""
+
+    def __init__(self):
+        self.n = {"ht_probe": 0, "row_gather": 0}
+
+    def kernel(self, name, fn, bound_bytes, *args):
+        self.n[name] += 1
+        return fn(*args)
+
+    def __enter__(self):
+        from tigerbeetle_tpu_torch.ops import fused_probe
+        from tigerbeetle_tpu_torch.ops import row_gather as RG
+
+        fused_probe.COST = RG.COST = self
+        return self
+
+    def __exit__(self, *exc):
+        from tigerbeetle_tpu_torch.ops import fused_probe
+        from tigerbeetle_tpu_torch.ops import row_gather as RG
+
+        fused_probe.COST = RG.COST = None
+
+
+class _CountedRouter:
+    """Adds `partitioned_launches` to `pred` for each call of a router's
+    steps that runs the kernels: a per-batch step of its mode, a chain
+    call of W plain prepares (an eager window or a capture; a replay calls
+    nothing)."""
+
+    def __init__(self, router, shards: int):
+        self.pred = [0, 0]
+        self.steps = {}
+        step, chain = router._step, router._chain_step
+
+        def add(mode, times=1):
+            p, g = partitioned_launches(mode, shards)
+            self.pred[0] += p * times
+            self.pred[1] += g * times
+
+        def step_of(mode):
+            fn = step(mode)
+
+            def counted(*args, **kw):
+                add(mode)
+                self.steps[mode] = self.steps.get(mode, 0) + 1
+                return fn(*args, **kw)
+            return counted
+
+        def chain_of(mode):
+            fn = chain(mode)
+
+            def lanes(state, lanes_t, force_fallback=None):
+                add(mode, lanes_t.shape[1])
+                return fn.lanes(state, lanes_t, force_fallback)
+            return type("Chain", (), {"lanes": staticmethod(lanes)})
+
+        router._step = step_of
+        router._chain_step = chain_of
+
+
+def _owned_counts(evs, shards: int) -> np.ndarray:
+    """[shards, W]: each prepare's events a shard by the host ownership
+    hash (shard_utils.shard_of_int over every id)."""
+    from tigerbeetle_tpu_torch.parallel.shard_utils import shard_of_int
+
+    out = np.zeros((shards, len(evs)), dtype=np.int64)
+    for b, ev in enumerate(evs):
+        ids = ((ev["id_hi"].astype(object) << 64) | ev["id_lo"].astype(object))
+        for i in ids:
+            out[shard_of_int(int(i), shards), b] += 1
+    return out
+
+
+def partitioned_phase(dev, caps: tuple = (A_CAP, T_CAP),
+                      n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
+                      shards: int = PT_SHARDS, w: int = PT_W,
+                      windows: int = PT_WINDOWS,
+                      poison_at: int = PT_POISON_AT,
+                      resync_seeds: tuple = PT_RESYNC_SEEDS) -> dict:
+    """The partitioned-state mesh route on `dev`: a PartitionedRouter on a
+    mesh of `shards` logical shards of the device at `caps`, seeded from
+    an oracle holding config 4's accounts and n_accounts plain ones, with
+    a DeviceLedger attached (`attach_partitioned`), and the port's oracle
+    fed every prepare on the host. (a) `windows` config-2 chain windows
+    of w x batch through submit_window / resolve_windows (eager, capture,
+    replays); (b) a window poisoned at prepare `poison_at` by a config-4
+    limit cascade, a clean window in flight behind it; (c) an imported, a
+    balancing and a plain prepare through the synchronous path, each
+    pre-routed per batch; after each leg (each window of (a)) the results
+    equal the oracle's and `partitioned_state_digest` its
+    `partitioned_oracle_digest`, with no host fallback. (d) the first
+    window's telemetry block against a host count; (e)
+    shard_resync_scenario on the device's default mesh for
+    `resync_seeds`; (f) the resident bytes against the replicated route
+    and memwatch's static ledger; (g) the wrappers' counts (on the CPU,
+    their calls) against `partitioned_launches`."""
+    from tigerbeetle_tpu_torch import DeviceLedger
+    from tigerbeetle_tpu_torch.ops.batch import transfers_from_arrays
+    from tigerbeetle_tpu_torch.ops.ledger import _pad_bucket, results_to_arrays
+    from tigerbeetle_tpu_torch.ops.state_epoch import (
+        partitioned_oracle_digest, partitioned_state_digest)
+    from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+    from tigerbeetle_tpu_torch.parallel.partitioned import (
+        PartitionedRouter, TEL_CAUSES, decode_telemetry,
+        partitioned_state_bytes, replicated_state_bytes,
+        static_partitioned_bytes)
+    from tigerbeetle_tpu_torch.parallel.shard_utils import (Mesh,
+                                                            shard_of_int)
+    from tigerbeetle_tpu_torch.testing.chaos import shard_resync_scenario
+    from tigerbeetle_tpu_torch.trace import FlightRecorder
+    from tigerbeetle_tpu_torch.trace.memwatch import (measure_ledger,
+                                                      static_ledger)
+    from tigerbeetle_tpu_torch.types import (Account, AccountFlags,
+                                             CreateTransferStatus)
+    from tigerbeetle_tpu_torch.types import TransferFlags as TF
+
+    cuda = torch.device(dev).type == "cuda"
+    created = int(CreateTransferStatus.created)
+    t_phase = time.perf_counter()
+    legs, marks = {}, [t_phase]
+
+    def lap(name):
+        marks.append(time.perf_counter())
+        legs[name] = marks[-1] - marks[-2]
+
+    tmp = tempfile.mkdtemp(prefix="tb_partitioned_")
+    calls = _WrapperCalls()
+    try:
+        sm = StateMachineOracle()
+        accounts = (config4_accounts(Account, AccountFlags)
+                    + [Account(id=C4_ACCOUNTS + i, ledger=1, code=1)
+                       for i in range(1, n_accounts + 1)])
+        clock = [10**6]
+        for lo in range(0, len(accounts), BATCH):
+            chunk = accounts[lo:lo + BATCH]
+            clock[0] += len(chunk) + 10
+            sm.create_accounts(chunk, clock[0])
+        mesh = Mesh([dev] * shards)
+        router = PartitionedRouter(
+            mesh, a_cap=caps[0], t_cap=caps[1],
+            flight_recorder=FlightRecorder(
+                dump_dir=os.path.join(tmp, "flight")))
+        counted = _CountedRouter(router, shards)
+        led = DeviceLedger(caps[0], caps[1], device=dev)
+        led.attach_partitioned(router, router.from_oracle(sm))
+        lap("setup")
+        rng = np.random.default_rng(83)
+        nxt = [3 * 10**7]
+        clock[0] = 10**9
+
+        def stamp():
+            clock[0] += batch + 10
+            return clock[0]
+
+        def c2():
+            ev = uniform_batch(rng, nxt[0], batch, n_accounts)
+            nxt[0] += batch
+            ev["dr_lo"] += np.uint64(C4_ACCOUNTS)
+            ev["cr_lo"] += np.uint64(C4_ACCOUNTS)
+            return ev
+
+        def oracle_check(label, evs, tss, got):
+            check(len(got) == len(evs),
+                  f"partitioned {label}: {len(got)} prepares answered, "
+                  f"{len(evs)} sent")
+            for b, (ev, t, (gs, gt)) in enumerate(zip(evs, tss, got)):
+                ws, wt = results_to_arrays(sm.create_transfers(
+                    transfers_from_arrays(ev), t))
+                check(np.array_equal(np.asarray(gs, np.uint32), ws)
+                      and np.array_equal(np.asarray(gt, np.uint64), wt),
+                      f"partitioned {label}: prepare {b} differs from the "
+                      "oracle's")
+
+        def digest_check(label):
+            got = partitioned_state_digest(led.partitioned_state)
+            want = partitioned_oracle_digest(sm, caps[0], shards)
+            check(got == want, f"partitioned {label}: digest {got}, the "
+                  f"oracle's {want}")
+
+        def launches_now():
+            return (tuple(_launch_counts()[:2]) if cuda else
+                    (calls.n["ht_probe"], calls.n["row_gather"]))
+
+        # (a) config-2 chain windows: eager, capture, replays; the last
+        # under torch.profiler (a replay: never profile a capture).
+        _zero_launches()
+        with (calls if not cuda else contextlib.nullcontext()):
+            start = launches_now()
+            kinds, window_ms, tel0, evs0, res0 = [], [], None, None, None
+            idle = None
+            for k in range(windows):
+                evs = [c2() for _ in range(w)]
+                tss = [stamp() for _ in range(w)]
+                before = graph_counts(led)
+                profiled = cuda and k == windows - 1 and k >= 3
+                sync(dev)
+                t = time.perf_counter()
+                if profiled:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        tk = led.submit_window(evs, tss)
+                        led.resolve_windows()
+                        sync(dev)
+                else:
+                    tk = led.submit_window(evs, tss)
+                    led.resolve_windows()
+                    sync(dev)
+                ms = (time.perf_counter() - t) * 1e3
+                window_ms.append(ms)
+                kinds.append(window_kind(led, before))
+                if profiled:
+                    # Busy ms from the traced replay, the wall from the
+                    # untraced one before it (the profiler's own host
+                    # cost lands in the traced window's wall).
+                    busy = 0.0
+                    for e in prof.key_averages():
+                        us = getattr(e, "self_device_time_total", None)
+                        if us is None:
+                            us = getattr(e, "self_cuda_time_total", 0)
+                        busy += (us or 0) / 1e3
+                    wall = window_ms[-2]
+                    idle = dict(busy_ms=busy, wall_ms=wall, traced_ms=ms,
+                                idle_share=(1 - busy / wall) if busy
+                                else None)
+                check(tk is not None and tk.results[0] == "ok",
+                      f"partitioned (a): window {k} did not commit whole")
+                oracle_check(f"(a) window {k}", evs, tss, tk.results[1])
+                digest_check(f"(a) window {k}")
+                if k == 0:
+                    tel0 = tk.harvest.get()["shard_stats"]["tel"]
+                    evs0, res0 = evs, tk.results[1]
+            check(not cuda or kinds[:3] == ["eager", "capture", "replay"]
+                  and all(x == "replay" for x in kinds[2:]),
+                  f"partitioned (a): windows ran {kinds}")
+            routes = led.fallback_stats()["routes"]
+            check(routes["windows"] == {"partitioned_chain": windows}
+                  and router.host_fallbacks == 0,
+                  f"partitioned (a): routes {routes}, host fallbacks "
+                  f"{router.host_fallbacks}")
+            launches_a = tuple(a - b for a, b in zip(launches_now(), start))
+            lap("a_windows")
+
+            # (b) a window poisoned at prepare poison_at by a config-4
+            # limit cascade, a clean window in flight behind it.
+            pend, _, _ = config4_pair(rng, 4 * 10**7, TF, batch)
+            evs_b = [c2() if b != poison_at else pend for b in range(w)]
+            tss_b = [stamp() for _ in range(w)]
+            evs_c = [c2() for _ in range(w)]
+            tss_c = [stamp() for _ in range(w)]
+            esc0 = router.escalations
+            tk_b = led.submit_window(evs_b, tss_b)
+            tk_c = led.submit_window(evs_c, tss_c)
+            check(tk_b is not None and tk_c is not None,
+                  "partitioned (b): a window was not submitted")
+            led.resolve_windows()
+            check(tk_b.results[0] == "redo" and tk_c.results[0] == "redo",
+                  f"partitioned (b): {tk_b.results[0]}, {tk_c.results[0]}")
+            oracle_check("(b) poisoned", evs_b, tss_b, tk_b.results[1])
+            oracle_check("(b) behind", evs_c, tss_c, tk_c.results[1])
+            tel_b = decode_telemetry(
+                tk_b.harvest.get()["shard_stats"]["tel"])
+            causes = [TEL_CAUSES[c - 1] if c else None
+                      for c in tel_b["poison_cause"].max(axis=0)]
+            check(causes[:poison_at] == [None] * poison_at
+                  and causes[poison_at] == "e3_limit"
+                  and all(c == "forced" for c in causes[poison_at + 1:]),
+                  f"partitioned (b): poison causes {causes}")
+            check(router.escalations > esc0 and router.host_fallbacks == 0,
+                  f"partitioned (b): escalations {router.escalations}, "
+                  f"host fallbacks {router.host_fallbacks}")
+            digest_check("(b)")
+            lap("b_poisoned")
+
+            # (c) imported, balancing and plain prepares, per batch.
+            bal, _, _ = balancing_pair(rng, 5 * 10**7, TF, batch)
+            t_bal = stamp()
+            imp = c2()
+            imp["flags"][:] = int(TF.imported)
+            imp["ts"] = np.arange(clock[0] + 1, clock[0] + 1 + batch,
+                                  dtype=np.uint64)
+            clock[0] += batch + 1000
+            t_imp = clock[0]
+            plain = c2()
+            t_plain = stamp()
+            step_ms = {}
+            for label, ev, t in (("balancing", bal, t_bal),
+                                 ("imported", imp, t_imp),
+                                 ("plain", plain, t_plain)):
+                n0 = dict(counted.steps)
+                sync(dev)
+                t0 = time.perf_counter()
+                got = led.create_transfers_window([ev], [t])
+                sync(dev)
+                step_ms[label] = (time.perf_counter() - t0) * 1e3
+                ran = {m: c - n0.get(m, 0) for m, c in counted.steps.items()
+                       if c != n0.get(m, 0)}
+                check(ran == {label: 1},
+                      f"partitioned (c): {label} ran the steps {ran}")
+                oracle_check(f"(c) {label}", [ev], [t], got)
+            check(router.host_fallbacks == 0,
+                  f"partitioned (c): host fallbacks {router.host_fallbacks}")
+            digest_check("(c)")
+            lap("c_per_batch")
+            launches = tuple(a - b for a, b in zip(launches_now(), start))
+            pred = tuple(counted.pred)
+            check(launches == pred,
+                  f"partitioned (g): launches {launches}, "
+                  f"partitioned_launches predicts {pred}")
+            graph_counted, graph_ran = graph_launches(led.windows)
+
+        # (d) the first window's telemetry against a host count.
+        n_pad = _pad_bucket(batch)
+        d = decode_telemetry(tel0)
+        owned = _owned_counts(evs0, shards)
+        check(np.array_equal(d["events_owned"], owned),
+              "partitioned (d): events_owned differs from the host count")
+        for b, (ev, (st, _)) in enumerate(zip(evs0, res0)):
+            ok = np.asarray(st) == created
+            sd = np.array([shard_of_int(int(x), shards)
+                           for x in ev["dr_lo"][ok]])
+            sc = np.array([shard_of_int(int(x), shards)
+                           for x in ev["cr_lo"][ok]])
+            accts = len(np.unique(np.concatenate([ev["dr_lo"],
+                                                  ev["cr_lo"]])))
+            # Replicated words are equal on every shard; fresh ids and no
+            # pendings: no live transfer row crosses the exchange.
+            rep = {k: set(d[k][:, b].tolist()) for k in (
+                "fix_rounds", "xchg1_occupancy", "xchg1_capacity",
+                "xchg2_occupancy", "xchg2_capacity",
+                "cross_shard_transfers", "poison_cause")}
+            want = {"fix_rounds": {0}, "xchg1_occupancy": {0},
+                    "xchg1_capacity": {2 * n_pad},
+                    "xchg2_occupancy": {accts},
+                    "xchg2_capacity": {4 * n_pad},
+                    "cross_shard_transfers": {int((sd != sc).sum())},
+                    "poison_cause": {0}}
+            check(rep == want and int(d["writeback_transfers"][:, b].sum())
+                  == int(ok.sum()),
+                  f"partitioned (d): prepare {b} telemetry {rep}, "
+                  f"writeback {d['writeback_transfers'][:, b].tolist()}, "
+                  f"the host count {want}, {int(ok.sum())} created")
+        lap("d_telemetry")
+
+        # (e) shard resync on the device's default mesh.
+        resync = {}
+        _zero_launches()
+        for seed in resync_seeds:
+            got = shard_resync_scenario(seed, device=dev, flight_dir=tmp)
+            check(got["resyncs"] == 1, f"partitioned (e): seed {seed}: {got}")
+            resync[seed] = got
+        resync_launches = tuple(_launch_counts()[:2])
+        lap("e_resync")
+
+        # (f) resident bytes.
+        pb = partitioned_state_bytes(led.partitioned_state)
+        rb = replicated_state_bytes(*caps)
+        static_pb = static_partitioned_bytes(caps[0], caps[1], shards)
+        check(pb * shards == static_pb and pb <= rb // shards + rb // 50,
+              f"partitioned (f): {pb} B a shard, the replicated route "
+              f"{rb} B a device, static {static_pb} over {shards}")
+        measured = measure_ledger(led)["components"]
+        static = static_ledger(*caps, partitioned_shards=shards)[
+            "components"]
+        check(all(measured[k] == static[k] for k in measured
+                  if k.startswith("state.") or k == "partitioned_state"),
+              f"partitioned (f): measured {measured}, static {static}")
+        lap("f_memory")
+        stats = router.stats()
+        out = dict(
+            shards=shards, window=w, batch=batch, caps=list(caps),
+            window_kinds=kinds, window_ms=window_ms,
+            idle_replay=idle, step_ms=step_ms,
+            launches=launches, predicted=pred, launches_a=launches_a,
+            graph_counted=graph_counted, graph_ran=graph_ran,
+            resync=resync, resync_launches=resync_launches,
+            bytes=dict(partitioned_per_shard=pb, replicated=rb,
+                       components=measured),
+            poison_causes=causes,
+            routes=led.fallback_stats()["routes"],
+            stats={k: v for k, v in stats.items() if k != "telemetry"},
+            telemetry=stats["telemetry"],
+            legs_s=legs, elapsed_s=time.perf_counter() - t_phase,
+            card=card_line_or_cpu(dev))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    led.release()
+    del led, router
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"partitioned: windows {kinds} {[round(x, 1) for x in window_ms]}"
+          f" ms, steps {step_ms}, launches {launches} (predicted {pred}), "
+          f"legs {legs}", flush=True)
+    return out
+
 
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
@@ -7225,6 +7686,8 @@ def main() -> int:
     lap("observatory_phase")
     shd = sharded_phase(dev)
     lap("sharded_phase")
+    prt = partitioned_phase(dev)
+    lap("partitioned_phase")
     phase_seconds["total"] = time.perf_counter() - t0
     print(f"all phases passed in {phase_seconds['total']:.1f} s",
           flush=True)
@@ -7283,6 +7746,11 @@ def main() -> int:
             r["launches"]["ht_probe"]
             for r in obs["profiler"]["cost_model"].values()),
         "launches_sharded": shd["launches"][0],
+        # The partitioned phase's: its chain windows (eager and capture;
+        # replays in ran_partitioned_windows), per-batch steps and
+        # replays, as partitioned_launches predicts.
+        "launches_partitioned": prt["launches"][0],
+        "ran_partitioned_windows": prt["graph_ran"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -7336,6 +7804,8 @@ def main() -> int:
             r["launches"]["row_gather"]
             for r in obs["profiler"]["cost_model"].values()),
         "launches_sharded": shd["launches"][1],
+        "launches_partitioned": prt["launches"][1],
+        "ran_partitioned_windows": prt["graph_ran"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -7403,6 +7873,7 @@ def main() -> int:
     print(json.dumps({"drivers": drv}), flush=True)
     print(json.dumps({"observatory": obs}, default=str), flush=True)
     print(json.dumps({"sharded": shd}, default=str), flush=True)
+    print(json.dumps({"partitioned": prt}, default=str), flush=True)
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

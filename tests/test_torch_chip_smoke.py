@@ -661,7 +661,12 @@ def test_observatory_phase_rehearsed_on_the_cpu(calls):
     assert prof["launches"] == (0, 0)          # plain twins on the CPU
     mem = numbers["memwatch"]
     assert mem["leak_reds"] == 3 and mem["observations"] >= 1
-    assert mem["worst_case_bytes"] == mem["budget_bytes"]
+    # The budget also pins the partitioned attach mode's state and
+    # telemetry block, which a single-chip ledger does not hold.
+    from tigerbeetle_tpu_torch.trace.memwatch import load_budget
+    pins = load_budget()["components"]
+    assert mem["worst_case_bytes"] == mem["budget_bytes"] - (
+        pins["partitioned_state"] + pins["telemetry_block"])
     assert mem["device_memory_stats"][0]["stats"] is None
     assert numbers["alerts"]["fired"] == 1
     assert numbers["alerts"]["resolved_tick"] is not None
@@ -722,3 +727,70 @@ def test_chip_smoke_runs_the_observatory_and_sharded_phases_last():
     assert main.count("'launches_sharded':") == 2
     assert main.count("'launches_observatory':") == 2
     assert CS.SH_MESHES == (1, 8)
+
+
+def test_partitioned_phase_rehearsed_on_the_cpu():
+    """The partitioned phase at a small size on the CPU: 8 logical CPU
+    shards, 3 chain windows of 3 (eager on the CPU), a window poisoned at
+    prepare 1 and one behind it (both replayed), a balancing, an imported
+    and a plain per-batch prepare, every result and digest equal to the
+    oracle's; the first window's telemetry equal to the host count; both
+    resync seeds resync once; the bytes a shard; and the wrappers' calls
+    (the plain twins' on the CPU) equal to what partitioned_launches
+    predicts for the calls the path made."""
+    numbers = CS.partitioned_phase("cpu", caps=(1 << 10, 1 << 14),
+                                   n_accounts=100, batch=200, w=3,
+                                   windows=3, poison_at=1)
+    assert numbers["window_kinds"] == ["eager"] * 3
+    assert numbers["launches"] == numbers["predicted"]
+    assert numbers["launches"][0] > 0 and numbers["launches"][1] > 0
+    # (a)'s three windows of three plain prepares, as the route predicts.
+    p, g = CS.partitioned_launches("plain", 8)
+    assert tuple(numbers["launches_a"]) == (9 * p, 9 * g)
+    # The ledger's window graphs ran (a)'s 3 windows and (b)'s 2, eagerly.
+    assert tuple(numbers["graph_counted"]) == (15 * p, 15 * g)
+    assert numbers["graph_ran"] == numbers["graph_counted"]
+    assert numbers["poison_causes"] == [None, "e3_limit", "forced"]
+    assert numbers["stats"]["host_fallbacks"] == 0
+    assert numbers["stats"]["escalations"] == 1
+    assert set(numbers["step_ms"]) == {"balancing", "imported", "plain"}
+    assert all(v["resyncs"] == 1 and v["devices"] == 8
+               for v in numbers["resync"].values())
+    b = numbers["bytes"]
+    assert b["partitioned_per_shard"] * 8 == \
+        b["components"]["partitioned_state"]
+    assert b["partitioned_per_shard"] <= (b["replicated"] // 8
+                                          + b["replicated"] // 50)
+
+
+def test_partitioned_launch_prediction():
+    """A partitioned prepare launches the mode's probe once (the judge on
+    the mini-state) and 3S + G + 6 gathers on S shards (the cost model's
+    CPU count on 8 shards: 34 a plain prepare)."""
+    assert CS.partitioned_launches("plain", 8) == (1, 34)
+    assert CS.partitioned_launches("fixpoint", 8) == (1, 35)
+    assert CS.partitioned_launches("imported", 2) == (1, 16)
+    assert CS.partitioned_launches("balancing", 1) == (1, 14)
+    assert CS.window_launches("partitioned_chain", 8) == (8, 8 * 34)
+
+
+def test_chip_smoke_runs_the_partitioned_phase_last():
+    """main() runs the partitioned phase after the sharded phase, prints
+    its line before the phases' seconds and the kernels line, and the
+    probe and the row gather carry its launches."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "sharded_phase(dev)", "partitioned_phase(dev)", "'sharded'",
+        "'partitioned'", "'phase_seconds'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_partitioned':") == 2
+    assert main.count("'ran_partitioned_windows':") == 2
+    assert (CS.PT_SHARDS, CS.PT_W, CS.PT_WINDOWS, CS.PT_POISON_AT) == \
+        (8, 8, 4, 3)
+    assert CS.PT_RESYNC_SEEDS == (2, 10)

@@ -76,7 +76,9 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.trace.profiler, "
         "tigerbeetle_tpu_torch.parallel, "
         "tigerbeetle_tpu_torch.parallel.shard_utils, "
-        "tigerbeetle_tpu_torch.parallel.full_sharded\n"
+        "tigerbeetle_tpu_torch.parallel.full_sharded, "
+        "tigerbeetle_tpu_torch.parallel.partitioned, "
+        "tigerbeetle_tpu_torch.convert\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -153,6 +155,25 @@ def test_the_observatory_and_mesh_modules_are_the_ports_own():
     from tigerbeetle_tpu_torch.trace.alerts import AlertEngine  # noqa: F401
     import tigerbeetle_tpu_torch.ops.fast_kernels as fk
     assert not hasattr(fk, "_later_slices")
+
+
+def test_the_partitioned_route_is_the_ports_own():
+    """The partitioned-state mesh route and the state carry-over exist in
+    the port (the AST checks above cover their sources: no JAX, nothing of
+    the JAX package, no environment read); the telemetry block's width
+    lives with the route, and memwatch reads it from there."""
+    for name in ("parallel/partitioned.py", "convert.py"):
+        assert (PORT / name) in _sources(), name
+    from tigerbeetle_tpu_torch import convert
+    from tigerbeetle_tpu_torch.parallel import partitioned
+    from tigerbeetle_tpu_torch.trace import memwatch
+
+    assert callable(convert.partitioned_from_numpy)
+    assert callable(convert.partitioned_to_numpy)
+    assert partitioned.TEL_WORDS == len(partitioned.TEL_LAYOUT) == 12
+    assert not hasattr(memwatch, "TEL_WORDS")
+    assert "from ..parallel.partitioned import TEL_WORDS" in (
+        PORT / "trace" / "memwatch.py").read_text()
 
 
 def test_the_drivers_name_the_ports_package_and_no_fixed_path():

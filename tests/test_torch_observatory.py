@@ -41,6 +41,7 @@ from tigerbeetle_tpu.trace.event import Event as JEvent
 from tigerbeetle_tpu.trace.flight_recorder import FlightRecorder as JFlight
 from tigerbeetle_tpu_torch import ServingSupervisor
 from tigerbeetle_tpu_torch.ops import fused_probe, row_gather
+from tigerbeetle_tpu_torch.parallel import partitioned as TPART
 from tigerbeetle_tpu_torch.trace import alerts as TA
 from tigerbeetle_tpu_torch.trace import memwatch as TM
 from tigerbeetle_tpu_torch.trace import profiler as TP
@@ -97,16 +98,21 @@ def test_the_ports_budget_is_its_static_ledger_at_the_jax_caps():
     jb = _jax_budget()
     tb = TM.load_budget()
     caps = jb["caps"]
+    # The budget covers the partitioned attach mode on the JAX budget's
+    # 8-way mesh, as the JAX package's pins do.
     static = TM.static_ledger(caps["a_cap"], caps["t_cap"],
                               window_depth=caps["window_depth"],
-                              n_pad=caps["n_pad"])
+                              n_pad=caps["n_pad"], partitioned_shards=8)
     assert tb["caps"] == caps == static["caps"]
     assert tb["components"] == static["components"]
     assert tb["total_bytes"] == static["total_bytes"]
     assert tb["tolerance"] == jb["tolerance"]
     assert tb["profiler"] == jb["profiler"]
-    assert TM.TEL_WORDS * 4 * 8 * 8 == jb["components"]["telemetry_block"]
+    assert TPART.TEL_WORDS * 4 * 8 * 8 == jb["components"]["telemetry_block"]
     assert TM.telemetry_block_bytes(8, 8) == JM.telemetry_block_bytes(8, 8)
+    assert not hasattr(TM, "TEL_WORDS")   # it lives with the route
+    for k in ("partitioned_state", "telemetry_block"):
+        assert tb["components"][k] == jb["components"][k], k
 
 
 MEASURED = [
@@ -209,7 +215,9 @@ def _staged_worst_case(t_cap):
 def test_static_equals_measured_and_the_leak_reds():
     """With the worst-case pack staged, every measured component equals
     the static ledger's and the audit is green; with t_cap doubled, the
-    grown stores and the total RED."""
+    grown stores and the total RED. The budget pins the partitioned
+    attach mode's state too, so the leak grows t_cap 16-fold before the
+    total passes it."""
     budget = TM.load_budget()
     static = TM.static_ledger(1 << 9, 1 << 11)["components"]
     assert static.pop("telemetry_block") == 0   # no partitioned mesh
@@ -218,7 +226,7 @@ def test_static_equals_measured_and_the_leak_reds():
     led.shutdown_staging()
     assert measured["components"] == static
     assert TM.check_budget(measured, budget) == []
-    leaked = _staged_worst_case(1 << 12)
+    leaked = _staged_worst_case(1 << 15)
     reds = TM.check_budget(TM.measure_ledger(leaked), budget)
     leaked.shutdown_staging()
     assert len(reds) == 3, reds

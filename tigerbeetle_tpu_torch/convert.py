@@ -2,9 +2,11 @@
 
 The JAX package's state, fetched to the host (`jax.device_get`), is a
 nested dict of numpy arrays: u64 lanes as uint64, row counts as int32.
-The port holds the same bits as int64 and int32 tensors. The two
-functions below convert each way without changing a bit, so the two
-packages can run the same batches from the same state.
+The port holds the same bits as int64 and int32 tensors. The functions
+below convert each way without changing a bit, so the two packages can
+run the same batches from the same state: `state_*` a single-chip
+state, `partitioned_*` a partitioned one (the JAX package's one pytree
+stacked on a leading shard axis; the port's tuple of per-shard dicts).
 """
 
 from __future__ import annotations
@@ -41,3 +43,28 @@ def state_to_numpy(state: dict) -> dict:
         a = v.detach().cpu().numpy()
         out[k] = a.view(np.uint64) if a.dtype == np.int64 else a
     return out
+
+
+def partitioned_from_numpy(np_stacked: dict, mesh) -> tuple:
+    """A host (numpy) partitioned state stacked on a leading shard axis
+    (the JAX package's layout) -> the port's tuple of per-shard state
+    dicts, shard s on `mesh.devices[s]`."""
+    def shard(tree, s):
+        return {k: shard(v, s) if isinstance(v, dict) else np.asarray(v)[s]
+                for k, v in tree.items()}
+
+    return tuple(state_from_numpy(shard(np_stacked, s), d)
+                 for s, d in enumerate(mesh.devices))
+
+
+def partitioned_to_numpy(state) -> dict:
+    """The port's partitioned state -> host numpy stacked on a leading
+    shard axis, in the JAX package's dtypes."""
+    subs = [state_to_numpy(sub) for sub in state]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    return stack(subs)

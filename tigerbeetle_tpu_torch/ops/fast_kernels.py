@@ -1245,7 +1245,12 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
 
     per_event: a per_event_status bundle computed elsewhere, without its
     '_gathers' (`parallel/full_sharded.py` computes it a shard at a time
-    and gathers it over the mesh); the tail re-gathers the touched rows.
+    and gathers it over the mesh; `parallel/partitioned.py` on the
+    exchange-assembled mini-state); the tail re-gathers the touched rows.
+    With per_event, a `seg` must describe ONE prepare (its ts_event
+    lanes, its first lane and its last valid lane): the partitioned
+    route passes it so that nothing of the call depends on a Python
+    number, as a captured chain window needs.
     On the fixpoint tiers but the imported ones (the spmd join), the
     in-batch pending join is computed here over the whole batch and its
     substitution re-applied to the re-gathered view; a use whose
@@ -1288,7 +1293,6 @@ def create_transfers_fast(state, ev, timestamp, n, force_fallback=None,
     pv = is_post | is_void
     timeout_ns = ev["timeout"] * NS_PER_S
 
-    assert not (spmd and seg is not None), "a sharded batch is one prepare"
     assert not (spmd and imported_mode and not fixpoint), \
         "the sharded imported tail always runs the fixpoint rounds"
     imported_ctx = (imported_batch_ctx(state, ev, ts_event, valid, idxs,

@@ -84,7 +84,17 @@ batch that created rows or poisoned ids, and with all_or_nothing
 windows one a prepare, empty ones too, so a replica attributes entries
 to prepares by position.
 
-Not ported here (a later slice): the partitioned attach mode.
+The partitioned attach mode (`attach_partitioned(router, state)`):
+windows commit on a partitioned mesh (`parallel/partitioned.py`) instead
+of this ledger's state. `submit_window` runs the router's partitioned
+chain (one captured CUDA graph a window on the card, key
+("partitioned_chain", W, n_pad), the previous window's poison copied
+device to device into its force_fallback); `resolve_windows` lets the
+router absorb a window's committed prefix and replays a redo through the
+router's per-batch ladder (eager); the synchronous window path goes
+through `PartitionedRouter.step_window`. The partitioned state is the
+ledger then (`partitioned_state`); the single-chip state stays at its
+attach-time snapshot. Write-through is single-chip scope and refused.
 
 The device is explicit: `DeviceLedger(device=None)` means CUDA and
 raises when no CUDA device is present; the tests pass `device="cpu"`.
@@ -226,36 +236,41 @@ def _set32(mat: np.ndarray, pos: dict, name: str, vals) -> None:
     mat[:, col] |= (v << np.uint64(32)) if half else v
 
 
+def _u64_col(vals, n: int) -> np.ndarray:
+    return np.fromiter(vals, dtype=np.uint64, count=n)
+
+
 def _pack_transfer_rows(objs, pstat_of, acct_row_of, a_dump):
-    """Transfer objects -> one packed uint64 row matrix."""
+    """Transfer objects -> one packed uint64 row matrix, a column at a
+    time (the epoch digests pack every transfer of an oracle)."""
     n = len(objs)
     u64m = np.zeros((n, XF_NCOLS), dtype=np.uint64)
-    w32 = {name: np.zeros(n, dtype=np.int64) for name in XF_P32_POS}
     U = XF_U64_IDX
-    for i, o in enumerate(objs):
-        u64m[i, U["id_hi"]], u64m[i, U["id_lo"]] = _split(o.id)
-        (u64m[i, U["dr_hi"]],
-         u64m[i, U["dr_lo"]]) = _split(o.debit_account_id)
-        (u64m[i, U["cr_hi"]],
-         u64m[i, U["cr_lo"]]) = _split(o.credit_account_id)
-        u64m[i, U["amt_hi"]], u64m[i, U["amt_lo"]] = _split(o.amount)
-        u64m[i, U["pid_hi"]], u64m[i, U["pid_lo"]] = _split(o.pending_id)
-        (u64m[i, U["ud128_hi"]],
-         u64m[i, U["ud128_lo"]]) = _split(o.user_data_128)
-        u64m[i, U["ud64"]] = o.user_data_64
-        u64m[i, U["ts"]] = o.timestamp
-        u64m[i, U["expires"]] = (
-            o.timestamp + o.timeout * NS_PER_S if o.timeout else 0)
-        w32["ud32"][i] = o.user_data_32
-        w32["timeout"][i] = o.timeout
-        w32["ledger"][i] = o.ledger
-        w32["code"][i] = o.code
-        w32["flags"][i] = o.flags
-        w32["pstat"][i] = pstat_of(o)
-        w32["dr_row"][i] = acct_row_of(o.debit_account_id, a_dump)
-        w32["cr_row"][i] = acct_row_of(o.credit_account_id, a_dump)
+    for name, attr in (("id", "id"), ("dr", "debit_account_id"),
+                       ("cr", "credit_account_id"), ("amt", "amount"),
+                       ("pid", "pending_id"), ("ud128", "user_data_128")):
+        vals = [getattr(o, attr) for o in objs]
+        u64m[:, U[f"{name}_hi"]] = _u64_col((v >> 64 for v in vals), n)
+        u64m[:, U[f"{name}_lo"]] = _u64_col((v & _MASK64 for v in vals), n)
+    u64m[:, U["ud64"]] = _u64_col((o.user_data_64 for o in objs), n)
+    u64m[:, U["ts"]] = _u64_col((o.timestamp for o in objs), n)
+    u64m[:, U["expires"]] = _u64_col(
+        (o.timestamp + o.timeout * NS_PER_S if o.timeout else 0
+         for o in objs), n)
+    w32 = {
+        "ud32": (o.user_data_32 for o in objs),
+        "timeout": (o.timeout for o in objs),
+        "ledger": (o.ledger for o in objs),
+        "code": (o.code for o in objs),
+        "flags": (int(o.flags) for o in objs),
+        "pstat": (pstat_of(o) for o in objs),
+        "dr_row": (acct_row_of(o.debit_account_id, a_dump) for o in objs),
+        "cr_row": (acct_row_of(o.credit_account_id, a_dump) for o in objs),
+    }
+    assert set(w32) == set(XF_P32_POS)
     for name, vals in w32.items():
-        _set32(u64m, XF_P32_POS, name, vals)
+        _set32(u64m, XF_P32_POS, name,
+               np.fromiter(vals, dtype=np.int64, count=n))
     return u64m
 
 
@@ -522,9 +537,12 @@ _WINDOW_FNS = {
     "super_imported": create_transfers_super_imported,
     "super_balancing": create_transfers_super_balancing,
 }
-# Outputs a window ticket keeps (the flat tiers add limit_only).
+# Outputs a window ticket keeps (the flat tiers add limit_only); a
+# partitioned chain window's add the router's counters.
 _WINDOW_OUTS = ("r_status", "r_ts", "fallback", "created_count",
                 "fb_causes")
+_PART_WINDOW_OUTS = _WINDOW_OUTS + ("cross_shard_transfers",
+                                    "exchange_overflow", "shard_stats")
 
 
 def _window_call(route: str, ring: bool = False):
@@ -869,7 +887,8 @@ class WindowTicket:
         self.tss = tss
         self.ns = ns
         self.n_pad = n_pad
-        # "chain" (per-prepare outputs) or "super_deep" (window-wide).
+        # "chain" or "partitioned_chain" (per-prepare outputs), or a flat
+        # tier's (window-wide).
         self.route = route
         self.deep = deep
         # The device flag the next in-flight window takes as
@@ -894,7 +913,9 @@ class WindowTicket:
         next replay of that graph overwrites them, so they are copied out
         in stream order before it."""
         if self.harvest is None:
-            self.harvest = Harvest(self.outs, _WINDOW_OUTS)
+            self.harvest = Harvest(self.outs, (
+                _PART_WINDOW_OUTS if self.route == "partitioned_chain"
+                else _WINDOW_OUTS))
             self.outs = None
 
 
@@ -977,6 +998,10 @@ class DeviceLedger:
         self._stager = None
         self.staging_stats = {"windows": 0, "staged": 0, "misses": 0,
                               "stall_ms": 0.0, "work_ms": 0.0}
+        # The partitioned attach mode: the router windows commit through
+        # and its state (`attach_partitioned`).
+        self._part_router = None
+        self._part_state = None
         # Supervision: the serving supervisor installs its live counter
         # dict and its tracer here; a standalone ledger keeps zeros and
         # the null tracer. verify_spot_rate: the VERIFY drain audit's
@@ -2065,7 +2090,8 @@ class DeviceLedger:
         thread runs it: it reads and writes no ledger state."""
         t0 = time.perf_counter_ns()
         K = len(evs)
-        shape = ((len(_LANES), K, n_pad) if route == "chain"
+        shape = ((len(_LANES), K, n_pad)
+                 if route in ("chain", "partitioned_chain")
                  else (len(_LANES), K * n_pad))
         host = self.windows.host_lanes(shape, lambda out: fill_window(
             out.reshape(len(_LANES), K, n_pad), evs, timestamps, n_pad))
@@ -2135,7 +2161,17 @@ class DeviceLedger:
         gather holds; super_balancing for balancing flags; super_deep for
         closing flags, in-window pending references or the limit-breach
         regime; else the chain. Shared by stage_window and submit_window,
-        so a staged pack is the one submit_window would pack."""
+        so a staged pack is the one submit_window would pack. In the
+        partitioned attach mode: partitioned_chain for a window of
+        several prepares that all pre-route plain, else None (the
+        synchronous path's per-batch partitioned ladder)."""
+        if self._part_router is not None:
+            r = self._part_router
+            if (len(evs) < 2 or _has_imported(evs)
+                    or any(r.route(e) != "plain" for e in evs)):
+                return None
+            return ("partitioned_chain",
+                    _pad_bucket(max(len(e["id_lo"]) for e in evs)))
         if not (len(evs) > 1 and not self._mirror_route()):
             return None
         if _has_imported(evs):
@@ -2265,10 +2301,26 @@ class DeviceLedger:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
+    def _merged_routes(self) -> dict:
+        """fallback_stats()["routes"]: the ledger's route counters plus,
+        in the partitioned attach mode, the router's (partitioned_chain /
+        partitioned_per_batch windows, the per-cause prepares that fell
+        out of a chain window)."""
+        windows = dict(self.window_routes)
+        cbf = dict(self.chain_batch_fallbacks)
+        if self._part_router is not None:
+            rr = self._part_router.stats()["routes"]
+            for k, v in rr["windows"].items():
+                windows[k] = windows.get(k, 0) + v
+            for k, v in rr["chain_batch_fallbacks"].items():
+                cbf[k] = cbf.get(k, 0) + v
+        return {"windows": windows, "chain_batch_fallbacks": cbf}
+
     def fallback_stats(self) -> dict:
         """Host-visible routing, fallback and recovery counters: "zero
-        host fallbacks" is a measured invariant. device_telemetry is None:
-        no partitioned router exists in this package yet."""
+        host fallbacks" is a measured invariant. device_telemetry: the
+        attached partitioned router's decoded telemetry aggregates (None
+        without a router, or with its telemetry off)."""
         return {
             "host_fallbacks": self.fallbacks,
             "window_fallbacks": self.window_fallbacks,
@@ -2278,16 +2330,99 @@ class DeviceLedger:
             "escalations": self.escalations,
             "causes": dict(self.fallback_causes),
             # Windows per route and the per-cause prepares that fell out
-            # of a chain window.
-            "routes": {"windows": dict(self.window_routes),
-                       "chain_batch_fallbacks": dict(
-                           self.chain_batch_fallbacks)},
+            # of a chain window (the attached router's merged in).
+            "routes": self._merged_routes(),
             "staging": self.staging_summary(),
-            "device_telemetry": None,
+            "device_telemetry": (
+                self._part_router.stats().get("telemetry")
+                if self._part_router is not None else None),
             "recovery": {
                 k: (dict(v) if isinstance(v, dict) else v)
                 for k, v in self.recovery_stats.items()},
         }
+
+    def attach_partitioned(self, router, state) -> None:
+        """Serve commit windows from a partitioned mesh: every window of
+        submit_window, resolve_windows' redo replays and the synchronous
+        window path go through `router` (parallel/partitioned.
+        PartitionedRouter) against `state`, its tuple of per-shard state
+        dicts: the partitioned chain by default, the per-batch ladder for
+        flagged windows and replays. The partitioned state is the ledger
+        then (`partitioned_state`); the single-chip state stays at its
+        attach-time snapshot and the per-batch entry points keep
+        addressing it. Write-through is single-chip scope: refused."""
+        assert not self._wt, \
+            "attach_partitioned: write-through is single-chip scope"
+        assert not self._tickets, "attach_partitioned: windows in flight"
+        self._part_router = router
+        self._part_state = tuple(state)
+        # router.resync tears this ledger's staging down before it
+        # rebuilds the state.
+        router._staging_host = self
+
+    @property
+    def partitioned_state(self):
+        """The partitioned state commits land on in attach mode."""
+        return self._part_state
+
+    def _submit_window_partitioned(self, evs, timestamps, ns, n_pad,
+                                   host, prev):
+        """submit_window in attach mode: the router's partitioned chain,
+        one call a window with no host sync, the previous window's poison
+        as its force_fallback; on the card one replay of the window's
+        captured graph (a mesh of this ledger's device only)."""
+        from ..parallel.shard_utils import _normal
+
+        r = self._part_router
+        mesh = r.mesh
+        graphs = (self.windows if mesh.distinct == (_normal(self.device),)
+                  else None)
+        if graphs is not None:
+            graphs.check_state(self._part_state)
+            host = graphs.upload(host)
+        outs = r.chain_dispatch(self._part_state, evs, timestamps, n_pad,
+                                force_fallback=prev, staged=host,
+                                graphs=graphs)
+        # The router counts the window (merged into fallback_stats); the
+        # ledger keeps the latency class.
+        self.last_window_route = "partitioned_chain"
+        self.last_window_tier = "scan"
+        tk = WindowTicket(evs, timestamps, ns, n_pad, "partitioned_chain",
+                          False, outs["fallback"][-1].clone(), outs)
+        tk.start_harvest()
+        self._tickets.append(tk)
+        return tk
+
+    def _partitioned_window_sync(self, evs, tss) -> list:
+        """The synchronous window path in attach mode (synchronous
+        commits and resolve-time redo replays): PartitionedRouter.
+        step_window, the chain when eligible, else the per-batch ladder
+        with its escalation on the device."""
+        r = self._part_router
+        self._part_state, results = r.step_window(self._part_state, evs,
+                                                  tss)
+        chain = len(evs) >= 2 and all(r.route(e) == "plain" for e in evs)
+        self.last_window_route = ("partitioned_chain" if chain
+                                  else "partitioned_per_batch")
+        self.last_window_tier = "scan" if chain else "fallback"
+        return results
+
+    def _resolve_partitioned_prefix(self, out, tk) -> tuple:
+        """A partitioned chain window's clean prefix: (k, results); the
+        router absorbs its counters (batches, events a shard, cross-shard
+        traffic, the causes at prepare k)."""
+        W = len(tk.evs)
+        fb = out["fallback"]
+        k = int(np.argmax(fb)) if fb.any() else W
+        self._part_router.absorb_chain_prefix(out, k, W)
+        results = _window_results(out["r_status"][:k], out["r_ts"][:k],
+                                  tk.ns[:k], out["r_status"].shape[1])
+        if k:
+            self.fast_batches += k
+            self._probe_succeeded()
+        if k < W:
+            self.window_fallbacks += 1
+        return k, results
 
     def submit_window(self, evs: list[dict], timestamps: list[int]):
         """Pipelined commit window: dispatch it with no host sync, the
@@ -2327,6 +2462,9 @@ class DeviceLedger:
         if st["work_ms"]:
             self.tracer.gauge(Event.host_stall_fraction,
                               round(st["stall_ms"] / st["work_ms"], 6))
+        if route == "partitioned_chain":
+            return self._submit_window_partitioned(evs, timestamps, ns,
+                                                   n_pad, host, prev)
         lanes = self._pack(route, evs, timestamps, n_pad, host=host)
         outs = self._dispatch(route, lanes, n_pad, poison=prev,
                               ring=self._wt and self.recycle_events)
@@ -2365,7 +2503,9 @@ class DeviceLedger:
         poisoned rest replay through create_transfers_window. A flat
         window falls back whole and replays. Either way every later
         window in flight was poisoned and replays too, in order, so a
-        redo consumes the whole pipeline."""
+        redo consumes the whole pipeline. In the partitioned attach mode
+        the router absorbs a chain window's prefix and the replays go
+        through its synchronous window path."""
         if not self._tickets:
             return
         if count is None:
@@ -2373,31 +2513,37 @@ class DeviceLedger:
         else:
             tickets = self._tickets[:count]
             del self._tickets[:count]
+        win = (self._partitioned_window_sync
+               if self._part_router is not None
+               else self.create_transfers_window)
         redo = False
         i = 0
         while i < len(tickets):
             tk = tickets[i]
             i += 1
             if redo:
-                tk.results = ("redo",
-                              self.create_transfers_window(tk.evs, tk.tss))
+                tk.results = ("redo", win(tk.evs, tk.tss))
                 continue
             out = tk.harvest.get()
-            if tk.route == "chain":
+            if tk.route == "partitioned_chain":
+                k, results = self._resolve_partitioned_prefix(out, tk)
+            elif tk.route == "chain":
                 k, results = self._resolve_chain_prefix(out, tk.ns)
                 if self._wt:
                     # In ring mode this also rewinds the host cursor, as
                     # the chain reset the device ring, even when k == 0.
                     self._register_window_capture(
                         tk, [st for st, _ in results])
+            if tk.route in ("chain", "partitioned_chain"):
                 if k == len(tk.evs):
                     tk.results = ("ok", results)
                     continue
+                # Prepare k and the poisoned rest replay, and everything
+                # still in flight joins the redo, in order.
                 redo = True
                 tickets.extend(self._tickets)
                 self._tickets = []
-                results.extend(self.create_transfers_window(tk.evs[k:],
-                                                            tk.tss[k:]))
+                results.extend(win(tk.evs[k:], tk.tss[k:]))
                 tk.results = ("redo", results)
                 continue
             if out["fallback"]:
@@ -2440,6 +2586,11 @@ class DeviceLedger:
         with nothing applied."""
         self.resolve_windows()  # pipeline ordering
         assert len(evs) == len(timestamps) and evs
+        if self._part_router is not None:
+            # Attach mode: the partitioned state is the ledger.
+            assert not all_or_nothing, \
+                "attach mode: the replica commit loop is single-chip scope"
+            return self._partitioned_window_sync(evs, timestamps)
         ns = [len(e["id_lo"]) for e in evs]
         W = len(evs)
         if W > 1 and not self._mirror_route():

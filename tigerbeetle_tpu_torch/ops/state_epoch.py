@@ -10,7 +10,10 @@ state or an oracle state.
 The host side (`pack_oracle_state`, `oracle_state_digest`, `combine`,
 `diverging_components`) is the JAX package's too: an oracle state packed
 through the ledger's own row packers and folded the same way, the
-write-through mirror's check against the card.
+write-through mirror's check against the card. So are the partitioned
+digests (`partitioned_state_digest`, `pack_oracle_state_partitioned`,
+`partitioned_oracle_digest`): one fold a shard, wrap-summed. The range
+digests of the JAX package's resharding are not ported yet.
 
 Covered: the accounts u64 matrix, the balance-limb matrix, the
 transfers u64 matrix (minus the non-canonical `expires` and row-cache
@@ -154,12 +157,9 @@ def pack_oracle_state(sm, a_cap: int) -> dict:
     )
 
 
-def oracle_state_digest(sm, a_cap: int) -> dict:
-    """The expected digest of an oracle state: the same fold over its
-    canonical pack (on CPU tensors), bit-comparable with
-    `device_state_digest`."""
-    pack = pack_oracle_state(sm, a_cap)
-
+def _pack_digest(pack: dict) -> dict:
+    """The fold over a host pack (`pack_oracle_state`'s), on CPU
+    tensors."""
     def t(a):
         return torch.from_numpy(np.asarray(a).astype(np.uint64).view(
             np.int64).copy())
@@ -170,6 +170,13 @@ def oracle_state_digest(sm, a_cap: int) -> dict:
     for k in ("acct_key_max", "xfer_key_max", "commit_ts"):
         state[k] = t(pack[k])
     return device_state_digest(state)
+
+
+def oracle_state_digest(sm, a_cap: int) -> dict:
+    """The expected digest of an oracle state: the same fold over its
+    canonical pack (on CPU tensors), bit-comparable with
+    `device_state_digest`."""
+    return _pack_digest(pack_oracle_state(sm, a_cap))
 
 
 def _mix_int(x: int) -> int:
@@ -195,3 +202,72 @@ def diverging_components(got: dict, want: dict) -> list[str]:
     """Component names where two digest dicts disagree."""
     return sorted(k for k in set(got) | set(want)
                   if got.get(k) != want.get(k))
+
+
+# ------------------------------------------------- partitioned states
+# (parallel/partitioned.py: every store sharded by the id hash.) The fold
+# extends shard-then-sum: each shard digests its own rows at its own row
+# indices (the indices the per-shard oracle pack assigns in the same
+# shard-then-sort order), and the per-component digests wrap-sum across
+# shards. Addition keeps the combination order-free, so the device fold
+# (one a shard) and the host fold agree bit for bit, and both equal the
+# JAX package's.
+
+def partitioned_state_digest(state) -> dict:
+    """Digest a partitioned state (the tuple of per-shard state dicts):
+    each shard's components folded on its device, wrap-summed per
+    component on the host."""
+    total: dict = {}
+    for sub in state:
+        for k, v in device_state_digest(sub).items():
+            total[k] = (total.get(k, 0) + v) & MASK64
+    return total
+
+
+def pack_oracle_state_partitioned(sm, a_cap: int, n_shards: int,
+                                  overlay: tuple = ()) -> list:
+    """Per-shard canonical packs of an oracle state: objects assigned by
+    the ownership hash the kernels use (`shard_utils.owner_read_int`, the
+    read owner under an `overlay`), then packed in the canonical order
+    within each shard: `partitioned_from_oracle`'s placement."""
+    from types import SimpleNamespace
+
+    from ..parallel.shard_utils import owner_read_int
+
+    assert a_cap % n_shards == 0, (a_cap, n_shards)
+
+    # Each id's owner once, then the objects bucketed by shard in their
+    # own order.
+    accounts = [{} for _ in range(n_shards)]
+    for aid, a in sm.accounts.items():
+        accounts[owner_read_int(aid, n_shards, overlay)][aid] = a
+    by_ts = [{} for _ in range(n_shards)]
+    for ts, tid in sm.transfer_by_timestamp.items():
+        by_ts[owner_read_int(tid, n_shards, overlay)][ts] = tid
+
+    packs = []
+    for s in range(n_shards):
+        view = SimpleNamespace(
+            accounts=accounts[s],
+            transfers=sm.transfers,
+            transfer_by_timestamp=by_ts[s],
+            pending_status=sm.pending_status,
+            accounts_key_max=sm.accounts_key_max,
+            transfers_key_max=sm.transfers_key_max,
+            commit_timestamp=sm.commit_timestamp,
+        )
+        packs.append(pack_oracle_state(view, a_cap // n_shards))
+    return packs
+
+
+def partitioned_oracle_digest(sm, a_cap: int, n_shards: int,
+                              overlay: tuple = ()) -> dict:
+    """The expected digest of an oracle state under the partitioned
+    layout: bit-comparable with `partitioned_state_digest` of a state
+    stepped at the same (a_cap, n_shards) and overlay."""
+    total: dict = {}
+    for pack in pack_oracle_state_partitioned(sm, a_cap, n_shards,
+                                              overlay):
+        for k, v in _pack_digest(pack).items():
+            total[k] = (total.get(k, 0) + v) & MASK64
+    return total

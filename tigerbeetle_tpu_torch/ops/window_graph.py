@@ -42,9 +42,11 @@ sync) before it captures another; a dropped key starts over with an
 eager window.
 
 A key is (route, W, n_pad), plus "ring" for the ring window kernels
-(they consume the event ring from row 0: another graph). A write-through
-ledger's delta gather runs eagerly right after the dispatch, outside the
-graph, so it adds no key.
+(they consume the event ring from row 0: another graph). The partitioned
+attach mode's chain windows (`parallel/partitioned.py`) take the key
+("partitioned_chain", W, n_pad) over the tuple of per-shard states. A
+write-through ledger's delta gather runs eagerly right after the
+dispatch, outside the graph, so it adds no key.
 
 Counters a key: `eager`, `captures` and `replays` (the replay right after
 a capture included); `reserved`, the bytes the caching allocator held
@@ -70,13 +72,17 @@ def _tensors(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _tensors(tree[k])
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
     else:
         yield tree
 
 
-def state_signature(state: dict) -> tuple:
+def state_signature(state) -> tuple:
     """The storage of every state tensor: what a captured graph reads and
-    writes."""
+    writes. A partitioned state (a tuple of per-shard dicts) spans every
+    shard's tensors."""
     return tuple(t.data_ptr() for t in _tensors(state))
 
 

@@ -5,7 +5,10 @@ docs/ARCHITECTURE.md:358-362). The port maps it onto an in-process mesh
 of devices (`shard_utils.Mesh`): the full create_transfers kernel runs
 sharded — per-event validation on each shard's slice of the batch, the
 compact per-event bundle all-gathered, and the deterministic global tail
-replicated (parallel/full_sharded.py).
+replicated (parallel/full_sharded.py). parallel/partitioned.py shards
+the state itself by the id hash: each prepare exchanges the rows it
+touches (`shard_utils.psum`), judges them on a mini-state, and writes
+back to the owning shards.
 """
 
 from .full_sharded import make_sharded_create_transfers, shard_batch

@@ -26,7 +26,9 @@ CPU, or on one card — the counterpart of the JAX tests'
 once for each distinct device (`replicate`), and `all_gather`
 concatenates the shards' bundles in mesh order and places the result on
 every distinct device: the one place a multi-host mesh would put a
-`torch.distributed` all-gather behind the same call.
+`torch.distributed` all-gather behind the same call. `psum` is the
+second such place: the partitioned route's exchange sums the shards'
+contributions and places the sum on every distinct device.
 """
 
 from __future__ import annotations
@@ -297,4 +299,30 @@ def all_gather(mesh: Mesh, parts) -> tuple:
     for d in mesh.distinct:
         out.append({k: torch.cat([p[k].to(d) for p in parts])
                     for k in parts[0]})
+    return tuple(out)
+
+
+def psum(mesh: Mesh, parts) -> tuple:
+    """The mesh sum: `parts` holds one tensor a shard, in mesh order, each
+    on its shard's device, all of one shape; they are summed in mesh
+    order and the sum is placed on each distinct device. Returns one
+    tensor a distinct device, in `mesh.distinct` order.
+
+    The partitioned route's exchange (`parallel/partitioned.py`) sums
+    int64 tensors carrying u64 lanes (`ops/u64.py`): the sum wraps
+    around as u64 does, so it equals the JAX package's `psum` over
+    uint64 bit for bit. Booleans are summed as int64. This is the second
+    of the two places (beside `all_gather`) where a multi-host mesh would
+    put a `torch.distributed` collective behind the same call."""
+    parts = list(parts)
+    if len(parts) != mesh.size:
+        raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size}")
+    parts = [p.to(torch.int64) if p.dtype == torch.bool else p
+             for p in parts]
+    out = []
+    for d in mesh.distinct:
+        total = parts[0].to(d)
+        for p in parts[1:]:
+            total = total + p.to(d)
+        out.append(total)
     return tuple(out)

@@ -1,7 +1,9 @@
 """Serving supervisor: retries, verified epochs and bounded replay recovery
 around a write-through DeviceLedger (a port of the JAX package's
-`serving.py`; the partitioned half — `attach_partitioned`, `reshard` —
-waits for the port's `parallel/`).
+`serving.py`; its partitioned half — the supervisor's
+`attach_partitioned` and `reshard` — waits for the port's
+`parallel/resharding.py`: the partitioned route it drives,
+`parallel/partitioned.py` and the ledger's attach mode, is ported).
 
 1. **Bounded retry with backoff** — every device dispatch runs under a
    retry policy (exponential backoff with seeded jitter, a bounded

@@ -1,8 +1,8 @@
 """Seeded device-fault injection for the serving pipeline (a port of the
-JAX package's `testing/chaos.py`: the single-chip scenarios and the
-replicated-state mesh scenario, `shard_loss_scenario`; the sharded-state
-scenarios, shard_resync and reshard, wait for the port's partitioned
-router).
+JAX package's `testing/chaos.py`: the single-chip scenarios and two of
+its three mesh scenarios, `shard_loss_scenario` on the replicated-state
+router and `shard_resync_scenario` on the partitioned one; the third,
+reshard, waits for the port's `parallel/resharding.py`).
 
 A deterministic `FaultPlan(seed)` injects device-state bit flips,
 dispatch failures and timeouts, poisoned delta fetches and forced
@@ -36,6 +36,8 @@ VERIFY and the spot rate are set by the call (`constants.set_verify`,
 
 from __future__ import annotations
 
+import json
+import os
 import random
 
 import numpy as np
@@ -390,8 +392,9 @@ def run_chaos_seed(seed: int, *, windows: int = 8,
 
     mesh_scenario None draws it from the seed's generator, as the JAX
     package does (a steady quarter of the seeds); a seed that runs it
-    also runs `shard_loss_scenario` on the default mesh of `device`,
-    under the summary's ``shard_loss`` key."""
+    also runs `shard_loss_scenario` and `shard_resync_scenario` on the
+    default mesh of `device`, under the summary's ``shard_loss`` and
+    ``shard_resync`` keys."""
     rng = random.Random(seed)
     if epoch_interval is None:
         epoch_interval = rng.choice((2, 3, 4))
@@ -405,6 +408,8 @@ def run_chaos_seed(seed: int, *, windows: int = 8,
             kinds, epoch_interval, tracer, traffic=traffic, device=device)
         if mesh_scenario:
             summary["shard_loss"] = shard_loss_scenario(seed, device=device)
+            summary["shard_resync"] = shard_resync_scenario(seed,
+                                                            device=device)
         return summary
     finally:
         constants.set_verify(was_verify)
@@ -546,6 +551,121 @@ def shard_loss_scenario(seed: int, mesh=None, device=None) -> dict:
     assert reroutes == 2, reroutes  # exactly the degraded steps
     return dict(devices=int(mesh.size), dropped=str(dropped),
                 reroutes=reroutes)
+
+
+# --------------------------------------------- partitioned resync scenario
+
+# The default mesh's router of each device, cached across seeds.
+_PART_ROUTERS: dict = {}
+
+
+def shard_resync_scenario(seed: int, mesh=None, device=None,
+                          flight_dir=None) -> dict:
+    """Drop a mesh device under the partitioned router (sharded state):
+    no single-chip reroute exists, as the lost shard's range lives
+    nowhere else, so the router must refuse to serve while a shard is
+    lost and recover to exact oracle parity through resync(oracle),
+    counted under the `shard_resync` recovery cause. `mesh` None: the
+    default mesh of `device` (None: the card), whose router is cached
+    across seeds; a given mesh gets a fresh router. `flight_dir`: where
+    the flight recorder dumps (None: its default under the temporary
+    directory)."""
+    from ..ops.batch import transfers_to_arrays
+    from ..ops.ledger import pad_transfer_events
+    from ..parallel.partitioned import PartitionedRouter
+    from ..parallel.shard_utils import default_mesh
+    from ..trace import FlightRecorder
+
+    rng = random.Random(seed ^ 0xCAFE)
+
+    def fresh(m):
+        flight = (FlightRecorder(dump_dir=flight_dir)
+                  if flight_dir is not None else None)
+        return PartitionedRouter(m, a_cap=1 << 9, t_cap=1 << 11,
+                                 flight_recorder=flight)
+
+    if mesh is not None:
+        router = fresh(mesh)
+    else:
+        key = (str(device), flight_dir)
+        if key not in _PART_ROUTERS:
+            _PART_ROUTERS[key] = fresh(default_mesh(device))
+        router = _PART_ROUTERS[key]
+    mesh = router.mesh
+    router.restore_devices()
+    resyncs0 = router.shard_resyncs
+    fallbacks0 = router.host_fallbacks
+
+    n_accounts = 12
+    accounts = [Account(id=i, ledger=1, code=1)
+                for i in range(1, n_accounts + 1)]
+    oracle = StateMachineOracle()
+    oracle.create_accounts(accounts, 1_000)
+    state = router.from_oracle(oracle)
+
+    ts = 10 ** 9
+    next_id = 10_000
+    dropped = None
+    flight_path = None
+    for step_i in range(4):
+        events = []
+        for _ in range(24):
+            dr = rng.randrange(1, n_accounts + 1)
+            cr = dr % n_accounts + 1
+            events.append(Transfer(
+                id=next_id, debit_account_id=dr, credit_account_id=cr,
+                amount=rng.randrange(1, 100), ledger=1, code=1))
+            next_id += 1
+        n = len(events)
+        ts += n + 10
+        evp = pad_transfer_events(transfers_to_arrays(events), 1024)
+        if step_i == 1:
+            dropped = mesh.devices[rng.randrange(mesh.size)]
+            window_at_loss = router._window_seq
+            dumps0 = router.flight.dumps
+            router.drop_device(dropped)
+            # Quarantine dumps the flight recorder: the artifact exists
+            # and its last record is the quarantine marker of the failing
+            # window.
+            assert router.flight.dumps == dumps0 + 1
+            flight_path = router.flight.last_dump_path
+            assert flight_path and os.path.exists(flight_path), \
+                (f"chaos seed {seed}: quarantine produced no flight "
+                 f"artifact (path={flight_path!r})")
+            with open(flight_path) as f:
+                flight_doc = json.load(f)
+            assert flight_doc["reason"] == "shard_loss_quarantine"
+            last = flight_doc["records"][-1]
+            assert last["route"] == "quarantined", last
+            assert last["window"] == window_at_loss, \
+                (last["window"], window_at_loss)
+            # A lost range is not servable: the quarantine must be loud.
+            try:
+                router.step(state, evp, ts, n)
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(
+                    f"chaos seed {seed}: partitioned router served "
+                    "with a lost shard")
+            state = router.resync(oracle)
+            assert router.flight.dumps == dumps0 + 2  # resync dumps too
+        state, out, fell = router.step(state, evp, ts, n)
+        assert not fell, \
+            f"chaos seed {seed}: unexpected partitioned fallback"
+        got = [(u64(t), int(s)) for s, t in zip(
+            out["r_status"][:n].tolist(), out["r_ts"][:n].tolist())]
+        want = [(r.timestamp, int(r.status))
+                for r in oracle.create_transfers(events, ts)]
+        assert got == want, \
+            (f"chaos seed {seed}: partitioned step {step_i} diverged "
+             f"after resync (dropped={dropped})")
+    resyncs = router.shard_resyncs - resyncs0
+    assert resyncs == 1, resyncs
+    assert router.host_fallbacks == fallbacks0, "resync run fell back"
+    return dict(devices=int(mesh.size), dropped=str(dropped),
+                resyncs=resyncs,
+                flight_dump=os.path.basename(flight_path))
 
 
 # ------------------------------------------------------------- gate

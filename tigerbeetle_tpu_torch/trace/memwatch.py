@@ -7,13 +7,17 @@ of history. This module makes that machine-checkable:
 - ``measure_ledger(led)`` walks a live DeviceLedger and attributes every
   resident allocation to a named component: the state dict's top-level
   stores (accounts / transfers / events ring / both hash tables /
-  scalars) and the staged window pack in flight. Bytes come from shapes
+  scalars), the staged window pack in flight and, in the partitioned
+  attach mode, the router's sharded state (``partitioned_state``, over
+  all its shards) and its harvested telemetry block. Bytes come from shapes
   and dtypes (``numel() * element_size()``), deterministic on every
   device, with no allocator introspection.
 - ``static_ledger(a_cap, t_cap, ...)`` predicts the same components from
   caps alone: it builds the ledger's `init_state` on the ``meta`` device
   (shapes, no storage), so the prediction can be held to the measured
-  bytes.
+  bytes; with ``partitioned_shards`` it adds the attach mode's
+  ``partitioned_state`` and telemetry block on a mesh of that many
+  shards.
 - ``check_budget(measured, budget)`` compares a measurement with the
   committed budget: a component past its pinned bytes (beyond the
   budget's tolerance), a component the budget never pinned, or total
@@ -34,7 +38,8 @@ event lane, `valid` and the three seg lanes at 8 bytes each, the
 ledger's `_pack_window`), where the JAX package stages each column at its
 own width. So the port pins its own budget, ``membudget.json`` beside
 this module, derived from ``static_ledger`` at the JAX package's caps and
-tolerance (perf/membudget_r01.json), with its profiler overhead ceiling.
+tolerance (perf/membudget_r01.json) on its 8-shard mesh, with its
+profiler overhead ceiling.
 """
 
 from __future__ import annotations
@@ -51,11 +56,6 @@ from .event import Event
 # Worst-case staged-pack accounting: one pipelined window's lane matrix
 # at STAGED_PACK_DEPTH prepares over the largest pad bucket.
 STAGED_PACK_DEPTH = 2
-
-# Words of one prepare's device-telemetry row in a fused partitioned
-# chain window (the JAX package's parallel/partitioned.py TEL_WORDS); it
-# moves to the port's parallel/partitioned.py with that module.
-TEL_WORDS = 12
 
 DEFAULT_MEMBUDGET_PATH = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "membudget.json")
@@ -114,19 +114,27 @@ def staged_pack_max_bytes(n_pad: int, depth: int = STAGED_PACK_DEPTH) -> int:
 
 def telemetry_block_bytes(n_shards: int, depth: int) -> int:
     """The harvested [n_shards, W, TEL_WORDS] u32 device-telemetry block
-    of one fused partitioned-chain window."""
+    of one partitioned chain window."""
+    from ..parallel.partitioned import TEL_WORDS
+
     return n_shards * depth * TEL_WORDS * 4
 
 
 def static_ledger(a_cap: int, t_cap: int, *, n_shards: int = 1,
                   window_depth: int = 8, n_pad: Optional[int] = None,
                   orphan_cap: Optional[int] = None,
-                  e_cap: Optional[int] = None) -> dict:
+                  e_cap: Optional[int] = None,
+                  partitioned_shards: Optional[int] = None) -> dict:
     """The deterministic static-allocation ledger: predicted resident
     bytes per component from caps alone (the state built on the ``meta``
     device). For a partitioned mesh the per-shard caps divide by
     n_shards and components are global (x n_shards);
-    ``per_device_bytes`` is the per-shard share."""
+    ``per_device_bytes`` is the per-shard share. `partitioned_shards`:
+    the ledger in the partitioned attach mode on a mesh of that many
+    shards, which adds ``partitioned_state`` (the router's state at
+    these caps, over all its shards: `parallel/partitioned.py`
+    `static_partitioned_bytes`) and the telemetry block of a
+    `window_depth` window."""
     from ..ops.ledger import N_PAD, init_state
 
     if n_pad is None:
@@ -145,6 +153,13 @@ def static_ledger(a_cap: int, t_cap: int, *, n_shards: int = 1,
     comps["staged_pack"] = staged_pack_max_bytes(n_pad)
     comps["telemetry_block"] = telemetry_block_bytes(
         n_shards, window_depth) if n_shards > 1 else 0
+    if partitioned_shards:
+        from ..parallel.partitioned import static_partitioned_bytes
+
+        comps["partitioned_state"] = static_partitioned_bytes(
+            a_cap, t_cap, partitioned_shards, e_cap)
+        comps["telemetry_block"] = telemetry_block_bytes(
+            partitioned_shards, window_depth)
     total = sum(comps.values())
     return {
         "caps": {"a_cap": a_cap, "t_cap": t_cap, "n_shards": n_shards,
@@ -157,9 +172,12 @@ def static_ledger(a_cap: int, t_cap: int, *, n_shards: int = 1,
 
 def measure_ledger(led) -> dict:
     """The live counterpart of static_ledger: component bytes measured
-    from a DeviceLedger's resident tensors (its state, and the staged
-    window pack once the stager has packed it: `led._staged` is
-    (prepares, timestamps, route, n_pad, future of (pack, ns)))."""
+    from a DeviceLedger's resident tensors (its state, the staged window
+    pack once the stager has packed it: `led._staged` is (prepares,
+    timestamps, route, n_pad, future of (pack, ns)); in the partitioned
+    attach mode the router's state over all its shards and the telemetry
+    block of a window of STAGED_PACK_DEPTH prepares, as the JAX package
+    counts it)."""
     comps = state_component_bytes(led.state)
     staged = getattr(led, "_staged", None)
     staged_b = 0
@@ -172,9 +190,19 @@ def measure_ledger(led) -> dict:
             except Exception:
                 staged_b = 0
     comps["staged_pack"] = staged_b
+    router = getattr(led, "_part_router", None)
+    n_shards = 1
+    if router is not None:
+        n_shards = router.n_shards
+        pstate = getattr(led, "_part_state", None)
+        if pstate is not None:
+            comps["partitioned_state"] = pytree_bytes(pstate)
+        comps["telemetry_block"] = telemetry_block_bytes(
+            n_shards, STAGED_PACK_DEPTH)
     total = sum(comps.values())
     return {"components": comps, "total_bytes": total,
-            "per_device_bytes": total, "n_shards": 1}
+            "per_device_bytes": total // max(1, n_shards),
+            "n_shards": n_shards}
 
 
 def device_memory_stats(led=None) -> list:

@@ -52,11 +52,12 @@ NOMINAL_PEAKS = {
 }
 
 # Representative tier call per dispatch tier: the cost model runs these,
-# one per route. The partitioned chain joins with the port's
-# parallel/partitioned.py.
+# one per route (the partitioned chain on a mesh of more than one shard
+# only, as the JAX package's registry skips it on small meshes).
 TIER_ENTRIES = {
     "flat": "create_transfers_fast",
     "chain": "create_transfers_chain",
+    "partitioned_chain": "make_partitioned_chain_create_transfers",
 }
 
 # The serving ledger's route names for each tier: the live dispatch
@@ -337,11 +338,36 @@ def _chain_prepares(depth: int, n: int = _N_CHAIN, seed: int = 0):
     return evs, tss
 
 
-def _tier_call(tier: str, depth: int, device, caps: tuple, batch: int):
+def _partitioned_call(depth: int, mesh, caps: tuple, batch: int):
+    """The partitioned chain's representative call: a router on `mesh` at
+    `caps`, its state from an oracle holding the 63 accounts, `depth`
+    prepares of `batch` transfers as one chain window's lane matrix."""
+    from ..oracle.state_machine import StateMachineOracle
+    from ..ops.ledger import _pad_bucket
+    from ..parallel.partitioned import PartitionedRouter
+    from ..types import Account
+
+    sm = StateMachineOracle()
+    sm.create_accounts([Account(id=i, ledger=1, code=1)
+                        for i in range(1, _N_ACCOUNTS + 1)], 10 ** 9)
+    router = PartitionedRouter(mesh, a_cap=caps[0], t_cap=caps[1])
+    state = router.from_oracle(sm)
+    evs, tss = _chain_prepares(depth, batch)
+    lanes = router.stage_operands(evs, tss, _pad_bucket(batch)).to(
+        mesh.distinct[0])
+    step = router._chain_step("plain")
+    return lambda: step.lanes(state, lanes)
+
+
+def _tier_call(tier: str, depth: int, device, caps: tuple, batch: int,
+               mesh=None):
     """A zero-argument representative call of `tier` on a fresh scratch
     ledger at `caps` on `device`: the flat tier on one prepare of `batch`
-    transfers, the chain on `depth` of them. The prepares' 63 accounts
-    are created first, so the transfers post as a live window's do."""
+    transfers, the chain on `depth` of them, the partitioned chain on
+    `depth` of them over `mesh`. The prepares' 63 accounts are created
+    first, so the transfers post as a live window's do."""
+    if tier == "partitioned_chain":
+        return _partitioned_call(depth, mesh, caps, batch)
     from ..ops import fast_kernels as FK
     from ..ops.batch import accounts_to_arrays
     from ..ops.ledger import (_pad_bucket, events_to_device, init_state,
@@ -368,7 +394,7 @@ def _tier_call(tier: str, depth: int, device, caps: tuple, batch: int):
 
 def static_cost_model(depth: int = 4, device=None,
                       caps: tuple = _SCRATCH_CAPS,
-                      batch: int = _N_CHAIN) -> dict:
+                      batch: int = _N_CHAIN, mesh=None) -> dict:
     """Operations, FLOPs and device-memory bytes per dispatch tier.
 
     For each tier of TIER_ENTRIES, one representative call (the flat
@@ -384,8 +410,10 @@ def static_cost_model(depth: int = 4, device=None,
     loaded through ops/_build.py). FLOPs are one per output element of
     each elementwise arithmetic, bitwise, compare, select or reduction
     op (a scatter's: one per value). A failure is recorded as
-    ``unavailable``, never as zero. The partitioned chain tier is skipped
-    until the port has it."""
+    ``unavailable``, never as zero. The partitioned chain tier runs on
+    `mesh` (`shard_utils.Mesh`, `caps` dividing over its shards) and is
+    skipped without one or on a mesh of one shard, as the JAX package
+    skips it on small meshes."""
     from ..ops.device import resolve_device
 
     device = resolve_device(device)
@@ -393,9 +421,11 @@ def static_cost_model(depth: int = 4, device=None,
     model: dict = {"platform": platform, "depth": depth,
                    "caps": tuple(caps), "batch": batch, "tiers": {}}
     for tier, entry_name in TIER_ENTRIES.items():
+        if tier == "partitioned_chain" and (mesh is None or mesh.size < 2):
+            continue
         counter = _CostCounter()
         try:
-            call = _tier_call(tier, depth, device, caps, batch)
+            call = _tier_call(tier, depth, device, caps, batch, mesh)
             launches = _count(call, counter)
         except Exception as e:
             model["tiers"][tier] = {
@@ -486,14 +516,14 @@ def roofline_fractions(cost_model: dict, measured: dict) -> dict:
 
 def profile_probe(tracer=None, profiler: Optional[DispatchProfiler] = None,
                   depth: int = 4, device=None, caps: tuple = _SCRATCH_CAPS,
-                  batch: int = _N_CHAIN) -> dict:
+                  batch: int = _N_CHAIN, mesh=None) -> dict:
     """The ``profile`` record: static cost model (at `depth`, `caps` and
     `batch`: give it the shape the sampled windows ran) + measured
     sampled-dispatch histograms + achieved-vs-roofline fractions per
     tier + sampler counters. Beyond the cost model's scratch runs, pure
     assembly over state the run already produced."""
     cost_model = static_cost_model(depth=depth, device=device, caps=caps,
-                                   batch=batch)
+                                   batch=batch, mesh=mesh)
     measured = measured_dispatch_us(tracer) if tracer is not None else {}
     out = {
         "cost_model": cost_model,
