@@ -128,13 +128,13 @@ each failing the run with a nonzero exit:
               byte for byte; the mirror's digest equal to the device's
               after every checked body and window): config-2 bodies one
               at a time (timed beside a ledger without write-through),
-              commit windows of 8 synchronous and pipelined two deep with
+              commit windows of 4 synchronous and pipelined two deep with
               staging (recycle_events on for part), config-4 bodies, a
               hard body on the mirror, a pulse, every query; then
               "kernel"-engine commits of config-3 bodies (create_seq).
  15. supervisor  `ServingSupervisor` at the ledger's default capacities
               with VERIFY on, fed windows of 8,190-event config-2
-              prepares over 10,000 accounts: (a) clean, windows of 8
+              prepares over 10,000 accounts: (a) clean, windows of 4
               synchronous and pipelined two deep, each timed beside
               the same window on a bare write-through ledger, an epoch
               verified after each width (its drain, oracle replay, two
@@ -203,7 +203,7 @@ each failing the run with a nonzero exit:
  20. observatory  the performance observatory (the JAX package's
               testing/observatory_smoke.py), each leg with its negative
               arm: (a) `DispatchProfiler` at 1/1 on the full-width
-              supervisor, after a warm-up, chain windows of 8 (graph
+              supervisor, after a warm-up, chain windows of 4 (graph
               replays) and per-batch windows (a series each, a Chrome
               trace of a replayed window), the static cost model on the
               card at that shape (its launches counted apart) and the
@@ -213,7 +213,7 @@ each failing the run with a nonzero exit:
               allocator's stats with the graph pools; (c) the alert
               engine's page, its resolution, its silent disabled arm and
               a dead rule's ValueError; (d) the observatory on against
-              off, the median of 30 pairs of runs in turns within 1.05,
+              off, the median of 20 pairs of runs in turns within 1.05,
               and its own time within 1.05.
  21. sharded  `ShardedRouter` on meshes of 1 and 8 logical shards on the
               card, full-width batches of every mode (config 2, a
@@ -241,6 +241,27 @@ each failing the run with a nonzero exit:
               shard against the replicated route and memwatch's static
               ledger; (g) the launches as `partitioned_launches`
               predicts.
+ 23. reshard  live resharding and the multi-process mesh: (a) a
+              `ServingSupervisor` at 2^17 / 2^21 (config 4's accounts and
+              10,000 plain ones) attached to a `PartitionedRouter` of 8
+              logical shards of the card (`attach_partitioned`; each
+              window one captured CUDA graph), 2 config-2 windows of 8 x
+              8,190, a live split of hash range [0, 2^63 - 1] of shard 0
+              to shard 1 (the copy drained by a conflicting window, two
+              double-write windows, the flip on equal range digests, the
+              retire) and its `merge_back`, each controller call that
+              writes the card held to a CPU twin (every shard's stores
+              below their counts, the tables, the range digests), every
+              window's results and the whole-state digest held to the
+              oracle by the supervisor's epoch checks; (b) a corrupted
+              chunk that aborts a second migration before its flip
+              (digest_mismatch, a FLIGHT_*_reshard_* artifact, ownership
+              back to the base, the next window exact); (c)
+              `reshard_chaos_scenario` seeds 2 and 10 on 2 logical
+              shards, equal to a CPU run; (d) `two_process_smoke()`: two
+              processes, 4 shards each, one gloo group, "ok"; (e) the
+              launches of (a) and (b) as `partitioned_launches` and
+              `RESHARD_GATHERS` predict.
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -250,7 +271,8 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"imported": ...}`, `{"balancing": ...}`, `{"serving": ...}`,
 `{"supervisor": ...}`, `{"durable": ...}`, `{"replica": ...}`,
 `{"benchmark": ...}`, `{"drivers": ...}`, `{"observatory": ...}`,
-`{"sharded": ...}`, `{"partitioned": ...}`, `{"phase_seconds": ...}`
+`{"sharded": ...}`, `{"partitioned": ...}`, `{"reshard": ...}`,
+`{"phase_seconds": ...}`
 and `{"kernels": [...]}` lines, and last
 `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
@@ -261,6 +283,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import glob
 import itertools
 import json
 import os
@@ -416,14 +439,15 @@ BAL_W_TIMED = 3
 # bodies; 1 account in SV_HISTORY_EVERY keeps history; config 4's
 # accounts from SV_C4_ACCT0 + 1. SV_TIMED, SV_KERNEL and SP_WIDTHS are
 # cut (from 6, 2 and (4, 8)) to keep the whole script within its time
-# with the replica phase, and SV_CHECKED, SV_TIMED and SV_C4_PAIRS (from
-# 3, 4 and 2) with the benchmark phase (PERF.md section 4). SV_W_SYNC
-# stays 3: the third synchronous window is the first replay, the one
-# timed.
+# with the replica phase, SV_CHECKED, SV_TIMED and SV_C4_PAIRS (from 3, 4
+# and 2) with the benchmark phase, and SV_W and SP_WIDTHS (from 8 and
+# (8,)) with the reshard phase, which serves windows of 8 (PERF.md
+# section 4). SV_W_SYNC stays 3: the third synchronous window is the
+# first replay, the one timed.
 SV_BODY = BATCH - 1
 SV_CHECKED = 2
 SV_TIMED = 2
-SV_W = 8
+SV_W = 4
 SV_W_SYNC = 3
 SV_W_PIPED = 2
 SV_C4_PAIRS = 1
@@ -432,7 +456,7 @@ SV_HISTORY_EVERY = 64
 SV_C4_ACCT0 = 20_000
 # The supervisor phase: (a)'s window widths (prepares a window), (c)'s
 # chaos seeds (the chaos harness's gate seeds).
-SP_WIDTHS = (8,)
+SP_WIDTHS = (4,)
 SP_CHAOS_SEEDS = (1, 2, 3, 7)
 
 # The durable phase (the JAX package's replica commit loop minus
@@ -464,12 +488,12 @@ DU_TURNS = 2
 # host, so a median resolves 5% only over many pairs; a full-width run's
 # final verify_epoch alone costs 12-55 s of host Python, so (d) cannot
 # run at full width).
-OB_W = 8
+OB_W = 4
 OB_CHAIN_WINDOWS = 4
 OB_FLAT_WINDOWS = 3
 OB_WINDOWS = 6
 OB_SHAPE = (48, 48)
-OB_OVERHEAD_PAIRS = 30
+OB_OVERHEAD_PAIRS = 20
 # The sharded phase: meshes of 1 and 8 logical shards on the card,
 # SH_C2_BATCHES config-2 batches, then one batch of each other mode;
 # shard_loss_scenario's seeds.
@@ -486,6 +510,21 @@ PT_W = 8
 PT_WINDOWS = 4
 PT_POISON_AT = 3
 PT_RESYNC_SEEDS = (2, 10)
+# The reshard phase: a supervisor on RS_SHARDS logical shards of the
+# card, RS_WARM config-2 windows of RS_W prepares before the first
+# migration; reshard_chaos_scenario's seeds.
+RS_SHARDS = 8
+RS_W = 8
+RS_WARM = 2
+RS_CHAOS_SEEDS = (2, 10)
+# Row-gather launches of the resharding kernels (parallel/resharding.py),
+# read from the code: `_finalize_shard` permutes the account rows and
+# balances (one launch) and the transfer rows (one), and plans three
+# inserts (the staged account and transfer keys, the orphan markers: a
+# bucket-row gather each); `_evict_range` permutes the account rows and
+# balances and the transfer rows. None launches the probe (their key
+# probes are the plain ht_lookup).
+RESHARD_GATHERS = {"_finalize_shard": 5, "_evict_range": 2}
 
 # The TPU kernels that row_gather replaces: eight formulations of one
 # function, table[rows] on a (4097, 48) u32 table (two of them of its
@@ -4354,7 +4393,9 @@ def supervisor_chaos(dev, seeds) -> dict:
         t = time.perf_counter()
         got = run_chaos_seed(seed, device=dev)
         ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
         want = run_chaos_seed(seed, device="cpu")
+        cpu_ms = (time.perf_counter() - t) * 1e3
         # A seed that draws the mesh scenarios runs them on each device's
         # default mesh (the card's devices; 8 CPU shards): the reroutes
         # and the resyncs must agree; the mesh size, the dropped device's
@@ -4372,7 +4413,7 @@ def supervisor_chaos(dev, seeds) -> dict:
               f"chaos seed {seed}: the card's summary {got} {loss[0]} "
               f"{resync[0]} differs from the CPU's {want} {loss[1]} "
               f"{resync[1]}")
-        out[seed] = dict(got, ms=ms, shard_loss=loss[0],
+        out[seed] = dict(got, ms=ms, cpu_ms=cpu_ms, shard_loss=loss[0],
                          shard_resync=resync[0])
     print(f"supervisor (c) chaos: {out}", flush=True)
     return out
@@ -4486,12 +4527,22 @@ def supervisor_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = BATCH,
     constants.set_verify(True)
     flight_dir = tempfile.mkdtemp(prefix="tb_flight_")
     fused_probe.LAUNCHES = RG.LAUNCHES = 0
+    legs, marks = {}, [t0]
+
+    def lap(name):
+        marks.append(time.perf_counter())
+        legs[name] = marks[-1] - marks[-2]
+
     try:
         clean = supervisor_clean(dev, caps, n_accounts, body, widths,
                                  flight_dir)
+        lap("a_clean")
         faults = supervisor_faults(dev, caps, n_accounts, body, flight_dir)
+        lap("b_faults")
         chaos = supervisor_chaos(dev, chaos_seeds)
+        lap("c_chaos")
         adm = supervisor_admission(dev, flight_dir, **(admission or {}))
+        lap("d_admission")
         launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
         dumps = len(list(Path(flight_dir).glob("FLIGHT_*.json")))
     finally:
@@ -4503,7 +4554,7 @@ def supervisor_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = BATCH,
           f"supervisor: launches probe/gather {launches}")
     check(dumps == 3, f"supervisor: {dumps} flight dumps, 3 recoveries")
     numbers = dict(clean=clean, faults=faults, chaos=chaos, admission=adm,
-                   launches=launches, flight_dumps=dumps,
+                   launches=launches, flight_dumps=dumps, legs_s=legs,
                    elapsed_s=time.perf_counter() - t0)
     print(f"supervisor: launches probe/gather {launches}; "
           f"{dumps} flight dumps; {numbers['elapsed_s']:.1f} s; "
@@ -7597,6 +7648,440 @@ def partitioned_phase(dev, caps: tuple = (A_CAP, T_CAP),
     return out
 
 
+def _states_equal(got: dict, want: dict) -> str | None:
+    """Two stacked numpy partitioned states (`convert.partitioned_to_
+    numpy`), shard by shard: each store's rows below its count and the
+    counts, both hash tables but the dump bucket (masked lanes race
+    there). Returns the first difference, or None."""
+    n = want["accounts"]["count"].shape[0]
+    for s in range(n):
+        for store in ("accounts", "transfers", "events"):
+            c = int(want[store]["count"][s])
+            if int(got[store]["count"][s]) != c:
+                return f"shard {s} {store} count"
+            for k, w in want[store].items():
+                if k != "count" and not np.array_equal(got[store][k][s][:c],
+                                                       w[s][:c]):
+                    return f"shard {s} {store}.{k}"
+        for table in ("acct_ht", "xfer_ht"):
+            if not np.array_equal(got[table]["packed"][s][:-1],
+                                  want[table]["packed"][s][:-1]):
+                return f"shard {s} {table}"
+    return None
+
+
+class _ReshardTwin:
+    """The CPU twin of a controller's migrations on the card: before each
+    call of `on_window` or `drain` that writes the device (a copy chunk,
+    a drain, a flip and retire, an abort's eviction), the card's state is
+    copied to CPU shards and a twin controller on a CPU router of the same
+    mesh size and ownership makes the same call from the same host fields;
+    after it the card's state must equal the twin's on the plan's source
+    and receiver, the shards a migration writes (their stores below their
+    counts, the tables but the dump bucket), and so must the stage, the
+    rows copied, the ownership, the abort raised and the range digests of
+    the plan. A call that only counts a double-write window runs
+    alone."""
+
+    FIELDS = ("plan", "stage", "rows_copied", "dw_windows", "_snap", "_t0",
+              "_entry", "corrupt_next_chunk")
+    # Only the plan's source and receiver are written (and compared): the
+    # twin's other shards are the card's own, read only by the range
+    # digests.
+
+    def __init__(self, ctl, shards: int, caps: tuple, flight_dir: str):
+        from tigerbeetle_tpu_torch.parallel.partitioned import (
+            PartitionedRouter)
+        from tigerbeetle_tpu_torch.parallel.resharding import (
+            ReshardController)
+        from tigerbeetle_tpu_torch.parallel.shard_utils import Mesh
+        from tigerbeetle_tpu_torch.trace import FlightRecorder
+
+        self.ctl = ctl
+        self.mesh = Mesh(["cpu"] * shards)
+        self.router = PartitionedRouter(
+            self.mesh, a_cap=caps[0], t_cap=caps[1],
+            flight_recorder=FlightRecorder(dump_dir=flight_dir))
+        self.twin = ReshardController(
+            self.router, chunk_rows=ctl.chunk_rows,
+            min_double_write_windows=ctl.min_double_write_windows)
+        self.compared = []
+        self.aborts = []
+        for name in ("on_window", "drain"):
+            setattr(ctl, name, self._wrap(name, getattr(ctl, name)))
+
+    def _writes(self, name: str) -> bool:
+        c = self.ctl
+        return c.stage == "copy" or (
+            c.stage == "double_write"
+            and (name == "drain"
+                 or c.dw_windows + 1 >= c.min_double_write_windows))
+
+    def _wrap(self, name, fn):
+        from tigerbeetle_tpu_torch.convert import (partitioned_to_numpy,
+                                                   state_from_numpy,
+                                                   state_to_numpy)
+        from tigerbeetle_tpu_torch.ops.state_epoch import (
+            partitioned_range_digest)
+        from tigerbeetle_tpu_torch.parallel.resharding import (
+            MigrationAborted)
+
+        def call(state, *args, **kw):
+            if not self._writes(name):
+                return fn(state, *args, **kw)
+            c, t = self.ctl, self.twin
+            plan = c.plan
+            for f in self.FIELDS:
+                setattr(t, f, getattr(c, f))
+            t._cursors = dict(c._cursors) if c._cursors else c._cursors
+            self.router.ownership = c.router.ownership
+            before_stage = c.stage
+            written = (plan.src, plan.dst)
+            cpu = tuple(state_from_numpy(state_to_numpy(sub), "cpu")
+                        if s in written else sub
+                        for s, sub in enumerate(state))
+            raised = [None, None]
+            try:
+                cpu = getattr(t, name)(cpu, *args, **kw)
+            except MigrationAborted as e:
+                cpu, raised[1] = e.state, e
+            try:
+                out = fn(state, *args, **kw)
+            except MigrationAborted as e:
+                out, raised[0] = e.state, e
+            diff = _states_equal(
+                partitioned_to_numpy([out[s] for s in written]),
+                partitioned_to_numpy([cpu[s] for s in written]))
+            same = [getattr(c, f) == getattr(t, f) for f in (
+                "stage", "rows_copied", "dw_windows")]
+            reasons = [e.reason if e else None for e in raised]
+            digests = [partitioned_range_digest(x, plan.lo, plan.hi,
+                                                plan.src) for x in (out, cpu)]
+            check(diff is None and all(same) and reasons[0] == reasons[1]
+                  and c.router.ownership == self.router.ownership
+                  and digests[0] == digests[1],
+                  f"reshard twin: {name} at stage {before_stage} differs "
+                  f"from the CPU twin: {diff}, stage/rows/dw {same}, "
+                  f"aborts {reasons}")
+            self.compared.append((name, before_stage, c.stage))
+            if raised[0] is not None:
+                self.aborts.append(reasons[0])
+                raise raised[0]
+            return out
+
+        return call
+
+
+def _overlay_label(entries) -> str:
+    names = {1: "double_write", 2: "migrated", 3: "returning"}
+    return ("base" if not entries else
+            "+".join(f"{e[2]}->{e[3]}:{names[e[4]]}" for e in entries))
+
+
+def reshard_phase(dev, caps: tuple = (A_CAP, T_CAP),
+                  n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
+                  shards: int = RS_SHARDS, w: int = RS_W,
+                  warm: int = RS_WARM,
+                  chaos_seeds: tuple = RS_CHAOS_SEEDS) -> dict:
+    """Live resharding and the multi-process mesh on `dev`: a
+    ServingSupervisor at `caps` seeded with config 4's accounts and
+    n_accounts plain ones, attached to a PartitionedRouter on `shards`
+    logical shards of the device; (a) `warm` config-2 windows of w x
+    batch (submit and drain: on the card each one graph replay, eager and
+    captured first), a split of [0, 2^63 - 1] from shard 0 to 1 driven by
+    the windows' ticks to `done`, then its merge_back, each controller
+    call that writes the device held to a CPU twin (`_ReshardTwin`), every
+    window's results and the digest held to the oracle by the epoch
+    checks (`reshard` verifies first; the last check after the last
+    window); (b) a migration of [2^63, 2^64 - 1] from shard 1 to 2 with a
+    corrupted chunk: it aborts before the flip (digest_mismatch, a flight
+    artifact, ownership at the base) and the next window is exact; (c)
+    reshard_chaos_scenario for `chaos_seeds` on 2 logical shards of `dev`
+    against the CPU; (d) two_process_smoke on `dev`; (e) the launches of
+    (a) and (b) (on the CPU, the wrappers' calls) against
+    partitioned_launches and RESHARD_GATHERS."""
+    from tigerbeetle_tpu_torch import ServingSupervisor
+    from tigerbeetle_tpu_torch.ops.batch import transfers_from_arrays
+    from tigerbeetle_tpu_torch.parallel import resharding as RS
+    from tigerbeetle_tpu_torch.parallel.multihost import two_process_smoke
+    from tigerbeetle_tpu_torch.parallel.partitioned import PartitionedRouter
+    from tigerbeetle_tpu_torch.parallel.shard_utils import (
+        OVERLAY_MIGRATED, Mesh)
+    from tigerbeetle_tpu_torch.testing.chaos import reshard_chaos_scenario
+    from tigerbeetle_tpu_torch.trace import FlightRecorder
+    from tigerbeetle_tpu_torch.types import Account, AccountFlags
+
+    cuda = torch.device(dev).type == "cuda"
+    half = 1 << 63
+    t_phase = time.perf_counter()
+    legs, marks = {}, [t_phase]
+
+    def lap(name):
+        marks.append(time.perf_counter())
+        legs[name] = marks[-1] - marks[-2]
+
+    tmp = tempfile.mkdtemp(prefix="tb_reshard_")
+    flight_dir = os.path.join(tmp, "flight")
+    calls = _WrapperCalls()
+    kernel_calls = {k: 0 for k in RESHARD_GATHERS}
+    originals = {k: getattr(RS, k) for k in RESHARD_GATHERS}
+
+    def counting(name):
+        fn = originals[name]
+
+        def call(sub, *args, **kw):
+            if sub["accounts"]["u64"].device.type == torch.device(dev).type:
+                kernel_calls[name] += 1
+            return fn(sub, *args, **kw)
+        return call
+
+    try:
+        sup = ServingSupervisor(
+            caps[0], caps[1], device=dev, epoch_interval=1 << 20,
+            sleep=lambda s: None,
+            flight_recorder=FlightRecorder(dump_dir=flight_dir))
+        accounts = (config4_accounts(Account, AccountFlags)
+                    + [Account(id=C4_ACCOUNTS + i, ledger=1, code=1)
+                       for i in range(1, n_accounts + 1)])
+        clock = [10**6]
+        for lo in range(0, len(accounts), BATCH):
+            chunk = accounts[lo:lo + BATCH]
+            clock[0] += len(chunk) + 10
+            sup.create_accounts(chunk, clock[0])
+        router = PartitionedRouter(Mesh([dev] * shards), a_cap=caps[0],
+                                   t_cap=caps[1])
+        counted = _CountedRouter(router, shards)
+        ctl = sup.attach_partitioned(router)
+        check(sup.mirror_audit == "off" and sup.part_router is router,
+              "reshard (a): attach_partitioned did not take the router")
+        twin = _ReshardTwin(ctl, shards, caps, os.path.join(tmp, "twin"))
+        stage_ms: dict = {}
+
+        def timed(name):
+            fn = getattr(ctl, name)
+
+            def call(*args, **kw):
+                sync(dev)
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    sync(dev)
+                    stage_ms.setdefault(name, []).append(
+                        (time.perf_counter() - t) * 1e3)
+            return call
+
+        for name in ("_take_snapshot", "copy_chunk", "_activate_double_write",
+                     "flip", "_retire"):
+            setattr(ctl, name, timed(name))
+        # The supervisor's per-window tick (the migration's step, the
+        # twin's comparison) apart from the window's dispatch.
+        tick_ms = []
+        tick = sup._reshard_tick
+
+        def timed_tick(batches):
+            if not ctl.active:
+                return tick(batches)
+            t = time.perf_counter()
+            try:
+                return tick(batches)
+            finally:
+                sync(dev)
+                tick_ms.append((time.perf_counter() - t) * 1e3)
+
+        sup._reshard_tick = timed_tick
+        lap("setup")
+        rng = np.random.default_rng(97)
+        nxt = [6 * 10**7]
+        clock[0] = 10**9
+        windows = []
+
+        def window(label):
+            evs, tss = [], []
+            for _ in range(w):
+                ev = uniform_batch(rng, nxt[0], batch, n_accounts)
+                nxt[0] += batch
+                ev["dr_lo"] += np.uint64(C4_ACCOUNTS)
+                ev["cr_lo"] += np.uint64(C4_ACCOUNTS)
+                clock[0] += batch + 10
+                evs.append(ev)
+                tss.append(clock[0])
+            batches = [transfers_from_arrays(ev) for ev in evs]
+            led = sup.led
+            before = graph_counts(led)
+            overlay = router.ownership.entries
+            sync(dev)
+            n_ticks = len(tick_ms)
+            t = time.perf_counter()
+            sup.submit_transfers_window(batches, tss, evs=evs)
+            sup.drain_pipeline()
+            sync(dev)
+            ms = (time.perf_counter() - t) * 1e3
+            tick = sum(tick_ms[n_ticks:])
+            # The tick ran before the dispatch: the window ran under the
+            # overlay it left.
+            windows.append(dict(
+                label=label, ms=ms - tick, tick_ms=tick,
+                kind=window_kind(led, before),
+                stage=ctl.stage,
+                overlay=_overlay_label(router.ownership.entries),
+                overlay_before=_overlay_label(overlay)))
+            check(sup.led is led and sup.counters["recoveries"] == {},
+                  f"reshard {label}: a recovery ran: {sup.stats()}")
+
+        def verify(label):
+            t = time.perf_counter()
+            ok = sup.verify_epoch()
+            check(ok and sup.counters["recoveries"] == {},
+                  f"reshard {label}: the epoch did not verify: "
+                  f"{sup.last_recovery}")
+            return (time.perf_counter() - t) * 1e3
+
+        def migrate(plan, label):
+            """reshard() (an epoch check first), then windows until done."""
+            t = time.perf_counter()
+            sup.reshard(plan)
+            verify_ms = (time.perf_counter() - t) * 1e3
+            check(ctl.stage == "copy", f"reshard {label}: {ctl.stage}")
+            guard = 0
+            while ctl.stage == "copy" or ctl.stage == "double_write":
+                window(f"{label} {guard}")
+                guard += 1
+                check(guard <= 6, f"reshard {label}: still {ctl.stage}")
+            return verify_ms
+
+        _zero_launches()
+        verify_ms = {}
+        with (calls if not cuda else contextlib.nullcontext()):
+            start = (tuple(_launch_counts()[:2]) if cuda else
+                     (calls.n["ht_probe"], calls.n["row_gather"]))
+            for name in RESHARD_GATHERS:
+                setattr(RS, name, counting(name))
+            try:
+                for k in range(warm):
+                    window(f"warm {k}")
+                lap("a_warm")
+                verify_ms["split"] = migrate(
+                    RS.ReshardPlan(0, half - 1, 0, 1, "split"), "(a) split")
+                check(ctl.stage == "done" and router.ownership.entries
+                      == ((0, half - 1, 0, 1, OVERLAY_MIGRATED),),
+                      f"reshard (a) split: {ctl.stage}, "
+                      f"{router.ownership.entries}")
+                lap("a_split")
+                verify_ms["merge_back"] = migrate(
+                    RS.ReshardPlan(0, half - 1, 0, 1, "merge_back"),
+                    "(a) merge_back")
+                check(ctl.stage == "done" and router.ownership.entries == ()
+                      and [m["kind"] for m in ctl.migrations]
+                      == ["split", "merge_back"]
+                      and all(m["double_write_windows"] >= 2
+                              and m["rows_copied"] > 0
+                              for m in ctl.migrations),
+                      f"reshard (a) merge_back: {ctl.migrations}")
+                lap("a_merge_back")
+
+                # (b) a corrupted chunk aborts the migration before its
+                # flip: the epoch check drains it (copy, finalize,
+                # double-write, the flip's witness).
+                t = time.perf_counter()
+                sup.reshard(RS.ReshardPlan(half, (1 << 64) - 1, 1, 2,
+                                           "migrate"))
+                verify_ms["negative"] = (time.perf_counter() - t) * 1e3
+                ctl.corrupt_next_chunk = True
+                verify_ms["negative_drain"] = verify("(b) drain")
+                arts = glob.glob(os.path.join(flight_dir,
+                                              "FLIGHT_*_reshard_*"))
+                check(ctl.stage == "aborted" and twin.aborts
+                      == ["digest_mismatch"]
+                      and [a["reason"] for a in ctl.aborts]
+                      == ["digest_mismatch"]
+                      and ctl.aborts[0]["stage"] == "double_write"
+                      and router.ownership.entries == () and arts
+                      and len(ctl.migrations) == 2,
+                      f"reshard (b): stage {ctl.stage}, aborts {ctl.aborts}, "
+                      f"ownership {router.ownership.entries}, artifacts "
+                      f"{arts}")
+                window("(b) after")
+                verify_ms["final"] = verify("(b) after")
+            finally:
+                for name, fn in originals.items():
+                    setattr(RS, name, fn)
+            launches = tuple(
+                a - b for a, b in zip(
+                    (tuple(_launch_counts()[:2]) if cuda else
+                     (calls.n["ht_probe"], calls.n["row_gather"])), start))
+        pred = (counted.pred[0], counted.pred[1] + sum(
+            RESHARD_GATHERS[k] * n for k, n in kernel_calls.items()))
+        check(launches == pred,
+              f"reshard (e): launches {launches}, predicted {pred} "
+              f"(windows {counted.pred}, kernels {kernel_calls})")
+        st = sup.stats()
+        check(st["recoveries"] == {} and router.host_fallbacks == 0
+              and st["epochs_verified"] >= 5,
+              f"reshard (a): {st['recoveries']}, host fallbacks "
+              f"{router.host_fallbacks}, epochs {st['epochs_verified']}")
+        wg = sup.led.windows
+        graphs = {}
+        for key in set(wg.eager) | set(wg.captures) | set(wg.replays):
+            graphs[_overlay_label(key[-1])] = (
+                wg.eager.get(key, 0), wg.captures.get(key, 0),
+                wg.replays.get(key, 0))
+        check(not cuda or all(x["kind"] != "host" for x in windows),
+              f"reshard (a): windows ran {windows}")
+        resharding = dict(st["resharding"])
+        evictions, drops = wg.evictions, wg.drops
+        check(drops == 0, f"reshard (a): the window graphs were dropped "
+              f"{drops} times: a kernel moved a state tensor")
+        sup.led.release()
+        lap("ab_migrations")
+
+        # (c) the chaos scenario on 2 logical shards of the device.
+        chaos = {}
+        for seed in chaos_seeds:
+            t = time.perf_counter()
+            got = reshard_chaos_scenario(seed, device=dev,
+                                         flight_dir=os.path.join(tmp, "c"))
+            ms = (time.perf_counter() - t) * 1e3
+            want = reshard_chaos_scenario(seed, device="cpu",
+                                          flight_dir=os.path.join(tmp, "cc"))
+            check(got == want and got["aborts"] == 6
+                  and got["migrations"] == 1,
+                  f"reshard (c): seed {seed}: {got}, the CPU's {want}")
+            chaos[seed] = dict(got, ms=ms)
+        lap("c_chaos")
+
+        # (d) two processes, one gloo group.
+        two = {}
+        t = time.perf_counter()
+        verdict = two_process_smoke(device=dev if cuda else "cpu",
+                                    timeout=240, stats=two)
+        check(verdict == "ok", f"reshard (d): two_process_smoke {verdict}")
+        two_ms = (time.perf_counter() - t) * 1e3
+        lap("d_two_process")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    out = dict(
+        shards=shards, window=w, batch=batch, caps=list(caps),
+        windows=windows, stage_ms=stage_ms, verify_ms=verify_ms,
+        resharding=resharding, graphs=graphs, graph_evictions=evictions,
+        twin_compared=twin.compared, launches=launches, predicted=pred,
+        kernel_calls=kernel_calls, window_pred=list(counted.pred),
+        chaos=chaos, two_process=dict(verdict=verdict, ms=two_ms,
+                                      launches=two.get("launches")),
+        legs_s=legs, elapsed_s=time.perf_counter() - t_phase,
+        card=card_line_or_cpu(dev))
+    kinds = [(x["kind"], round(x["ms"], 1)) for x in windows]
+    stages = {k: (len(vs), round(sum(vs), 1), round(max(vs), 1))
+              for k, vs in stage_ms.items()}
+    print(f"reshard: windows {kinds}, stages (calls, ms, max ms) {stages}, "
+          f"graphs {graphs}, "
+          f"launches {launches} (predicted {pred}), two-process {verdict}, "
+          f"legs {legs}", flush=True)
+    return out
+
+
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
@@ -7688,6 +8173,8 @@ def main() -> int:
     lap("sharded_phase")
     prt = partitioned_phase(dev)
     lap("partitioned_phase")
+    rsh = reshard_phase(dev)
+    lap("reshard_phase")
     phase_seconds["total"] = time.perf_counter() - t0
     print(f"all phases passed in {phase_seconds['total']:.1f} s",
           flush=True)
@@ -7751,6 +8238,12 @@ def main() -> int:
         # replays, as partitioned_launches predicts.
         "launches_partitioned": prt["launches"][0],
         "ran_partitioned_windows": prt["graph_ran"][0],
+        # The reshard phase's (a) and (b): its windows' eager runs and
+        # captures under each overlay (the judge's probe; the resharding
+        # kernels launch none); the two-process leg's, its two workers'
+        # sum.
+        "launches_reshard": rsh["launches"][0],
+        "launches_reshard_two_process": rsh["two_process"]["launches"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -7806,6 +8299,10 @@ def main() -> int:
         "launches_sharded": shd["launches"][1],
         "launches_partitioned": prt["launches"][1],
         "ran_partitioned_windows": prt["graph_ran"][1],
+        # The reshard phase's (a) and (b): its windows' and the resharding
+        # kernels' (RESHARD_GATHERS); the two-process leg's.
+        "launches_reshard": rsh["launches"][1],
+        "launches_reshard_two_process": rsh["two_process"]["launches"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -7874,6 +8371,7 @@ def main() -> int:
     print(json.dumps({"observatory": obs}, default=str), flush=True)
     print(json.dumps({"sharded": shd}, default=str), flush=True)
     print(json.dumps({"partitioned": prt}, default=str), flush=True)
+    print(json.dumps({"reshard": rsh}, default=str), flush=True)
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,12 @@ device state) and fails on any silent corruption. At both defaults the
 seed's generator draws whether the mesh scenarios run, in the same place
 in both packages: the supervisor part of the summary must still be the
 JAX package's, for a seed that draws them and one that does not (the
-JAX package's three mesh scenarios replaced by recorders; the port's
-shard_loss scenario is held to the JAX package's in
-tests/test_torch_sharded.py). The plan, the traffic shapes and the
-Zipfian generator are compared draw for draw.
+JAX package's shard_loss and shard_resync scenarios replaced by
+recorders, its reshard scenario run and held equal to the port's; the
+port's shard_loss scenario is held to the JAX package's in
+tests/test_torch_sharded.py, shard_resync in
+tests/test_torch_partitioned_ledger.py). The plan, the traffic shapes and
+the Zipfian generator are compared draw for draw.
 """
 
 import dataclasses
@@ -61,10 +63,10 @@ def test_default_seed_draws_the_mesh_scenario_as_the_jax_package(
         seed, draws, monkeypatch):
     """Both at their defaults: the same mesh draw from the seed's
     generator, so the same traffic (every generated batch recorded) and
-    the same supervisor summary."""
+    the same supervisor summary; a seed that draws the mesh scenarios
+    returns `reshard` equal to the JAX package's."""
     called = []
-    for name in ("shard_loss_scenario", "shard_resync_scenario",
-                 "reshard_chaos_scenario"):
+    for name in ("shard_loss_scenario", "shard_resync_scenario"):
         monkeypatch.setattr(JCH, name,
                             lambda s, _n=name: called.append((_n, s))
                             or {"stub": _n})
@@ -79,8 +81,7 @@ def test_default_seed_draws_the_mesh_scenario_as_the_jax_package(
     want = JCH.run_chaos_seed(seed)
     assert traffic[TCH] == traffic[JCH] and traffic[TCH]
     assert called == ([("shard_loss_scenario", seed),
-                       ("shard_resync_scenario", seed),
-                       ("reshard_chaos_scenario", seed)] if draws else [])
+                       ("shard_resync_scenario", seed)] if draws else [])
     assert set(want) & set(MESH_KEYS) == (set(MESH_KEYS) if draws
                                           else set())
     assert {k: v for k, v in got.items() if k not in MESH_KEYS} == \
@@ -88,8 +89,10 @@ def test_default_seed_draws_the_mesh_scenario_as_the_jax_package(
     if draws:
         assert got["shard_loss"] == {"devices": 8, "dropped": "cpu",
                                      "reroutes": 2}
+        assert got["reshard"] == want["reshard"]
+        assert got["reshard"]["aborts"] == 6
     else:
-        assert "shard_loss" not in got
+        assert "shard_loss" not in got and "reshard" not in got
 
 
 @pytest.mark.parametrize("seed", range(12))

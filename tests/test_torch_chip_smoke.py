@@ -794,3 +794,99 @@ def test_chip_smoke_runs_the_partitioned_phase_last():
     assert (CS.PT_SHARDS, CS.PT_W, CS.PT_WINDOWS, CS.PT_POISON_AT) == \
         (8, 8, 4, 3)
     assert CS.PT_RESYNC_SEEDS == (2, 10)
+
+
+def test_reshard_phase_rehearsed_on_the_cpu():
+    """The reshard phase at a small size on the CPU: a supervisor on 8
+    logical CPU shards, 2 windows of 3 prepares, a split and its
+    merge_back driven to done by the windows' ticks (3 windows each: the
+    conflicting window drains the copy, two double-write windows, the flip
+    and retire), every controller call that writes the state equal to the
+    CPU twin's, a corrupted chunk aborting the next migration at its flip
+    when the epoch check drains it (digest_mismatch, ownership at the
+    base), a window after it; every epoch verified; both chaos seeds
+    equal on the two runs; the two-process leg "ok"; and the wrappers'
+    calls equal to what partitioned_launches and RESHARD_GATHERS
+    predict."""
+    numbers = CS.reshard_phase("cpu", caps=(1 << 10, 1 << 14),
+                               n_accounts=100, batch=200, w=3)
+    labels = [x["label"] for x in numbers["windows"]]
+    assert labels == ["warm 0", "warm 1"] + [
+        f"(a) {m} {k}" for m in ("split", "merge_back") for k in range(3)] + [
+        "(b) after"]
+    assert [x["overlay_before"] for x in numbers["windows"][2:5]] == [
+        "base", "0->1:double_write", "0->1:double_write"]
+    assert numbers["windows"][4]["overlay"] == "0->1:migrated"
+    assert numbers["windows"][-1]["stage"] == "aborted"
+    assert all(x["kind"] == "eager" for x in numbers["windows"])
+    ticks = [x["tick_ms"] > 0 for x in numbers["windows"]]
+    assert ticks == [False, False] + [True] * 6 + [False]
+    res = numbers["resharding"]
+    assert [m["kind"] for m in res["migrations"]] == ["split", "merge_back"]
+    assert [a["reason"] for a in res["aborts"]] == ["digest_mismatch"]
+    assert [c[:2] for c in numbers["twin_compared"]] == [
+        ("on_window", "copy"), ("on_window", "double_write")] * 2 + [
+        ("drain", "copy")]
+    assert numbers["launches"] == tuple(numbers["predicted"])
+    assert numbers["kernel_calls"] == {"_finalize_shard": 2 * 3,
+                                       "_evict_range": 2 * 3}
+    p, g = CS.partitioned_launches("plain", 8)
+    assert tuple(numbers["window_pred"]) == (9 * 3 * p, 9 * 3 * g)
+    assert numbers["graph_evictions"] == 0
+    assert set(numbers["stage_ms"]) == {
+        "_take_snapshot", "copy_chunk", "_activate_double_write", "flip",
+        "_retire"}
+    assert set(numbers["verify_ms"]) == {"split", "merge_back", "negative",
+                                         "negative_drain", "final"}
+    assert sorted(numbers["chaos"]) == [2, 10]
+    assert all(v["aborts"] == 6 for v in numbers["chaos"].values())
+    assert numbers["two_process"]["verdict"] == "ok"
+    assert numbers["two_process"]["launches"] == (0, 0)
+
+
+def test_reshard_gathers_read_from_the_code():
+    """RESHARD_GATHERS counts the row-gather calls of the resharding
+    kernels: their calls through the wrapper's COST hook on the CPU."""
+    import torch as _torch
+
+    from tigerbeetle_tpu_torch.oracle.state_machine import \
+        StateMachineOracle
+    from tigerbeetle_tpu_torch.parallel import resharding as RS
+    from tigerbeetle_tpu_torch.parallel.partitioned import \
+        partitioned_from_oracle
+    from tigerbeetle_tpu_torch.parallel.shard_utils import Mesh
+    from tigerbeetle_tpu_torch.types import Account
+
+    sm = StateMachineOracle()
+    sm.create_accounts([Account(id=i, ledger=1, code=1)
+                        for i in range(1, 33)], 50)
+    state = partitioned_from_oracle(sm, Mesh(["cpu"] * 2), 1 << 8, 1 << 9)
+    o = _torch.zeros(1, dtype=_torch.int64)
+    with CS._WrapperCalls() as calls:
+        RS._finalize_shard(state[1], o, o, 0)
+        assert calls.n == {"ht_probe": 0,
+                           "row_gather": CS.RESHARD_GATHERS["_finalize_shard"]}
+        RS._evict_range(state[0], 0, 1 << 63, 2, 0)
+        assert calls.n["row_gather"] == sum(CS.RESHARD_GATHERS.values())
+        assert calls.n["ht_probe"] == 0
+
+
+def test_chip_smoke_runs_the_reshard_phase_last():
+    """main() runs the reshard phase after the partitioned phase, prints
+    its line before the phases' seconds and the kernels line, and the
+    probe and the row gather carry its launches."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "partitioned_phase(dev)", "reshard_phase(dev)", "'partitioned'",
+        "'reshard'", "'phase_seconds'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_reshard':") == 2
+    assert main.count("'launches_reshard_two_process':") == 2
+    assert (CS.RS_SHARDS, CS.RS_W, CS.RS_WARM) == (8, 8, 2)
+    assert CS.RS_CHAOS_SEEDS == (2, 10)

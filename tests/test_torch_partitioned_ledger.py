@@ -10,8 +10,8 @@ JAX package's on 8 shards (its 8 host devices) and against the oracle.
   raises.
 - `shard_resync_scenario` equal to the JAX package's for two seeds (the
   dropped device's and the flight dump's names aside); a default chaos
-  seed that draws the mesh scenario returns `shard_loss` and
-  `shard_resync` as the JAX package's does.
+  seed that draws the mesh scenario returns `shard_loss`, `shard_resync`
+  and `reshard` as the JAX package's does.
 
 Exact comparisons throughout. The JAX steps are compiled once, in
 tests/test_torch_partitioned.py's module caches.
@@ -181,19 +181,18 @@ def test_shard_resync_scenario_equals_the_jax_packages(seed, tmp_path,
 
 def test_mesh_seed_returns_shard_loss_and_shard_resync(monkeypatch,
                                                        jax_resync_router):
-    """A default seed that draws the mesh scenario (2) runs shard_loss and
-    shard_resync in both packages (the supervisor part, compared in
-    tests/test_torch_chaos.py, is left out here, and the JAX package's
-    third scenario, reshard, is not ported)."""
+    """A default seed that draws the mesh scenario (2) runs shard_loss,
+    shard_resync and reshard in both packages, each equal to the JAX
+    package's, names aside (the supervisor part, compared in
+    tests/test_torch_chaos.py, is left out here)."""
     for mod in (TCH, JCH):
         monkeypatch.setattr(mod, "_run_supervisor_chaos",
                             lambda *a, **k: {})
-    monkeypatch.setattr(JCH, "reshard_chaos_scenario",
-                        lambda seed: {"stub": seed})
     got = TCH.run_chaos_seed(2, device="cpu")
     want = JCH.run_chaos_seed(2)
-    assert set(got) == {"shard_loss", "shard_resync"}
-    assert set(want) == {"shard_loss", "shard_resync", "reshard"}
-    for key in ("shard_loss", "shard_resync"):
+    assert set(got) == set(want) == {"shard_loss", "shard_resync",
+                                     "reshard"}
+    for key in ("shard_loss", "shard_resync", "reshard"):
         assert _no_names(got[key]) == _no_names(want[key]), key
+    assert got["reshard"]["devices"] == 2
     assert not TCH.run_chaos_seed(4, device="cpu")

@@ -88,8 +88,9 @@ The partitioned attach mode (`attach_partitioned(router, state)`):
 windows commit on a partitioned mesh (`parallel/partitioned.py`) instead
 of this ledger's state. `submit_window` runs the router's partitioned
 chain (one captured CUDA graph a window on the card, key
-("partitioned_chain", W, n_pad), the previous window's poison copied
-device to device into its force_fallback); `resolve_windows` lets the
+("partitioned_chain", W, n_pad, overlay entries), the previous window's
+poison copied device to device into its force_fallback);
+`resolve_windows` lets the
 router absorb a window's committed prefix and replays a redo through the
 router's per-batch ladder (eager); the synchronous window path goes
 through `PartitionedRouter.step_window`. The partitioned state is the

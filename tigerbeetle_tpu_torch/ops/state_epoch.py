@@ -12,8 +12,10 @@ The host side (`pack_oracle_state`, `oracle_state_digest`, `combine`,
 through the ledger's own row packers and folded the same way, the
 write-through mirror's check against the card. So are the partitioned
 digests (`partitioned_state_digest`, `pack_oracle_state_partitioned`,
-`partitioned_oracle_digest`): one fold a shard, wrap-summed. The range
-digests of the JAX package's resharding are not ported yet.
+`partitioned_oracle_digest`): one fold a shard, wrap-summed; and the
+range digests of live resharding (`partitioned_range_digest`,
+`oracle_range_digest`, `sum_range_components`): a position-independent
+fold over one hash range, one a shard.
 
 Covered: the accounts u64 matrix, the balance-limb matrix, the
 transfers u64 matrix (minus the non-canonical `expires` and row-cache
@@ -157,18 +159,25 @@ def pack_oracle_state(sm, a_cap: int) -> dict:
     )
 
 
+def _host_tensor(a):
+    """A host array of u64 values (or counts) -> its int64 CPU tensor."""
+    return torch.from_numpy(np.asarray(a).astype(np.uint64).view(
+        np.int64).copy())
+
+
+def _host_pack_state(pack: dict) -> dict:
+    """A host pack's stores (`pack_oracle_state`'s, or a snapshot's rows)
+    as CPU tensors."""
+    return {store: {k: _host_tensor(v) for k, v in pack[store].items()}
+            for store in ("accounts", "transfers")}
+
+
 def _pack_digest(pack: dict) -> dict:
     """The fold over a host pack (`pack_oracle_state`'s), on CPU
     tensors."""
-    def t(a):
-        return torch.from_numpy(np.asarray(a).astype(np.uint64).view(
-            np.int64).copy())
-
-    state = {
-        store: {k: t(v) for k, v in pack[store].items()}
-        for store in ("accounts", "transfers")}
+    state = _host_pack_state(pack)
     for k in ("acct_key_max", "xfer_key_max", "commit_ts"):
-        state[k] = t(pack[k])
+        state[k] = _host_tensor(pack[k])
     return device_state_digest(state)
 
 
@@ -213,14 +222,22 @@ def diverging_components(got: dict, want: dict) -> list[str]:
 # (one a shard) and the host fold agree bit for bit, and both equal the
 # JAX package's.
 
-def partitioned_state_digest(state) -> dict:
+def partitioned_state_digest(state, mesh=None) -> dict:
     """Digest a partitioned state (the tuple of per-shard state dicts):
     each shard's components folded on its device, wrap-summed per
-    component on the host."""
+    component on the host. On a multi-process `mesh` the state holds this
+    process's shards only, and the sums wrap-sum across the processes
+    (`shard_utils.psum_host`)."""
     total: dict = {}
     for sub in state:
         for k, v in device_state_digest(sub).items():
             total[k] = (total.get(k, 0) + v) & MASK64
+    if mesh is not None and mesh.process_count > 1:
+        from ..parallel.shard_utils import psum_host
+
+        names = sorted(total)
+        sums = psum_host(mesh, [total[k] for k in names])
+        total = dict(zip(names, sums))
     return total
 
 
@@ -270,4 +287,118 @@ def partitioned_oracle_digest(sm, a_cap: int, n_shards: int,
                                               overlay):
         for k, v in _pack_digest(pack).items():
             total[k] = (total.get(k, 0) + v) & MASK64
+    return total
+
+
+# ------------------------------------------------------- range digests
+# (live resharding, parallel/resharding.py.) The migration's flip needs a
+# witness that one hash range is equal on the source and the target, whose
+# rows sit at different row indices in the two stores: the range fold is
+# position-independent. Each row mixes its own 64-bit ownership hash
+# (`shard_utils.mix_id` over its id limbs) where the epoch fold mixes the
+# row index. Rows outside the range are zeroed before the wrap-sum, so
+# capacity, row order and neighbours cancel. The exclusions are the epoch
+# digest's; each store's content fold is paired with its in-range row
+# count.
+
+_RSALT = {"accounts_u64": 0x5A1, "accounts_bal": 0x5B2,
+          "transfers_u64": 0x5C3}
+
+
+def _range_matrix_digest(m, count, col_masks, salt: int, h, member):
+    """The position-independent fold over the rows < count that `member`
+    (a bool vector: the migration's membership of each row's ownership
+    hash `h`) selects. Returns (digest, rows) as 0-dim int64 tensors (u64
+    bits)."""
+    rows = m.shape[0]
+    acc = torch.zeros(rows, dtype=torch.int64, device=m.device)
+    for j in range(m.shape[1]):
+        mask = MASK64 if col_masks is None else col_masks[j]
+        if mask == 0:
+            continue
+        col = m[:, j]
+        if mask != MASK64:
+            col = col & s64(mask)
+        acc = acc * _PHI + col
+    rowd = _mix64(acc ^ (h * _PHI) ^ s64(salt))
+    iota = torch.arange(rows, dtype=torch.int64, device=m.device)
+    live = (iota < count) & member
+    return (torch.sum(torch.where(live, rowd, 0)),
+            live.sum().to(torch.int64))
+
+
+def _range_digest_components(state: dict, lo: int, hi: int, src: int,
+                             n_shards: int) -> dict:
+    """The range fold over one shard's state, or a host pack's rows on CPU
+    tensors. Membership is the overlay entry's predicate, `lo <= h <= hi`
+    in u64 order and `base_owner(h) == src`, not the bare range: the flip
+    compares the source with the target, and the target's own rows whose
+    hashes fall in [lo, hi] must stay out of its fold. No scalars: row
+    counts and key maxima are facts of a whole shard."""
+    from ..parallel.shard_utils import _in_range, mix_id
+
+    acc = state["accounts"]
+    xfr = state["transfers"]
+
+    def member(h):
+        return _in_range(h, lo, hi) & ((h & (n_shards - 1)) == src)
+
+    a_h = mix_id(acc["u64"][:, 0], acc["u64"][:, 1])
+    x_h = mix_id(xfr["u64"][:, 0], xfr["u64"][:, 1])
+    a_m, x_m = member(a_h), member(x_h)
+    a_dig, a_n = _range_matrix_digest(acc["u64"], acc["count"], AC_COL_MASKS,
+                                      _RSALT["accounts_u64"], a_h, a_m)
+    b_dig, _ = _range_matrix_digest(acc["bal"], acc["count"], None,
+                                    _RSALT["accounts_bal"], a_h, a_m)
+    x_dig, x_n = _range_matrix_digest(xfr["u64"], xfr["count"],
+                                      XF_COL_MASKS, _RSALT["transfers_u64"],
+                                      x_h, x_m)
+    return {"accounts_u64": a_dig, "accounts_bal": b_dig,
+            "transfers_u64": x_dig, "accounts_rows": a_n,
+            "transfers_rows": x_n}
+
+
+def _resolved(comps: dict) -> dict:
+    names = sorted(comps)
+    vals = torch.stack([comps[k].to(torch.int64) for k in names])
+    return {k: u64(v) for k, v in zip(names, vals.cpu().tolist())}
+
+
+def partitioned_range_digest(state, lo: int, hi: int, src: int) -> list:
+    """The range digests of a partitioned state (the tuple of per-shard
+    dicts), one component dict a shard, not summed: the flip compares the
+    source shard's with the target shard's (and with the oracle's) at one
+    epoch. `src` is the range's base owner, the membership predicate's;
+    the number of shards is the state's."""
+    state = tuple(state)
+    n = len(state)
+    return [_resolved(_range_digest_components(sub, lo & MASK64, hi & MASK64,
+                                               src, n))
+            for sub in state]
+
+
+def pack_range_digest(pack: dict, lo: int, hi: int, src: int,
+                      n_shards: int) -> dict:
+    """The range fold over a host pack of rows (`pack_oracle_state`'s
+    shape: accounts and transfers with their counts), on CPU tensors."""
+    return _resolved(_range_digest_components(
+        _host_pack_state(pack), lo & MASK64, hi & MASK64, src, n_shards))
+
+
+def oracle_range_digest(sm, a_cap: int, lo: int, hi: int, src: int,
+                        n_shards: int) -> dict:
+    """The expected range digest of an oracle state, over its canonical
+    pack (the whole state: the fold is position-independent, so it equals
+    the membership sum across any placement of the same rows)."""
+    return pack_range_digest(pack_oracle_state(sm, a_cap), lo, hi, src,
+                             n_shards)
+
+
+def sum_range_components(comps: list) -> dict:
+    """Wrap-sum a list of per-shard range-digest dicts (the source's and
+    the target's during double-write, say)."""
+    total: dict = {}
+    for c in comps:
+        for k, v in c.items():
+            total[k] = (total.get(k, 0) + int(v)) & MASK64
     return total

@@ -44,9 +44,14 @@ eager window.
 A key is (route, W, n_pad), plus "ring" for the ring window kernels
 (they consume the event ring from row 0: another graph). The partitioned
 attach mode's chain windows (`parallel/partitioned.py`) take the key
-("partitioned_chain", W, n_pad) over the tuple of per-shard states. A
-write-through ledger's delta gather runs eagerly right after the
-dispatch, outside the graph, so it adds no key.
+("partitioned_chain", W, n_pad, overlay entries) over the tuple of
+per-shard states: the body a graph captured selects its branches by the
+ownership overlay, so live resharding, which changes the overlay three
+times a migration (double-write, flip, retire), makes new keys, and the
+graphs of earlier overlays age out by the eviction below. A multi-process
+mesh is refused (`check_mesh`): its gloo collectives run on the host and
+cannot be captured. A write-through ledger's delta gather runs eagerly
+right after the dispatch, outside the graph, so it adds no key.
 
 Counters a key: `eager`, `captures` and `replays` (the replay right after
 a capture included); `reserved`, the bytes the caching allocator held
@@ -162,6 +167,17 @@ class WindowGraphs:
             del self._graphs[old]
             self._seen.discard(old)
             self.evictions += 1
+
+    @staticmethod
+    def check_mesh(mesh) -> None:
+        """Refuse a multi-process mesh: its collectives go through
+        torch.distributed on the host, which no graph can capture (its
+        windows run eagerly, `PartitionedRouter.step_window`)."""
+        if getattr(mesh, "process_count", 1) > 1:
+            raise ValueError(
+                "window graphs: a mesh of several processes cannot be "
+                "captured (its gloo collectives run on the host); run its "
+                "windows eagerly through PartitionedRouter.step_window")
 
     def check_state(self, state: dict) -> None:
         sig = state_signature(state)

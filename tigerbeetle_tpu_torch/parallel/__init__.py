@@ -8,7 +8,9 @@ compact per-event bundle all-gathered, and the deterministic global tail
 replicated (parallel/full_sharded.py). parallel/partitioned.py shards
 the state itself by the id hash: each prepare exchanges the rows it
 touches (`shard_utils.psum`), judges them on a mini-state, and writes
-back to the owning shards.
+back to the owning shards. parallel/resharding.py moves a hash range
+between those shards under live traffic, and parallel/multihost.py
+spreads the mesh over processes (torch.distributed on gloo).
 """
 
 from .full_sharded import make_sharded_create_transfers, shard_batch

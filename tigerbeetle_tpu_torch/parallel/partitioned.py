@@ -62,6 +62,12 @@ them).
 Non-canonical columns: transfer `dr_row` / `cr_row` and the ring's row
 pointers are shard-local (or mini-local on the ring), as in the JAX
 package; the state digest excludes them.
+
+On a mesh of several processes (`parallel/multihost.py`) the state holds
+this process's shards only (`mesh.local`): the body's loops run over
+them, `psum` and the gathered per-shard stats (`shard_utils.all_gather`)
+go across the processes, and the chain runs eagerly (a gloo collective
+cannot be captured in a CUDA graph).
 """
 
 from __future__ import annotations
@@ -82,8 +88,8 @@ from ..ops.row_gather import row_gather, row_gather_multi
 from ..ops.u64 import U64_MAX, _flip, carrier, s64
 from ..trace import Event, FlightRecorder, Histogram, NullTracer
 from .full_sharded import MODES, _MODE_KWARGS, ShardedRouter
-from .shard_utils import (Mesh, OwnershipTable, owner_read, owner_read_int,
-                          psum, shard_of_id, writes_here)
+from .shard_utils import (Mesh, OwnershipTable, all_gather, owner_read,
+                          owner_read_int, psum, shard_of_id, writes_here)
 
 __all__ = ["make_partitioned_create_transfers",
            "make_partitioned_chain_create_transfers",
@@ -224,11 +230,18 @@ def _partitioned_batch_body(mesh: Mesh, subs, evs: dict, segs: dict, *,
     contribution is masked by read ownership and every write-back mask
     is `writes_here`; an empty one takes the plain paths.
 
+    On a multi-process mesh `subs` are this process's shards (global
+    indexes `mesh.local`): the loops run over them, and the sums go
+    across the processes (`psum`).
+
     Returns (reps, owned, tels): {distinct device: the amended out dict},
-    the per-shard routed-event counts (int32, on each shard's device) and
-    the per-shard telemetry vectors (None without `telemetry`)."""
+    the local shards' routed-event counts (int32, on each shard's device)
+    and their telemetry vectors (None without `telemetry`)."""
     devs = mesh.devices
     n_dev = mesh.size
+    shards = tuple(zip(mesh.local, subs))
+    # The local position (into subs) of each distinct device's first
+    # shard.
     first_shard = {d: devs.index(d) for d in mesh.distinct}
     ev0 = evs[mesh.distinct[0]]
     N = ev0["id_lo"].shape[0]
@@ -243,8 +256,8 @@ def _partitioned_batch_body(mesh: Mesh, subs, evs: dict, segs: dict, *,
         L[d] = dict(xk_hi=torch.cat([ev["id_hi"], ev["pid_hi"]]),
                     xk_lo=torch.cat([ev["id_lo"], ev["pid_lo"]]))
     x_parts, x_probe = [], []
-    for s, sub in enumerate(subs):
-        l_ = L[devs[s]]
+    for i, (s, sub) in enumerate(shards):
+        l_ = L[devs[i]]
         xfr = sub["transfers"]
         t_dump = xfr["u64"].shape[0] - 1
         xf_raw, xv = ht_lookup(sub["xfer_ht"], l_["xk_hi"], l_["xk_lo"])
@@ -285,8 +298,8 @@ def _partitioned_batch_body(mesh: Mesh, subs, evs: dict, segs: dict, *,
                                  p_rows[:, XF_U64_IDX["dr_lo"]],
                                  p_rows[:, XF_U64_IDX["cr_lo"]]])
     a_parts, a_probe = [], []
-    for s, sub in enumerate(subs):
-        l_ = L[devs[s]]
+    for i, (s, sub) in enumerate(shards):
+        l_ = L[devs[i]]
         acc = sub["accounts"]
         a_dump = acc["u64"].shape[0] - 1
         af_raw, ar = ht_lookup(sub["acct_ht"], l_["ak_hi"], l_["ak_lo"])
@@ -385,8 +398,8 @@ def _partitioned_batch_body(mesh: Mesh, subs, evs: dict, segs: dict, *,
     ictx = {d: None for d in mesh.distinct}
     if mode == "imported":
         ctxs, colls = [], []
-        for s, sub in enumerate(subs):
-            d = devs[s]
+        for i, sub in enumerate(subs):
+            d = devs[i]
             ev = evs[d]
             ctx = imported_batch_ctx(
                 sub, ev, segs[d]["ts_event"], ev["valid"],
@@ -435,8 +448,8 @@ def _partitioned_batch_body(mesh: Mesh, subs, evs: dict, segs: dict, *,
 
     # ---- per-shard write-back plan and the combined ok.
     plans, bads = [], []
-    for s, sub in enumerate(subs):
-        d = devs[s]
+    for i, (s, sub) in enumerate(shards):
+        d = devs[i]
         ev, l_ = evs[d], L[d]
         xfr, evr = sub["transfers"], sub["events"]
         if overlay:
@@ -493,15 +506,15 @@ def _partitioned_batch_body(mesh: Mesh, subs, evs: dict, segs: dict, *,
             l_["owner_xk"] = shard_of_id(l_["xk_hi"], l_["xk_lo"], n_dev)
             l_["owner_ak"] = shard_of_id(l_["ak_hi"], l_["ak_lo"], n_dev)
         reps[d] = rep
-    for s, sub in enumerate(subs):
-        d = devs[s]
+    for i, (s, sub) in enumerate(shards):
+        d = devs[i]
         ev, l_ = evs[d], L[d]
         g_ok = l_["g_ok"]
         acc, xfr, evr = sub["accounts"], sub["transfers"], sub["events"]
         a_dump = acc["u64"].shape[0] - 1
         t_dump = xfr["u64"].shape[0] - 1
         e_dump = evr["u64"].shape[0] - 1
-        mine, ins_mine, n_mine, local_rank, pos = plans[s]
+        mine, ins_mine, n_mine, local_rank, pos = plans[i]
         t_count = xfr["count"].to(torch.int64)
         e_count = evr["count"].to(torch.int64)
         dest_t = torch.where(mine & g_ok, t_count + local_rank, t_dump)
@@ -517,7 +530,7 @@ def _partitioned_batch_body(mesh: Mesh, subs, evs: dict, segs: dict, *,
         rows[:, _XF_DRROW_COL] = pack32(r2[:N], r2[N:])
         # Pending-status flips on existing owned rows: the pstat word is
         # alone in its column; unchanged rows rewrite their own value.
-        xf_raw, xv, read_mine_x = x_probe[s]
+        xf_raw, xv, read_mine_x = x_probe[i]
         if overlay:
             # Copy-catchup owners flip their own copy's row: the read
             # owner's row is the exchanged encoding, the other write
@@ -528,7 +541,7 @@ def _partitioned_batch_body(mesh: Mesh, subs, evs: dict, segs: dict, *,
                                    xv.to(torch.int64))
             has_here = read_mine_x | (xf_raw & (xv >= 0))
             dest_p = torch.where(flip & g_ok & has_here, row_here, t_dump)
-            af_raw, ar, read_mine_a = a_probe[s]
+            af_raw, ar, read_mine_a = a_probe[i]
             wr_ak = writes_here(l_["ak_hi"], l_["ak_lo"], n_dev, s, overlay)
             wb_a = l_["afirst"] & wr_ak
             arow_here = torch.where(read_mine_a, l_["g_aenc"] - 1,
@@ -542,7 +555,7 @@ def _partitioned_batch_body(mesh: Mesh, subs, evs: dict, segs: dict, *,
             dest_a = torch.where(wb_a & g_ok, l_["g_aenc"] - 1, a_dump)
         n_mine_ok = torch.where(g_ok, n_mine, 0).to(torch.int32)
         ring_count = evr["count"] + n_mine_ok
-        bad_l = bads[s]
+        bad_l = bads[i]
         # Writes, after every read above.
         xfr["u64"][dest_t] = rows
         xfr["u64"][dest_p, _XF_PSTAT_COL] = l_["pword"]
@@ -585,19 +598,25 @@ def _one_seg(N: int, ts_first, n, device) -> dict:
                 chain_term=idxs == (n - 1))
 
 
+def _gather_shards(mesh: Mesh, parts) -> torch.Tensor:
+    """One tensor a local shard -> stacked over every shard of the mesh
+    (all of them across processes) on the first distinct device."""
+    return all_gather(mesh, [{"x": p[None]} for p in parts])[0]["x"]
+
+
 def _shard_stats(mesh: Mesh, owned, tels) -> dict:
-    d0 = mesh.distinct[0]
-    sh = {"events_owned": torch.stack([o.to(d0) for o in owned])}
+    sh = {"events_owned": _gather_shards(mesh, owned)}
     if tels is not None:
-        sh["tel"] = torch.stack([t.to(d0) for t in tels])
+        sh["tel"] = _gather_shards(mesh, tels)
     return sh
 
 
 def _check_state(mesh: Mesh, state) -> tuple:
     state = tuple(state)
-    if len(state) != mesh.size:
-        raise ValueError(f"a partitioned state of {len(state)} shards on a "
-                         f"mesh of {mesh.size}")
+    if len(state) != len(mesh.devices):
+        raise ValueError(f"a partitioned state of {len(state)} shards on "
+                         f"{len(mesh.devices)} local shards of a mesh of "
+                         f"{mesh.size}")
     return state
 
 
@@ -664,13 +683,12 @@ def _chain_run(mesh: Mesh, state, ev_stack: dict, seg_stack: dict,
         owned_w.append(owned)
         tels_w.append(tels)
     out = _stack(reps_w)
-    sh = {"events_owned": torch.stack([
-        torch.stack([owned_w[k][s].to(d0) for k in range(W)])
-        for s in range(mesh.size)])}
+    local = range(len(mesh.devices))
+    sh = {"events_owned": _gather_shards(mesh, [
+        torch.stack([owned_w[k][i] for k in range(W)]) for i in local])}
     if telemetry:
-        sh["tel"] = torch.stack([
-            torch.stack([tels_w[k][s].to(d0) for k in range(W)])
-            for s in range(mesh.size)])
+        sh["tel"] = _gather_shards(mesh, [
+            torch.stack([tels_w[k][i] for k in range(W)]) for i in local])
     out["shard_stats"] = sh
     return out
 
@@ -814,8 +832,9 @@ def partitioned_from_oracle(sm, mesh: Mesh, a_cap: int = 1 << 12,
     pack per shard in the canonical order (accounts by applied
     timestamp, transfers in commit order, the order the epoch digest
     pins). Per-shard caps are the global caps / n_shards. With `overlay`,
-    placement follows the read owner. Returns one state dict a shard,
-    shard s on `mesh.devices[s]`; packing runs on the CPU."""
+    placement follows the read owner. Returns one state dict a local
+    shard (`mesh.local`; every shard in one process), on its device;
+    packing runs on the CPU."""
     from ..ops.ledger import (_pack_account_rows, _pack_event_rows,
                               _pack_transfer_rows, init_state)
     from ..types import TransferPendingStatus
@@ -833,7 +852,7 @@ def partitioned_from_oracle(sm, mesh: Mesh, a_cap: int = 1 << 12,
         return owner_read_int(id128, n_shards, overlay)
 
     subs = []
-    for s in range(n_shards):
+    for i, s in enumerate(mesh.local):
         accounts = [a for a in acct_all if shard_of(a.id) == s]
         transfers = [t for t in xfer_all if shard_of(t.id) == s]
         orphans = [o for o in orphan_all if shard_of(o) == s]
@@ -880,7 +899,7 @@ def partitioned_from_oracle(sm, mesh: Mesh, a_cap: int = 1 << 12,
         st["xfer_key_max"].fill_(s64(sm.transfers_key_max or 0))
         st["pulse_next"].fill_(s64(sm.pulse_next_timestamp))
         st["commit_ts"].fill_(s64(sm.commit_timestamp))
-        subs.append(_to_device(st, mesh.devices[s]))
+        subs.append(_to_device(st, mesh.devices[i]))
     return tuple(subs)
 
 
@@ -1180,8 +1199,11 @@ class PartitionedRouter:
         (`stage_operands`, on the host or already on the device).
         `graphs`: the ledger's WindowGraphs, which runs the call as a
         captured CUDA graph on the card under the key
-        ("partitioned_chain", W, n_pad); None runs it eagerly. Counts the
-        window under the partitioned_chain route."""
+        ("partitioned_chain", W, n_pad, overlay entries); None runs it
+        eagerly. The body the graph captured depends on the ownership
+        overlay, so a new overlay is a new key. A multi-process mesh is
+        refused there: its gloo collectives cannot be captured. Counts
+        the window under the partitioned_chain route."""
         self._require_serving()
         if n_pad is None:
             n_pad = _pad_bucket(max(len(e["id_lo"]) for e in evs))
@@ -1192,7 +1214,9 @@ class PartitionedRouter:
         call = self._chain_step("plain").lanes
         with self.tracer.span(Event.shard_exchange, mode="chain"):
             if graphs is not None:
-                key = ("partitioned_chain", lanes.shape[1], n_pad)
+                graphs.check_mesh(self.mesh)
+                key = ("partitioned_chain", lanes.shape[1], n_pad,
+                       self.ownership.entries)
                 return graphs.run(key, call, state, lanes, force_fallback)
             lanes = lanes.to(self.mesh.distinct[0])
             return call(state, lanes, force_fallback)

@@ -25,16 +25,24 @@ CPU, or on one card — the counterpart of the JAX tests'
 `--xla_force_host_platform_device_count=8`. Replicated state is held
 once for each distinct device (`replicate`), and `all_gather`
 concatenates the shards' bundles in mesh order and places the result on
-every distinct device: the one place a multi-host mesh would put a
-`torch.distributed` all-gather behind the same call. `psum` is the
-second such place: the partitioned route's exchange sums the shards'
-contributions and places the sum on every distinct device.
+every distinct device. `psum` sums the shards' contributions (the
+partitioned route's exchange) and places the sum on every distinct
+device.
+
+A mesh may span processes (`parallel/multihost.py`): `process_count`
+processes of k shards each, shard s held by process s // k. A process
+holds and computes its own shards only (`local`, on `devices`), and
+`all_gather` and `psum` reduce its own parts first and then call
+`torch.distributed` (`all_gather`, `all_reduce`) on a gloo process
+group. gloo is the only backend: a CUDA tensor goes through it as a copy
+to host memory and back, inside the collective.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..ops.u64 import s64, srl
@@ -57,6 +65,23 @@ def mix_id(k_hi, k_lo):
     h = (k_lo ^ (k_hi * s64(_C1))) * s64(_C2)
     h = (h ^ srl(h, 31)) * s64(_C3)
     return h ^ srl(h, 29)
+
+
+def mix_id_np(k_hi, k_lo):
+    """Host-side `mix_id` over numpy uint64 limb arrays (the hash's u64
+    values out). Bit-identical: numpy's uint64 multiplies wrap."""
+    k_hi = np.asarray(k_hi, dtype=np.uint64)
+    k_lo = np.asarray(k_lo, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        h = (k_lo ^ (k_hi * np.uint64(_C1))) * np.uint64(_C2)
+        h = (h ^ (h >> np.uint64(31))) * np.uint64(_C3)
+    return h ^ (h >> np.uint64(29))
+
+
+def in_range_np(h, lo: int, hi: int):
+    """lo <= h <= hi over numpy uint64 hashes (unsigned, as uint64
+    compares)."""
+    return (h >= np.uint64(lo)) & (h <= np.uint64(hi))
 
 
 def mix_int(id128: int) -> int:
@@ -234,28 +259,50 @@ def _normal(device) -> torch.device:
     return d
 
 
+BACKEND = "gloo"
+
+
 class Mesh:
     """An ordered tuple of devices along one axis, one a shard; a device
-    may appear more than once (logical shards on one device)."""
+    may appear more than once (logical shards on one device).
 
-    def __init__(self, devices):
+    On a multi-process mesh `devices` are this process's shards' devices
+    (k of them) and the mesh has `process_count` x k shards; `local` is
+    the global indexes of this process's shards (all of them in one
+    process). The collectives run on the default `torch.distributed`
+    process group, which must be gloo's."""
+
+    def __init__(self, devices, *, process_count: int = 1,
+                 process_index: int = 0, backend: str = BACKEND):
+        if backend != BACKEND:
+            raise ValueError(f"a mesh's collectives run on {BACKEND} only "
+                             f"(asked for {backend!r})")
         self.devices = tuple(_normal(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process {process_index} of {process_count}")
+        self.process_count = int(process_count)
+        self.process_index = int(process_index)
+        k = len(self.devices)
+        self.local = tuple(range(self.process_index * k,
+                                 (self.process_index + 1) * k))
         # Each distinct device once, in order of first appearance: where
         # replicated state and the gathered bundles live.
         self.distinct = tuple(dict.fromkeys(self.devices))
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return len(self.devices) * self.process_count
 
     @property
     def shape(self) -> dict:
         return {AXIS: self.size}
 
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]})"
+        extra = (f", process {self.process_index} of {self.process_count}"
+                 if self.process_count > 1 else "")
+        return f"Mesh({[str(d) for d in self.devices]}{extra})"
 
 
 def default_mesh(device=None) -> Mesh:
@@ -287,19 +334,46 @@ def replicate(mesh: Mesh, state: dict) -> tuple:
     return tuple(out)
 
 
-def all_gather(mesh: Mesh, parts) -> tuple:
-    """The mesh all-gather: `parts` holds one dict of tensors a shard, in
-    mesh order, each on its shard's device; every key is concatenated
-    along dim 0 in mesh order and placed on each distinct device. Returns
-    one dict a distinct device, in `mesh.distinct` order."""
+def _local_parts(mesh: Mesh, parts) -> list:
     parts = list(parts)
-    if len(parts) != mesh.size:
-        raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size}")
-    out = []
-    for d in mesh.distinct:
-        out.append({k: torch.cat([p[k].to(d) for p in parts])
-                    for k in parts[0]})
-    return tuple(out)
+    if len(parts) != len(mesh.devices):
+        raise ValueError(f"{len(parts)} parts for the {len(mesh.devices)} "
+                         f"local shards of a mesh of {mesh.size}")
+    return parts
+
+
+def _process_group():
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("a multi-process mesh needs torch.distributed "
+                           "initialized (parallel/multihost.init_multihost)")
+    if dist.get_backend() != BACKEND:
+        raise RuntimeError(f"a multi-process mesh runs on {BACKEND}, not "
+                           f"{dist.get_backend()}")
+    return dist
+
+
+def all_gather(mesh: Mesh, parts) -> tuple:
+    """The mesh all-gather: `parts` holds one dict of tensors a local
+    shard, in mesh order, each on its shard's device; every key is
+    concatenated along dim 0 in mesh order and placed on each distinct
+    device. Returns one dict a distinct device, in `mesh.distinct` order.
+    Across processes the local concatenation goes through
+    `torch.distributed.all_gather` (every process's parts of one shape),
+    in host memory."""
+    parts = _local_parts(mesh, parts)
+    d0 = mesh.distinct[0]
+    cat = {k: torch.cat([p[k].to(d0) for p in parts]) for k in parts[0]}
+    if mesh.process_count > 1:
+        dist = _process_group()
+        for k, v in cat.items():
+            host = v.cpu()
+            bufs = [torch.empty_like(host) for _ in range(mesh.process_count)]
+            dist.all_gather(bufs, host)
+            cat[k] = torch.cat(bufs).to(d0)
+    return tuple({k: v.to(d) for k, v in cat.items()}
+                 for d in mesh.distinct)
 
 
 def psum(mesh: Mesh, parts) -> tuple:
@@ -311,14 +385,21 @@ def psum(mesh: Mesh, parts) -> tuple:
     The partitioned route's exchange (`parallel/partitioned.py`) sums
     int64 tensors carrying u64 lanes (`ops/u64.py`): the sum wraps
     around as u64 does, so it equals the JAX package's `psum` over
-    uint64 bit for bit. Booleans are summed as int64. This is the second
-    of the two places (beside `all_gather`) where a multi-host mesh would
-    put a `torch.distributed` collective behind the same call."""
-    parts = list(parts)
-    if len(parts) != mesh.size:
-        raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size}")
+    uint64 bit for bit. Booleans are summed as int64. On a multi-process
+    mesh `parts` are this process's shards' and their sum goes through
+    `torch.distributed.all_reduce` in host memory: gloo's int64 sum wraps
+    as u64 does."""
+    parts = _local_parts(mesh, parts)
     parts = [p.to(torch.int64) if p.dtype == torch.bool else p
              for p in parts]
+    if mesh.process_count > 1:
+        d0 = mesh.distinct[0]
+        total = parts[0].to(d0)
+        for p in parts[1:]:
+            total = total + p.to(d0)
+        host = total.cpu()
+        _process_group().all_reduce(host)
+        return tuple(host.to(d) for d in mesh.distinct)
     out = []
     for d in mesh.distinct:
         total = parts[0].to(d)
@@ -326,3 +407,15 @@ def psum(mesh: Mesh, parts) -> tuple:
             total = total + p.to(d)
         out.append(total)
     return tuple(out)
+
+
+def psum_host(mesh: Mesh, values: list) -> list:
+    """Wrap-sum a list of u64 Python ints across the processes of `mesh`
+    (the same list on every process); in one process the list itself."""
+    if mesh.process_count == 1:
+        return list(values)
+    from ..ops.u64 import u64
+
+    t = torch.tensor([s64(v) for v in values], dtype=torch.int64)
+    _process_group().all_reduce(t)
+    return [u64(v) for v in t.tolist()]

@@ -1,9 +1,7 @@
 """Serving supervisor: retries, verified epochs and bounded replay recovery
-around a write-through DeviceLedger (a port of the JAX package's
-`serving.py`; its partitioned half — the supervisor's
-`attach_partitioned` and `reshard` — waits for the port's
-`parallel/resharding.py`: the partitioned route it drives,
-`parallel/partitioned.py` and the ledger's attach mode, is ported).
+around a write-through DeviceLedger, and its partitioned half: serving
+from a partitioned mesh with live resharding (a port of the JAX package's
+`serving.py`).
 
 1. **Bounded retry with backoff** — every device dispatch runs under a
    retry policy (exponential backoff with seeded jitter, a bounded
@@ -31,6 +29,17 @@ around a write-through DeviceLedger (a port of the JAX package's
    rebuilds a fresh mirror and device state from the recovered oracle
    (`from_host`, on the same device) and resumes serving. Per-cause
    counters surface through `DeviceLedger.fallback_stats()["recovery"]`.
+
+4. **The partitioned backend** — `attach_partitioned(router)` serves
+   from a `PartitionedRouter` (`parallel/partitioned.py`) through a
+   DeviceLedger in attach mode, seeded from the verified epoch base, with
+   a `ReshardController` (`parallel/resharding.py`): `reshard(plan)`
+   begins a live migration at a verified epoch, every window ticks it
+   before its dispatch, the epoch check drains a migration in flight and
+   holds the sharded digest to the oracle's under the current overlay,
+   and a recovery reverts a migration before its flip and rebuilds the
+   sharded state from the verified base (`resync`). There is no mirror in
+   attach mode, so the mirror audit is off.
 
 The device is explicit: `ServingSupervisor(device=None)` means CUDA and
 raises without it; the tests pass `device="cpu"`.
@@ -227,6 +236,11 @@ class ServingSupervisor:
         self._epoch_trace_ids: list[str] = []
         self.epoch_ms: dict = {}
         self.recovery_ms: list = []
+        # The partitioned backend (attach_partitioned): the router and the
+        # live-resharding controller whose migrations interleave with the
+        # windows.
+        self.part_router = None
+        self.resharder = None
         self._attach(DeviceLedger(a_cap, t_cap,
                                   write_through=StateMachineOracle(),
                                   device=self.device))
@@ -237,6 +251,68 @@ class ServingSupervisor:
         # our tracer receives its window_stage spans and stall gauge.
         led.recovery_stats = self.counters
         led.tracer = self.tracer
+
+    def attach_partitioned(self, router):
+        """Serve from the partitioned backend: a fresh DeviceLedger without
+        a mirror in attach mode over `router`, seeded from the verified
+        epoch base, and a ReshardController for live migrations (`reshard`
+        and the per-window tick). Attach mode has no write-through mirror,
+        so the epoch check's mirror audit goes off; result parity and the
+        sharded state digest remain. Create the accounts before attaching
+        (the epoch base seeds the sharded state). Returns the
+        controller."""
+        from .parallel.resharding import ReshardController
+
+        # Fold the open log into the verified base first: the sharded state
+        # is seeded from it.
+        self.verify_epoch()
+        self.led.release()
+        self.mirror_audit = "off"
+        router.tracer = self.tracer
+        router.flight = self.flight
+        self.part_router = router
+        led = DeviceLedger(self.a_cap, self.t_cap, device=self.device)
+        led.attach_partitioned(router, router.from_oracle(self.epoch_base))
+        self._attach(led)
+        self.resharder = ReshardController(router, tracer=self.tracer)
+        return self.resharder
+
+    def reshard(self, plan) -> None:
+        """Begin a live migration (parallel/resharding.ReshardPlan) at a
+        verified epoch: verify_epoch quiesces, replays the log and proves
+        the digests first, so the frozen range is witnessed and the epoch
+        base vouches for the copy (the oracle digest leg and the range's
+        ring rows). The migration then advances a copy chunk a window
+        (conflicting windows drain it), double-writes, and flips at a
+        later window boundary. MigrationAborted reaches the caller with
+        ownership unchanged and serving intact (begin stages nothing on
+        the device before it can abort)."""
+        assert self.part_router is not None, "attach_partitioned() first"
+        assert not self.resharder.active, "migration already in flight"
+        self.verify_epoch()
+        led = self.led
+        led._part_state = self.resharder.begin(
+            led.partitioned_state, plan, oracle=self.epoch_base)
+
+    def _reshard_tick(self, batches) -> None:
+        """The per-window migration tick (both window paths call it before
+        dispatching): quiesce the pipeline while a migration is active and
+        advance it a step at this boundary. An abort here leaves ownership
+        reverted and the staged copy evicted, so serving continues on the
+        owner before the migration; it shows in the controller's records
+        and the flight artifact, not as a failed window."""
+        from .parallel.resharding import MigrationAborted
+
+        ctl = self.resharder
+        if ctl is None or not ctl.active:
+            return
+        self.drain_pipeline()
+        self.led.resolve_windows()
+        led = self.led
+        try:
+            led._part_state = ctl.on_window(led.partitioned_state, batches)
+        except MigrationAborted as e:
+            led._part_state = e.state
 
     # ------------------------------------------------------------ serving
 
@@ -269,6 +345,7 @@ class ServingSupervisor:
         ctxs = [c for c in (trace_ctxs or ()) if c is not None]
         trace_ids = [fmt_trace_id(c.trace_id) for c in ctxs]
         self._epoch_trace_ids.extend(trace_ids)
+        self._reshard_tick(batches)
 
         def thunk():
             evs = [transfers_to_arrays(b) for b in batches]
@@ -331,6 +408,7 @@ class ServingSupervisor:
         ctxs = [c for c in (trace_ctxs or ()) if c is not None]
         trace_ids = [fmt_trace_id(c.trace_id) for c in ctxs]
         self._epoch_trace_ids.extend(trace_ids)
+        self._reshard_tick(batches)
         # `evs` lets the admission plane pass the same array dicts it
         # already staged ahead (DeviceLedger.stage_window matches on
         # prepare-dict identity): restaging would replace the pack.
@@ -512,6 +590,16 @@ class ServingSupervisor:
         except _STRUCTURAL_FAULTS as e:
             self._recover("drain_fault", detail=repr(e))
             return False
+        # A migration in flight makes the whole-state digest incomparable
+        # (staged rows bump the target's counts): run it to its end, or
+        # let it abort, before judging the epoch.
+        if self.resharder is not None and self.resharder.active:
+            from .parallel.resharding import MigrationAborted
+
+            try:
+                led._part_state = self.resharder.drain(led.partitioned_state)
+            except MigrationAborted as e:
+                led._part_state = e.state
         t1 = clock()
         ms["drain"] = (t1 - t0) * 1e3
         n_entries = len(self.log)
@@ -527,12 +615,25 @@ class ServingSupervisor:
                 cause = "result_divergence"
                 detail = f"op {start + i}"
                 break
-        # (b) state digest: device fold vs the replayed oracle's fold.
+        # (b) state digest: device fold vs the replayed oracle's fold. The
+        # partitioned backend: the sharded digest against the oracle packed
+        # by the current ownership table (a flip moves rows between shards,
+        # and the pack must agree on where they landed).
         if cause is None:
-            got = state_epoch.device_state_digest(led.state)
+            r = self.part_router
+            if r is not None:
+                got = state_epoch.partitioned_state_digest(
+                    led.partitioned_state, mesh=r.mesh)
+            else:
+                got = state_epoch.device_state_digest(led.state)
             t3 = clock()
-            want_d = state_epoch.oracle_state_digest(self.epoch_base,
-                                                     self.a_cap)
+            if r is not None:
+                want_d = state_epoch.partitioned_oracle_digest(
+                    self.epoch_base, self.a_cap, r.n_shards,
+                    overlay=r.ownership.entries)
+            else:
+                want_d = state_epoch.oracle_state_digest(self.epoch_base,
+                                                         self.a_cap)
             ms["device_digest"] = (t3 - t2) * 1e3
             ms["oracle_digest"] = (clock() - t3) * 1e3
             if got != want_d:
@@ -671,10 +772,25 @@ class ServingSupervisor:
         # VERIFY audit's spot rate.
         spot_rate = self.led.verify_spot_rate
         self.led.release()
-        led = DeviceLedger(self.a_cap, self.t_cap,
-                           write_through=copy.deepcopy(self.epoch_base),
-                           device=self.device)
-        led.verify_spot_rate = spot_rate
+        if self.part_router is not None:
+            # The partitioned backend: a migration before its flip reverts
+            # to its owner first (the controller drops the overlay entry
+            # and records the reshard_abort), then the sharded state
+            # rebuilds from the verified base (resync), every range placed
+            # by the reverted table, so staged rows never reappear. A
+            # flipped migration keeps its MIGRATED entry, and the rebuild
+            # honours it.
+            if self.resharder is not None:
+                self.resharder.on_recovery()
+            r = self.part_router
+            state = r.resync(self.epoch_base)
+            led = DeviceLedger(self.a_cap, self.t_cap, device=self.device)
+            led.attach_partitioned(r, state)
+        else:
+            led = DeviceLedger(self.a_cap, self.t_cap,
+                               write_through=copy.deepcopy(self.epoch_base),
+                               device=self.device)
+            led.verify_spot_rate = spot_rate
         self._attach(led)
         self.log.clear()
         self._windows_since_epoch = 0
@@ -694,6 +810,11 @@ class ServingSupervisor:
         out["pipeline"] = {"depth": self.pipeline_depth,
                            "pending": len(self._pending)}
         out["last_recovery"] = self.last_recovery
+        if self.resharder is not None:
+            out["resharding"] = {
+                "stage": self.resharder.stage,
+                "migrations": list(self.resharder.migrations),
+                "aborts": list(self.resharder.aborts)}
         out["flight"] = {"windows_recorded": self.flight.seq,
                          "dumps": self.flight.dumps,
                          "last_dump": self.flight.last_dump_path}

@@ -1,8 +1,8 @@
 """Seeded device-fault injection for the serving pipeline (a port of the
-JAX package's `testing/chaos.py`: the single-chip scenarios and two of
-its three mesh scenarios, `shard_loss_scenario` on the replicated-state
-router and `shard_resync_scenario` on the partitioned one; the third,
-reshard, waits for the port's `parallel/resharding.py`).
+JAX package's `testing/chaos.py`: the single-chip scenarios and its three
+mesh scenarios, `shard_loss_scenario` on the replicated-state router,
+`shard_resync_scenario` and `reshard_chaos_scenario` on the partitioned
+one).
 
 A deterministic `FaultPlan(seed)` injects device-state bit flips,
 dispatch failures and timeouts, poisoned delta fetches and forced
@@ -392,9 +392,9 @@ def run_chaos_seed(seed: int, *, windows: int = 8,
 
     mesh_scenario None draws it from the seed's generator, as the JAX
     package does (a steady quarter of the seeds); a seed that runs it
-    also runs `shard_loss_scenario` and `shard_resync_scenario` on the
-    default mesh of `device`, under the summary's ``shard_loss`` and
-    ``shard_resync`` keys."""
+    also runs `shard_loss_scenario`, `shard_resync_scenario` and
+    `reshard_chaos_scenario` on `device`, under the summary's
+    ``shard_loss``, ``shard_resync`` and ``reshard`` keys."""
     rng = random.Random(seed)
     if epoch_interval is None:
         epoch_interval = rng.choice((2, 3, 4))
@@ -410,6 +410,7 @@ def run_chaos_seed(seed: int, *, windows: int = 8,
             summary["shard_loss"] = shard_loss_scenario(seed, device=device)
             summary["shard_resync"] = shard_resync_scenario(seed,
                                                             device=device)
+            summary["reshard"] = reshard_chaos_scenario(seed, device=device)
         return summary
     finally:
         constants.set_verify(was_verify)
@@ -666,6 +667,254 @@ def shard_resync_scenario(seed: int, mesh=None, device=None,
     return dict(devices=int(mesh.size), dropped=str(dropped),
                 resyncs=resyncs,
                 flight_dump=os.path.basename(flight_path))
+
+
+# --------------------------------------------- elastic-reshard scenario
+
+# The default mesh's router of each (device, flight_dir), cached across
+# seeds.
+_RESHARD_ROUTERS: dict = {}
+
+
+def reshard_chaos_scenario(seed: int, mesh=None, device=None,
+                           flight_dir=None) -> dict:
+    """Fault the five-stage resharding handoff at every stage it can die
+    in: a crash (the supervisor's recovery path: revert the overlay,
+    rebuild from the verified oracle) right after the snapshot, mid-copy
+    and under double-write; the loss of the source and of the target shard
+    mid-copy (the quarantine must be loud, then the same recovery); a
+    bit-corrupted chunk that must abort before the flip on the digest
+    witness; and a crash after a completed flip (the MIGRATED entry must
+    survive the rebuild). Every abort leaves serving exact against the
+    never-resharded oracle and dumps a FLIGHT_*_reshard_* artifact.
+
+    `mesh` None: 2 logical shards on `device` (None: the card), whose
+    router is cached across seeds by (device, flight_dir); a given mesh
+    gets a fresh router. `flight_dir`: where the flight recorder dumps
+    (None: its default under the temporary directory). `artifacts` counts
+    this call's reshard artifacts."""
+    import glob as _glob
+
+    from ..ops.batch import transfers_to_arrays
+    from ..ops.device import resolve_device
+    from ..ops.state_epoch import (partitioned_oracle_digest,
+                                   partitioned_state_digest)
+    from ..parallel.partitioned import PartitionedRouter
+    from ..parallel.resharding import (MigrationAborted, ReshardController,
+                                       ReshardPlan)
+    from ..parallel.shard_utils import (OVERLAY_MIGRATED, Mesh,
+                                        OwnershipTable)
+    from ..trace import FlightRecorder
+    from ..trace.flight_recorder import _flight_dir
+
+    rng = random.Random(seed ^ 0xE5A)
+    a_cap = 1 << 9
+
+    def fresh(m):
+        flight = (FlightRecorder(dump_dir=flight_dir)
+                  if flight_dir is not None else None)
+        return PartitionedRouter(m, a_cap=a_cap, t_cap=1 << 11,
+                                 flight_recorder=flight)
+
+    if mesh is not None:
+        router = fresh(mesh)
+    else:
+        key = (str(device), flight_dir)
+        if key not in _RESHARD_ROUTERS:
+            _RESHARD_ROUTERS[key] = fresh(Mesh([resolve_device(device)] * 2))
+        router = _RESHARD_ROUTERS[key]
+
+    def base_ownership():
+        # A cached router may carry the MIGRATED entry of the previous
+        # seed's completed migration: base ownership again.
+        if router.ownership.entries:
+            router.set_ownership(OwnershipTable(
+                router.n_shards, router.ownership.generation + 1, ()))
+
+    router.restore_devices()
+    base_ownership()
+    mesh = router.mesh
+    fallbacks0 = router.host_fallbacks
+    art_dir = router.flight.dump_dir or _flight_dir()
+
+    def artifacts() -> dict:
+        # Each reshard artifact with its mtime: a fresh router's dumps
+        # reuse the names an earlier one wrote in the same directory.
+        return {p: os.stat(p).st_mtime_ns for p in _glob.glob(
+            os.path.join(art_dir, "FLIGHT_*_reshard_*"))}
+
+    arts0 = artifacts()
+
+    n_accounts = 16
+    oracle = StateMachineOracle()
+    oracle.create_accounts([Account(id=i, ledger=1, code=1)
+                            for i in range(1, n_accounts + 1)], 1_000)
+    state = router.from_oracle(oracle)
+    ctl = ReshardController(router, chunk_rows=4,
+                            min_double_write_windows=2)
+    plan = ReshardPlan(lo=0, hi=(1 << 63) - 1, src=0, dst=1, kind="split")
+    nid, ts = [50_000], [10 ** 9]
+
+    def drive(k):
+        """k windows of live traffic; every batch exact against the
+        never-resharded oracle; a digest-mismatch abort is adopted."""
+        nonlocal state
+        aborted = None
+        for _ in range(k):
+            obj_batches, batches, tss = [], [], []
+            for _b in range(2):
+                evs = []
+                for _i in range(8):
+                    dr = rng.randrange(1, n_accounts + 1)
+                    cr = dr % n_accounts + 1
+                    evs.append(Transfer(
+                        id=nid[0], debit_account_id=dr,
+                        credit_account_id=cr,
+                        amount=rng.randrange(1, 50), ledger=1, code=1))
+                    nid[0] += 1
+                ts[0] += 300
+                obj_batches.append(evs)
+                batches.append(transfers_to_arrays(evs))
+                tss.append(ts[0])
+            try:
+                state = ctl.on_window(state, batches)
+            except MigrationAborted as e:
+                state = e.state
+                aborted = e
+            state, results = router.step_window(state, batches, tss)
+            for evs, t, (st_a, ts_a) in zip(obj_batches, tss, results):
+                want = [(r.timestamp, int(r.status))
+                        for r in oracle.create_transfers(evs, t)]
+                got = [(int(ts_a[i]), int(st_a[i]))
+                       for i in range(len(evs))]
+                assert got == want, \
+                    (f"reshard chaos seed {seed}: history diverged "
+                     f"after a fault", got[:4], want[:4])
+        return aborted
+
+    def crash():
+        """The supervisor's recovery path for a crash mid-migration."""
+        nonlocal state
+        ctl.on_recovery()
+        router.restore_devices()
+        state = router.resync(oracle)
+
+    faults = []
+    try:
+        drive(1)  # warm traffic
+
+        # 1. A crash right after the snapshot (stage copy, cursor 0).
+        state = ctl.begin(state, plan)
+        assert ctl.stage == "copy", ctl.stage
+        crash()
+        faults.append("crash_snapshot")
+        drive(1)
+
+        # 2. A crash mid-copy (the cursor advanced, nothing flipped).
+        state = ctl.begin(state, plan)
+        state = ctl.on_window(state)  # one quiesced chunk, no traffic
+        assert ctl.stage == "copy", ctl.stage
+        crash()
+        faults.append("crash_mid_copy")
+        drive(1)
+
+        # 3, 4. The loss of the source and of the target shard mid-copy:
+        # the quarantine refuses to serve, then the crash recovery runs.
+        for lost_shard, tag in ((plan.src, "loss_source"),
+                                (plan.dst, "loss_target")):
+            state = ctl.begin(state, plan)
+            state = ctl.on_window(state)
+            router.drop_device(mesh.devices[lost_shard])
+            try:
+                router.step_window(state, *_one_window(rng, n_accounts,
+                                                       nid, ts))
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(
+                    f"reshard chaos seed {seed}: served with shard "
+                    f"{lost_shard} lost mid-copy")
+            crash()
+            faults.append(tag)
+            drive(1)
+
+        # 5. A crash under double-write (the entry live, before the flip).
+        state = ctl.begin(state, plan)
+        guard = 0
+        while ctl.stage == "copy":
+            state = ctl.on_window(state)
+            guard += 1
+            assert guard < 64, ctl.stage
+        assert ctl.stage == "double_write", ctl.stage
+        crash()
+        assert router.ownership.entries == (), router.ownership.entries
+        faults.append("crash_double_write")
+        drive(1)
+
+        # 6. A bit-corrupted chunk: the digest witness must abort the flip,
+        # revert the overlay and keep serving exact.
+        state = ctl.begin(state, plan)
+        ctl.corrupt_next_chunk = True
+        aborted, guard = None, 0
+        while aborted is None:
+            aborted = drive(1)
+            guard += 1
+            assert guard < 64, "the corrupted copy never aborted"
+            assert ctl.stage != "done", \
+                f"seed {seed}: the flip went through on a corrupted copy"
+        assert aborted.reason == "digest_mismatch", aborted.reason
+        faults.append("digest_mismatch")
+        drive(1)
+
+        # 7. A clean migration, then a crash after the flip: the MIGRATED
+        # entry is the collapsed base override and must survive the
+        # oracle rebuild.
+        state = ctl.begin(state, plan)
+        guard = 0
+        while ctl.stage != "done":
+            drive(1)
+            guard += 1
+            assert guard < 64, ctl.stage
+        entries = router.ownership.entries
+        assert len(entries) == 1 and entries[0][4] == OVERLAY_MIGRATED
+        crash()  # a no-op on the idle controller; the rebuild honours it
+        assert router.ownership.entries == entries
+        faults.append("crash_post_flip")
+        drive(2)
+
+        n_arts = sum(1 for p, t in artifacts().items() if arts0.get(p) != t)
+        # Every abort dumped an artifact: five crashes or losses and the
+        # digest mismatch (the crash after the flip aborts nothing).
+        assert len(ctl.aborts) == 6, ctl.aborts
+        assert n_arts >= 6, (n_arts, art_dir)
+        assert len(ctl.migrations) == 1, ctl.migrations
+        dd = partitioned_state_digest(state)
+        want = partitioned_oracle_digest(
+            oracle, a_cap, router.n_shards,
+            overlay=router.ownership.entries)
+        assert dd == want, f"seed {seed}: the final digest diverged"
+        assert router.host_fallbacks == fallbacks0
+    finally:
+        # The cached router must come back clean for the next seed.
+        base_ownership()
+    return dict(devices=int(mesh.size), faults=faults,
+                aborts=len(ctl.aborts), artifacts=n_arts,
+                migrations=len(ctl.migrations))
+
+
+def _one_window(rng, n_accounts, nid, ts):
+    """One throwaway window (batches, tss) for the quarantine probe."""
+    from ..ops.batch import transfers_to_arrays
+
+    evs = []
+    for _i in range(8):
+        dr = rng.randrange(1, n_accounts + 1)
+        evs.append(Transfer(id=nid[0], debit_account_id=dr,
+                            credit_account_id=dr % n_accounts + 1,
+                            amount=1, ledger=1, code=1))
+        nid[0] += 1
+    ts[0] += 300
+    return [transfers_to_arrays(evs)], [ts[0]]
 
 
 # ------------------------------------------------------------- gate
