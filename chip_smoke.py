@@ -71,7 +71,7 @@ each failing the run with a nonzero exit:
               counts each tier run predicts. Then 16 more pairs are
               timed on the card alone and one pend batch is profiled;
   7. exact    the exact path on a ledger on the card beside one on the
-              CPU and the port's oracle: 10,000 accounts, 8 config-2
+              CPU and the port's oracle: 10,000 accounts, 4 config-2
               batches, then a batch of each kind no device tier runs
               (config 2 imported with a linked pair, accounts with a
               repeated id, the pair-sum overflow, 8,190 pendings with a 1 s
@@ -165,8 +165,8 @@ each failing the run with a nonzero exit:
               tigerbeetle_tpu_torch format`, `main.main(["start", ...])`
               in a child process (the device engine on the card, the
               native storage engine's asynchronous WAL), 8 clients of
-              `vsr/client.py` sending 40 bodies of 8,189 events after
-              10,000 accounts, a SIGKILL after op 35 and a restart on the
+              `vsr/client.py` sending 24 bodies of 8,189 events after
+              10,000 accounts, a SIGKILL after op 21 and a restart on the
               file, lookups, a query and a duplicate, SIGTERM, `inspect
               --digest`; every reply equal to a CPU oracle twin fed the
               WAL; a 3-replica cluster of device engines on the card (a
@@ -245,7 +245,7 @@ each failing the run with a nonzero exit:
               `ServingSupervisor` at 2^17 / 2^21 (config 4's accounts and
               10,000 plain ones) attached to a `PartitionedRouter` of 8
               logical shards of the card (`attach_partitioned`; each
-              window one captured CUDA graph), 2 config-2 windows of 8 x
+              window one captured CUDA graph), 2 config-2 windows of 4 x
               8,190, a live split of hash range [0, 2^63 - 1] of shard 0
               to shard 1 (the copy drained by a conflicting window, two
               double-write windows, the flip on equal range digests, the
@@ -262,6 +262,31 @@ each failing the run with a nonzero exit:
               processes, 4 shards each, one gloo group, "ok"; (e) the
               launches of (a) and (b) as `partitioned_launches` and
               `RESHARD_GATHERS` predict.
+ 24. trace coverage  the port's trace-catalog gate
+              (`testing/trace_coverage.py` `coverage_main`) on the card:
+              its 15 scenarios (clusters on the kernel and device
+              engines, the chaos seeds, the sharded and partitioned
+              routers on 8 logical shards, a live split on 2, the
+              staging plane, admission, SLOs, the observatory, the
+              causal plane) under recording tracers; rc 0, every one of
+              the catalog's 56 events emitted, no off-catalog name, no
+              emitted span or histogram event with an empty histogram;
+              each scenario's seconds and newly emitted events printed;
+              then `metrics_main` (a live /metrics scrape on 127.0.0.1)
+              returns 0.
+ 25. clients  the port's C client (`clients.CClient` over
+              csrc/tb_client.cpp, built by g++) against `main.py start
+              --engine=device` on the card in a child process, beside a
+              CPU oracle-engine twin server fed the same requests:
+              10,000 accounts, config-2 transfer bodies of 8,189 events,
+              one-transfer requests, lookup_accounts and
+              lookup_transfers; every reply equal to the twin's with
+              timestamps aside (each server's transfer timestamps equal
+              to its own create results'); clients/cpp/example.cpp
+              compiled against csrc/tb_client.cpp and run against the
+              card's server; `main.py clients --out <tmp>` byte-equal to
+              the committed clients/ tree; the client's latency p50 /
+              p99 and the server's launches.
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -272,7 +297,7 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"supervisor": ...}`, `{"durable": ...}`, `{"replica": ...}`,
 `{"benchmark": ...}`, `{"drivers": ...}`, `{"observatory": ...}`,
 `{"sharded": ...}`, `{"partitioned": ...}`, `{"reshard": ...}`,
-`{"phase_seconds": ...}`
+`{"trace_coverage": ...}`, `{"clients": ...}`, `{"phase_seconds": ...}`
 and `{"kernels": [...]}` lines, and last
 `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
@@ -319,7 +344,7 @@ U128_MAX = (1 << 128) - 1
 
 # The exact path: setup batches before the first hard batch, and the
 # waves of its limit cascade (more than the 32-round tier resolves).
-X_SETUP_BATCHES = 8
+X_SETUP_BATCHES = 4         # 8 before the clients phase was added
 X_CASCADE_CHAINS = 40
 # The sequential kernel: events of each batch held against the plain
 # twin, and the full-width batches (config 3 and a config-4 pair).
@@ -514,7 +539,7 @@ PT_RESYNC_SEEDS = (2, 10)
 # card, RS_WARM config-2 windows of RS_W prepares before the first
 # migration; reshard_chaos_scenario's seeds.
 RS_SHARDS = 8
-RS_W = 8
+RS_W = 4                    # 8 before the clients phase was added
 RS_WARM = 2
 RS_CHAOS_SEEDS = (2, 10)
 # Row-gather launches of the resharding kernels (parallel/resharding.py),
@@ -1922,16 +1947,83 @@ def config4_phase(dev):
                 timing=timing, trace=trace)
 
 
+def _exact_cpu_main(send, n_accounts: int, batch: int,
+                    setup_batches: int, caps: tuple) -> None:
+    """A child process: the exact path's CPU side, a ledger on the CPU fed
+    exact_path_plan's steps. Sends ("step", label, its results (for a
+    pulse: whether one was due, and how many it expired), its state
+    digest, its counters) a step, then ("end", whether it left the
+    mirror regime), or ("error", the traceback)."""
+    import traceback
+
+    try:
+        from tigerbeetle_tpu_torch import DeviceLedger
+        from tigerbeetle_tpu_torch.ops.ledger import results_to_arrays
+        from tigerbeetle_tpu_torch.types import (
+            Account, AccountFlags, Transfer, TransferFlags)
+
+        ref = DeviceLedger(a_cap=caps[0], t_cap=caps[1], device="cpu")
+        for label, op, events, ts, _ in exact_path_plan(
+                Account, Transfer, AccountFlags, TransferFlags,
+                np.random.default_rng(5), n_accounts, batch, setup_batches):
+            if op == "accounts":
+                exp = results_to_arrays(ref.create_accounts(events, ts))
+            elif op == "transfers":
+                exp = ref.create_transfers_soa(events, ts)
+            else:
+                due = ref.pulse_needed(ts)
+                exp = (due, ref.expire_pending_transfers(ts) if due else 0)
+            send.send(("step", label, exp, ledger_digest(ref),
+                       (ladder_counters(ref), dict(ref.fallback_causes))))
+        send.send(("end", ref.mirror is None))
+    except BaseException:
+        send.send(("error", traceback.format_exc()))
+
+
+class ExactCpuSide:
+    """The exact path's CPU ledger (`_exact_cpu_main`) in a child process,
+    a step ahead of the card: next() returns its next message, and fails
+    the phase if it failed or went quiet. close() stops it."""
+
+    def __init__(self, *args):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.recv, send = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_exact_cpu_main, daemon=True,
+                                args=(send, *args))
+        self.proc.start()
+        send.close()
+
+    def next(self) -> tuple:
+        check(self.recv.poll(900), "exact path: no answer from the CPU "
+              "ledger in 900 s")
+        try:
+            msg = self.recv.recv()
+        except EOFError:
+            msg = ("error", f"it exited with {self.proc.exitcode}")
+        check(msg[0] != "error",
+              f"exact path: the CPU ledger failed:\n{msg[1]}")
+        return msg
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join()
+
+
 def exact_path_phase(dev, n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
                      setup_batches: int = X_SETUP_BATCHES,
                      caps: tuple = (A_CAP, T_CAP)):
     """The exact path: the hard batches no device tier can run, the
     host-mirror regime that answers them, the expiry pulse and the
     probe's return to the device tiers (exact_path_plan), on a ledger on
-    `dev` beside one on the CPU and the port's oracle fed the same
-    batches. After every batch: statuses and timestamps equal to the
-    oracle's, state digests and counters equal to the CPU ledger's.
-    Returns the probe and row-gather launches and the timings."""
+    `dev` beside the port's oracle fed the same batches and one on the
+    CPU, which runs in a child process a step ahead (`ExactCpuSide`).
+    After every batch: statuses and timestamps equal to the oracle's and
+    the CPU ledger's, state digests and counters equal to the CPU
+    ledger's. Returns the probe and row-gather launches and the
+    timings."""
     from tigerbeetle_tpu_torch import DeviceLedger
     from tigerbeetle_tpu_torch.oracle import StateMachineOracle
     from tigerbeetle_tpu_torch.ops import fused_probe
@@ -1942,8 +2034,8 @@ def exact_path_phase(dev, n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
         Account, AccountFlags, Transfer, TransferFlags)
 
     t0 = time.perf_counter()
+    cpu = ExactCpuSide(n_accounts, batch, setup_batches, caps)
     card = DeviceLedger(a_cap=caps[0], t_cap=caps[1], device=dev)
-    ref = DeviceLedger(a_cap=caps[0], t_cap=caps[1], device="cpu")
     sm = StateMachineOracle()
     steps = exact_path_plan(Account, Transfer, AccountFlags, TransferFlags,
                             np.random.default_rng(5), n_accounts, batch,
@@ -1977,60 +2069,70 @@ def exact_path_phase(dev, n_accounts: int = N_ACCOUNTS, batch: int = BATCH,
     fused_probe.LAUNCHES = 0
     RG.LAUNCHES = 0
     per_batch, hard = [], []
-    for label, op, events, ts, is_hard in steps:
-        fb = card.fallbacks
-        n_spans = {k: len(v) for k, v in spans.items()}
-        t = time.perf_counter()
-        if op == "accounts":
-            got = results_to_arrays(card.create_accounts(events, ts))
-            sync(dev)
-            wall = (time.perf_counter() - t) * 1e3
-            exp = results_to_arrays(ref.create_accounts(events, ts))
-            want = results_to_arrays(sm.create_accounts(events, ts))
-        elif op == "transfers":
-            got = card.create_transfers_soa(events, ts)
-            sync(dev)
-            wall = (time.perf_counter() - t) * 1e3
-            exp = ref.create_transfers_soa(events, ts)
-            want = results_to_arrays(sm.create_transfers(
-                transfers_from_arrays(events), ts))
-        else:
-            check(card.pulse_needed(ts) and ref.pulse_needed(ts)
-                  and sm.pulse_needed(ts), f"{label}: no pulse is due")
-            n = card.expire_pending_transfers(ts)
-            sync(dev)
-            wall = (time.perf_counter() - t) * 1e3
-            got = exp = want = (np.array([n]), np.array([n]))
-            check(n == ref.expire_pending_transfers(ts)
-                  == sm.expire_pending_transfers(ts) == batch,
-                  f"{label}: expired {n}, not {batch} on every engine")
-        for name, res in (("the oracle", want), ("the CPU ledger", exp)):
-            check(np.array_equal(got[0], res[0])
-                  and np.array_equal(got[1], res[1]),
-                  f"{label}: statuses or timestamps differ from {name}'s")
-        check(ledger_digest(card) == ledger_digest(ref),
-              f"{label}: state digests differ")
-        counters = (ladder_counters(card), dict(card.fallback_causes))
-        check(counters == (ladder_counters(ref), dict(ref.fallback_causes)),
-              f"{label}: counters differ: card {counters}, CPU "
-              f"{(ladder_counters(ref), ref.fallback_causes)}")
-        mirror = card.fallbacks > fb or op == "expire"
-        if mirror:
-            per_batch.append(wall)
-        new = {k: v[n_spans[k]:] for k, v in spans.items()}
-        check(not mirror or (new["apply"] and new["push"]),
-              f"{label}: a mirror batch recorded no apply or push span")
-        if is_hard:
-            hard.append(dict(label=label, wall_ms=wall,
-                             to_host_ms=sum(new["to_host"]),
-                             apply_ms=sum(new["apply"]),
-                             push_ms=sum(new["push"])))
-        print(f"exact path {label}: {'mirror' if mirror else 'device'} "
-              f"{wall:.1f} ms; fallbacks {card.fallbacks}, causes "
-              f"{dict(card.fallback_causes)}", flush=True)
+    try:
+        for label, op, events, ts, is_hard in steps:
+            fb = card.fallbacks
+            n_spans = {k: len(v) for k, v in spans.items()}
+            t = time.perf_counter()
+            if op == "accounts":
+                got = results_to_arrays(card.create_accounts(events, ts))
+                sync(dev)
+                wall = (time.perf_counter() - t) * 1e3
+                want = results_to_arrays(sm.create_accounts(events, ts))
+            elif op == "transfers":
+                got = card.create_transfers_soa(events, ts)
+                sync(dev)
+                wall = (time.perf_counter() - t) * 1e3
+                want = results_to_arrays(sm.create_transfers(
+                    transfers_from_arrays(events), ts))
+            else:
+                check(card.pulse_needed(ts) and sm.pulse_needed(ts),
+                      f"{label}: no pulse is due")
+                n = card.expire_pending_transfers(ts)
+                sync(dev)
+                wall = (time.perf_counter() - t) * 1e3
+                want = sm.expire_pending_transfers(ts)
+            # The CPU ledger ran this step meanwhile.
+            _, cpu_label, exp, cpu_digest, cpu_counters = cpu.next()
+            check(cpu_label == label, f"{label}: the CPU ledger ran "
+                  f"{cpu_label}")
+            if op == "expire":
+                check(exp[0], f"{label}: no pulse is due on the CPU ledger")
+                check(n == exp[1] == want == batch,
+                      f"{label}: expired {n}, not {batch} on every engine")
+                got = exp = want = (np.array([n]), np.array([n]))
+            for name, res in (("the oracle", want),
+                              ("the CPU ledger", exp)):
+                check(np.array_equal(got[0], res[0])
+                      and np.array_equal(got[1], res[1]),
+                      f"{label}: statuses or timestamps differ from "
+                      f"{name}'s")
+            check(ledger_digest(card) == cpu_digest,
+                  f"{label}: state digests differ")
+            counters = (ladder_counters(card), dict(card.fallback_causes))
+            check(counters == cpu_counters,
+                  f"{label}: counters differ: card {counters}, CPU "
+                  f"{cpu_counters}")
+            mirror = card.fallbacks > fb or op == "expire"
+            if mirror:
+                per_batch.append(wall)
+            new = {k: v[n_spans[k]:] for k, v in spans.items()}
+            check(not mirror or (new["apply"] and new["push"]),
+                  f"{label}: a mirror batch recorded no apply or push span")
+            if is_hard:
+                hard.append(dict(label=label, wall_ms=wall,
+                                 to_host_ms=sum(new["to_host"]),
+                                 apply_ms=sum(new["apply"]),
+                                 push_ms=sum(new["push"])))
+            print(f"exact path {label}: {'mirror' if mirror else 'device'} "
+                  f"{wall:.1f} ms; fallbacks {card.fallbacks}, causes "
+                  f"{dict(card.fallback_causes)}", flush=True)
+        end = cpu.next()
+    finally:
+        cpu.close()
     launches = (fused_probe.LAUNCHES, RG.LAUNCHES)
 
-    check(card.mirror is None and ref.mirror is None,
+    check(card.mirror is None and end == ("end", True),
           "the probe did not return the ledger to its device tiers")
     check(torch.device(dev).type != "cuda" or all(n > 0 for n in launches),
           f"the exact path launched probe / row gather {launches} times")
@@ -2083,6 +2185,69 @@ def seq_bytes(tin: dict, out: dict) -> int:
     n = sum(t.numel() * t.element_size() for g in tin.values()
             if isinstance(g, dict) for t in g.values())
     return n + sum(t.numel() * t.element_size() for t in out.values())
+
+
+def _seq_plain_main(send, inputs_path: str) -> None:
+    """A child process: the transfers kernel's plain twin on the CPU on
+    the prefetched numpy inputs pickled at `inputs_path`, timed on the
+    host clock; sends ("ok", ms, the outputs as numpy) or ("error", the
+    traceback)."""
+    import pickle
+    import traceback
+
+    try:
+        from tigerbeetle_tpu_torch.ops import create_kernels as CK
+
+        torch.set_num_threads(1)
+        with open(inputs_path, "rb") as f:
+            tin = CK.inputs_to_device(pickle.load(f), "cpu")
+        t = time.perf_counter()
+        out = CK.create_transfers_seq_plain(tin)
+        ms = (time.perf_counter() - t) * 1e3
+        send.send(("ok", ms, {k: v.numpy() for k, v in out.items()}))
+    except BaseException:
+        send.send(("error", traceback.format_exc()))
+
+
+class SeqPlainChild:
+    """The plain twin's full-width run (a Python loop on the host CPU,
+    tens of seconds) in a child process, beside the phases after the
+    sequential kernel's. finish() waits for it, holds the kernel's
+    outputs `got` equal to its outputs and returns (plain_ms,
+    max_abs_err). The inputs go through a file, so that starting the
+    child does not wait for it to read them."""
+
+    def __init__(self, inputs: dict, got: dict):
+        import multiprocessing
+        import pickle
+
+        fd, self.path = tempfile.mkstemp(prefix="tb_seq_plain_",
+                                         suffix=".pkl")
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump(inputs, f)
+        ctx = multiprocessing.get_context("spawn")
+        self.recv, send = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_seq_plain_main, daemon=True,
+                                args=(send, self.path))
+        self.proc.start()
+        send.close()
+        self.got = got
+
+    def finish(self) -> tuple:
+        try:
+            msg = (self.recv.recv() if self.recv.poll(900) else
+                   ("error", "no answer in 900 s"))
+        except EOFError:
+            msg = ("error", f"the child exited with {self.proc.exitcode}")
+        finally:
+            self.proc.join(60)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+            os.unlink(self.path)
+        check(msg[0] == "ok", f"create_seq plain twin failed:\n{msg[1]}")
+        want = {k: torch.from_numpy(v) for k, v in msg[2].items()}
+        return msg[1], seq_compare("config-3 full width", self.got, want)
 
 
 def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
@@ -2238,7 +2403,8 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
 
     # The kernels line: device time of the transfers kernel on the first
     # config-3 batch's inputs (profiler), the plain twin's on the same
-    # inputs (CPU), and the bound.
+    # inputs (CPU, in a child process that main() waits for at its end),
+    # and the bound.
     rng3 = np.random.default_rng(3)
     o = StateMachineOracle()
     o.create_accounts([Account(id=i, ledger=1, code=1)
@@ -2246,23 +2412,19 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
     inputs, _ = prefetch_create_transfers(
         o, config3_batch(rng3, 0, n_full, 1000), 10**7)
     tin_g = CK.inputs_to_device(inputs, dev)
-    tin_c = CK.inputs_to_device(inputs, "cpu")
-    t = time.perf_counter()
-    want = CK.create_transfers_seq_plain(tin_c)
-    plain_ms = (time.perf_counter() - t) * 1e3
     got = create_seq.create_transfers_seq(tin_g)
-    err = max(err, seq_compare("config-3 full width", got, want))
+    plain = SeqPlainChild(inputs, got)
     bound_ms = seq_bytes(tin_g, got) / HBM_BYTES_PER_S * 1e3
     ms = kernel_ms(lambda: create_seq.create_transfers_seq(tin_g),
                    "create_transfers_seq", reps=3)
-    numbers.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    numbers.update(max_abs_err=err, ms=ms, plain_twin=plain,
                    bound_ms=bound_ms, ns_per_event=ms * 1e6 / n_full,
                    elapsed_s=time.perf_counter() - t0)
     print(f"sequential kernel: {launches} launches on run_create_* "
           f"({runs} calls), equal to the oracle; device {ms:.3f} ms a "
           f"{n_full}-event config-3 batch ({numbers['ns_per_event']:.0f} "
-          f"ns/event; bound {bound_ms:.4f} ms, bytes), plain twin "
-          f"{plain_ms:.0f} ms on the CPU; run_create_* kernel spans "
+          f"ns/event; bound {bound_ms:.4f} ms, bytes), plain twin in "
+          f"a child process; run_create_* kernel spans "
           f"(launch to outputs on the host, ms / events): "
           + ", ".join(f"{m:.2f}/{n}" for m, n in zip(spans["kernel"],
                                                      spans["events"]))
@@ -5317,8 +5479,9 @@ def print_durable_ops(label, rep) -> None:
 # ------------------------------------------------------- the replica phase
 
 RP_CLIENTS = 8              # one request in flight each: the pipeline's 8
-RP_BODIES = 5               # create_transfers bodies a client
-RP_KILL_AT = 35             # SIGKILL once a client holds this op's reply
+RP_BODIES = 3               # create_transfers bodies a client (5 before
+#                             the clients phase was added)
+RP_KILL_AT = 21             # SIGKILL once a client holds this op's reply
 RP_GET_LIMIT = 200
 RP_TIMEOUT_S = 300.0        # a client's patience (a restart takes ~20 s)
 RC_OPS = 24                 # the cluster's ops, its accounts body first
@@ -8081,6 +8244,397 @@ def reshard_phase(dev, caps: tuple = (A_CAP, T_CAP),
           f"legs {legs}", flush=True)
     return out
 
+# --------------------------------------------------- the catalog gate
+
+def trace_coverage_phase(dev) -> dict:
+    """The port's trace-catalog gate on `dev`: `coverage_main` over
+    `trace_coverage.SCENARIOS`, each scenario timed and its newly emitted
+    catalog events recorded, held to rc 0 (every catalog event emitted,
+    no off-catalog name, no starved histogram, no scenario failed) and to
+    a catalog of 56 events; then `metrics_main` rc 0. Returns the seconds
+    and new events a scenario and the launches of the gate."""
+    import functools
+
+    from tigerbeetle_tpu_torch.testing import trace_coverage as TCV
+    from tigerbeetle_tpu_torch.trace import Event
+
+    rows, cols = [], []
+
+    def timed(fn):
+        @functools.wraps(fn)
+        def run(col):
+            if not cols:
+                cols.append(col)
+            seen, t = col.emitted(), time.perf_counter()
+            try:
+                fn(col)
+            finally:
+                if torch.device(dev).type == "cuda":
+                    torch.cuda.synchronize()
+                row = dict(name=fn.__name__.replace("_scenario_", ""),
+                           seconds=time.perf_counter() - t,
+                           new=sorted(col.emitted() - seen))
+                rows.append(row)
+                print(f"[trace-cov] {row['name']}: {row['seconds']:.2f} s, "
+                      f"new {row['new']}", flush=True)
+        return run
+
+    _zero_launches()
+    t = time.perf_counter()
+    rc = TCV.coverage_main(tuple(timed(s) for s in TCV.SCENARIOS),
+                           device=dev)
+    coverage_s = time.perf_counter() - t
+    launches = _launch_counts()
+    catalog = len(Event)
+    check(rc == 0 and catalog == 56,
+          f"trace coverage: coverage_main returned {rc} on a catalog of "
+          f"{catalog} events")
+    if torch.device(dev).type == "cuda":
+        check(min(launches) > 0, f"trace coverage: launches {launches}: "
+              "a kernel of the gate's path never launched")
+    t = time.perf_counter()
+    mrc = TCV.metrics_main(device=dev)
+    metrics_s = time.perf_counter() - t
+    check(mrc == 0, f"trace coverage: metrics_main returned {mrc}")
+    numbers = dict(scenarios=rows, emitted=len(cols[0].emitted()),
+                   catalog=catalog, tracers=len(cols[0].tracers),
+                   coverage_s=coverage_s, metrics_s=metrics_s,
+                   launches=launches, card=card_line_or_cpu(dev))
+    print(f"trace coverage: {numbers['emitted']}/{catalog} events in "
+          f"{coverage_s:.1f} s, metrics {metrics_s:.1f} s, launches "
+          f"{launches} ({numbers['card']})", flush=True)
+    return numbers
+
+
+# ------------------------------------------------------------ clients
+
+CL_BODIES = 3            # config-2 transfer bodies of SV_BODY events
+CL_SMALL = 200           # timed one-transfer requests, after one warm-up
+CL_ACCOUNT_BASE = 10_000  # ids above the C++ example's accounts 1, 2
+CL_TRANSFER_BASE = 1_000_000
+CL_TIMEOUT_S = 300.0
+
+
+def _no_ts(objs) -> list:
+    return [dataclasses.replace(o, timestamp=0) for o in objs]
+
+
+class ClientsRig:
+    """The clients phase's processes, started ahead of the phase so that
+    they come up while earlier phases run: g++ on clients/cpp/example.cpp
+    against csrc/tb_client.cpp, `main.py clients --out <tmp>/gen`, and a
+    thread that formats two data files (the default `StorageLayout()`;
+    on the CPU the small layout), then starts `start --engine=device` on
+    `dev` in a child process (`_server_main`) and a CPU oracle-engine
+    twin server. close() stops every process it started, and may be
+    called again."""
+
+    def __init__(self, dev):
+        import multiprocessing
+
+        self.root = Path(__file__).resolve().parent
+        self.cuda = torch.device(dev).type == "cuda"
+        self.flags = [] if self.cuda else ["--small"]
+        self.tmp = tempfile.mkdtemp(prefix="tb_clients_")
+        self.exe = f"{self.tmp}/example"
+        self.phase_s, self.servers, self.ports, self.procs = {}, {}, {}, []
+        self.error = None
+        self.build = self._spawn("g++", "-O2", "-std=c++17",
+                                 "clients/cpp/example.cpp",
+                                 "tigerbeetle_tpu_torch/csrc/tb_client.cpp",
+                                 "-o", self.exe, "-pthread")
+        self.gen = self._cli("clients", f"--out={self.tmp}/gen")
+        self.thread = threading.Thread(
+            target=self._start_servers,
+            args=(multiprocessing.get_context("spawn"),), daemon=True)
+        self.thread.start()
+
+    def _spawn(self, *argv):
+        """`argv` from the repo root, its output kept."""
+        self.procs.append(subprocess.Popen(
+            argv, cwd=str(self.root), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+        return self.procs[-1]
+
+    def _cli(self, *args):
+        return self._spawn(sys.executable, "-m", "tigerbeetle_tpu_torch",
+                           *args)
+
+    def _start_servers(self, ctx) -> None:
+        try:
+            t = time.perf_counter()
+            formats = [self._cli("format", "--cluster=0", "--replica=0",
+                                 "--replica-count=1", *self.flags,
+                                 f"{self.tmp}/{name}.tigerbeetle")
+                       for name in ("card", "twin")]
+            for proc in formats:
+                _, err = proc.communicate(timeout=600)
+                check(proc.returncode == 0, f"clients: format failed:\n{err}")
+            self.phase_s["format"] = time.perf_counter() - t
+            for name, platform, engine in (
+                    ("card", "cuda" if self.cuda else "cpu", "device"),
+                    ("twin", "cpu", "oracle")):
+                self.ports[name] = _free_port()
+                argv = ["start", f"--platform={platform}",
+                        f"--addresses=127.0.0.1:{self.ports[name]}",
+                        "--replica=0", f"--engine={engine}", *self.flags,
+                        f"{self.tmp}/{name}.tigerbeetle"]
+                self.servers[name] = ServerChild(
+                    ctx, argv, f"{self.tmp}/{name}.log")
+        except Exception as exc:   # re-raised by wait_open, in the phase
+            self.error = exc
+
+    def log_tail(self, name) -> str:
+        path = Path(f"{self.tmp}/{name}.log")
+        return path.read_text()[-6000:] if path.exists() else ""
+
+    def fail_log(self, name):
+        def fail(msg):
+            check(False, f"clients: {msg}\n{name} log tail:\n"
+                  f"{self.log_tail(name)}")
+        return fail
+
+    def wait_open(self) -> None:
+        """Wait until both servers have opened; fail with a server's log
+        if it did not. `start` is the slower server's seconds from its
+        spawn to its open; `wait` what the phase itself waited."""
+        t = time.perf_counter()
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        for name, srv in self.servers.items():
+            wait_watching(srv.ready, srv, 900, f"the {name} server to open",
+                          self.fail_log(name))
+            check(srv.info("open") is not None,
+                  f"clients: the {name} server never opened")
+        self.phase_s["start"] = max(
+            next(at for at, m in srv.msgs if m[0] == "open") - srv.t0
+            for srv in self.servers.values())
+        self.phase_s["wait"] = time.perf_counter() - t
+
+    def close(self) -> None:
+        self.thread.join()
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for srv in self.servers.values():
+            if srv.proc.is_alive():
+                srv.stop("kill")
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def clients_phase(dev, rig: ClientsRig = None, n_accounts: int = N_ACCOUNTS,
+                  body: int = SV_BODY, n_bodies: int = CL_BODIES,
+                  n_small: int = CL_SMALL, seed: int = 16) -> dict:
+    """The port's clients against the replica server on `dev`: (a) the
+    rig's servers (a `ClientsRig` started ahead, or one started here),
+    `start --engine=device` on `dev` and a CPU oracle-engine twin; (b)
+    the port's `CClient` (csrc/tb_client.cpp) sends each server the same
+    requests: n_accounts accounts, n_bodies config-2 bodies of `body`
+    transfers over them, one untimed one-transfer request, n_small timed
+    one-transfer requests, then lookup_accounts and lookup_transfers of
+    as many ids as a reply may hold; every reply equal to the twin's,
+    timestamps aside, and each server's looked-up transfer timestamps
+    equal to its create results'; (c) clients/cpp/example.cpp built by
+    g++ against csrc/tb_client.cpp, its echo mode and its run against
+    the card's server; (d) `main.py clients --out <tmp>` byte-equal to
+    the committed clients/ tree; (e) SIGTERM, the server's launches. g++
+    is required. Returns the numbers: each kind of request's latency at
+    the client (the one-transfer requests' p50, p99 and max over
+    n_small)."""
+    from tigerbeetle_tpu_torch import multi_batch
+    from tigerbeetle_tpu_torch.clients import CClient, c_client_available
+    from tigerbeetle_tpu_torch.clients import codegen
+    from tigerbeetle_tpu_torch.types import (Account, Operation as O,
+                                             Transfer)
+    from tigerbeetle_tpu_torch.vsr.replica import _reply_fits
+    from tigerbeetle_tpu_torch.vsr.storage import StorageLayout, TEST_LAYOUT
+
+    class PatientClient(CClient):
+        def request(self, operation, body, timeout_s=CL_TIMEOUT_S):
+            return super().request(operation, body, timeout_s)
+
+    check(shutil.which("g++") is not None, "clients: no g++ on this host")
+    check(c_client_available(), "clients: the native tb_client did not build")
+    t_phase = time.perf_counter()
+    rig = rig or ClientsRig(dev)
+    cuda, root, tmp = rig.cuda, rig.root, rig.tmp
+    servers, ports, phase_s = rig.servers, rig.ports, rig.phase_s
+    layout = StorageLayout() if cuda else TEST_LAYOUT
+    n_lookups = next(
+        n for n in range(BATCH, 0, -1)
+        if _reply_fits(O.lookup_transfers, len(multi_batch.encode(
+            [b"\x00" * 16 * n], 16)), layout.message_size_max))
+    clients = []
+    try:
+        # (a) the two servers
+        rig.wait_open()
+        opened = servers["card"].info("open")
+        check(opened["engine"] == "device"
+              and opened["device"].startswith("cuda" if cuda else "cpu"),
+              f"clients: the card's server ran {opened['engine']} on "
+              f"{opened['device']}")
+        check(servers["twin"].info("open")["engine"] == "oracle",
+              "clients: the twin is not the oracle engine")
+
+        # (b) the same requests to both servers
+        rng = np.random.default_rng(seed)
+        acct_ids = [CL_ACCOUNT_BASE + i for i in range(1, n_accounts + 1)]
+        accounts = [Account(id=i, ledger=1, code=1) for i in acct_ids]
+        requests = [("accounts", "create_accounts", accounts[k:k + body])
+                    for k in range(0, n_accounts, body)]
+        tid = CL_TRANSFER_BASE
+        xfer_ids = []
+
+        def transfers(n):
+            nonlocal tid
+            dr = rng.integers(0, n_accounts, n)
+            cr = (dr + rng.integers(1, n_accounts, n)) % n_accounts
+            amt = rng.integers(1, 10**6, n)
+            out = [Transfer(id=tid + i, debit_account_id=acct_ids[dr[i]],
+                            credit_account_id=acct_ids[cr[i]],
+                            amount=int(amt[i]), ledger=1, code=1)
+                   for i in range(n)]
+            xfer_ids.extend(range(tid, tid + n))
+            tid += n
+            return out
+
+        requests += [("body", "create_transfers", transfers(body))
+                     for _ in range(n_bodies)]
+        requests += [("warm_up", "create_transfers", transfers(1))]
+        requests += [("small", "create_transfers", transfers(1))
+                     for _ in range(n_small)]
+        requests += [("lookup_accounts", "lookup_accounts",
+                      acct_ids[-n_lookups:]),
+                     ("lookup_transfers", "lookup_transfers",
+                      xfer_ids[:n_lookups])]
+        replies = {name: [] for name in servers}
+        latency = {name: [] for name in servers}
+        t = time.perf_counter()
+        for name in servers:
+            client = PatientClient(cluster=0, client_id=77,
+                                   replica_addresses=[
+                                       ("127.0.0.1", ports[name])])
+            clients.append(client)
+            for _, what, arg in requests:
+                t0 = time.perf_counter()
+                replies[name].append(getattr(client, what)(arg))
+                latency[name].append((time.perf_counter() - t0) * 1e3)
+            client.close()
+            phase_s[f"requests_{name}"] = time.perf_counter() - t
+            t = time.perf_counter()
+        for k, ((_, what, arg), got, want) in enumerate(zip(
+                requests, replies["card"], replies["twin"])):
+            check(len(got) == len(arg) and _no_ts(got) == _no_ts(want),
+                  f"clients: request {k} ({what}) differs from the twin's")
+        for name in servers:
+            created = {}
+            for (_, what, arg), got in zip(requests, replies[name]):
+                if what == "create_transfers":
+                    check(all(r.status.name == "created" for r in got),
+                          f"clients: {name}: a transfer was not created")
+                    created.update((x.id, r.timestamp)
+                                   for x, r in zip(arg, got))
+            looked = replies[name][-1]
+            check([x.id for x in looked] == xfer_ids[:n_lookups]
+                  and all(x.timestamp == created[x.id] for x in looked),
+                  f"clients: {name}: looked-up transfers are not the "
+                  f"created ones")
+        balances = replies["card"][-2]
+        check(sum(a.debits_posted for a in balances) > 0,
+              "clients: no looked-up account moved")
+
+        # (c) the C++ example against the card's server
+        t = time.perf_counter()
+        _, err = rig.build.communicate(timeout=300)
+        check(rig.build.returncode == 0,
+              f"clients: example.cpp did not build:\n{err}")
+        phase_s["cpp_build"] = time.perf_counter() - t
+        t = time.perf_counter()
+        echo = subprocess.run([rig.exe, "echo"], capture_output=True,
+                              text=True, timeout=60)
+        check(echo.returncode == 0 and "echo ok" in echo.stdout,
+              f"clients: example echo failed: {echo.stdout}{echo.stderr}")
+        run = subprocess.run([rig.exe, "0", f"127.0.0.1:{ports['card']}"],
+                             capture_output=True, text=True, timeout=300)
+        check(run.returncode == 0 and "cpp client ok" in run.stdout,
+              f"clients: example against the card's server failed: "
+              f"{run.stdout}{run.stderr}")
+        phase_s["cpp_run"] = time.perf_counter() - t
+
+        # (d) the generators
+        t = time.perf_counter()
+        _, err = rig.gen.communicate(timeout=600)
+        check(rig.gen.returncode == 0,
+              f"clients: main.py clients failed:\n{err}")
+        want = codegen.generate_all()
+        got = sorted(str(p.relative_to(f"{tmp}/gen"))
+                     for p in Path(f"{tmp}/gen").rglob("*") if p.is_file())
+        check(got == sorted(want), "clients: main.py clients wrote "
+              f"{len(got)} files, the generator has {len(want)}")
+        for rel in want:
+            check((Path(tmp) / "gen" / rel).read_bytes()
+                  == (root / "clients" / rel).read_bytes(),
+                  f"clients: generated {rel} differs from the committed one")
+        phase_s["generate"] = time.perf_counter() - t
+
+        # (e) SIGTERM
+        for name, srv in servers.items():
+            srv.stop("term")
+            check(srv.info("error") is None,
+                  f"clients: the {name} server failed:\n{srv.info('error')}")
+        ex = servers["card"].info("exit")
+        check(ex is not None and ex["rc"] == 0,
+              f"clients: the card's server exited with {ex}")
+        launches = ex["launches"]
+        check(not cuda or (launches[0] > 0 and launches[1] > 0),
+              f"clients: the card's server launched {launches}")
+    finally:
+        for c in clients:
+            c.close()
+        rig.close()
+
+    def by_kind(name) -> dict:
+        out: dict = {}
+        for (kind, _, _), ms in zip(requests, latency[name]):
+            out.setdefault(kind, []).append(ms)
+        return out
+
+    card, twin = by_kind("card"), by_kind("twin")
+
+    def spread(ms) -> dict:
+        """p50, p99 and max, and the three slowest as (their place among
+        the requests of the kind, ms)."""
+        slowest = sorted(range(len(ms)), key=ms.__getitem__)[::-1][:3]
+        return dict(n=len(ms), p50=float(np.percentile(ms, 50)),
+                    p99=float(np.percentile(ms, 99)), max=float(max(ms)),
+                    slowest=[(k, float(ms[k])) for k in slowest])
+
+    numbers = dict(
+        accounts=n_accounts, bodies=n_bodies, events_per_body=body,
+        small_requests=n_small, n_lookups=n_lookups,
+        requests=len(requests), files_generated=len(want),
+        small_latency_ms=spread(card["small"]),
+        warm_up_ms=card["warm_up"][0],
+        body_latency_ms=card["body"],
+        account_body_latency_ms=card["accounts"],
+        lookup_latency_ms={k: card[k][0] for k in (
+            "lookup_accounts", "lookup_transfers")},
+        twin_small_latency_ms=spread(twin["small"]),
+        launches=list(launches), phase_seconds=phase_s,
+        elapsed_s=time.perf_counter() - t_phase, card=card_line_or_cpu(dev))
+    s = numbers["small_latency_ms"]
+    print(f"clients: {len(requests)} requests; one-transfer p50 "
+          f"{s['p50']:.1f} ms, p99 {s['p99']:.1f} ms, max {s['max']:.1f} ms "
+          f"over {n_small} (slowest "
+          f"{[(k, round(ms, 1)) for k, ms in s['slowest']]}; warm-up "
+          f"{numbers['warm_up_ms']:.1f} ms); a "
+          f"{body}-transfer body {min(card['body']):.1f}-"
+          f"{max(card['body']):.1f} ms; server launches {launches} "
+          f"({numbers['card']})", flush=True)
+    return numbers
+
 
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
@@ -8173,8 +8727,23 @@ def main() -> int:
     lap("sharded_phase")
     prt = partitioned_phase(dev)
     lap("partitioned_phase")
-    rsh = reshard_phase(dev)
-    lap("reshard_phase")
+    # The clients phase's servers come up while the two phases before it
+    # run.
+    rig = ClientsRig(dev)
+    try:
+        rsh = reshard_phase(dev)
+        lap("reshard_phase")
+        tcv = trace_coverage_phase(dev)
+        lap("trace_coverage_phase")
+        cli = clients_phase(dev, rig)
+        lap("clients_phase")
+    finally:
+        rig.close()
+    plain_ms, err = seq.pop("plain_twin").finish()
+    seq.update(plain_ms=plain_ms, max_abs_err=max(seq["max_abs_err"], err))
+    print(f"sequential kernel: plain twin {plain_ms:.0f} ms on the CPU, "
+          f"equal to the kernel", flush=True)
+    lap("seq_plain_twin")
     phase_seconds["total"] = time.perf_counter() - t0
     print(f"all phases passed in {phase_seconds['total']:.1f} s",
           flush=True)
@@ -8244,6 +8813,10 @@ def main() -> int:
         # sum.
         "launches_reshard": rsh["launches"][0],
         "launches_reshard_two_process": rsh["two_process"]["launches"][0],
+        # The trace-coverage gate's scenarios on the card; the clients
+        # phase's server (its device engine).
+        "launches_trace_coverage": tcv["launches"][0],
+        "launches_clients_server": cli["launches"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -8303,6 +8876,8 @@ def main() -> int:
         # kernels' (RESHARD_GATHERS); the two-process leg's.
         "launches_reshard": rsh["launches"][1],
         "launches_reshard_two_process": rsh["two_process"]["launches"][1],
+        "launches_trace_coverage": tcv["launches"][1],
+        "launches_clients_server": cli["launches"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -8340,6 +8915,9 @@ def main() -> int:
         # The drivers phase's: its kernel-engine VOPR seeds and the
         # state_machine and storage_faults fuzzers.
         "launches_drivers": drv["launches"][2],
+        # The trace-coverage gate's kernel-engine clusters.
+        "launches_trace_coverage": tcv["launches"][2],
+        "launches_clients_server": cli["launches"][2],
         "max_abs_err": seq["max_abs_err"],
         "ms": seq["ms"],
         "plain_ms": seq["plain_ms"],
@@ -8372,6 +8950,8 @@ def main() -> int:
     print(json.dumps({"sharded": shd}, default=str), flush=True)
     print(json.dumps({"partitioned": prt}, default=str), flush=True)
     print(json.dumps({"reshard": rsh}, default=str), flush=True)
+    print(json.dumps({"trace_coverage": tcv}), flush=True)
+    print(json.dumps({"clients": cli}), flush=True)
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

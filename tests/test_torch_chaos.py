@@ -9,14 +9,12 @@ the retries and the backoff, the windows replayed and the epochs
 verified. Each run holds itself to a clean oracle replay (history and
 device state) and fails on any silent corruption. At both defaults the
 seed's generator draws whether the mesh scenarios run, in the same place
-in both packages: the supervisor part of the summary must still be the
-JAX package's, for a seed that draws them and one that does not (the
-JAX package's shard_loss and shard_resync scenarios replaced by
-recorders, its reshard scenario run and held equal to the port's; the
-port's shard_loss scenario is held to the JAX package's in
-tests/test_torch_sharded.py, shard_resync in
-tests/test_torch_partitioned_ledger.py). The plan, the traffic shapes and
-the Zipfian generator are compared draw for draw.
+in both packages: one run of each package a seed, nothing stubbed (the
+mesh scenarios recorded as they are called), shared by the module, must
+give the same traffic and the same summary, for a seed that draws them
+(2: the supervisor part, and shard_loss, shard_resync and reshard, names
+aside) and one that does not (4). The plan, the traffic shapes and the
+Zipfian generator are compared draw for draw.
 """
 
 import dataclasses
@@ -58,30 +56,60 @@ def test_chaos_seed_summary_equals_the_jax_packages(seed, traffic):
 MESH_KEYS = ("shard_loss", "shard_resync", "reshard")
 
 
+@pytest.fixture(scope="module")
+def default_runs():
+    """`run_chaos_seed(seed)` at its defaults, once a seed in each
+    package, nothing stubbed: every generated batch and every call of a
+    mesh scenario recorded (the call goes through)."""
+    runs = {}
+
+    def run(seed):
+        if seed in runs:
+            return runs[seed]
+        traffic = {TCH: [], JCH: []}
+        called = {TCH: [], JCH: []}
+        with pytest.MonkeyPatch.context() as mp:
+            for mod in (TCH, JCH):
+                def recording(*args, _gen=mod._chaos_workload,
+                              _log=traffic[mod]):
+                    events, nid = _gen(*args)
+                    _log.append([dataclasses.asdict(e) for e in events])
+                    return events, nid
+                mp.setattr(mod, "_chaos_workload", recording)
+                for name in ("shard_loss_scenario", "shard_resync_scenario",
+                             "reshard_chaos_scenario"):
+                    def through(s, *a, _fn=getattr(mod, name), _n=name,
+                                _log=called[mod], **k):
+                        _log.append((_n, s))
+                        return _fn(s, *a, **k)
+                    mp.setattr(mod, name, through)
+            got = TCH.run_chaos_seed(seed, device="cpu")
+            want = JCH.run_chaos_seed(seed)
+        runs[seed] = dict(got=got, want=want, traffic=traffic,
+                          called=called)
+        return runs[seed]
+
+    return run
+
+
+def _no_names(summary: dict) -> dict:
+    return {k: v for k, v in summary.items()
+            if k not in ("dropped", "flight_dump")}
+
+
 @pytest.mark.parametrize("seed, draws", [(4, False), (2, True)])
 def test_default_seed_draws_the_mesh_scenario_as_the_jax_package(
-        seed, draws, monkeypatch):
+        seed, draws, default_runs):
     """Both at their defaults: the same mesh draw from the seed's
     generator, so the same traffic (every generated batch recorded) and
     the same supervisor summary; a seed that draws the mesh scenarios
     returns `reshard` equal to the JAX package's."""
-    called = []
-    for name in ("shard_loss_scenario", "shard_resync_scenario"):
-        monkeypatch.setattr(JCH, name,
-                            lambda s, _n=name: called.append((_n, s))
-                            or {"stub": _n})
-    traffic = {TCH: [], JCH: []}
-    for mod, log in traffic.items():
-        def recording(*args, _gen=mod._chaos_workload, _log=log):
-            events, nid = _gen(*args)
-            _log.append([dataclasses.asdict(e) for e in events])
-            return events, nid
-        monkeypatch.setattr(mod, "_chaos_workload", recording)
-    got = TCH.run_chaos_seed(seed, device="cpu")
-    want = JCH.run_chaos_seed(seed)
+    run = default_runs(seed)
+    got, want, traffic = run["got"], run["want"], run["traffic"]
     assert traffic[TCH] == traffic[JCH] and traffic[TCH]
-    assert called == ([("shard_loss_scenario", seed),
-                       ("shard_resync_scenario", seed)] if draws else [])
+    assert run["called"][JCH] == run["called"][TCH] == (
+        [("shard_loss_scenario", seed), ("shard_resync_scenario", seed),
+         ("reshard_chaos_scenario", seed)] if draws else [])
     assert set(want) & set(MESH_KEYS) == (set(MESH_KEYS) if draws
                                           else set())
     assert {k: v for k, v in got.items() if k not in MESH_KEYS} == \
@@ -93,6 +121,22 @@ def test_default_seed_draws_the_mesh_scenario_as_the_jax_package(
         assert got["reshard"]["aborts"] == 6
     else:
         assert "shard_loss" not in got and "reshard" not in got
+
+
+def test_mesh_seed_returns_shard_loss_and_shard_resync(default_runs,
+                                                       monkeypatch):
+    """A default seed that draws the mesh scenario (2) runs shard_loss,
+    shard_resync and reshard in both packages, each equal to the JAX
+    package's, names aside; the supervisor part is compared above."""
+    run = default_runs(2)
+    got, want = run["got"], run["want"]
+    assert set(got) == set(want) and set(MESH_KEYS) <= set(got)
+    for key in MESH_KEYS:
+        assert _no_names(got[key]) == _no_names(want[key]), key
+    assert got["shard_resync"]["resyncs"] == 1
+    assert got["reshard"]["devices"] == 2
+    monkeypatch.setattr(TCH, "_run_supervisor_chaos", lambda *a, **k: {})
+    assert not TCH.run_chaos_seed(4, device="cpu")
 
 
 @pytest.mark.parametrize("seed", range(12))

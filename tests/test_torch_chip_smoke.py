@@ -200,6 +200,30 @@ def test_seq_phase_rehearsed_on_the_cpu():
     assert 0 < numbers["config4_created"] < 64
 
 
+def test_seq_plain_child_holds_the_kernel_to_the_plain_twin():
+    """The full-width plain twin's child process, at 64 events on the
+    CPU: its outputs equal the plain twin's run here (err 0, a time
+    taken), and an output that differs fails the phase."""
+    from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+    from tigerbeetle_tpu_torch.ops import create_kernels as CK
+    from tigerbeetle_tpu_torch.ops.batch import prefetch_create_transfers
+
+    o = StateMachineOracle()
+    o.create_accounts([TT.Account(id=i, ledger=1, code=1)
+                       for i in range(1, 101)], 1000)
+    inputs, _ = prefetch_create_transfers(
+        o, CS.config3_batch(np.random.default_rng(3), 0, 64, 100), 10**7)
+    got = CK.create_transfers_seq_plain(CK.inputs_to_device(inputs, "cpu"))
+    ms, err = CS.SeqPlainChild(inputs, got).finish()
+    assert ms > 0 and err == 0
+    bad = dict(got)
+    k = next(iter(bad))
+    bad[k] = bad[k].clone()
+    bad[k].view(-1)[0] += 1
+    with pytest.raises(RuntimeError, match="differs from the plain twin"):
+        CS.SeqPlainChild(inputs, bad).finish()
+
+
 @pytest.mark.parametrize("route,W", [("chain", 3), ("super", 3),
                                      ("super_deep", 2),
                                      ("super_imported", 2),
@@ -888,5 +912,98 @@ def test_chip_smoke_runs_the_reshard_phase_last():
     assert order == sorted(order)
     assert main.count("'launches_reshard':") == 2
     assert main.count("'launches_reshard_two_process':") == 2
-    assert (CS.RS_SHARDS, CS.RS_W, CS.RS_WARM) == (8, 8, 2)
+    assert (CS.RS_SHARDS, CS.RS_W, CS.RS_WARM) == (8, 4, 2)
     assert CS.RS_CHAOS_SEEDS == (2, 10)
+
+
+def _replay_scenario(names):
+    """A gate scenario that emits once each catalog event of `names` that
+    no scenario before it emitted."""
+    from tigerbeetle_tpu_torch.trace import Event, EventKind
+
+    def _scenario_replay(col):
+        seen = col.emitted()
+        t = col.make(0)
+        for e in Event:
+            if e.name not in names or e.name in seen:
+                continue
+            if e.kind is EventKind.span:
+                t.record_span(e, t.now_ns(), 1000)
+            elif e.kind is EventKind.counter:
+                t.count(e)
+            elif e.kind is EventKind.gauge:
+                t.gauge(e, 1.0)
+            else:
+                t.observe(e, 1.0)
+    return _scenario_replay
+
+
+def test_trace_coverage_phase_rehearsed_on_the_cpu(calls, monkeypatch):
+    """The gate phase on the CPU at a small size: five of the gate's
+    scenarios (the staging plane's device ledger among them), each timed
+    with its new events, and a replay of the rest of the catalog; the
+    gate holds, then the metrics leg. With the catalog one event short,
+    the phase fails."""
+    from tigerbeetle_tpu_torch.testing import trace_coverage as TCV
+    from tigerbeetle_tpu_torch.trace import Event
+
+    names = ("rollback_and_config", "bus_pair", "overlap", "slo",
+             "observatory")
+    catalog = {e.name for e in Event}
+    real = tuple(getattr(TCV, f"_scenario_{n}") for n in names)
+    monkeypatch.setattr(TCV, "SCENARIOS",
+                        real + (_replay_scenario(catalog),))
+    numbers = CS.trace_coverage_phase("cpu")
+    rows = numbers["scenarios"]
+    assert [r["name"] for r in rows] == list(names) + ["replay"]
+    assert {"rollbacks", "bus_send", "window_stage", "slo_breach",
+            "alert_fired"} <= set().union(*(r["new"] for r in rows[:-1]))
+    assert 0 < len(rows[-1]["new"]) < 56
+    assert numbers["catalog"] == numbers["emitted"] == 56
+    assert calls["probe"] > 0 and calls["gather"] > 0
+    monkeypatch.setattr(TCV, "SCENARIOS",
+                        (_replay_scenario(catalog - {"commit_windows"}),))
+    with pytest.raises(RuntimeError, match="coverage_main returned 1"):
+        CS.trace_coverage_phase("cpu")
+
+
+def test_clients_phase_rehearsed_on_the_cpu():
+    """The clients phase at a small size on the CPU: `start --platform
+    cpu --small` on the device engine beside an oracle-engine twin, the C
+    client's 64 accounts, 2 bodies of 100 transfers, a warm-up and 4
+    timed one-transfer requests and the lookups (every reply equal to the twin's,
+    timestamps aside), the C++ example built and run against the
+    server, `main.py clients` byte-equal to the committed tree."""
+    numbers = CS.clients_phase("cpu", n_accounts=64, body=100, n_bodies=2,
+                               n_small=4)
+    assert numbers["requests"] == 1 + 2 + 1 + 4 + 2
+    assert numbers["files_generated"] == 36
+    assert len(numbers["body_latency_ms"]) == 2
+    assert numbers["small_latency_ms"]["n"] == 4
+    assert numbers["twin_small_latency_ms"]["n"] == 4
+    assert sorted(numbers["lookup_latency_ms"]) == [
+        "lookup_accounts", "lookup_transfers"]
+    assert set(numbers["phase_seconds"]) == {
+        "format", "start", "wait", "requests_card", "requests_twin",
+        "cpp_build", "cpp_run", "generate"}
+
+
+def test_chip_smoke_runs_the_gate_and_clients_phases_last():
+    """main() starts the clients phase's servers before the reshard
+    phase, runs the gate and the clients phases after it and stops the
+    servers, prints their lines before the phases' seconds and the
+    kernels line, and every kernel carries their launches."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "ClientsRig(dev)", "reshard_phase(dev)", "trace_coverage_phase(dev)",
+        "clients_phase(dev, rig)", "rig.close()", "'reshard'",
+        "'trace_coverage'", "'clients'", "'phase_seconds'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_trace_coverage':") == 3
+    assert main.count("'launches_clients_server':") == 3

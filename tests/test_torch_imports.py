@@ -78,7 +78,15 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.parallel.shard_utils, "
         "tigerbeetle_tpu_torch.parallel.full_sharded, "
         "tigerbeetle_tpu_torch.parallel.partitioned, "
-        "tigerbeetle_tpu_torch.convert\n"
+        "tigerbeetle_tpu_torch.convert, tigerbeetle_tpu_torch.clients, "
+        "tigerbeetle_tpu_torch.clients.c_client, "
+        "tigerbeetle_tpu_torch.clients.codegen, "
+        "tigerbeetle_tpu_torch.clients.codegen_dotnet, "
+        "tigerbeetle_tpu_torch.clients.codegen_java, "
+        "tigerbeetle_tpu_torch.clients.codegen_ruby, "
+        "tigerbeetle_tpu_torch.clients.codegen_rust, "
+        "tigerbeetle_tpu_torch.clients.syntax_check, "
+        "tigerbeetle_tpu_torch.testing.trace_coverage\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -276,6 +284,31 @@ def test_the_native_engine_builds_at_first_use_only():
         "import tigerbeetle_tpu_torch.main\n"
         "assert nat._lib is None and not nat._tried\n"
         "assert nat.library_path().startswith(nat.BUILD_DIR)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_gate_and_the_clients_are_the_ports_own():
+    """The trace-catalog gate, the C client's binding and source, and the
+    client generators exist in the port (the AST checks above cover their
+    sources); importing them builds nothing: `g++` runs at the first
+    `native.load_client()`, into the port's own build directory."""
+    for name in ("testing/trace_coverage.py", "clients/c_client.py",
+                 "clients/codegen.py", "clients/codegen_dotnet.py",
+                 "clients/codegen_java.py", "clients/codegen_ruby.py",
+                 "clients/codegen_rust.py", "clients/syntax_check.py"):
+        assert (PORT / name) in _sources(), name
+    assert (PORT / "csrc" / "tb_client.cpp").is_file()
+    code = (
+        "import tigerbeetle_tpu_torch.native as nat\n"
+        "import tigerbeetle_tpu_torch.clients\n"
+        "import tigerbeetle_tpu_torch.clients.codegen\n"
+        "import tigerbeetle_tpu_torch.testing.trace_coverage\n"
+        "import tigerbeetle_tpu_torch.main\n"
+        "assert nat._client_lib is None and not nat._client_tried\n"
+        "p = nat.library_path(nat._CLIENT_SRC, 'tb_client')\n"
+        "assert p.startswith(nat.BUILD_DIR) and 'libtb_client_' in p\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

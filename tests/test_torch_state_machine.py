@@ -585,3 +585,34 @@ def test_the_card_is_the_default_device(monkeypatch):
             StateMachine(engine=engine)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceLedger(write_through=StateMachineOracle())
+
+
+def test_fallback_stats_equal_the_jax_packages():
+    """The device engine's routing and fallback counters after config 4's
+    accounts (the even ones debits_must_not_exceed_credits) and a
+    pend / post-void pair of bodies: every key of the JAX package's dict
+    and the value it holds. A host engine has no ledger: {}."""
+    pair = Pair("device", "device")
+    limit = int(AF.debits_must_not_exceed_credits)
+    pair.commit(O.create_accounts, acct_body([
+        JT.Account(id=i, ledger=1, code=1, flags=limit if i % 2 == 0 else 0)
+        for i in range(1, 17)]), TS)
+    rng = np.random.default_rng(4)
+    n = 48
+    dr = rng.integers(1, 17, n)
+    cr = (dr + rng.integers(1, 16, n) - 1) % 16 + 1
+    pend = [x(1000 + i, int(dr[i]), int(cr[i]), int(rng.integers(1, 100)),
+              flags=int(TF.pending)) for i in range(n)]
+    post_void = [x(2000 + i, amount=U128_MAX if i % 2 == 0 else 0,
+                   ledger=0, code=0, pending_id=1000 + i,
+                   flags=int(TF.post_pending_transfer if i % 2 == 0
+                             else TF.void_pending_transfer))
+                 for i in range(n)]
+    pair.commit(O.create_transfers, xfer_body(pend), TS + 1000)
+    pair.commit(O.create_transfers, xfer_body(post_void), TS + 2000)
+    got, want = pair.port.fallback_stats(), pair.jax.fallback_stats()
+    assert want["fast_batches"] + want["fixpoint_batches"] >= 2, want
+    assert {k: got[k] for k in want} == want
+    for engine in ("oracle", "kernel"):
+        assert port_sm(engine).fallback_stats() == {} \
+            == JSM(engine=engine).fallback_stats()

@@ -1,7 +1,8 @@
 """Typed request helpers shared by every client stack.
 
-A client exposes `request(operation, body) -> bytes` (the pure-Python
-client, vsr/client.py, is the port's only one); these helpers
+Both the pure-Python client (vsr/client.py) and the native C binding
+(clients/c_client.py) expose `request(operation, body) -> bytes`; these
+helpers
 encode/decode the operation payloads on top of it (reference: the
 per-language typed wrappers over tb_client share batch encoding the same
 way, src/clients/*).

@@ -22,6 +22,7 @@ of the JAX package's `main.py` for these commands:
   cfo          [--kind=mix|fuzz|vopr|chaos] [--seed=S] [--max-runs=N]
                [--budget-s=S] [--traffic=SHAPE] [--failures-file=PATH]
                [--artifact=PATH] [--platform=cpu]
+  clients      [--out=DIR]
   version
 
 `start`, `benchmark`, `fuzz` and `cfo` run on the card (CUDA) unless
@@ -829,6 +830,19 @@ def cmd_cfo(args) -> int:
     return 1 if failures else 0
 
 
+def cmd_clients(args) -> int:
+    """Regenerate the client packages (reference: the per-language
+    codegen under src/clients/, run via `zig build clients:*`): the same
+    files as the JAX package's `clients`, byte for byte."""
+    from .clients import codegen
+
+    written = codegen.write_out(args.out)
+    for path in written:
+        print(path)
+    print(f"clients: {len(written)} files generated into {args.out}/")
+    return 0
+
+
 def cmd_version(args) -> int:
     from . import __version__
 
@@ -1006,6 +1020,11 @@ def main(argv=None) -> int:
                    help="where every run's device state lives (default: "
                         "the card, CUDA)")
     p.set_defaults(fn=cmd_cfo)
+
+    p = sub.add_parser("clients")
+    p.add_argument("--out", default="clients",
+                   help="output root (clients/go, clients/node, ...)")
+    p.set_defaults(fn=cmd_clients)
 
     p = sub.add_parser("version")
     p.set_defaults(fn=cmd_version)

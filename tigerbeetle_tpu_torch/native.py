@@ -1,5 +1,7 @@
 """ctypes binding to the native storage engine (csrc/storage_engine.cpp,
-a copy of the JAX package's native/storage_engine.cpp).
+a copy of the JAX package's native/storage_engine.cpp), and the loader
+of the native tb_client (csrc/tb_client.cpp, a copy of the JAX package's
+native/tb_client.cpp; `load_client`, bound by clients/c_client.py).
 
 Builds the shared library at first use with `g++ -O2 -fPIC -shared
 -pthread` into the git-ignored `tigerbeetle_tpu_torch/build/`, its name
@@ -22,6 +24,7 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_PKG, "csrc", "storage_engine.cpp")
 _HDR = os.path.join(_PKG, "csrc", "blake2b.h")
+_CLIENT_SRC = os.path.join(_PKG, "csrc", "tb_client.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 _lock = threading.Lock()
@@ -29,16 +32,16 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def library_path() -> str:
+def library_path(src: str = _SRC, name: str = "tb_storage") -> str:
     """Where the library for the current sources lives."""
     h = hashlib.sha256()
-    for src in (_SRC, _HDR):
-        with open(src, "rb") as f:
+    for path in (src, _HDR):
+        with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libtb_storage_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def _build(lib: str) -> bool:
+def _build(lib: str, src: str = _SRC) -> bool:
     """Compile into a temporary file, then rename it into place: processes
     building at once never load a half-written library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -46,12 +49,13 @@ def _build(lib: str) -> bool:
     os.close(fd)
     try:
         subprocess.run(
-            ["g++", "-O2", "-fPIC", "-shared", "-pthread", "-o", tmp, _SRC],
+            ["g++", "-O2", "-fPIC", "-shared", "-pthread", "-o", tmp, src],
             check=True, capture_output=True, timeout=120)
         os.replace(tmp, lib)
         return True
     except (OSError, subprocess.SubprocessError):
-        # No g++, a failed or timed-out build: the plain-IO paths serve.
+        # No g++, a failed or timed-out build: the storage engine's
+        # plain-IO paths serve, and the C client is unavailable.
         return False
     finally:
         if os.path.exists(tmp):
@@ -180,6 +184,33 @@ class NativeFile:
 
 def available() -> bool:
     return load() is not None
+
+
+# ------------------------------------------------------- tb_client library
+
+_client_lock = threading.Lock()
+_client_lib: Optional[ctypes.CDLL] = None
+_client_tried = False
+
+
+def load_client() -> Optional[ctypes.CDLL]:
+    """The native tb_client library (csrc/tb_client.cpp), built on
+    demand as the storage engine is; None when unavailable (no g++)."""
+    global _client_lib, _client_tried
+    with _client_lock:
+        if _client_lib is not None or _client_tried:
+            return _client_lib
+        _client_tried = True
+        if not os.path.exists(_CLIENT_SRC):
+            return None
+        path = library_path(_CLIENT_SRC, "tb_client")
+        if not os.path.exists(path) and not _build(path, _CLIENT_SRC):
+            return None
+        try:
+            _client_lib = ctypes.CDLL(path)
+        except OSError:
+            return None
+        return _client_lib
 
 
 class AsyncEngine:

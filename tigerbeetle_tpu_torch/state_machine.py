@@ -180,6 +180,13 @@ class StateMachine:
         # ledger's staged pack can be consumed by identity.
         self._staged_window = None
 
+    def fallback_stats(self) -> dict:
+        """Device-engine routing/fallback counters (per-cause host
+        fallbacks + on-device escalations); empty for host engines."""
+        if self.led is None:
+            return {}
+        return self.led.fallback_stats()
+
     # -------------------------------------------------------- LSM serving
 
     def attach_durable(self, durable, *, cache_sets: int = 1024,

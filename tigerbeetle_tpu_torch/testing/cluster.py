@@ -491,14 +491,17 @@ class Cluster:
             for r in self.replicas)
 
 
-def rebuild_smoke(seed: int = 11, tracer_factory=None) -> None:
+def rebuild_smoke(seed: int = 11, tracer_factory=None,
+                  device=None) -> None:
     """The gate's rebuild smoke: 3-replica in-process cluster, traffic
     past a WAL wrap, zero one replica's data file under continued load,
     rebuild it from the cluster, and require the rebuilt replica's
     state-epoch digest to be bit-identical to every healthy peer's (plus
     the storage checker's byte-identical checkpoints). With
     tracer_factory the whole run records (the gate's trace-coverage leg
-    reuses this smoke to prove the rebuild/state-sync catalog events)."""
+    reuses this smoke to prove the rebuild/state-sync catalog events).
+    The replicas run the default `StateMachine` engine on `device`
+    (None: the card)."""
     from .. import multi_batch
     from ..ops.state_epoch import combine, oracle_state_digest
     from ..types import Account, Transfer
@@ -511,7 +514,9 @@ def rebuild_smoke(seed: int = 11, tracer_factory=None) -> None:
         return multi_batch.encode([payload], 128)
 
     cluster = Cluster(seed=seed, replica_count=3,
-                      tracer_factory=tracer_factory)
+                      tracer_factory=tracer_factory,
+                      state_machine_factory=lambda: StateMachine(
+                          device=device))
     client = cluster.client(77)
 
     def drive(op, body):
