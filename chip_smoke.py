@@ -287,6 +287,19 @@ each failing the run with a nonzero exit:
               card's server; `main.py clients --out <tmp>` byte-equal to
               the committed clients/ tree; the client's latency p50 /
               p99 and the server's launches.
+ 26. static  the port's static verifier (`tigerbeetle_tpu_torch.
+              torchhound`) as the gate's static leg,
+              `testing.static_smoke.static_smoke(device=cuda)`, in a
+              child process on the card that starts beside the durable
+              phase: the four passes over the registry's 18 entries (the
+              flat tiers, the chain and its ring, the sharded and
+              partitioned steps and the partitioned chain on 8 logical
+              shards of the card) clean, every negative proof red as
+              required; a capture probe on a DeviceLedger at its default
+              caps (chain and super windows at W = 4, then 8) captured
+              once a key and replayed, with the launches the window
+              routes predict; the census of create_transfers_fast on
+              the card launching what a plain tier run predicts.
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -297,7 +310,8 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"supervisor": ...}`, `{"durable": ...}`, `{"replica": ...}`,
 `{"benchmark": ...}`, `{"drivers": ...}`, `{"observatory": ...}`,
 `{"sharded": ...}`, `{"partitioned": ...}`, `{"reshard": ...}`,
-`{"trace_coverage": ...}`, `{"clients": ...}`, `{"phase_seconds": ...}`
+`{"trace_coverage": ...}`, `{"clients": ...}`, `{"static": ...}`,
+`{"phase_seconds": ...}`
 and `{"kernels": [...]}` lines, and last
 `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
@@ -8636,6 +8650,125 @@ def clients_phase(dev, rig: ClientsRig = None, n_accounts: int = N_ACCOUNTS,
     return numbers
 
 
+# ------------------------------------------------------------- static
+
+ST_CAPTURE_WIDTHS = (4, 8)   # retrace.capture_probe's default widths
+
+
+def _static_main(send, device: str, status_path: str) -> None:
+    """A child process: the static leg on `device`. Sends ("ok", the
+    status, the child's seconds, the kernels' launches in it) or
+    ("error", the traceback)."""
+    import traceback
+
+    try:
+        t = time.perf_counter()
+        from tigerbeetle_tpu_torch.testing import static_smoke as SS
+
+        _zero_launches()
+        status = SS.static_smoke(status_path=status_path, device=device)
+        send.send(("ok", status, time.perf_counter() - t, _launch_counts()))
+    except BaseException:
+        send.send(("error", traceback.format_exc()))
+
+
+class StaticChild:
+    """The static leg (`_static_main`) in a child process on `dev`,
+    beside the phases the script runs meanwhile; finish() waits for it
+    and returns (status, the child's seconds, its launches), failing the
+    phase if it failed."""
+
+    def __init__(self, dev):
+        import multiprocessing
+
+        fd, self.path = tempfile.mkstemp(prefix="tb_static_",
+                                         suffix=".json")
+        os.close(fd)
+        ctx = multiprocessing.get_context("spawn")
+        self.recv, send = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_static_main, daemon=True,
+                                args=(send, str(torch.device(dev)),
+                                      self.path))
+        self.proc.start()
+        send.close()
+
+    def finish(self) -> tuple:
+        try:
+            msg = (self.recv.recv() if self.recv.poll(900) else
+                   ("error", "no answer in 900 s"))
+        except EOFError:
+            msg = ("error", f"the child exited with {self.proc.exitcode}")
+        finally:
+            self.proc.join(60)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+            os.unlink(self.path)
+        check(msg[0] == "ok", f"static leg failed:\n{msg[1]}")
+        return msg[1:]
+
+
+def static_phase(dev, child: StaticChild = None) -> dict:
+    """The static leg's verdict (`child`'s, or a child started here):
+    every pass clean and every negative proof red (static_smoke raises
+    otherwise); the capture probe's keys eager once, then on the card
+    captured once and replayed, with the launches `window_launches`
+    predicts for its eager windows and captures; the census of
+    create_transfers_fast launching (on the card) and calling what a
+    plain tier run predicts. Returns the per-pass finding counts, the
+    negative proofs, the capture counters, the census and the seconds."""
+    t = time.perf_counter()
+    if child is None:
+        child = StaticChild(dev)
+    status, child_s, launches = child.finish()
+    cuda = torch.device(dev).type == "cuda"
+    passes = {k: v["n_findings"] for k, v in status["passes"].items()}
+    check(set(passes) == {"determinism", "host", "retrace", "sharding"}
+          and not any(passes.values()),
+          f"static: findings by pass {passes}")
+    check(len(status["negatives"]) == 6 and all(status["negatives"].values()),
+          f"static: negative proofs {status['negatives']}")
+    check(status["n_entries"] == 18,
+          f"static: {status['n_entries']} registry entries, not 18")
+    cap = status["capture"]
+    predicted = [0, 0]
+    w0, w1 = ST_CAPTURE_WIDTHS
+    for route in ("chain", "super"):
+        first, second = (cap[repr((route, w, 1024))] for w in (w0, w1))
+        want = ({"eager": 1, "captures": 1, "replays": 2} if cuda
+                else {"eager": 3, "captures": 0, "replays": 0})
+        check(first == want and second == {"eager": 1, "captures": 0,
+                                           "replays": 0},
+              f"static: capture counts of {route}: {first}, {second}")
+        for w, calls in ((w0, first["eager"] + first["captures"]),
+                         (w1, 1)):
+            per = window_launches(route, w)
+            predicted = [predicted[i] + calls * per[i] for i in range(2)]
+    got = [cap["launches"]["ht_probe"], cap["launches"]["row_gather"]]
+    check(cap["drops"] == 0 and got == (predicted if cuda else [0, 0]),
+          f"static: capture probe drops {cap['drops']}, launches {got}, "
+          f"predicted {predicted}")
+    census = status["census"]["create_transfers_fast"]
+    plain = {"ht_probe": PROBES_PER_RUN["plain"],
+             "row_gather": GATHERS_PER_RUN["plain"]}
+    check(census["kernel_calls"] == plain and census["launches"] == (
+        plain if cuda else {"ht_probe": 0, "row_gather": 0}),
+        f"static: census of create_transfers_fast calls "
+        f"{census['kernel_calls']}, launches {census['launches']}")
+    numbers = dict(
+        findings=passes, negatives=status["negatives"],
+        n_entries=status["n_entries"], tracebudget=status["tracebudget"],
+        capture=cap, capture_predicted=predicted,
+        census=census, launches=list(launches), child_s=child_s,
+        wait_s=time.perf_counter() - t, card=card_line_or_cpu(dev))
+    print(f"static: 4 passes clean over {status['n_entries']} entries, "
+          f"{len(status['negatives'])} negatives red, capture launches "
+          f"{got} (predicted {predicted}), census launches "
+          f"{census['launches']}; the child {child_s:.1f} s, waited "
+          f"{numbers['wait_s']:.1f} s ({numbers['card']})", flush=True)
+    return numbers
+
+
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
@@ -8713,6 +8846,9 @@ def main() -> int:
     lap("serving_phase")
     sup = supervisor_phase(dev)
     lap("supervisor_phase")
+    # The static leg runs in a child process on the card from here on,
+    # beside the durable phase's host-bound work.
+    static_child = StaticChild(dev)
     dur = durable_phase(dev)
     lap("durable_phase")
     rep = replica_phase(dev)
@@ -8739,6 +8875,8 @@ def main() -> int:
         lap("clients_phase")
     finally:
         rig.close()
+    stc = static_phase(dev, static_child)
+    lap("static_phase")
     plain_ms, err = seq.pop("plain_twin").finish()
     seq.update(plain_ms=plain_ms, max_abs_err=max(seq["max_abs_err"], err))
     print(f"sequential kernel: plain twin {plain_ms:.0f} ms on the CPU, "
@@ -8817,6 +8955,9 @@ def main() -> int:
         # phase's server (its device engine).
         "launches_trace_coverage": tcv["launches"][0],
         "launches_clients_server": cli["launches"][0],
+        # The static leg's child process: its census, capture probe and
+        # registry runs on the card.
+        "launches_static": stc["launches"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -8878,6 +9019,7 @@ def main() -> int:
         "launches_reshard_two_process": rsh["two_process"]["launches"][1],
         "launches_trace_coverage": tcv["launches"][1],
         "launches_clients_server": cli["launches"][1],
+        "launches_static": stc["launches"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -8918,6 +9060,7 @@ def main() -> int:
         # The trace-coverage gate's kernel-engine clusters.
         "launches_trace_coverage": tcv["launches"][2],
         "launches_clients_server": cli["launches"][2],
+        "launches_static": stc["launches"][2],
         "max_abs_err": seq["max_abs_err"],
         "ms": seq["ms"],
         "plain_ms": seq["plain_ms"],
@@ -8952,6 +9095,7 @@ def main() -> int:
     print(json.dumps({"reshard": rsh}, default=str), flush=True)
     print(json.dumps({"trace_coverage": tcv}), flush=True)
     print(json.dumps({"clients": cli}), flush=True)
+    print(json.dumps({"static": stc}), flush=True)
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ calls must number what the script predicts for the kernels' launches.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1007,3 +1008,58 @@ def test_chip_smoke_runs_the_gate_and_clients_phases_last():
     assert order == sorted(order)
     assert main.count("'launches_trace_coverage':") == 3
     assert main.count("'launches_clients_server':") == 3
+
+
+def test_static_phase_rehearsed_on_the_cpu():
+    """Phase 26 on the CPU, its child process included: the four passes
+    clean over the 18 entries, the six negative proofs red, every capture
+    window eager on the CPU, the census calling what a plain tier run
+    launches; a verdict with a proof that did not red fails the phase."""
+    child = CS.StaticChild("cpu")
+    got = child.finish()
+
+    class Done:
+        def __init__(self, status):
+            self.status = status
+
+        def finish(self):
+            return (self.status,) + got[1:]
+
+    numbers = CS.static_phase("cpu", Done(got[0]))
+    assert numbers["findings"] == {"determinism": 0, "host": 0,
+                                   "retrace": 0, "sharding": 0}
+    assert len(numbers["negatives"]) == 6
+    assert all(numbers["negatives"].values())
+    assert numbers["n_entries"] == 18
+    assert numbers["tracebudget"] == "tracebudget_r01.json"
+    assert numbers["census"]["kernel_calls"] == {"ht_probe": 1,
+                                                 "row_gather": 4}
+    assert numbers["launches"] == [0, 0, 0]
+    assert numbers["child_s"] > numbers["wait_s"] >= 0
+    bad = json.loads(json.dumps(got[0]))
+    bad["negatives"]["host_wall_clock"] = False
+    with pytest.raises(RuntimeError, match="negative proofs"):
+        CS.static_phase("cpu", Done(bad))
+
+
+def test_chip_smoke_runs_the_static_leg_beside_the_durable_phase():
+    """main() starts the static leg's child before the durable phase,
+    reads its verdict after the clients phase, prints its line before
+    the phases' seconds and the kernels line, and every kernel carries
+    its launches."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "supervisor_phase(dev)", "StaticChild(dev)", "durable_phase(dev)",
+        "clients_phase(dev, rig)", "rig.close()",
+        "static_phase(dev, static_child)", "'clients'", "'static'",
+        "'phase_seconds'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_static':") == 3
+    assert CS.ST_CAPTURE_WIDTHS == (4, 8)
+    assert " 26. static " in CS.__doc__

@@ -276,8 +276,10 @@ def _rich_record() -> dict:
 def test_devhub_renders_the_jax_packages_page(tmp_path):
     """The same history (the non-empty bench lines of BENCH_r01..r06 and
     a line lighting every panel) and the same cfo directory render the
-    same page in both packages, the title's package name aside; the
-    budget and static panels read the committed perf/ files as data."""
+    same page in both packages, the title's package name and the static
+    panel's verifier name aside; the budget panels read the committed
+    perf/ files as data, and the port's static panel is given the JAX
+    package's (perf/static_status.json, perf/tracebudget_r01.json)."""
     from pathlib import Path
 
     repo = Path(__file__).resolve().parent.parent
@@ -296,13 +298,15 @@ def test_devhub_renders_the_jax_packages_page(tmp_path):
                      "reproduce": "python -m tigerbeetle_tpu_torch cfo "
                                   "--kind vopr --seed 777 --max-runs 1"}]}))
     pages = {}
-    for key, mod in (("J", J_devhub), ("P", P_devhub)):
+    for key, mod, kw in (("J", J_devhub, {}),
+                         ("P", P_devhub, {"static_dir": str(repo / "perf")})):
         out = tmp_path / f"{key}.html"
-        assert mod.render(str(history), str(out),
-                          cfo_dir=str(cfo)) == len(lines) + 1
+        assert mod.render(str(history), str(out), cfo_dir=str(cfo),
+                          **kw) == len(lines) + 1
         pages[key] = out.read_text()
-    assert pages["P"] == pages["J"].replace("tigerbeetle-tpu devhub",
-                                            "tigerbeetle-tpu-torch devhub")
+    assert pages["P"] == pages["J"].replace(
+        "tigerbeetle-tpu devhub", "tigerbeetle-tpu-torch devhub").replace(
+        "(jaxhound passes,", "(torchhound passes,")
     doc = pages["P"]
     for panel in ("op budget", "static analysis", "shard balance",
                   "device telemetry", "commit pipeline", "SLOs",
@@ -311,6 +315,29 @@ def test_devhub_renders_the_jax_packages_page(tmp_path):
                   "continuous fuzzing", "PARITY FAILURE RECORDED"):
         assert panel in doc, panel
     assert "--kind vopr --seed 777" in doc
+
+
+def test_devhub_static_panel_reads_the_ports_own_status(tmp_path):
+    """By default the static panel shows the port's verdict: the
+    torchhound status and capture budget committed in the port's trace/,
+    not the JAX package's perf/ files."""
+    from pathlib import Path
+
+    port_trace = Path(P_devhub.__file__).resolve().parent / "trace"
+    status = json.loads((port_trace / "static_status.json").read_text())
+    history = tmp_path / "h.jsonl"
+    P_devhub.record(str(history), {"value": 1.0})
+    out = tmp_path / "d.html"
+    P_devhub.render(str(history), str(out))
+    doc = out.read_text()
+    assert "static analysis (torchhound passes, last gate leg)" in doc
+    assert f"{status['n_entries']} registry entries" in doc
+    assert status["tracebudget"] == "tracebudget_r01.json"
+    pinned = json.loads((port_trace / "tracebudget_r01.json").read_text())
+    assert (f"tracebudget_r01.json: {len(pinned['entries'])} entries "
+            "pinned") in doc
+    assert status["n_entries"] == len(pinned["entries"]) == 18
+    assert "STATIC ANALYSIS RED" not in doc
 
 
 def test_devhub_command_records_and_gates(tmp_path, capsys):

@@ -86,7 +86,18 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.clients.codegen_ruby, "
         "tigerbeetle_tpu_torch.clients.codegen_rust, "
         "tigerbeetle_tpu_torch.clients.syntax_check, "
-        "tigerbeetle_tpu_torch.testing.trace_coverage\n"
+        "tigerbeetle_tpu_torch.testing.trace_coverage, "
+        "tigerbeetle_tpu_torch.torchhound, "
+        "tigerbeetle_tpu_torch.torchhound.__main__, "
+        "tigerbeetle_tpu_torch.torchhound.cli, "
+        "tigerbeetle_tpu_torch.torchhound.core, "
+        "tigerbeetle_tpu_torch.torchhound.determinism, "
+        "tigerbeetle_tpu_torch.torchhound.hostdet, "
+        "tigerbeetle_tpu_torch.torchhound.registry, "
+        "tigerbeetle_tpu_torch.torchhound.retrace, "
+        "tigerbeetle_tpu_torch.torchhound.shardspec, "
+        "tigerbeetle_tpu_torch.testing.static_smoke, "
+        "tigerbeetle_tpu_torch.budget_trail\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -136,6 +147,19 @@ def test_the_operators_modules_are_the_ports_own():
     check above their imports)."""
     for name in ("benchmark.py", "aof.py", "trace/slo.py", "metrics.py",
                  "repl.py", "cdc.py", "amqp.py"):
+        assert (PORT / name) in _sources(), name
+
+
+def test_the_static_verifiers_modules_are_the_ports_own():
+    """torchhound, the counterpart of the JAX package's jaxhound/, and the
+    static leg exist in the port (the AST checks above cover their
+    sources, the import checks their imports)."""
+    for name in ("torchhound/__init__.py", "torchhound/__main__.py",
+                 "torchhound/cli.py", "torchhound/core.py",
+                 "torchhound/determinism.py", "torchhound/hostdet.py",
+                 "torchhound/registry.py", "torchhound/retrace.py",
+                 "torchhound/shardspec.py", "testing/static_smoke.py",
+                 "budget_trail.py"):
         assert (PORT / name) in _sources(), name
 
 

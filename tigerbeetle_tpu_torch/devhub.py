@@ -11,12 +11,13 @@ badges, parity series, and the latest CFO sweep's failing seeds with
 their reproduction commands (no external assets, mirroring the
 reference's static devhub page).
 
-A copy of the JAX package's `devhub.py`. The budget and static-analysis
-panels read the newest committed `perf/opbudget_r*.json`,
-`perf/tracebudget_r*.json`, `perf/membudget_r*.json` and
-`perf/static_status.json` as data; the path logic that finds them is a
-copy of the JAX package's `jaxhound/core.py` helpers, so this module
-imports nothing of that package.
+A copy of the JAX package's `devhub.py`. The op-budget and memory
+panels read the newest committed `perf/opbudget_r*.json` and
+`perf/membudget_r*.json` as data, found by `budget_trail.py` (the JAX
+package's `jaxhound/core.py` helper). The static-analysis panel shows
+the port's own verdict: `static_status.json` and the newest
+`tracebudget_r*.json` in `static_dir` (default: the port's trace/, where
+`testing/static_smoke.py` and torchhound write them).
 """
 
 from __future__ import annotations
@@ -25,44 +26,33 @@ import glob
 import html
 import json
 import os
-import re
 import time
 from typing import Optional
+
+from .budget_trail import newest_round_path
 
 # The checkout's perf/ directory: this file lives one level below the
 # repo root (tigerbeetle_tpu_torch/devhub.py).
 _DEFAULT_PERF_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "perf")
-
-
-def _newest_round_path(perf_dir: Optional[str], prefix: str) -> str:
-    """The newest committed `<prefix>_r<N>.json` (highest round number)
-    under perf_dir (default: the checkout's perf/)."""
-    if perf_dir is None:
-        perf_dir = _DEFAULT_PERF_DIR
-    best, best_round = None, -1
-    for p in glob.glob(os.path.join(perf_dir, f"{prefix}_r*.json")):
-        m = re.search(rf"{prefix}_r(\d+)\.json$", os.path.basename(p))
-        if m and int(m.group(1)) > best_round:
-            best_round, best = int(m.group(1)), p
-    if best is None:
-        raise FileNotFoundError(f"no {prefix}_r*.json under {perf_dir!r}")
-    return best
+# The port's static verdict and capture budget: its trace/ directory.
+_DEFAULT_STATIC_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "trace")
 
 
 def newest_budget_path(perf_dir: Optional[str] = None) -> str:
     """The newest committed perf/opbudget_r*.json."""
-    return _newest_round_path(perf_dir, "opbudget")
+    return newest_round_path(perf_dir or _DEFAULT_PERF_DIR, "opbudget")
 
 
 def newest_tracebudget_path(perf_dir: Optional[str] = None) -> str:
     """The newest committed perf/tracebudget_r*.json."""
-    return _newest_round_path(perf_dir, "tracebudget")
+    return newest_round_path(perf_dir or _DEFAULT_PERF_DIR, "tracebudget")
 
 
 def newest_membudget_path(perf_dir: Optional[str] = None) -> str:
     """The newest committed perf/membudget_r*.json."""
-    return _newest_round_path(perf_dir, "membudget")
+    return newest_round_path(perf_dir or _DEFAULT_PERF_DIR, "membudget")
 
 
 NUMERIC_KEYS = (
@@ -201,10 +191,14 @@ def _sparkline(values: list[float], width: int = 320, height: int = 48) -> str:
 def render(history_path: str, out_path: str,
            cfo_dir: Optional[str] = None,
            entries: Optional[list] = None,
-           regress: Optional[dict] = None) -> int:
+           regress: Optional[dict] = None,
+           static_dir: Optional[str] = None) -> int:
     """Render the dashboard; returns the number of history entries.
     `entries`/`regress` let a caller that already loaded the history
-    (cmd_devhub's gate) avoid parsing and scanning it twice."""
+    (cmd_devhub's gate) avoid parsing and scanning it twice. The static
+    panel reads `static_dir` (default: the port's trace/)."""
+    if static_dir is None:
+        static_dir = _DEFAULT_STATIC_DIR
     if entries is None:
         entries = load(history_path)
     if regress is None:
@@ -527,16 +521,16 @@ def render(history_path: str, out_path: str,
               "<th></th></tr>"
             + "".join(rows_ob) + "</table>")
     # Static-analysis panel: the gate `static` leg's last verdict
-    # (perf/static_status.json, written by testing/static_smoke.py) —
-    # per-pass ok flags with finding samples and the negative-proof
-    # verdicts — next to the committed retrace-budget head (the NEWEST
-    # perf/tracebudget_r*.json, resolved newest_budget_path-style so a
-    # new pinned round shows up without a devhub edit).
+    # (static_status.json in static_dir, written by
+    # testing/static_smoke.py) — per-pass ok flags with finding samples
+    # and the negative-proof verdicts — next to the committed
+    # capture-budget head (the NEWEST tracebudget_r*.json there, resolved
+    # newest_budget_path-style so a new pinned round shows up without a
+    # devhub edit).
     st_html = ""
     st = None
     try:
-        with open(os.path.join(_DEFAULT_PERF_DIR,
-                               "static_status.json")) as f:
+        with open(os.path.join(static_dir, "static_status.json")) as f:
             st = json.load(f)
     except (OSError, ValueError, ImportError):
         pass
@@ -569,7 +563,7 @@ def render(history_path: str, out_path: str,
             neg_txt = html.escape(neg_txt)
         tb_txt = "-"
         try:
-            with open(newest_tracebudget_path()) as f:
+            with open(newest_tracebudget_path(static_dir)) as f:
                 tb = json.load(f)
             tb_txt = "{}: {} entries pinned, depth matrix {}".format(
                 html.escape(str(st.get("tracebudget") or "")),
@@ -583,7 +577,7 @@ def render(history_path: str, out_path: str,
                     'ANALYSIS RED — scripts/gate.py static leg would '
                     'fail</p>')
         st_html = (
-            "<h2>static analysis (jaxhound passes, last gate leg)</h2>"
+            "<h2>static analysis (torchhound passes, last gate leg)</h2>"
             + badge_st
             + "<p>{} registry entries; retrace budget {}; negative "
               "proofs: {}</p>".format(

@@ -17,6 +17,7 @@ of the JAX package's `main.py` for these commands:
   multiversion [--small] <path>
   fuzz         list | smoke | <name> [seed] [--iterations=N]
                [--platform=cpu]
+  torchhound   [--kernel=K] [--device=cpu]
   devhub       [--record=bench.json] [--history=PATH] [--out=PATH]
                [--cfo-dir=DIR] [--strict]
   cfo          [--kind=mix|fuzz|vopr|chaos] [--seed=S] [--max-runs=N]
@@ -26,7 +27,8 @@ of the JAX package's `main.py` for these commands:
   version
 
 `start`, `benchmark`, `fuzz` and `cfo` run on the card (CUDA) unless
-`--platform cpu` is given, and raise where there is no card. `recover`
+`--platform cpu` is given, `torchhound` unless `--device cpu` is, and
+raise where there is no card. `recover`
 replays on the oracle engine, host code, as the JAX package's does.
 """
 
@@ -704,6 +706,23 @@ def cmd_fuzz(args) -> int:
     return 0
 
 
+def cmd_torchhound(args) -> int:
+    """The census report of the flat tiers (the JAX package's `jaxhound`
+    command; reference analog: src/copyhound.zig)."""
+    from .ops.device import resolve_device
+    from .torchhound import report
+
+    device = resolve_device(args.device)
+    try:
+        lines = report(args.kernel, device)
+    except KeyError as e:
+        print(e.args[0])
+        return 1
+    for line in lines:
+        print(line)
+    return 0
+
+
 def cmd_devhub(args) -> int:
     """Record bench results + render the metrics dashboard (reference:
     src/scripts/devhub.zig + devhub.tigerbeetle.com)."""
@@ -978,6 +997,12 @@ def main(argv=None) -> int:
                    help="where the fuzzers' device state lives (default: "
                         "the card, CUDA)")
     p.set_defaults(fn=cmd_fuzz)
+
+    p = sub.add_parser("torchhound")
+    p.add_argument("--kernel", default=None)
+    p.add_argument("--device", default=None,
+                   help="where the census runs (default: the card, CUDA)")
+    p.set_defaults(fn=cmd_torchhound)
 
     p = sub.add_parser("devhub")
     p.add_argument("--record", default=None,

@@ -261,6 +261,12 @@ def _normal(device) -> torch.device:
 
 BACKEND = "gloo"
 
+# None but while a census counts a call (trace/profiler.py `_count`):
+# then every `all_gather` and `psum` reports its parts to it first (a
+# dispatch mode sees a collective only as the copies and sums it is made
+# of).
+COST = None
+
 
 class Mesh:
     """An ordered tuple of devices along one axis, one a shard; a device
@@ -363,6 +369,8 @@ def all_gather(mesh: Mesh, parts) -> tuple:
     `torch.distributed.all_gather` (every process's parts of one shape),
     in host memory."""
     parts = _local_parts(mesh, parts)
+    if COST is not None:
+        COST.collective("all_gather", parts)
     d0 = mesh.distinct[0]
     cat = {k: torch.cat([p[k].to(d0) for p in parts]) for k in parts[0]}
     if mesh.process_count > 1:
@@ -390,6 +398,8 @@ def psum(mesh: Mesh, parts) -> tuple:
     `torch.distributed.all_reduce` in host memory: gloo's int64 sum wraps
     as u64 does."""
     parts = _local_parts(mesh, parts)
+    if COST is not None:
+        COST.collective("psum", parts)
     parts = [p.to(torch.int64) if p.dtype == torch.bool else p
              for p in parts]
     if mesh.process_count > 1:

@@ -620,13 +620,13 @@ class StateMachine:
         into `metrics` (reference: the commit Metrics table,
         src/state_machine.zig:729-780, :2637-2667)."""
         # Metrics-only timing, never committed state.
-        t0 = _time.perf_counter_ns()
+        t0 = _time.perf_counter_ns()  # torchhound: allow(wall_clock)
         try:
             return self._commit_timed(op, body, timestamp)
         finally:
             m = self.metrics.setdefault(
                 op.name, {"count": 0, "total_ns": 0, "max_ns": 0})
-            dt = _time.perf_counter_ns() - t0
+            dt = _time.perf_counter_ns() - t0  # torchhound: allow(wall_clock)
             m["count"] += 1
             m["total_ns"] += dt
             if dt > m["max_ns"]:
@@ -659,7 +659,7 @@ class StateMachine:
 
         spec = OPERATION_SPECS[op]
         # Metrics-only timing, never committed state.
-        t0 = _time.perf_counter_ns()
+        t0 = _time.perf_counter_ns()  # torchhound: allow(wall_clock)
         evs, tss, shape = self._flatten_window(op, bodies, timestamps)
         outs = self.led.create_transfers_window(
             evs, tss, all_or_nothing=all_or_nothing)
@@ -669,7 +669,7 @@ class StateMachine:
         replies = self._encode_window_replies(spec, outs, shape)
         m = self.metrics.setdefault(
             op.name, {"count": 0, "total_ns": 0, "max_ns": 0})
-        dt = _time.perf_counter_ns() - t0
+        dt = _time.perf_counter_ns() - t0  # torchhound: allow(wall_clock)
         m["count"] += len(bodies)
         m["total_ns"] += dt
         if dt > m["max_ns"]:

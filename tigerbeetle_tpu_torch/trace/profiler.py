@@ -254,13 +254,18 @@ class _CostCounter:
     """The counting state of one representative tier run: aten ops, FLOPs
     and bytes through the dispatch mode, plus what the kernel wrappers
     charge (`kernel`), with counting paused while a wrapper runs (its
-    plain twin, on the CPU, is not the kernel's work)."""
+    plain twin, on the CPU, is not the kernel's work), and the mesh
+    collectives (`collective`: `shard_utils.all_gather` and `psum` are
+    Python functions, which a dispatch mode sees only as their copies and
+    sums). `result` is what the counted call returned."""
 
     def __init__(self):
         self.ops = self.flops = self.op_bytes = 0
         self.kernel_bytes = 0
         self.kernel_calls: dict = {}
+        self.collectives: list = []
         self.paused = 0
+        self.result = None
 
     def dispatch(self, func, args, kwargs):
         out = func(*args, **kwargs)
@@ -293,27 +298,48 @@ class _CostCounter:
         self.kernel_calls[name] = self.kernel_calls.get(name, 0) + 1
         return out
 
+    def collective(self, name: str, parts) -> None:
+        """One mesh collective over `parts` (one tensor or dict of tensors
+        a shard): its name, whether any operand is floating-point, the
+        bytes of every part, of its largest part and of its largest
+        tensor."""
+        if self.paused:
+            return
+        from torch.utils._pytree import tree_leaves
+
+        sizes = [_tensor_bytes(p)[0] for p in parts]
+        leaves = [x for x in tree_leaves(list(parts))
+                  if isinstance(x, torch.Tensor)]
+        self.collectives.append(dict(
+            name=name, bytes=sum(sizes), part_bytes=max(sizes, default=0),
+            leaf_bytes=max((x.numel() * x.element_size() for x in leaves),
+                           default=0),
+            floating=any(x.is_floating_point() for x in leaves),
+            dtypes=sorted({str(x.dtype) for x in leaves})))
+
 
 def _count(fn, counter: _CostCounter):
     """Run fn() under a dispatch mode feeding `counter`, with the kernel
-    wrappers' cost hooks set. Returns how far the wrappers' LAUNCHES
-    moved meanwhile {wrapper: n}: the run's launches where no other
-    thread launches at the same time."""
+    wrappers' and the mesh collectives' cost hooks set; its result goes
+    to `counter.result`. Returns how far the wrappers' LAUNCHES moved
+    meanwhile {wrapper: n}: the run's launches where no other thread
+    launches at the same time."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from ..ops import fused_probe, row_gather
+    from ..parallel import shard_utils
 
     class Mode(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             return counter.dispatch(func, args, kwargs or {})
 
     before = (fused_probe.LAUNCHES, row_gather.LAUNCHES)
-    fused_probe.COST = row_gather.COST = counter
+    fused_probe.COST = row_gather.COST = shard_utils.COST = counter
     try:
         with Mode():
-            fn()
+            counter.result = fn()
     finally:
-        fused_probe.COST = row_gather.COST = None
+        fused_probe.COST = row_gather.COST = shard_utils.COST = None
     return {"ht_probe": fused_probe.LAUNCHES - before[0],
             "row_gather": row_gather.LAUNCHES - before[1]}
 
@@ -338,12 +364,54 @@ def _chain_prepares(depth: int, n: int = _N_CHAIN, seed: int = 0):
     return evs, tss
 
 
-def _partitioned_call(depth: int, mesh, caps: tuple, batch: int):
-    """The partitioned chain's representative call: a router on `mesh` at
-    `caps`, its state from an oracle holding the 63 accounts, `depth`
-    prepares of `batch` transfers as one chain window's lane matrix."""
+def _account_operands(device):
+    """The 63 accounts' creation on `device`: (ev, timestamp, n) of
+    create_accounts_fast, padded to their bucket."""
+    from ..ops.batch import accounts_to_arrays
+    from ..ops.ledger import _pad_bucket, events_to_device, pad_account_events
+    from ..types import Account
+
+    accounts = pad_account_events(accounts_to_arrays(
+        [Account(id=i, ledger=1, code=1)
+         for i in range(1, _N_ACCOUNTS + 1)]), n_pad=_pad_bucket(_N_ACCOUNTS))
+    return events_to_device(accounts, device), 10 ** 9, _N_ACCOUNTS
+
+
+def _scratch_state(device, caps: tuple) -> dict:
+    """A fresh scratch ledger state at `caps` on `device` holding the 63
+    accounts, so transfers post as a live window's do."""
+    from ..ops import fast_kernels as FK
+    from ..ops.ledger import init_state
+
+    state, _ = FK.create_accounts_fast(init_state(*caps, device=device),
+                                       *_account_operands(device))
+    return state
+
+
+def _flat_operands(device, batch: int) -> tuple:
+    """One prepare of `batch` transfers on `device`, padded to its bucket:
+    (ev, timestamp, n) of the flat tiers."""
+    from ..ops.ledger import _pad_bucket, events_to_device, pad_transfer_events
+
+    evs, tss = _chain_prepares(1, batch)
+    ev = pad_transfer_events(evs[0], _pad_bucket(batch))
+    return events_to_device(ev, device), tss[0], batch
+
+
+def _chain_operands(depth: int, device, batch: int) -> tuple:
+    """`depth` prepares of `batch` transfers stacked for the chain on
+    `device`: (ev_stack, seg_stack)."""
+    from ..ops.ledger import _pad_bucket, events_to_device, stack_chain_window
+
+    evs, tss = _chain_prepares(depth, batch)
+    ev_c, seg_c = stack_chain_window(evs, tss, _pad_bucket(batch))
+    return events_to_device(ev_c, device), events_to_device(seg_c, device)
+
+
+def _partitioned_fixture(mesh, caps: tuple) -> tuple:
+    """A router on `mesh` at `caps` and its state from an oracle holding
+    the 63 accounts: (router, state)."""
     from ..oracle.state_machine import StateMachineOracle
-    from ..ops.ledger import _pad_bucket
     from ..parallel.partitioned import PartitionedRouter
     from ..types import Account
 
@@ -351,7 +419,16 @@ def _partitioned_call(depth: int, mesh, caps: tuple, batch: int):
     sm.create_accounts([Account(id=i, ledger=1, code=1)
                         for i in range(1, _N_ACCOUNTS + 1)], 10 ** 9)
     router = PartitionedRouter(mesh, a_cap=caps[0], t_cap=caps[1])
-    state = router.from_oracle(sm)
+    return router, router.from_oracle(sm)
+
+
+def _partitioned_call(depth: int, mesh, caps: tuple, batch: int):
+    """The partitioned chain's representative call: a router on `mesh` at
+    `caps`, its state from an oracle holding the 63 accounts, `depth`
+    prepares of `batch` transfers as one chain window's lane matrix."""
+    from ..ops.ledger import _pad_bucket
+
+    router, state = _partitioned_fixture(mesh, caps)
     evs, tss = _chain_prepares(depth, batch)
     lanes = router.stage_operands(evs, tss, _pad_bucket(batch)).to(
         mesh.distinct[0])
@@ -369,27 +446,13 @@ def _tier_call(tier: str, depth: int, device, caps: tuple, batch: int,
     if tier == "partitioned_chain":
         return _partitioned_call(depth, mesh, caps, batch)
     from ..ops import fast_kernels as FK
-    from ..ops.batch import accounts_to_arrays
-    from ..ops.ledger import (_pad_bucket, events_to_device, init_state,
-                              pad_account_events, pad_transfer_events,
-                              stack_chain_window)
-    from ..types import Account
 
-    state = init_state(*caps, device=device)
-    accounts = pad_account_events(accounts_to_arrays(
-        [Account(id=i, ledger=1, code=1)
-         for i in range(1, _N_ACCOUNTS + 1)]), n_pad=_pad_bucket(_N_ACCOUNTS))
-    state, _ = FK.create_accounts_fast(
-        state, events_to_device(accounts, device), 10 ** 9, _N_ACCOUNTS)
-    n_pad = _pad_bucket(batch)
-    evs, tss = _chain_prepares(1 if tier == "flat" else depth, batch)
+    state = _scratch_state(device, caps)
     if tier == "flat":
-        ev = events_to_device(pad_transfer_events(evs[0], n_pad), device)
-        return lambda: FK.create_transfers_fast(state, ev, tss[0], batch)
-    ev_c, seg_c = stack_chain_window(evs, tss, n_pad)
-    ev_c = events_to_device(ev_c, device)
-    seg_c = events_to_device(seg_c, device)
-    return lambda: FK.create_transfers_chain(state, ev_c, seg_c)
+        args = _flat_operands(device, batch)
+        return lambda: FK.create_transfers_fast(state, *args)
+    args = _chain_operands(depth, device, batch)
+    return lambda: FK.create_transfers_chain(state, *args)
 
 
 def static_cost_model(depth: int = 4, device=None,

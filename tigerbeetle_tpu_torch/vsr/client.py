@@ -135,7 +135,7 @@ class Client(ClientHelpers):
             # Liveness plane (timeout/hedge pacing), never committed
             # state: replies are ordered by the replicas, not by when
             # this client observed them.
-            start = _time.monotonic()
+            start = _time.monotonic()  # torchhound: allow(wall_clock)
             deadline = start + timeout_s
             hedge_at = start + self.hedge_delay_s()
             resend_at = 0.0
@@ -145,7 +145,7 @@ class Client(ClientHelpers):
                 if self._evicted:
                     raise SessionEvicted(
                         f"client {self.client_id} was evicted")
-                now = _time.monotonic()
+                now = _time.monotonic()  # torchhound: allow(wall_clock)
                 if now >= deadline:
                     raise TimeoutError(
                         f"request {self.request_number} timed out")
@@ -162,7 +162,7 @@ class Client(ClientHelpers):
                 # delay toward the cap exactly when fast fan-out matters
                 # most.
                 self._observe_rtt(
-                    _time.monotonic() - start)
+                    _time.monotonic() - start)  # torchhound: allow(wall_clock)
             return self._reply.body
 
     # Typed helpers (create_accounts, lookups, queries) come from
