@@ -81,14 +81,18 @@ each failing the run with a nonzero exit:
               batch, statuses and timestamps equal to the oracle's and
               the digest and counters to the CPU ledger's; to_host, the
               oracle's apply and the push timed;
-  8. seq      the sequential kernel against its plain twin, bit for bit
-              on every output, on 512-event mixed batches (chains,
-              two-phase, balancing, closing, repeated ids, imported; and
-              accounts), then `run_create_accounts` (10,000 accounts)
-              and `run_create_transfers` at 8,190 events (config-3
-              linked pairs, a config-4 pend batch and its post/void
-              batch) equal to a second oracle; the kernel's device time
-              on a config-3 batch beside the twin's (on the CPU).
+  8. seq      the sequential kernels against their plain twins, bit
+              for bit on every output, on 512-event mixed batches
+              (chains, two-phase, balancing, closing, repeated ids,
+              imported; and accounts) and the transfers kernel's hazard
+              batches (`seq_hazard_cases`), then `run_create_accounts`
+              (10,000 accounts) and `run_create_transfers` at 8,190
+              events (config-3 linked pairs, a config-4 pend batch and
+              its post/void batch) equal to a second oracle; the
+              transfers kernel's device time and stage split on a
+              config-3 batch and on the config-4 pair (equal to the twin
+              there), the accounts kernel's on 8,190 new accounts, each
+              beside its twin's (on the CPU, in a child process).
 
   9. config-2 windows  config 2 as commit windows on the chain route, on
               the card one replay of a captured CUDA graph a window from a
@@ -1063,6 +1067,148 @@ def seq_mixed_accounts(Account, AF, rng, n: int, first_id: int,
             if j % 40 == 9:
                 a.timestamp = imported_after - 3
     return evs
+
+
+SEQ_HAZARD_TS = 10**12
+
+
+def seq_hazard_setup(Account, AF, Transfer, TF) -> list:
+    """The state the hazard batches start from, as (op, events,
+    timestamp) steps: accounts 1-14 (9 debits_must_not_exceed_credits,
+    10 credits_must_not_exceed_debits), 9 credited and 10 debited by 100,
+    7 and 8 moved by 2^128 - 10, 13 and 14 by 2^127 - 1 posted and as
+    much pending, committed pendings 500 (1 -> 2, 50) and 501 (3 -> 4,
+    40, timeout 3600), a committed transfer 600."""
+    limits = {9: AF.debits_must_not_exceed_credits,
+              10: AF.credits_must_not_exceed_debits}
+    accounts = [Account(id=i, ledger=1, code=1, flags=int(limits.get(i, 0)))
+                for i in range(1, 15)]
+
+    def t(id_, dr, cr, amount, **kw):
+        return Transfer(id=id_, debit_account_id=dr, credit_account_id=cr,
+                        amount=amount, ledger=1, code=1, **kw)
+
+    transfers = [
+        t(400, 1, 9, 100), t(401, 10, 2, 100), t(402, 7, 8, (1 << 128) - 10),
+        t(403, 13, 14, (1 << 127) - 1),
+        t(502, 13, 14, (1 << 127) - 1, flags=TF.pending),
+        t(500, 1, 2, 50, flags=TF.pending, user_data_64=5),
+        t(501, 3, 4, 40, flags=TF.pending, timeout=3600),
+        t(600, 5, 6, 7, user_data_32=3),
+    ]
+    ts = SEQ_HAZARD_TS
+    return [("accounts", accounts, ts), ("transfers", transfers, ts + 100)]
+
+
+def seq_hazard_cases(Transfer, TF) -> list:
+    """Batches that hit the sequential kernel's hazards between its
+    pre-pass and its walk, each (name, events, timestamp, expected status
+    names of some events by index), run on seq_hazard_setup's state:
+    repeated ids whose row is in the batch store, posts and voids of
+    pendings created earlier in the batch, chains that break after they
+    flipped a pending's status, closed accounts, balancing clamps and
+    limits against balances moved in the batch, overflows, and imported
+    events that regress key_max inside and after a broken chain."""
+    L, P, POST, VOID = TF.linked, TF.pending, TF.post_pending_transfer, \
+        TF.void_pending_transfer
+    MAX = (1 << 128) - 1
+    missing = 99_999
+
+    def t(id_, dr, cr, amount, **kw):
+        kw.setdefault("ledger", 1)
+        kw.setdefault("code", 1)
+        return Transfer(id=id_, debit_account_id=dr, credit_account_id=cr,
+                        amount=amount, **kw)
+
+    def pv(id_, pid, flags, amount=0, **kw):
+        return t(id_, 0, 0, amount, pending_id=pid, flags=flags, ledger=0,
+                 code=0, **kw)
+
+    ts = SEQ_HAZARD_TS + 10**6
+    at = SEQ_HAZARD_TS + 10**3  # imported timestamps: after the setup
+    cases = [
+        ("repeated ids", [
+            t(700, 1, 2, 5), t(700, 1, 2, 5), t(700, 1, 2, 6),
+            t(600, 5, 6, 7, user_data_32=3), t(600, 5, 6, 7),
+            t(701, 1, missing, 5), t(701, 1, 2, 5),
+            t(702, 3, 4, 5, flags=L), t(703, 3, 4, 5, ledger=0),
+            t(702, 3, 4, 5),
+        ], ts, {1: "exists", 2: "exists_with_different_amount",
+                3: "exists", 4: "exists_with_different_user_data_32",
+                5: "credit_account_not_found", 6: "id_already_failed",
+                7: "linked_event_failed", 9: "created"}),
+        ("two-phase in the batch", [
+            t(710, 1, 2, 30, flags=P, user_data_64=7),
+            pv(711, 710, POST, MAX, user_data_64=9),
+            t(712, 3, 4, 20, flags=P, timeout=60, user_data_64=4),
+            pv(713, 712, VOID),
+            pv(714, 710, POST, MAX), t(715, 5, 6, 20, flags=P),
+            pv(716, 715, POST, 5), pv(717, 715, VOID),
+            pv(718, 500, POST, MAX), pv(719, 501, VOID, user_data_64=9),
+            pv(720, 710, VOID), pv(721, 730, POST, MAX),
+        ], ts, {1: "created", 3: "created", 4:
+                "pending_transfer_already_posted", 6: "created",
+                7: "pending_transfer_already_posted", 8: "created",
+                9: "created", 11: "pending_transfer_not_found"}),
+        ("a chain that flips pendings breaks", [
+            pv(730, 500, POST | L, MAX),
+            t(731, 1, missing, 5),
+            pv(732, 500, POST, MAX),
+            t(733, 3, 4, 25, flags=P),
+            pv(734, 733, VOID | L),
+            t(735, 1, 2, 5, flags=L), t(736, 1, 2, 5, ledger=0),
+            pv(737, 733, POST, MAX),
+            pv(738, 501, VOID | L), t(739, 1, 2, 1, flags=L),
+        ], ts, {0: "linked_event_failed", 2: "created", 4:
+                "linked_event_failed", 7: "created",
+                9: "linked_event_chain_open"}),
+        ("closed accounts", [
+            t(740, 11, 12, 5, flags=P | TF.closing_debit),
+            t(741, 11, 1, 3), t(742, 2, 11, 3),
+            pv(743, 740, VOID), t(744, 11, 1, 3),
+            t(745, 12, 2, 1, flags=P | TF.closing_credit | L),
+            t(746, 1, 2, 4), t(747, 1, 2, 4),
+            t(748, 12, 3, 1, flags=P | TF.closing_credit),
+            pv(749, 748, POST, MAX), t(750, 1, 3, 1),
+            t(751, 12, 4, 1, flags=P | TF.closing_debit | L),
+            t(752, 1, missing, 1), t(753, 12, 1, 1),
+        ], ts, {1: "debit_account_already_closed",
+                2: "credit_account_already_closed", 4: "created",
+                5: "linked_event_failed", 7: "created",
+                10: "credit_account_already_closed", 11:
+                "linked_event_failed", 13: "created"}),
+        ("balancing and limits", [
+            t(760, 1, 9, 50), t(761, 9, 2, 1000, flags=TF.balancing_debit),
+            t(762, 9, 3, 10), t(763, 3, 10, 1000,
+                                flags=TF.balancing_credit),
+            t(764, 4, 10, 5), t(765, 1, 9, 20, flags=L),
+            t(766, 9, 2, 1000, flags=TF.balancing_debit | L),
+            t(767, 1, 2, 1, ledger=0),
+            t(768, 9, 2, 1000, flags=TF.balancing_debit | P),
+            t(769, 7, 8, 20), t(770, 7, 1, 5, flags=P),
+            t(771, 7, 8, 5, flags=P | L), t(772, 1, 2, MAX - 5),
+            t(773, 13, 1, 5), t(774, 2, 14, 5),
+        ], ts, {1: "created", 2: "exceeds_credits", 3: "created",
+                4: "exceeds_debits", 5: "linked_event_failed",
+                9: "overflows_debits_posted", 13: "overflows_debits",
+                14: "overflows_credits"}),
+        ("imported regressions", [
+            t(780, 1, 2, 5, flags=TF.imported | L, timestamp=at + 10),
+            t(781, 1, 2, 5, flags=TF.imported | L, timestamp=at + 20),
+            t(782, 1, 2, 5, flags=TF.imported, timestamp=at + 15),
+            t(783, 1, 2, 5, flags=TF.imported, timestamp=at + 12),
+            t(784, 1, 2, 5, flags=TF.imported, timestamp=at + 5),
+            t(785, 3, 4, 5, flags=TF.imported | P, timestamp=at + 30),
+            pv(786, 785, POST | TF.imported, MAX, timestamp=at + 25),
+            pv(787, 785, POST | TF.imported, MAX, timestamp=at + 31),
+            t(788, 1, 2, 5, flags=TF.imported, timestamp=at + 31),
+        ], ts, {0: "linked_event_failed", 2:
+                "imported_event_timestamp_must_not_regress", 3: "created",
+                4: "imported_event_timestamp_must_not_regress",
+                6: "imported_event_timestamp_must_not_regress",
+                7: "created"}),
+    ]
+    return cases
 
 
 # ------------------------------------------------------------ the phases
@@ -2202,9 +2348,10 @@ def seq_bytes(tin: dict, out: dict) -> int:
 
 
 def _seq_plain_main(send, inputs_path: str) -> None:
-    """A child process: the transfers kernel's plain twin on the CPU on
-    the prefetched numpy inputs pickled at `inputs_path`, timed on the
-    host clock; sends ("ok", ms, the outputs as numpy) or ("error", the
+    """A child process: the sequential kernels' plain twins on the CPU on
+    the prefetched numpy inputs pickled at `inputs_path` ({"transfers":
+    inputs, "accounts": inputs or None}), each timed on the host clock;
+    sends ("ok", {kind: (ms, the outputs as numpy)}) or ("error", the
     traceback)."""
     import pickle
     import traceback
@@ -2214,38 +2361,50 @@ def _seq_plain_main(send, inputs_path: str) -> None:
 
         torch.set_num_threads(1)
         with open(inputs_path, "rb") as f:
-            tin = CK.inputs_to_device(pickle.load(f), "cpu")
-        t = time.perf_counter()
-        out = CK.create_transfers_seq_plain(tin)
-        ms = (time.perf_counter() - t) * 1e3
-        send.send(("ok", ms, {k: v.numpy() for k, v in out.items()}))
+            jobs = pickle.load(f)
+        plain = {"transfers": CK.create_transfers_seq_plain,
+                 "accounts": CK.create_accounts_seq_plain}
+        res = {}
+        for kind, inputs in jobs.items():
+            if inputs is None:
+                continue
+            tin = CK.inputs_to_device(inputs, "cpu")
+            t = time.perf_counter()
+            out = plain[kind](tin)
+            ms = (time.perf_counter() - t) * 1e3
+            res[kind] = (ms, {k: v.numpy() for k, v in out.items()})
+        send.send(("ok", res))
     except BaseException:
         send.send(("error", traceback.format_exc()))
 
 
 class SeqPlainChild:
-    """The plain twin's full-width run (a Python loop on the host CPU,
-    tens of seconds) in a child process, beside the phases after the
-    sequential kernel's. finish() waits for it, holds the kernel's
-    outputs `got` equal to its outputs and returns (plain_ms,
-    max_abs_err). The inputs go through a file, so that starting the
-    child does not wait for it to read them."""
+    """The plain twins' full-width runs (host CPU) in a child process,
+    beside the phases after the sequential kernels'. finish() waits for
+    it, holds the transfers kernel's outputs `got` equal to its twin's
+    and returns (plain_ms, max_abs_err); with `accounts` = (inputs, the
+    accounts kernel's outputs) it holds those too and sets
+    `self.accounts` to their (plain_ms, max_abs_err). The inputs go
+    through a file, so that starting the child does not wait for it to
+    read them."""
 
-    def __init__(self, inputs: dict, got: dict):
+    def __init__(self, inputs: dict, got: dict, accounts=None):
         import multiprocessing
         import pickle
 
         fd, self.path = tempfile.mkstemp(prefix="tb_seq_plain_",
                                          suffix=".pkl")
         with os.fdopen(fd, "wb") as f:
-            pickle.dump(inputs, f)
+            pickle.dump({"transfers": inputs,
+                         "accounts": accounts and accounts[0]}, f)
         ctx = multiprocessing.get_context("spawn")
         self.recv, send = ctx.Pipe(duplex=False)
         self.proc = ctx.Process(target=_seq_plain_main, daemon=True,
                                 args=(send, self.path))
         self.proc.start()
         send.close()
-        self.got = got
+        self.got = {"transfers": got, "accounts": accounts and accounts[1]}
+        self.accounts = None
 
     def finish(self) -> tuple:
         try:
@@ -2260,22 +2419,27 @@ class SeqPlainChild:
                 self.proc.join()
             os.unlink(self.path)
         check(msg[0] == "ok", f"create_seq plain twin failed:\n{msg[1]}")
-        want = {k: torch.from_numpy(v) for k, v in msg[2].items()}
-        return msg[1], seq_compare("config-3 full width", self.got, want)
+        res = {}
+        for kind, (ms, out) in msg[1].items():
+            want = {k: torch.from_numpy(v) for k, v in out.items()}
+            res[kind] = (ms, seq_compare(f"{kind} full width",
+                                         self.got[kind], want))
+        self.accounts = res.get("accounts")
+        return res["transfers"]
 
 
 def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
               n_accounts: int = N_ACCOUNTS,
               config3_batches: int = SEQ_CONFIG3_BATCHES):
-    """The sequential kernel. Checked: mixed batches (chains, two-phase,
-    balancing, closing, repeated ids, imported) through the CUDA kernel
-    and through the plain twin on the same prefetched inputs, bit-equal
-    on every output. Then the path a user calls, run_create_accounts
-    (n_accounts accounts) and run_create_transfers at n_full events
-    (config-3 batches, and a config-4 pend batch and its post/void
-    batch), on the card and held against a second oracle fed the same
-    batches. Returns the kernel's launches on that path and the
-    numbers."""
+    """The sequential kernels. Checked: mixed batches (chains,
+    two-phase, balancing, closing, repeated ids, imported) and the
+    hazard batches through the CUDA kernels and through the plain twins
+    on the same prefetched inputs, bit-equal on every output. Then the
+    path a user calls, run_create_accounts (n_accounts accounts) and
+    run_create_transfers at n_full events (config-3 batches, and a
+    config-4 pend batch and its post/void batch), on the card and held
+    against a second oracle fed the same batches. Returns the kernels'
+    launches on that path and the numbers."""
     from tigerbeetle_tpu_torch.oracle import StateMachineOracle
     from tigerbeetle_tpu_torch.ops import create_kernels as CK
     from tigerbeetle_tpu_torch.ops import create_seq
@@ -2343,6 +2507,26 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
         print(f"sequential kernel vs plain twin, {label}: {len(events)} "
               f"events bit-equal on {len(want)} outputs; {len(names)} "
               f"distinct statuses", flush=True)
+    # The hazards between the transfers kernel's pre-pass and its walk,
+    # each batch on a fresh state.
+    for label, events, at, expect in seq_hazard_cases(Transfer,
+                                                       TransferFlags):
+        o = StateMachineOracle()
+        for op, evs, t in seq_hazard_setup(Account, AccountFlags, Transfer,
+                                           TransferFlags):
+            getattr(o, f"create_{op}")(evs, t)
+        inputs, _ = prefetch_create_transfers(
+            o, transfers_to_arrays(events), at)
+        want = CK.create_transfers_seq_plain(
+            CK.inputs_to_device(inputs, "cpu"))
+        got = create_seq.create_transfers_seq(
+            CK.inputs_to_device(inputs, dev))
+        err = max(err, seq_compare(f"hazard: {label}", got, want))
+        for k, name in expect.items():
+            check(CK._TS[name] == int(want["r_status"][k]),
+                  f"hazard: {label}: event {k} is not {name}")
+    print(f"sequential kernel vs plain twin: the hazard batches bit-equal",
+          flush=True)
 
     # The path a user calls, counted: run_create_* on the card against a
     # second oracle. Prefetch, kernel and apply ms are the spans each
@@ -2369,6 +2553,7 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
 
     created = int(CK._CREATED)
     create_seq.LAUNCHES = 0
+    create_seq.KIND_LAUNCHES.update(transfers=0, accounts=0)
     runs = 0
     a, b = StateMachineOracle(), StateMachineOracle()
     ts = 10**12
@@ -2400,46 +2585,71 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
                 transfers_from_arrays(rev), ts + 2 * (n_full + 10))
     runs += 3
     launches = create_seq.LAUNCHES
-    check(launches == (runs if torch.device(dev).type == "cuda" else 0),
-          f"run_create_* launched the kernel {launches} times in {runs} "
-          "calls")
+    by_kind = dict(create_seq.KIND_LAUNCHES)
+    on_card = torch.device(dev).type == "cuda"
+    check(launches == (runs if on_card else 0)
+          and (min(by_kind.values()) > 0 or not on_card),
+          f"run_create_* launched the kernels {launches} times "
+          f"({by_kind}) in {runs} calls")
     n_pend = int((st_p == created).sum())
     check(int((st_r == created).sum()) == n_pend,
           "the config-4 post/void batch did not resolve every pending")
 
     numbers = dict(
-        launches=launches, max_abs_err=err, kernel_ms=spans["kernel"],
-        events=spans["events"], prefetch_ms=spans["prefetch"],
-        apply_ms=spans["apply"], config3_created=c3,
-        config4_created=n_pend)
-    if torch.device(dev).type != "cuda":
+        launches=launches, launches_by_kind=by_kind, max_abs_err=err,
+        kernel_ms=spans["kernel"], events=spans["events"],
+        prefetch_ms=spans["prefetch"], apply_ms=spans["apply"],
+        config3_created=c3, config4_created=n_pend)
+    if not on_card:
         return numbers
 
-    # The kernels line: device time of the transfers kernel on the first
-    # config-3 batch's inputs (profiler), the plain twin's on the same
-    # inputs (CPU, in a child process that main() waits for at its end),
-    # and the bound.
-    rng3 = np.random.default_rng(3)
-    o = StateMachineOracle()
-    o.create_accounts([Account(id=i, ledger=1, code=1)
-                       for i in range(1, 1001)], 1000)
-    inputs, _ = prefetch_create_transfers(
-        o, config3_batch(rng3, 0, n_full, 1000), 10**7)
+    # The kernels line: device time of each kernel (its own %globaltimer
+    # stamps) on full-width batches, beside its bytes bound: the transfers kernel on
+    # the first config-3 batch's inputs (with its stage split from the
+    # kernel's %globaltimer stamps) and on a config-4 pend batch and its
+    # post/void batch, the accounts kernel on n_full new accounts. The
+    # config-4 outputs are held to the plain twin here; the config-3 and
+    # accounts ones in a child process that main() waits for at its end,
+    # which times the twins.
+    inputs = seq_config3_inputs(n_full)
     tin_g = CK.inputs_to_device(inputs, dev)
     got = create_seq.create_transfers_seq(tin_g)
-    plain = SeqPlainChild(inputs, got)
+    acc_in = seq_accounts_inputs(n_full)
+    tin_a = CK.inputs_to_device(acc_in, dev)
+    got_a = create_seq.create_accounts_seq(tin_a)
+    plain = SeqPlainChild(inputs, got, accounts=(acc_in, got_a))
     bound_ms = seq_bytes(tin_g, got) / HBM_BYTES_PER_S * 1e3
-    ms = kernel_ms(lambda: create_seq.create_transfers_seq(tin_g),
-                   "create_transfers_seq", reps=3)
+    ms, stage_split = seq_device_ms(create_seq, "transfers", tin_g)
+    c4 = {}
+    for label, inp in zip(("pend", "post_void"),
+                          seq_config4_inputs(n_full)):
+        tin4 = CK.inputs_to_device(inp, dev)
+        out4 = create_seq.create_transfers_seq(tin4)
+        err = max(err, seq_compare(f"config-4 {label}", out4,
+                                   CK.create_transfers_seq_plain(
+                                       CK.inputs_to_device(inp, "cpu"))))
+        c4[label] = dict(
+            ms=seq_device_ms(create_seq, "transfers", tin4)[0],
+            bound_ms=seq_bytes(tin4, out4) / HBM_BYTES_PER_S * 1e3)
+    acc_ms = seq_device_ms(create_seq, "accounts", tin_a, reps=3)[0]
+    acc_bound = seq_bytes(tin_a, got_a) / HBM_BYTES_PER_S * 1e3
     numbers.update(max_abs_err=err, ms=ms, plain_twin=plain,
                    bound_ms=bound_ms, ns_per_event=ms * 1e6 / n_full,
+                   stage_ms=stage_split, config4_ms=c4,
+                   accounts_ms=acc_ms, accounts_bound_ms=acc_bound,
                    elapsed_s=time.perf_counter() - t0)
-    print(f"sequential kernel: {launches} launches on run_create_* "
-          f"({runs} calls), equal to the oracle; device {ms:.3f} ms a "
-          f"{n_full}-event config-3 batch ({numbers['ns_per_event']:.0f} "
-          f"ns/event; bound {bound_ms:.4f} ms, bytes), plain twin in "
-          f"a child process; run_create_* kernel spans "
-          f"(launch to outputs on the host, ms / events): "
+    print(f"sequential kernels: {launches} launches on run_create_* "
+          f"({runs} calls: {by_kind}), equal to the oracle; transfers "
+          f"device {ms:.4f} ms a {n_full}-event config-3 batch "
+          f"({numbers['ns_per_event']:.0f} ns/event; stages ms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stage_split.items())
+          + f"; bound {bound_ms:.4f} ms, bytes), config-4 pend "
+          f"{c4['pend']['ms']:.4f} ms and post/void "
+          f"{c4['post_void']['ms']:.4f} ms (equal to the plain twin); "
+          f"accounts device {acc_ms:.4f} ms a {n_full}-account batch "
+          f"(bound {acc_bound:.4f} ms); plain twins in a child process; "
+          f"run_create_* kernel spans (launch to outputs on the host, "
+          f"ms / events): "
           + ", ".join(f"{m:.2f}/{n}" for m, n in zip(spans["kernel"],
                                                      spans["events"]))
           + f"; prefetch ms {[round(x, 1) for x in spans['prefetch']]}, "
@@ -2447,6 +2657,77 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
           f"created {c3}, config 4 {n_pend} pendings resolved; "
           f"{numbers['elapsed_s']:.1f} s", flush=True)
     return numbers
+
+
+def seq_device_ms(create_seq, kind: str, tin: dict, reps: int = 5):
+    """(device ms, stage split) of the sequential kernel of `kind` on
+    `tin`: the median over `reps` launches of the kernel's own
+    %globaltimer stamps (first stamp to last; the stage split of the
+    transfers kernel, else None), after one warm-up launch. A profiler
+    trace of these launches holds one kernel a call, and the profiler
+    now and then drops every event of such a trace."""
+    run = (create_seq.create_transfers_seq if kind == "transfers"
+           else create_seq.create_accounts_seq)
+    run(tin)
+    ms, stages = [], []
+    for _ in range(reps):
+        run(tin)
+        ms.append(create_seq.device_ms(kind))
+        if kind == "transfers":
+            stages.append(create_seq.stage_ms())
+    split = ({k: float(np.median([s[k] for s in stages]))
+              for k in create_seq.STAGES} if stages else None)
+    return float(np.median(ms)), split
+
+
+def seq_config3_inputs(n: int = BATCH) -> dict:
+    """The transfers kernel's timed config-3 inputs: the first config-3
+    batch (seed 3) over 1,000 accounts, prefetched."""
+    from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+    from tigerbeetle_tpu_torch.ops.batch import prefetch_create_transfers
+    from tigerbeetle_tpu_torch.types import Account
+
+    o = StateMachineOracle()
+    o.create_accounts([Account(id=i, ledger=1, code=1)
+                       for i in range(1, 1001)], 1000)
+    inputs, _ = prefetch_create_transfers(
+        o, config3_batch(np.random.default_rng(3), 0, n, 1000), 10**7)
+    return inputs
+
+
+def seq_config4_inputs(n: int = BATCH) -> tuple:
+    """The transfers kernel's timed config-4 inputs: a pend batch (seed
+    4) over config 4's accounts, and its post/void batch prefetched after
+    the pends were committed (by the oracle)."""
+    from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+    from tigerbeetle_tpu_torch.ops.batch import (prefetch_create_transfers,
+                                                 transfers_from_arrays)
+    from tigerbeetle_tpu_torch.types import Account, AccountFlags, \
+        TransferFlags
+
+    o = StateMachineOracle()
+    o.create_accounts(config4_accounts(Account, AccountFlags), C4_ACCOUNTS)
+    pend, rev, _ = config4_pair(np.random.default_rng(4), 10**7,
+                                TransferFlags, n)
+    ts = 10**12
+    pend_in, _ = prefetch_create_transfers(o, pend, ts + n + 10)
+    o.create_transfers(transfers_from_arrays(pend), ts + n + 10)
+    rev_in, _ = prefetch_create_transfers(o, rev, ts + 2 * (n + 10))
+    return pend_in, rev_in
+
+
+def seq_accounts_inputs(n: int = BATCH) -> dict:
+    """The accounts kernel's timed inputs: n new accounts, prefetched."""
+    from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+    from tigerbeetle_tpu_torch.ops.batch import (accounts_to_arrays,
+                                                 prefetch_create_accounts)
+    from tigerbeetle_tpu_torch.types import Account
+
+    inputs, _ = prefetch_create_accounts(
+        StateMachineOracle(), accounts_to_arrays(
+            [Account(id=i, ledger=1, code=1) for i in range(1, n + 1)]),
+        10**7)
+    return inputs
 
 
 # ------------------------------------------------------------ commit windows
@@ -8726,7 +9007,7 @@ def static_phase(dev, child: StaticChild = None) -> dict:
     check(set(passes) == {"determinism", "host", "retrace", "sharding"}
           and not any(passes.values()),
           f"static: findings by pass {passes}")
-    check(len(status["negatives"]) == 6 and all(status["negatives"].values()),
+    check(len(status["negatives"]) == 7 and all(status["negatives"].values()),
           f"static: negative proofs {status['negatives']}")
     check(status["n_entries"] == 18,
           f"static: {status['n_entries']} registry entries, not 18")
@@ -8877,10 +9158,15 @@ def main() -> int:
         rig.close()
     stc = static_phase(dev, static_child)
     lap("static_phase")
-    plain_ms, err = seq.pop("plain_twin").finish()
-    seq.update(plain_ms=plain_ms, max_abs_err=max(seq["max_abs_err"], err))
-    print(f"sequential kernel: plain twin {plain_ms:.0f} ms on the CPU, "
-          f"equal to the kernel", flush=True)
+    twins = seq.pop("plain_twin")
+    plain_ms, err = twins.finish()
+    acc_plain_ms, acc_err = twins.accounts
+    seq.update(plain_ms=plain_ms, accounts_plain_ms=acc_plain_ms,
+               max_abs_err=max(seq["max_abs_err"], err),
+               accounts_max_abs_err=acc_err)
+    print(f"sequential kernels: plain twins {plain_ms:.0f} ms (transfers) "
+          f"and {acc_plain_ms:.0f} ms (accounts) on the CPU, equal to the "
+          f"kernels", flush=True)
     lap("seq_plain_twin")
     phase_seconds["total"] = time.perf_counter() - t0
     print(f"all phases passed in {phase_seconds['total']:.1f} s",
@@ -9037,18 +9323,22 @@ def main() -> int:
         "sweep_ms": gather["sweep"],
         "shapes": shapes,
     }, {
-        # No Pallas counterpart: the JAX package's XLA sequential kernels.
-        # ms / plain_ms / bound_ms: one 8,190-event config-3 batch (device
-        # time from the profiler; the plain twin on the CPU, host clock);
-        # kernel_ms / prefetch_ms / apply_ms: the spans each
+        # No Pallas counterpart: the JAX package's XLA sequential
+        # create_transfers kernel. ms / plain_ms / bound_ms: one
+        # 8,190-event config-3 batch (device time from the kernel's own
+        # %globaltimer stamps; the plain twin on the CPU, host clock);
+        # stage_ms: its stage split (the same stamps); config4_ms: the
+        # config-4 pend and post/void batches; kernel_ms / prefetch_ms /
+        # apply_ms: the spans each
         # run_create_* call recorded (create_seq.SPANS; events in
-        # events).
+        # events). The other phases' launches_* count both sequential
+        # kernels (create_seq.LAUNCHES).
         "name": "create_seq",
         "route": "cuda",
         "source": "tigerbeetle_tpu_torch/csrc/create_seq.cu",
-        "replaces": "tigerbeetle_tpu/ops/create_kernels.py:664, "
-                    "tigerbeetle_tpu/ops/create_kernels.py:792",
-        "launches": seq["launches"],
+        "replaces": "tigerbeetle_tpu/ops/create_kernels.py:664",
+        "launches": seq["launches_by_kind"]["transfers"],
+        "launches_seq_both": seq["launches"],
         # The serving phase's "kernel"-engine commits; none on the
         # durable phase (its StateMachine runs the device engine).
         "launches_serving": srv["create_seq_launches"],
@@ -9068,10 +9358,28 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "ns_per_event": seq["ns_per_event"],
+        "stage_ms": seq["stage_ms"],
+        "config4_ms": seq["config4_ms"],
         "kernel_ms": seq["kernel_ms"],
         "events": seq["events"],
         "prefetch_ms": seq["prefetch_ms"],
         "apply_ms": seq["apply_ms"],
+    }, {
+        # The JAX package's XLA sequential create_accounts kernel (one
+        # thread). ms / plain_ms / bound_ms: one batch of 8,190 new
+        # accounts (ms from the kernel's stamps); launches: its
+        # run_create_accounts calls on the seq phase's path.
+        "name": "create_accounts_seq",
+        "route": "cuda",
+        "source": "tigerbeetle_tpu_torch/csrc/create_seq.cu",
+        "replaces": "tigerbeetle_tpu/ops/create_kernels.py:792",
+        "launches": seq["launches_by_kind"]["accounts"],
+        "max_abs_err": seq["accounts_max_abs_err"],
+        "ms": seq["accounts_ms"],
+        "plain_ms": seq["accounts_plain_ms"],
+        "bound_ms": seq["accounts_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]
     print(json.dumps({"config2": c2}), flush=True)
     print(json.dumps({"config4": {**c4["timing"], **c4["trace"]}}),

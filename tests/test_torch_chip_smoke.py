@@ -1012,7 +1012,7 @@ def test_chip_smoke_runs_the_gate_and_clients_phases_last():
 
 def test_static_phase_rehearsed_on_the_cpu():
     """Phase 26 on the CPU, its child process included: the four passes
-    clean over the 18 entries, the six negative proofs red, every capture
+    clean over the 18 entries, the seven negative proofs red, every capture
     window eager on the CPU, the census calling what a plain tier run
     launches; a verdict with a proof that did not red fails the phase."""
     child = CS.StaticChild("cpu")
@@ -1028,7 +1028,7 @@ def test_static_phase_rehearsed_on_the_cpu():
     numbers = CS.static_phase("cpu", Done(got[0]))
     assert numbers["findings"] == {"determinism": 0, "host": 0,
                                    "retrace": 0, "sharding": 0}
-    assert len(numbers["negatives"]) == 6
+    assert len(numbers["negatives"]) == 7
     assert all(numbers["negatives"].values())
     assert numbers["n_entries"] == 18
     assert numbers["tracebudget"] == "tracebudget_r01.json"

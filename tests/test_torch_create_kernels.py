@@ -4,13 +4,17 @@
 - the plain twins `create_*_seq_plain` against the JAX kernels
   `create_transfers_kernel` / `create_accounts_kernel` on every output,
   at two compiled shapes (one a kernel: the JAX kernels compile for each
-  cache shape, so every batch is padded to the same one);
+  cache shape, so every batch is padded to the same one): a fuzzed
+  sequence, and the transfers kernel's hazard batches
+  (`chip_smoke.seq_hazard_cases`), where a check that the twin's
+  pre-pass took for immutable would read state an earlier event wrote;
 - `run_create_*` on the CPU (the plain twin) against the JAX oracle on
   several seeds, results and whole state;
-- the CUDA wrapper's routing and its argument block: the pointer order
-  and the status codes of `csrc/create_seq.cu` agree with the Python
-  side (the kernel itself runs only on the card: chip_smoke.py holds it
-  against the plain twin there).
+- the CUDA wrapper's routing and its argument block: the pointer order,
+  the status codes and the order of the checks behind each mask bit of
+  `csrc/create_seq.cu` agree with the Python side (the kernel itself
+  runs only on the card: chip_smoke.py holds it against the plain twin
+  there).
 
 Inputs are made from numpy seeds by chip_smoke.py's generators.
 """
@@ -165,33 +169,76 @@ def _fixed_shape(inputs: dict, kind: str) -> dict:
     return out
 
 
-def test_plain_twins_match_the_jax_kernels_on_every_output():
-    """Every step of a fuzzed sequence through the JAX kernel and the
-    plain twin on the same inputs: every output array equal, in the JAX
-    dtypes; then each package applies its own outputs and the two states
-    stay equal."""
+def _twin_against_jax(kind, port, ref, p_in, p_aux, j_in, j_aux, j_out):
+    """The plain twin on the port's inputs against the JAX kernel's
+    outputs `j_out`: every output array equal, in the JAX dtypes; then
+    each package applies its own outputs and the two states stay equal.
+    Returns the twin's results."""
+    if kind == "transfers":
+        p_st = PK.create_transfers_seq_plain(PK.inputs_to_device(p_in, "cpu"))
+        dtypes = PK.CT_OUT_DTYPES
+    else:
+        p_st = PK.create_accounts_seq_plain(PK.inputs_to_device(p_in, "cpu"))
+        dtypes = PK.CA_OUT_DTYPES
+    p_out = PK.outputs_to_numpy(p_st, dtypes)
+    assert set(p_st) == set(dtypes)
+    _assert_same_arrays(p_out, {k: np.asarray(v) for k, v
+                                in j_out.items()}, kind)
+    _apply_both(kind, port, ref, p_in, p_aux, p_out, j_in, j_aux, j_out)
+    _states_equal(port, ref)
+    return p_out
+
+
+HAZARDS = {name: (events, ts, expect) for name, events, ts, expect
+           in CS.seq_hazard_cases(TT.Transfer, TT.TransferFlags)}
+
+
+@pytest.fixture(scope="module")
+def jax_hazards():
+    """Each hazard batch of chip_smoke.seq_hazard_cases on both packages'
+    oracles after seq_hazard_setup: (port, ref, the port's and the JAX
+    package's prefetched inputs, the JAX kernel's outputs)."""
+    out = {}
+    for name, (events, ts, _) in HAZARDS.items():
+        port, ref = StateMachineOracle(), JaxOracle()
+        for kind, evs, at in CS.seq_hazard_setup(
+                TT.Account, TT.AccountFlags, TT.Transfer, TT.TransferFlags):
+            op = f"create_{kind}"
+            getattr(port, op)(evs, at)
+            getattr(ref, op)(_objs(evs, Account if kind == "accounts"
+                                   else Transfer), at)
+        (p_in, p_aux), (j_in, j_aux) = _prefetch("transfers", port, ref,
+                                                 events, ts, n_pad=N_PAD)
+        p_in = _fixed_shape(p_in, "transfers")
+        j_in = _fixed_shape(j_in, "transfers")
+        out[name] = (port, ref, p_in, p_aux, j_in, j_aux,
+                     jax.device_get(JK.create_transfers_kernel(j_in)))
+    return out
+
+
+@pytest.mark.parametrize("case", ["fuzzed", *HAZARDS])
+def test_plain_twins_match_the_jax_kernels_on_every_output(case, request):
+    """The plain twins against the JAX kernels on the same inputs, every
+    output. "fuzzed": every step of a fuzzed sequence, each applied to
+    both oracles before the next. The others: one hazard batch of the
+    twin's two stages each (chip_smoke.seq_hazard_cases), whose key
+    events must also end with the statuses the case names."""
+    if case != "fuzzed":
+        got = _twin_against_jax("transfers",
+                                *request.getfixturevalue("jax_hazards")[case])
+        status = {int(s): s.name for s in TT.CreateTransferStatus}
+        for k, name in HAZARDS[case][2].items():
+            assert status[int(got["r_status"][k])] == name, (case, k)
+        return
     port, ref = StateMachineOracle(), JaxOracle()
     for kind, events, ts in steps_for(7):
         (p_in, p_aux), (j_in, j_aux) = _prefetch(kind, port, ref, events,
                                                  ts, n_pad=N_PAD)
         p_in, j_in = _fixed_shape(p_in, kind), _fixed_shape(j_in, kind)
-        if kind == "transfers":
-            j_out = jax.device_get(JK.create_transfers_kernel(j_in))
-            p_st = PK.create_transfers_seq_plain(
-                PK.inputs_to_device(p_in, "cpu"))
-            dtypes = PK.CT_OUT_DTYPES
-        else:
-            j_out = jax.device_get(JK.create_accounts_kernel(j_in))
-            p_st = PK.create_accounts_seq_plain(
-                PK.inputs_to_device(p_in, "cpu"))
-            dtypes = PK.CA_OUT_DTYPES
-        p_out = PK.outputs_to_numpy(p_st, dtypes)
-        assert set(p_st) == set(dtypes)
-        _assert_same_arrays(p_out, {k: np.asarray(v) for k, v
-                                    in j_out.items()}, kind)
-        _apply_both(kind, port, ref, p_in, p_aux, p_out, j_in, j_aux,
-                    j_out)
-        _states_equal(port, ref)
+        kernel = (JK.create_transfers_kernel if kind == "transfers"
+                  else JK.create_accounts_kernel)
+        _twin_against_jax(kind, port, ref, p_in, p_aux, j_in, j_aux,
+                          jax.device_get(kernel(j_in)))
 
 
 @pytest.mark.parametrize("seed", [3, 4, 5])
@@ -267,6 +314,18 @@ def test_kernel_pointer_order_matches_the_wrapper(namespace, ptrs):
     # Every carry output and every input the kernel reads has a pointer.
     outs = PK.CT_OUT_DTYPES if namespace == "ct" else PK.CA_OUT_DTYPES
     assert {k for g, k in ptrs if g == "st"} == set(outs)
+
+
+@pytest.mark.parametrize("array, codes", [("kPvCodes", PK._PV_CODES),
+                                          ("kRegCodes", PK._REG_CODES)])
+def test_kernel_check_orders_match_the_twin(array, codes):
+    """The kernel's mask bits name the twin's checks in the twin's
+    order."""
+    body = re.search(rf"{array}\[(\d+)\] = {{(.*?)}};", CU.read_text(),
+                     re.S)
+    names = re.findall(r"ts::(\w+)", body.group(2))
+    assert int(body.group(1)) == len(names) == len(codes)
+    assert [int(TT.CreateTransferStatus[n]) for n in names] == list(codes)
 
 
 @pytest.mark.parametrize("namespace, enum", [

@@ -469,30 +469,62 @@ def test_moved_state_and_state_sized_operands_red():
     assert any(": moved_state:" in f for f in moved)
     big = torch.zeros(8, dtype=torch.int64)
     shipped = shardspec.verify_step(core.trace(ship, state, big), mesh, "t")
-    assert sum(": state_sized_operand:" in f for f in shipped) == 3
-    assert sum("B part from one shard" in f for f in shipped) == 1
+    assert sum(": state_sized_operand:" in f for f in shipped) == 2
 
 
 def test_a_gather_of_one_shards_state_reds():
-    """A collective whose part from each shard is that shard's whole
-    state REDs though it stays below the whole-ledger leaf size (8 x 2 x
-    32 B here); a part one byte short stays clean."""
+    """A collective whose part from each shard is that shard's state
+    grows with the state: traced at two state sizes on the same call it
+    REDs. A part of the batch's fixed size stays clean at both, though it
+    is larger than a shard's whole state (128 B against 32 B here)."""
     mesh = Mesh(["cpu"] * 8)
-    state = tuple({"a": torch.zeros(4, dtype=torch.int64),
-                   "b": torch.zeros(4, dtype=torch.int64)}
-                  for _ in range(8))
 
-    def gather(st, n):
-        psum(mesh, [torch.zeros(n, dtype=torch.int8)] * 8)
-        for s in st:
-            s["a"].add_(1)
+    def state(n):
+        return tuple({"a": torch.zeros(n, dtype=torch.int64)}
+                     for _ in range(8))
+
+    def gather(st):
+        psum(mesh, [s["a"] for s in st])
         return st, {}
 
-    red = shardspec.verify_step(core.trace(gather, state, 64), mesh, "t")
-    assert red == ["t: state_sized_operand: `psum` moves a 64 B part from "
-                   "one shard, one shard's state holds 64 B"]
-    assert shardspec.verify_step(core.trace(gather, state, 63), mesh,
-                                 "t") == []
+    def bundle(st):
+        psum(mesh, [torch.zeros(16, dtype=torch.int64)] * 8)
+        return st, {}
+
+    red = shardspec.verify_growth(core.trace(gather, state(4)),
+                                  core.trace(gather, state(8)), "t")
+    assert red == ["t: state_sized_operand: `psum` #0 moves a 32 B part "
+                   "from one shard, 64 B at twice the capacities: it grows "
+                   "with the state"]
+    assert shardspec.verify_growth(core.trace(bundle, state(4)),
+                                   core.trace(bundle, state(8)), "t") == []
+
+
+def test_a_gather_of_one_shards_transfer_table_reds():
+    """The registry's partitioned plain step made to gather one shard's
+    transfer table (786,624 B a part at the registry's caps) REDs though
+    the part is smaller than the exchange's account bundle (819,200 B),
+    which stays clean; the step as it is stays clean. The table is sized
+    by the orphan floor, so the second trace doubles that too."""
+    import dataclasses
+
+    from tigerbeetle_tpu_torch.parallel.shard_utils import all_gather
+
+    entry = registry.entries("cpu")["partitioned_plain_step"]
+
+    def gathers_table(state, *operands):
+        all_gather(entry.mesh, [{"xfer_ht": s["xfer_ht"]["packed"]}
+                                for s in state])
+        return entry.fn(state, *operands)
+
+    leaky = dataclasses.replace(entry, fn=gathers_table)
+    red = shardspec.run({"neg": leaky})
+    assert red == ["neg: state_sized_operand: `all_gather` #0 moves a "
+                   "786624 B part from one shard, 1573056 B at twice the "
+                   "capacities: it grows with the state"]
+    tr = entry.trace()
+    assert max(c["part_bytes"] for c in tr.collectives) == 819_200
+    assert shardspec.run({"partitioned_plain_step": entry}) == []
 
 
 # -------------------------------------------------------------- registry

@@ -16,7 +16,8 @@ torch.set_num_threads(1)
 
 NEGATIVES = {"determinism_float_collective", "determinism_baked_key",
              "host_wall_clock", "retrace_polymorphic",
-             "retrace_budget_drift", "sharding_replicated_donor"}
+             "retrace_budget_drift", "sharding_replicated_donor",
+             "sharding_gathered_table"}
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,5 @@
 // The sequential create_transfers / create_accounts kernels for Hopper
-// (sm_90a): one thread walks a batch in event order.
+// (sm_90a).
 //
 // No Pallas counterpart: these are the JAX package's XLA kernels
 // `create_transfers_kernel` (tigerbeetle_tpu/ops/create_kernels.py:664, a
@@ -9,29 +9,66 @@
 // PyTorch twin in tigerbeetle_tpu_torch/ops/create_kernels.py computes
 // (`create_transfers_seq_plain` / `create_accounts_seq_plain`): the same
 // checks in the same order (the first failing check wins), the same
-// masked application, the same undo log and LIFO chain rollback, over
-// the caches the host prefetched (ops/batch.py). Every padded lane of the
-// batch is walked too, as the JAX loop walks them, so every output array
-// (the undo log included) equals the twin's.
+// application, the same undo log and LIFO chain rollback, over the caches
+// the host prefetched (ops/batch.py). Every padded lane of the batch is
+// walked too, as the JAX loop walks them, so every output array (the undo
+// log included) equals the twin's.
 //
 // Data: every array is a PyTorch tensor handed over by pointer. u64
 // lanes are int64 tensors read here as uint64_t (unsigned compares,
 // wrapping arithmetic); u32 and i32 lanes are int64 tensors holding the
 // widened value; bool lanes are bool tensors. Balances are u128 as
-// (hi, lo) limb pairs, combined here into unsigned __int128. The carry
-// (mutable account cache, batch store s_*, committed pending statuses,
-// undo log rb_*, scalars, results) is initialised by the wrapper
-// (ops/create_seq.py, `_ct_init_state`) and updated in place.
+// (hi, lo) limb pairs, combined here into unsigned __int128. The kernels
+// read their inputs and write every output (the wrapper, ops/create_seq.py,
+// allocates them uninitialised).
 //
-// What bounds it: one thread and the chain of dependent loads through
-// an event (event fields -> cache indexes -> cache rows -> the checks ->
-// the masked writes), not bytes: an 8,190-event batch reads and writes
-// ~3.9 MB (~1.2 us at 3.35 TB/s), but each event waits on that chain of
-// global-memory round trips, mostly L2 hits once the caches are warm
-// (chip_smoke.py on an H100 80GB HBM3 at 700 W: ~18 ms a config-3 batch,
-// ~2.2 us an event; PERF.md). Being right is this kernel's bar; later
-// designs: a warp that loads an event's fields in parallel, or the hot
-// account rows in shared memory.
+// create_transfers: one launch of one block of kThreads threads, in four
+// stages, the twin's own split (`_ct_prepass`, `_ct_walk`):
+//  1. stage (every thread): the "hot" region, in shared memory when it
+//     fits beside the record ring (config 3's 1,024 account rows take
+//     80 KB), else in the wrapper's global scratch (L2-resident): the
+//     mutable account carry packed into one 80-byte row an account
+//     (ARow); a slot's created and orphaned bytes, pending status and
+//     last writer; an event's result code; a committed row's pending
+//     status.
+//  2. pre-pass (every thread, one lane each): what reads only immutable
+//     inputs, decoded once into one 304-byte record an event (Rec) in
+//     global scratch: the event's fields, the committed-cache pending
+//     row, the exists status where the committed cache alone decides
+//     it, the checks before the paths and the wrapper's, and for the
+//     post/void and regular paths a mask of the failing checks (bit k:
+//     check k of kPvCodes / kRegCodes).
+//  3. walk (warp 0): lane 0 takes the events in order while the warp's
+//     lanes copy the next 32 records into a shared-memory ring with
+//     cp.async. It branches on the event's path and loads only that
+//     path's rows, ORs the bits of the path's mutable checks (pending
+//     status, closed accounts, overflows and limits, key_max) into the
+//     pre-pass mask and takes the lowest set bit as the status. It
+//     writes as little as it can: a created event becomes its slot's
+//     writer (the batch-store row is rebuilt from the writer's record
+//     and undo row, `batch_row`); the result is a 2-byte code; the undo
+//     log is one packed 64-byte row an event (URow) in global scratch,
+//     which a breaking chain replays newest-first.
+//  4. unstage (every thread): the hot region, the rebuilt batch-store
+//     rows, the undo rows and the result codes into the twin's
+//     structure-of-arrays outputs.
+// `stamps` gets %globaltimer at the five stage boundaries: the kernel's
+// device time, read without a profiler.
+//
+// What bounds it: the walk, one thread's chain of dependent
+// instructions an event (shared-memory loads, u128 checks, the writes),
+// not bytes (an 8,190-event batch reads and writes ~3.9 MB, ~1.2 us at
+// 3.35 TB/s). On an H100 80GB HBM3 at 700 W (scripts/chip_seq_turns.py,
+// PERF.md) a config-3 batch takes ~5.9 ms, 96% of it the walk (~690 ns
+// an event), against ~17.9 ms for the one-thread kernel it replaces.
+// The first walk (every batch-store row and result written by the walk,
+// a generic pointer into shared memory, 512 threads spilling) took
+// 10.0 ms.
+//
+// create_accounts: one thread walks the batch (`ca_body`), reading and
+// writing the structure-of-arrays tensors directly (~11.7 ms for 8,190
+// new accounts on the same card: not yet redesigned); `stamps` gets
+// %globaltimer at its start and end.
 //
 // Argument block: `SeqArgs.p` holds the tensors' pointers in the order of
 // the `Ptr` enums below (ops/create_seq.py `CT_PTRS` / `CA_PTRS` list the
@@ -43,6 +80,10 @@
 
 typedef uint64_t u64;
 typedef int64_t i64;
+typedef uint32_t u32;
+typedef int32_t i32;
+typedef uint8_t u8;
+typedef uint16_t u16;
 typedef unsigned __int128 u128;
 
 static constexpr int kMaxPtrs = 128;
@@ -55,6 +96,15 @@ struct SeqArgs {
   u64 timestamp;
   i64 n;  // events in the batch
   i64 N;  // padded lanes walked
+  // create_transfers only:
+  i64 a_rows;      // account-cache rows
+  i64 t_rows;      // committed-cache rows
+  u64 key_max;     // transfers_key_max before the batch
+  u64 pulse_next;  // pulse_next_timestamp before the batch
+  void* scratch;  // create_transfers_seq_scratch() bytes, any contents
+  // Both kernels: %globaltimer at the stage boundaries (5 u64 for
+  // create_transfers), at the start and the end (2 for create_accounts).
+  void* stamps;
 };
 
 namespace ct {
@@ -83,6 +133,9 @@ enum Ptr {
   ST_R_TS, ST_R_STATUS,
   ST_KEY_MAX, ST_PULSE_NEXT, ST_CHAIN_KEY_MAX, ST_CHAIN_START,
   ST_CHAIN_BROKEN,
+  AC_DP_HI, AC_DP_LO, AC_DPOS_HI, AC_DPOS_LO, AC_CP_HI, AC_CP_LO,
+  AC_CPOS_HI, AC_CPOS_LO, AC_FLAGS,
+  TC_PENDING_STATUS,
   NPTR
 };
 }  // namespace ct
@@ -224,76 +277,167 @@ struct View {
 #define CHECK(status, cond, code) \
   if ((status) == kCreated && (cond)) (status) = (code)
 
-// A stored transfer, from the committed cache or the batch store.
-struct Row {
+// ============================================================ create_transfers
+
+// The one block. At 512 threads a thread may hold 128 registers and the
+// walk spills; at 256 it takes ~220 and keeps them.
+constexpr int kThreads = 256;
+constexpr int kChunk = 32;     // records a ring slot: one a lane of warp 0
+// Dynamic shared memory a block may take on sm_90 (227 KB).
+constexpr i64 kSmemCap = 232448;
+
+// One event as the pre-pass leaves it. p_* is the pending row when it
+// comes from the committed cache (pci >= 0), zero otherwise.
+struct alignas(16) Rec {
   u128 amt, dr, cr, pid, ud128;
-  u64 ud64, ud32, timeout, ledger, code, flags, ts, expires;
-  i64 dr_idx, cr_idx, pstat;
+  u128 p_amt, p_dr, p_cr, p_ud128;
+  u64 ts, ts_act, ts_event, timeout_ns, ud64, p_ud64, p_expires, exists_ts;
+  u32 flags, timeout, ud32, ledger, code;
+  u32 p_ud32, p_timeout, p_ledger, p_code, p_flags;
+  i32 slot, psl, pci, ei, dr_idx, cr_idx, p_dr_idx, p_cr_idx;
+  u32 pv_mask, reg_mask;
+  u32 pre, ovr, exists_status;  // codes; kCreated: none
+  u32 bits;                     // R_*
+};
+constexpr u32 R_VALID = 1, R_ORPHANED = 2, R_CHAIN_OPEN = 4,
+              R_EXISTS_PRE = 8;
+
+// The p-derived fields of a batch-store row written by a post or void
+// whose pending row came from the batch store (the twin's s_* fields that
+// copy that row, user data already chosen).
+struct alignas(16) PvRow {
+  u128 dr, cr, ud128;
+  u64 ud64;
+  u32 ud32, ledger, code;
 };
 
-__device__ Row transfer_row(const View& v, bool from_cache, i64 cache_idx,
-                            i64 slot) {
-  using namespace ct;
-  const i64 c = cache_idx > 0 ? cache_idx : 0;
-  const i64 s = slot > 0 ? slot : 0;
-  Row r;
-  if (from_cache) {
-    r.amt = v.q(TC_AMT_HI, TC_AMT_LO, c);
-    r.dr = v.q(TC_DR_HI, TC_DR_LO, c);
-    r.cr = v.q(TC_CR_HI, TC_CR_LO, c);
-    r.pid = v.q(TC_PID_HI, TC_PID_LO, c);
-    r.ud128 = v.q(TC_UD128_HI, TC_UD128_LO, c);
-    r.ud64 = v.u(TC_UD64)[c];
-    r.ud32 = v.u(TC_UD32)[c];
-    r.timeout = v.u(TC_TIMEOUT)[c];
-    r.ledger = v.u(TC_LEDGER)[c];
-    r.code = v.u(TC_CODE)[c];
-    r.flags = v.u(TC_FLAGS)[c];
-    r.ts = v.u(TC_TS)[c];
-    r.expires = v.u(TC_EXPIRES_AT)[c];
-    r.dr_idx = v.s(TC_DR_IDX)[c];
-    r.cr_idx = v.s(TC_CR_IDX)[c];
-    r.pstat = v.s(ST_TC_PSTAT)[c];
-  } else {
-    r.amt = v.q(ST_S_AMT_HI, ST_S_AMT_LO, s);
-    r.dr = v.q(ST_S_DR_HI, ST_S_DR_LO, s);
-    r.cr = v.q(ST_S_CR_HI, ST_S_CR_LO, s);
-    r.pid = v.q(ST_S_PID_HI, ST_S_PID_LO, s);
-    r.ud128 = v.q(ST_S_UD128_HI, ST_S_UD128_LO, s);
-    r.ud64 = v.u(ST_S_UD64)[s];
-    r.ud32 = v.u(ST_S_UD32)[s];
-    r.timeout = v.u(ST_S_TIMEOUT)[s];
-    r.ledger = v.u(ST_S_LEDGER)[s];
-    r.code = v.u(ST_S_CODE)[s];
-    r.flags = v.u(ST_S_FLAGS)[s];
-    r.ts = v.u(ST_S_TS)[s];
-    r.expires = v.u(ST_S_EXPIRES)[s];
-    r.dr_idx = v.s(ST_S_DR_IDX)[s];
-    r.cr_idx = v.s(ST_S_CR_IDX)[s];
-    r.pstat = v.s(ST_S_PSTAT)[s];
-  }
-  return r;
+// One undo-log row (the twin's rb_* at one event, and its slot).
+struct alignas(16) URow {
+  u128 amt, pamt;
+  i32 kind, dr_idx, cr_idx, p_idx, slot;
+  u8 p_batch, dr_closed, cr_closed;
+};
+
+// One account's mutable carry.
+struct alignas(16) ARow {
+  u128 dp, dpos, cp, cpos;
+  u64 flags, pad;
+};
+
+static_assert(sizeof(Rec) == 304 && sizeof(PvRow) == 80 &&
+                  sizeof(URow) == 64 && sizeof(ARow) == 80,
+              "packed row sizes");
+
+// An event's result as the walk leaves it (rcode): the status (its wire
+// code, kRcCreated for created) and where its timestamp comes from.
+constexpr u32 kRcStatus = 0x7F, kRcCreated = 0x7F;
+constexpr u32 RC_TS_EVENT = 0 << 7, RC_TS_ACT = 1 << 7,
+              RC_TS_EXISTS = 2 << 7,  // the record's exists_ts
+              RC_TS_DIRECT = 3 << 7;  // the walk wrote r_ts itself
+constexpr u32 kRcTs = 3 << 7;
+
+// Where everything lives. The global scratch: records, undo rows, post /
+// void rows, then the hot region unless it is in shared memory. Shared
+// memory: the record ring (two buffers of kChunk), then the hot region
+// when it fits. The hot region: the account rows, and a slot's created
+// and orphaned bytes, pending status and last writer (the event whose
+// batch-store row it holds: the row is rebuilt from that event's record
+// and undo row), an event's rcode, a committed row's pending status.
+struct Layout {
+  i64 rec, undo, pv, hot;  // bytes into the scratch
+  i64 acct, created, orphaned, spstat, writer, rcode, tpstat;  // into hot
+  i64 hot_bytes, ring_bytes, scratch_bytes, smem_bytes;
+  bool hot_in_smem;
+};
+
+__host__ __device__ inline i64 align16(i64 x) { return (x + 15) & ~i64{15}; }
+
+__host__ __device__ inline Layout ct_layout(i64 N, i64 A, i64 T) {
+  Layout L;
+  L.acct = 0;
+  L.created = align16(A * i64{sizeof(ARow)});
+  L.orphaned = L.created + align16(N);
+  L.spstat = L.orphaned + align16(N);
+  L.writer = L.spstat + align16(N);
+  L.rcode = L.writer + align16(N * 4);
+  L.tpstat = L.rcode + align16(N * 2);
+  L.hot_bytes = L.tpstat + align16(T * 4);
+  L.ring_bytes = 2 * kChunk * i64{sizeof(Rec)};
+  L.hot_in_smem = L.ring_bytes + L.hot_bytes <= kSmemCap;
+  L.smem_bytes = L.ring_bytes + (L.hot_in_smem ? L.hot_bytes : 0);
+  L.rec = 0;
+  L.undo = L.rec + N * i64{sizeof(Rec)};
+  L.pv = L.undo + N * i64{sizeof(URow)};
+  L.hot = L.pv + N * i64{sizeof(PvRow)};
+  L.scratch_bytes = L.hot + (L.hot_in_smem ? 0 : L.hot_bytes);
+  return L;
 }
 
-// One account-cache row as it stands now.
-struct Acct {
-  bool exists;
-  u128 dp, dpos, cp, cpos;
-  u64 flags, ledger, ts;
-};
+// The post/void checks (reference :4053-4299) and the regular checks
+// (:3748-3904) in order: bit k of a path's mask is check k failing. The
+// twin lists the same codes (ops/create_kernels.py _PV_CODES /
+// _REG_CODES; tests/test_torch_create_kernels.py checks they agree).
+__constant__ u32 kPvCodes[21] = {
+    ts::flags_are_mutually_exclusive, ts::flags_are_mutually_exclusive,
+    ts::pending_id_must_not_be_zero, ts::pending_id_must_not_be_int_max,
+    ts::pending_id_must_be_different,
+    ts::timeout_reserved_for_pending_transfer,
+    ts::pending_transfer_not_found, ts::pending_transfer_not_pending,
+    ts::pending_transfer_has_different_debit_account_id,
+    ts::pending_transfer_has_different_credit_account_id,
+    ts::pending_transfer_has_different_ledger,
+    ts::pending_transfer_has_different_code,
+    ts::exceeds_pending_transfer_amount,
+    ts::pending_transfer_has_different_amount,
+    ts::pending_transfer_already_posted,
+    ts::pending_transfer_already_voided, ts::pending_transfer_expired,
+    ts::pending_transfer_expired,
+    ts::imported_event_timestamp_must_not_regress,
+    ts::debit_account_already_closed, ts::credit_account_already_closed};
+__constant__ u32 kRegCodes[29] = {
+    ts::debit_account_id_must_not_be_zero,
+    ts::debit_account_id_must_not_be_int_max,
+    ts::credit_account_id_must_not_be_zero,
+    ts::credit_account_id_must_not_be_int_max,
+    ts::accounts_must_be_different, ts::pending_id_must_be_zero,
+    ts::timeout_reserved_for_pending_transfer,
+    ts::closing_transfer_must_be_pending, ts::ledger_must_not_be_zero,
+    ts::code_must_not_be_zero, ts::debit_account_not_found,
+    ts::credit_account_not_found, ts::accounts_must_have_the_same_ledger,
+    ts::transfer_must_have_the_same_ledger_as_accounts,
+    ts::imported_event_timestamp_must_not_regress,
+    ts::imported_event_timestamp_must_postdate_debit_account,
+    ts::imported_event_timestamp_must_postdate_credit_account,
+    ts::imported_event_timeout_must_be_zero,
+    ts::debit_account_already_closed, ts::credit_account_already_closed,
+    ts::overflows_debits_pending, ts::overflows_credits_pending,
+    ts::overflows_debits_posted, ts::overflows_credits_posted,
+    ts::overflows_debits, ts::overflows_credits, ts::overflows_timeout,
+    ts::exceeds_credits, ts::exceeds_debits};
 
-__device__ Acct acct_row(const View& v, i64 idx) {
-  using namespace ct;
-  Acct r;
-  r.exists = v.b(AC_EXISTS)[idx];
-  r.dp = v.q(ST_A_DP_HI, ST_A_DP_LO, idx);
-  r.dpos = v.q(ST_A_DPOS_HI, ST_A_DPOS_LO, idx);
-  r.cp = v.q(ST_A_CP_HI, ST_A_CP_LO, idx);
-  r.cpos = v.q(ST_A_CPOS_HI, ST_A_CPOS_LO, idx);
-  r.flags = v.u(ST_A_FLAGS)[idx];
-  r.ledger = v.u(AC_LEDGER)[idx];
-  r.ts = v.u(AC_TS)[idx];
-  return r;
+__device__ __forceinline__ u64 first_code(u32 mask, const u32* codes) {
+  return mask ? codes[__ffs(static_cast<int>(mask)) - 1] : kCreated;
+}
+
+__device__ __forceinline__ u64 now_ns() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// 16 bytes global -> shared, asynchronously (L2 only: the records were
+// written by other threads of the block).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // u128 add: the sum mod 2^128; *ovf is set when it wrapped.
@@ -308,414 +452,810 @@ __device__ __forceinline__ u128 sat_sub(u128 a, u128 b) {
   return a < b ? 0 : a - b;
 }
 
-__device__ __forceinline__ void add_at(const View& v, int hi, int lo, i64 i,
-                                       u128 d) {
-  v.set_q(hi, lo, i, v.q(hi, lo, i) + d);
-}
-__device__ __forceinline__ void sub_at(const View& v, int hi, int lo, i64 i,
-                                       u128 d) {
-  v.set_q(hi, lo, i, v.q(hi, lo, i) - d);
-}
+// A stored transfer, from the committed cache or the batch store.
+struct Row {
+  u128 amt, dr, cr, pid, ud128;
+  u64 ud64, ud32, timeout, ledger, code, flags, ts, expires;
+  i64 dr_idx, cr_idx, pstat;
+};
 
-// Undo chain member j (the plain twin's _ct_rollback): balance deltas
-// back out; closed bits and pending statuses return to their pre-event
-// snapshots, which is why members unwind newest-first.
-__device__ void ct_rollback(const View& v, i64 j) {
+__device__ Row tc_row(const View& v, i64 c) {
   using namespace ct;
-  const i64 kind = v.s(ST_RB_KIND)[j];
-  const bool applied = kind > 0;
-  const u128 amt = v.q(ST_RB_AMT_HI, ST_RB_AMT_LO, j);
-  const u128 pamt = v.q(ST_RB_PAMT_HI, ST_RB_PAMT_LO, j);
-  const i64 dri = v.s(ST_RB_DR_IDX)[j], cri = v.s(ST_RB_CR_IDX)[j];
-  const bool was_pv = applied && (kind == 3 || kind == 4);
-  if (applied && (kind == 1 || kind == 3)) {
-    sub_at(v, ST_A_DPOS_HI, ST_A_DPOS_LO, dri, amt);
-    sub_at(v, ST_A_CPOS_HI, ST_A_CPOS_LO, cri, amt);
-  }
-  if (applied && kind == 2) {
-    sub_at(v, ST_A_DP_HI, ST_A_DP_LO, dri, amt);
-    sub_at(v, ST_A_CP_HI, ST_A_CP_LO, cri, amt);
-  }
-  if (was_pv) {
-    add_at(v, ST_A_DP_HI, ST_A_DP_LO, dri, pamt);
-    add_at(v, ST_A_CP_HI, ST_A_CP_LO, cri, pamt);
-  }
-  if (applied) {
-    u64* fl = v.u(ST_A_FLAGS);
-    fl[dri] = v.b(ST_RB_DR_CLOSED)[j] ? (fl[dri] | A_CLOSED)
-                                      : (fl[dri] & ~A_CLOSED);
-    fl[cri] = v.b(ST_RB_CR_CLOSED)[j] ? (fl[cri] | A_CLOSED)
-                                      : (fl[cri] & ~A_CLOSED);
-  }
-  const i64 p_idx = v.s(ST_RB_P_IDX)[j];
-  const bool p_batch = v.b(ST_RB_P_BATCH)[j];
-  if (was_pv && !p_batch) v.s(ST_TC_PSTAT)[p_idx] = PS_PENDING;
-  if (was_pv && p_batch) v.s(ST_S_PSTAT)[p_idx] = PS_PENDING;
-  if (applied) v.b(ST_S_CREATED)[v.s(EV_SLOT)[j]] = false;
-  v.s(ST_RB_KIND)[j] = 0;
-  v.u(ST_R_STATUS)[j] = ts::linked_event_failed;
+  Row r;
+  r.amt = v.q(TC_AMT_HI, TC_AMT_LO, c);
+  r.dr = v.q(TC_DR_HI, TC_DR_LO, c);
+  r.cr = v.q(TC_CR_HI, TC_CR_LO, c);
+  r.pid = v.q(TC_PID_HI, TC_PID_LO, c);
+  r.ud128 = v.q(TC_UD128_HI, TC_UD128_LO, c);
+  r.ud64 = v.u(TC_UD64)[c];
+  r.ud32 = v.u(TC_UD32)[c];
+  r.timeout = v.u(TC_TIMEOUT)[c];
+  r.ledger = v.u(TC_LEDGER)[c];
+  r.code = v.u(TC_CODE)[c];
+  r.flags = v.u(TC_FLAGS)[c];
+  r.ts = v.u(TC_TS)[c];
+  r.expires = v.u(TC_EXPIRES_AT)[c];
+  r.dr_idx = v.s(TC_DR_IDX)[c];
+  r.cr_idx = v.s(TC_CR_IDX)[c];
+  r.pstat = 0;  // mutable: the walk reads it from the hot region
+  return r;
 }
 
-// Event i of a create_transfers batch (the plain twin's _ct_body).
-__device__ void ct_body(const View& v, i64 i) {
+// The pending row the pre-pass copied from the committed cache.
+__device__ Row rec_p_row(const Rec& x) {
+  Row r;
+  r.amt = x.p_amt;
+  r.dr = x.p_dr;
+  r.cr = x.p_cr;
+  r.pid = 0;
+  r.ud128 = x.p_ud128;
+  r.ud64 = x.p_ud64;
+  r.ud32 = x.p_ud32;
+  r.timeout = x.p_timeout;
+  r.ledger = x.p_ledger;
+  r.code = x.p_code;
+  r.flags = x.p_flags;
+  r.ts = 0;
+  r.expires = x.p_expires;
+  r.dr_idx = x.p_dr_idx;
+  r.cr_idx = x.p_cr_idx;
+  r.pstat = 0;
+  return r;
+}
+
+// create_transfer_exists + post_or_void_pending_transfer_exists
+// (reference :3988-4051, 4301-4382; the twin's _ct_eval_exists) of the
+// event x against the rows e and p (p is read only for a post or void).
+__device__ u64 exists_status(const Rec& x, const Row& e, const Row& p) {
+  const u64 flags = x.flags;
+  const bool is_void = flags & F_VOID;
+  const bool pv = flags & (F_POST | F_VOID);
+  const bool balancing = flags & (F_BAL_DR | F_BAL_CR);
+  const bool amt_ne_e = x.amt != e.amt;
+  const bool amt_diff_regular = balancing ? x.amt < e.amt : amt_ne_e;
+  bool amt_diff_pv = false;
+  if (pv) {
+    const bool eamt_ne_pamt = e.amt != p.amt;
+    amt_diff_pv = is_void ? (x.amt == 0 ? eamt_ne_pamt : amt_ne_e)
+                          : (x.amt == kU128Max ? eamt_ne_pamt : amt_ne_e);
+  }
+  const bool ud128_diff =
+      pv ? (x.ud128 == 0 ? e.ud128 != p.ud128 : x.ud128 != e.ud128)
+         : x.ud128 != e.ud128;
+  const bool ud64_diff =
+      pv ? (x.ud64 == 0 ? e.ud64 != p.ud64 : x.ud64 != e.ud64)
+         : x.ud64 != e.ud64;
+  const bool ud32_diff =
+      pv ? (x.ud32 == 0 ? e.ud32 != p.ud32 : x.ud32 != e.ud32)
+         : x.ud32 != e.ud32;
+  const bool dr_diff = pv ? (x.dr != 0 && x.dr != e.dr) : x.dr != e.dr;
+  const bool cr_diff = pv ? (x.cr != 0 && x.cr != e.cr) : x.cr != e.cr;
+  const bool ledger_diff =
+      pv ? (x.ledger != 0 && x.ledger != e.ledger) : x.ledger != e.ledger;
+  const bool code_diff =
+      pv ? (x.code != 0 && x.code != e.code) : x.code != e.code;
+  u64 s = kCreated;
+  CHECK(s, (flags & 0xFFFF) != (e.flags & 0xFFFF),
+        ts::exists_with_different_flags);
+  CHECK(s, x.pid != e.pid, ts::exists_with_different_pending_id);
+  CHECK(s, x.timeout != e.timeout, ts::exists_with_different_timeout);
+  CHECK(s, dr_diff, ts::exists_with_different_debit_account_id);
+  CHECK(s, cr_diff, ts::exists_with_different_credit_account_id);
+  CHECK(s, pv ? amt_diff_pv : amt_diff_regular,
+        ts::exists_with_different_amount);
+  CHECK(s, ud128_diff, ts::exists_with_different_user_data_128);
+  CHECK(s, ud64_diff, ts::exists_with_different_user_data_64);
+  CHECK(s, ud32_diff, ts::exists_with_different_user_data_32);
+  CHECK(s, ledger_diff, ts::exists_with_different_ledger);
+  CHECK(s, code_diff, ts::exists_with_different_code);
+  return s == kCreated ? ts::exists : s;
+}
+
+// Stage 2, lane i (the twin's _ct_prepass on one lane).
+__device__ void prepass(const View& v, i64 i, Rec* out) {
   using namespace ct;
   const SeqArgs& a = v.a;
-  const u64 timestamp = a.timestamp;
-  const u64 ts_event = timestamp - static_cast<u64>(a.n) +
-                       static_cast<u64>(i) + 1;
-  const bool valid = v.b(EV_VALID)[i];
+  Rec x;
   const u64 flags = v.u(EV_FLAGS)[i];
   const bool linked = flags & F_LINKED, imported = flags & F_IMPORTED;
   const bool is_post = flags & F_POST, is_void = flags & F_VOID;
   const bool pv = is_post || is_void, pending = flags & F_PENDING;
-  const bool batch_imported = (v.u(EV_FLAGS)[0] & F_IMPORTED) && a.n > 0;
-
+  x.flags = static_cast<u32>(flags);
+  x.amt = v.q(EV_AMT_HI, EV_AMT_LO, i);
+  x.dr = v.q(EV_DR_HI, EV_DR_LO, i);
+  x.cr = v.q(EV_CR_HI, EV_CR_LO, i);
+  x.pid = v.q(EV_PID_HI, EV_PID_LO, i);
+  x.ud128 = v.q(EV_UD128_HI, EV_UD128_LO, i);
   const u128 id = v.q(EV_ID_HI, EV_ID_LO, i);
-  const u128 ev_dr = v.q(EV_DR_HI, EV_DR_LO, i);
-  const u128 ev_cr = v.q(EV_CR_HI, EV_CR_LO, i);
-  const u128 ev_amt = v.q(EV_AMT_HI, EV_AMT_LO, i);
-  const u128 ev_pid = v.q(EV_PID_HI, EV_PID_LO, i);
-  const u128 ev_ud128 = v.q(EV_UD128_HI, EV_UD128_LO, i);
-  const u64 ev_ud64 = v.u(EV_UD64)[i], ev_ud32 = v.u(EV_UD32)[i];
-  const u64 ev_timeout = v.u(EV_TIMEOUT)[i];
-  const u64 ev_ledger = v.u(EV_LEDGER)[i], ev_code = v.u(EV_CODE)[i];
-  const u64 ev_ts = v.u(EV_TS)[i];
+  x.ud64 = v.u(EV_UD64)[i];
+  x.ud32 = static_cast<u32>(v.u(EV_UD32)[i]);
+  x.timeout = static_cast<u32>(v.u(EV_TIMEOUT)[i]);
+  x.ledger = static_cast<u32>(v.u(EV_LEDGER)[i]);
+  x.code = static_cast<u32>(v.u(EV_CODE)[i]);
+  x.ts = v.u(EV_TS)[i];
+  x.ts_event = a.timestamp - static_cast<u64>(a.n) + static_cast<u64>(i) + 1;
+  x.ts_act = imported ? x.ts : x.ts_event;
+  x.timeout_ns = static_cast<u64>(x.timeout) * kNsPerS;
+  x.slot = static_cast<i32>(v.s(EV_SLOT)[i]);
+  x.psl = static_cast<i32>(v.s(EV_PENDING_SLOT)[i]);
+  x.pci = static_cast<i32>(v.s(EV_PENDING_CACHE_IDX)[i]);
+  x.ei = static_cast<i32>(v.s(EV_EXISTS_IDX)[i]);
+  x.dr_idx = static_cast<i32>(v.s(EV_DR_IDX)[i]);
+  x.cr_idx = static_cast<i32>(v.s(EV_CR_IDX)[i]);
+  const bool collision = imported && v.b(EV_ACCT_TS_COLLISION)[i];
+  const bool p_cache = x.pci >= 0;
 
-  i64* chain_start = v.s(ST_CHAIN_START);
-  u64* key_max = v.u(ST_KEY_MAX);
-  u64* pulse_next = v.u(ST_PULSE_NEXT);
-  bool* chain_broken = v.b(ST_CHAIN_BROKEN);
-
-  // --- chain open (reference :3033-3043) ---
-  bool chain_active = *chain_start >= 0;
-  const bool opening = linked && !chain_active && valid;
-  if (opening) {
-    *chain_start = i;
-    *v.u(ST_CHAIN_KEY_MAX) = *key_max;
+  // The pending row, where the committed cache holds it.
+  Row p;
+  if (p_cache) {
+    p = tc_row(v, x.pci);
+  } else {
+    p = Row{};
   }
-  chain_active = chain_active || opening;
+  x.p_amt = p.amt;
+  x.p_dr = p.dr;
+  x.p_cr = p.cr;
+  x.p_ud128 = p.ud128;
+  x.p_ud64 = p.ud64;
+  x.p_ud32 = static_cast<u32>(p.ud32);
+  x.p_timeout = static_cast<u32>(p.timeout);
+  x.p_ledger = static_cast<u32>(p.ledger);
+  x.p_code = static_cast<u32>(p.code);
+  x.p_flags = static_cast<u32>(p.flags);
+  x.p_expires = p.expires;
+  x.p_dr_idx = static_cast<i32>(p.dr_idx);
+  x.p_cr_idx = static_cast<i32>(p.cr_idx);
 
-  // --- transfer lookup: committed cache / orphan / batch store ---
-  const i64 slot = v.s(EV_SLOT)[i];
-  const i64 exists_idx = v.s(EV_EXISTS_IDX)[i];
-  const bool e_from_cache = exists_idx >= 0;
-  const bool e_from_batch = !e_from_cache && v.b(ST_S_CREATED)[slot];
-  const bool e_found = e_from_cache || e_from_batch;
-  const bool orphan = v.b(EV_ORPHANED)[i] || v.b(ST_S_ORPHANED)[slot];
-  const Row e = transfer_row(v, e_from_cache, exists_idx, slot);
-
-  // --- pending transfer lookup ---
-  const i64 pci_raw = v.s(EV_PENDING_CACHE_IDX)[i];
-  const i64 psl_raw = v.s(EV_PENDING_SLOT)[i];
-  const i64 pci = pci_raw > 0 ? pci_raw : 0;
-  const i64 psl = psl_raw > 0 ? psl_raw : 0;
-  const bool p_from_cache = pci_raw >= 0;
-  const bool p_from_batch =
-      !p_from_cache && psl_raw >= 0 && v.b(ST_S_CREATED)[psl];
-  const bool p_found = p_from_cache || p_from_batch;
-  const Row p = transfer_row(v, p_from_cache, pci_raw, psl_raw);
-  const Acct p_dr = acct_row(v, p.dr_idx);
-  const Acct p_cr = acct_row(v, p.cr_idx);
-  const i64 dr_idx = v.s(EV_DR_IDX)[i], cr_idx = v.s(EV_CR_IDX)[i];
-  const Acct dr = acct_row(v, dr_idx);
-  const Acct cr = acct_row(v, cr_idx);
-
-  // --- exists (reference :3988-4051, 4301-4382) ---
-  u64 exists_status = kCreated;
-  {
-    const bool balancing = flags & (F_BAL_DR | F_BAL_CR);
-    const bool amt_ne_e = ev_amt != e.amt;
-    const bool eamt_ne_pamt = e.amt != p.amt;
-    const bool amt_diff_regular = balancing ? ev_amt < e.amt : amt_ne_e;
-    const bool amt_diff_pv =
-        is_void ? (ev_amt == 0 ? eamt_ne_pamt : amt_ne_e)
-                : (ev_amt == kU128Max ? eamt_ne_pamt : amt_ne_e);
-    auto ud_diff = [&](u64 t, u64 ex, u64 pp) {
-      return pv ? (t == 0 ? ex != pp : t != ex) : t != ex;
-    };
-    const bool ud128_diff =
-        pv ? (ev_ud128 == 0 ? e.ud128 != p.ud128 : ev_ud128 != e.ud128)
-           : ev_ud128 != e.ud128;
-    const bool dr_diff = pv ? (ev_dr != 0 && ev_dr != e.dr) : ev_dr != e.dr;
-    const bool cr_diff = pv ? (ev_cr != 0 && ev_cr != e.cr) : ev_cr != e.cr;
-    const bool ledger_diff =
-        pv ? (ev_ledger != 0 && ev_ledger != e.ledger) : ev_ledger != e.ledger;
-    const bool code_diff =
-        pv ? (ev_code != 0 && ev_code != e.code) : ev_code != e.code;
-    u64& s = exists_status;
-    CHECK(s, (flags & 0xFFFF) != (e.flags & 0xFFFF),
-          ts::exists_with_different_flags);
-    CHECK(s, ev_pid != e.pid, ts::exists_with_different_pending_id);
-    CHECK(s, ev_timeout != e.timeout, ts::exists_with_different_timeout);
-    CHECK(s, dr_diff, ts::exists_with_different_debit_account_id);
-    CHECK(s, cr_diff, ts::exists_with_different_credit_account_id);
-    CHECK(s, pv ? amt_diff_pv : amt_diff_regular,
-          ts::exists_with_different_amount);
-    CHECK(s, ud128_diff, ts::exists_with_different_user_data_128);
-    CHECK(s, ud_diff(ev_ud64, e.ud64, p.ud64),
-          ts::exists_with_different_user_data_64);
-    CHECK(s, ud_diff(ev_ud32, e.ud32, p.ud32),
-          ts::exists_with_different_user_data_32);
-    CHECK(s, ledger_diff, ts::exists_with_different_ledger);
-    CHECK(s, code_diff, ts::exists_with_different_code);
-    if (s == kCreated) s = ts::exists;
+  // The exists path, whole where it reads only the committed cache.
+  u32 bits = 0;
+  x.exists_status = static_cast<u32>(kCreated);
+  x.exists_ts = 0;
+  if (x.ei >= 0 && (!pv || p_cache)) {
+    const Row e = tc_row(v, x.ei);
+    x.exists_status = static_cast<u32>(exists_status(x, e, p));
+    x.exists_ts = e.ts;
+    bits |= R_EXISTS_PRE;
   }
-  const u64 exists_ts = e.ts;
 
-  // --- post/void path (reference :4053-4299) ---
-  const bool pv_full = is_void ? ev_amt == 0 : ev_amt == kU128Max;
-  const u128 pv_amt = pv_full ? p.amt : ev_amt;
-  const bool p_expires_due = p.timeout != 0 && p.expires <= ts_event;
-  const bool acct_ts_collision = v.b(EV_ACCT_TS_COLLISION)[i];
-  const bool regress = imported && (ev_ts <= *key_max || acct_ts_collision);
-  const u64 pv_ts_actual = imported ? ev_ts : ts_event;
-  u64 pv_status = kCreated;
-  CHECK(pv_status, is_post && is_void, ts::flags_are_mutually_exclusive);
-  CHECK(pv_status,
-        flags & (F_PENDING | F_BAL_DR | F_BAL_CR | F_CLOSE_DR | F_CLOSE_CR),
-        ts::flags_are_mutually_exclusive);
-  CHECK(pv_status, ev_pid == 0, ts::pending_id_must_not_be_zero);
-  CHECK(pv_status, ev_pid == kU128Max, ts::pending_id_must_not_be_int_max);
-  CHECK(pv_status, ev_pid == id, ts::pending_id_must_be_different);
-  CHECK(pv_status, ev_timeout != 0,
-        ts::timeout_reserved_for_pending_transfer);
-  CHECK(pv_status, !p_found, ts::pending_transfer_not_found);
-  CHECK(pv_status, !(p.flags & F_PENDING), ts::pending_transfer_not_pending);
-  CHECK(pv_status, ev_dr != 0 && ev_dr != p.dr,
-        ts::pending_transfer_has_different_debit_account_id);
-  CHECK(pv_status, ev_cr != 0 && ev_cr != p.cr,
-        ts::pending_transfer_has_different_credit_account_id);
-  CHECK(pv_status, ev_ledger != 0 && ev_ledger != p.ledger,
-        ts::pending_transfer_has_different_ledger);
-  CHECK(pv_status, ev_code != 0 && ev_code != p.code,
-        ts::pending_transfer_has_different_code);
-  CHECK(pv_status, p.amt < pv_amt, ts::exceeds_pending_transfer_amount);
-  CHECK(pv_status, is_void && pv_amt < p.amt,
-        ts::pending_transfer_has_different_amount);
-  CHECK(pv_status, p.pstat == PS_POSTED, ts::pending_transfer_already_posted);
-  CHECK(pv_status, p.pstat == PS_VOIDED, ts::pending_transfer_already_voided);
-  CHECK(pv_status, p.pstat == PS_EXPIRED, ts::pending_transfer_expired);
-  CHECK(pv_status, p_expires_due, ts::pending_transfer_expired);
-  CHECK(pv_status, regress, ts::imported_event_timestamp_must_not_regress);
-  CHECK(pv_status, (p_dr.flags & A_CLOSED) && !is_void,
-        ts::debit_account_already_closed);
-  CHECK(pv_status, (p_cr.flags & A_CLOSED) && !is_void,
-        ts::credit_account_already_closed);
+  // Post/void: bits 6-13 and 17 read the pending row (here only from the
+  // committed cache, where bit 6, not found, is clear).
+  u32 m = 0;
+  m |= static_cast<u32>(is_post && is_void) << 0;
+  m |= static_cast<u32>((flags & (F_PENDING | F_BAL_DR | F_BAL_CR |
+                                  F_CLOSE_DR | F_CLOSE_CR)) != 0) << 1;
+  m |= static_cast<u32>(x.pid == 0) << 2;
+  m |= static_cast<u32>(x.pid == kU128Max) << 3;
+  m |= static_cast<u32>(x.pid == id) << 4;
+  m |= static_cast<u32>(x.timeout != 0) << 5;
+  if (p_cache) {
+    const bool full = is_void ? x.amt == 0 : x.amt == kU128Max;
+    const u128 pv_amt = full ? p.amt : x.amt;
+    m |= static_cast<u32>(!(p.flags & F_PENDING)) << 7;
+    m |= static_cast<u32>(x.dr != 0 && x.dr != p.dr) << 8;
+    m |= static_cast<u32>(x.cr != 0 && x.cr != p.cr) << 9;
+    m |= static_cast<u32>(x.ledger != 0 && x.ledger != p.ledger) << 10;
+    m |= static_cast<u32>(x.code != 0 && x.code != p.code) << 11;
+    m |= static_cast<u32>(p.amt < pv_amt) << 12;
+    m |= static_cast<u32>(is_void && pv_amt < p.amt) << 13;
+    m |= static_cast<u32>(p.timeout != 0 && p.expires <= x.ts_event) << 17;
+  }
+  m |= static_cast<u32>(collision) << 18;
+  x.pv_mask = m;
 
-  // --- regular path (reference :3748-3904) ---
-  const u64 reg_ts_actual = imported ? ev_ts : ts_event;
-  // Balancing clamp (reference :3840-3853), wrapping sums as the twin's.
-  u128 amt = ev_amt;
-  if (flags & F_BAL_DR) amt = umin(amt, sat_sub(dr.cpos, dr.dpos + dr.dp));
-  if (flags & F_BAL_CR) amt = umin(amt, sat_sub(cr.dpos, cr.cpos + cr.cp));
-  // Overflow checks (reference :3856-3901).
-  bool ovf_dp, ovf_cp, ovf_dpos, ovf_cpos, o1, o2;
-  add(amt, dr.dp, &ovf_dp);
-  add(amt, cr.cp, &ovf_cp);
-  add(amt, dr.dpos, &ovf_dpos);
-  add(amt, cr.cpos, &ovf_cpos);
-  add(add(amt, dr.dp, &o1), dr.dpos, &o2);
-  const bool ovf_d = o1 || o2;
-  add(add(amt, cr.cp, &o1), cr.cpos, &o2);
-  const bool ovf_c = o1 || o2;
-  const u64 timeout_ns = ev_timeout * kNsPerS;
-  const bool ovf_timeout = reg_ts_actual + timeout_ns > kU63Max;
-  // Balance limits (reference tigerbeetle.zig:34-42).
-  const bool exceeds_credits =
-      (dr.flags & A_DR_LIMIT) && dr.cpos < dr.dp + dr.dpos + amt;
-  const bool exceeds_debits =
-      (cr.flags & A_CR_LIMIT) && cr.dpos < cr.cp + cr.cpos + amt;
+  // Regular: bits 14 (against key_max), 18-25 and 27-28 are the walk's.
+  const i64 di = x.dr_idx, ci = x.cr_idx;
+  const u64 dr_ledger = v.u(AC_LEDGER)[di], cr_ledger = v.u(AC_LEDGER)[ci];
+  m = 0;
+  m |= static_cast<u32>(x.dr == 0) << 0;
+  m |= static_cast<u32>(x.dr == kU128Max) << 1;
+  m |= static_cast<u32>(x.cr == 0) << 2;
+  m |= static_cast<u32>(x.cr == kU128Max) << 3;
+  m |= static_cast<u32>(x.dr == x.cr) << 4;
+  m |= static_cast<u32>(x.pid != 0) << 5;
+  m |= static_cast<u32>(!pending && x.timeout != 0) << 6;
+  m |= static_cast<u32>(!pending && (flags & (F_CLOSE_DR | F_CLOSE_CR)))
+       << 7;
+  m |= static_cast<u32>(x.ledger == 0) << 8;
+  m |= static_cast<u32>(x.code == 0) << 9;
+  m |= static_cast<u32>(!v.b(AC_EXISTS)[di]) << 10;
+  m |= static_cast<u32>(!v.b(AC_EXISTS)[ci]) << 11;
+  m |= static_cast<u32>(dr_ledger != cr_ledger) << 12;
+  m |= static_cast<u32>(x.ledger != dr_ledger) << 13;
+  m |= static_cast<u32>(collision) << 14;
+  m |= static_cast<u32>(imported && x.ts <= v.u(AC_TS)[di]) << 15;
+  m |= static_cast<u32>(imported && x.ts <= v.u(AC_TS)[ci]) << 16;
+  m |= static_cast<u32>(imported && x.timeout != 0) << 17;
+  m |= static_cast<u32>(x.ts_act + x.timeout_ns > kU63Max) << 26;
+  x.reg_mask = m;
 
-  u64 reg_status = kCreated;
-  CHECK(reg_status, ev_dr == 0, ts::debit_account_id_must_not_be_zero);
-  CHECK(reg_status, ev_dr == kU128Max,
-        ts::debit_account_id_must_not_be_int_max);
-  CHECK(reg_status, ev_cr == 0, ts::credit_account_id_must_not_be_zero);
-  CHECK(reg_status, ev_cr == kU128Max,
-        ts::credit_account_id_must_not_be_int_max);
-  CHECK(reg_status, ev_dr == ev_cr, ts::accounts_must_be_different);
-  CHECK(reg_status, ev_pid != 0, ts::pending_id_must_be_zero);
-  CHECK(reg_status, !pending && ev_timeout != 0,
-        ts::timeout_reserved_for_pending_transfer);
-  CHECK(reg_status, !pending && (flags & (F_CLOSE_DR | F_CLOSE_CR)),
-        ts::closing_transfer_must_be_pending);
-  CHECK(reg_status, ev_ledger == 0, ts::ledger_must_not_be_zero);
-  CHECK(reg_status, ev_code == 0, ts::code_must_not_be_zero);
-  CHECK(reg_status, !dr.exists, ts::debit_account_not_found);
-  CHECK(reg_status, !cr.exists, ts::credit_account_not_found);
-  CHECK(reg_status, dr.ledger != cr.ledger,
-        ts::accounts_must_have_the_same_ledger);
-  CHECK(reg_status, ev_ledger != dr.ledger,
-        ts::transfer_must_have_the_same_ledger_as_accounts);
-  CHECK(reg_status, regress, ts::imported_event_timestamp_must_not_regress);
-  CHECK(reg_status, imported && ev_ts <= dr.ts,
-        ts::imported_event_timestamp_must_postdate_debit_account);
-  CHECK(reg_status, imported && ev_ts <= cr.ts,
-        ts::imported_event_timestamp_must_postdate_credit_account);
-  CHECK(reg_status, imported && ev_timeout != 0,
-        ts::imported_event_timeout_must_be_zero);
-  CHECK(reg_status, dr.flags & A_CLOSED, ts::debit_account_already_closed);
-  CHECK(reg_status, cr.flags & A_CLOSED, ts::credit_account_already_closed);
-  CHECK(reg_status, pending && ovf_dp, ts::overflows_debits_pending);
-  CHECK(reg_status, pending && ovf_cp, ts::overflows_credits_pending);
-  CHECK(reg_status, ovf_dpos, ts::overflows_debits_posted);
-  CHECK(reg_status, ovf_cpos, ts::overflows_credits_posted);
-  CHECK(reg_status, ovf_d, ts::overflows_debits);
-  CHECK(reg_status, ovf_c, ts::overflows_credits);
-  CHECK(reg_status, ovf_timeout, ts::overflows_timeout);
-  CHECK(reg_status, exceeds_credits, ts::exceeds_credits);
-  CHECK(reg_status, exceeds_debits, ts::exceeds_debits);
-
-  // --- combine the three evaluation paths (reference :3729-3746) ---
-  u64 inner = e_found ? exists_status
-                      : (orphan ? ts::id_already_failed
-                                : (pv ? pv_status : reg_status));
+  // The checks before the paths, and the wrapper's (reference
+  // execute_create :3033-3104) but for the chain's two.
   u64 pre = kCreated;
   CHECK(pre, flags & TF_PADDING, ts::reserved_flag);
   CHECK(pre, id == 0, ts::id_must_not_be_zero);
   CHECK(pre, id == kU128Max, ts::id_must_not_be_int_max);
-  if (pre != kCreated) inner = pre;
-  const u64 ts_actual_inner =
-      (e_found && inner == ts::exists)
-          ? exists_ts
-          : (inner == kCreated ? (pv ? pv_ts_actual : reg_ts_actual)
-                               : ts_event);
+  x.pre = static_cast<u32>(pre);
+  const bool ts_valid = x.ts >= 1 && x.ts <= kU63Max;
+  const bool batch_imported = (v.u(EV_FLAGS)[0] & F_IMPORTED) && a.n > 0;
+  u64 ovr = kCreated;
+  if (!imported && x.ts != 0) ovr = ts::timestamp_must_be_zero;
+  if (imported && ts_valid && x.ts >= a.timestamp) {
+    ovr = ts::imported_event_timestamp_must_not_advance;
+  }
+  if (imported && !ts_valid) ovr = ts::imported_event_timestamp_out_of_range;
+  if (imported != batch_imported) {
+    ovr = imported ? ts::imported_event_not_expected
+                   : ts::imported_event_expected;
+  }
+  x.ovr = static_cast<u32>(ovr);
+
+  if (v.b(EV_VALID)[i]) bits |= R_VALID;
+  if (v.b(EV_ORPHANED)[i]) bits |= R_ORPHANED;
+  if (linked && i == a.n - 1) bits |= R_CHAIN_OPEN;
+  x.bits = bits;
+  out[i] = x;
+}
+
+// The hot region and the scratch rows, as the walk and the stages see
+// them.
+struct Hot {
+  ARow* acc;
+  u8* created;
+  u8* orphaned;
+  u8* spstat;
+  i32* writer;
+  u16* rcode;
+  i32* tpstat;
+  const Rec* recs;
+  URow* undo;
+  PvRow* pv;
+};
+
+__device__ __forceinline__ Hot hot_at(unsigned char* hot, unsigned char* g,
+                                      const Layout& L) {
+  Hot h;
+  h.acc = reinterpret_cast<ARow*>(hot + L.acct);
+  h.created = hot + L.created;
+  h.orphaned = hot + L.orphaned;
+  h.spstat = hot + L.spstat;
+  h.writer = reinterpret_cast<i32*>(hot + L.writer);
+  h.rcode = reinterpret_cast<u16*>(hot + L.rcode);
+  h.tpstat = reinterpret_cast<i32*>(hot + L.tpstat);
+  h.recs = reinterpret_cast<const Rec*>(g + L.rec);
+  h.undo = reinterpret_cast<URow*>(g + L.undo);
+  h.pv = reinterpret_cast<PvRow*>(g + L.pv);
+  return h;
+}
+
+// The batch-store row at `slot` (the twin's s_* there), rebuilt from its
+// last writer: that event's record and undo row (its amount and account
+// indexes), its post / void row, and the slot's pending status. A slot
+// never written is all zero.
+__device__ Row batch_row(const Hot& h, i64 slot) {
+  Row r = Row{};
+  r.pstat = h.spstat[slot];
+  const i32 w = h.writer[slot];
+  if (w < 0) return r;
+  const Rec& x = h.recs[w];
+  const URow& u = h.undo[w];
+  const u64 f = x.flags;
+  const bool pv = f & (F_POST | F_VOID);
+  r.amt = u.amt;
+  r.dr_idx = u.dr_idx;
+  r.cr_idx = u.cr_idx;
+  r.pid = x.pid;
+  r.flags = f;
+  r.ts = x.ts_act;
+  r.timeout = pv ? 0 : x.timeout;
+  r.expires = (!pv && (f & F_PENDING) && x.timeout != 0)
+                  ? x.ts_act + x.timeout_ns : 0;
+  if (!pv) {
+    r.dr = x.dr;
+    r.cr = x.cr;
+    r.ud128 = x.ud128;
+    r.ud64 = x.ud64;
+    r.ud32 = x.ud32;
+    r.ledger = x.ledger;
+    r.code = x.code;
+  } else if (x.pci >= 0) {
+    r.dr = x.p_dr;
+    r.cr = x.p_cr;
+    r.ud128 = x.ud128 == 0 ? x.p_ud128 : x.ud128;
+    r.ud64 = x.ud64 == 0 ? x.p_ud64 : x.ud64;
+    r.ud32 = x.ud32 == 0 ? x.p_ud32 : x.ud32;
+    r.ledger = x.p_ledger;
+    r.code = x.p_code;
+  } else {
+    const PvRow& q = h.pv[w];
+    r.dr = q.dr;
+    r.cr = q.cr;
+    r.ud128 = q.ud128;
+    r.ud64 = q.ud64;
+    r.ud32 = q.ud32;
+    r.ledger = q.ledger;
+    r.code = q.code;
+  }
+  return r;
+}
+
+// The walk's carry.
+struct Carry {
+  u64 key_max, pulse_next, chain_key_max;
+  i64 chain_start;
+  bool chain_broken;
+  // The amount of batch-store row 0: the pending amount of every event
+  // whose pending id names neither a committed transfer nor an event of
+  // the batch (the undo log records it), kept here rather than rebuilt
+  // an event.
+  u128 amt0;
+};
+
+// Undo chain member j (the twin's rollback): balance deltas back out;
+// closed bits and pending statuses return to their pre-event snapshots,
+// which is why members unwind newest-first.
+__device__ __forceinline__ void rollback(const Hot& h, i64 j) {
+  const URow u = h.undo[j];
+  ARow& dr = h.acc[u.dr_idx];
+  ARow& cr = h.acc[u.cr_idx];
+  if (u.kind == 1 || u.kind == 3) {
+    dr.dpos -= u.amt;
+    cr.cpos -= u.amt;
+  }
+  if (u.kind == 2) {
+    dr.dp -= u.amt;
+    cr.cp -= u.amt;
+  }
+  if (u.kind == 3 || u.kind == 4) {
+    dr.dp += u.pamt;
+    cr.cp += u.pamt;
+    if (u.p_batch) {
+      h.spstat[u.p_idx] = PS_PENDING;
+    } else {
+      h.tpstat[u.p_idx] = PS_PENDING;
+    }
+  }
+  if (u.kind > 0) {
+    dr.flags = u.dr_closed ? (dr.flags | A_CLOSED) : (dr.flags & ~A_CLOSED);
+    cr.flags = u.cr_closed ? (cr.flags | A_CLOSED) : (cr.flags & ~A_CLOSED);
+    h.created[u.slot] = 0;
+  }
+  h.undo[j].kind = 0;
+  h.rcode[j] = static_cast<u16>((h.rcode[j] & kRcTs) |
+                                ts::linked_event_failed);
+}
+
+// Stage 3, event i (the twin's _ct_walk loop body).
+__device__ __forceinline__ void walk_event(const View& v, const Hot& h,
+                                           Carry& c, const Rec& x, i64 i) {
+  const u64 f = x.flags;
+  const bool valid = x.bits & R_VALID;
+  const bool linked = f & F_LINKED, imported = f & F_IMPORTED;
+  const bool is_post = f & F_POST, is_void = f & F_VOID;
+  const bool pv = is_post || is_void, pending = f & F_PENDING;
+
+  // --- chain open (reference :3033-3043) ---
+  bool chain_active = c.chain_start >= 0;
+  if (linked && !chain_active && valid) {
+    c.chain_start = i;
+    c.chain_key_max = c.key_max;
+    chain_active = true;
+  }
+
+  const i32 slot = x.slot;
+  const bool p_cache = x.pci >= 0;
+  const i32 pci = x.pci > 0 ? x.pci : 0, psl = x.psl > 0 ? x.psl : 0;
+  const bool regress = imported && x.ts <= c.key_max;
+
+  // --- the pending row (a post or void reads it whole; any other event
+  // only its amount, for the undo log) and the amount ---
+  Row p;
+  u128 f_amt;
+  i32 s_dr, s_cr;
+  ARow dr, cr;
+  if (pv) {
+    if (p_cache) {
+      p = rec_p_row(x);
+      p.pstat = h.tpstat[pci];
+    } else {
+      p = batch_row(h, psl);
+    }
+    const bool full = is_void ? x.amt == 0 : x.amt == kU128Max;
+    f_amt = full ? p.amt : x.amt;
+    s_dr = static_cast<i32>(p.dr_idx);
+    s_cr = static_cast<i32>(p.cr_idx);
+  } else {
+    if (p_cache) {
+      p.amt = x.p_amt;
+    } else if (psl == 0) {
+      p.amt = c.amt0;
+    } else {
+      const i32 w = h.writer[psl];
+      p.amt = w < 0 ? u128{0} : h.undo[w].amt;
+    }
+    dr = h.acc[x.dr_idx];
+    cr = h.acc[x.cr_idx];
+    // Balancing clamp (reference :3840-3853), wrapping sums as the twin's.
+    f_amt = x.amt;
+    if (f & F_BAL_DR) f_amt = umin(f_amt, sat_sub(dr.cpos, dr.dpos + dr.dp));
+    if (f & F_BAL_CR) f_amt = umin(f_amt, sat_sub(cr.dpos, cr.cpos + cr.cp));
+    s_dr = x.dr_idx;
+    s_cr = x.cr_idx;
+  }
+
+  // --- the path's status (reference :3729-3746) ---
+  const bool e_cache = x.ei >= 0;
+  const bool e_found = e_cache || h.created[slot];
+  u64 inner = x.pre;
+  u32 ts_exists = RC_TS_EXISTS;
+  if (inner != kCreated) {
+    // failed before the paths
+  } else if (e_found) {
+    if (x.bits & R_EXISTS_PRE) {
+      inner = x.exists_status;
+    } else {
+      const Row e = e_cache ? tc_row(v, x.ei) : batch_row(h, slot);
+      inner = exists_status(x, e, p);
+      if (valid) v.u(ct::ST_R_TS)[i] = e.ts;
+      ts_exists = RC_TS_DIRECT;
+    }
+  } else if ((x.bits & R_ORPHANED) || h.orphaned[slot]) {
+    inner = ts::id_already_failed;
+  } else if (pv) {
+    u32 m = x.pv_mask;
+    if (!p_cache) {
+      const bool p_found = x.psl >= 0 && h.created[psl];
+      m |= static_cast<u32>(!p_found) << 6;
+      m |= static_cast<u32>(!(p.flags & F_PENDING)) << 7;
+      m |= static_cast<u32>(x.dr != 0 && x.dr != p.dr) << 8;
+      m |= static_cast<u32>(x.cr != 0 && x.cr != p.cr) << 9;
+      m |= static_cast<u32>(x.ledger != 0 && x.ledger != p.ledger) << 10;
+      m |= static_cast<u32>(x.code != 0 && x.code != p.code) << 11;
+      m |= static_cast<u32>(p.amt < f_amt) << 12;
+      m |= static_cast<u32>(is_void && f_amt < p.amt) << 13;
+      m |= static_cast<u32>(p.timeout != 0 && p.expires <= x.ts_event) << 17;
+    }
+    m |= static_cast<u32>(p.pstat == PS_POSTED) << 14;
+    m |= static_cast<u32>(p.pstat == PS_VOIDED) << 15;
+    m |= static_cast<u32>(p.pstat == PS_EXPIRED) << 16;
+    m |= static_cast<u32>(regress) << 18;
+    if (!is_void) {
+      m |= static_cast<u32>((h.acc[s_dr].flags & A_CLOSED) != 0) << 19;
+      m |= static_cast<u32>((h.acc[s_cr].flags & A_CLOSED) != 0) << 20;
+    }
+    inner = first_code(m, kPvCodes);
+  } else {
+    u32 m = x.reg_mask;
+    m |= static_cast<u32>(regress) << 14;
+    m |= static_cast<u32>((dr.flags & A_CLOSED) != 0) << 18;
+    m |= static_cast<u32>((cr.flags & A_CLOSED) != 0) << 19;
+    // Overflow checks (reference :3856-3901): none can fail while every
+    // term is below 2^126, and then the limits' sums are exact.
+    const u64 hi = static_cast<u64>(f_amt >> 64) |
+                   static_cast<u64>(dr.dp >> 64) |
+                   static_cast<u64>(dr.dpos >> 64) |
+                   static_cast<u64>(cr.cp >> 64) |
+                   static_cast<u64>(cr.cpos >> 64);
+    if (hi >> 62) {
+      bool o1, o2, o3, o4;
+      const u128 s_dp = add(f_amt, dr.dp, &o1);
+      const u128 s_cp = add(f_amt, cr.cp, &o2);
+      m |= static_cast<u32>(pending && o1) << 20;
+      m |= static_cast<u32>(pending && o2) << 21;
+      add(f_amt, dr.dpos, &o3);
+      add(f_amt, cr.cpos, &o4);
+      m |= static_cast<u32>(o3) << 22;
+      m |= static_cast<u32>(o4) << 23;
+      add(s_dp, dr.dpos, &o3);
+      add(s_cp, cr.cpos, &o4);
+      m |= static_cast<u32>(o1 || o3) << 24;
+      m |= static_cast<u32>(o2 || o4) << 25;
+    }
+    // Balance limits (reference tigerbeetle.zig:34-42), wrapping sums.
+    if (dr.flags & A_DR_LIMIT) {
+      m |= static_cast<u32>(dr.cpos < dr.dp + dr.dpos + f_amt) << 27;
+    }
+    if (cr.flags & A_CR_LIMIT) {
+      m |= static_cast<u32>(cr.dpos < cr.cp + cr.cpos + f_amt) << 28;
+    }
+    inner = first_code(m, kRegCodes);
+  }
 
   // --- wrapper checks (reference execute_create :3033-3104) ---
-  const bool ts_valid = ev_ts >= 1 && ev_ts <= kU63Max;
   u64 status = inner;
-  if (!imported && ev_ts != 0) status = ts::timestamp_must_be_zero;
-  if (imported && ts_valid && ev_ts >= timestamp) {
-    status = ts::imported_event_timestamp_must_not_advance;
-  }
-  if (imported && !ts_valid) {
-    status = ts::imported_event_timestamp_out_of_range;
-  }
-  if (imported != batch_imported) {
-    status = imported ? ts::imported_event_not_expected
-                      : ts::imported_event_expected;
-  }
-  if (*chain_broken) status = ts::linked_event_failed;
-  if (linked && i == a.n - 1) status = ts::linked_event_chain_open;
-  const u64 ts_actual = status == inner ? ts_actual_inner : ts_event;
+  if (x.ovr != kCreated) status = x.ovr;
+  if (c.chain_broken) status = ts::linked_event_failed;
+  if (x.bits & R_CHAIN_OPEN) status = ts::linked_event_chain_open;
+  // Where r_ts comes from: ts_actual_inner when no wrapper check
+  // overrode the status, else the event's timestamp.
+  const u32 ts_src = status != inner ? RC_TS_EVENT
+                     : (e_found && inner == ts::exists) ? ts_exists
+                     : inner == kCreated ? RC_TS_ACT
+                                         : RC_TS_EVENT;
 
-  // --- application (masked as the twin's) ---
+  // --- application (the twin's order) ---
   const bool created = status == kCreated && valid;
   const bool ap_pv = created && pv, ap_reg = created && !pv;
   const bool ap_pending = ap_reg && pending;
-  const u128 f_amt = pv ? pv_amt : amt;
-  const u64 f_ts = pv ? pv_ts_actual : reg_ts_actual;
-
-  // Regular/pending application (reference :3909-3985).
-  if (ap_pending) {
-    add_at(v, ST_A_DP_HI, ST_A_DP_LO, dr_idx, f_amt);
-    add_at(v, ST_A_CP_HI, ST_A_CP_LO, cr_idx, f_amt);
+  const u64 f_ts = x.ts_act;
+  bool rb_dr_closed, rb_cr_closed;
+  if (!pv) {
+    // dr and cr are distinct rows whenever the event is created.
+    if (ap_pending) {
+      h.acc[x.dr_idx].dp = dr.dp + f_amt;
+      h.acc[x.cr_idx].cp = cr.cp + f_amt;
+    }
+    if (ap_reg && !pending) {
+      h.acc[x.dr_idx].dpos = dr.dpos + f_amt;
+      h.acc[x.cr_idx].cpos = cr.cpos + f_amt;
+    }
+    rb_dr_closed = dr.flags & A_CLOSED;
+    rb_cr_closed = cr.flags & A_CLOSED;
+    if (ap_reg && (f & F_CLOSE_DR)) h.acc[x.dr_idx].flags = dr.flags | A_CLOSED;
+    if (ap_reg && (f & F_CLOSE_CR)) {
+      h.acc[x.cr_idx].flags = h.acc[x.cr_idx].flags | A_CLOSED;
+    }
+  } else {
+    rb_dr_closed = h.acc[s_dr].flags & A_CLOSED;
+    rb_cr_closed = h.acc[s_cr].flags & A_CLOSED;
   }
-  if (ap_reg && !pending) {
-    add_at(v, ST_A_DPOS_HI, ST_A_DPOS_LO, dr_idx, f_amt);
-    add_at(v, ST_A_CPOS_HI, ST_A_CPOS_LO, cr_idx, f_amt);
-  }
-  u64* a_flags = v.u(ST_A_FLAGS);
-  const i64 s_dr = pv ? p.dr_idx : dr_idx, s_cr = pv ? p.cr_idx : cr_idx;
-  const bool rb_dr_closed = a_flags[s_dr] & A_CLOSED;
-  const bool rb_cr_closed = a_flags[s_cr] & A_CLOSED;
-  if (ap_reg && (flags & F_CLOSE_DR)) a_flags[dr_idx] |= A_CLOSED;
-  if (ap_reg && (flags & F_CLOSE_CR)) a_flags[cr_idx] |= A_CLOSED;
-
-  // Post/void application (reference :4195-4283).
   if (ap_pv) {
-    sub_at(v, ST_A_DP_HI, ST_A_DP_LO, p.dr_idx, p.amt);
-    sub_at(v, ST_A_CP_HI, ST_A_CP_LO, p.cr_idx, p.amt);
-  }
-  if (ap_pv && is_post) {
-    add_at(v, ST_A_DPOS_HI, ST_A_DPOS_LO, p.dr_idx, f_amt);
-    add_at(v, ST_A_CPOS_HI, ST_A_CPOS_LO, p.cr_idx, f_amt);
-  }
-  if (ap_pv && is_void && (p.flags & F_CLOSE_DR)) {
-    a_flags[p.dr_idx] &= ~A_CLOSED;
-  }
-  if (ap_pv && is_void && (p.flags & F_CLOSE_CR)) {
-    a_flags[p.cr_idx] &= ~A_CLOSED;
+    // Post/void application (reference :4195-4283) and p's status flip
+    // (:4233-4238).
+    h.acc[s_dr].dp -= p.amt;
+    h.acc[s_cr].cp -= p.amt;
+    if (is_post) {
+      h.acc[s_dr].dpos += f_amt;
+      h.acc[s_cr].cpos += f_amt;
+    }
+    if (is_void && (p.flags & F_CLOSE_DR)) h.acc[s_dr].flags &= ~A_CLOSED;
+    if (is_void && (p.flags & F_CLOSE_CR)) h.acc[s_cr].flags &= ~A_CLOSED;
+    const u8 new_pstat = is_post ? PS_POSTED : PS_VOIDED;
+    if (p_cache) {
+      h.tpstat[pci] = new_pstat;
+    } else {
+      h.spstat[psl] = new_pstat;
+      PvRow q;
+      q.dr = p.dr;
+      q.cr = p.cr;
+      q.ud128 = x.ud128 == 0 ? p.ud128 : x.ud128;
+      q.ud64 = x.ud64 == 0 ? p.ud64 : x.ud64;
+      q.ud32 = static_cast<u32>(x.ud32 == 0 ? p.ud32 : x.ud32);
+      q.ledger = static_cast<u32>(p.ledger);
+      q.code = static_cast<u32>(p.code);
+      h.pv[i] = q;
+    }
   }
 
-  // Flip p's pending status (reference :4233-4238).
-  const i64 new_pstat = is_post ? PS_POSTED : PS_VOIDED;
-  if (ap_pv && p_from_cache) v.s(ST_TC_PSTAT)[pci] = new_pstat;
-  if (ap_pv && !p_from_cache) v.s(ST_S_PSTAT)[psl] = new_pstat;
-
-  // Insert the stored transfer into the batch store at `slot`.
+  // Insert the stored transfer into the batch store at `slot`: this
+  // event becomes the slot's writer.
   if (created) {
-    v.set_q(ST_S_AMT_HI, ST_S_AMT_LO, slot, f_amt);
-    v.s(ST_S_DR_IDX)[slot] = s_dr;
-    v.s(ST_S_CR_IDX)[slot] = s_cr;
-    v.set_q(ST_S_DR_HI, ST_S_DR_LO, slot, pv ? p.dr : ev_dr);
-    v.set_q(ST_S_CR_HI, ST_S_CR_LO, slot, pv ? p.cr : ev_cr);
-    v.set_q(ST_S_PID_HI, ST_S_PID_LO, slot, ev_pid);
-    v.set_q(ST_S_UD128_HI, ST_S_UD128_LO, slot,
-            (pv && ev_ud128 == 0) ? p.ud128 : ev_ud128);
-    v.u(ST_S_UD64)[slot] = (pv && ev_ud64 == 0) ? p.ud64 : ev_ud64;
-    v.u(ST_S_UD32)[slot] = (pv && ev_ud32 == 0) ? p.ud32 : ev_ud32;
-    v.u(ST_S_TIMEOUT)[slot] = pv ? 0 : ev_timeout;
-    v.u(ST_S_LEDGER)[slot] = pv ? p.ledger : ev_ledger;
-    v.u(ST_S_CODE)[slot] = pv ? p.code : ev_code;
-    v.u(ST_S_FLAGS)[slot] = flags;
-    v.u(ST_S_TS)[slot] = f_ts;
-    v.s(ST_S_PSTAT)[slot] = ap_pending ? PS_PENDING : 0;
-    v.u(ST_S_EXPIRES)[slot] =
-        (ap_pending && ev_timeout != 0) ? f_ts + timeout_ns : 0;
-    v.b(ST_S_CREATED)[slot] = true;
-    if (f_ts > *key_max) *key_max = f_ts;
+    h.writer[slot] = static_cast<i32>(i);
+    h.created[slot] = 1;
+    h.spstat[slot] = ap_pending ? PS_PENDING : 0;
+    if (slot == 0) c.amt0 = f_amt;
+    if (f_ts > c.key_max) c.key_max = f_ts;
   }
 
   // Pulse scheduling (reference :3975-3981 add, :4227-4230 remove-reset).
-  const u64 expires_new = f_ts + timeout_ns;
-  if (ap_pending && ev_timeout != 0 && expires_new < *pulse_next) {
-    *pulse_next = expires_new;
+  const u64 expires_new = f_ts + x.timeout_ns;
+  if (ap_pending && x.timeout != 0 && expires_new < c.pulse_next) {
+    c.pulse_next = expires_new;
   }
-  if (ap_pv && p.timeout != 0 && *pulse_next == p.expires) *pulse_next = 1;
+  if (ap_pv && p.timeout != 0 && c.pulse_next == p.expires) c.pulse_next = 1;
 
   // Undo log record.
-  v.s(ST_RB_KIND)[i] = !created ? 0
-                                : (is_post ? 3 : (is_void ? 4
-                                                          : (pending ? 2 : 1)));
-  v.s(ST_RB_DR_IDX)[i] = s_dr;
-  v.s(ST_RB_CR_IDX)[i] = s_cr;
-  v.set_q(ST_RB_AMT_HI, ST_RB_AMT_LO, i, f_amt);
-  v.set_q(ST_RB_PAMT_HI, ST_RB_PAMT_LO, i, p.amt);
-  v.b(ST_RB_P_BATCH)[i] = !p_from_cache;
-  v.s(ST_RB_P_IDX)[i] = p_from_cache ? pci : psl;
-  v.b(ST_RB_DR_CLOSED)[i] = rb_dr_closed;
-  v.b(ST_RB_CR_CLOSED)[i] = rb_cr_closed;
+  URow u;
+  u.amt = f_amt;
+  u.pamt = p.amt;
+  u.kind = !created ? 0 : (is_post ? 3 : (is_void ? 4 : (pending ? 2 : 1)));
+  u.dr_idx = s_dr;
+  u.cr_idx = s_cr;
+  u.p_idx = p_cache ? pci : psl;
+  u.slot = slot;
+  u.p_batch = !p_cache;
+  u.dr_closed = rb_dr_closed;
+  u.cr_closed = rb_cr_closed;
+  h.undo[i] = u;
 
   // Orphan transient failures (reference transient_error :3215-3252).
-  if (transient(status) && valid) v.b(ST_S_ORPHANED)[slot] = true;
-
-  // Results.
-  if (valid) {
-    v.u(ST_R_TS)[i] = ts_actual;
-    v.u(ST_R_STATUS)[i] = status;
-  }
+  if (valid && transient(status)) h.orphaned[slot] = 1;
+  h.rcode[i] = static_cast<u16>(
+      ts_src | (status == kCreated ? kRcCreated : static_cast<u32>(status)));
 
   // --- chain break: roll back the applied prefix (reference :3116-3150) ---
-  const bool breaking =
-      status != kCreated && chain_active && !*chain_broken && valid;
-  if (breaking) {
-    const i64 start = *chain_start > 0 ? *chain_start : 0;
-    for (i64 j = i - 1; j >= start; --j) ct_rollback(v, j);
-    *key_max = *v.u(ST_CHAIN_KEY_MAX);
-    *chain_broken = true;
+  if (status != kCreated && chain_active && !c.chain_broken && valid) {
+    const i64 start = c.chain_start > 0 ? c.chain_start : 0;
+    for (i64 j = i - 1; j >= start; --j) rollback(h, j);
+    c.key_max = c.chain_key_max;
+    c.chain_broken = true;
   }
-
   // --- chain close (reference :3196-3207) ---
   if (chain_active && (!linked || status == ts::linked_event_chain_open)) {
-    *chain_start = -1;
-    *chain_broken = false;
+    c.chain_start = -1;
+    c.chain_broken = false;
   }
 }
 
-__global__ void create_transfers_seq_kernel(const __grid_constant__ SeqArgs a) {
+// Stage 3 whole: warp 0 walks while its lanes copy the records ahead.
+__device__ __forceinline__ void walk(const View& v, const Hot& h,
+                                     Rec* ring, i64 N) {
+  using namespace ct;
+  const int lane = static_cast<int>(threadIdx.x);
+  const SeqArgs& a = v.a;
+  Carry c;
+  c.key_max = a.key_max;
+  c.pulse_next = a.pulse_next;
+  c.chain_key_max = 0;
+  c.chain_start = -1;
+  c.chain_broken = false;
+  c.amt0 = 0;
+  const i64 chunks = (N + kChunk - 1) / kChunk;
+  constexpr int kPieces = sizeof(Rec) / 16;
+  for (i64 k = 0; k <= chunks; ++k) {
+    // Copy chunk k into its buffer, then walk chunk k - 1.
+    if (k < chunks) {
+      const i64 first = k * kChunk;
+      const i64 cnt = N - first < kChunk ? N - first : kChunk;
+      char* dst = reinterpret_cast<char*>(ring + (k & 1) * kChunk);
+      const char* src = reinterpret_cast<const char*>(h.recs + first);
+      for (i64 q = lane; q < cnt * kPieces; q += 32) {
+        cp_async16(dst + 16 * q, src + 16 * q);
+      }
+    }
+    cp_async_commit();
+    if (k > 0 && lane == 0) {
+      const i64 first = (k - 1) * kChunk;
+      const i64 cnt = N - first < kChunk ? N - first : kChunk;
+      const Rec* buf = ring + ((k - 1) & 1) * kChunk;
+      for (i64 q = 0; q < cnt; ++q) walk_event(v, h, c, buf[q], first + q);
+    }
+    cp_async_wait_all();
+    __syncwarp();
+  }
+  if (lane == 0) {
+    v.u(ST_KEY_MAX)[0] = c.key_max;
+    v.u(ST_PULSE_NEXT)[0] = c.pulse_next;
+    v.u(ST_CHAIN_KEY_MAX)[0] = c.chain_key_max;
+    v.s(ST_CHAIN_START)[0] = c.chain_start;
+    v.b(ST_CHAIN_BROKEN)[0] = c.chain_broken;
+  }
+}
+
+// Stages 1 and 4 over the hot region `h` (every thread).
+__device__ __forceinline__ void stage(const View& v, const Hot& h, i64 N,
+                                      i64 A, i64 T) {
+  using namespace ct;
+  const i64 tid = threadIdx.x, nt = blockDim.x;
+  for (i64 k = tid; k < A; k += nt) {
+    ARow r;
+    r.dp = v.q(AC_DP_HI, AC_DP_LO, k);
+    r.dpos = v.q(AC_DPOS_HI, AC_DPOS_LO, k);
+    r.cp = v.q(AC_CP_HI, AC_CP_LO, k);
+    r.cpos = v.q(AC_CPOS_HI, AC_CPOS_LO, k);
+    r.flags = v.u(AC_FLAGS)[k];
+    r.pad = 0;
+    h.acc[k] = r;
+  }
+  for (i64 k = tid; k < T; k += nt) {
+    h.tpstat[k] = static_cast<i32>(v.s(TC_PENDING_STATUS)[k]);
+  }
+  for (i64 k = tid; k < N; k += nt) {
+    h.created[k] = 0;
+    h.orphaned[k] = 0;
+    h.spstat[k] = 0;
+    h.writer[k] = -1;
+  }
+}
+
+__device__ __forceinline__ void unstage(const View& v, const Hot& h, i64 N,
+                                        i64 A, i64 T) {
+  using namespace ct;
+  const i64 tid = threadIdx.x, nt = blockDim.x;
+  for (i64 k = tid; k < A; k += nt) {
+    const ARow r = h.acc[k];
+    v.set_q(ST_A_DP_HI, ST_A_DP_LO, k, r.dp);
+    v.set_q(ST_A_DPOS_HI, ST_A_DPOS_LO, k, r.dpos);
+    v.set_q(ST_A_CP_HI, ST_A_CP_LO, k, r.cp);
+    v.set_q(ST_A_CPOS_HI, ST_A_CPOS_LO, k, r.cpos);
+    v.u(ST_A_FLAGS)[k] = r.flags;
+  }
+  for (i64 k = tid; k < T; k += nt) v.s(ST_TC_PSTAT)[k] = h.tpstat[k];
+  for (i64 k = tid; k < N; k += nt) {
+    const Row s = batch_row(h, k);
+    v.b(ST_S_CREATED)[k] = h.created[k];
+    v.b(ST_S_ORPHANED)[k] = h.orphaned[k];
+    v.set_q(ST_S_AMT_HI, ST_S_AMT_LO, k, s.amt);
+    v.set_q(ST_S_DR_HI, ST_S_DR_LO, k, s.dr);
+    v.set_q(ST_S_CR_HI, ST_S_CR_LO, k, s.cr);
+    v.set_q(ST_S_PID_HI, ST_S_PID_LO, k, s.pid);
+    v.set_q(ST_S_UD128_HI, ST_S_UD128_LO, k, s.ud128);
+    v.u(ST_S_UD64)[k] = s.ud64;
+    v.u(ST_S_UD32)[k] = s.ud32;
+    v.u(ST_S_TIMEOUT)[k] = s.timeout;
+    v.u(ST_S_LEDGER)[k] = s.ledger;
+    v.u(ST_S_CODE)[k] = s.code;
+    v.u(ST_S_FLAGS)[k] = s.flags;
+    v.u(ST_S_TS)[k] = s.ts;
+    v.s(ST_S_PSTAT)[k] = s.pstat;
+    v.u(ST_S_EXPIRES)[k] = s.expires;
+    v.s(ST_S_DR_IDX)[k] = s.dr_idx;
+    v.s(ST_S_CR_IDX)[k] = s.cr_idx;
+    const URow u = h.undo[k];
+    v.s(ST_RB_KIND)[k] = u.kind;
+    v.s(ST_RB_DR_IDX)[k] = u.dr_idx;
+    v.s(ST_RB_CR_IDX)[k] = u.cr_idx;
+    v.set_q(ST_RB_AMT_HI, ST_RB_AMT_LO, k, u.amt);
+    v.set_q(ST_RB_PAMT_HI, ST_RB_PAMT_LO, k, u.pamt);
+    v.s(ST_RB_P_IDX)[k] = u.p_idx;
+    v.b(ST_RB_P_BATCH)[k] = u.p_batch;
+    v.b(ST_RB_DR_CLOSED)[k] = u.dr_closed;
+    v.b(ST_RB_CR_CLOSED)[k] = u.cr_closed;
+    // Results: the walk's rcode and the record's timestamps.
+    const Rec& x = h.recs[k];
+    const u32 rc = h.rcode[k];
+    const u32 st = rc & kRcStatus;
+    if (!(x.bits & R_VALID)) {
+      v.u(ST_R_TS)[k] = 0;
+      v.u(ST_R_STATUS)[k] = 0;
+      continue;
+    }
+    v.u(ST_R_STATUS)[k] = st == kRcCreated ? kCreated : st;
+    const u32 src = rc & kRcTs;
+    if (src != RC_TS_DIRECT) {
+      v.u(ST_R_TS)[k] = src == RC_TS_ACT      ? x.ts_act
+                        : src == RC_TS_EXISTS ? x.exists_ts
+                                              : x.ts_event;
+    }
+  }
+}
+
+// One launch, one block: the four stages (see the note at the top).
+__global__ void __launch_bounds__(kThreads, 1)
+    create_transfers_seq_kernel(const __grid_constant__ SeqArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const View v{a};
-  for (i64 i = 0; i < a.N; ++i) ct_body(v, i);
+  const i64 N = a.N, A = a.a_rows, T = a.t_rows;
+  const Layout L = ct_layout(N, A, T);
+  unsigned char* g = static_cast<unsigned char*>(a.scratch);
+  Rec* ring = reinterpret_cast<Rec*>(smem);
+  u64* stamps = static_cast<u64*>(a.stamps);
+  const i64 tid = threadIdx.x, nt = blockDim.x;
+  // The hot region's pointers, in shared memory when it fits: each branch
+  // keeps its address space known to the compiler.
+  const Hot hs = hot_at(smem + L.ring_bytes, g, L);
+  const Hot hg = hot_at(g + L.hot, g, L);
+
+  if (tid == 0) stamps[0] = now_ns();
+  if (L.hot_in_smem) {
+    stage(v, hs, N, A, T);
+  } else {
+    stage(v, hg, N, A, T);
+  }
+  __syncthreads();
+  if (tid == 0) stamps[1] = now_ns();
+
+  Rec* recs = reinterpret_cast<Rec*>(g + L.rec);
+  for (i64 i = tid; i < N; i += nt) prepass(v, i, recs);
+  __syncthreads();
+  if (tid == 0) stamps[2] = now_ns();
+
+  if (tid < 32) {
+    if (L.hot_in_smem) {
+      walk(v, hs, ring, N);
+    } else {
+      walk(v, hg, ring, N);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) stamps[3] = now_ns();
+
+  if (L.hot_in_smem) {
+    unstage(v, hs, N, A, T);
+  } else {
+    unstage(v, hg, N, A, T);
+  }
+  __syncthreads();
+  if (tid == 0) stamps[4] = now_ns();
 }
 
 // Event i of a create_accounts batch (the plain twin's _ca_body).
@@ -867,7 +1407,10 @@ __device__ void ca_body(const View& v, i64 i) {
 
 __global__ void create_accounts_seq_kernel(const __grid_constant__ SeqArgs a) {
   const View v{a};
+  u64* stamps = static_cast<u64*>(a.stamps);
+  stamps[0] = now_ns();
   for (i64 i = 0; i < a.N; ++i) ca_body(v, i);
+  stamps[1] = now_ns();
 }
 
 bool args_ok(const SeqArgs* args, int n_seg) {
@@ -877,19 +1420,38 @@ bool args_ok(const SeqArgs* args, int n_seg) {
 }  // namespace
 
 // C entry points (bound with ctypes): one batch (n_seg must be 1), one
-// launch of one thread on `stream`; no synchronisation. Each returns
-// cudaGetLastError() of its launch.
+// launch on `stream`; no synchronisation. Each launch returns
+// cudaGetLastError() of its launch (a refused shared-memory size
+// included).
+
+// Bytes of global scratch the create_transfers launch of `args` needs.
+extern "C" long long create_transfers_seq_scratch(const SeqArgs* args) {
+  return ct_layout(args->N, args->a_rows, args->t_rows).scratch_bytes;
+}
+
 extern "C" int create_transfers_seq_launch(const SeqArgs* args, int n_seg,
                                            void* stream) {
-  if (!args_ok(args, n_seg)) return static_cast<int>(cudaErrorInvalidValue);
-  create_transfers_seq_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      *args);
+  if (!args_ok(args, n_seg) || args->N < 1 || args->a_rows < 1 ||
+      args->t_rows < 1 || args->scratch == nullptr ||
+      args->stamps == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Layout L = ct_layout(args->N, args->a_rows, args->t_rows);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      create_transfers_seq_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L.smem_bytes));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  create_transfers_seq_kernel<<<1, kThreads, L.smem_bytes,
+                                static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int create_accounts_seq_launch(const SeqArgs* args, int n_seg,
                                           void* stream) {
-  if (!args_ok(args, n_seg)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!args_ok(args, n_seg) || args->stamps == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   create_accounts_seq_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       *args);
   return static_cast<int>(cudaGetLastError());

@@ -56,9 +56,14 @@ SEQ_MAX_PTRS = 128
 class SeqArgs(ctypes.Structure):
     """csrc/create_seq.cu's argument block: one batch's tensor pointers
     in the order of its `Ptr` enum, the batch timestamp, the event count
-    and the padded lane count."""
+    and the padded lane count; for create_transfers also the cache row
+    counts, the key_max and pulse_next scalars, and the scratch and stamp
+    buffers."""
     _fields_ = [("p", _VP * SEQ_MAX_PTRS), ("timestamp", ctypes.c_ulonglong),
-                ("n", _LL), ("N", _LL)]
+                ("n", _LL), ("N", _LL), ("a_rows", _LL), ("t_rows", _LL),
+                ("key_max", ctypes.c_ulonglong),
+                ("pulse_next", ctypes.c_ulonglong),
+                ("scratch", _VP), ("stamps", _VP)]
 
 
 def _nvcc() -> str:
@@ -97,16 +102,18 @@ def build(name: str) -> Path:
     return out
 
 
-def _load(name: str, fn_name: str, segment):
+def _load(name: str, fn_name: str, segment, argtypes=None,
+          restype=ctypes.c_int):
     """Build (if needed) and load csrc/<name>.cu; returns its entry point
-    `fn_name(segments, n_seg, stream) -> int` with the C signature
-    declared."""
+    `fn_name(segments, n_seg, stream) -> int` (or, with `argtypes`, of
+    that signature) with the C signature declared."""
     with _lock:
         fn = _libs.get((name, fn_name))
         if fn is None:
             fn = getattr(ctypes.CDLL(str(build(name))), fn_name)
-            fn.argtypes = [ctypes.POINTER(segment), ctypes.c_int, _VP]
-            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes or [ctypes.POINTER(segment),
+                                       ctypes.c_int, _VP]
+            fn.restype = restype
             _libs[(name, fn_name)] = fn
         return fn
 
@@ -125,3 +132,11 @@ def load_create_seq(kind: str):
     """The create_seq entry point of `kind` ("transfers" or "accounts"),
     `create_<kind>_seq_launch`."""
     return _load("create_seq", f"create_{kind}_seq_launch", SeqArgs)
+
+
+def create_seq_scratch_bytes(args: SeqArgs) -> int:
+    """Bytes of global scratch the create_transfers launch of `args`
+    takes (create_seq.cu's `create_transfers_seq_scratch`)."""
+    fn = _load("create_seq", "create_transfers_seq_scratch", SeqArgs,
+               [ctypes.POINTER(SeqArgs)], ctypes.c_longlong)
+    return fn(ctypes.byref(args))

@@ -14,13 +14,18 @@ host prefetched (`batch.prefetch_create_*`): every data-dependent access
 is an index into those caches, and a linked chain that breaks replays an
 undo log newest-first (the device analog of groove scope_open /
 scope_close, src/lsm/groove.zig:1963-1984). Here they are plain PyTorch
-twins, `create_transfers_seq_plain` / `create_accounts_seq_plain`: a
-Python loop over the events on 0-d / 1-d CPU tensors, the JAX package's
-`_ct_body` / `_ca_body` statement for statement. On the card the same
-function is one hand-written CUDA kernel (`create_seq.py`,
-`csrc/create_seq.cu`). Both return the same dict of tensors (the JAX
-kernels' carry: u64 lanes as int64 bit patterns, u32 / i32 lanes
-widened to int64, bool lanes as bool), which `apply_create_*` applies to
+twins. `create_transfers_seq_plain` runs the CUDA kernel's two stages: a
+pre-pass vectorised over every lane (`_ct_prepass`: the checks that read
+only immutable inputs, as a bit mask a path) and a walk in event order
+on Python ints (`_ct_walk`: what depends on earlier events), so the
+tests that hold it to the JAX package's `create_transfers_kernel` also
+check that split. `create_accounts_seq_plain` is a Python loop over the
+events on 0-d / 1-d CPU tensors, the JAX package's `_ca_body` statement
+for statement. On the card each is one hand-written CUDA kernel
+(`create_seq.py`, `csrc/create_seq.cu`). Both return the same dict of
+tensors (the JAX kernels' carry: u64 lanes as int64 bit patterns, u32 /
+i32 lanes widened to int64, bool lanes as bool), which `apply_create_*`
+applies to
 a host state. `create_seq.run_create_*` is prefetch -> kernel -> apply
 in one call, the port's counterpart of the JAX package's
 `engine="kernel"`.
@@ -235,38 +240,6 @@ def _scalar(x: int, device):
     return torch.tensor(s64(x), dtype=torch.int64, device=device)
 
 
-def _ct_init_state(tin: dict) -> dict:
-    """The create_transfers kernel's carry, initialised (on the inputs'
-    device): the mutable account cache, the batch store `s_*` indexed by
-    slot, the committed pending statuses, the undo log `rb_*`, the
-    scalars and the results."""
-    ev, acct = tin["event"], tin["acct"]
-    N = ev["id_lo"].shape[0]
-    dev = ev["id_lo"].device
-
-    def z():
-        return torch.zeros(N, dtype=torch.int64, device=dev)
-
-    def zb():
-        return torch.zeros(N, dtype=torch.bool, device=dev)
-
-    st = {f"a_{k}": acct[k].clone() for k in (
-        "dp_hi", "dp_lo", "dpos_hi", "dpos_lo", "cp_hi", "cp_lo",
-        "cpos_hi", "cpos_lo", "flags")}
-    for k, dt in CT_OUT_DTYPES.items():
-        if k.startswith(("s_", "rb_", "r_")):
-            st[k] = zb() if dt == _B else z()
-    st["tc_pstat"] = tin["tc"]["pending_status"].clone()
-    st["key_max"] = _scalar(tin["transfers_key_max"], dev)
-    # pulse_next_timestamp is NOT restored on chain rollback (it is
-    # state-machine state, not groove state — see the oracle's _Scope).
-    st["pulse_next"] = _scalar(tin["pulse_next"], dev)
-    st["chain_start"] = _scalar(-1, dev)
-    st["chain_broken"] = torch.zeros((), dtype=torch.bool, device=dev)
-    st["chain_key_max"] = _scalar(0, dev)
-    return st
-
-
 def _ca_init_state(tin: dict) -> dict:
     ev = tin["event"]
     N = ev["id_lo"].shape[0]
@@ -284,504 +257,550 @@ def _ca_init_state(tin: dict) -> dict:
 
 
 # ================================= create_transfers: the plain twin
+#
+# Two stages, the CUDA kernel's own (csrc/create_seq.cu):
+#
+# 1. `_ct_prepass`, every lane at once: what reads only immutable inputs
+#    (the event fields, the committed-cache rows `e` and `p` where they
+#    come from that cache, the accounts' existence, ledger and
+#    timestamp), and for the post/void and regular paths a bit mask of
+#    the checks that fail on those inputs alone (bit k: check k of the
+#    path's list below, in the reference's order).
+# 2. `_ct_walk`, in event order on Python ints: only what depends on
+#    earlier events (the batch store, pending statuses, account balances
+#    and closed bits, key_max, the chain). It branches on the event's
+#    path, ORs the bits of that path's mutable checks into the pre-pass
+#    mask, and takes the lowest set bit as the status, so the first
+#    failing check still wins.
 
-def _limb_add_at(st, hi_key, lo_key, idx: int, d_hi, d_lo, mask):
-    """Masked u128 read-modify-write add at st[hi_key/lo_key][idx]."""
-    h, l, _ = u128.add(st[hi_key][idx], st[lo_key][idx], d_hi, d_lo)
-    st[hi_key][idx] = torch.where(mask, h, st[hi_key][idx])
-    st[lo_key][idx] = torch.where(mask, l, st[lo_key][idx])
+_M64 = (1 << 64) - 1
+_U128_MAX = (1 << 128) - 1
+
+# The post/void checks (reference :4053-4299) and the regular checks
+# (:3748-3904), in order: bit k of a mask is check k failing.
+_PV_CODES = tuple(_TS[s] for s in (
+    "flags_are_mutually_exclusive", "flags_are_mutually_exclusive",
+    "pending_id_must_not_be_zero", "pending_id_must_not_be_int_max",
+    "pending_id_must_be_different", "timeout_reserved_for_pending_transfer",
+    "pending_transfer_not_found", "pending_transfer_not_pending",
+    "pending_transfer_has_different_debit_account_id",
+    "pending_transfer_has_different_credit_account_id",
+    "pending_transfer_has_different_ledger",
+    "pending_transfer_has_different_code",
+    "exceeds_pending_transfer_amount",
+    "pending_transfer_has_different_amount",
+    "pending_transfer_already_posted", "pending_transfer_already_voided",
+    "pending_transfer_expired", "pending_transfer_expired",
+    "imported_event_timestamp_must_not_regress",
+    "debit_account_already_closed", "credit_account_already_closed"))
+_REG_CODES = tuple(_TS[s] for s in (
+    "debit_account_id_must_not_be_zero",
+    "debit_account_id_must_not_be_int_max",
+    "credit_account_id_must_not_be_zero",
+    "credit_account_id_must_not_be_int_max", "accounts_must_be_different",
+    "pending_id_must_be_zero", "timeout_reserved_for_pending_transfer",
+    "closing_transfer_must_be_pending", "ledger_must_not_be_zero",
+    "code_must_not_be_zero", "debit_account_not_found",
+    "credit_account_not_found", "accounts_must_have_the_same_ledger",
+    "transfer_must_have_the_same_ledger_as_accounts",
+    "imported_event_timestamp_must_not_regress",
+    "imported_event_timestamp_must_postdate_debit_account",
+    "imported_event_timestamp_must_postdate_credit_account",
+    "imported_event_timeout_must_be_zero", "debit_account_already_closed",
+    "credit_account_already_closed", "overflows_debits_pending",
+    "overflows_credits_pending", "overflows_debits_posted",
+    "overflows_credits_posted", "overflows_debits", "overflows_credits",
+    "overflows_timeout", "exceeds_credits", "exceeds_debits"))
+
+# A transfer row's fields: u128 ones, then u64 / u32 / i32 ones.
+_ROW_U128 = ("amt", "dr", "cr", "pid", "ud128")
+_ROW_U64 = ("ud64", "ud32", "timeout", "ledger", "code", "flags", "ts",
+            "expires", "dr_idx", "cr_idx")
 
 
-def _limb_sub_at(st, hi_key, lo_key, idx: int, d_hi, d_lo, mask):
-    """Masked u128 read-modify-write subtract at st[hi_key/lo_key][idx]."""
-    h, l = u128.sub(st[hi_key][idx], st[lo_key][idx], d_hi, d_lo)
-    st[hi_key][idx] = torch.where(mask, h, st[hi_key][idx])
-    st[lo_key][idx] = torch.where(mask, l, st[lo_key][idx])
+def _first_code(mask: int, codes, ok: int) -> int:
+    """The code of the lowest set bit of `mask`; `ok` when none is."""
+    return codes[(mask & -mask).bit_length() - 1] if mask else ok
 
 
-def _acct_row(st, tin, idx: int) -> dict:
-    """One account-cache row: balances and flags as they stand now
-    (copied: the carry is updated in place later in the event), the rest
-    as prefetched."""
-    acct = tin["acct"]
-    row = {k: st[f"a_{k}"][idx].clone() for k in (
-        "dp_hi", "dp_lo", "dpos_hi", "dpos_lo", "cp_hi", "cp_lo",
-        "cpos_hi", "cpos_lo", "flags")}
-    for k in ("exists", "ledger", "code", "ts"):
-        row[k] = acct[k][idx]
+def _bits(checks) -> torch.Tensor:
+    """(cond, bit) pairs -> an int64 mask a lane."""
+    mask = torch.zeros_like(checks[0][0], dtype=torch.int64)
+    for cond, bit in checks:
+        mask = mask | (cond.to(torch.int64) << bit)
+    return mask
+
+
+def _uints(t: torch.Tensor) -> list:
+    """An int64-carried u64 (or widened u32 / i32) column -> Python
+    ints, u64 read unsigned."""
+    return t.numpy().view(np.uint64).tolist()
+
+
+def _u128s(hi: torch.Tensor, lo: torch.Tensor) -> list:
+    return [(h << 64) | l for h, l in zip(_uints(hi), _uints(lo))]
+
+
+def _tc_gather(tc: dict, idx: torch.Tensor) -> dict:
+    """Committed-cache rows at `idx`, one a lane, under _ct_eval_exists's
+    field names."""
+    row = {f: tc[f][idx] for f in (
+        "amt_hi", "amt_lo", "dr_hi", "dr_lo", "cr_hi", "cr_lo", "pid_hi",
+        "pid_lo", "ud128_hi", "ud128_lo", "ud64", "ud32", "timeout",
+        "ledger", "code", "flags", "ts", "dr_idx", "cr_idx")}
+    row["expires"] = tc["expires_at"][idx]
     return row
 
 
-_P_FIELDS = (
-    "amt_hi", "amt_lo", "dr_hi", "dr_lo", "cr_hi", "cr_lo",
-    "ud128_hi", "ud128_lo", "ud64", "ud32", "timeout", "ledger", "code",
-    "flags", "ts", "dr_idx", "cr_idx", "pid_hi", "pid_lo",
-)
-
-
-def _transfer_row(st, tin, from_cache, cache_idx: int, slot: int) -> dict:
-    """A stored transfer from either the committed cache or the batch
-    store (reference: grooves.transfers.get, src/state_machine.zig:3734)."""
-    ci, sl = max(cache_idx, 0), max(slot, 0)
-    tc = tin["tc"]
-    row = {f: torch.where(from_cache, tc[f][ci], st[f"s_{f}"][sl])
-           for f in _P_FIELDS}
-    row["pstat"] = torch.where(from_cache, st["tc_pstat"][ci],
-                               st["s_pstat"][sl])
-    row["expires"] = torch.where(from_cache, tc["expires_at"][ci],
-                                 st["s_expires"][sl])
-    return row
-
-
-def _ct_body(tin, i: int, st) -> None:
-    """Event i of a create_transfers batch: the JAX package's `_ct_body`,
-    statement for statement, updating the carry `st` in place."""
-    evs = tin["event"]
-    ev = {k: v[i] for k, v in evs.items()}
+def _ct_prepass(tin: dict) -> dict:
+    """Stage 1: every lane at once. Returns the walk's record, one column
+    a field (Python ints; u64 unsigned, u128 whole)."""
+    ev, tc, acct = tin["event"], tin["tc"], tin["acct"]
     n = tin["n_events"]
-    timestamp = _scalar(tin["timestamp"], "cpu")
-    timestamp_event = _scalar(tin["timestamp"] - n + i + 1, "cpu")
-    valid = ev["valid"]
-
-    linked = _flag(ev["flags"], _F_LINKED)
-    imported = _flag(ev["flags"], _F_IMPORTED)
-    is_post = _flag(ev["flags"], _F_POST)
-    is_void = _flag(ev["flags"], _F_VOID)
+    N = ev["id_lo"].shape[0]
+    flags = ev["flags"]
+    lane = torch.arange(N, dtype=torch.int64)
+    ts_event = _scalar(tin["timestamp"] - n + 1, "cpu") + lane
+    linked = _flag(flags, _F_LINKED)
+    imported = _flag(flags, _F_IMPORTED)
+    is_post, is_void = _flag(flags, _F_POST), _flag(flags, _F_VOID)
     pv = is_post | is_void
-    pending = _flag(ev["flags"], _F_PENDING)
-    batch_imported = _flag(evs["flags"][0], _F_IMPORTED) & (n > 0)
+    pending = _flag(flags, _F_PENDING)
+    ts_act = torch.where(imported, ev["ts"], ts_event)
+    timeout_ns = ev["timeout"] * _NSPS
+    collision = imported & ev["acct_ts_collision"]
 
-    # --- chain open (reference :3033-3043) ---
-    chain_active = st["chain_start"] >= 0
-    opening = linked & ~chain_active & valid
-    st["chain_start"] = torch.where(opening, i, st["chain_start"])
-    st["chain_key_max"] = torch.where(opening, st["key_max"],
-                                      st["chain_key_max"])
-    chain_active = chain_active | opening
-
-    # --- transfer lookup: committed cache / orphan / batch store ---
-    slot = int(ev["slot"])
-    e_from_cache = ev["exists_idx"] >= 0
-    e_from_batch = ~e_from_cache & st["s_created"][slot]
-    e_found = e_from_cache | e_from_batch
-    orphan = ev["orphaned"] | st["s_orphaned"][slot]
-    e_row = _transfer_row(st, tin, e_from_cache, int(ev["exists_idx"]),
-                          slot)
-
-    # --- pending transfer lookup ---
-    p_from_cache = ev["pending_cache_idx"] >= 0
-    psl = max(int(ev["pending_slot"]), 0)
-    pci = max(int(ev["pending_cache_idx"]), 0)
-    p_from_batch = (~p_from_cache & (ev["pending_slot"] >= 0)
-                    & st["s_created"][psl])
-    p_found = p_from_cache | p_from_batch
-    p_row = _transfer_row(st, tin, p_from_cache,
-                          int(ev["pending_cache_idx"]),
-                          int(ev["pending_slot"]))
-    p_dr_idx, p_cr_idx = int(p_row["dr_idx"]), int(p_row["cr_idx"])
-    p_dr = _acct_row(st, tin, p_dr_idx)
-    p_cr = _acct_row(st, tin, p_cr_idx)
-    dr_idx, cr_idx = int(ev["dr_idx"]), int(ev["cr_idx"])
-    dr = _acct_row(st, tin, dr_idx)
-    cr = _acct_row(st, tin, cr_idx)
-
-    exists_status, exists_ts = _ct_eval_exists(ev, e_row, p_row)
+    # The exists path, whole where it reads only the committed cache.
+    e_cache = ev["exists_idx"] >= 0
+    p_cache = ev["pending_cache_idx"] >= 0
+    e = _tc_gather(tc, ev["exists_idx"].clamp(min=0))
+    p = _tc_gather(tc, ev["pending_cache_idx"].clamp(min=0))
+    exists_status, exists_ts = _ct_eval_exists(ev, e, p)
+    exists_pre = e_cache & (~pv | p_cache)
 
     id_zero = u128.is_zero(ev["id_hi"], ev["id_lo"])
     id_max = u128.is_max(ev["id_hi"], ev["id_lo"])
     pid_zero = u128.is_zero(ev["pid_hi"], ev["pid_lo"])
     pid_max = u128.is_max(ev["pid_hi"], ev["pid_lo"])
 
-    # ---------------- post/void path (reference :4053-4299) ----------------
+    # Post/void: bits 6-13 and 17 read the pending row, immutable when it
+    # is in the committed cache (then bit 6, not found, is clear); bits
+    # 14-16 (its status), 18 (against key_max) and 19-20 (closed
+    # accounts) are the walk's, as are 6-13 and 17 otherwise.
     pv_amt_hi, pv_amt_lo = u128.select(
         torch.where(is_void, u128.is_zero(ev["amt_hi"], ev["amt_lo"]),
                     u128.is_max(ev["amt_hi"], ev["amt_lo"])),
-        p_row["amt_hi"], p_row["amt_lo"], ev["amt_hi"], ev["amt_lo"])
-    p_expires_due = (p_row["timeout"] != 0) & ule(p_row["expires"],
-                                                  timestamp_event)
-    pv_regress = imported & (ule(ev["ts"], st["key_max"])
-                             | ev["acct_ts_collision"])
-    pv_ts_actual = torch.where(imported, ev["ts"], timestamp_event)
-    pv_checks = [
-        (is_post & is_void, _TS["flags_are_mutually_exclusive"]),
-        (pending | _flag(ev["flags"], _F_BAL_DR)
-         | _flag(ev["flags"], _F_BAL_CR) | _flag(ev["flags"], _F_CLOSE_DR)
-         | _flag(ev["flags"], _F_CLOSE_CR),
-         _TS["flags_are_mutually_exclusive"]),
-        (pid_zero, _TS["pending_id_must_not_be_zero"]),
-        (pid_max, _TS["pending_id_must_not_be_int_max"]),
-        (u128.eq(ev["pid_hi"], ev["pid_lo"], ev["id_hi"], ev["id_lo"]),
-         _TS["pending_id_must_be_different"]),
-        (ev["timeout"] != 0, _TS["timeout_reserved_for_pending_transfer"]),
-        (~p_found, _TS["pending_transfer_not_found"]),
-        (~_flag(p_row["flags"], _F_PENDING),
-         _TS["pending_transfer_not_pending"]),
-        (~u128.is_zero(ev["dr_hi"], ev["dr_lo"])
-         & ~u128.eq(ev["dr_hi"], ev["dr_lo"], p_row["dr_hi"],
-                    p_row["dr_lo"]),
-         _TS["pending_transfer_has_different_debit_account_id"]),
-        (~u128.is_zero(ev["cr_hi"], ev["cr_lo"])
-         & ~u128.eq(ev["cr_hi"], ev["cr_lo"], p_row["cr_hi"],
-                    p_row["cr_lo"]),
-         _TS["pending_transfer_has_different_credit_account_id"]),
-        ((ev["ledger"] != 0) & (ev["ledger"] != p_row["ledger"]),
-         _TS["pending_transfer_has_different_ledger"]),
-        ((ev["code"] != 0) & (ev["code"] != p_row["code"]),
-         _TS["pending_transfer_has_different_code"]),
-        (u128.lt(p_row["amt_hi"], p_row["amt_lo"], pv_amt_hi, pv_amt_lo),
-         _TS["exceeds_pending_transfer_amount"]),
-        (is_void & u128.lt(pv_amt_hi, pv_amt_lo, p_row["amt_hi"],
-                           p_row["amt_lo"]),
-         _TS["pending_transfer_has_different_amount"]),
-        (p_row["pstat"] == _PS_POSTED, _TS["pending_transfer_already_posted"]),
-        (p_row["pstat"] == _PS_VOIDED,
-         _TS["pending_transfer_already_voided"]),
-        (p_row["pstat"] == _PS_EXPIRED, _TS["pending_transfer_expired"]),
-        (p_expires_due, _TS["pending_transfer_expired"]),
-        (pv_regress, _TS["imported_event_timestamp_must_not_regress"]),
-        (_flag(p_dr["flags"], _A_CLOSED) & ~is_void,
-         _TS["debit_account_already_closed"]),
-        (_flag(p_cr["flags"], _A_CLOSED) & ~is_void,
-         _TS["credit_account_already_closed"]),
-    ]
-    pv_status = _first_failure(pv_checks)
+        p["amt_hi"], p["amt_lo"], ev["amt_hi"], ev["amt_lo"])
+    pv_mask = _bits([
+        (is_post & is_void, 0),
+        (pending | _flag(flags, _F_BAL_DR) | _flag(flags, _F_BAL_CR)
+         | _flag(flags, _F_CLOSE_DR) | _flag(flags, _F_CLOSE_CR), 1),
+        (pid_zero, 2),
+        (pid_max, 3),
+        (u128.eq(ev["pid_hi"], ev["pid_lo"], ev["id_hi"], ev["id_lo"]), 4),
+        (ev["timeout"] != 0, 5),
+        (p_cache & ~_flag(p["flags"], _F_PENDING), 7),
+        (p_cache & ~u128.is_zero(ev["dr_hi"], ev["dr_lo"])
+         & ~u128.eq(ev["dr_hi"], ev["dr_lo"], p["dr_hi"], p["dr_lo"]), 8),
+        (p_cache & ~u128.is_zero(ev["cr_hi"], ev["cr_lo"])
+         & ~u128.eq(ev["cr_hi"], ev["cr_lo"], p["cr_hi"], p["cr_lo"]), 9),
+        (p_cache & (ev["ledger"] != 0) & (ev["ledger"] != p["ledger"]), 10),
+        (p_cache & (ev["code"] != 0) & (ev["code"] != p["code"]), 11),
+        (p_cache & u128.lt(p["amt_hi"], p["amt_lo"], pv_amt_hi, pv_amt_lo),
+         12),
+        (p_cache & is_void & u128.lt(pv_amt_hi, pv_amt_lo, p["amt_hi"],
+                                     p["amt_lo"]), 13),
+        (p_cache & (p["timeout"] != 0) & ule(p["expires"], ts_event), 17),
+        (collision, 18),
+    ])
 
-    # ---------------- regular path (reference :3748-3904) ----------------
-    dr_zero = u128.is_zero(ev["dr_hi"], ev["dr_lo"])
-    dr_max = u128.is_max(ev["dr_hi"], ev["dr_lo"])
-    cr_zero = u128.is_zero(ev["cr_hi"], ev["cr_lo"])
-    cr_max = u128.is_max(ev["cr_hi"], ev["cr_lo"])
-    same_acct = u128.eq(ev["dr_hi"], ev["dr_lo"], ev["cr_hi"], ev["cr_lo"])
+    # Regular: bits 14 (against key_max), 18-25 and 27-28 are the walk's.
+    dr_idx, cr_idx = ev["dr_idx"], ev["cr_idx"]
+    dr_ledger, cr_ledger = acct["ledger"][dr_idx], acct["ledger"][cr_idx]
+    reg_mask = _bits([
+        (u128.is_zero(ev["dr_hi"], ev["dr_lo"]), 0),
+        (u128.is_max(ev["dr_hi"], ev["dr_lo"]), 1),
+        (u128.is_zero(ev["cr_hi"], ev["cr_lo"]), 2),
+        (u128.is_max(ev["cr_hi"], ev["cr_lo"]), 3),
+        (u128.eq(ev["dr_hi"], ev["dr_lo"], ev["cr_hi"], ev["cr_lo"]), 4),
+        (~pid_zero, 5),
+        (~pending & (ev["timeout"] != 0), 6),
+        (~pending & (_flag(flags, _F_CLOSE_DR) | _flag(flags, _F_CLOSE_CR)),
+         7),
+        (ev["ledger"] == 0, 8),
+        (ev["code"] == 0, 9),
+        (~acct["exists"][dr_idx], 10),
+        (~acct["exists"][cr_idx], 11),
+        (dr_ledger != cr_ledger, 12),
+        (ev["ledger"] != dr_ledger, 13),
+        (collision, 14),
+        (imported & ule(ev["ts"], acct["ts"][dr_idx]), 15),
+        (imported & ule(ev["ts"], acct["ts"][cr_idx]), 16),
+        (imported & (ev["timeout"] != 0), 17),
+        (ult(_scalar(_U63, "cpu"), ts_act + timeout_ns), 26),
+    ])
 
-    reg_regress = imported & (ule(ev["ts"], st["key_max"])
-                              | ev["acct_ts_collision"])
-    reg_ts_actual = torch.where(imported, ev["ts"], timestamp_event)
-
-    # Balancing clamp (reference :3840-3853).
-    amt_hi, amt_lo = ev["amt_hi"], ev["amt_lo"]
-    dr_bal_hi, dr_bal_lo, _ = u128.add(dr["dpos_hi"], dr["dpos_lo"],
-                                       dr["dp_hi"], dr["dp_lo"])
-    dr_avail_hi, dr_avail_lo = u128.sat_sub(dr["cpos_hi"], dr["cpos_lo"],
-                                            dr_bal_hi, dr_bal_lo)
-    bal_dr_hi, bal_dr_lo = u128.min_(amt_hi, amt_lo, dr_avail_hi,
-                                     dr_avail_lo)
-    amt_hi, amt_lo = u128.select(_flag(ev["flags"], _F_BAL_DR), bal_dr_hi,
-                                 bal_dr_lo, amt_hi, amt_lo)
-    cr_bal_hi, cr_bal_lo, _ = u128.add(cr["cpos_hi"], cr["cpos_lo"],
-                                       cr["cp_hi"], cr["cp_lo"])
-    cr_avail_hi, cr_avail_lo = u128.sat_sub(cr["dpos_hi"], cr["dpos_lo"],
-                                            cr_bal_hi, cr_bal_lo)
-    bal_cr_hi, bal_cr_lo = u128.min_(amt_hi, amt_lo, cr_avail_hi,
-                                     cr_avail_lo)
-    amt_hi, amt_lo = u128.select(_flag(ev["flags"], _F_BAL_CR), bal_cr_hi,
-                                 bal_cr_lo, amt_hi, amt_lo)
-
-    # Overflow checks (reference :3856-3901).
-    _, _, ovf_dp = u128.add(amt_hi, amt_lo, dr["dp_hi"], dr["dp_lo"])
-    _, _, ovf_cp = u128.add(amt_hi, amt_lo, cr["cp_hi"], cr["cp_lo"])
-    _, _, ovf_dpos = u128.add(amt_hi, amt_lo, dr["dpos_hi"], dr["dpos_lo"])
-    _, _, ovf_cpos = u128.add(amt_hi, amt_lo, cr["cpos_hi"], cr["cpos_lo"])
-    _, _, ovf_d = u128.add3(amt_hi, amt_lo, dr["dp_hi"], dr["dp_lo"],
-                            dr["dpos_hi"], dr["dpos_lo"])
-    _, _, ovf_c = u128.add3(amt_hi, amt_lo, cr["cp_hi"], cr["cp_lo"],
-                            cr["cpos_hi"], cr["cpos_lo"])
-    timeout_ns = ev["timeout"] * _NSPS
-    ovf_timeout = ult(_scalar(_U63, "cpu"), reg_ts_actual + timeout_ns)
-
-    # Balance limits (reference tigerbeetle.zig:34-42).
-    dr_tot_hi, dr_tot_lo, _ = u128.add3(dr["dp_hi"], dr["dp_lo"],
-                                        dr["dpos_hi"], dr["dpos_lo"],
-                                        amt_hi, amt_lo)
-    exceeds_credits = _flag(dr["flags"], _A_DR_LIMIT) & u128.lt(
-        dr["cpos_hi"], dr["cpos_lo"], dr_tot_hi, dr_tot_lo)
-    cr_tot_hi, cr_tot_lo, _ = u128.add3(cr["cp_hi"], cr["cp_lo"],
-                                        cr["cpos_hi"], cr["cpos_lo"],
-                                        amt_hi, amt_lo)
-    exceeds_debits = _flag(cr["flags"], _A_CR_LIMIT) & u128.lt(
-        cr["dpos_hi"], cr["dpos_lo"], cr_tot_hi, cr_tot_lo)
-
-    close_flags = (_flag(ev["flags"], _F_CLOSE_DR)
-                   | _flag(ev["flags"], _F_CLOSE_CR))
-    reg_checks = [
-        (dr_zero, _TS["debit_account_id_must_not_be_zero"]),
-        (dr_max, _TS["debit_account_id_must_not_be_int_max"]),
-        (cr_zero, _TS["credit_account_id_must_not_be_zero"]),
-        (cr_max, _TS["credit_account_id_must_not_be_int_max"]),
-        (same_acct, _TS["accounts_must_be_different"]),
-        (~pid_zero, _TS["pending_id_must_be_zero"]),
-        (~pending & (ev["timeout"] != 0),
-         _TS["timeout_reserved_for_pending_transfer"]),
-        (~pending & close_flags, _TS["closing_transfer_must_be_pending"]),
-        (ev["ledger"] == 0, _TS["ledger_must_not_be_zero"]),
-        (ev["code"] == 0, _TS["code_must_not_be_zero"]),
-        (~dr["exists"], _TS["debit_account_not_found"]),
-        (~cr["exists"], _TS["credit_account_not_found"]),
-        (dr["ledger"] != cr["ledger"],
-         _TS["accounts_must_have_the_same_ledger"]),
-        (ev["ledger"] != dr["ledger"],
-         _TS["transfer_must_have_the_same_ledger_as_accounts"]),
-        (reg_regress, _TS["imported_event_timestamp_must_not_regress"]),
-        (imported & ule(ev["ts"], dr["ts"]),
-         _TS["imported_event_timestamp_must_postdate_debit_account"]),
-        (imported & ule(ev["ts"], cr["ts"]),
-         _TS["imported_event_timestamp_must_postdate_credit_account"]),
-        (imported & (ev["timeout"] != 0),
-         _TS["imported_event_timeout_must_be_zero"]),
-        (_flag(dr["flags"], _A_CLOSED), _TS["debit_account_already_closed"]),
-        (_flag(cr["flags"], _A_CLOSED),
-         _TS["credit_account_already_closed"]),
-        (pending & ovf_dp, _TS["overflows_debits_pending"]),
-        (pending & ovf_cp, _TS["overflows_credits_pending"]),
-        (ovf_dpos, _TS["overflows_debits_posted"]),
-        (ovf_cpos, _TS["overflows_credits_posted"]),
-        (ovf_d, _TS["overflows_debits"]),
-        (ovf_c, _TS["overflows_credits"]),
-        (ovf_timeout, _TS["overflows_timeout"]),
-        (exceeds_credits, _TS["exceeds_credits"]),
-        (exceeds_debits, _TS["exceeds_debits"]),
-    ]
-    reg_status = _first_failure(reg_checks)
-
-    # ------- combine the three evaluation paths (reference :3729-3746) -------
-    inner_status = torch.where(
-        e_found, exists_status,
-        torch.where(orphan, _TS["id_already_failed"],
-                    torch.where(pv, pv_status, reg_status)))
-    pre_status = _first_failure([
-        ((ev["flags"] & _TF_PADDING) != 0, _TS["reserved_flag"]),
+    # The checks before the paths, and the wrapper's (reference
+    # execute_create :3033-3104) but for the chain's two.
+    pre = _first_failure([
+        ((flags & _TF_PADDING) != 0, _TS["reserved_flag"]),
         (id_zero, _TS["id_must_not_be_zero"]),
         (id_max, _TS["id_must_not_be_int_max"]),
     ])
-    inner_status = torch.where(pre_status != _CREATED, pre_status,
-                               inner_status)
-
-    ts_actual_inner = torch.where(
-        e_found & (inner_status == _TS["exists"]), exists_ts,
-        torch.where(inner_status == _CREATED,
-                    torch.where(pv, pv_ts_actual, reg_ts_actual),
-                    timestamp_event))
-
-    # ------- wrapper checks (reference execute_create :3033-3104) -------
     ts_valid = ule(_scalar(1, "cpu"), ev["ts"]) & ule(ev["ts"],
                                                       _scalar(_U63, "cpu"))
-    status = inner_status
-    status = torch.where(~imported & (ev["ts"] != 0),
-                         _TS["timestamp_must_be_zero"], status)
-    status = torch.where(imported & ts_valid & ule(timestamp, ev["ts"]),
-                         _TS["imported_event_timestamp_must_not_advance"],
-                         status)
-    status = torch.where(imported & ~ts_valid,
-                         _TS["imported_event_timestamp_out_of_range"], status)
-    status = torch.where(imported != batch_imported,
-                         torch.where(imported,
-                                     _TS["imported_event_not_expected"],
-                                     _TS["imported_event_expected"]), status)
-    status = torch.where(st["chain_broken"], _TS["linked_event_failed"],
-                         status)
-    status = torch.where(linked & (i == n - 1),
-                         _TS["linked_event_chain_open"], status)
+    batch_imported = _flag(flags[0], _F_IMPORTED) & (n > 0)
+    ovr = torch.full_like(flags, _CREATED)
+    ovr = torch.where(~imported & (ev["ts"] != 0),
+                      _TS["timestamp_must_be_zero"], ovr)
+    ovr = torch.where(imported & ts_valid
+                      & ule(_scalar(tin["timestamp"], "cpu"), ev["ts"]),
+                      _TS["imported_event_timestamp_must_not_advance"], ovr)
+    ovr = torch.where(imported & ~ts_valid,
+                      _TS["imported_event_timestamp_out_of_range"], ovr)
+    ovr = torch.where(imported != batch_imported,
+                      torch.where(imported, _TS["imported_event_not_expected"],
+                                  _TS["imported_event_expected"]), ovr)
 
-    ts_actual = torch.where(status == inner_status, ts_actual_inner,
-                            timestamp_event)
-
-    # ---------------- application (masked) ----------------
-    created = (status == _CREATED) & valid
-    ap_pv = created & pv
-    ap_reg = created & ~pv
-    ap_pending = ap_reg & pending
-
-    f_amt_hi = torch.where(pv, pv_amt_hi, amt_hi)
-    f_amt_lo = torch.where(pv, pv_amt_lo, amt_lo)
-    f_ts = torch.where(pv, pv_ts_actual, reg_ts_actual)
-
-    # Regular/pending application (reference :3909-3985).
-    _limb_add_at(st, "a_dp_hi", "a_dp_lo", dr_idx, f_amt_hi, f_amt_lo,
-                 ap_pending)
-    _limb_add_at(st, "a_cp_hi", "a_cp_lo", cr_idx, f_amt_hi, f_amt_lo,
-                 ap_pending)
-    _limb_add_at(st, "a_dpos_hi", "a_dpos_lo", dr_idx, f_amt_hi, f_amt_lo,
-                 ap_reg & ~pending)
-    _limb_add_at(st, "a_cpos_hi", "a_cpos_lo", cr_idx, f_amt_hi, f_amt_lo,
-                 ap_reg & ~pending)
-
-    s_dr_idx = p_dr_idx if bool(pv) else dr_idx
-    s_cr_idx = p_cr_idx if bool(pv) else cr_idx
-    rb_dr_closed = _flag(st["a_flags"][s_dr_idx], _A_CLOSED)
-    rb_cr_closed = _flag(st["a_flags"][s_cr_idx], _A_CLOSED)
-
-    close_dr = ap_reg & _flag(ev["flags"], _F_CLOSE_DR)
-    close_cr = ap_reg & _flag(ev["flags"], _F_CLOSE_CR)
-    a_flags = st["a_flags"]
-    a_flags[dr_idx] = torch.where(close_dr, a_flags[dr_idx] | _A_CLOSED,
-                                  a_flags[dr_idx])
-    a_flags[cr_idx] = torch.where(close_cr, a_flags[cr_idx] | _A_CLOSED,
-                                  a_flags[cr_idx])
-
-    # Post/void application (reference :4195-4283).
-    _limb_sub_at(st, "a_dp_hi", "a_dp_lo", p_dr_idx, p_row["amt_hi"],
-                 p_row["amt_lo"], ap_pv)
-    _limb_sub_at(st, "a_cp_hi", "a_cp_lo", p_cr_idx, p_row["amt_hi"],
-                 p_row["amt_lo"], ap_pv)
-    _limb_add_at(st, "a_dpos_hi", "a_dpos_lo", p_dr_idx, f_amt_hi, f_amt_lo,
-                 ap_pv & is_post)
-    _limb_add_at(st, "a_cpos_hi", "a_cpos_lo", p_cr_idx, f_amt_hi, f_amt_lo,
-                 ap_pv & is_post)
-    reopen_dr = ap_pv & is_void & _flag(p_row["flags"], _F_CLOSE_DR)
-    reopen_cr = ap_pv & is_void & _flag(p_row["flags"], _F_CLOSE_CR)
-    a_flags[p_dr_idx] = torch.where(reopen_dr,
-                                    a_flags[p_dr_idx] & ~_A_CLOSED,
-                                    a_flags[p_dr_idx])
-    a_flags[p_cr_idx] = torch.where(reopen_cr,
-                                    a_flags[p_cr_idx] & ~_A_CLOSED,
-                                    a_flags[p_cr_idx])
-
-    # Flip p's pending status (reference :4233-4238).
-    new_pstat = torch.where(is_post, _PS_POSTED, _PS_VOIDED)
-    st["tc_pstat"][pci] = torch.where(ap_pv & p_from_cache, new_pstat,
-                                      st["tc_pstat"][pci])
-    st["s_pstat"][psl] = torch.where(ap_pv & ~p_from_cache, new_pstat,
-                                     st["s_pstat"][psl])
-
-    # Insert the stored transfer into the batch store at `slot`.
-    ud128_zero = u128.is_zero(ev["ud128_hi"], ev["ud128_lo"])
-    stores = dict(
-        amt_hi=f_amt_hi, amt_lo=f_amt_lo,
-        dr_idx=torch.where(pv, p_row["dr_idx"], ev["dr_idx"]),
-        cr_idx=torch.where(pv, p_row["cr_idx"], ev["cr_idx"]),
-        dr_hi=torch.where(pv, p_row["dr_hi"], ev["dr_hi"]),
-        dr_lo=torch.where(pv, p_row["dr_lo"], ev["dr_lo"]),
-        cr_hi=torch.where(pv, p_row["cr_hi"], ev["cr_hi"]),
-        cr_lo=torch.where(pv, p_row["cr_lo"], ev["cr_lo"]),
-        pid_hi=ev["pid_hi"], pid_lo=ev["pid_lo"],
-        ud128_hi=torch.where(pv & ud128_zero, p_row["ud128_hi"],
-                             ev["ud128_hi"]),
-        ud128_lo=torch.where(pv & ud128_zero, p_row["ud128_lo"],
-                             ev["ud128_lo"]),
-        ud64=torch.where(pv & (ev["ud64"] == 0), p_row["ud64"], ev["ud64"]),
-        ud32=torch.where(pv & (ev["ud32"] == 0), p_row["ud32"], ev["ud32"]),
-        timeout=torch.where(pv, 0, ev["timeout"]),
-        ledger=torch.where(pv, p_row["ledger"], ev["ledger"]),
-        code=torch.where(pv, p_row["code"], ev["code"]),
-        flags=ev["flags"],
-        ts=f_ts,
-        pstat=torch.where(ap_pending, _PS_PENDING, 0),
-        expires=torch.where(ap_pending & (ev["timeout"] != 0),
-                            f_ts + timeout_ns, 0),
-    )
-    for k, v in stores.items():
-        st[f"s_{k}"][slot] = torch.where(created, v, st[f"s_{k}"][slot])
-    st["s_created"][slot] = st["s_created"][slot] | created
-
-    st["key_max"] = torch.where(created, umax(st["key_max"], f_ts),
-                                st["key_max"])
-
-    # Pulse scheduling (reference :3975-3981 add, :4227-4230 remove-reset).
-    expires_new = f_ts + timeout_ns
-    st["pulse_next"] = torch.where(
-        ap_pending & (ev["timeout"] != 0)
-        & ult(expires_new, st["pulse_next"]),
-        expires_new, st["pulse_next"])
-    st["pulse_next"] = torch.where(
-        ap_pv & (p_row["timeout"] != 0)
-        & (st["pulse_next"] == p_row["expires"]),
-        1, st["pulse_next"])
-
-    # Undo log record.
-    st["rb_kind"][i] = torch.where(
-        ~created, 0, torch.where(is_post, 3, torch.where(
-            is_void, 4, torch.where(pending, 2, 1))))
-    st["rb_dr_idx"][i] = s_dr_idx
-    st["rb_cr_idx"][i] = s_cr_idx
-    st["rb_amt_hi"][i] = f_amt_hi
-    st["rb_amt_lo"][i] = f_amt_lo
-    st["rb_pamt_hi"][i] = p_row["amt_hi"]
-    st["rb_pamt_lo"][i] = p_row["amt_lo"]
-    st["rb_p_batch"][i] = ~p_from_cache
-    st["rb_p_idx"][i] = pci if bool(p_from_cache) else psl
-    st["rb_dr_closed"][i] = rb_dr_closed
-    st["rb_cr_closed"][i] = rb_cr_closed
-
-    # Orphan transient failures (reference transient_error :3215-3252).
-    transient = torch.zeros((), dtype=torch.bool)
-    for code in _TRANSIENT_CODES:
-        transient = transient | (status == code)
-    st["s_orphaned"][slot] = st["s_orphaned"][slot] | (transient & valid)
-
-    # Results.
-    st["r_ts"][i] = torch.where(valid, ts_actual, st["r_ts"][i])
-    st["r_status"][i] = torch.where(valid, status, st["r_status"][i])
-
-    # ------- chain break: roll back the applied prefix (reference :3116-3150)
-    breaking = (status != _CREATED) & chain_active & ~st["chain_broken"] \
-        & valid
-    count = i - max(int(st["chain_start"]), 0) if bool(breaking) else 0
-    for k in range(count):
-        _ct_rollback(tin, st, i - 1 - k)
-    st["key_max"] = torch.where(breaking, st["chain_key_max"], st["key_max"])
-    st["chain_broken"] = st["chain_broken"] | breaking
-
-    # Chain close (reference :3196-3207).
-    closing = chain_active & (~linked
-                              | (status == _TS["linked_event_chain_open"]))
-    st["chain_start"] = torch.where(closing, -1, st["chain_start"])
-    st["chain_broken"] = torch.where(closing, False, st["chain_broken"])
+    rec = {
+        "flags": flags, "valid": ev["valid"], "orphaned": ev["orphaned"],
+        "chain_open": linked & (lane == n - 1),
+        "slot": ev["slot"], "psl": ev["pending_slot"],
+        "pci": ev["pending_cache_idx"], "ei": ev["exists_idx"],
+        "dr_idx": dr_idx, "cr_idx": cr_idx,
+        "ts": ev["ts"], "ts_event": ts_event, "ts_act": ts_act,
+        "timeout": ev["timeout"], "timeout_ns": timeout_ns,
+        "ud64": ev["ud64"], "ud32": ev["ud32"], "ledger": ev["ledger"],
+        "code": ev["code"],
+        "pv_mask": pv_mask, "reg_mask": reg_mask, "pre": pre, "ovr": ovr,
+        "exists_pre": exists_pre, "exists_status": exists_status,
+        "exists_ts": exists_ts,
+    }
+    out = {k: (v.tolist() if v.dtype == torch.bool else _uints(v))
+           for k, v in rec.items()}
+    for k in ("slot", "psl", "pci", "ei"):  # signed
+        out[k] = rec[k].tolist()
+    for f in _ROW_U128:
+        out[f] = _u128s(ev[f"{f}_hi"], ev[f"{f}_lo"])
+    return out
 
 
-def _ct_rollback(tin, st, j: int) -> None:
-    """Undo chain member j. LIFO: balance undos are deltas, but the
-    closed bits and pending statuses are absolute pre-event snapshots,
-    so members unwind newest-first (two members touching one account's
-    closed bit — close, then void-reopen — would otherwise resurrect the
-    wrong snapshot)."""
-    kind = st["rb_kind"][j].clone()
-    applied = kind > 0
-    a_hi, a_lo = st["rb_amt_hi"][j], st["rb_amt_lo"][j]
-    pa_hi, pa_lo = st["rb_pamt_hi"][j], st["rb_pamt_lo"][j]
-    dri, cri = int(st["rb_dr_idx"][j]), int(st["rb_cr_idx"][j])
-    posted = applied & ((kind == 1) | (kind == 3))
-    was_pv = applied & ((kind == 3) | (kind == 4))
+def _row_tensors(r: dict) -> dict:
+    """A walk row (Python ints) as _ct_eval_exists's 0-d tensors."""
+    t = {}
+    for k, v in r.items():
+        if k in _ROW_U128:
+            t[f"{k}_hi"] = _scalar(v >> 64, "cpu")
+            t[f"{k}_lo"] = _scalar(v & _M64, "cpu")
+        else:
+            t[k] = _scalar(v, "cpu")
+    return t
 
-    _limb_sub_at(st, "a_dpos_hi", "a_dpos_lo", dri, a_hi, a_lo, posted)
-    _limb_sub_at(st, "a_cpos_hi", "a_cpos_lo", cri, a_hi, a_lo, posted)
-    _limb_sub_at(st, "a_dp_hi", "a_dp_lo", dri, a_hi, a_lo,
-                 applied & (kind == 2))
-    _limb_sub_at(st, "a_cp_hi", "a_cp_lo", cri, a_hi, a_lo,
-                 applied & (kind == 2))
-    _limb_add_at(st, "a_dp_hi", "a_dp_lo", dri, pa_hi, pa_lo, was_pv)
-    _limb_add_at(st, "a_cp_hi", "a_cp_lo", cri, pa_hi, pa_lo, was_pv)
 
-    # Restore closed bits to their pre-event values.
-    a_flags = st["a_flags"]
-    for idx, prev_key in ((dri, "rb_dr_closed"), (cri, "rb_cr_closed")):
-        prev = st[prev_key][j]
-        cur = a_flags[idx]
-        restored = torch.where(prev, cur | _A_CLOSED, cur & ~_A_CLOSED)
-        a_flags[idx] = torch.where(applied, restored, cur)
+def _ct_walk(tin: dict, x: dict) -> dict:
+    """Stage 2: the events in order over the pre-pass record `x`; returns
+    the carry as the JAX kernel's output dict."""
+    tc, acct = tin["tc"], tin["acct"]
+    N = len(x["flags"])
+    n = tin["n_events"]
+    dp = _u128s(acct["dp_hi"], acct["dp_lo"])
+    dpos = _u128s(acct["dpos_hi"], acct["dpos_lo"])
+    cp = _u128s(acct["cp_hi"], acct["cp_lo"])
+    cpos = _u128s(acct["cpos_hi"], acct["cpos_lo"])
+    a_flags = _uints(acct["flags"])
+    tcr = {f: _u128s(tc[f"{f}_hi"], tc[f"{f}_lo"]) for f in _ROW_U128}
+    tcr.update({f: _uints(tc[f]) for f in _ROW_U64 if f != "expires"})
+    tcr["expires"] = _uints(tc["expires_at"])
+    tc_pstat = _uints(tc["pending_status"])
+    s = {f: [0] * N for f in _ROW_U128 + _ROW_U64 + ("pstat",)}
+    s_created, s_orphaned = [False] * N, [False] * N
+    rb = {f: [0] * N for f in ("kind", "dr_idx", "cr_idx", "amt", "pamt",
+                               "p_idx")}
+    rb.update({f: [False] * N for f in ("p_batch", "dr_closed",
+                                        "cr_closed")})
+    r_ts, r_status = [0] * N, [0] * N
+    key_max, pulse_next = tin["transfers_key_max"], tin["pulse_next"]
+    chain_start, chain_broken, chain_key_max = -1, False, 0
 
-    # Restore p's pending status to pending for post/void.
-    p_idx = int(st["rb_p_idx"][j])
-    p_batch = st["rb_p_batch"][j]
-    st["tc_pstat"][p_idx] = torch.where(was_pv & ~p_batch, _PS_PENDING,
-                                        st["tc_pstat"][p_idx])
-    st["s_pstat"][p_idx] = torch.where(was_pv & p_batch, _PS_PENDING,
-                                       st["s_pstat"][p_idx])
+    def row(from_cache: bool, c: int, sl: int) -> dict:
+        if from_cache:
+            r = {f: v[c] for f, v in tcr.items()}
+            r["pstat"] = tc_pstat[c]
+        else:
+            r = {f: v[sl] for f, v in s.items()}
+        return r
 
-    # Un-create and rewrite the result status (FIFO, reference :3123-3145).
-    slot_j = int(tin["event"]["slot"][j])
-    st["s_created"][slot_j] = torch.where(applied, False,
-                                          st["s_created"][slot_j])
-    st["rb_kind"][j] = 0
-    st["r_status"][j] = _TS["linked_event_failed"]
+    def rollback(j: int) -> None:
+        """Undo chain member j (LIFO: closed bits and pending statuses
+        are absolute pre-event snapshots)."""
+        kind = rb["kind"][j]
+        dri, cri = rb["dr_idx"][j], rb["cr_idx"][j]
+        amt, pamt = rb["amt"][j], rb["pamt"][j]
+        if kind in (1, 3):
+            dpos[dri] = (dpos[dri] - amt) & _U128_MAX
+            cpos[cri] = (cpos[cri] - amt) & _U128_MAX
+        if kind == 2:
+            dp[dri] = (dp[dri] - amt) & _U128_MAX
+            cp[cri] = (cp[cri] - amt) & _U128_MAX
+        if kind in (3, 4):
+            dp[dri] = (dp[dri] + pamt) & _U128_MAX
+            cp[cri] = (cp[cri] + pamt) & _U128_MAX
+            if rb["p_batch"][j]:
+                s["pstat"][rb["p_idx"][j]] = _PS_PENDING
+            else:
+                tc_pstat[rb["p_idx"][j]] = _PS_PENDING
+        if kind > 0:
+            for idx, closed in ((dri, rb["dr_closed"][j]),
+                                (cri, rb["cr_closed"][j])):
+                a_flags[idx] = (a_flags[idx] | _A_CLOSED if closed
+                                else a_flags[idx] & ~_A_CLOSED)
+            s_created[x["slot"][j]] = False
+        rb["kind"][j] = 0
+        r_status[j] = _TS["linked_event_failed"]
+
+    for i in range(N):
+        f = x["flags"][i]
+        valid = x["valid"][i]
+        linked = bool(f & _F_LINKED)
+        imported = bool(f & _F_IMPORTED)
+        is_post, is_void = bool(f & _F_POST), bool(f & _F_VOID)
+        pv = is_post or is_void
+        pending = bool(f & _F_PENDING)
+
+        # --- chain open (reference :3033-3043) ---
+        chain_active = chain_start >= 0
+        if linked and not chain_active and valid:
+            chain_start, chain_key_max = i, key_max
+            chain_active = True
+
+        # --- the pending row: committed cache or batch store ---
+        slot = x["slot"][i]
+        p_cache = x["pci"][i] >= 0
+        pci, psl = max(x["pci"][i], 0), max(x["psl"][i], 0)
+        p = row(p_cache, pci, psl)
+        p_found = p_cache or (x["psl"][i] >= 0 and s_created[psl])
+        regress = imported and x["ts"][i] <= key_max
+
+        # --- the amount: pv_amt, or the balancing clamp (:3840-3853) ---
+        ev_amt = x["amt"][i]
+        dr_idx, cr_idx = x["dr_idx"][i], x["cr_idx"][i]
+        if pv:
+            full = ev_amt == 0 if is_void else ev_amt == _U128_MAX
+            f_amt = p["amt"] if full else ev_amt
+            s_dr, s_cr = p["dr_idx"], p["cr_idx"]
+        else:
+            f_amt = ev_amt
+            if f & _F_BAL_DR:
+                f_amt = min(f_amt, max(cpos[dr_idx] - (
+                    (dpos[dr_idx] + dp[dr_idx]) & _U128_MAX), 0))
+            if f & _F_BAL_CR:
+                f_amt = min(f_amt, max(dpos[cr_idx] - (
+                    (cpos[cr_idx] + cp[cr_idx]) & _U128_MAX), 0))
+            s_dr, s_cr = dr_idx, cr_idx
+
+        # --- the path's status (reference :3729-3746) ---
+        e_found = x["ei"][i] >= 0 or s_created[slot]
+        exists_ts = 0
+        inner = x["pre"][i]
+        if inner != _CREATED:
+            pass
+        elif e_found:
+            if x["exists_pre"][i]:
+                inner, exists_ts = x["exists_status"][i], x["exists_ts"][i]
+            else:
+                e = row(x["ei"][i] >= 0, max(x["ei"][i], 0), slot)
+                inner = int(_ct_eval_exists(
+                    {k: v[i] for k, v in tin["event"].items()},
+                    _row_tensors(e), _row_tensors(p))[0])
+                exists_ts = e["ts"]
+        elif x["orphaned"][i] or s_orphaned[slot]:
+            inner = _TS["id_already_failed"]
+        elif pv:
+            m = x["pv_mask"][i]
+            if not p_cache:
+                m |= (not p_found) << 6
+                m |= (not p["flags"] & _F_PENDING) << 7
+                for bit, k in ((8, "dr"), (9, "cr"), (10, "ledger"),
+                               (11, "code")):
+                    t = x[k][i]
+                    m |= (t != 0 and t != p[k]) << bit
+                m |= (p["amt"] < f_amt) << 12
+                m |= (is_void and f_amt < p["amt"]) << 13
+                m |= (p["timeout"] != 0
+                      and p["expires"] <= x["ts_event"][i]) << 17
+            m |= (p["pstat"] == _PS_POSTED) << 14
+            m |= (p["pstat"] == _PS_VOIDED) << 15
+            m |= (p["pstat"] == _PS_EXPIRED) << 16
+            m |= regress << 18
+            m |= (bool(a_flags[s_dr] & _A_CLOSED) and not is_void) << 19
+            m |= (bool(a_flags[s_cr] & _A_CLOSED) and not is_void) << 20
+            inner = _first_code(m, _PV_CODES, _CREATED)
+        else:
+            m = x["reg_mask"][i] | (regress << 14)
+            m |= bool(a_flags[dr_idx] & _A_CLOSED) << 18
+            m |= bool(a_flags[cr_idx] & _A_CLOSED) << 19
+            d_dp, d_dpos = dp[dr_idx], dpos[dr_idx]
+            c_cp, c_cpos = cp[cr_idx], cpos[cr_idx]
+            m |= (pending and f_amt + d_dp > _U128_MAX) << 20
+            m |= (pending and f_amt + c_cp > _U128_MAX) << 21
+            m |= (f_amt + d_dpos > _U128_MAX) << 22
+            m |= (f_amt + c_cpos > _U128_MAX) << 23
+            m |= (f_amt + d_dp > _U128_MAX or ((f_amt + d_dp) & _U128_MAX)
+                  + d_dpos > _U128_MAX) << 24
+            m |= (f_amt + c_cp > _U128_MAX or ((f_amt + c_cp) & _U128_MAX)
+                  + c_cpos > _U128_MAX) << 25
+            m |= (bool(a_flags[dr_idx] & _A_DR_LIMIT) and cpos[dr_idx] < (
+                (d_dp + d_dpos + f_amt) & _U128_MAX)) << 27
+            m |= (bool(a_flags[cr_idx] & _A_CR_LIMIT) and dpos[cr_idx] < (
+                (c_cp + c_cpos + f_amt) & _U128_MAX)) << 28
+            inner = _first_code(m, _REG_CODES, _CREATED)
+
+        if e_found and inner == _TS["exists"]:
+            ts_actual_inner = exists_ts
+        elif inner == _CREATED:
+            ts_actual_inner = x["ts_act"][i]
+        else:
+            ts_actual_inner = x["ts_event"][i]
+
+        # --- wrapper checks (reference execute_create :3033-3104) ---
+        status = inner
+        if x["ovr"][i] != _CREATED:
+            status = x["ovr"][i]
+        if chain_broken:
+            status = _TS["linked_event_failed"]
+        if x["chain_open"][i]:
+            status = _TS["linked_event_chain_open"]
+        ts_actual = ts_actual_inner if status == inner else x["ts_event"][i]
+
+        # --- application ---
+        created = status == _CREATED and valid
+        ap_pv = created and pv
+        ap_reg = created and not pv
+        ap_pending = ap_reg and pending
+        f_ts = x["ts_act"][i]
+        if ap_pending:
+            dp[dr_idx] = (dp[dr_idx] + f_amt) & _U128_MAX
+            cp[cr_idx] = (cp[cr_idx] + f_amt) & _U128_MAX
+        if ap_reg and not pending:
+            dpos[dr_idx] = (dpos[dr_idx] + f_amt) & _U128_MAX
+            cpos[cr_idx] = (cpos[cr_idx] + f_amt) & _U128_MAX
+        rb_dr_closed = bool(a_flags[s_dr] & _A_CLOSED)
+        rb_cr_closed = bool(a_flags[s_cr] & _A_CLOSED)
+        if ap_reg and f & _F_CLOSE_DR:
+            a_flags[dr_idx] |= _A_CLOSED
+        if ap_reg and f & _F_CLOSE_CR:
+            a_flags[cr_idx] |= _A_CLOSED
+        if ap_pv:
+            pdr, pcr = p["dr_idx"], p["cr_idx"]
+            dp[pdr] = (dp[pdr] - p["amt"]) & _U128_MAX
+            cp[pcr] = (cp[pcr] - p["amt"]) & _U128_MAX
+            if is_post:
+                dpos[pdr] = (dpos[pdr] + f_amt) & _U128_MAX
+                cpos[pcr] = (cpos[pcr] + f_amt) & _U128_MAX
+            if is_void and p["flags"] & _F_CLOSE_DR:
+                a_flags[pdr] &= ~_A_CLOSED
+            if is_void and p["flags"] & _F_CLOSE_CR:
+                a_flags[pcr] &= ~_A_CLOSED
+            new_pstat = _PS_POSTED if is_post else _PS_VOIDED
+            if p_cache:
+                tc_pstat[pci] = new_pstat
+            else:
+                s["pstat"][psl] = new_pstat
+
+        # Insert the stored transfer into the batch store at `slot`.
+        timeout_ns = x["timeout_ns"][i]
+        if created:
+            def pick(k):
+                t = x[k][i]
+                return p[k] if pv and t == 0 else t
+
+            for k, v in (
+                    ("amt", f_amt), ("dr_idx", s_dr), ("cr_idx", s_cr),
+                    ("dr", p["dr"] if pv else x["dr"][i]),
+                    ("cr", p["cr"] if pv else x["cr"][i]),
+                    ("pid", x["pid"][i]), ("ud128", pick("ud128")),
+                    ("ud64", pick("ud64")), ("ud32", pick("ud32")),
+                    ("timeout", 0 if pv else x["timeout"][i]),
+                    ("ledger", p["ledger"] if pv else x["ledger"][i]),
+                    ("code", p["code"] if pv else x["code"][i]),
+                    ("flags", f), ("ts", f_ts),
+                    ("pstat", _PS_PENDING if ap_pending else 0),
+                    ("expires", (f_ts + timeout_ns) & _M64
+                     if ap_pending and x["timeout"][i] != 0 else 0)):
+                s[k][slot] = v
+            s_created[slot] = True
+            key_max = max(key_max, f_ts)
+
+        # Pulse scheduling (reference :3975-3981 add, :4227-4230 reset).
+        expires_new = (f_ts + timeout_ns) & _M64
+        if ap_pending and x["timeout"][i] != 0 and expires_new < pulse_next:
+            pulse_next = expires_new
+        if ap_pv and p["timeout"] != 0 and pulse_next == p["expires"]:
+            pulse_next = 1
+
+        # Undo log record.
+        rb["kind"][i] = (0 if not created else 3 if is_post else 4
+                         if is_void else 2 if pending else 1)
+        rb["dr_idx"][i], rb["cr_idx"][i] = s_dr, s_cr
+        rb["amt"][i], rb["pamt"][i] = f_amt, p["amt"]
+        rb["p_batch"][i] = not p_cache
+        rb["p_idx"][i] = pci if p_cache else psl
+        rb["dr_closed"][i], rb["cr_closed"][i] = rb_dr_closed, rb_cr_closed
+
+        # Orphan transient failures (reference transient_error :3215-3252).
+        if valid and status in _TRANSIENT_CODES:
+            s_orphaned[slot] = True
+        if valid:
+            r_ts[i], r_status[i] = ts_actual, status
+
+        # --- chain break: roll back the applied prefix (:3116-3150) ---
+        if status != _CREATED and chain_active and not chain_broken \
+                and valid:
+            for j in range(i - 1, max(chain_start, 0) - 1, -1):
+                rollback(j)
+            key_max = chain_key_max
+            chain_broken = True
+        # Chain close (reference :3196-3207).
+        if chain_active and (not linked
+                             or status == _TS["linked_event_chain_open"]):
+            chain_start, chain_broken = -1, False
+
+    def col(v):
+        return torch.from_numpy(np.array(v, dtype=np.uint64).view(np.int64))
+
+    def limbs(prefix, v):
+        return {f"{prefix}_hi": col([a >> 64 for a in v]),
+                f"{prefix}_lo": col([a & _M64 for a in v])}
+
+    out = {**limbs("a_dp", dp), **limbs("a_dpos", dpos), **limbs("a_cp", cp),
+           **limbs("a_cpos", cpos), "a_flags": col(a_flags)}
+    for k, v in s.items():
+        out.update(limbs(f"s_{k}", v) if k in _ROW_U128 else {f"s_{k}": col(v)})
+    out["s_created"] = torch.tensor(s_created, dtype=torch.bool)
+    out["s_orphaned"] = torch.tensor(s_orphaned, dtype=torch.bool)
+    out["tc_pstat"] = col(tc_pstat)
+    for k, v in rb.items():
+        if k in ("amt", "pamt"):
+            out.update(limbs(f"rb_{k}", v))
+        elif isinstance(v[0], bool):
+            out[f"rb_{k}"] = torch.tensor(v, dtype=torch.bool)
+        else:
+            out[f"rb_{k}"] = col(v)
+    out["r_ts"], out["r_status"] = col(r_ts), col(r_status)
+    out["key_max"] = _scalar(key_max, "cpu")
+    out["pulse_next"] = _scalar(pulse_next, "cpu")
+    out["chain_key_max"] = _scalar(chain_key_max, "cpu")
+    out["chain_start"] = _scalar(chain_start, "cpu")
+    out["chain_broken"] = torch.tensor(chain_broken)
+    return out
 
 
 def create_transfers_seq_plain(tin: dict) -> dict:
     """The create_transfers sequential kernel, plain: every event of the
-    padded batch in order (the JAX package's `create_transfers_kernel`).
-    `tin` is `inputs_to_device(prefetch...)` on the CPU."""
-    st = _ct_init_state(tin)
-    for i in range(tin["event"]["id_lo"].shape[0]):
-        _ct_body(tin, i, st)
-    return st
+    padded batch in order (the JAX package's `create_transfers_kernel`),
+    as a pre-pass over all lanes and a walk in event order. `tin` is
+    `inputs_to_device(prefetch...)` on the CPU."""
+    return _ct_walk(tin, _ct_prepass(tin))
 
 
 # ================================== create_accounts: the plain twin

@@ -1,14 +1,17 @@
 """The sequential create_transfers / create_accounts kernels: one
-hand-written CUDA kernel for Hopper (`csrc/create_seq.cu`), one launch a
-batch.
+hand-written CUDA kernel each for Hopper (`csrc/create_seq.cu`), one
+launch a batch.
 
 No Pallas counterpart: they replace the JAX package's XLA kernels
 `create_transfers_kernel` and `create_accounts_kernel`
 (tigerbeetle_tpu/ops/create_kernels.py:664, :792), lax.fori_loops over
-the batch. In PyTorch the plain form is a Python loop of a few hundred
-eager ops an event, which on the card would pay a launch for each: one
-thread walking the batch in order is the natural form there. What bounds
-it is latency (an event's chain of dependent loads), not bytes; see the
+the batch. In PyTorch the plain form is a loop over the events, which on
+the card would pay a launch for each. The transfers kernel is one block:
+a parallel pre-pass decodes every event and folds every check that reads
+only immutable inputs into a bit mask, then one warp walks the events in
+order, branching on each event's path (the plain twin runs the same two
+stages). The accounts kernel is one thread walking the batch. What bounds
+them is latency (the walk's chain of dependent loads), not bytes; see the
 source note.
 
 `create_transfers_seq(tin)` / `create_accounts_seq(tin)` take the
@@ -17,11 +20,16 @@ return the kernel's carry as a dict of tensors, the same dict as their
 plain twins `create_kernels.create_transfers_seq_plain` /
 `create_accounts_seq_plain` return. Routing is by the tensors' device
 alone: CUDA tensors launch the kernel (or raise), CPU tensors run the
-plain twin. The wrapper initialises the carry with the twin's own
-`_ct_init_state` / `_ca_init_state`, hands the kernel every tensor's
-pointer in the order of the source's `Ptr` enums (`CT_PTRS` /
-`CA_PTRS`), and launches once on the current stream. `LAUNCHES` counts
-kernel launches and nothing else.
+plain twin. The wrapper allocates the transfers kernel's outputs
+uninitialised (the kernel writes every one) and initialises the accounts
+kernel's with the twin's `_ca_init_state`, hands the kernel every
+tensor's pointer in the order of the source's `Ptr` enums (`CT_PTRS` /
+`CA_PTRS`), a buffer for its %globaltimer stamps and, for transfers, a
+scratch buffer of the size the source asks for, and launches once on
+the current stream. `LAUNCHES` counts kernel launches and nothing else
+(`KIND_LAUNCHES` the same by kernel); `STAMPS` holds each kernel's last
+stamps (`device_ms(kind)` and `stage_ms()` read them: device time
+without a profiler).
 
 `run_create_transfers` / `run_create_accounts` are prefetch -> kernel ->
 apply on a host state in one call, the port's counterpart of the JAX
@@ -46,8 +54,8 @@ from .batch import (
 from .create_kernels import (
     CA_OUT_DTYPES,
     CT_OUT_DTYPES,
+    _B,
     _ca_init_state,
-    _ct_init_state,
     apply_create_accounts,
     apply_create_transfers,
     create_accounts_seq_plain,
@@ -58,6 +66,14 @@ from .create_kernels import (
 from .device import resolve_device
 
 LAUNCHES = 0
+# The same launches by kernel.
+KIND_LAUNCHES = {"transfers": 0, "accounts": 0}
+
+# Each kernel's last launch's %globaltimer ns (a device tensor): at the
+# transfers kernel's stage boundaries (5: STAGES), at the accounts
+# kernel's start and end (2).
+STAMPS: dict = {}
+STAGES = ("stage", "prepass", "walk", "unstage")
 
 # Host-clock ms of the last run_create_* call: "prefetch" (the host
 # prefetch and the copy of its inputs to the device), "kernel" (the
@@ -94,6 +110,9 @@ CT_PTRS = (
         "r_ts", "r_status",
         "key_max", "pulse_next", "chain_key_max", "chain_start",
         "chain_broken")),
+    *(("acct", k) for k in ("dp_hi", "dp_lo", "dpos_hi", "dpos_lo", "cp_hi",
+                            "cp_lo", "cpos_hi", "cpos_lo", "flags")),
+    ("tc", "pending_status"),
 )
 CA_PTRS = (
     *(("event", k) for k in (
@@ -132,7 +151,44 @@ def _device_of(tin: dict, name: str) -> torch.device:
     return devs.pop()
 
 
-def _run(kind: str, ptrs, init, plain, tin: dict) -> dict:
+def _ct_outputs(tin: dict) -> dict:
+    """The create_transfers kernel's outputs, uninitialised (it writes
+    every one): the twin's keys, shapes and dtypes."""
+    ev = tin["event"]
+    dev = ev["id_lo"].device
+
+    def shape(k):
+        if k.startswith("a_"):  # the account cache's rows
+            return tin["acct"]["exists"].shape
+        if k == "tc_pstat":     # the committed cache's rows
+            return tin["tc"]["pending_status"].shape
+        if k.startswith(("s_", "rb_", "r_")):  # a lane's
+            return ev["id_lo"].shape
+        return ()               # the scalars
+
+    return {k: torch.empty(shape(k), device=dev,
+                           dtype=torch.bool if dt == _B else torch.int64)
+            for k, dt in CT_OUT_DTYPES.items()}
+
+
+def _seq_args(ptrs, tin: dict, st: dict):
+    """The argument block: every pointer in the source's enum order, the
+    scalars and (read by the transfers kernel alone) the cache sizes."""
+    args = _build.SeqArgs()
+    for k, (group, key) in enumerate(ptrs):
+        args.p[k] = (st if group == "st" else tin[group])[key].data_ptr()
+    args.timestamp = tin["timestamp"]
+    args.n = tin["n_events"]
+    args.N = tin["event"]["id_lo"].shape[0]
+    if "tc" in tin:
+        args.a_rows = tin["acct"]["exists"].shape[0]
+        args.t_rows = tin["tc"]["pending_status"].shape[0]
+        args.key_max = tin["transfers_key_max"]
+        args.pulse_next = tin["pulse_next"]
+    return args
+
+
+def _run(kind: str, ptrs, outputs, plain, tin: dict) -> dict:
     global LAUNCHES
     name = f"create_{kind}_seq"
     dev = _device_of(tin, name)
@@ -141,28 +197,47 @@ def _run(kind: str, ptrs, init, plain, tin: dict) -> dict:
     if dev.type != "cuda":
         raise ValueError(f"{name}: inputs on {dev}; expected a CUDA device "
                          "(or the CPU)")
-    st = init(tin)
-    args = _build.SeqArgs()
-    for k, (group, key) in enumerate(ptrs):
-        args.p[k] = (st if group == "st" else tin[group])[key].data_ptr()
-    args.timestamp = tin["timestamp"]
-    args.n = tin["n_events"]
-    args.N = tin["event"]["id_lo"].shape[0]
+    st = outputs(tin)
+    args = _seq_args(ptrs, tin, st)
     fn = _launch.get(kind)
     if fn is None:
         fn = _launch[kind] = _build.load_create_seq(kind)
+    stamps = torch.empty(len(STAGES) + 1 if kind == "transfers" else 2,
+                         dtype=torch.int64, device=dev)
+    args.stamps = stamps.data_ptr()
+    if kind == "transfers":
+        scratch = torch.empty(_build.create_seq_scratch_bytes(args),
+                              dtype=torch.uint8, device=dev)
+        args.scratch = scratch.data_ptr()
     rc = fn(ctypes.byref(args), 1,
             torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES += 1
+    KIND_LAUNCHES[kind] += 1
+    STAMPS[kind] = stamps
     return st
+
+
+def stage_ms() -> dict:
+    """The last create_transfers launch's device ms in each stage, from
+    its %globaltimer stamps (waits for the launch)."""
+    t = STAMPS["transfers"].cpu().tolist()
+    return {s: (t[k + 1] - t[k]) / 1e6 for k, s in enumerate(STAGES)}
+
+
+def device_ms(kind: str) -> float:
+    """The last launch of `kind`'s kernel ("transfers" or "accounts"):
+    its device ms from its first to its last %globaltimer stamp (waits
+    for the launch)."""
+    t = STAMPS[kind].cpu().tolist()
+    return (t[-1] - t[0]) / 1e6
 
 
 def create_transfers_seq(tin: dict) -> dict:
     """One create_transfers batch through the sequential kernel: the CUDA
     kernel for CUDA inputs, the plain twin for CPU inputs."""
-    return _run("transfers", CT_PTRS, _ct_init_state,
+    return _run("transfers", CT_PTRS, _ct_outputs,
                 create_transfers_seq_plain, tin)
 
 

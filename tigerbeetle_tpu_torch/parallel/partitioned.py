@@ -797,10 +797,16 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def shard_caps(a_cap: int, t_cap: int, e_cap, n_shards: int) -> tuple:
+# The orphaned ids the replicated default's transfer table makes room for
+# (ops/ledger.py init_state).
+ORPHAN_FLOOR = 1 << 16
+
+
+def shard_caps(a_cap: int, t_cap: int, e_cap, n_shards: int,
+               orphan_floor: int = ORPHAN_FLOOR) -> tuple:
     """The per-shard (a_cap, t_cap, orphan_cap, e_cap) of a partitioned
     state at global caps: the global caps / n_shards. The replicated
-    default keeps a 2^16 orphan floor; per shard the floor scales too, so
+    default keeps an orphan floor; per shard the floor scales too, so
     the aggregate table is the same size."""
     if a_cap % n_shards or t_cap % n_shards:
         raise ValueError(f"caps {a_cap} / {t_cap} do not divide over "
@@ -808,7 +814,7 @@ def shard_caps(a_cap: int, t_cap: int, e_cap, n_shards: int) -> tuple:
     if e_cap is None:
         e_cap = t_cap
     t_cap_s = t_cap // n_shards
-    return (a_cap // n_shards, t_cap_s, max((1 << 16) // n_shards, t_cap_s),
+    return (a_cap // n_shards, t_cap_s, max(orphan_floor // n_shards, t_cap_s),
             max(e_cap // n_shards, 1))
 
 
@@ -825,13 +831,15 @@ def static_partitioned_bytes(a_cap: int, t_cap: int, n_shards: int,
 
 def partitioned_from_oracle(sm, mesh: Mesh, a_cap: int = 1 << 12,
                             t_cap: int = 1 << 14, e_cap: int | None = None,
-                            overlay: tuple = ()) -> tuple:
+                            overlay: tuple = (),
+                            orphan_floor: int = ORPHAN_FLOOR) -> tuple:
     """The partitioned state of a host oracle (the port's or the JAX
     package's: any object with its fields): objects go to shards by the
     ownership hash the kernels use (`shard_utils.owner_read_int`), then
     pack per shard in the canonical order (accounts by applied
     timestamp, transfers in commit order, the order the epoch digest
-    pins). Per-shard caps are the global caps / n_shards. With `overlay`,
+    pins). Per-shard caps are the global caps / n_shards (`shard_caps`,
+    with `orphan_floor`). With `overlay`,
     placement follows the read owner. Returns one state dict a local
     shard (`mesh.local`; every shard in one process), on its device;
     packing runs on the CPU."""
@@ -841,7 +849,7 @@ def partitioned_from_oracle(sm, mesh: Mesh, a_cap: int = 1 << 12,
 
     n_shards = mesh.size
     a_cap_s, t_cap_s, orphan_cap_s, e_cap_s = shard_caps(
-        a_cap, t_cap, e_cap, n_shards)
+        a_cap, t_cap, e_cap, n_shards, orphan_floor)
 
     acct_all = sorted(sm.accounts.values(), key=lambda a: a.timestamp)
     xfer_all = [sm.transfers[tid]

@@ -30,7 +30,11 @@ its paired fixed form:
   retrace      an entry whose argument dtype drifts with W (polymorphic
                RED) and a tampered budget digest (drift RED);
   sharding     a shard state replicated at whole size in one storage (vs
-               the per-shard layout clean).
+               the per-shard layout clean), and the registry's
+               partitioned plain step made to gather one shard's
+               transfer table (786,624 B a part at the registry's caps,
+               below the exchange's 819,200 B account bundle) beside its
+               exchange (vs the step as it is clean).
 
 Writes static_status.json (the JAX package's schema: per-pass ok flags,
 finding samples, negative-proof verdicts, the retrace table; plus the
@@ -46,6 +50,7 @@ static_smoke.static_smoke(device='cpu')"`` (None: the card).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -61,7 +66,7 @@ def _negative_proofs(entries, device) -> dict[str, bool]:
     import numpy as np
     import torch
 
-    from ..parallel.shard_utils import Mesh, psum
+    from ..parallel.shard_utils import Mesh, all_gather, psum
     from ..torchhound import core, determinism, hostdet, retrace, shardspec
     from ..torchhound.registry import Entry
 
@@ -132,6 +137,22 @@ def _negative_proofs(entries, device) -> dict[str, bool]:
     clean = verdict(tuple(torch.zeros((1, 128), dtype=torch.int64,
                                       device=device) for _ in range(8)))
     out["sharding_replicated_donor"] = bool(red) and not clean
+
+    # -- sharding: a gather of one shard's transfer table ---------------
+    from ..torchhound.registry import mesh_entries
+
+    entry = mesh_entries(device)["partitioned_plain_step"]
+
+    def gathers_table(state, *operands):
+        all_gather(entry.mesh, [{"xfer_ht": s["xfer_ht"]["packed"]}
+                                for s in state])
+        return entry.fn(state, *operands)
+
+    leaky = dataclasses.replace(entry, name="neg_gather", fn=gathers_table)
+    out["sharding_gathered_table"] = (
+        any("grows with the state" in f
+            for f in shardspec.run({"neg_gather": leaky}))
+        and not shardspec.run({"partitioned_plain_step": entry}))
     return out
 
 

@@ -77,7 +77,10 @@ class Entry:
 
     route: flat | chain | sharded | partitioned | partitioned_chain.
     fn: the dispatch callable; fn(*make_args(depth)) runs it once.
-    make_args: depth -> fresh inputs, the state first.
+    make_args: depth -> fresh inputs, the state first; the partitioned
+      routes' also take `scale=`: the state at that many times the
+      registry's capacities, its caps and the orphan floor that sizes a
+      shard's transfer table (the sharding pass traces them at 2).
     depths: the window depths the capture auditor drives.
     mesh: the entry's `shard_utils.Mesh` (None: one device).
     n_state_leaves: tensors of one (per-shard) state.
@@ -169,15 +172,36 @@ def entries(device=None, include_mesh: bool = True) -> dict[str, Entry]:
     add("create_transfers_chain_ring", "chain",
         ring(FK.create_transfers_chain, ring_reset=True), chain_args,
         DEPTH_MATRIX)
-    if not include_mesh:
-        return out
+    if include_mesh:
+        out.update(mesh_entries(dev))
+    return out
+
+
+def mesh_entries(device=None) -> dict[str, Entry]:
+    """name -> Entry for the sharded and partitioned entries alone, on
+    `Mesh([device] * N_SHARDS)` (None: the card)."""
+    from ..ops.device import resolve_device
+    from ..ops.ledger import init_state
+    from ..trace import profiler as PF
+
+    dev = resolve_device(device)
+    n_leaves = _n_leaves(init_state(*CAPS, device="meta"))
+    out: dict[str, Entry] = {}
+
+    def state():
+        return PF._scratch_state(dev, CAPS)
+
+    def add(name, route, fn, make_args, depths=(1,), mesh=None):
+        out[name] = Entry(name=name, route=route, fn=fn,
+                          make_args=make_args, depths=depths, mesh=mesh,
+                          n_state_leaves=n_leaves)
 
     from ..ops.ledger import pad_transfer_events
     from ..ops.u64 import carrier
     from ..parallel.full_sharded import (make_sharded_create_transfers,
                                          shard_batch)
     from ..parallel.partitioned import (
-        make_partitioned_chain_create_transfers,
+        ORPHAN_FLOOR, make_partitioned_chain_create_transfers,
         make_partitioned_create_transfers, stack_partitioned_window)
     from ..parallel.shard_utils import Mesh, replicate
 
@@ -188,14 +212,19 @@ def entries(device=None, include_mesh: bool = True) -> dict[str, Entry]:
         shards = shard_batch(mesh, pad_transfer_events(evs[0], N_PREPARE))
         return (replicate(mesh, state()), shards, tss[0], N_PREPARE)
 
-    def partitioned_args(_d):
-        return (PF._partitioned_fixture(mesh, CAPS)[1],
-                *PF._flat_operands(dev, N_PREPARE))
+    def part_state(scale):
+        if scale == 1:
+            return PF._partitioned_fixture(mesh, CAPS)[1]
+        return PF._partitioned_state(mesh, tuple(scale * c for c in CAPS),
+                                     scale * ORPHAN_FLOOR)
 
-    def pchain_args(depth):
+    def partitioned_args(_d, scale=1):
+        return (part_state(scale), *PF._flat_operands(dev, N_PREPARE))
+
+    def pchain_args(depth, scale=1):
         ev, ts, n = stack_partitioned_window(
             *PF._chain_prepares(depth, N_PREPARE), N_PREPARE)
-        return (PF._partitioned_fixture(mesh, CAPS)[1],
+        return (part_state(scale),
                 {k: carrier(v, dev) for k, v in ev.items()},
                 carrier(ts, dev), carrier(n, dev), None)
 

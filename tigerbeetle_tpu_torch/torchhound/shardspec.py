@@ -31,16 +31,18 @@ checks the tensors themselves, for every partitioned entry (routes
                      JAX verifier sizes a sharded argument by its global
                      array): a whole-state table shipped to every shard
                      defeats the layout even where the state is fine.
-                     Nor does any collective's part from one shard reach
-                     that shard's whole state (the sum of its leaves):
-                     a gather of a shard's state REDs though it stays
-                     below the whole-ledger size. The per-event exchange
-                     is O(batch): at the registry's caps (2^10 / 2^12
-                     over 8 shards) its account bundle (4 x 1,024 rows,
-                     819,200 B a part) is larger than one shard's
-                     transfer table (786,624 B), so the per-shard bound
-                     is one shard's state (1,002,452 B), not its largest
-                     leaf.
+                     Nor does any collective's part from one shard grow
+                     with the state: the step is traced again on the
+                     same batch with a state at twice the registry's
+                     capacities (its caps, and the orphan floor that
+                     sizes a shard's transfer table: `verify_growth`),
+                     and a part that grows moves state, not per-event
+                     bundles. No size bound can
+                     tell the two apart: at the registry's caps (2^10 /
+                     2^12 over 8 shards) the exchange's account bundle
+                     (4 x 1,024 rows, 819,200 B a part, O(batch)) is
+                     larger than one shard's transfer table (786,624 B),
+                     whose gather must RED.
 
 Findings are strings prefixed with the rule; empty = the layout holds.
 """
@@ -103,9 +105,8 @@ def verify_layout(mesh, state, expect, n_state_leaves: int,
 def verify_step(tr, mesh, name: str = "entry") -> list[str]:
     """Findings for one traced partitioned step (`core.Trace` of a call
     whose first argument is the shard states): the shards written in
-    place and returned as they came, no operand or collective tensor the
-    whole-ledger size of the largest state leaf, and no collective part
-    the size of one shard's state."""
+    place and returned as they came, and no operand or collective tensor
+    the whole-ledger size of the largest state leaf."""
     fails: list[str] = []
     state = tuple(tr.args[0])
     if tr.state_after != tr.state_before:
@@ -122,8 +123,6 @@ def verify_step(tr, mesh, name: str = "entry") -> list[str]:
                      "states than it was given")
     limit = mesh.size * max((_nbytes(t) for t in _tensors(state)),
                             default=0)
-    shard_limit = max((sum(_nbytes(t) for t in _tensors(sub))
-                       for sub in state), default=0)
     for k, arg in enumerate(tr.args[1:], start=1):
         for t in _tensors(arg):
             if limit and _nbytes(t) >= limit:
@@ -137,12 +136,25 @@ def verify_step(tr, mesh, name: str = "entry") -> list[str]:
                 f"{name}: state_sized_operand: `{c['name']}` moves a "
                 f"{c['leaf_bytes']} B tensor, the largest state leaf "
                 f"holds {limit} B over the mesh")
-        if shard_limit and c["part_bytes"] >= shard_limit:
-            fails.append(
-                f"{name}: state_sized_operand: `{c['name']}` moves a "
-                f"{c['part_bytes']} B part from one shard, one shard's "
-                f"state holds {shard_limit} B")
     return fails
+
+
+def verify_growth(tr, tr2, name: str = "entry") -> list[str]:
+    """Findings for one partitioned step traced twice on the same batch,
+    `tr` on a state at some capacities and `tr2` at twice them: every
+    collective's part from one shard the same size in both (it grows
+    with the batch, not with the state), and the same collectives."""
+    names = [c["name"] for c in tr.collectives]
+    if names != [c["name"] for c in tr2.collectives]:
+        return [f"{name}: state_sized_operand: the step's collectives "
+                f"{names} change with the caps: "
+                f"{[c['name'] for c in tr2.collectives]}"]
+    return [f"{name}: state_sized_operand: `{c['name']}` #{k} moves a "
+            f"{c['part_bytes']} B part from one shard, {c2['part_bytes']} B "
+            "at twice the capacities: it grows with the state"
+            for k, (c, c2) in enumerate(zip(tr.collectives,
+                                            tr2.collectives))
+            if c2["part_bytes"] > c["part_bytes"]]
 
 
 def shard_shapes(caps: tuple, n_shards: int) -> dict:
@@ -158,7 +170,9 @@ def shard_shapes(caps: tuple, n_shards: int) -> dict:
 def run(entries: dict, traces: dict | None = None) -> list[str]:
     """Run the verifier over the registry's partitioned entries (routes
     'partitioned' and 'partitioned_chain'), reading their census traces
-    where `traces` has them and tracing them otherwise."""
+    where `traces` has them and tracing them otherwise, and tracing each
+    again with a state at twice the registry's capacities
+    (`make_args(depth, scale=2)`)."""
     from .registry import CAPS, REP_DEPTH
 
     fails = []
@@ -172,4 +186,7 @@ def run(entries: dict, traces: dict | None = None) -> list[str]:
                                    shard_shapes(CAPS, entry.mesh.size),
                                    entry.n_state_leaves, name))
         fails.extend(verify_step(tr, entry.mesh, name))
+        fails.extend(verify_growth(
+            tr, _trace(entry.fn, *entry.make_args(REP_DEPTH, scale=2)),
+            name))
     return fails

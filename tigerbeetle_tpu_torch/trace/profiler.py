@@ -408,18 +408,32 @@ def _chain_operands(depth: int, device, batch: int) -> tuple:
     return events_to_device(ev_c, device), events_to_device(seg_c, device)
 
 
-def _partitioned_fixture(mesh, caps: tuple) -> tuple:
-    """A router on `mesh` at `caps` and its state from an oracle holding
-    the 63 accounts: (router, state)."""
+def _fixture_oracle():
+    """An oracle holding the 63 accounts."""
     from ..oracle.state_machine import StateMachineOracle
-    from ..parallel.partitioned import PartitionedRouter
     from ..types import Account
 
     sm = StateMachineOracle()
     sm.create_accounts([Account(id=i, ledger=1, code=1)
                         for i in range(1, _N_ACCOUNTS + 1)], 10 ** 9)
+    return sm
+
+
+def _partitioned_fixture(mesh, caps: tuple) -> tuple:
+    """A router on `mesh` at `caps` and its state from an oracle holding
+    the 63 accounts: (router, state)."""
+    from ..parallel.partitioned import PartitionedRouter
+
     router = PartitionedRouter(mesh, a_cap=caps[0], t_cap=caps[1])
-    return router, router.from_oracle(sm)
+    return router, router.from_oracle(_fixture_oracle())
+
+
+def _partitioned_state(mesh, caps: tuple, orphan_floor: int) -> tuple:
+    """_partitioned_fixture's state with the orphan floor given too."""
+    from ..parallel.partitioned import partitioned_from_oracle
+
+    return partitioned_from_oracle(_fixture_oracle(), mesh, *caps,
+                                   orphan_floor=orphan_floor)
 
 
 def _partitioned_call(depth: int, mesh, caps: tuple, batch: int):
