@@ -84,15 +84,18 @@ each failing the run with a nonzero exit:
   8. seq      the sequential kernels against their plain twins, bit
               for bit on every output, on 512-event mixed batches
               (chains, two-phase, balancing, closing, repeated ids,
-              imported; and accounts) and the transfers kernel's hazard
-              batches (`seq_hazard_cases`), then `run_create_accounts`
-              (10,000 accounts) and `run_create_transfers` at 8,190
-              events (config-3 linked pairs, a config-4 pend batch and
-              its post/void batch) equal to a second oracle; the
-              transfers kernel's device time and stage split on a
-              config-3 batch and on the config-4 pair (equal to the twin
-              there), the accounts kernel's on 8,190 new accounts, each
-              beside its twin's (on the CPU, in a child process).
+              imported; and accounts) and each kernel's hazard batches
+              (`seq_hazard_cases`, `seq_account_hazard_cases`), then
+              `run_create_accounts` (10,000 accounts) and
+              `run_create_transfers` at 8,190 events (config-3 linked
+              pairs, a config-4 pend batch and its post/void batch)
+              equal to a second oracle; each kernel's device time and
+              stage split: the transfers kernel's on a config-3 batch
+              and on the config-4 pair (equal to the twin there), the
+              accounts kernel's on 8,190 new accounts and on an
+              8,190-event mixed batch, each beside its twin's (on the
+              CPU, in a child process). Every phase that counts
+              create_seq's launches also counts them by kernel.
 
   9. config-2 windows  config 2 as commit windows on the chain route, on
               the card one replay of a captured CUDA graph a window from a
@@ -1209,6 +1212,99 @@ def seq_hazard_cases(Transfer, TF) -> list:
                 7: "created"}),
     ]
     return cases
+
+
+def seq_account_hazard_cases(Account, AF) -> list:
+    """Batches that hit the accounts kernel's hazards between its pre-pass
+    and its walk, each (name, events, timestamp, expected status names of
+    some events by index), run on seq_hazard_setup's state (accounts 1-14,
+    transfer 600 at SEQ_HAZARD_TS + 100): ids repeated in the batch, in
+    the warp's one-step chunks and in chunks walked one event at a time;
+    a repeated id that breaks its chain; a chain broken by its last
+    member; key_max restored by a broken chain in an imported batch; a
+    linked last event with padded lanes; imported events that regress
+    against key_max, within a warp step and across two."""
+    L, IMP = AF.linked, AF.imported
+    ts = SEQ_HAZARD_TS + 10**6
+    at = SEQ_HAZARD_TS + 10**3  # imported timestamps: after the setup
+
+    def a(id_, **kw):
+        kw.setdefault("ledger", 1)
+        kw.setdefault("code", 1)
+        return Account(id=id_, **kw)
+
+    def filler(first, k):
+        return [a(first + j) for j in range(k)]
+
+    repeated = (
+        [a(100), a(101, user_data_64=1), a(1), a(2, code=3)]
+        + filler(1000, 28)
+        + [a(100), a(101, user_data_64=9)] + filler(1100, 30)
+        + [a(100, flags=AF.debits_must_not_exceed_credits),
+           a(100, user_data_128=7), a(100, user_data_32=7),
+           a(100, ledger=2), a(100, code=2), a(101, user_data_64=1)]
+        + filler(1200, 26))
+    return [
+        ("repeated account ids", repeated, ts, {
+            0: "created", 2: "exists", 3: "exists_with_different_code",
+            32: "exists", 33: "exists_with_different_user_data_64",
+            64: "exists_with_different_flags",
+            65: "exists_with_different_user_data_128",
+            66: "exists_with_different_user_data_32",
+            67: "exists_with_different_ledger",
+            68: "exists_with_different_code", 69: "exists"}),
+        ("a repeated id breaks its chain", [
+            a(200, flags=L), a(201, flags=L), a(200, flags=L), a(202),
+            a(200), a(200), a(203, flags=L), a(203),
+        ], ts, {0: "linked_event_failed", 1: "linked_event_failed",
+                2: "exists", 3: "linked_event_failed", 4: "created",
+                5: "exists", 6: "linked_event_failed",
+                7: "exists_with_different_flags"}),
+        ("a chain broken by its last member", [
+            a(300, flags=L), a(301, flags=L), a(302, ledger=0), a(300),
+            a(301, user_data_64=4), a(301),
+        ], ts, {0: "linked_event_failed", 1: "linked_event_failed",
+                2: "ledger_must_not_be_zero", 3: "created", 4: "created",
+                5: "exists_with_different_user_data_64"}),
+        ("imported key_max restored by a broken chain", [
+            a(399, flags=IMP, timestamp=SEQ_HAZARD_TS + 100),
+            a(400, flags=IMP, timestamp=at + 10),
+            a(401, flags=IMP | L, timestamp=at + 50),
+            a(402, flags=IMP | L, timestamp=at + 60),
+            a(403, flags=IMP, timestamp=at + 70, ledger=0),
+            a(404, flags=IMP, timestamp=at + 5),
+            a(405, flags=IMP, timestamp=at + 30),
+            a(406, flags=IMP, timestamp=at + 30),
+            a(407, flags=IMP, timestamp=ts),
+        ], ts, {0: "imported_event_timestamp_must_not_regress",
+                1: "created", 2: "linked_event_failed",
+                3: "linked_event_failed", 4: "ledger_must_not_be_zero",
+                5: "imported_event_timestamp_must_not_regress",
+                6: "created",
+                7: "imported_event_timestamp_must_not_regress",
+                8: "imported_event_timestamp_must_not_advance"}),
+        ("a linked last event with padded lanes", [
+            a(500), a(501, flags=L), a(502, flags=L),
+        ], ts, {0: "created", 1: "linked_event_failed",
+                2: "linked_event_chain_open"}),
+        ("imported regressions in warp steps", [
+            a(600 + j, flags=IMP, timestamp=t, ledger=int(j != 6))
+            for j, t in enumerate(
+                [SEQ_HAZARD_TS + 100, SEQ_HAZARD_TS + 50, at + 100, at + 90,
+                 at + 100, at + 101, at + 200, at + 150, ts, at + 145]
+                + [at + 300 + k for k in range(22)]
+                + [at + 321, at + 322, at + 250])
+        ], ts, {0: "imported_event_timestamp_must_not_regress",
+                1: "created", 2: "created",
+                3: "imported_event_timestamp_must_not_regress",
+                4: "imported_event_timestamp_must_not_regress",
+                5: "created", 6: "ledger_must_not_be_zero", 7: "created",
+                8: "imported_event_timestamp_must_not_advance",
+                9: "imported_event_timestamp_must_not_regress",
+                32: "imported_event_timestamp_must_not_regress",
+                33: "created",
+                34: "imported_event_timestamp_must_not_regress"}),
+    ]
 
 
 # ------------------------------------------------------------ the phases
@@ -2349,10 +2445,9 @@ def seq_bytes(tin: dict, out: dict) -> int:
 
 def _seq_plain_main(send, inputs_path: str) -> None:
     """A child process: the sequential kernels' plain twins on the CPU on
-    the prefetched numpy inputs pickled at `inputs_path` ({"transfers":
-    inputs, "accounts": inputs or None}), each timed on the host clock;
-    sends ("ok", {kind: (ms, the outputs as numpy)}) or ("error", the
-    traceback)."""
+    the prefetched numpy inputs pickled at `inputs_path` ({name: (kind,
+    inputs)}), each timed on the host clock; sends ("ok", {name: (ms, the
+    outputs as numpy)}) or ("error", the traceback)."""
     import pickle
     import traceback
 
@@ -2365,14 +2460,12 @@ def _seq_plain_main(send, inputs_path: str) -> None:
         plain = {"transfers": CK.create_transfers_seq_plain,
                  "accounts": CK.create_accounts_seq_plain}
         res = {}
-        for kind, inputs in jobs.items():
-            if inputs is None:
-                continue
+        for name, (kind, inputs) in jobs.items():
             tin = CK.inputs_to_device(inputs, "cpu")
             t = time.perf_counter()
             out = plain[kind](tin)
             ms = (time.perf_counter() - t) * 1e3
-            res[kind] = (ms, {k: v.numpy() for k, v in out.items()})
+            res[name] = (ms, {k: v.numpy() for k, v in out.items()})
         send.send(("ok", res))
     except BaseException:
         send.send(("error", traceback.format_exc()))
@@ -2382,9 +2475,9 @@ class SeqPlainChild:
     """The plain twins' full-width runs (host CPU) in a child process,
     beside the phases after the sequential kernels'. finish() waits for
     it, holds the transfers kernel's outputs `got` equal to its twin's
-    and returns (plain_ms, max_abs_err); with `accounts` = (inputs, the
-    accounts kernel's outputs) it holds those too and sets
-    `self.accounts` to their (plain_ms, max_abs_err). The inputs go
+    and returns (plain_ms, max_abs_err); with `accounts` = {name: (inputs,
+    the accounts kernel's outputs)} it holds those too and sets
+    `self.accounts` to {name: (plain_ms, max_abs_err)}. The inputs go
     through a file, so that starting the child does not wait for it to
     read them."""
 
@@ -2392,19 +2485,22 @@ class SeqPlainChild:
         import multiprocessing
         import pickle
 
+        accounts = accounts or {}
         fd, self.path = tempfile.mkstemp(prefix="tb_seq_plain_",
                                          suffix=".pkl")
         with os.fdopen(fd, "wb") as f:
-            pickle.dump({"transfers": inputs,
-                         "accounts": accounts and accounts[0]}, f)
+            pickle.dump({"transfers": ("transfers", inputs), **{
+                f"accounts {k}": ("accounts", v[0])
+                for k, v in accounts.items()}}, f)
         ctx = multiprocessing.get_context("spawn")
         self.recv, send = ctx.Pipe(duplex=False)
         self.proc = ctx.Process(target=_seq_plain_main, daemon=True,
                                 args=(send, self.path))
         self.proc.start()
         send.close()
-        self.got = {"transfers": got, "accounts": accounts and accounts[1]}
-        self.accounts = None
+        self.got = {"transfers": got, **{f"accounts {k}": v[1]
+                                         for k, v in accounts.items()}}
+        self.accounts = {}
 
     def finish(self) -> tuple:
         try:
@@ -2420,11 +2516,12 @@ class SeqPlainChild:
             os.unlink(self.path)
         check(msg[0] == "ok", f"create_seq plain twin failed:\n{msg[1]}")
         res = {}
-        for kind, (ms, out) in msg[1].items():
+        for name, (ms, out) in msg[1].items():
             want = {k: torch.from_numpy(v) for k, v in out.items()}
-            res[kind] = (ms, seq_compare(f"{kind} full width",
-                                         self.got[kind], want))
-        self.accounts = res.get("accounts")
+            res[name] = (ms, seq_compare(f"{name} full width",
+                                         self.got[name], want))
+        self.accounts = {k.split(" ", 1)[1]: v for k, v in res.items()
+                         if k != "transfers"}
         return res["transfers"]
 
 
@@ -2432,14 +2529,14 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
               n_accounts: int = N_ACCOUNTS,
               config3_batches: int = SEQ_CONFIG3_BATCHES):
     """The sequential kernels. Checked: mixed batches (chains,
-    two-phase, balancing, closing, repeated ids, imported) and the
-    hazard batches through the CUDA kernels and through the plain twins
-    on the same prefetched inputs, bit-equal on every output. Then the
-    path a user calls, run_create_accounts (n_accounts accounts) and
-    run_create_transfers at n_full events (config-3 batches, and a
-    config-4 pend batch and its post/void batch), on the card and held
-    against a second oracle fed the same batches. Returns the kernels'
-    launches on that path and the numbers."""
+    two-phase, balancing, closing, repeated ids, imported) and both
+    kernels' hazard batches through the CUDA kernels and through the
+    plain twins on the same prefetched inputs, bit-equal on every
+    output. Then the path a user calls, run_create_accounts (n_accounts
+    accounts) and run_create_transfers at n_full events (config-3
+    batches, and a config-4 pend batch and its post/void batch), on the
+    card and held against a second oracle fed the same batches. Returns
+    the kernels' launches on that path and the numbers."""
     from tigerbeetle_tpu_torch.oracle import StateMachineOracle
     from tigerbeetle_tpu_torch.ops import create_kernels as CK
     from tigerbeetle_tpu_torch.ops import create_seq
@@ -2507,26 +2604,35 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
         print(f"sequential kernel vs plain twin, {label}: {len(events)} "
               f"events bit-equal on {len(want)} outputs; {len(names)} "
               f"distinct statuses", flush=True)
-    # The hazards between the transfers kernel's pre-pass and its walk,
-    # each batch on a fresh state.
-    for label, events, at, expect in seq_hazard_cases(Transfer,
-                                                       TransferFlags):
+    # The hazards between each kernel's pre-pass and its walk, each batch
+    # on a fresh state.
+    hazards = [("transfers", *c) for c in seq_hazard_cases(
+        Transfer, TransferFlags)] + [("accounts", *c) for c in
+                                     seq_account_hazard_cases(
+                                         Account, AccountFlags)]
+    for kind, label, events, at, expect in hazards:
         o = StateMachineOracle()
         for op, evs, t in seq_hazard_setup(Account, AccountFlags, Transfer,
                                            TransferFlags):
             getattr(o, f"create_{op}")(evs, t)
-        inputs, _ = prefetch_create_transfers(
-            o, transfers_to_arrays(events), at)
-        want = CK.create_transfers_seq_plain(
-            CK.inputs_to_device(inputs, "cpu"))
-        got = create_seq.create_transfers_seq(
-            CK.inputs_to_device(inputs, dev))
-        err = max(err, seq_compare(f"hazard: {label}", got, want))
+        if kind == "transfers":
+            inputs, _ = prefetch_create_transfers(
+                o, transfers_to_arrays(events), at)
+            kern, plain, codes = (create_seq.create_transfers_seq,
+                                  CK.create_transfers_seq_plain, CK._TS)
+        else:
+            inputs, _ = prefetch_create_accounts(
+                o, accounts_to_arrays(events), at)
+            kern, plain, codes = (create_seq.create_accounts_seq,
+                                  CK.create_accounts_seq_plain, CK._AS)
+        want = plain(CK.inputs_to_device(inputs, "cpu"))
+        got = kern(CK.inputs_to_device(inputs, dev))
+        err = max(err, seq_compare(f"{kind} hazard: {label}", got, want))
         for k, name in expect.items():
-            check(CK._TS[name] == int(want["r_status"][k]),
-                  f"hazard: {label}: event {k} is not {name}")
-    print(f"sequential kernel vs plain twin: the hazard batches bit-equal",
-          flush=True)
+            check(codes[name] == int(want["r_status"][k]),
+                  f"{kind} hazard: {label}: event {k} is not {name}")
+    print(f"sequential kernels vs plain twins: the {len(hazards)} hazard "
+          f"batches bit-equal", flush=True)
 
     # The path a user calls, counted: run_create_* on the card against a
     # second oracle. Prefetch, kernel and apply ms are the spans each
@@ -2604,20 +2710,23 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
         return numbers
 
     # The kernels line: device time of each kernel (its own %globaltimer
-    # stamps) on full-width batches, beside its bytes bound: the transfers kernel on
-    # the first config-3 batch's inputs (with its stage split from the
-    # kernel's %globaltimer stamps) and on a config-4 pend batch and its
-    # post/void batch, the accounts kernel on n_full new accounts. The
-    # config-4 outputs are held to the plain twin here; the config-3 and
-    # accounts ones in a child process that main() waits for at its end,
-    # which times the twins.
+    # stamps, with the stage split) on full-width batches, beside its
+    # bytes bound: the transfers kernel on the first config-3 batch's
+    # inputs and on a config-4 pend batch and its post/void batch, the
+    # accounts kernel on n_full new accounts and on an n_full-event mixed
+    # batch. The config-4 outputs are held to the plain twin here; the
+    # config-3 and accounts ones in a child process that main() waits for
+    # at its end, which times the twins.
     inputs = seq_config3_inputs(n_full)
     tin_g = CK.inputs_to_device(inputs, dev)
     got = create_seq.create_transfers_seq(tin_g)
-    acc_in = seq_accounts_inputs(n_full)
-    tin_a = CK.inputs_to_device(acc_in, dev)
-    got_a = create_seq.create_accounts_seq(tin_a)
-    plain = SeqPlainChild(inputs, got, accounts=(acc_in, got_a))
+    acc = {}
+    for name, acc_in in (("new", seq_accounts_inputs(n_full)),
+                         ("mixed", seq_mixed_accounts_inputs(n_full))):
+        tin_a = CK.inputs_to_device(acc_in, dev)
+        acc[name] = (acc_in, tin_a, create_seq.create_accounts_seq(tin_a))
+    plain = SeqPlainChild(inputs, got, accounts={
+        k: (v[0], v[2]) for k, v in acc.items()})
     bound_ms = seq_bytes(tin_g, got) / HBM_BYTES_PER_S * 1e3
     ms, stage_split = seq_device_ms(create_seq, "transfers", tin_g)
     c4 = {}
@@ -2631,12 +2740,15 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
         c4[label] = dict(
             ms=seq_device_ms(create_seq, "transfers", tin4)[0],
             bound_ms=seq_bytes(tin4, out4) / HBM_BYTES_PER_S * 1e3)
-    acc_ms = seq_device_ms(create_seq, "accounts", tin_a, reps=3)[0]
-    acc_bound = seq_bytes(tin_a, got_a) / HBM_BYTES_PER_S * 1e3
+    accounts = {}
+    for name, (_, tin_a, got_a) in acc.items():
+        a_ms, a_split = seq_device_ms(create_seq, "accounts", tin_a)
+        accounts[name] = dict(
+            ms=a_ms, ns_per_event=a_ms * 1e6 / n_full, stage_ms=a_split,
+            bound_ms=seq_bytes(tin_a, got_a) / HBM_BYTES_PER_S * 1e3)
     numbers.update(max_abs_err=err, ms=ms, plain_twin=plain,
                    bound_ms=bound_ms, ns_per_event=ms * 1e6 / n_full,
-                   stage_ms=stage_split, config4_ms=c4,
-                   accounts_ms=acc_ms, accounts_bound_ms=acc_bound,
+                   stage_ms=stage_split, config4_ms=c4, accounts=accounts,
                    elapsed_s=time.perf_counter() - t0)
     print(f"sequential kernels: {launches} launches on run_create_* "
           f"({runs} calls: {by_kind}), equal to the oracle; transfers "
@@ -2645,9 +2757,14 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
           + ", ".join(f"{k} {v:.4f}" for k, v in stage_split.items())
           + f"; bound {bound_ms:.4f} ms, bytes), config-4 pend "
           f"{c4['pend']['ms']:.4f} ms and post/void "
-          f"{c4['post_void']['ms']:.4f} ms (equal to the plain twin); "
-          f"accounts device {acc_ms:.4f} ms a {n_full}-account batch "
-          f"(bound {acc_bound:.4f} ms); plain twins in a child process; "
+          f"{c4['post_void']['ms']:.4f} ms (equal to the plain twin)"
+          + "; accounts device "
+          + ", ".join(f"{k} {v['ms']:.4f} ms ({v['ns_per_event']:.0f} "
+                      f"ns/event; stages ms " + ", ".join(
+                          f"{s} {t:.4f}" for s, t in v["stage_ms"].items())
+                      + f"; bound {v['bound_ms']:.4f} ms)"
+                      for k, v in accounts.items())
+          + f" a {n_full}-event batch; plain twins in a child process; "
           f"run_create_* kernel spans (launch to outputs on the host, "
           f"ms / events): "
           + ", ".join(f"{m:.2f}/{n}" for m, n in zip(spans["kernel"],
@@ -2662,10 +2779,10 @@ def seq_phase(dev, n_full: int = BATCH, n_checked: int = SEQ_CHECKED,
 def seq_device_ms(create_seq, kind: str, tin: dict, reps: int = 5):
     """(device ms, stage split) of the sequential kernel of `kind` on
     `tin`: the median over `reps` launches of the kernel's own
-    %globaltimer stamps (first stamp to last; the stage split of the
-    transfers kernel, else None), after one warm-up launch. A profiler
-    trace of these launches holds one kernel a call, and the profiler
-    now and then drops every event of such a trace."""
+    %globaltimer stamps (first stamp to last, and each stage's), after
+    one warm-up launch. A profiler trace of these launches holds one
+    kernel a call, and the profiler now and then drops every event of
+    such a trace."""
     run = (create_seq.create_transfers_seq if kind == "transfers"
            else create_seq.create_accounts_seq)
     run(tin)
@@ -2673,10 +2790,9 @@ def seq_device_ms(create_seq, kind: str, tin: dict, reps: int = 5):
     for _ in range(reps):
         run(tin)
         ms.append(create_seq.device_ms(kind))
-        if kind == "transfers":
-            stages.append(create_seq.stage_ms())
-    split = ({k: float(np.median([s[k] for s in stages]))
-              for k in create_seq.STAGES} if stages else None)
+        stages.append(create_seq.stage_ms(kind))
+    split = {k: float(np.median([s[k] for s in stages]))
+             for k in create_seq.STAGES}
     return float(np.median(ms)), split
 
 
@@ -2727,6 +2843,34 @@ def seq_accounts_inputs(n: int = BATCH) -> dict:
         StateMachineOracle(), accounts_to_arrays(
             [Account(id=i, ledger=1, code=1) for i in range(1, n + 1)]),
         10**7)
+    return inputs
+
+
+def seq_mixed_accounts_case(n: int = BATCH) -> tuple:
+    """The accounts kernel's second timed batch as (state, events,
+    timestamp): n events of seq_mixed_accounts (seed 8: chains, some
+    broken, ids repeated with equal and other fields, failing checks)
+    over a state that already holds one id in 16 of the batch (half of
+    those with another user_data_64)."""
+    from tigerbeetle_tpu_torch.oracle import StateMachineOracle
+    from tigerbeetle_tpu_torch.types import Account, AccountFlags
+
+    events = seq_mixed_accounts(Account, AccountFlags,
+                                np.random.default_rng(8), n, 10**6)
+    o = StateMachineOracle()
+    o.create_accounts([Account(id=10**6 + j, ledger=1, code=1,
+                               user_data_64=j % 2)
+                       for j in range(5, n, 16)], 10**6)
+    return o, events, 10**7
+
+
+def seq_mixed_accounts_inputs(n: int = BATCH) -> dict:
+    """seq_mixed_accounts_case(n), prefetched."""
+    from tigerbeetle_tpu_torch.ops.batch import (accounts_to_arrays,
+                                                 prefetch_create_accounts)
+
+    o, events, ts = seq_mixed_accounts_case(n)
+    inputs, _ = prefetch_create_accounts(o, accounts_to_arrays(events), ts)
     return inputs
 
 
@@ -4193,7 +4337,7 @@ def serving_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
     O = Operation
     TF = TransferFlags
     rng = np.random.default_rng(70)
-    fused_probe.LAUNCHES = RG.LAUNCHES = create_seq.LAUNCHES = 0
+    _zero_launches()
     gathers0, d2h0 = L.DELTA_GATHERS, L.D2H_BYTES
 
     sv = Serving(StateMachine("device", a_cap=caps[0], t_cap=caps[1],
@@ -4488,6 +4632,7 @@ def serving_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
         query_reply_bytes=q_bytes,
         launches=launches, delta_gathers=delta_gathers,
         create_seq_launches=kernel_launches,
+        create_seq_by_kind=_seq_by_kind(),
         create_seq_kernel_ms=[s["kernel"] for s in k_spans],
         create_seq_prefetch_ms=[s["prefetch"] for s in k_spans],
         create_seq_apply_ms=[s["apply"] for s in k_spans],
@@ -5802,6 +5947,13 @@ SERVER_SPANS = ("commit_execute", "commit_compact", "commit_checkpoint",
                 "journal_recover")
 
 
+def _seq_by_kind() -> dict:
+    """create_seq's launches by kernel (create_seq.KIND_LAUNCHES)."""
+    from tigerbeetle_tpu_torch.ops import create_seq
+
+    return dict(create_seq.KIND_LAUNCHES)
+
+
 def _launch_counts() -> tuple:
     from tigerbeetle_tpu_torch.ops import create_seq, fused_probe
     from tigerbeetle_tpu_torch.ops import row_gather as RG
@@ -5887,7 +6039,7 @@ def _server_main(conn, argv, log_path) -> None:
 
     def opened(self):
         holder.append(self)
-        fused_probe.LAUNCHES = RG.LAUNCHES = create_seq.LAUNCHES = 0
+        _zero_launches()
         for k in list(timing):
             timing[k] = 0.0
         t = time.perf_counter()
@@ -5907,7 +6059,8 @@ def _server_main(conn, argv, log_path) -> None:
 
     def posted(self, prepare, result, chunk_count=None):
         post(self, prepare, result, chunk_count)
-        conn.send(("commit", prepare.header.op, _launch_counts()))
+        conn.send(("commit", prepare.header.op, _launch_counts(),
+                   _seq_by_kind()))
     Replica._post_commit = posted
     prepare = Replica._primary_prepare
 
@@ -5930,7 +6083,7 @@ def _server_main(conn, argv, log_path) -> None:
         rc=rc, op=rep.op if rep else None,
         commit_min=rep.commit_min if rep else None,
         windows=rep._windows_committed if rep else None,
-        launches=_launch_counts(),
+        launches=_launch_counts(), seq_by_kind=_seq_by_kind(),
         max_reserved=(torch.cuda.max_memory_reserved()
                       if torch.cuda.is_initialized() else 0))))
     conn.close()
@@ -6701,6 +6854,9 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
     launches_first = first_commits[-1][2] if first_commits else (0, 0, 0)
     launches = tuple(a + b for a, b in zip(launches_first,
                                            final["launches"]))
+    kinds_first = first_commits[-1][3] if first_commits else {}
+    seq_by_kind = {k: v + kinds_first.get(k, 0)
+                   for k, v in final["seq_by_kind"].items()}
     check(not cuda or (launches[0] > 0 and launches[1] > 0),
           f"replica: the server's launches probe/gather {launches}")
     check(launches[2] == 0, "replica: create_seq launched on the server")
@@ -6744,7 +6900,7 @@ def replica_phase(dev, n_accounts: int = N_ACCOUNTS, body: int = SV_BODY,
         open_first=opened, open_restart=reopened,
         replayed_ops=reopened["replayed"],
         max_reserved=final["max_reserved"],
-        utilization=util, launches=launches,
+        utilization=util, launches=launches, seq_by_kind=seq_by_kind,
         launches_replica=cluster_launches,
         reads_ms={O(r["operation"]).name: (r["got"] - r["sent"]) * 1e3
                   for r in reads},
@@ -6916,6 +7072,7 @@ def _zero_launches() -> None:
     from tigerbeetle_tpu_torch.ops import row_gather as RG
 
     fused_probe.LAUNCHES = RG.LAUNCHES = create_seq.LAUNCHES = 0
+    create_seq.KIND_LAUNCHES.update(transfers=0, accounts=0)
 
 
 def vopr_twins(dev, seed: int, engine: str) -> dict:
@@ -6949,7 +7106,7 @@ def vopr_twins(dev, seed: int, engine: str) -> dict:
             summary = vopr.run_swarm_seed(seed, engine=eng, device=where)
             out[f"{key}_s"] = time.perf_counter() - t
             if key == "card":
-                launches = _launch_counts()
+                launches, by_kind = _launch_counts(), _seq_by_kind()
             check(summary.pop("engine") == eng,
                   f"vopr seed {seed}: engine drawn, not {eng}")
             out[key] = summary
@@ -6963,7 +7120,8 @@ def vopr_twins(dev, seed: int, engine: str) -> dict:
     return dict(seed=seed, engine=engine, audited=out["card"]["audited"],
                 replica_count=out["card"]["replica_count"],
                 steps=out["card"]["steps"], card_s=out["card_s"],
-                twin_s=out["twin_s"], launches=launches)
+                twin_s=out["twin_s"], launches=launches,
+                seq_by_kind=by_kind)
 
 
 def drivers_phase(dev, bm: dict, device_seeds=DV_DEVICE_SEEDS,
@@ -6981,10 +7139,13 @@ def drivers_phase(dev, bm: dict, device_seeds=DV_DEVICE_SEEDS,
     platform = [] if cuda else ["--platform", "cpu"]
     t_phase = time.perf_counter()
     out, launches = {}, [0, 0, 0]
+    seq_by_kind = {"transfers": 0, "accounts": 0}
 
-    def add(counts) -> None:
+    def add(run) -> None:
         for i in range(3):
-            launches[i] += counts[i]
+            launches[i] += run["launches"][i]
+        for k, v in run["seq_by_kind"].items():
+            seq_by_kind[k] += v
 
     t = time.perf_counter()
     vopr = []
@@ -6997,7 +7158,7 @@ def drivers_phase(dev, bm: dict, device_seeds=DV_DEVICE_SEEDS,
             check(not cuda or all(moved),
                   f"vopr seed {seed} ({engine}): launches probe/gather/"
                   f"create_seq {run['launches']}")
-            add(run["launches"])
+            add(run)
             vopr.append(run)
             print(f"drivers vopr: {run}", flush=True)
     out["vopr"] = vopr
@@ -7011,8 +7172,8 @@ def drivers_phase(dev, bm: dict, device_seeds=DV_DEVICE_SEEDS,
         fuzz.run(name, seed, iterations, device=dev)
         run = dict(name=name, seed=seed, iterations=iterations,
                    seconds=time.perf_counter() - t_one,
-                   launches=_launch_counts())
-        add(run["launches"])
+                   launches=_launch_counts(), seq_by_kind=_seq_by_kind())
+        add(run)
         fuzzed.append(run)
         print(f"drivers fuzz: {run}", flush=True)
     out["fuzz"] = fuzzed
@@ -7057,8 +7218,9 @@ def drivers_phase(dev, bm: dict, device_seeds=DV_DEVICE_SEEDS,
 
     check(not cuda or all(n > 0 for n in launches),
           f"drivers: launches probe/gather/create_seq {launches}")
-    out.update(launches=tuple(launches), elapsed_s=time.perf_counter()
-               - t_phase, card=card_line_or_cpu(dev))
+    out.update(launches=tuple(launches), seq_by_kind=seq_by_kind,
+               elapsed_s=time.perf_counter() - t_phase,
+               card=card_line_or_cpu(dev))
     print(f"drivers: {out}", flush=True)
     return out
 
@@ -8579,7 +8741,7 @@ def trace_coverage_phase(dev) -> dict:
     rc = TCV.coverage_main(tuple(timed(s) for s in TCV.SCENARIOS),
                            device=dev)
     coverage_s = time.perf_counter() - t
-    launches = _launch_counts()
+    launches, seq_by_kind = _launch_counts(), _seq_by_kind()
     catalog = len(Event)
     check(rc == 0 and catalog == 56,
           f"trace coverage: coverage_main returned {rc} on a catalog of "
@@ -8594,7 +8756,8 @@ def trace_coverage_phase(dev) -> dict:
     numbers = dict(scenarios=rows, emitted=len(cols[0].emitted()),
                    catalog=catalog, tracers=len(cols[0].tracers),
                    coverage_s=coverage_s, metrics_s=metrics_s,
-                   launches=launches, card=card_line_or_cpu(dev))
+                   launches=launches, seq_by_kind=seq_by_kind,
+                   card=card_line_or_cpu(dev))
     print(f"trace coverage: {numbers['emitted']}/{catalog} events in "
           f"{coverage_s:.1f} s, metrics {metrics_s:.1f} s, launches "
           f"{launches} ({numbers['card']})", flush=True)
@@ -8882,7 +9045,7 @@ def clients_phase(dev, rig: ClientsRig = None, n_accounts: int = N_ACCOUNTS,
         ex = servers["card"].info("exit")
         check(ex is not None and ex["rc"] == 0,
               f"clients: the card's server exited with {ex}")
-        launches = ex["launches"]
+        launches, seq_by_kind = ex["launches"], ex["seq_by_kind"]
         check(not cuda or (launches[0] > 0 and launches[1] > 0),
               f"clients: the card's server launched {launches}")
     finally:
@@ -8917,7 +9080,8 @@ def clients_phase(dev, rig: ClientsRig = None, n_accounts: int = N_ACCOUNTS,
         lookup_latency_ms={k: card[k][0] for k in (
             "lookup_accounts", "lookup_transfers")},
         twin_small_latency_ms=spread(twin["small"]),
-        launches=list(launches), phase_seconds=phase_s,
+        launches=list(launches), seq_by_kind=seq_by_kind,
+        phase_seconds=phase_s,
         elapsed_s=time.perf_counter() - t_phase, card=card_line_or_cpu(dev))
     s = numbers["small_latency_ms"]
     print(f"clients: {len(requests)} requests; one-transfer p50 "
@@ -8938,8 +9102,8 @@ ST_CAPTURE_WIDTHS = (4, 8)   # retrace.capture_probe's default widths
 
 def _static_main(send, device: str, status_path: str) -> None:
     """A child process: the static leg on `device`. Sends ("ok", the
-    status, the child's seconds, the kernels' launches in it) or
-    ("error", the traceback)."""
+    status, the child's seconds, the kernels' launches in it, create_seq's
+    by kernel) or ("error", the traceback)."""
     import traceback
 
     try:
@@ -8948,7 +9112,8 @@ def _static_main(send, device: str, status_path: str) -> None:
 
         _zero_launches()
         status = SS.static_smoke(status_path=status_path, device=device)
-        send.send(("ok", status, time.perf_counter() - t, _launch_counts()))
+        send.send(("ok", status, time.perf_counter() - t, _launch_counts(),
+                   _seq_by_kind()))
     except BaseException:
         send.send(("error", traceback.format_exc()))
 
@@ -9001,7 +9166,7 @@ def static_phase(dev, child: StaticChild = None) -> dict:
     t = time.perf_counter()
     if child is None:
         child = StaticChild(dev)
-    status, child_s, launches = child.finish()
+    status, child_s, launches, seq_by_kind = child.finish()
     cuda = torch.device(dev).type == "cuda"
     passes = {k: v["n_findings"] for k, v in status["passes"].items()}
     check(set(passes) == {"determinism", "host", "retrace", "sharding"}
@@ -9040,7 +9205,8 @@ def static_phase(dev, child: StaticChild = None) -> dict:
         findings=passes, negatives=status["negatives"],
         n_entries=status["n_entries"], tracebudget=status["tracebudget"],
         capture=cap, capture_predicted=predicted,
-        census=census, launches=list(launches), child_s=child_s,
+        census=census, launches=list(launches), seq_by_kind=seq_by_kind,
+        child_s=child_s,
         wait_s=time.perf_counter() - t, card=card_line_or_cpu(dev))
     print(f"static: 4 passes clean over {status['n_entries']} entries, "
           f"{len(status['negatives'])} negatives red, capture launches "
@@ -9160,13 +9326,13 @@ def main() -> int:
     lap("static_phase")
     twins = seq.pop("plain_twin")
     plain_ms, err = twins.finish()
-    acc_plain_ms, acc_err = twins.accounts
-    seq.update(plain_ms=plain_ms, accounts_plain_ms=acc_plain_ms,
-               max_abs_err=max(seq["max_abs_err"], err),
-               accounts_max_abs_err=acc_err)
-    print(f"sequential kernels: plain twins {plain_ms:.0f} ms (transfers) "
-          f"and {acc_plain_ms:.0f} ms (accounts) on the CPU, equal to the "
-          f"kernels", flush=True)
+    for name, (a_ms, a_err) in twins.accounts.items():
+        seq["accounts"][name].update(plain_ms=a_ms, max_abs_err=a_err)
+    seq.update(plain_ms=plain_ms, max_abs_err=max(seq["max_abs_err"], err))
+    print(f"sequential kernels: plain twins {plain_ms:.0f} ms (transfers), "
+          + ", ".join(f"{v['plain_ms']:.0f} ms (accounts, {k})"
+                      for k, v in seq["accounts"].items())
+          + " on the CPU, equal to the kernels", flush=True)
     lap("seq_plain_twin")
     phase_seconds["total"] = time.perf_counter() - t0
     print(f"all phases passed in {phase_seconds['total']:.1f} s",
@@ -9331,8 +9497,9 @@ def main() -> int:
         # config-4 pend and post/void batches; kernel_ms / prefetch_ms /
         # apply_ms: the spans each
         # run_create_* call recorded (create_seq.SPANS; events in
-        # events). The other phases' launches_* count both sequential
-        # kernels (create_seq.LAUNCHES).
+        # events). launches_*: this kernel's launches in each phase
+        # (create_seq.KIND_LAUNCHES); launches_*_both: both sequential
+        # kernels' (create_seq.LAUNCHES), which the phases check.
         "name": "create_seq",
         "route": "cuda",
         "source": "tigerbeetle_tpu_torch/csrc/create_seq.cu",
@@ -9341,16 +9508,22 @@ def main() -> int:
         "launches_seq_both": seq["launches"],
         # The serving phase's "kernel"-engine commits; none on the
         # durable phase (its StateMachine runs the device engine).
-        "launches_serving": srv["create_seq_launches"],
+        "launches_serving": srv["create_seq_by_kind"]["transfers"],
         "launches_durable": 0,
-        "launches_replica": rep["launches"][2],
+        "launches_replica": rep["seq_by_kind"]["transfers"],
         # The drivers phase's: its kernel-engine VOPR seeds and the
         # state_machine and storage_faults fuzzers.
-        "launches_drivers": drv["launches"][2],
+        "launches_drivers": drv["seq_by_kind"]["transfers"],
         # The trace-coverage gate's kernel-engine clusters.
-        "launches_trace_coverage": tcv["launches"][2],
-        "launches_clients_server": cli["launches"][2],
-        "launches_static": stc["launches"][2],
+        "launches_trace_coverage": tcv["seq_by_kind"]["transfers"],
+        "launches_clients_server": cli["seq_by_kind"]["transfers"],
+        "launches_static": stc["seq_by_kind"]["transfers"],
+        "launches_serving_both": srv["create_seq_launches"],
+        "launches_replica_both": rep["launches"][2],
+        "launches_drivers_both": drv["launches"][2],
+        "launches_trace_coverage_both": tcv["launches"][2],
+        "launches_clients_server_both": cli["launches"][2],
+        "launches_static_both": stc["launches"][2],
         "max_abs_err": seq["max_abs_err"],
         "ms": seq["ms"],
         "plain_ms": seq["plain_ms"],
@@ -9365,21 +9538,36 @@ def main() -> int:
         "prefetch_ms": seq["prefetch_ms"],
         "apply_ms": seq["apply_ms"],
     }, {
-        # The JAX package's XLA sequential create_accounts kernel (one
-        # thread). ms / plain_ms / bound_ms: one batch of 8,190 new
-        # accounts (ms from the kernel's stamps); launches: its
-        # run_create_accounts calls on the seq phase's path.
+        # The JAX package's XLA sequential create_accounts kernel. ms /
+        # plain_ms / bound_ms / ns_per_event / stage_ms: one batch of
+        # 8,190 new accounts (device time and stage split from the
+        # kernel's stamps; the plain twin on the CPU, host clock); mixed:
+        # the same on an 8,190-event mixed batch (chains, repeated ids,
+        # ids the state holds). launches: its run_create_accounts calls
+        # on the seq phase's path; launches_*: its launches in each
+        # phase (create_seq.KIND_LAUNCHES).
         "name": "create_accounts_seq",
         "route": "cuda",
         "source": "tigerbeetle_tpu_torch/csrc/create_seq.cu",
         "replaces": "tigerbeetle_tpu/ops/create_kernels.py:792",
         "launches": seq["launches_by_kind"]["accounts"],
-        "max_abs_err": seq["accounts_max_abs_err"],
-        "ms": seq["accounts_ms"],
-        "plain_ms": seq["accounts_plain_ms"],
-        "bound_ms": seq["accounts_bound_ms"],
+        "launches_serving": srv["create_seq_by_kind"]["accounts"],
+        "launches_durable": 0,
+        "launches_replica": rep["seq_by_kind"]["accounts"],
+        "launches_drivers": drv["seq_by_kind"]["accounts"],
+        "launches_trace_coverage": tcv["seq_by_kind"]["accounts"],
+        "launches_clients_server": cli["seq_by_kind"]["accounts"],
+        "launches_static": stc["seq_by_kind"]["accounts"],
+        "max_abs_err": max(seq["max_abs_err"], *(
+            v["max_abs_err"] for v in seq["accounts"].values())),
+        "ms": seq["accounts"]["new"]["ms"],
+        "plain_ms": seq["accounts"]["new"]["plain_ms"],
+        "bound_ms": seq["accounts"]["new"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "ns_per_event": seq["accounts"]["new"]["ns_per_event"],
+        "stage_ms": seq["accounts"]["new"]["stage_ms"],
+        "mixed": seq["accounts"]["mixed"],
     }]
     print(json.dumps({"config2": c2}), flush=True)
     print(json.dumps({"config4": {**c4["timing"], **c4["trace"]}}),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The sequential create_transfers kernel, one tree against another on one
-card, in turns.
+"""The sequential create_transfers and create_accounts kernels, one tree
+against another on one card, in turns.
 
     python3 scripts/chip_seq_turns.py OTHER_TREE [--turns 2]
 
@@ -9,16 +9,19 @@ OTHER_TREE is another checkout of the repo, e.g. the parent commit
 unpacked with `git archive` under the git-ignored `scratch/`. Each turn is
 a child process that imports one tree's `tigerbeetle_tpu_torch`, builds
 that tree's `csrc/create_seq.cu` into the tree's own `build/`, and times
-`create_seq.create_transfers_seq` on the inputs chip_smoke.py's seq phase
-times (this checkout's chip_smoke.py makes them in every turn): the
-8,190-event config-3 batch and the config-4 pend and post/void batches.
-Times are the kernel's device ms from torch.profiler (chip_smoke.py
-`kernel_ms`), and the "kernel" span `run_create_transfers` records on
-the host clock (the launch, the wait and the outputs' copy back; median
-of 3, each on a fresh oracle). Turns run other, this, this, other
-(`--turns` pairs). Each turn prints one JSON line; the last line holds
-the card, the means by tree and batch, and whether every turn's outputs
-had the same digest.
+both kernels on the inputs chip_smoke.py's seq phase times (this
+checkout's chip_smoke.py makes them in every turn): the transfers kernel
+on the 8,190-event config-3 batch and the config-4 pend and post/void
+batches, the accounts kernel on 8,190 new accounts and on the
+8,190-event mixed batch. Times are the kernel's device ms from
+torch.profiler (chip_smoke.py `kernel_ms`), the kernel's own
+%globaltimer stamps (first to last, median of 5, and the stage split
+where the tree's kernel has stages), and the "kernel" span
+`run_create_*` records on the host clock (the launch, the wait and the
+outputs' copy back; median of 3, each on a fresh oracle). Turns run
+other, this, this, other (`--turns` pairs). Each turn prints one JSON
+line; the last line holds the card, the means by tree and batch, and
+whether every turn's outputs had the same digest.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-BATCHES = ("config3", "config4_pend", "config4_post_void")
+BATCHES = ("config3", "config4_pend", "config4_post_void", "accounts_new",
+           "accounts_mixed")
 
 
 def _harness():
@@ -45,6 +49,9 @@ def _harness():
 
 def one(tree: str) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
+    import inspect
+
+    import numpy as np
     import torch
 
     from tigerbeetle_tpu_torch.ops import _build, create_seq
@@ -53,30 +60,41 @@ def one(tree: str) -> dict:
     CS = _harness()
     _build.build("create_seq")
     inputs = dict(zip(BATCHES, (CS.seq_config3_inputs(),
-                                *CS.seq_config4_inputs())))
-    out = {"tree": tree, "ms": {}, "digest": {}, "stage_ms": {}}
+                                *CS.seq_config4_inputs(),
+                                CS.seq_accounts_inputs(),
+                                CS.seq_mixed_accounts_inputs())))
+    # The parent's stage_ms() reads the transfers kernel alone.
+    staged = inspect.signature(create_seq.stage_ms).parameters
+    out = {"tree": tree, "ms": {}, "stamp_ms": {}, "digest": {},
+           "stage_ms": {}}
     for name, inp in inputs.items():
+        kind = "accounts" if name.startswith("accounts") else "transfers"
+        run = getattr(create_seq, f"create_{kind}_seq")
         tin = CK.inputs_to_device(inp, "cuda")
-        got = create_seq.create_transfers_seq(tin)
+        got = run(tin)
         h = hashlib.sha256()
         for k in sorted(got):
             h.update(k.encode() + got[k].cpu().numpy().tobytes())
         out["digest"][name] = h.hexdigest()[:16]
-        out["ms"][name] = CS.kernel_ms(
-            lambda: create_seq.create_transfers_seq(tin),
-            "create_transfers_seq", reps=5)
-        if hasattr(create_seq, "stage_ms"):
-            create_seq.create_transfers_seq(tin)
-            out["stage_ms"][name] = create_seq.stage_ms()
+        out["ms"][name] = CS.kernel_ms(lambda: run(tin),
+                                       f"create_{kind}_seq", reps=5)
+        stamps = []
+        for _ in range(5):
+            run(tin)
+            stamps.append(create_seq.device_ms(kind))
+        out["stamp_ms"][name] = float(np.median(stamps))
+        if staged or kind == "transfers":
+            out["stage_ms"][name] = (create_seq.stage_ms(kind) if staged
+                                     else create_seq.stage_ms())
         torch.cuda.synchronize()
     out["span_ms"] = run_create_spans(CS, create_seq)
     return out
 
 
 def run_create_spans(CS, create_seq, reps: int = 3) -> dict:
-    """The median `run_create_transfers` "kernel" span (host clock: the
-    launch, the wait and the outputs' copy back; `create_seq.SPANS`) of
-    each batch, on a fresh oracle each time."""
+    """The median `run_create_*` "kernel" span (host clock: the launch,
+    the wait and the outputs' copy back; `create_seq.SPANS`) of each
+    batch, on a fresh oracle each time."""
     import numpy as np
 
     from tigerbeetle_tpu_torch.oracle import StateMachineOracle
@@ -110,12 +128,19 @@ def run_create_spans(CS, create_seq, reps: int = 3) -> dict:
         "config4_post_void": (lambda: config4(True),
                               transfers_from_arrays(rev),
                               10**12 + 2 * (n + 10)),
+        "accounts_new": (StateMachineOracle, [
+            Account(id=i, ledger=1, code=1) for i in range(1, n + 1)],
+            10**7),
+        "accounts_mixed": (lambda: CS.seq_mixed_accounts_case(n)[0],
+                           *CS.seq_mixed_accounts_case(n)[1:]),
     }
     spans = {}
     for name, (state, events, ts) in cases.items():
+        run = (create_seq.run_create_accounts if name.startswith("accounts")
+               else create_seq.run_create_transfers)
         ms = []
         for _ in range(reps):
-            create_seq.run_create_transfers(state(), events, ts)
+            run(state(), events, ts)
             ms.append(create_seq.SPANS["kernel"])
         spans[name] = sorted(ms)[reps // 2]
     return spans
@@ -143,7 +168,7 @@ def main(argv) -> int:
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     means = {}
-    for key in ("ms", "span_ms"):
+    for key in ("ms", "stamp_ms", "span_ms"):
         for tree in (other, str(REPO)):
             ms = [r[key] for r in runs if r["tree"] == tree]
             means.setdefault(key, {})[
@@ -151,6 +176,7 @@ def main(argv) -> int:
                 b: sum(m[b] for m in ms) / len(ms) for b in BATCHES}
     same = all(r["digest"] == runs[0]["digest"] for r in runs)
     print(json.dumps({"card": card, "mean_ms": means["ms"],
+                      "mean_stamp_ms": means["stamp_ms"],
                       "mean_span_ms": means["span_ms"],
                       "same_outputs": same}), flush=True)
     return 0 if same else 1

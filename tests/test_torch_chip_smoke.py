@@ -410,7 +410,7 @@ def test_chip_smoke_runs_the_serving_phase_last():
     order = [main.index(f) for f in (
         "balancing_phase(", "serving_phase(", "'serving'", "'kernels'")]
     assert order == sorted(order)
-    assert main.count("'launches_serving'") == 3
+    assert main.count("'launches_serving'") == 4
 
 
 
@@ -516,7 +516,7 @@ def test_chip_smoke_runs_the_durable_phase_after_the_supervisor():
     order = [main.index(f) for f in (
         "supervisor_phase(", "durable_phase(", "'durable'", "'kernels'")]
     assert order == sorted(order)
-    assert main.count("'launches_durable'") == 3
+    assert main.count("'launches_durable'") == 4
 
 
 def test_replica_phase_rehearsed_on_the_cpu(calls):
@@ -561,7 +561,7 @@ def test_chip_smoke_runs_the_replica_phase_last():
         "durable_phase(", "replica_phase(", "'replica'", "'phase_seconds'",
         "'kernels'")]
     assert order == sorted(order)
-    assert main.count("'launches_replica':") == 3
+    assert main.count("'launches_replica':") == 4
 
 
 def test_benchmark_phase_rehearsed_on_the_cpu(calls, monkeypatch):
@@ -658,7 +658,7 @@ def test_chip_smoke_runs_the_drivers_phase_after_the_benchmark_phase():
         "benchmark_phase(", "drivers_phase(dev, bm)", "'drivers'",
         "'phase_seconds'", "'kernels'")]
     assert order == sorted(order)
-    assert main.count("'launches_drivers':") == 3
+    assert main.count("'launches_drivers':") == 4
     assert CS.DV_DEVICE_SEEDS == (515, 626)
     assert CS.DV_KERNEL_SEEDS == (101, 202)
     assert ("device_ledger", 4, 15) in CS.DV_FUZZ
@@ -1006,8 +1006,8 @@ def test_chip_smoke_runs_the_gate_and_clients_phases_last():
         "clients_phase(dev, rig)", "rig.close()", "'reshard'",
         "'trace_coverage'", "'clients'", "'phase_seconds'", "'kernels'")]
     assert order == sorted(order)
-    assert main.count("'launches_trace_coverage':") == 3
-    assert main.count("'launches_clients_server':") == 3
+    assert main.count("'launches_trace_coverage':") == 4
+    assert main.count("'launches_clients_server':") == 4
 
 
 def test_static_phase_rehearsed_on_the_cpu():
@@ -1060,6 +1060,6 @@ def test_chip_smoke_runs_the_static_leg_beside_the_durable_phase():
         "static_phase(dev, static_child)", "'clients'", "'static'",
         "'phase_seconds'", "'kernels'")]
     assert order == sorted(order)
-    assert main.count("'launches_static':") == 3
+    assert main.count("'launches_static':") == 4
     assert CS.ST_CAPTURE_WIDTHS == (4, 8)
     assert " 26. static " in CS.__doc__

@@ -6,8 +6,9 @@
   at two compiled shapes (one a kernel: the JAX kernels compile for each
   cache shape, so every batch is padded to the same one): a fuzzed
   sequence, and the transfers kernel's hazard batches
-  (`chip_smoke.seq_hazard_cases`), where a check that the twin's
-  pre-pass took for immutable would read state an earlier event wrote;
+  (`chip_smoke.seq_hazard_cases`) and the accounts kernel's
+  (`seq_account_hazard_cases`), where a check that a twin's pre-pass
+  took for immutable would read state an earlier event wrote;
 - `run_create_*` on the CPU (the plain twin) against the JAX oracle on
   several seeds, results and whole state;
 - the CUDA wrapper's routing and its argument block: the pointer order,
@@ -191,43 +192,65 @@ def _twin_against_jax(kind, port, ref, p_in, p_aux, j_in, j_aux, j_out):
 
 HAZARDS = {name: (events, ts, expect) for name, events, ts, expect
            in CS.seq_hazard_cases(TT.Transfer, TT.TransferFlags)}
+ACCOUNT_HAZARDS = {
+    name: (events, ts, expect) for name, events, ts, expect
+    in CS.seq_account_hazard_cases(TT.Account, TT.AccountFlags)}
+
+
+def _hazard_runs(kind: str, cases: dict) -> dict:
+    """Each hazard batch of `cases` on both packages' oracles after
+    chip_smoke.seq_hazard_setup: (port, ref, the port's and the JAX
+    package's prefetched inputs, the JAX kernel's outputs)."""
+    kernel = (JK.create_transfers_kernel if kind == "transfers"
+              else JK.create_accounts_kernel)
+    out = {}
+    for name, (events, ts, _) in cases.items():
+        port, ref = StateMachineOracle(), JaxOracle()
+        for op, evs, at in CS.seq_hazard_setup(
+                TT.Account, TT.AccountFlags, TT.Transfer, TT.TransferFlags):
+            getattr(port, f"create_{op}")(evs, at)
+            getattr(ref, f"create_{op}")(_objs(evs, Account if op ==
+                                               "accounts" else Transfer), at)
+        (p_in, p_aux), (j_in, j_aux) = _prefetch(kind, port, ref, events,
+                                                 ts, n_pad=N_PAD)
+        p_in, j_in = _fixed_shape(p_in, kind), _fixed_shape(j_in, kind)
+        out[name] = (port, ref, p_in, p_aux, j_in, j_aux,
+                     jax.device_get(kernel(j_in)))
+    return out
 
 
 @pytest.fixture(scope="module")
 def jax_hazards():
-    """Each hazard batch of chip_smoke.seq_hazard_cases on both packages'
-    oracles after seq_hazard_setup: (port, ref, the port's and the JAX
-    package's prefetched inputs, the JAX kernel's outputs)."""
-    out = {}
-    for name, (events, ts, _) in HAZARDS.items():
-        port, ref = StateMachineOracle(), JaxOracle()
-        for kind, evs, at in CS.seq_hazard_setup(
-                TT.Account, TT.AccountFlags, TT.Transfer, TT.TransferFlags):
-            op = f"create_{kind}"
-            getattr(port, op)(evs, at)
-            getattr(ref, op)(_objs(evs, Account if kind == "accounts"
-                                   else Transfer), at)
-        (p_in, p_aux), (j_in, j_aux) = _prefetch("transfers", port, ref,
-                                                 events, ts, n_pad=N_PAD)
-        p_in = _fixed_shape(p_in, "transfers")
-        j_in = _fixed_shape(j_in, "transfers")
-        out[name] = (port, ref, p_in, p_aux, j_in, j_aux,
-                     jax.device_get(JK.create_transfers_kernel(j_in)))
-    return out
+    """The transfers hazard batches (chip_smoke.seq_hazard_cases) through
+    both packages (`_hazard_runs`)."""
+    return _hazard_runs("transfers", HAZARDS)
 
 
-@pytest.mark.parametrize("case", ["fuzzed", *HAZARDS])
+@pytest.fixture(scope="module")
+def jax_account_hazards():
+    """The accounts hazard batches (chip_smoke.seq_account_hazard_cases)
+    through both packages (`_hazard_runs`)."""
+    return _hazard_runs("accounts", ACCOUNT_HAZARDS)
+
+
+@pytest.mark.parametrize("case", ["fuzzed", *HAZARDS, *ACCOUNT_HAZARDS])
 def test_plain_twins_match_the_jax_kernels_on_every_output(case, request):
     """The plain twins against the JAX kernels on the same inputs, every
     output. "fuzzed": every step of a fuzzed sequence, each applied to
-    both oracles before the next. The others: one hazard batch of the
-    twin's two stages each (chip_smoke.seq_hazard_cases), whose key
-    events must also end with the statuses the case names."""
-    if case != "fuzzed":
-        got = _twin_against_jax("transfers",
-                                *request.getfixturevalue("jax_hazards")[case])
+    both oracles before the next. The others: one hazard batch of a
+    twin's two stages each (chip_smoke.seq_hazard_cases for transfers,
+    seq_account_hazard_cases for accounts), whose key events must also
+    end with the statuses the case names."""
+    if case in HAZARDS:
+        kind, fixture, expect = "transfers", "jax_hazards", HAZARDS[case][2]
         status = {int(s): s.name for s in TT.CreateTransferStatus}
-        for k, name in HAZARDS[case][2].items():
+    elif case in ACCOUNT_HAZARDS:
+        kind, fixture = "accounts", "jax_account_hazards"
+        expect = ACCOUNT_HAZARDS[case][2]
+        status = {int(s): s.name for s in TT.CreateAccountStatus}
+    if case != "fuzzed":
+        got = _twin_against_jax(kind, *request.getfixturevalue(fixture)[case])
+        for k, name in expect.items():
             assert status[int(got["r_status"][k])] == name, (case, k)
         return
     port, ref = StateMachineOracle(), JaxOracle()

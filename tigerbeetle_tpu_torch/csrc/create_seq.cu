@@ -65,11 +65,37 @@
 // a generic pointer into shared memory, 512 threads spilling) took
 // 10.0 ms.
 //
-// create_accounts: one thread walks the batch (`ca_body`), reading and
-// writing the structure-of-arrays tensors directly (~11.7 ms for 8,190
-// new accounts on the same card: not yet redesigned); `stamps` gets
-// %globaltimer at its start and end.
-//
+// create_accounts: one launch of one block of kCaThreads threads, the
+// same four stages (the twin's `_ca_prepass`, `_ca_walk`). An account
+// batch moves no balances: what one event leaves for the next is a
+// batch-store row (an id repeated in the batch), key_max (`regress`) and
+// the chain, so the walk is short.
+//  1. stage: the hot region, in shared memory when it fits (a slot's
+//     word: its last writer and a created bit; a lane's slot; a lane's
+//     rcode).
+//  2. pre-pass: each event decoded once into a 16-byte walk record
+//     (AWalk: ts_act, slot, the static statuses s0 / post / ovr and the
+//     event's bits) and a 64-byte record of the fields a batch-store
+//     row holds (ARec), in global scratch.
+//  3. walk (warp 0), a chunk of 32 events at a time, copied into a
+//     shared-memory ring with cp.async one chunk ahead. A chunk with no
+//     chain open, no valid linked event and no slot shared by two of its
+//     undecided lanes is one warp step: each lane takes its event, and
+//     key_max before a lane is a max scan over the lanes before it
+//     (`ca_walk_chunk`). Any other chunk lane 0 walks one event at a
+//     time (`ca_walk_event`).
+//  4. unstage: each slot's row rebuilt from its writer's record, each
+//     lane's result from its rcode.
+// What bounds it: the chunks lane 0 walks one event at a time (a chain,
+// an id repeated within the chunk), ~200 ns an event of dependent
+// shared-memory steps, and on a batch of new accounts the warp steps'
+// cp.async waits and the pre-pass's loads; not bytes (an 8,190-event
+// batch moves ~2 MB, ~0.6 us at 3.35 TB/s). On an H100 80GB HBM3 at
+// 700 W (scripts/chip_seq_turns.py, PERF.md) 8,190 new accounts take
+// ~0.22 ms (the walk 0.16 ms) and an 8,190-event batch with chains and
+// repeated ids ~1.7 ms (the walk 1.64 ms), against ~11 ms for the
+// one-thread kernel it replaces.
+
 // Argument block: `SeqArgs.p` holds the tensors' pointers in the order of
 // the `Ptr` enums below (ops/create_seq.py `CT_PTRS` / `CA_PTRS` list the
 // same names; tests/test_torch_create_kernels.py checks the two agree),
@@ -99,11 +125,13 @@ struct SeqArgs {
   // create_transfers only:
   i64 a_rows;      // account-cache rows
   i64 t_rows;      // committed-cache rows
-  u64 key_max;     // transfers_key_max before the batch
-  u64 pulse_next;  // pulse_next_timestamp before the batch
-  void* scratch;  // create_transfers_seq_scratch() bytes, any contents
-  // Both kernels: %globaltimer at the stage boundaries (5 u64 for
-  // create_transfers), at the start and the end (2 for create_accounts).
+  // Both kernels: the kind's key_max before the batch
+  // (transfers_key_max, accounts_key_max).
+  u64 key_max;
+  u64 pulse_next;  // create_transfers: pulse_next_timestamp before it
+  // Both kernels: create_<kind>_seq_scratch() bytes, any contents; and
+  // %globaltimer at the five stage boundaries (5 u64).
+  void* scratch;
   void* stamps;
 };
 
@@ -1258,160 +1286,502 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) stamps[4] = now_ns();
 }
 
-// Event i of a create_accounts batch (the plain twin's _ca_body).
-__device__ void ca_body(const View& v, i64 i) {
+// ============================================================ create_accounts
+
+constexpr int kCaThreads = 512;
+
+// What the walk reads of an event: the ring's unit. `code` packs the
+// pre-pass's static statuses (wire codes, 0: none; CA_* offsets) and the
+// event's bits (AW_*).
+struct alignas(16) AWalk {
+  u64 ts_act;  // ts_actual_created: the event's timestamp when imported
+  i32 slot;    // the id's first lane: its batch-store row
+  u32 code;
+};
+// s0: the first failing check before the exists check, else the exists
+// status against the committed cache's row; post: the first failing
+// check after it but for `regress` against the running key_max; ovr: the
+// wrapper's timestamp and imported override that wins.
+constexpr u32 CA_S0 = 0, CA_POST = 5, CA_OVR = 10, kCaCode = 31;
+constexpr u32 AW_VALID = 1u << 15, AW_LINKED = 1u << 16,
+              AW_IMPORTED = 1u << 17, AW_CHAIN_OPEN = 1u << 18;
+
+// What an exists check against the batch store, and the unstage, read
+// of an event: the fields a batch-store row holds.
+struct alignas(16) ARec {
+  u128 ud128;
+  u64 ud64, ts_act, exists_ts;  // exists_ts: the committed row's
+  u32 flags, ud32, ledger, code;
+};
+
+static_assert(sizeof(AWalk) == 16 && sizeof(ARec) == 64,
+              "packed row sizes");
+
+// A slot's word in the hot region: its last writer + 1 (0: none) and
+// whether the batch store holds its row now. A chain's rollback clears
+// the bit and keeps the writer, whose fields the row keeps (as the
+// twin's does).
+constexpr u32 kSwCreated = 1u << 31;
+
+// The global scratch: walk records, then full records, then the hot
+// region unless it is in shared memory. Shared memory: the walk ring
+// (two buffers of kChunk), then the hot region when it fits. The hot
+// region: a slot's word, a lane's slot (for a rollback) and rcode.
+struct CaLayout {
+  i64 walk, rec, hot;  // bytes into the scratch
+  i64 sw, lslot, rcode;  // into hot
+  i64 hot_bytes, ring_bytes, scratch_bytes, smem_bytes;
+  bool hot_in_smem;
+};
+
+__host__ __device__ inline CaLayout ca_layout(i64 N) {
+  CaLayout L;
+  L.sw = 0;
+  L.lslot = align16(N * 4);
+  L.rcode = L.lslot + align16(N * 4);
+  L.hot_bytes = L.rcode + align16(N * 2);
+  L.ring_bytes = 2 * kChunk * i64{sizeof(AWalk)};
+  L.hot_in_smem = L.ring_bytes + L.hot_bytes <= kSmemCap;
+  L.smem_bytes = L.ring_bytes + (L.hot_in_smem ? L.hot_bytes : 0);
+  L.walk = 0;
+  L.rec = N * i64{sizeof(AWalk)};
+  L.hot = L.rec + N * i64{sizeof(ARec)};
+  L.scratch_bytes = L.hot + (L.hot_in_smem ? 0 : L.hot_bytes);
+  return L;
+}
+
+struct CaHot {
+  u32* sw;
+  i32* lslot;
+  u16* rcode;
+  const AWalk* walk;
+  const ARec* recs;
+};
+
+__device__ __forceinline__ CaHot ca_hot_at(unsigned char* hot,
+                                           unsigned char* g,
+                                           const CaLayout& L) {
+  CaHot h;
+  h.sw = reinterpret_cast<u32*>(hot + L.sw);
+  h.lslot = reinterpret_cast<i32*>(hot + L.lslot);
+  h.rcode = reinterpret_cast<u16*>(hot + L.rcode);
+  h.walk = reinterpret_cast<const AWalk*>(g + L.walk);
+  h.recs = reinterpret_cast<const ARec*>(g + L.rec);
+  return h;
+}
+
+// create_account_exists (reference :3691-3703; the twin's _ca_exists).
+__device__ __forceinline__ u64 ca_exists(const ARec& x, const ARec& e) {
+  u64 s = kCreated;
+  CHECK(s, (x.flags & 0xFFFF) != (e.flags & 0xFFFF),
+        as::exists_with_different_flags);
+  CHECK(s, x.ud128 != e.ud128, as::exists_with_different_user_data_128);
+  CHECK(s, x.ud64 != e.ud64, as::exists_with_different_user_data_64);
+  CHECK(s, x.ud32 != e.ud32, as::exists_with_different_user_data_32);
+  CHECK(s, x.ledger != e.ledger, as::exists_with_different_ledger);
+  CHECK(s, x.code != e.code, as::exists_with_different_code);
+  return s == kCreated ? as::exists : s;
+}
+
+// Stage 2, lane i (the twin's _ca_prepass on one lane).
+__device__ void ca_prepass(const View& v, i64 i, AWalk* wout, ARec* rout,
+                           i32* lslot) {
   using namespace ca;
   const SeqArgs& a = v.a;
-  const u64 timestamp = a.timestamp;
-  const u64 ts_event = timestamp - static_cast<u64>(a.n) +
-                       static_cast<u64>(i) + 1;
-  const bool valid = v.b(EV_VALID)[i];
   const u64 flags = v.u(EV_FLAGS)[i];
   const bool linked = flags & A_LINKED, imported = flags & A_IMPORTED;
-  const bool batch_imported = (v.u(EV_FLAGS)[0] & A_IMPORTED) && a.n > 0;
-  const u64 ev_ts = v.u(EV_TS)[i];
-  const u128 ev_ud128 = v.q(EV_UD128_HI, EV_UD128_LO, i);
+  const u64 ts = v.u(EV_TS)[i];
+  const u64 ts_event = a.timestamp - static_cast<u64>(a.n) +
+                       static_cast<u64>(i) + 1;
   const u128 id = v.q(EV_ID_HI, EV_ID_LO, i);
-
-  i64* chain_start = v.s(ST_CHAIN_START);
-  u64* key_max = v.u(ST_KEY_MAX);
-  bool* chain_broken = v.b(ST_CHAIN_BROKEN);
-
-  bool chain_active = *chain_start >= 0;
-  const bool opening = linked && !chain_active && valid;
-  if (opening) {
-    *chain_start = i;
-    *v.u(ST_CHAIN_KEY_MAX) = *key_max;
-  }
-  chain_active = chain_active || opening;
-
   const i64 slot = v.s(EV_SLOT)[i];
-  const i64 exists_idx = v.s(EV_EXISTS_IDX)[i];
-  const bool e_from_cache = exists_idx >= 0;
-  const bool e_from_batch = !e_from_cache && v.b(ST_S_CREATED)[slot];
-  const bool e_found = e_from_cache || e_from_batch;
-  const i64 c = exists_idx > 0 ? exists_idx : 0;
-  auto e_u = [&](int ac_k, int st_k) {
-    return e_from_cache ? v.u(ac_k)[c] : v.u(st_k)[slot];
-  };
+  const i64 ei = v.s(EV_EXISTS_IDX)[i];
+  const u64 ledger = v.u(EV_LEDGER)[i], code = v.u(EV_CODE)[i];
+  ARec r;
+  r.ud128 = v.q(EV_UD128_HI, EV_UD128_LO, i);
+  r.ud64 = v.u(EV_UD64)[i];
+  r.ud32 = static_cast<u32>(v.u(EV_UD32)[i]);
+  r.ledger = static_cast<u32>(ledger);
+  r.code = static_cast<u32>(code);
+  r.flags = static_cast<u32>(flags);
+  r.ts_act = imported ? ts : ts_event;
+  r.exists_ts = 0;
 
-  // create_account_exists (reference :3691-3703).
-  u64 exists_status = kCreated;
-  {
-    const u128 e_ud128 =
-        e_from_cache ? v.q(AC_UD128_HI, AC_UD128_LO, c)
-                     : v.q(ST_S_UD128_HI, ST_S_UD128_LO, slot);
-    u64& s = exists_status;
-    CHECK(s, (flags & 0xFFFF) != (e_u(AC_FLAGS, ST_S_FLAGS) & 0xFFFF),
-          as::exists_with_different_flags);
-    CHECK(s, ev_ud128 != e_ud128, as::exists_with_different_user_data_128);
-    CHECK(s, v.u(EV_UD64)[i] != e_u(AC_UD64, ST_S_UD64),
-          as::exists_with_different_user_data_64);
-    CHECK(s, v.u(EV_UD32)[i] != e_u(AC_UD32, ST_S_UD32),
-          as::exists_with_different_user_data_32);
-    CHECK(s, v.u(EV_LEDGER)[i] != e_u(AC_LEDGER, ST_S_LEDGER),
-          as::exists_with_different_ledger);
-    CHECK(s, v.u(EV_CODE)[i] != e_u(AC_CODE, ST_S_CODE),
-          as::exists_with_different_code);
-    if (s == kCreated) s = as::exists;
+  // create_account (reference :3613-3689), split at the exists check.
+  u64 s0 = kCreated;
+  CHECK(s0, v.u(EV_RESERVED)[i] != 0, as::reserved_field);
+  CHECK(s0, flags & AF_PADDING, as::reserved_flag);
+  CHECK(s0, id == 0, as::id_must_not_be_zero);
+  CHECK(s0, id == kU128Max, as::id_must_not_be_int_max);
+  if (s0 == kCreated && ei >= 0) {
+    ARec e;
+    e.ud128 = v.q(AC_UD128_HI, AC_UD128_LO, ei);
+    e.ud64 = v.u(AC_UD64)[ei];
+    e.ud32 = static_cast<u32>(v.u(AC_UD32)[ei]);
+    e.ledger = static_cast<u32>(v.u(AC_LEDGER)[ei]);
+    e.code = static_cast<u32>(v.u(AC_CODE)[ei]);
+    e.flags = static_cast<u32>(v.u(AC_FLAGS)[ei]);
+    s0 = ca_exists(r, e);
+    r.exists_ts = v.u(AC_TS)[ei];
   }
-  const u64 exists_ts = e_u(AC_TS, ST_S_TS);
+  u64 post = kCreated;
+  CHECK(post, (flags & A_DR_LIMIT) && (flags & A_CR_LIMIT),
+        as::flags_are_mutually_exclusive);
+  CHECK(post, v.q(EV_DP_HI, EV_DP_LO, i) != 0,
+        as::debits_pending_must_be_zero);
+  CHECK(post, v.q(EV_DPOS_HI, EV_DPOS_LO, i) != 0,
+        as::debits_posted_must_be_zero);
+  CHECK(post, v.q(EV_CP_HI, EV_CP_LO, i) != 0,
+        as::credits_pending_must_be_zero);
+  CHECK(post, v.q(EV_CPOS_HI, EV_CPOS_LO, i) != 0,
+        as::credits_posted_must_be_zero);
+  CHECK(post, ledger == 0, as::ledger_must_not_be_zero);
+  CHECK(post, code == 0, as::code_must_not_be_zero);
+  CHECK(post, imported && v.b(EV_TRANSFER_TS_COLLISION)[i],
+        as::imported_event_timestamp_must_not_regress);
 
-  const bool regress =
-      imported && ((*key_max != 0 && ev_ts <= *key_max) ||
-                   v.b(EV_TRANSFER_TS_COLLISION)[i]);
-  const u64 ts_actual_created = imported ? ev_ts : ts_event;
-
-  // create_account (reference :3613-3689); a found id takes exists_status
-  // at its place in the order.
-  u64 inner = kCreated;
-  bool exists_first = false;
-  CHECK(inner, v.u(EV_RESERVED)[i] != 0, as::reserved_field);
-  CHECK(inner, flags & AF_PADDING, as::reserved_flag);
-  CHECK(inner, id == 0, as::id_must_not_be_zero);
-  CHECK(inner, id == kU128Max, as::id_must_not_be_int_max);
-  if (inner == kCreated && e_found) exists_first = true;
-  if (!exists_first) {
-    CHECK(inner, (flags & A_DR_LIMIT) && (flags & A_CR_LIMIT),
-          as::flags_are_mutually_exclusive);
-    CHECK(inner, v.q(EV_DP_HI, EV_DP_LO, i) != 0,
-          as::debits_pending_must_be_zero);
-    CHECK(inner, v.q(EV_DPOS_HI, EV_DPOS_LO, i) != 0,
-          as::debits_posted_must_be_zero);
-    CHECK(inner, v.q(EV_CP_HI, EV_CP_LO, i) != 0,
-          as::credits_pending_must_be_zero);
-    CHECK(inner, v.q(EV_CPOS_HI, EV_CPOS_LO, i) != 0,
-          as::credits_posted_must_be_zero);
-    CHECK(inner, v.u(EV_LEDGER)[i] == 0, as::ledger_must_not_be_zero);
-    CHECK(inner, v.u(EV_CODE)[i] == 0, as::code_must_not_be_zero);
-    CHECK(inner, regress, as::imported_event_timestamp_must_not_regress);
-  } else {
-    inner = exists_status;
+  // The wrapper's overrides (reference execute_create :3033-3104) but
+  // for the chain's two; a later one wins.
+  const bool ts_valid = ts >= 1 && ts <= kU63Max;
+  const bool batch_imported = (v.u(EV_FLAGS)[0] & A_IMPORTED) && a.n > 0;
+  u64 ovr = 0;
+  if (!imported && ts != 0) ovr = as::timestamp_must_be_zero;
+  if (imported && ts_valid && ts >= a.timestamp) {
+    ovr = as::imported_event_timestamp_must_not_advance;
   }
-  const u64 ts_actual_inner =
-      inner == as::exists
-          ? exists_ts
-          : (inner == kCreated ? ts_actual_created : ts_event);
-
-  const bool ts_valid = ev_ts >= 1 && ev_ts <= kU63Max;
-  u64 status = inner;
-  if (!imported && ev_ts != 0) status = as::timestamp_must_be_zero;
-  if (imported && ts_valid && ev_ts >= timestamp) {
-    status = as::imported_event_timestamp_must_not_advance;
-  }
-  if (imported && !ts_valid) {
-    status = as::imported_event_timestamp_out_of_range;
-  }
+  if (imported && !ts_valid) ovr = as::imported_event_timestamp_out_of_range;
   if (imported != batch_imported) {
-    status = imported ? as::imported_event_not_expected
-                      : as::imported_event_expected;
-  }
-  if (*chain_broken) status = as::linked_event_failed;
-  if (linked && i == a.n - 1) status = as::linked_event_chain_open;
-  const u64 ts_actual = status == inner ? ts_actual_inner : ts_event;
-
-  const bool created = status == kCreated && valid;
-  if (created) {
-    v.set_q(ST_S_UD128_HI, ST_S_UD128_LO, slot, ev_ud128);
-    v.u(ST_S_UD64)[slot] = v.u(EV_UD64)[i];
-    v.u(ST_S_UD32)[slot] = v.u(EV_UD32)[i];
-    v.u(ST_S_LEDGER)[slot] = v.u(EV_LEDGER)[i];
-    v.u(ST_S_CODE)[slot] = v.u(EV_CODE)[i];
-    v.u(ST_S_FLAGS)[slot] = flags;
-    v.u(ST_S_TS)[slot] = ts_actual_created;
-    v.b(ST_S_CREATED)[slot] = true;
-    if (ts_actual_created > *key_max) *key_max = ts_actual_created;
-  }
-  if (valid) {
-    v.u(ST_R_TS)[i] = ts_actual;
-    v.u(ST_R_STATUS)[i] = status;
+    ovr = imported ? as::imported_event_not_expected
+                   : as::imported_event_expected;
   }
 
-  const bool breaking =
-      status != kCreated && chain_active && !*chain_broken && valid;
-  if (breaking) {
-    const i64 start = *chain_start > 0 ? *chain_start : 0;
-    for (i64 j = start; j < i; ++j) {
-      v.b(ST_S_CREATED)[v.s(EV_SLOT)[j]] = false;
-      v.u(ST_R_STATUS)[j] = as::linked_event_failed;
+  u32 w = (s0 == kCreated ? 0u : static_cast<u32>(s0)) << CA_S0 |
+          (post == kCreated ? 0u : static_cast<u32>(post)) << CA_POST |
+          static_cast<u32>(ovr) << CA_OVR;
+  if (v.b(EV_VALID)[i]) w |= AW_VALID;
+  if (linked) w |= AW_LINKED;
+  if (imported) w |= AW_IMPORTED;
+  if (linked && i == a.n - 1) w |= AW_CHAIN_OPEN;
+  AWalk x;
+  x.ts_act = r.ts_act;
+  x.slot = static_cast<i32>(slot);
+  x.code = w;
+  wout[i] = x;
+  rout[i] = r;
+  lslot[i] = static_cast<i32>(slot);
+}
+
+// The walk's carry, the same in every lane of warp 0.
+struct CaCarry {
+  u64 key_max, chain_key_max;
+  i64 chain_start;
+  bool chain_broken;
+};
+
+// Event i's inner status but for `regress` against key_max: the
+// pre-pass's, or the exists status against the batch store's row (then
+// *e_ts is that row's timestamp and *from_batch set). Only an earlier
+// event of the batch can have written the row of an event's slot (the
+// id's first lane).
+__device__ __forceinline__ u64 ca_base(const CaHot& h, const AWalk& x,
+                                       i64 i, u64* e_ts, bool* from_batch) {
+  *from_batch = false;
+  const u32 s0 = (x.code >> CA_S0) & kCaCode;
+  if (s0) return s0;
+  if (x.slot != i) {
+    const u32 sw = h.sw[x.slot];
+    if (sw & kSwCreated) {
+      const ARec& e = h.recs[(sw & ~kSwCreated) - 1];
+      *e_ts = e.ts_act;
+      *from_batch = true;
+      return ca_exists(h.recs[i], e);
     }
-    *key_max = *v.u(ST_CHAIN_KEY_MAX);
-    *chain_broken = true;
   }
+  const u32 post = (x.code >> CA_POST) & kCaCode;
+  return post ? post : kCreated;
+}
 
+__device__ __forceinline__ u64 ca_regressed(const AWalk& x, u64 inner,
+                                            u64 key_max) {
+  return inner == kCreated && (x.code & AW_IMPORTED) && key_max != 0 &&
+                 x.ts_act <= key_max
+             ? as::imported_event_timestamp_must_not_regress
+             : inner;
+}
+
+// Event i's result and its creation: the rcode and, when it is
+// created, the slot's word.
+__device__ __forceinline__ void ca_finish(const View& v, const CaHot& h,
+                                          const AWalk& x, i64 i, u64 inner,
+                                          u64 status, u64 e_ts,
+                                          bool from_batch) {
+  if (!(x.code & AW_VALID)) return;
+  u32 src = RC_TS_EVENT;
+  if (status == inner && inner == as::exists) {
+    if (from_batch) {
+      v.u(ca::ST_R_TS)[i] = e_ts;
+      src = RC_TS_DIRECT;
+    } else {
+      src = RC_TS_EXISTS;
+    }
+  } else if (status == inner && inner == kCreated) {
+    src = RC_TS_ACT;
+  }
+  h.rcode[i] = static_cast<u16>(
+      src | (status == kCreated ? kRcCreated : static_cast<u32>(status)));
+  if (status == kCreated) {
+    h.sw[x.slot] = static_cast<u32>(i + 1) | kSwCreated;
+  }
+}
+
+// Stage 3, event i one at a time (the twin's `_ca_walk` loop body; lane
+// 0).
+__device__ __forceinline__ void ca_walk_event(const View& v, const CaHot& h,
+                                              CaCarry& c, const AWalk x,
+                                              i64 i) {
+  const bool valid = x.code & AW_VALID, linked = x.code & AW_LINKED;
+  // --- chain open (reference :3033-3043) ---
+  bool chain_active = c.chain_start >= 0;
+  if (linked && !chain_active && valid) {
+    c.chain_start = i;
+    c.chain_key_max = c.key_max;
+    chain_active = true;
+  }
+  u64 e_ts = 0;
+  bool from_batch;
+  const u64 inner = ca_regressed(x, ca_base(h, x, i, &e_ts, &from_batch),
+                                 c.key_max);
+  // --- wrapper checks (reference execute_create :3033-3104) ---
+  const u32 ovr = (x.code >> CA_OVR) & kCaCode;
+  u64 status = ovr ? ovr : inner;
+  if (c.chain_broken) status = as::linked_event_failed;
+  if (x.code & AW_CHAIN_OPEN) status = as::linked_event_chain_open;
+  ca_finish(v, h, x, i, inner, status, e_ts, from_batch);
+  if (status == kCreated && valid && x.ts_act > c.key_max) {
+    c.key_max = x.ts_act;
+  }
+  // --- chain break: roll back the chain's prefix (reference
+  // :3116-3150) ---
+  if (status != kCreated && chain_active && !c.chain_broken && valid) {
+    for (i64 j = c.chain_start > 0 ? c.chain_start : 0; j < i; ++j) {
+      h.sw[h.lslot[j]] &= ~kSwCreated;
+      h.rcode[j] = static_cast<u16>((h.rcode[j] & kRcTs) |
+                                    as::linked_event_failed);
+    }
+    c.key_max = c.chain_key_max;
+    c.chain_broken = true;
+  }
+  // --- chain close (reference :3196-3207) ---
   if (chain_active && (!linked || status == as::linked_event_chain_open)) {
-    *chain_start = -1;
-    *chain_broken = false;
+    c.chain_start = -1;
+    c.chain_broken = false;
   }
 }
 
-__global__ void create_accounts_seq_kernel(const __grid_constant__ SeqArgs a) {
-  const View v{a};
-  u64* stamps = static_cast<u64*>(a.stamps);
-  stamps[0] = now_ns();
-  for (i64 i = 0; i < a.N; ++i) ca_body(v, i);
-  stamps[1] = now_ns();
+// Stage 3, a chunk of `cnt` events from `first` whose lanes depend on
+// one another through key_max alone, in one warp step: lane t takes event
+// first + t. A lane that fails a check other than `regress` creates
+// nothing, and one that fails only `regress` has a timestamp at or below
+// key_max; so key_max before a lane is the max of key_max before the
+// chunk and the ts_act of each earlier lane that fails nothing but
+// perhaps `regress` (an inclusive max scan over the warp), as the twin's
+// event-by-event walk finds it.
+__device__ __forceinline__ void ca_walk_chunk(const View& v, const CaHot& h,
+                                              CaCarry& c, const AWalk& x,
+                                              i64 first, int cnt,
+                                              int lane) {
+  const bool have = lane < cnt;
+  const i64 i = first + lane;
+  u64 e_ts = 0, inner = kCreated;
+  bool from_batch = false;
+  if (have) inner = ca_base(h, x, i, &e_ts, &from_batch);
+  const u32 ovr = (x.code >> CA_OVR) & kCaCode;
+  const bool ok = have && (x.code & AW_VALID) && inner == kCreated && !ovr;
+  u64 incl = ok ? x.ts_act : 0;
+  for (int d = 1; d < 32; d <<= 1) {
+    const u64 t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d && t > incl) incl = t;
+  }
+  u64 before = __shfl_up_sync(0xFFFFFFFFu, incl, 1);
+  if (lane == 0 || before < c.key_max) before = c.key_max;
+  const u64 last = __shfl_sync(0xFFFFFFFFu, incl, 31);
+  if (have) {
+    inner = ca_regressed(x, inner, before);
+    ca_finish(v, h, x, i, inner, ovr ? ovr : inner, e_ts, from_batch);
+  }
+  if (last > c.key_max) c.key_max = last;
 }
+
+// Stage 3 whole: warp 0 walks while its lanes copy the records ahead.
+__device__ __forceinline__ void ca_walk(const View& v, const CaHot& h,
+                                        AWalk* ring, i64 N) {
+  using namespace ca;
+  const int lane = static_cast<int>(threadIdx.x);
+  CaCarry c;
+  c.key_max = v.a.key_max;
+  c.chain_key_max = 0;
+  c.chain_start = -1;
+  c.chain_broken = false;
+  const i64 chunks = (N + kChunk - 1) / kChunk;
+  for (i64 k = 0; k <= chunks; ++k) {
+    // Copy chunk k into its buffer, then walk chunk k - 1.
+    if (k < chunks) {
+      const i64 first = k * kChunk;
+      if (first + lane < N) {
+        cp_async16(ring + (k & 1) * kChunk + lane, h.walk + first + lane);
+      }
+    }
+    cp_async_commit();
+    if (k > 0) {
+      const i64 first = (k - 1) * kChunk;
+      const int cnt = static_cast<int>(N - first < kChunk ? N - first
+                                                          : kChunk);
+      const AWalk* buf = ring + ((k - 1) & 1) * kChunk;
+      AWalk x;
+      if (lane < cnt) {
+        x = buf[lane];
+      } else {
+        x.ts_act = 0;
+        x.slot = -1;
+        x.code = 0;
+      }
+      // The chunk is one warp step when no chain is open, no valid event
+      // is linked and no slot is shared by two undecided lanes (which
+      // alone read or write the batch store).
+      const bool dyn = lane < cnt && ((x.code >> CA_S0) & kCaCode) == 0;
+      const unsigned peers =
+          __match_any_sync(0xFFFFFFFFu, dyn ? x.slot : -1 - lane);
+      const bool stop = (dyn && __popc(peers) > 1) ||
+                        ((x.code & AW_VALID) && (x.code & AW_LINKED));
+      if (c.chain_start < 0 && !__any_sync(0xFFFFFFFFu, stop)) {
+        ca_walk_chunk(v, h, c, x, first, cnt, lane);
+      } else {
+        if (lane == 0) {
+          // Each record is read before the previous event's stores, which
+          // the compiler cannot tell apart from the ring.
+          AWalk next = buf[0];
+          for (int q = 0; q < cnt; ++q) {
+            const AWalk cur = next;
+            if (q + 1 < cnt) next = buf[q + 1];
+            ca_walk_event(v, h, c, cur, first + q);
+          }
+        }
+        c.key_max = __shfl_sync(0xFFFFFFFFu, c.key_max, 0);
+        c.chain_key_max = __shfl_sync(0xFFFFFFFFu, c.chain_key_max, 0);
+        c.chain_start = __shfl_sync(0xFFFFFFFFu, c.chain_start, 0);
+        c.chain_broken = __shfl_sync(0xFFFFFFFFu, c.chain_broken, 0);
+      }
+    }
+    cp_async_wait_all();
+    __syncwarp();
+  }
+  if (lane == 0) {
+    v.u(ST_KEY_MAX)[0] = c.key_max;
+    v.u(ST_CHAIN_KEY_MAX)[0] = c.chain_key_max;
+    v.s(ST_CHAIN_START)[0] = c.chain_start;
+    v.b(ST_CHAIN_BROKEN)[0] = c.chain_broken;
+  }
+}
+
+// Stage 1 over the hot region (every thread).
+__device__ __forceinline__ void ca_stage(const CaHot& h, i64 N) {
+  for (i64 k = threadIdx.x; k < N; k += blockDim.x) {
+    h.sw[k] = 0;
+    h.rcode[k] = 0;
+  }
+}
+
+// Stage 4 (every thread): each slot's batch-store row rebuilt from its
+// last writer's record, and each lane's result.
+__device__ __forceinline__ void ca_unstage(const View& v, const CaHot& h,
+                                           i64 N) {
+  using namespace ca;
+  const SeqArgs& a = v.a;
+  for (i64 k = threadIdx.x; k < N; k += blockDim.x) {
+    const u32 sw = h.sw[k];
+    v.b(ST_S_CREATED)[k] = (sw & kSwCreated) != 0;
+    ARec e = ARec{};
+    if (sw & ~kSwCreated) e = h.recs[(sw & ~kSwCreated) - 1];
+    v.set_q(ST_S_UD128_HI, ST_S_UD128_LO, k, e.ud128);
+    v.u(ST_S_UD64)[k] = e.ud64;
+    v.u(ST_S_UD32)[k] = e.ud32;
+    v.u(ST_S_LEDGER)[k] = e.ledger;
+    v.u(ST_S_CODE)[k] = e.code;
+    v.u(ST_S_FLAGS)[k] = e.flags;
+    v.u(ST_S_TS)[k] = e.ts_act;
+    // Results: the walk's rcode and the lane's timestamps.
+    const u32 rc = h.rcode[k];
+    const u32 st = rc & kRcStatus;
+    v.u(ST_R_STATUS)[k] = st == kRcCreated ? kCreated : st;
+    if (!(h.walk[k].code & AW_VALID)) {
+      v.u(ST_R_TS)[k] = 0;
+      continue;
+    }
+    const u32 src = rc & kRcTs;
+    if (src != RC_TS_DIRECT) {
+      v.u(ST_R_TS)[k] =
+          src == RC_TS_ACT      ? h.recs[k].ts_act
+          : src == RC_TS_EXISTS ? h.recs[k].exists_ts
+                                : a.timestamp - static_cast<u64>(a.n) +
+                                      static_cast<u64>(k) + 1;
+    }
+  }
+}
+
+// One launch, one block: the four stages (see the note at the top).
+__global__ void __launch_bounds__(kCaThreads, 1)
+    create_accounts_seq_kernel(const __grid_constant__ SeqArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const View v{a};
+  const i64 N = a.N;
+  const CaLayout L = ca_layout(N);
+  unsigned char* g = static_cast<unsigned char*>(a.scratch);
+  AWalk* ring = reinterpret_cast<AWalk*>(smem);
+  u64* stamps = static_cast<u64*>(a.stamps);
+  const i64 tid = threadIdx.x, nt = blockDim.x;
+  // The hot region's pointers, in shared memory when it fits: each branch
+  // keeps its address space known to the compiler.
+  const CaHot hs = ca_hot_at(smem + L.ring_bytes, g, L);
+  const CaHot hg = ca_hot_at(g + L.hot, g, L);
+
+  if (tid == 0) stamps[0] = now_ns();
+  if (L.hot_in_smem) {
+    ca_stage(hs, N);
+  } else {
+    ca_stage(hg, N);
+  }
+  __syncthreads();
+  if (tid == 0) stamps[1] = now_ns();
+
+  AWalk* walk = reinterpret_cast<AWalk*>(g + L.walk);
+  ARec* recs = reinterpret_cast<ARec*>(g + L.rec);
+  if (L.hot_in_smem) {
+    for (i64 i = tid; i < N; i += nt) ca_prepass(v, i, walk, recs, hs.lslot);
+  } else {
+    for (i64 i = tid; i < N; i += nt) ca_prepass(v, i, walk, recs, hg.lslot);
+  }
+  __syncthreads();
+  if (tid == 0) stamps[2] = now_ns();
+
+  if (tid < 32) {
+    if (L.hot_in_smem) {
+      ca_walk(v, hs, ring, N);
+    } else {
+      ca_walk(v, hg, ring, N);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) stamps[3] = now_ns();
+
+  if (L.hot_in_smem) {
+    ca_unstage(v, hs, N);
+  } else {
+    ca_unstage(v, hg, N);
+  }
+  __syncthreads();
+  if (tid == 0) stamps[4] = now_ns();
+}
+
 
 bool args_ok(const SeqArgs* args, int n_seg) {
   return n_seg == 1 && args->N >= 0 && args->n >= 0 && args->n <= args->N;
@@ -1447,12 +1817,24 @@ extern "C" int create_transfers_seq_launch(const SeqArgs* args, int n_seg,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Bytes of global scratch the create_accounts launch of `args` needs.
+extern "C" long long create_accounts_seq_scratch(const SeqArgs* args) {
+  return ca_layout(args->N).scratch_bytes;
+}
+
 extern "C" int create_accounts_seq_launch(const SeqArgs* args, int n_seg,
                                           void* stream) {
-  if (!args_ok(args, n_seg) || args->stamps == nullptr) {
+  if (!args_ok(args, n_seg) || args->N < 1 || args->scratch == nullptr ||
+      args->stamps == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  create_accounts_seq_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      *args);
+  const CaLayout L = ca_layout(args->N);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      create_accounts_seq_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L.smem_bytes));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  create_accounts_seq_kernel<<<1, kCaThreads, L.smem_bytes,
+                               static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }

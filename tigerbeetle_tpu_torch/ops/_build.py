@@ -9,7 +9,7 @@ to `tigerbeetle_tpu_torch/build/` (git-ignored). A failed build raises.
 The C interfaces: each entry point takes an array of segment structures
 (mirrored below as `ctypes.Structure`s, field for field), their count
 and the CUDA stream, and returns `cudaGetLastError()` of its launch.
-One source may export several entry points (`create_seq.cu` has two).
+One source may export several entry points (`create_seq.cu` has four).
 """
 
 from __future__ import annotations
@@ -55,10 +55,10 @@ SEQ_MAX_PTRS = 128
 
 class SeqArgs(ctypes.Structure):
     """csrc/create_seq.cu's argument block: one batch's tensor pointers
-    in the order of its `Ptr` enum, the batch timestamp, the event count
-    and the padded lane count; for create_transfers also the cache row
-    counts, the key_max and pulse_next scalars, and the scratch and stamp
-    buffers."""
+    in the order of its `Ptr` enum, the batch timestamp, the event count,
+    the padded lane count, the key_max scalar, the scratch and stamp
+    buffers; for create_transfers also the cache row counts and the
+    pulse_next scalar."""
     _fields_ = [("p", _VP * SEQ_MAX_PTRS), ("timestamp", ctypes.c_ulonglong),
                 ("n", _LL), ("N", _LL), ("a_rows", _LL), ("t_rows", _LL),
                 ("key_max", ctypes.c_ulonglong),
@@ -134,9 +134,10 @@ def load_create_seq(kind: str):
     return _load("create_seq", f"create_{kind}_seq_launch", SeqArgs)
 
 
-def create_seq_scratch_bytes(args: SeqArgs) -> int:
-    """Bytes of global scratch the create_transfers launch of `args`
-    takes (create_seq.cu's `create_transfers_seq_scratch`)."""
-    fn = _load("create_seq", "create_transfers_seq_scratch", SeqArgs,
+def create_seq_scratch_bytes(kind: str, args: SeqArgs) -> int:
+    """Bytes of global scratch the create_seq launch of `kind`
+    ("transfers" or "accounts") on `args` takes (create_seq.cu's
+    `create_<kind>_seq_scratch`)."""
+    fn = _load("create_seq", f"create_{kind}_seq_scratch", SeqArgs,
                [ctypes.POINTER(SeqArgs)], ctypes.c_longlong)
     return fn(ctypes.byref(args))

@@ -14,14 +14,12 @@ host prefetched (`batch.prefetch_create_*`): every data-dependent access
 is an index into those caches, and a linked chain that breaks replays an
 undo log newest-first (the device analog of groove scope_open /
 scope_close, src/lsm/groove.zig:1963-1984). Here they are plain PyTorch
-twins. `create_transfers_seq_plain` runs the CUDA kernel's two stages: a
-pre-pass vectorised over every lane (`_ct_prepass`: the checks that read
-only immutable inputs, as a bit mask a path) and a walk in event order
-on Python ints (`_ct_walk`: what depends on earlier events), so the
-tests that hold it to the JAX package's `create_transfers_kernel` also
-check that split. `create_accounts_seq_plain` is a Python loop over the
-events on 0-d / 1-d CPU tensors, the JAX package's `_ca_body` statement
-for statement. On the card each is one hand-written CUDA kernel
+twins, each in its CUDA kernel's two stages: a pre-pass vectorised over
+every lane (`_ct_prepass` / `_ca_prepass`: the checks that read only
+immutable inputs) and a walk in event order on Python ints (`_ct_walk` /
+`_ca_walk`: what depends on earlier events), so the tests that hold them
+to the JAX package's `create_transfers_kernel` / `create_accounts_kernel`
+also check that split. On the card each is one hand-written CUDA kernel
 (`create_seq.py`, `csrc/create_seq.cu`). Both return the same dict of
 tensors (the JAX kernels' carry: u64 lanes as int64 bit patterns, u32 /
 i32 lanes widened to int64, bool lanes as bool), which `apply_create_*`
@@ -52,7 +50,7 @@ from ..types import (
     TransferPendingStatus,
 )
 from . import u128
-from .u64 import carrier, s64, ule, ult, umax
+from .u64 import carrier, s64, ule, ult
 
 _CREATED = 0xFFFFFFFF
 _TS = {s.name: int(s) for s in CreateTransferStatus}
@@ -238,22 +236,6 @@ def outputs_to_numpy(out: dict, dtypes: dict) -> dict:
 
 def _scalar(x: int, device):
     return torch.tensor(s64(x), dtype=torch.int64, device=device)
-
-
-def _ca_init_state(tin: dict) -> dict:
-    ev = tin["event"]
-    N = ev["id_lo"].shape[0]
-    dev = ev["id_lo"].device
-    st = {}
-    for k, dt in CA_OUT_DTYPES.items():
-        if k.startswith(("s_", "r_")):
-            st[k] = torch.zeros(N, dtype=torch.bool if dt == _B
-                                else torch.int64, device=dev)
-    st["key_max"] = _scalar(tin["accounts_key_max"], dev)
-    st["chain_start"] = _scalar(-1, dev)
-    st["chain_broken"] = torch.zeros((), dtype=torch.bool, device=dev)
-    st["chain_key_max"] = _scalar(0, dev)
-    return st
 
 
 # ================================= create_transfers: the plain twin
@@ -804,70 +786,80 @@ def create_transfers_seq_plain(tin: dict) -> dict:
 
 
 # ================================== create_accounts: the plain twin
+#
+# The CUDA kernel's stages again (csrc/create_seq.cu):
+#
+# 1. `_ca_prepass`, every lane at once: each event's static statuses, in
+#    the reference's order. `s0`: the first failing check before the
+#    exists check, else, where the committed cache holds the id, the
+#    exists status against that row. `post`: the first failing check
+#    after it but for `regress` against the running key_max (an imported
+#    event whose timestamp a transfer holds already fails `regress`
+#    here). `ovr`: the wrapper's timestamp and imported override that
+#    wins. 0 is "none" in each. An event's id is found in the batch
+#    store only if an earlier event of the batch has it (`slot`, the
+#    id's first lane, is not the event's own), so `s0` decides every
+#    other event's exists check.
+# 2. `_ca_walk`, in event order on Python ints: what depends on earlier
+#    events. That is a repeated id (the batch store: its slot's last
+#    writer and created bit), `regress` against the running key_max, and
+#    the chain. (The kernel's warp takes some chunks of 32 events in one
+#    step; the twin walks every event, and the kernel is held to it.)
 
-def _ca_body(tin, i: int, st) -> None:
-    """Event i of a create_accounts batch: the JAX package's `_ca_body`."""
-    evs = tin["event"]
-    ev = {k: v[i] for k, v in evs.items()}
+# create_account_exists (reference :3691-3703): the fields it compares
+# (the key below), in order, and the code of each.
+_CA_EXISTS_CODES = tuple(_AS[s] for s in (
+    "exists_with_different_flags", "exists_with_different_user_data_128",
+    "exists_with_different_user_data_64",
+    "exists_with_different_user_data_32", "exists_with_different_ledger",
+    "exists_with_different_code"))
+
+
+def _ca_exists(key, e_key) -> int:
+    """The exists status of an event with fields `key` against a stored
+    account with `e_key` (each `_ca_prepass`'s "key" tuple)."""
+    for a, b, code in zip(key, e_key, _CA_EXISTS_CODES):
+        if a != b:
+            return code
+    return _AS["exists"]
+
+
+def _ca_prepass(tin: dict) -> dict:
+    """Stage 1: every lane at once. Returns the walk's record, one list
+    a field (Python ints; u64 unsigned, u128 whole)."""
+    ev, ac = tin["event"], tin["ac"]
     n = tin["n_events"]
-    timestamp = _scalar(tin["timestamp"], "cpu")
-    timestamp_event = _scalar(tin["timestamp"] - n + i + 1, "cpu")
-    valid = ev["valid"]
+    N = ev["id_lo"].shape[0]
+    flags = ev["flags"]
+    lane = torch.arange(N, dtype=torch.int64)
+    ts_event = _scalar(tin["timestamp"] - n + 1, "cpu") + lane
+    imported = _flag(flags, _A_IMPORTED)
+    ts_act = torch.where(imported, ev["ts"], ts_event)
 
-    linked = _flag(ev["flags"], _A_LINKED)
-    imported = _flag(ev["flags"], _A_IMPORTED)
-    batch_imported = _flag(evs["flags"][0], _A_IMPORTED) & (n > 0)
+    e_cache = ev["exists_idx"] >= 0
+    ci = ev["exists_idx"].clamp(min=0)
+    e = {k: ac[k][ci] for k in ac}
+    exists = _first_failure([
+        ((flags & 0xFFFF) != (e["flags"] & 0xFFFF), _CA_EXISTS_CODES[0]),
+        (~u128.eq(ev["ud128_hi"], ev["ud128_lo"], e["ud128_hi"],
+                  e["ud128_lo"]), _CA_EXISTS_CODES[1]),
+        (ev["ud64"] != e["ud64"], _CA_EXISTS_CODES[2]),
+        (ev["ud32"] != e["ud32"], _CA_EXISTS_CODES[3]),
+        (ev["ledger"] != e["ledger"], _CA_EXISTS_CODES[4]),
+        (ev["code"] != e["code"], _CA_EXISTS_CODES[5]),
+    ], created=_AS["exists"])
 
-    chain_active = st["chain_start"] >= 0
-    opening = linked & ~chain_active & valid
-    st["chain_start"] = torch.where(opening, i, st["chain_start"])
-    st["chain_key_max"] = torch.where(opening, st["key_max"],
-                                      st["chain_key_max"])
-    chain_active = chain_active | opening
-
-    slot = int(ev["slot"])
-    e_from_cache = ev["exists_idx"] >= 0
-    e_from_batch = ~e_from_cache & st["s_created"][slot]
-    e_found = e_from_cache | e_from_batch
-    ci = max(int(ev["exists_idx"]), 0)
-    ac = tin["ac"]
-
-    def e_field(name):
-        return torch.where(e_from_cache, ac[name][ci], st[f"s_{name}"][slot])
-
-    # create_account_exists (reference :3691-3703).
-    exists_checks = [
-        ((ev["flags"] & 0xFFFF) != (e_field("flags") & 0xFFFF),
-         _AS["exists_with_different_flags"]),
-        (~u128.eq(ev["ud128_hi"], ev["ud128_lo"], e_field("ud128_hi"),
-                  e_field("ud128_lo")),
-         _AS["exists_with_different_user_data_128"]),
-        (ev["ud64"] != e_field("ud64"),
-         _AS["exists_with_different_user_data_64"]),
-        (ev["ud32"] != e_field("ud32"),
-         _AS["exists_with_different_user_data_32"]),
-        (ev["ledger"] != e_field("ledger"),
-         _AS["exists_with_different_ledger"]),
-        (ev["code"] != e_field("code"), _AS["exists_with_different_code"]),
-    ]
-    exists_status = _first_failure(exists_checks, created=_AS["exists"])
-    exists_ts = e_field("ts")
-
-    regress = imported & (((st["key_max"] != 0)
-                           & ule(ev["ts"], st["key_max"]))
-                          | ev["transfer_ts_collision"])
-    ts_actual_created = torch.where(imported, ev["ts"], timestamp_event)
-
-    # create_account (reference :3613-3689); the 0 code stands in for
-    # exists_status below.
-    checks = [
+    # create_account (reference :3613-3689), split at the exists check.
+    pre = _first_failure([
         (ev["reserved"] != 0, _AS["reserved_field"]),
-        ((ev["flags"] & _AF_PADDING) != 0, _AS["reserved_flag"]),
+        ((flags & _AF_PADDING) != 0, _AS["reserved_flag"]),
         (u128.is_zero(ev["id_hi"], ev["id_lo"]), _AS["id_must_not_be_zero"]),
         (u128.is_max(ev["id_hi"], ev["id_lo"]),
          _AS["id_must_not_be_int_max"]),
-        (e_found, 0),
-        (_flag(ev["flags"], _A_DR_LIMIT) & _flag(ev["flags"], _A_CR_LIMIT),
+    ], created=0)
+    s0 = torch.where(pre != 0, pre, torch.where(e_cache, exists, 0))
+    post = _first_failure([
+        (_flag(flags, _A_DR_LIMIT) & _flag(flags, _A_CR_LIMIT),
          _AS["flags_are_mutually_exclusive"]),
         (~u128.is_zero(ev["dp_hi"], ev["dp_lo"]),
          _AS["debits_pending_must_be_zero"]),
@@ -879,75 +871,141 @@ def _ca_body(tin, i: int, st) -> None:
          _AS["credits_posted_must_be_zero"]),
         (ev["ledger"] == 0, _AS["ledger_must_not_be_zero"]),
         (ev["code"] == 0, _AS["code_must_not_be_zero"]),
-        (regress, _AS["imported_event_timestamp_must_not_regress"]),
-    ]
-    inner_status = _first_failure(checks)
-    inner_status = torch.where(inner_status == 0, exists_status,
-                               inner_status)
+        (imported & ev["transfer_ts_collision"],
+         _AS["imported_event_timestamp_must_not_regress"]),
+    ], created=0)
 
-    ts_actual_inner = torch.where(
-        inner_status == _AS["exists"], exists_ts,
-        torch.where(inner_status == _CREATED, ts_actual_created,
-                    timestamp_event))
-
+    # The wrapper's overrides (reference execute_create :3033-3104) but
+    # for the chain's two; a later one wins.
     ts_valid = ule(_scalar(1, "cpu"), ev["ts"]) & ule(ev["ts"],
                                                       _scalar(_U63, "cpu"))
-    status = inner_status
-    status = torch.where(~imported & (ev["ts"] != 0),
-                         _AS["timestamp_must_be_zero"], status)
-    status = torch.where(imported & ts_valid & ule(timestamp, ev["ts"]),
-                         _AS["imported_event_timestamp_must_not_advance"],
-                         status)
-    status = torch.where(imported & ~ts_valid,
-                         _AS["imported_event_timestamp_out_of_range"], status)
-    status = torch.where(imported != batch_imported,
-                         torch.where(imported,
-                                     _AS["imported_event_not_expected"],
-                                     _AS["imported_event_expected"]), status)
-    status = torch.where(st["chain_broken"], _AS["linked_event_failed"],
-                         status)
-    status = torch.where(linked & (i == n - 1),
-                         _AS["linked_event_chain_open"], status)
-    ts_actual = torch.where(status == inner_status, ts_actual_inner,
-                            timestamp_event)
+    batch_imported = _flag(flags[0], _A_IMPORTED) & (n > 0)
+    ovr = torch.zeros_like(flags)
+    ovr = torch.where(~imported & (ev["ts"] != 0),
+                      _AS["timestamp_must_be_zero"], ovr)
+    ovr = torch.where(imported & ts_valid
+                      & ule(_scalar(tin["timestamp"], "cpu"), ev["ts"]),
+                      _AS["imported_event_timestamp_must_not_advance"], ovr)
+    ovr = torch.where(imported & ~ts_valid,
+                      _AS["imported_event_timestamp_out_of_range"], ovr)
+    ovr = torch.where(imported != batch_imported,
+                      torch.where(imported, _AS["imported_event_not_expected"],
+                                  _AS["imported_event_expected"]), ovr)
 
-    created = (status == _CREATED) & valid
-    for name in ("ud128_hi", "ud128_lo", "ud64", "ud32", "ledger", "code",
-                 "flags"):
-        st[f"s_{name}"][slot] = torch.where(created, ev[name],
-                                            st[f"s_{name}"][slot])
-    st["s_ts"][slot] = torch.where(created, ts_actual_created,
-                                   st["s_ts"][slot])
-    st["s_created"][slot] = st["s_created"][slot] | created
-    st["key_max"] = torch.where(created,
-                                umax(st["key_max"], ts_actual_created),
-                                st["key_max"])
+    rec = {
+        "valid": ev["valid"], "linked": _flag(flags, _A_LINKED),
+        "imported": imported,
+        "chain_open": _flag(flags, _A_LINKED) & (lane == n - 1),
+        "s0": s0, "post": post, "ovr": ovr, "slot": ev["slot"],
+        "ts_act": ts_act, "exists_ts": e["ts"], "flags": flags,
+        "ud64": ev["ud64"], "ud32": ev["ud32"], "ledger": ev["ledger"],
+        "code": ev["code"],
+    }
+    x = {k: (v.tolist() if v.dtype == torch.bool else _uints(v))
+         for k, v in rec.items()}
+    x["ud128"] = _u128s(ev["ud128_hi"], ev["ud128_lo"])
+    x["key"] = list(zip([f & 0xFFFF for f in x["flags"]], x["ud128"],
+                        x["ud64"], x["ud32"], x["ledger"], x["code"]))
+    return x
 
-    st["r_ts"][i] = torch.where(valid, ts_actual, st["r_ts"][i])
-    st["r_status"][i] = torch.where(valid, status, st["r_status"][i])
 
-    breaking = (status != _CREATED) & chain_active & ~st["chain_broken"] \
-        & valid
-    if bool(breaking):
-        for j in range(max(int(st["chain_start"]), 0), i):
-            st["s_created"][int(evs["slot"][j])] = False
-            st["r_status"][j] = _AS["linked_event_failed"]
-    st["key_max"] = torch.where(breaking, st["chain_key_max"], st["key_max"])
-    st["chain_broken"] = st["chain_broken"] | breaking
+def _ca_walk(tin: dict, x: dict) -> dict:
+    """Stage 2: the events in order over the pre-pass record `x`; returns
+    the carry as the JAX kernel's output dict. The batch store keeps, a
+    slot, its last writer (the last event created there: a chain's
+    rollback clears the created bit but leaves the row, as the
+    reference's does) and a created bit."""
+    N = len(x["slot"])
+    n = tin["n_events"]
+    ts_event0 = tin["timestamp"] - n + 1
+    writer, created = [-1] * N, [False] * N
+    r_ts, r_status = [0] * N, [0] * N
+    key_max = tin["accounts_key_max"]
+    chain_start, chain_broken, chain_key_max = -1, False, 0
+    exists, lef = _AS["exists"], _AS["linked_event_failed"]
+    leco = _AS["linked_event_chain_open"]
 
-    closing = chain_active & (~linked
-                              | (status == _AS["linked_event_chain_open"]))
-    st["chain_start"] = torch.where(closing, -1, st["chain_start"])
-    st["chain_broken"] = torch.where(closing, False, st["chain_broken"])
+    for i in range(N):
+        valid, linked, sl = x["valid"][i], x["linked"][i], x["slot"][i]
+        # --- chain open (reference :3033-3043) ---
+        chain_active = chain_start >= 0
+        if linked and not chain_active and valid:
+            chain_start, chain_key_max = i, key_max
+            chain_active = True
+        # --- the inner status: the pre-pass's, or the exists status
+        # against the batch store's row ---
+        inner, e_ts = x["s0"][i], x["exists_ts"][i]
+        if not inner:
+            if sl != i and created[sl]:
+                w = writer[sl]
+                inner = _ca_exists(x["key"][i], x["key"][w])
+                e_ts = x["ts_act"][w]
+            elif x["post"][i]:
+                inner = x["post"][i]
+            elif (x["imported"][i] and key_max != 0
+                  and x["ts_act"][i] <= key_max):
+                inner = _AS["imported_event_timestamp_must_not_regress"]
+            else:
+                inner = _CREATED
+        # --- wrapper checks (reference execute_create :3033-3104) ---
+        status = x["ovr"][i] or inner
+        if chain_broken:
+            status = lef
+        if x["chain_open"][i]:
+            status = leco
+        if valid:
+            if status != inner:
+                r_ts[i] = (ts_event0 + i) & _M64
+            elif inner == exists:
+                r_ts[i] = e_ts
+            elif inner == _CREATED:
+                r_ts[i] = x["ts_act"][i]
+            else:
+                r_ts[i] = (ts_event0 + i) & _M64
+            r_status[i] = status
+            if status == _CREATED:
+                writer[sl], created[sl] = i, True
+                key_max = max(key_max, x["ts_act"][i])
+        # --- chain break: roll back the chain's prefix (:3116-3150) ---
+        if status != _CREATED and chain_active and not chain_broken \
+                and valid:
+            for j in range(max(chain_start, 0), i):
+                created[x["slot"][j]] = False
+                r_status[j] = lef
+            key_max = chain_key_max
+            chain_broken = True
+        # Chain close (reference :3196-3207).
+        if chain_active and (not linked or status == leco):
+            chain_start, chain_broken = -1, False
+
+    def col(v):
+        return torch.from_numpy(np.array(v, dtype=np.uint64).view(np.int64))
+
+    def field(k):
+        return [x[k][w] if w >= 0 else 0 for w in writer]
+
+    ud128 = field("ud128")
+    return {
+        "s_created": torch.tensor(created, dtype=torch.bool),
+        "s_ud128_hi": col([v >> 64 for v in ud128]),
+        "s_ud128_lo": col([v & _M64 for v in ud128]),
+        **{f"s_{k}": col(field(k)) for k in ("ud64", "ud32", "ledger",
+                                             "code", "flags")},
+        "s_ts": col(field("ts_act")),
+        "key_max": _scalar(key_max, "cpu"),
+        "chain_start": _scalar(chain_start, "cpu"),
+        "chain_broken": torch.tensor(chain_broken),
+        "chain_key_max": _scalar(chain_key_max, "cpu"),
+        "r_ts": col(r_ts), "r_status": col(r_status),
+    }
 
 
 def create_accounts_seq_plain(tin: dict) -> dict:
-    """The create_accounts sequential kernel, plain (the JAX package's
-    `create_accounts_kernel`)."""
-    st = _ca_init_state(tin)
-    for i in range(tin["event"]["id_lo"].shape[0]):
-        _ca_body(tin, i, st)
-    return st
+    """The create_accounts sequential kernel, plain: every event of the
+    padded batch in order (the JAX package's `create_accounts_kernel`),
+    as a pre-pass over all lanes and a walk in event order. `tin` is
+    `inputs_to_device(prefetch...)` on the CPU."""
+    return _ca_walk(tin, _ca_prepass(tin))
 
 
 # ======================================================== host application

@@ -6,13 +6,14 @@ No Pallas counterpart: they replace the JAX package's XLA kernels
 `create_transfers_kernel` and `create_accounts_kernel`
 (tigerbeetle_tpu/ops/create_kernels.py:664, :792), lax.fori_loops over
 the batch. In PyTorch the plain form is a loop over the events, which on
-the card would pay a launch for each. The transfers kernel is one block:
-a parallel pre-pass decodes every event and folds every check that reads
-only immutable inputs into a bit mask, then one warp walks the events in
-order, branching on each event's path (the plain twin runs the same two
-stages). The accounts kernel is one thread walking the batch. What bounds
-them is latency (the walk's chain of dependent loads), not bytes; see the
-source note.
+the card would pay a launch for each. Each kernel is one block: a
+parallel pre-pass decodes every event and folds every check that reads
+only immutable inputs, then one warp walks the events in order (the
+plain twins run the same two stages). The transfers walk branches on
+each event's path; the accounts walk takes a chunk of 32 events in one
+warp step where nothing but key_max carries between them. What bounds
+them is latency (the walk's chain of dependent steps), not bytes; see
+the source note.
 
 `create_transfers_seq(tin)` / `create_accounts_seq(tin)` take the
 prefetched inputs on one device (`create_kernels.inputs_to_device`) and
@@ -20,16 +21,14 @@ return the kernel's carry as a dict of tensors, the same dict as their
 plain twins `create_kernels.create_transfers_seq_plain` /
 `create_accounts_seq_plain` return. Routing is by the tensors' device
 alone: CUDA tensors launch the kernel (or raise), CPU tensors run the
-plain twin. The wrapper allocates the transfers kernel's outputs
-uninitialised (the kernel writes every one) and initialises the accounts
-kernel's with the twin's `_ca_init_state`, hands the kernel every
-tensor's pointer in the order of the source's `Ptr` enums (`CT_PTRS` /
-`CA_PTRS`), a buffer for its %globaltimer stamps and, for transfers, a
-scratch buffer of the size the source asks for, and launches once on
-the current stream. `LAUNCHES` counts kernel launches and nothing else
-(`KIND_LAUNCHES` the same by kernel); `STAMPS` holds each kernel's last
-stamps (`device_ms(kind)` and `stage_ms()` read them: device time
-without a profiler).
+plain twin. The wrapper allocates the outputs uninitialised (the kernel
+writes every one), hands the kernel every tensor's pointer in the order
+of the source's `Ptr` enums (`CT_PTRS` / `CA_PTRS`), a buffer for its
+%globaltimer stamps and a scratch buffer of the size the source asks
+for, and launches once on the current stream. `LAUNCHES` counts kernel
+launches and nothing else (`KIND_LAUNCHES` the same by kernel); `STAMPS`
+holds each kernel's last stamps (`device_ms(kind)` and `stage_ms(kind)`
+read them: device time without a profiler).
 
 `run_create_transfers` / `run_create_accounts` are prefetch -> kernel ->
 apply on a host state in one call, the port's counterpart of the JAX
@@ -55,7 +54,6 @@ from .create_kernels import (
     CA_OUT_DTYPES,
     CT_OUT_DTYPES,
     _B,
-    _ca_init_state,
     apply_create_accounts,
     apply_create_transfers,
     create_accounts_seq_plain,
@@ -69,9 +67,8 @@ LAUNCHES = 0
 # The same launches by kernel.
 KIND_LAUNCHES = {"transfers": 0, "accounts": 0}
 
-# Each kernel's last launch's %globaltimer ns (a device tensor): at the
-# transfers kernel's stage boundaries (5: STAGES), at the accounts
-# kernel's start and end (2).
+# Each kernel's last launch's %globaltimer ns (a device tensor), at its
+# five stage boundaries (STAGES).
 STAMPS: dict = {}
 STAGES = ("stage", "prepass", "walk", "unstage")
 
@@ -151,9 +148,9 @@ def _device_of(tin: dict, name: str) -> torch.device:
     return devs.pop()
 
 
-def _ct_outputs(tin: dict) -> dict:
-    """The create_transfers kernel's outputs, uninitialised (it writes
-    every one): the twin's keys, shapes and dtypes."""
+def _outputs(tin: dict, dtypes: dict) -> dict:
+    """A sequential kernel's outputs, uninitialised (it writes every
+    one): the twin's keys, shapes and dtypes."""
     ev = tin["event"]
     dev = ev["id_lo"].device
 
@@ -168,12 +165,13 @@ def _ct_outputs(tin: dict) -> dict:
 
     return {k: torch.empty(shape(k), device=dev,
                            dtype=torch.bool if dt == _B else torch.int64)
-            for k, dt in CT_OUT_DTYPES.items()}
+            for k, dt in dtypes.items()}
 
 
 def _seq_args(ptrs, tin: dict, st: dict):
     """The argument block: every pointer in the source's enum order, the
-    scalars and (read by the transfers kernel alone) the cache sizes."""
+    scalars (the kind's key_max among them) and, for create_transfers,
+    the cache sizes and pulse_next."""
     args = _build.SeqArgs()
     for k, (group, key) in enumerate(ptrs):
         args.p[k] = (st if group == "st" else tin[group])[key].data_ptr()
@@ -185,10 +183,12 @@ def _seq_args(ptrs, tin: dict, st: dict):
         args.t_rows = tin["tc"]["pending_status"].shape[0]
         args.key_max = tin["transfers_key_max"]
         args.pulse_next = tin["pulse_next"]
+    else:
+        args.key_max = tin["accounts_key_max"]
     return args
 
 
-def _run(kind: str, ptrs, outputs, plain, tin: dict) -> dict:
+def _run(kind: str, ptrs, dtypes, plain, tin: dict) -> dict:
     global LAUNCHES
     name = f"create_{kind}_seq"
     dev = _device_of(tin, name)
@@ -197,18 +197,16 @@ def _run(kind: str, ptrs, outputs, plain, tin: dict) -> dict:
     if dev.type != "cuda":
         raise ValueError(f"{name}: inputs on {dev}; expected a CUDA device "
                          "(or the CPU)")
-    st = outputs(tin)
+    st = _outputs(tin, dtypes)
     args = _seq_args(ptrs, tin, st)
     fn = _launch.get(kind)
     if fn is None:
         fn = _launch[kind] = _build.load_create_seq(kind)
-    stamps = torch.empty(len(STAGES) + 1 if kind == "transfers" else 2,
-                         dtype=torch.int64, device=dev)
+    stamps = torch.empty(len(STAGES) + 1, dtype=torch.int64, device=dev)
     args.stamps = stamps.data_ptr()
-    if kind == "transfers":
-        scratch = torch.empty(_build.create_seq_scratch_bytes(args),
-                              dtype=torch.uint8, device=dev)
-        args.scratch = scratch.data_ptr()
+    scratch = torch.empty(_build.create_seq_scratch_bytes(kind, args),
+                          dtype=torch.uint8, device=dev)
+    args.scratch = scratch.data_ptr()
     rc = fn(ctypes.byref(args), 1,
             torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
@@ -219,10 +217,11 @@ def _run(kind: str, ptrs, outputs, plain, tin: dict) -> dict:
     return st
 
 
-def stage_ms() -> dict:
-    """The last create_transfers launch's device ms in each stage, from
-    its %globaltimer stamps (waits for the launch)."""
-    t = STAMPS["transfers"].cpu().tolist()
+def stage_ms(kind: str) -> dict:
+    """The last launch of `kind`'s kernel ("transfers" or "accounts"):
+    its device ms in each stage, from its %globaltimer stamps (waits for
+    the launch)."""
+    t = STAMPS[kind].cpu().tolist()
     return {s: (t[k + 1] - t[k]) / 1e6 for k, s in enumerate(STAGES)}
 
 
@@ -237,13 +236,13 @@ def device_ms(kind: str) -> float:
 def create_transfers_seq(tin: dict) -> dict:
     """One create_transfers batch through the sequential kernel: the CUDA
     kernel for CUDA inputs, the plain twin for CPU inputs."""
-    return _run("transfers", CT_PTRS, _ct_outputs,
+    return _run("transfers", CT_PTRS, CT_OUT_DTYPES,
                 create_transfers_seq_plain, tin)
 
 
 def create_accounts_seq(tin: dict) -> dict:
     """One create_accounts batch through the sequential kernel."""
-    return _run("accounts", CA_PTRS, _ca_init_state,
+    return _run("accounts", CA_PTRS, CA_OUT_DTYPES,
                 create_accounts_seq_plain, tin)
 
 
