@@ -307,6 +307,28 @@ each failing the run with a nonzero exit:
               once a key and replayed, with the launches the window
               routes predict; the census of create_transfers_fast on
               the card launching what a plain tier run predicts.
+ 27. gate    the JAX gate's seven device legs, the port's
+              `tigerbeetle_tpu_torch.testing` chain, partitioned_chain,
+              overlap, reshard, telemetry, overload and observatory
+              smokes, at the JAX package's sizes, then the chain and
+              overlap legs again at full width (prepares of 8,190 on
+              DeviceLedger(2^17, 2^21)), then the op budget's census of
+              every registry tier, `--check` against the committed
+              trace/opbudget_r01.json (written on the CPU) and `--lint`,
+              all in a child process on the card started beside the
+              durable phase; the overlap leg at the JAX sizes runs last,
+              once the script waits for the child (its 128-event
+              windows' stall fraction reads whether the stager thread
+              gets a core in the ~1 ms it has: beside the durable
+              phase's CPU twins it once read 0.8787); each leg's
+              negative arm red, its history
+              equal to the oracle's, the stall fraction under 0.75 at
+              both widths and both overhead ratios within their bounds
+              (asserted in the legs), the kernels each leg ran
+              (launches less those recorded into graphs, plus those the
+              replays ran) equal to `gl_calls`, the CPU's kernel calls
+              (but the overload leg's, which a wall clock steers), and
+              each leg's launches equal to its calls.
 The window phases print the memory the caching allocator holds after
 each graph capture.
 
@@ -318,7 +340,7 @@ Prints the card line, `{"config2": ...}`, `{"config4": ...}`,
 `{"benchmark": ...}`, `{"drivers": ...}`, `{"observatory": ...}`,
 `{"sharded": ...}`, `{"partitioned": ...}`, `{"reshard": ...}`,
 `{"trace_coverage": ...}`, `{"clients": ...}`, `{"static": ...}`,
-`{"phase_seconds": ...}`
+`{"gate": ...}`, `{"phase_seconds": ...}`
 and `{"kernels": [...]}` lines, and last
 `{"ok": true, "device": {...}}`.
 Imports neither JAX nor the JAX package.
@@ -9216,6 +9238,324 @@ def static_phase(dev, child: StaticChild = None) -> dict:
     return numbers
 
 
+# ------------------------------------------------------------ gate legs
+
+GL_LEGS = ("chain", "partitioned_chain", "overlap", "reshard", "telemetry",
+           "overload", "observatory")
+# The two legs run again at full width; the overlap leg at 5 windows of 4
+# prepares (its poisoned window the fourth), without its partitioned arm,
+# and at SV_BODY events a prepare: its poisoned prepare takes one more.
+GL_FULL = {"chain_full": ("chain", dict(batch=BATCH, caps=(A_CAP, T_CAP))),
+           "overlap_full": ("overlap", dict(batch=SV_BODY,
+                                            caps=(A_CAP, T_CAP), windows=5,
+                                            partitioned=False))}
+# (probe, row gather) kernels each run makes (`KernelCalls` on the CPU at
+# the JAX sizes; tests/test_torch_gate_legs*.py hold the CPU to them): on
+# the card the kernels it runs, launches less those recorded into graphs
+# plus those the replays ran. The full-width runs make the calls of the
+# same runs at the JAX prepare size (the overlap leg's at 5 windows), as
+# a batch's kernel calls do not depend on its size. The overload leg has
+# none: its plane's shed level reads the ledger's host stall fraction, a
+# wall clock, so its windows' shapes, and its kernels, vary run to run.
+GL_RUNS = {"chain": (43, 176), "partitioned_chain": (62, 1496),
+           "overlap": (90, 1094), "reshard": (66, 1573),
+           "chain_full": (43, 176), "overlap_full": (56, 228)}
+# The overhead legs' calls grow with the on/off pairs they time: the card
+# times GL_PAIRS (their modules' OVERHEAD_PAIRS), the CPU fewer.
+GL_PAIRS = {"telemetry": 16, "observatory": 20}
+GL_BASE = {"telemetry": (26, 575), "observatory": (22, 84)}
+GL_PER_PAIR = {"telemetry": (8, 272), "observatory": (34, 132)}
+
+
+def gl_calls(name: str, pairs: int | None = None):
+    """The (probe, row gather) kernels run `name` makes; an overhead leg's
+    with `pairs` timed pairs and its warm pair (None: the card's); None
+    for a run with no prediction."""
+    if name not in GL_PER_PAIR:
+        return GL_RUNS.get(name)
+    pairs = GL_PAIRS[name] if pairs is None else pairs
+    return tuple(b + p * (pairs + 1)
+                 for b, p in zip(GL_BASE[name], GL_PER_PAIR[name]))
+
+
+class KernelCalls:
+    """While entered, counts (probe, row gather) wrapper calls that launch
+    a kernel on the card: not a call whose every segment is empty (no
+    rows, or no 32-bit word a row), nor one that builds a partitioned
+    state on the host (`partitioned._chunk_insert`, under `from_oracle`:
+    its tensors are the host's on the card too). On the card they equal
+    the kernels run; on the CPU they predict them."""
+
+    def __enter__(self):
+        from tigerbeetle_tpu_torch.ops import fused_probe, row_gather
+
+        self.calls = [0, 0]
+        self._mods = (fused_probe, row_gather)
+        probe, gather = fused_probe._probe_multi, row_gather._gather_multi
+        self._saved = (probe, gather)
+
+        def host_built() -> bool:
+            f = sys._getframe(2)
+            while f is not None:
+                if f.f_code.co_name == "_chunk_insert":
+                    return True
+                f = f.f_back
+            return False
+
+        def counted_probe(segments):
+            segments = list(segments)
+            self.calls[0] += bool(
+                any(k_hi.shape[0] for _, k_hi, _ in segments)
+                and not host_built())
+            return probe(segments)
+
+        def counted_gather(tables, rows, masks):
+            ts, rs, _ = row_gather._segments(tables, rows, masks)
+            self.calls[1] += bool(
+                any(r.shape[0] and t.shape[1] * t.element_size() // 4
+                    for t, r in zip(ts, rs)) and not host_built())
+            return gather(tables, rows, masks)
+
+        fused_probe._probe_multi = counted_probe
+        row_gather._gather_multi = counted_gather
+        return self
+
+    def __exit__(self, *exc):
+        self._mods[0]._probe_multi, self._mods[1]._gather_multi = self._saved
+        return False
+
+
+def _ran_counts() -> tuple:
+    """(probe, row gather) kernels the card ran so far: the wrappers'
+    launches less those recorded into graphs, plus the replays'."""
+    from tigerbeetle_tpu_torch.ops import window_graph as WG
+
+    p, g, _ = _launch_counts()
+    return (p - WG.CAPTURED[0] + WG.REPLAYED[0],
+            g - WG.CAPTURED[1] + WG.REPLAYED[1])
+
+
+def _gate_numbers(name: str, out: dict) -> dict:
+    """The numbers a leg's summary is read for."""
+    if name.startswith("chain"):
+        return {arm: {k: out[arm]["pipelined"][k]
+                      for k in ("host_fallbacks", "routes")}
+                for arm in ("clean", "poisoned")}
+    if name == "partitioned_chain":
+        return {str(n): {k: out[n][k] for k in (
+                    "routes", "chain_batch_fallbacks", "escalations",
+                    "cross_shard_transfers")}
+                for n in out if n != "budget"}
+    if name.startswith("overlap"):
+        nums = {k: out[k] for k in ("fraction", "sync_fraction", "fallbacks",
+                                    "routes")}
+        nums["staging"] = out["staging"]
+        if "partitioned" in out:
+            nums["partitioned_fraction"] = out["partitioned"]["fraction"]
+        return nums
+    if name == "reshard":
+        return {"windows": {n: out[n]["windows"] for n in out
+                            if n != "negative"},
+                "abort": out["negative"]["abort"],
+                "artifacts": out["negative"]["artifacts"]}
+    if name == "telemetry":
+        return {"census": out["census"], "overhead": out["overhead"],
+                "negative_reds": len(out["negative_reds"])}
+    if name == "overload":
+        return {"conservation": out["conservation"],
+                "p99_ms": {c: v["admit_wait_ms"]["p99"]
+                           for c, v in out["classes"].items()},
+                "negative_worst_p99_ms": out["negative_worst_p99_ms"]}
+    return {"routes": out["profiler"]["routes"],
+            "fractions": out["profiler"]["fractions"],
+            "overhead": out["overhead"], "leak_reds":
+                out["memwatch"]["leak_reds"]}
+
+
+# The runs that wait until the host is the child's alone: the overlap
+# leg at the JAX sizes, whose 128-event packs (~60 small numpy ops under
+# the GIL) hide only if the stager thread gets a core while the dispatch
+# path waits ~1 ms on the device. On an H100's 8-core host, beside the
+# durable phase's CPU twins it read stall 0.8787 once (0.0942-0.3674 in
+# other runs), beside the partitioned phase 0.2317; the full-width run's
+# packs are bulk copies that leave the GIL, and the overhead legs time
+# both arms in turns.
+GL_ALONE = ("overlap",)
+
+
+def gate_legs_run(device, legs=GL_LEGS, full=GL_FULL,
+                  budget: bool = True, quiet=None) -> dict:
+    """The gate legs on `device`, each timed and its kernels counted
+    (`launches` the wrappers', `ran` what the device ran), then the
+    `full` runs, then the op budget: the census of every tier, held to
+    the committed pins and linted. With `quiet` (an event), the runs of
+    GL_ALONE come after the op budget, once it is set (`quiet_wait_s` the
+    seconds spent waiting). Raises on a failed leg."""
+    from tigerbeetle_tpu_torch.testing import (
+        chain_smoke, observatory_smoke, overlap_smoke, overload_smoke,
+        partitioned_chain_smoke, reshard_smoke, telemetry_smoke)
+    from tigerbeetle_tpu_torch.torchhound import opbudget as OB
+
+    fns = {"chain": chain_smoke.chain_smoke,
+           "partitioned_chain": partitioned_chain_smoke.partitioned_chain_smoke,
+           "overlap": overlap_smoke.overlap_smoke,
+           "reshard": reshard_smoke.reshard_smoke,
+           "telemetry": telemetry_smoke.telemetry_smoke,
+           "overload": overload_smoke.overload_smoke,
+           "observatory": observatory_smoke.observatory_smoke}
+    runs = [(n, n, {}) for n in legs] + [(n, leg, kw) for n, (leg, kw)
+                                         in full.items()]
+    alone = [r for r in runs if quiet is not None and r[0] in GL_ALONE]
+    out = {}
+
+    def run(name, leg, kw) -> None:
+        l0, r0 = _launch_counts()[:2], _ran_counts()
+        t = time.perf_counter()
+        with KernelCalls() as kc:
+            summary = fns[leg](device, **kw)
+        out[name] = dict(
+            seconds=time.perf_counter() - t,
+            launches=[a - b for a, b in zip(_launch_counts()[:2], l0)],
+            ran=[a - b for a, b in zip(_ran_counts(), r0)],
+            calls=kc.calls, numbers=_gate_numbers(name, summary))
+
+    for r in runs:
+        if r not in alone:
+            run(*r)
+    if budget:
+        l0 = _launch_counts()[:2]
+        t = time.perf_counter()
+        current, traces = OB.census_tiers(device, with_traces=True)
+        tel = OB.telemetry_report(device, traces)
+        cuda = torch.device(device).type == "cuda"
+        out["opbudget"] = dict(
+            seconds=time.perf_counter() - t, tiers=len(current),
+            check=(OB.check_budgets(current, on_card=cuda)
+                   + OB.check_telemetry(tel)),
+            lint=OB.run_lints(traces), telemetry=tel,
+            launches=[a - b for a, b in zip(_launch_counts()[:2], l0)])
+    if alone:
+        t = time.perf_counter()
+        if not quiet.wait(900):
+            raise RuntimeError("gate: no quiet signal in 900 s")
+        out["quiet_wait_s"] = time.perf_counter() - t
+        for r in alone:
+            run(*r)
+    return out
+
+
+def _gate_main(send, device: str, legs, full, budget: bool,
+               quiet=None) -> None:
+    """A child process: `gate_legs_run` on `device`. Sends ("ok", the
+    legs' results, the child's seconds) or ("error", the traceback)."""
+    import traceback
+
+    try:
+        t = time.perf_counter()
+        out = gate_legs_run(device, legs, full, budget, quiet)
+        send.send(("ok", out, time.perf_counter() - t))
+    except BaseException:
+        send.send(("error", traceback.format_exc()))
+
+
+class GateChild:
+    """The gate legs (`_gate_main`: `legs`, the `full` runs, the op budget
+    if `budget`) in a child process on `dev`, beside the phases the script
+    runs meanwhile. finish() lets its runs of GL_ALONE go, so that they
+    run while the script waits for the child, the host its own, and
+    returns (the legs' results, the child's seconds), failing the phase
+    if a leg failed."""
+
+    def __init__(self, dev, legs=GL_LEGS, full=GL_FULL, budget: bool = True):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.recv, send = ctx.Pipe(duplex=False)
+        self._quiet = ctx.Event()
+        self.proc = ctx.Process(target=_gate_main, daemon=True,
+                                args=(send, str(torch.device(dev)), legs,
+                                      full, budget, self._quiet))
+        self.proc.start()
+        send.close()
+
+    def finish(self) -> tuple:
+        self._quiet.set()
+        try:
+            msg = (self.recv.recv() if self.recv.poll(900) else
+                   ("error", "no answer in 900 s"))
+        except EOFError:
+            msg = ("error", f"the child exited with {self.proc.exitcode}")
+        finally:
+            self.proc.join(60)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+        check(msg[0] == "ok", f"gate legs failed:\n{msg[1]}")
+        return msg[1:]
+
+
+def gate_phase(dev, child: GateChild = None) -> dict:
+    """The gate legs' verdict (`child`'s, or a child started here): every
+    leg passed (the legs raise otherwise: negatives red, histories equal
+    to the oracle's, on the card the stall fraction under the ceiling and
+    the overhead ratios within their bounds); on the card each run's
+    kernels equal to `gl_calls`; the op budget green and its lints clean,
+    every tier's launches its kernel calls. Prints a line a leg."""
+    t = time.perf_counter()
+    if child is None:
+        child = GateChild(dev)
+    res, child_s = child.finish()
+    cuda = torch.device(dev).type == "cuda"
+    misses = []
+    for name, r in res.items():
+        if name in ("opbudget", "quiet_wait_s"):
+            continue
+        pred = gl_calls(name)
+        want = list(pred) if pred is not None else None
+        # A call launches once on the card (a replay runs a window's
+        # kernels with no call); the kernels run are the CPU's calls.
+        if r["launches"] != (r["calls"] if cuda else [0, 0]):
+            misses.append(f"{name}: launches {r['launches']} for calls "
+                          f"{r['calls']}")
+        got = r["ran"] if cuda else r["calls"]
+        if want is not None and got != want:
+            misses.append(f"{name}: kernels {got}, predicted {want}")
+        nums = r["numbers"]
+        extra = ""
+        if name.startswith("overlap"):
+            extra = (f", stall fraction {nums['fraction']} (sync arm "
+                     f"{nums['sync_fraction']})")
+        elif name in ("telemetry", "observatory"):
+            extra = (f", overhead ratio {nums['overhead']['ratio']:.4f} "
+                     f"(bound {nums['overhead']['ratio_max']})")
+        print(f"gate {name}: {r['seconds']:.1f} s, kernels ran {r['ran']} "
+              f"(predicted {want}), calls {r['calls']}, launches "
+              f"{r['launches']}{extra}", flush=True)
+    check(not misses, "gate: " + "; ".join(misses))
+    ob = res["opbudget"]
+    # On the card check_budgets also reds a tier whose launches differ
+    # from its kernel calls.
+    check(not ob["check"] and not ob["lint"],
+          f"gate opbudget: check {ob['check']}, lint {ob['lint']}")
+    print(f"gate opbudget: {ob['tiers']} tiers within the committed budget, "
+          f"each tier's launches its kernel calls, lints clean, telemetry "
+          f"lanes {ob['telemetry']['lanes']}, launches {ob['launches']}, "
+          f"{ob['seconds']:.1f} s", flush=True)
+    quiet_wait = res.pop("quiet_wait_s", None)
+    launches = [sum(r["launches"][i] for r in res.values())
+                for i in range(2)]
+    numbers = dict(legs=res, launches=launches, child_s=child_s,
+                   wait_s=time.perf_counter() - t, quiet_wait_s=quiet_wait,
+                   card=card_line_or_cpu(dev))
+    held = ("" if quiet_wait is None else
+            f", its overlap run held {quiet_wait:.1f} s until the script "
+            "waited for it")
+    print(f"gate: {len(res) - 1} runs passed, the child {child_s:.1f} s"
+          f"{held}, waited {numbers['wait_s']:.1f} s ({numbers['card']})",
+          flush=True)
+    return numbers
+
+
 def build_all():
     """Compile every kernel source at once (one nvcc each) and load them;
     prints each build time."""
@@ -9293,9 +9633,10 @@ def main() -> int:
     lap("serving_phase")
     sup = supervisor_phase(dev)
     lap("supervisor_phase")
-    # The static leg runs in a child process on the card from here on,
-    # beside the durable phase's host-bound work.
+    # The static leg and the gate legs run in child processes on the card
+    # from here on, beside the durable phase's host-bound work.
     static_child = StaticChild(dev)
+    gate_child = GateChild(dev)
     dur = durable_phase(dev)
     lap("durable_phase")
     rep = replica_phase(dev)
@@ -9324,6 +9665,8 @@ def main() -> int:
         rig.close()
     stc = static_phase(dev, static_child)
     lap("static_phase")
+    gate = gate_phase(dev, gate_child)
+    lap("gate_phase")
     twins = seq.pop("plain_twin")
     plain_ms, err = twins.finish()
     for name, (a_ms, a_err) in twins.accounts.items():
@@ -9410,6 +9753,8 @@ def main() -> int:
         # The static leg's child process: its census, capture probe and
         # registry runs on the card.
         "launches_static": stc["launches"][0],
+        # The gate legs' child: its legs, full-width runs and op budget.
+        "launches_gate": gate["launches"][0],
         "max_abs_err": max(x["max_abs_err"], a["max_abs_err"],
                            two["max_abs_err"],
                            probe["window"]["max_abs_err"]),
@@ -9472,6 +9817,7 @@ def main() -> int:
         "launches_trace_coverage": tcv["launches"][1],
         "launches_clients_server": cli["launches"][1],
         "launches_static": stc["launches"][1],
+        "launches_gate": gate["launches"][1],
         "max_abs_err": max(v["max_abs_err"] for k, v in gather.items()
                            if k != "sweep"),
         "ms": g["ms"],
@@ -9592,6 +9938,7 @@ def main() -> int:
     print(json.dumps({"trace_coverage": tcv}), flush=True)
     print(json.dumps({"clients": cli}), flush=True)
     print(json.dumps({"static": stc}), flush=True)
+    print(json.dumps({"gate": gate}, default=str), flush=True)
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

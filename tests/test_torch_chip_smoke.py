@@ -1063,3 +1063,140 @@ def test_chip_smoke_runs_the_static_leg_beside_the_durable_phase():
     assert main.count("'launches_static':") == 4
     assert CS.ST_CAPTURE_WIDTHS == (4, 8)
     assert " 26. static " in CS.__doc__
+
+
+def test_gate_phase_rehearsed_on_the_cpu():
+    """Phase 27's child process on the CPU at the JAX sizes (the chain leg;
+    every leg runs at these sizes in tests/test_torch_gate_legs*.py, the
+    op budget's check and lint in tests/test_torch_opbudget.py, and the
+    full-width runs only on the card): the leg passes and launches
+    nothing on the CPU; the phase passes a green budget and fails a run
+    whose kernel calls miss the prediction, one whose launches differ
+    from its calls, or a budget that reds."""
+    child = CS.GateChild("cpu", legs=("chain",), full={}, budget=False)
+    res, child_s = child.finish()
+    assert set(res) == {"chain"}
+    assert res["chain"]["launches"] == res["chain"]["ran"] == [0, 0]
+    assert res["chain"]["numbers"]["clean"]["host_fallbacks"] == 0
+    assert res["chain"]["numbers"]["poisoned"]["routes"][
+        "chain_batch_fallbacks"]["e2_collision"] >= 1
+    green = {"seconds": 0.0, "tiers": 26, "check": [], "lint": [],
+             "telemetry": {"lanes": 12}, "launches": [0, 0]}
+
+    class Done:
+        def __init__(self, res):
+            self.res = res
+
+        def finish(self):
+            return self.res, child_s
+
+    numbers = CS.gate_phase("cpu", Done(dict(res, opbudget=green)))
+    assert numbers["launches"] == [0, 0]
+    assert numbers["child_s"] == child_s > 0
+    assert res["chain"]["calls"] == list(CS.gl_calls("chain"))
+    bad = json.loads(json.dumps(res))
+    bad["chain"]["launches"] = [1, 0]
+    with pytest.raises(RuntimeError, match="chain: launches"):
+        CS.gate_phase("cpu", Done(dict(bad, opbudget=green)))
+    bad = json.loads(json.dumps(res))
+    bad["chain"]["calls"] = [42, 176]
+    with pytest.raises(RuntimeError, match="predicted"):
+        CS.gate_phase("cpu", Done(dict(bad, opbudget=green)))
+    with pytest.raises(RuntimeError, match="gate opbudget"):
+        CS.gate_phase("cpu", Done(dict(res, opbudget=dict(
+            green, check=["plain: heavy_total 47 > budget 46"]))))
+
+
+def test_chip_smoke_runs_the_gate_legs_beside_the_durable_phase():
+    """main() starts the gate legs' child with the static leg's, before the
+    durable phase, reads it after the static phase (the read lets the
+    overlap leg at the JAX sizes go: it runs while the script waits),
+    prints its line before the phases' seconds and the kernels line, and
+    the probe and gather kernels carry its launches; the card's
+    predictions cover every run but the overload leg's."""
+    import ast
+    import inspect
+
+    src = inspect.getsource(CS)
+    main = ast.unparse(next(
+        n for n in ast.parse(src).body
+        if isinstance(n, ast.FunctionDef) and n.name == "main"))
+    order = [main.index(f) for f in (
+        "StaticChild(dev)", "GateChild(dev)", "durable_phase(dev)",
+        "clients_phase(dev, rig)", "static_phase(dev, static_child)",
+        "gate_phase(dev, gate_child)", "'static'", "'gate'",
+        "'phase_seconds'", "'kernels'")]
+    assert order == sorted(order)
+    assert main.count("'launches_gate':") == 2
+    assert set(CS.GL_LEGS) | set(CS.GL_FULL) == (
+        set(CS.GL_RUNS) | set(CS.GL_PAIRS) | {"overload"})
+    assert CS.gl_calls("overload") is None
+    assert CS.GL_ALONE == ("overlap",)
+    assert " 27. gate " in CS.__doc__
+
+
+def test_gate_timed_runs_wait_for_the_quiet_host(monkeypatch):
+    """With a quiet event, the overlap leg at the JAX sizes comes after
+    every other run and the op budget, and starts only once it is set;
+    without one, the runs keep their order."""
+    import threading
+
+    from tigerbeetle_tpu_torch.testing import (
+        chain_smoke, observatory_smoke, overlap_smoke, telemetry_smoke)
+    from tigerbeetle_tpu_torch.torchhound import opbudget
+
+    started, timers = [], []
+
+    def stub(name, summary):
+        def leg(device, **kw):
+            run = name + ("_full" if kw else "")
+            started.append((run, quiet.is_set()))
+            if run == "chain_full":
+                # The last run before the wait: the script reads the
+                # child a little later.
+                timers.append(threading.Timer(0.2, quiet.set))
+                timers[-1].start()
+            return summary
+        return leg
+
+    pipelined = {"host_fallbacks": 0, "routes": {}}
+    overlap = dict(fraction=0.1, sync_fraction=1.0, fallbacks=0, routes={},
+                   staging={})
+    overhead = {"overhead": {"ratio": 1.0, "ratio_max": 1.05}}
+    monkeypatch.setattr(chain_smoke, "chain_smoke", stub(
+        "chain", {a: {"pipelined": pipelined}
+                  for a in ("clean", "poisoned")}))
+    monkeypatch.setattr(overlap_smoke, "overlap_smoke",
+                        stub("overlap", overlap))
+    monkeypatch.setattr(telemetry_smoke, "telemetry_smoke", stub(
+        "telemetry", dict(overhead, census={}, negative_reds=[1])))
+    monkeypatch.setattr(observatory_smoke, "observatory_smoke", stub(
+        "observatory", dict(overhead, profiler={"routes": [],
+                                                 "fractions": {}},
+                            memwatch={"leak_reds": 1})))
+    monkeypatch.setattr(opbudget, "census_tiers", lambda device, **kw: (
+        started.append(("opbudget", quiet.is_set())) or ({}, {})))
+    monkeypatch.setattr(opbudget, "telemetry_report",
+                        lambda device, traces: {})
+    monkeypatch.setattr(opbudget, "check_budgets", lambda cur, **kw: [])
+    monkeypatch.setattr(opbudget, "check_telemetry", lambda tel: [])
+    monkeypatch.setattr(opbudget, "run_lints", lambda traces: [])
+    legs = ("chain", "overlap", "telemetry", "observatory")
+    full = {"overlap_full": ("overlap", {"windows": 5}),
+            "chain_full": ("chain", {"batch": 8})}
+    quiet = threading.Event()
+    out = CS.gate_legs_run("cpu", legs, full, budget=True, quiet=quiet)
+    assert started == [("chain", False), ("telemetry", False),
+                       ("observatory", False), ("overlap_full", False),
+                       ("chain_full", False), ("opbudget", False),
+                       ("overlap", True)]
+    assert out["quiet_wait_s"] > 0
+    started.clear()
+    out = CS.gate_legs_run("cpu", legs, full, budget=False)
+    for t in timers:
+        t.join()
+    assert [n for n, _ in started] == [
+        "chain", "overlap", "telemetry", "observatory", "overlap_full",
+        "chain_full"]
+    assert "quiet_wait_s" not in out
+

@@ -10,6 +10,7 @@ the CPU (`--platform cpu`); without it the commands name the card.
 """
 
 import json
+import os
 import random
 
 import pytest
@@ -357,3 +358,46 @@ def test_devhub_command_records_and_gates(tmp_path, capsys):
     assert P_main.main(["devhub", "--history", str(history), "--out",
                         str(out), "--strict"]) == 2
     assert "tigerbeetle-tpu-torch devhub" in out.read_text()
+
+
+def test_devhub_budget_panels_read_the_ports_own_files(tmp_path, monkeypatch):
+    """The op-budget and memory panels read the port's own pins,
+    trace/opbudget_r01.json and trace/membudget.json (its SLO and alert
+    panels its trace/slo.json), and devhub opens no file under perf/."""
+    import builtins
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    port_trace = Path(P_devhub.__file__).resolve().parent / "trace"
+    history = tmp_path / "h.jsonl"
+    P_devhub.record(str(history), _rich_record())
+    opened = []
+    real_open = builtins.open
+
+    def spy(file, *args, **kw):
+        if isinstance(file, (str, os.PathLike)):
+            opened.append(Path(file).resolve())
+        return real_open(file, *args, **kw)
+
+    monkeypatch.setattr(builtins, "open", spy)
+    P_devhub.render(str(history), str(tmp_path / "d.html"))
+    monkeypatch.undo()
+    assert port_trace / "opbudget_r01.json" in opened
+    assert port_trace / "membudget.json" in opened
+    assert port_trace / "slo.json" in opened
+    assert not [p for p in opened if (repo / "perf") in p.parents]
+    doc = (tmp_path / "d.html").read_text()
+    for panel in ("op budget", "memory watermark", "SLOs",
+                  "burn-rate alerts"):
+        assert panel in doc, panel
+
+
+def test_the_ports_slo_config_is_the_jax_packages():
+    """The port's trace/slo.json is the JAX package's perf/slo.json."""
+    from pathlib import Path
+
+    from tigerbeetle_tpu_torch.trace.slo import DEFAULT_SLO_PATH
+
+    repo = Path(__file__).resolve().parent.parent
+    assert Path(DEFAULT_SLO_PATH).read_bytes() == \
+        (repo / "perf" / "slo.json").read_bytes()

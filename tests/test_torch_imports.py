@@ -97,6 +97,14 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.torchhound.retrace, "
         "tigerbeetle_tpu_torch.torchhound.shardspec, "
         "tigerbeetle_tpu_torch.testing.static_smoke, "
+        "tigerbeetle_tpu_torch.torchhound.opbudget, "
+        "tigerbeetle_tpu_torch.testing.chain_smoke, "
+        "tigerbeetle_tpu_torch.testing.partitioned_chain_smoke, "
+        "tigerbeetle_tpu_torch.testing.overlap_smoke, "
+        "tigerbeetle_tpu_torch.testing.reshard_smoke, "
+        "tigerbeetle_tpu_torch.testing.telemetry_smoke, "
+        "tigerbeetle_tpu_torch.testing.overload_smoke, "
+        "tigerbeetle_tpu_torch.testing.observatory_smoke, "
         "tigerbeetle_tpu_torch.budget_trail\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
@@ -336,3 +344,15 @@ def test_the_gate_and_the_clients_are_the_ports_own():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_gate_legs_and_the_op_budget_are_the_ports_own():
+    """The JAX gate's seven device legs and the op budget exist in the
+    port (the AST checks above cover their sources, the import check
+    their imports), with the budget the port pinned."""
+    for name in ("testing/chain_smoke.py", "testing/partitioned_chain_smoke.py",
+                 "testing/overlap_smoke.py", "testing/reshard_smoke.py",
+                 "testing/telemetry_smoke.py", "testing/overload_smoke.py",
+                 "testing/observatory_smoke.py", "torchhound/opbudget.py"):
+        assert (PORT / name) in _sources(), name
+    assert (PORT / "trace" / "opbudget_r01.json").exists()

@@ -15,8 +15,10 @@ pre-state of tests/test_torch_partitioned.py, carried across with
   evicted (`_evict_range`), each compared shard by shard (stores below
   their counts, tables but the dump bucket); `_drop_range_keys`,
   `_remap_table_vals` and `_sort_store` on their own;
-- the controller end to end (tests below and the JAX package's
-  testing/reshard_smoke.py): a split, a migrate and a merge_back under
+- the controller end to end (the port's testing/reshard_smoke.py, run
+  below with the JAX package's controller stepped beside it in lockstep,
+  at the seeds of the JAX package's reshard_smoke): a split, a migrate
+  and a merge_back under
   live traffic on a mesh of 2 (of 8 in
   tests/test_torch_resharding_mesh8.py), and a corrupted chunk that aborts
   before the flip; both packages' controllers step through the same
@@ -30,6 +32,7 @@ chain step an overlay), shared by the controller runs and the chaos
 seeds; the JAX controller at mesh 2 takes ~100 s to compile them.
 """
 
+import dataclasses
 import glob
 from types import SimpleNamespace
 
@@ -48,19 +51,16 @@ from tigerbeetle_tpu.parallel import resharding as JR
 from tigerbeetle_tpu.parallel import shard_utils as JSU
 from tigerbeetle_tpu.testing import chaos as JCH
 from tigerbeetle_tpu import types as JT
-from tigerbeetle_tpu_torch import types as TT
 from tigerbeetle_tpu_torch.convert import (partitioned_from_numpy,
                                            partitioned_to_numpy)
 from tigerbeetle_tpu_torch.ops import state_epoch as TSE
 from tigerbeetle_tpu_torch.ops.u64 import carrier
 from tigerbeetle_tpu_torch.ops.window_graph import state_signature
-from tigerbeetle_tpu_torch.oracle.state_machine import \
-    StateMachineOracle as TOracle
 from tigerbeetle_tpu_torch.parallel import partitioned as TP
 from tigerbeetle_tpu_torch.parallel import resharding as TR
 from tigerbeetle_tpu_torch.parallel import shard_utils as TSU
 from tigerbeetle_tpu_torch.testing import chaos as TCH
-from tigerbeetle_tpu_torch.trace import FlightRecorder
+from tigerbeetle_tpu_torch.testing import reshard_smoke as RS
 from tests.test_torch_partitioned import (A_CAP, T_CAP, _assert_states_equal,
                                           _jmesh, _jstate_np, _tmesh,
                                           pre_states)
@@ -272,30 +272,6 @@ def test_table_and_sort_kernels_equal_the_jax_packages(n):
 
 # ------------------------------------------------------ controller runs
 
-def _window(rng, nid, ts, n_batches=2, n=8):
-    """One window: batches of transfers between random accounts, in both
-    packages' types (the JAX package's testing/reshard_smoke._window)."""
-    pairs = []
-    for _ in range(n_batches):
-        b = []
-        for _i in range(n):
-            dr, cr = rng.choice(np.arange(1, N_ACCTS + 1), 2, replace=False)
-            b.append((nid[0], int(dr), int(cr), int(rng.integers(1, 30))))
-            nid[0] += 1
-        pairs.append(b)
-    tss = []
-    for _ in range(n_batches):
-        ts[0] += 300
-        tss.append(ts[0])
-
-    def of(T):
-        return [[T.Transfer(id=i, debit_account_id=dr, credit_account_id=cr,
-                            amount=a, ledger=1, code=1) for i, dr, cr, a in b]
-                for b in pairs]
-
-    return of, tss
-
-
 def _records(ctl):
     return dict(stage=ctl.stage, rows_copied=ctl.rows_copied,
                 dw=ctl.dw_windows,
@@ -304,108 +280,81 @@ def _records(ctl):
                 aborts=[dict(a) for a in ctl.aborts])
 
 
-class _Twin:
-    """Both packages' oracle, router, state and controller, driven
-    through the same windows."""
+def _jax_plan(plan):
+    return JR.ReshardPlan(plan.lo, plan.hi, plan.src, plan.dst, plan.kind)
 
-    def __init__(self, n, tmp, chunk_rows=8):
-        self.n = n
-        self.orc = {}
-        for key, O, T in (("t", TOracle, TT), ("j", JOracle, JT)):
-            sm = O()
-            sm.create_accounts([T.Account(id=i, ledger=1, code=1)
-                                for i in range(1, N_ACCTS + 1)], 50)
-            self.orc[key] = sm
-        self.tr = _t_router(n, flight_recorder=FlightRecorder(
-            dump_dir=str(tmp)))
+
+class _Twin(RS.ReshardRun):
+    """The port's reshard smoke run (testing/reshard_smoke.py) with the
+    JAX package's oracle, router, state and controller stepped beside it
+    through the same windows: each window's results, each stage's records
+    and each digest equal."""
+
+    def __init__(self, n, tmp, seed):
+        super().__init__(n, "cpu", seed, flight_dir=str(tmp))
+        sm = JOracle()
+        sm.create_accounts([JT.Account(id=i, ledger=1, code=1)
+                            for i in range(1, N_ACCTS + 1)], 50)
         self.jr = _jrouter(n)
-        self.ts_ = self.tr.from_oracle(self.orc["t"])
-        self.js = self.jr.from_oracle(self.orc["j"])
-        self.sig = state_signature(self.ts_)
-        self.tc = TR.ReshardController(self.tr, chunk_rows=chunk_rows,
-                                       min_double_write_windows=2)
-        self.jc = JR.ReshardController(self.jr, chunk_rows=chunk_rows,
+        self.js = self.jr.from_oracle(sm)
+        self.jc = JR.ReshardController(self.jr, chunk_rows=8,
                                        min_double_write_windows=2)
         self.windows = 0
 
     def begin(self, plan):
-        self.ts_ = self.tc.begin(self.ts_, TR.ReshardPlan(*plan))
-        self.js = self.jc.begin(self.js, JR.ReshardPlan(*plan))
+        super().begin(plan)
+        self.js = self.jc.begin(self.js, _jax_plan(plan))
         self.check()
 
-    def window(self, rng, nid, ts):
-        """One window in both; returns the aborts raised (port, JAX)."""
-        of, tss = _window(rng, nid, ts)
-        arrays = [JB.transfers_to_arrays(e) for e in of(JT)]
-        aborted = [None, None]
-        try:
-            self.ts_ = self.tc.on_window(self.ts_, arrays)
-        except TR.MigrationAborted as e:
-            self.ts_, aborted[0] = e.state, e.reason
+    def corrupt_next_chunk(self):
+        super().corrupt_next_chunk()
+        self.jc.corrupt_next_chunk = True
+
+    def step(self, batches, tss):
+        aborted = super().step(batches, tss)
+        j_batches = [[JT.Transfer(**dataclasses.asdict(t)) for t in b]
+                     for b in batches]
+        arrays = [JB.transfers_to_arrays(e) for e in j_batches]
+        j_aborted = None
         try:
             self.js = self.jc.on_window(self.js, arrays)
         except JR.MigrationAborted as e:
-            self.js, aborted[1] = e.state, e.reason
-        self.ts_, t_res = self.tr.step_window(self.ts_, arrays, tss)
+            self.js, j_aborted = e.state, e.reason
         self.js, j_res = self.jr.step_window(self.js, arrays, tss)
-        for evs, t, (ts_st, ts_ts), (js_st, js_ts) in zip(
-                of(TT), tss, t_res, j_res):
-            want = [(r.timestamp, int(r.status))
-                    for r in self.orc["t"].create_transfers(evs, t)]
-            got = [(int(ts_ts[i]), int(ts_st[i])) for i in range(len(evs))]
-            assert got == want, (got[:4], want[:4])
+        for (ts_st, ts_ts), (js_st, js_ts) in zip(self.results, j_res):
             np.testing.assert_array_equal(ts_st, js_st)
             np.testing.assert_array_equal(ts_ts, js_ts)
         self.windows += 1
         self.check()
-        assert aborted[0] == aborted[1], aborted
-        return aborted[0]
+        assert aborted == j_aborted, (aborted, j_aborted)
+        return aborted
+
+    def range_digest(self, plan):
+        got = super().range_digest(plan)
+        assert got == JSE.partitioned_range_digest(
+            self.js, plan.lo, plan.hi, plan.src)
+        return got
 
     def check(self):
-        assert _records(self.tc) == _records(self.jc)
-        assert self.tr.ownership.entries == self.jr.ownership.entries
-        assert self.tr.host_fallbacks == self.jr.host_fallbacks == 0
+        assert _records(self.ctl) == _records(self.jc)
+        assert self.router.ownership.entries == self.jr.ownership.entries
+        assert self.router.host_fallbacks == self.jr.host_fallbacks == 0
 
     def final(self):
-        got = TSE.partitioned_state_digest(self.ts_)
+        got = super().final()
         assert got == JSE.partitioned_state_digest(self.js)
-        assert got == TSE.partitioned_oracle_digest(
-            self.orc["t"], A_CAP, self.n, overlay=self.tr.ownership.entries)
-        _assert_states_equal(partitioned_to_numpy(self.ts_),
+        _assert_states_equal(partitioned_to_numpy(self.state),
                              _jstate_np(self.js))
-        assert state_signature(self.ts_) == self.sig
+        return got
 
 
 def mesh_run(n, tmp):
-    """The JAX package's reshard_smoke._mesh_run on both packages: a
+    """The port's reshard_smoke.mesh_run with the JAX package's controller
+    in lockstep (the JAX package's reshard_smoke._mesh_run, same seed): a
     split, a migrate and a merge_back under live traffic."""
-    tw = _Twin(n, tmp)
-    rng = np.random.default_rng(23 + n)
-    nid, ts = [10 ** 6], [10 ** 9]
-    plans = [(0, HALF - 1, 0, 1, "split"),
-             (HALF, U64MAX, 1, n - 1 if n > 2 else 0, "migrate"),
-             (0, HALF - 1, 0, 1, "merge_back")]
-    for _ in range(2):
-        assert tw.window(rng, nid, ts) is None
-    for plan in plans:
-        tw.begin(plan)
-        guard = 0
-        while tw.tc.stage != "done":
-            assert tw.window(rng, nid, ts) is None
-            guard += 1
-            assert guard < 64, (plan, tw.tc.stage)
-        # A range digest after each migration, both packages.
-        lo, hi, src = plan[:3]
-        assert TSE.partitioned_range_digest(tw.ts_, lo, hi, src) == \
-            JSE.partitioned_range_digest(tw.js, lo, hi, src)
-    for _ in range(2):
-        assert tw.window(rng, nid, ts) is None
-    assert len(tw.tc.migrations) == 3 and not tw.tc.aborts
-    for m in tw.tc.migrations:
-        assert m["rows_copied"] > 0 and m["double_write_windows"] >= 2, m
-    entries = tw.tr.ownership.entries
-    assert len(entries) == 1 and entries[0][4] == TSU.OVERLAY_MIGRATED
-    tw.final()
+    tw = _Twin(n, tmp, RS.SEED + n)
+    out = RS.mesh_run(tw)
+    assert out["windows"] == len(tw.history) and tw.windows >= 2 + 3 * 3
     return tw
 
 
@@ -416,28 +365,16 @@ def test_controller_mesh_run_equals_the_jax_packages(tmp_path):
 
 
 def test_corrupted_chunk_aborts_as_the_jax_packages(tmp_path, monkeypatch):
-    """reshard_smoke._negative_run on both packages: the corrupted chunk
-    aborts both at the same window, before the flip, with an artifact;
-    the traffic after it stays exact."""
-    tw = _Twin(2, tmp_path)
+    """reshard_smoke.negative_run with the JAX package's controller in
+    lockstep (its _negative_run's seed): the corrupted chunk aborts both
+    at the same window, before the flip, with an artifact; the traffic
+    after it stays exact."""
     monkeypatch.setenv("TB_TPU_FLIGHT_DIR", str(tmp_path / "jax"))
-    rng = np.random.default_rng(23 + 100 + 2)
-    nid, ts = [10 ** 6], [10 ** 9]
-    for _ in range(2):
-        assert tw.window(rng, nid, ts) is None
-    tw.begin((0, HALF - 1, 0, 1, "migrate"))
-    tw.tc.corrupt_next_chunk = tw.jc.corrupt_next_chunk = True
-    aborted, guard = None, 0
-    while aborted is None:
-        aborted = tw.window(rng, nid, ts)
-        guard += 1
-        assert guard < 64 and tw.tc.stage != "done"
-    assert aborted == "digest_mismatch" and tw.tc.stage == "aborted"
-    assert tw.tr.ownership.entries == ()
+    tw = _Twin(2, tmp_path, RS.SEED + 100 + 2)
+    out = RS.negative_run(tw, str(tmp_path))
+    assert out["abort"] == "digest_mismatch" and tw.ctl.stage == "aborted"
     assert glob.glob(str(tmp_path / "FLIGHT_*_reshard_abort_digest_*"))
-    for _ in range(2):
-        assert tw.window(rng, nid, ts) is None
-    tw.final()
+    assert glob.glob(str(tmp_path / "jax" / "FLIGHT_*_reshard_*"))
 
 
 @pytest.fixture()

@@ -11,13 +11,14 @@ badges, parity series, and the latest CFO sweep's failing seeds with
 their reproduction commands (no external assets, mirroring the
 reference's static devhub page).
 
-A copy of the JAX package's `devhub.py`. The op-budget and memory
-panels read the newest committed `perf/opbudget_r*.json` and
-`perf/membudget_r*.json` as data, found by `budget_trail.py` (the JAX
-package's `jaxhound/core.py` helper). The static-analysis panel shows
-the port's own verdict: `static_status.json` and the newest
-`tracebudget_r*.json` in `static_dir` (default: the port's trace/, where
-`testing/static_smoke.py` and torchhound write them).
+A copy of the JAX package's `devhub.py`. Its committed-file panels show
+the port's own records, in `static_dir` (default: the port's trace/):
+the op-budget panel the newest `opbudget_r*.json` (written by
+`torchhound/opbudget.py`), the memory panel `membudget.json`, the
+static-analysis panel `static_status.json` and the newest
+`tracebudget_r*.json` (written by `testing/static_smoke.py` and
+torchhound). Rounds are found by `budget_trail.py` (the JAX package's
+`jaxhound/core.py` helper).
 """
 
 from __future__ import annotations
@@ -31,28 +32,32 @@ from typing import Optional
 
 from .budget_trail import newest_round_path
 
-# The checkout's perf/ directory: this file lives one level below the
-# repo root (tigerbeetle_tpu_torch/devhub.py).
-_DEFAULT_PERF_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "perf")
-# The port's static verdict and capture budget: its trace/ directory.
+# The port's committed records: its trace/ directory.
 _DEFAULT_STATIC_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "trace")
 
 
-def newest_budget_path(perf_dir: Optional[str] = None) -> str:
-    """The newest committed perf/opbudget_r*.json."""
-    return newest_round_path(perf_dir or _DEFAULT_PERF_DIR, "opbudget")
+def newest_budget_path(budget_dir: Optional[str] = None) -> str:
+    """The newest committed opbudget_r*.json in budget_dir (default: the
+    port's trace/)."""
+    return newest_round_path(budget_dir or _DEFAULT_STATIC_DIR, "opbudget")
 
 
-def newest_tracebudget_path(perf_dir: Optional[str] = None) -> str:
-    """The newest committed perf/tracebudget_r*.json."""
-    return newest_round_path(perf_dir or _DEFAULT_PERF_DIR, "tracebudget")
+def newest_tracebudget_path(budget_dir: Optional[str] = None) -> str:
+    """The newest committed tracebudget_r*.json in budget_dir."""
+    return newest_round_path(budget_dir or _DEFAULT_STATIC_DIR,
+                             "tracebudget")
 
 
-def newest_membudget_path(perf_dir: Optional[str] = None) -> str:
-    """The newest committed perf/membudget_r*.json."""
-    return newest_round_path(perf_dir or _DEFAULT_PERF_DIR, "membudget")
+def membudget_path(budget_dir: Optional[str] = None) -> str:
+    """The memory budget in budget_dir: the port pins one
+    `membudget.json`; a directory of rounds is read at its newest
+    `membudget_r*.json`."""
+    budget_dir = budget_dir or _DEFAULT_STATIC_DIR
+    path = os.path.join(budget_dir, "membudget.json")
+    if os.path.exists(path):
+        return path
+    return newest_round_path(budget_dir, "membudget")
 
 
 NUMERIC_KEYS = (
@@ -195,8 +200,9 @@ def render(history_path: str, out_path: str,
            static_dir: Optional[str] = None) -> int:
     """Render the dashboard; returns the number of history entries.
     `entries`/`regress` let a caller that already loaded the history
-    (cmd_devhub's gate) avoid parsing and scanning it twice. The static
-    panel reads `static_dir` (default: the port's trace/)."""
+    (cmd_devhub's gate) avoid parsing and scanning it twice. The
+    static, op-budget and memory panels read their committed files in
+    `static_dir` (default: the port's trace/)."""
     if static_dir is None:
         static_dir = _DEFAULT_STATIC_DIR
     if entries is None:
@@ -473,7 +479,7 @@ def render(history_path: str, out_path: str,
             + "".join(rows_ad) + "</table>")
     # Op-budget table (next to the fallback diagnostics): the newest
     # run's heavy-op census per kernel tier vs the committed gate
-    # ceilings (the NEWEST perf/opbudget_r*.json — resolved, not
+    # ceilings (the NEWEST opbudget_r*.json — resolved, not
     # hardcoded, so a new budget round shows up without a devhub edit)
     # — compile-footprint regressions are rendered as loudly as
     # throughput ones.
@@ -484,7 +490,7 @@ def render(history_path: str, out_path: str,
     if ob:
         budgets = {}
         try:
-            with open(newest_budget_path()) as f:
+            with open(newest_budget_path(static_dir)) as f:
                 budgets = json.load(f).get("budget", {})
         except (OSError, ValueError):
             pass
@@ -878,7 +884,7 @@ def render(history_path: str, out_path: str,
     # Performance-observatory panels (bench ##profile):
     # achieved-vs-roofline fraction per dispatch tier, the sampled
     # dispatch_device_time series, the memory watermark vs the NEWEST
-    # committed perf/membudget_r*.json (resolved, not hardcoded — a new
+    # committed membudget (resolved, not hardcoded — a new
     # budget round shows up without a devhub edit), and the burn-rate
     # alert engine's rule catalog + firing state.
     obs_html = ""
@@ -932,7 +938,7 @@ def render(history_path: str, out_path: str,
         if mwr:
             pins = {}
             try:
-                with open(newest_membudget_path()) as f:
+                with open(membudget_path(static_dir)) as f:
                     pins = json.load(f).get("components", {})
             except (OSError, ValueError, ImportError):
                 pass

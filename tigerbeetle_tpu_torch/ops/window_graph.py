@@ -60,6 +60,11 @@ capture, whose difference is the graph's pool; and `evictions`, the
 graphs dropped for room. The kernel wrappers' LAUNCHES move at eager windows
 and at captures only, so a kernel's launches on a window path are its
 wrapper count plus (replays - captures) times its launches a window.
+`CAPTURED` adds up, over every ledger, the probe and row-gather launches
+the wrappers counted inside captures (recorded into a graph, not run);
+`REPLAYED` the launches the replays ran (a graph's own at each of its
+replays). LAUNCHES - CAPTURED + REPLAYED is what the card ran: one
+window's kernels a window, as on the CPU.
 """
 
 from __future__ import annotations
@@ -71,6 +76,17 @@ import torch
 # pool held at most ~0.4 GB on an H100, a 32-prepare chain's ~1.2 GB
 # (chip_smoke.py's window phases, PERF.md).
 MAX_GRAPHS = 8
+
+# (probe, row gather) launches counted inside captures, and launches that
+# graph replays ran, over every ledger.
+CAPTURED = [0, 0]
+REPLAYED = [0, 0]
+
+
+def _wrapper_launches() -> tuple:
+    from . import fused_probe, row_gather
+
+    return fused_probe.LAUNCHES, row_gather.LAUNCHES
 
 
 def _tensors(tree):
@@ -139,6 +155,7 @@ class WindowGraphs:
         self.device = device
         self.cuda = device.type == "cuda"
         self._graphs: dict = {}     # key -> (graph, static outputs)
+        self._per_replay: dict = {}  # key -> its graph's launches
         self._seen: set = set()     # keys whose eager window ran
         self._inputs: dict = {}     # lane-matrix shape -> static buffer
         self._ff = torch.zeros((), dtype=torch.bool, device=device)
@@ -232,7 +249,7 @@ class WindowGraphs:
             self._graphs[key] = hit   # now the most recently replayed
             graph, outs = hit
             graph.replay()
-            self.replays[key] = self.replays.get(key, 0) + 1
+            self._replayed(key)
             return outs
         if key not in self._seen:
             self._seen.add(key)
@@ -241,12 +258,22 @@ class WindowGraphs:
         self._make_room()
         before = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
+        launched = _wrapper_launches()
         with torch.cuda.graph(graph):
             outs = call(state, lanes, self._ff)
+        self._per_replay[key] = tuple(
+            a - b for a, b in zip(_wrapper_launches(), launched))
+        for i, n in enumerate(self._per_replay[key]):
+            CAPTURED[i] += n
         self._graphs[key] = (graph, outs)
         self.captures[key] = self.captures.get(key, 0) + 1
         self.reserved[key] = (before,
                               torch.cuda.memory_reserved(self.device))
         graph.replay()
-        self.replays[key] = self.replays.get(key, 0) + 1
+        self._replayed(key)
         return outs
+
+    def _replayed(self, key) -> None:
+        self.replays[key] = self.replays.get(key, 0) + 1
+        for i, n in enumerate(self._per_replay[key]):
+            REPLAYED[i] += n

@@ -182,10 +182,31 @@ def _telemetry_block(out, fbc, *, n_lanes, n_a, n_live, xchg_bad, bad_l,
     def const(v):
         return torch.full((), v, dtype=torch.int64, device=dev)
 
-    words = (out["fix_rounds"], cause, n_live, const(2 * n_lanes), n_a,
-             const(4 * n_lanes), cross_shard, ring_count, n_mine_ok, owned,
-             xchg_bad, bad_l)
-    return torch.stack([w.to(device=dev, dtype=torch.int64) for w in words])
+    return _telemetry_pack(
+        out["fix_rounds"], cause, n_live, const(2 * n_lanes), n_a,
+        const(4 * n_lanes), cross_shard, ring_count, n_mine_ok, owned,
+        xchg_bad, bad_l, device=dev)
+
+
+# The telemetry pack's census hook: None but while torchhound's census
+# runs a call (`torchhound/core.py` `trace`), which then sees each pack's
+# words and the aten ops inside it (`telemetry_census`). It changes
+# nothing the pack computes.
+PACK_HOOK = None
+
+
+def _telemetry_pack(*words, device):
+    """Pack the telemetry words into one int64 vector on `device`: the
+    named pack torchhound's telemetry census finds (the JAX package's
+    named `_telemetry_pack` jit)."""
+    if PACK_HOOK is not None:
+        return PACK_HOOK(_pack_words, words, device)
+    return _pack_words(words, device)
+
+
+def _pack_words(words, device):
+    return torch.stack([w.to(device=device, dtype=torch.int64)
+                        for w in words])
 
 
 def decode_telemetry(tel) -> dict:

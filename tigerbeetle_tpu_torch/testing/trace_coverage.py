@@ -564,7 +564,7 @@ def _scenario_admission(col: _Collector) -> None:
 
 
 def _scenario_slo(col: _Collector) -> None:
-    """The SLO engine against the COMMITTED perf/slo.json: objectives
+    """The SLO engine against the COMMITTED slo.json: objectives
     must load (every referenced event on-catalog — a dead SLO is a red
     right here), evaluate against real samples, and a forced-breach
     pass (thresholds replaced with -1) must emit the slo_breach
@@ -752,8 +752,7 @@ def coverage_main(scenarios=SCENARIOS, device=None) -> int:
 
 
 def metrics_main(device=None) -> int:
-    """The metrics leg: the committed perf/slo.json (at the repo's root)
-    must
+    """The metrics leg: the committed slo.json (the port's trace/) must
     load with every referenced event on-catalog (a dead SLO is RED),
     and a live /metrics endpoint over a real serving run must produce
     Prometheus-parseable text whose per-route window p99 agrees with
@@ -769,11 +768,11 @@ def metrics_main(device=None) -> int:
     failures = 0
     try:
         cfg = load_objectives()
-        print(f"[metrics] perf/slo.json: {len(cfg['objectives'])} "
+        print(f"[metrics] slo.json: {len(cfg['objectives'])} "
               f"objectives on-catalog, burn window "
               f"{cfg['burn_window_runs']} runs", flush=True)
     except (OSError, ValueError) as e:
-        print(f"[metrics] RED: perf/slo.json invalid: {e}", flush=True)
+        print(f"[metrics] RED: slo.json invalid: {e}", flush=True)
         return 1
     # A real (seeded, tiny) serving run feeds the registry, then the
     # endpoint serves it and the scrape must parse.

@@ -27,6 +27,9 @@ captured CUDA graph a key), each in its PyTorch form:
                device at the per-shard size, no shared storage, written
                in place, no whole-state operand.
   registry     the serving-entry registry the passes run over.
+  opbudget     the op budget: the heavy-op census of every dispatch tier
+               pinned in trace/opbudget_r*.json (`--write`, `--check`),
+               the telemetry pack's lanes, and the lints (`--lint`).
 
 CLI: ``python -m tigerbeetle_tpu_torch.torchhound [--kernel K] [--json]
 [--pass determinism|host|retrace|sharding|all] [--device D]``; the
@@ -55,9 +58,12 @@ from .core import (  # noqa: F401 — the census and its lints
     closure_constants,
     heavy_census,
     kernels,
+    newest_budget_path,
     newest_tracebudget_path,
     report,
     state_gathers,
+    telemetry_census,
     trace,
     while_ops,
+    window_body_census,
 )

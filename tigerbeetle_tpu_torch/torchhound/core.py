@@ -172,6 +172,15 @@ class Trace(_CostCounter):
         self.args: tuple = ()
         self.state_before: list = []
         self.state_after: list = []
+        self.packs: list = []
+
+    def pack(self, fn, words, device):
+        """The telemetry pack's hook (`parallel/partitioned.py`
+        PACK_HOOK): runs it, noting (its words, the aten ops inside it)."""
+        before = self.ops
+        out = fn(words, device)
+        self.packs.append((len(words), self.ops - before))
+        return out
 
     def dispatch(self, func, args, kwargs):
         out = super().dispatch(func, args, kwargs)
@@ -235,10 +244,16 @@ def trace(fn, *args) -> Trace:
     """Run fn(*args) once, eagerly, under the census; returns its Trace
     (the call's result in `.result`; `state_before` / `state_after` the
     `leaf_meta` of its first argument, the state, around the call)."""
+    from ..parallel import partitioned
+
     t = Trace()
     t.args = args
     t.state_before = leaf_meta(args[0]) if args else []
-    t.launches = _count(lambda: fn(*args), t)
+    partitioned.PACK_HOOK = t.pack
+    try:
+        t.launches = _count(lambda: fn(*args), t)
+    finally:
+        partitioned.PACK_HOOK = None
     t.state_after = leaf_meta(args[0]) if args else []
     for c in t.collectives:
         t.heavy["collective"] += 1
@@ -257,6 +272,48 @@ def heavy_census(tr: Trace) -> dict:
     out["collective_operand_bytes"] = sum(c["bytes"]
                                           for c in tr.collectives)
     return out
+
+
+def window_body_census(census_hi: dict, census_lo: dict, w_hi: int = 8,
+                       w_lo: int = 2) -> dict:
+    """One prepare's share of a chain window's census: the port's form of
+    the JAX package's scan_body_census. The port's chain is a Python loop
+    over its prepares (one graph on the card), so the body is the census
+    at depth w_hi less the census at depth w_lo, over w_hi - w_lo; every
+    count and byte total must divide evenly (each prepare does the same
+    work), or this raises."""
+    span = w_hi - w_lo
+
+    def share(a, b, what):
+        q, r = divmod(a - b, span)
+        if r or q < 0:
+            raise ValueError(f"window body census: {what} moves by "
+                             f"{a - b} over {span} prepares")
+        return q
+
+    out = {"heavy": {c: share(census_hi["heavy"].get(c, 0),
+                              census_lo["heavy"].get(c, 0), c)
+                     for c in census_hi["heavy"]}}
+    out["heavy_total"] = sum(out["heavy"].values())
+    for key in ("heavy_operand_bytes", "collective_operand_bytes"):
+        out[key] = share(census_hi[key], census_lo[key], key)
+    for key in ("kernels", "launches"):
+        if key in census_hi:
+            out[key] = {k: share(v, census_lo[key].get(k, 0), k)
+                        for k, v in census_hi[key].items()}
+    return out
+
+
+def telemetry_census(tr: Trace) -> dict:
+    """The device-telemetry lanes of a traced call: `sites` (pack calls:
+    one a shard and prepare, where the JAX package's jaxpr holds one
+    equation), `lanes` (words a pack, the widest) and `ops` (aten ops
+    inside the largest pack). The op budget pins `lanes`, so the block
+    cannot grow a word without a new budget round, and bounds `ops`, so
+    no compute hides in the observability plane."""
+    return {"sites": len(tr.packs),
+            "lanes": max((p[0] for p in tr.packs), default=0),
+            "ops": max((p[1] for p in tr.packs), default=0)}
 
 
 def closure_constants(tr: Trace) -> list[tuple[str, int]]:
@@ -284,6 +341,12 @@ def state_gathers(tr: Trace, limit: int = STATE_GATHER_LIMIT) -> list:
 # (tigerbeetle_tpu_torch/trace/).
 _DEFAULT_BUDGET_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "trace")
+
+
+def newest_budget_path(budget_dir: str | None = None) -> str:
+    """The newest committed trace/opbudget_r*.json: the op budget's pinned
+    census per dispatch tier (`torchhound/opbudget.py`)."""
+    return newest_round_path(budget_dir or _DEFAULT_BUDGET_DIR, "opbudget")
 
 
 def newest_tracebudget_path(budget_dir: str | None = None) -> str:

@@ -19,9 +19,9 @@ involved, and ported where one is.
   as a JSON artifact on recovery.
 - `merge.py`  — cluster-wide trace merge (pid=replica, common timeline),
   exact offline span quantiles, critical paths and causal assembly.
-- `slo.py`    — objectives from perf/slo.json, evaluation against live
+- `slo.py`    — objectives from slo.json, evaluation against live
   histograms, and run-granular burn-rate accounting.
-- `alerts.py` — the burn-rate alert rules of perf/slo.json, parsed and
+- `alerts.py` — the burn-rate alert rules of slo.json, parsed and
   checked, and the multi-window multi-burn-rate `AlertEngine` the
   serving supervisor ticks once a committed window (typed alerts,
   `alert:<rule>` tail retention, page-severity flight freezes).

@@ -1,10 +1,10 @@
-"""Burn-rate alert rules over the SLO objectives: perf/slo.json's
+"""Burn-rate alert rules over the SLO objectives: slo.json's
 ``alerts`` section, parsed and checked against its own objectives.
 
 Each rule watches one declared objective and fires SRE-style, when both
 a fast and a slow burn window exceed their burn thresholds (Google SRE
 workbook ch.5, in commit-window ticks). A rule naming an objective that
-perf/slo.json does not declare, an unknown severity, inverted windows or
+slo.json does not declare, an unknown severity, inverted windows or
 a missing runbook anchor is a load-time ValueError.
 
 Mechanics per tick (a tick = one committed serving window, decimated
@@ -48,7 +48,7 @@ class AlertRule:
     """One burn-rate rule over a declared SLO objective."""
 
     name: str
-    objective: str           # perf/slo.json objective name
+    objective: str           # slo.json objective name
     fast_window: int         # ticks; the cliff detector
     slow_window: int         # ticks; the blip filter (> fast_window)
     fast_burn: float         # breach fraction to trip the fast window
@@ -81,7 +81,7 @@ class Alert:
 
 
 def load_alert_rules(path: Optional[str] = None) -> dict:
-    """Parse perf/slo.json's ``alerts`` section against its own
+    """Parse slo.json's ``alerts`` section against its own
     objectives. Returns {"rules": [AlertRule...], "objectives":
     {name: Objective}}. A rule referencing an undeclared objective, an
     unknown severity, or inverted windows is a ValueError — the

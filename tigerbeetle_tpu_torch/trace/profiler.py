@@ -232,22 +232,35 @@ _FLOP_OPS = frozenset((
 
 
 def _tensor_bytes(tree) -> tuple:
-    """(bytes, elements) of every tensor in a nested args/outputs tree."""
-    from torch.utils._pytree import tree_leaves
-
+    """(bytes, elements) of every tensor in a nested args/outputs tree
+    (tensors inside lists, tuples and dicts, as pytree leaves)."""
     nbytes = numel = 0
-    for x in tree_leaves(tree):
+    stack = [tree]
+    while stack:
+        x = stack.pop()
         if isinstance(x, torch.Tensor):
-            nbytes += x.numel() * x.element_size()
-            numel += x.numel()
+            n = x.numel()
+            nbytes += n * x.element_size()
+            numel += n
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
     return nbytes, numel
+
+
+_VIEWS: dict = {}
 
 
 def _is_view(func) -> bool:
     """A view returns an alias of an input that it does not write: it
     moves no bytes."""
-    return any(r.alias_info is not None and not r.alias_info.is_write
-               for r in func._schema.returns)
+    v = _VIEWS.get(func)
+    if v is None:
+        v = _VIEWS[func] = any(
+            r.alias_info is not None and not r.alias_info.is_write
+            for r in func._schema.returns)
+    return v
 
 
 class _CostCounter:
@@ -261,7 +274,7 @@ class _CostCounter:
 
     def __init__(self):
         self.ops = self.flops = self.op_bytes = 0
-        self.kernel_bytes = 0
+        self.kernel_bytes = self.kernel_operand_bytes = 0
         self.kernel_calls: dict = {}
         self.collectives: list = []
         self.paused = 0
@@ -293,6 +306,7 @@ class _CostCounter:
         try:
             out = fn(*args)
             self.kernel_bytes += bound_bytes(*args, out)
+            self.kernel_operand_bytes += _tensor_bytes(args)[0]
         finally:
             self.paused -= 1
         self.kernel_calls[name] = self.kernel_calls.get(name, 0) + 1

@@ -1,6 +1,6 @@
 """SLO engine: declared latency objectives, evaluation, burn rates.
 
-`perf/slo.json` declares the service-level objectives (the ROADMAP's
+`slo.json` declares the service-level objectives (the ROADMAP's
 "per-class p50/p99 latency SLOs tracked in bench + devhub"). Schema:
 
     {
@@ -27,8 +27,10 @@ Burn-rate accounting is run-granular: over the trailing
 of evaluated runs in breach; burn above `burn_budget` (or a breach in
 the latest run) raises the devhub panel's badge.
 
-The port's copy of the JAX package's `trace/slo.py`; it reads the same
-data file, `perf/slo.json` at the repo root, against the port's catalog.
+The port's copy of the JAX package's `trace/slo.py`. It reads its own
+copy of the JAX package's data file (`perf/slo.json`, equal byte for
+byte, held so by tests/test_torch_gate_legs.py): `slo.json` beside this
+module, against the port's catalog.
 """
 
 from __future__ import annotations
@@ -42,8 +44,7 @@ from .event import Event, EventKind, lookup
 from .histogram import Histogram
 
 DEFAULT_SLO_PATH = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "..", "..", "perf",
-    "slo.json")
+    os.path.dirname(os.path.abspath(__file__)), "slo.json")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +59,7 @@ class Objective:
 
 
 def load_objectives(path: Optional[str] = None) -> dict:
-    """Parse perf/slo.json -> {"objectives": [Objective...],
+    """Parse slo.json -> {"objectives": [Objective...],
     "burn_window_runs": int, "burn_budget": float}. Raises ValueError
     on schema violations or objectives referencing off-catalog events
     (dead SLOs cannot ship — the gate metrics leg runs exactly this)."""
