@@ -9122,14 +9122,16 @@ def clients_phase(dev, rig: ClientsRig = None, n_accounts: int = N_ACCOUNTS,
 ST_CAPTURE_WIDTHS = (4, 8)   # retrace.capture_probe's default widths
 
 
-def _static_main(send, device: str, status_path: str) -> None:
-    """A child process: the static leg on `device`. Sends ("ok", the
-    status, the child's seconds, the kernels' launches in it, create_seq's
-    by kernel) or ("error", the traceback)."""
+def _static_main(send, device: str, status_path: str,
+                 threads: int) -> None:
+    """A child process: the static leg on `device` with `threads` intra-op
+    threads. Sends ("ok", the status, the child's seconds, the kernels'
+    launches in it, create_seq's by kernel) or ("error", the traceback)."""
     import traceback
 
     try:
         t = time.perf_counter()
+        torch.set_num_threads(threads)
         from tigerbeetle_tpu_torch.testing import static_smoke as SS
 
         _zero_launches()
@@ -9142,9 +9144,10 @@ def _static_main(send, device: str, status_path: str) -> None:
 
 class StaticChild:
     """The static leg (`_static_main`) in a child process on `dev`,
-    beside the phases the script runs meanwhile; finish() waits for it
-    and returns (status, the child's seconds, its launches), failing the
-    phase if it failed."""
+    beside the phases the script runs meanwhile, with this process's
+    intra-op threads (a spawned child would otherwise take one a core);
+    finish() waits for it and returns (status, the child's seconds, its
+    launches), failing the phase if it failed."""
 
     def __init__(self, dev):
         import multiprocessing
@@ -9156,7 +9159,7 @@ class StaticChild:
         self.recv, send = ctx.Pipe(duplex=False)
         self.proc = ctx.Process(target=_static_main, daemon=True,
                                 args=(send, str(torch.device(dev)),
-                                      self.path))
+                                      self.path, torch.get_num_threads()))
         self.proc.start()
         send.close()
 
@@ -9444,14 +9447,16 @@ def gate_legs_run(device, legs=GL_LEGS, full=GL_FULL,
     return out
 
 
-def _gate_main(send, device: str, legs, full, budget: bool,
-               quiet=None) -> None:
-    """A child process: `gate_legs_run` on `device`. Sends ("ok", the
-    legs' results, the child's seconds) or ("error", the traceback)."""
+def _gate_main(send, device: str, legs, full, budget: bool, quiet,
+               threads: int) -> None:
+    """A child process: `gate_legs_run` on `device` with `threads`
+    intra-op threads. Sends ("ok", the legs' results, the child's
+    seconds) or ("error", the traceback)."""
     import traceback
 
     try:
         t = time.perf_counter()
+        torch.set_num_threads(threads)
         out = gate_legs_run(device, legs, full, budget, quiet)
         send.send(("ok", out, time.perf_counter() - t))
     except BaseException:
@@ -9461,7 +9466,8 @@ def _gate_main(send, device: str, legs, full, budget: bool,
 class GateChild:
     """The gate legs (`_gate_main`: `legs`, the `full` runs, the op budget
     if `budget`) in a child process on `dev`, beside the phases the script
-    runs meanwhile. finish() lets its runs of GL_ALONE go, so that they
+    runs meanwhile, with this process's intra-op threads (as
+    `StaticChild`). finish() lets its runs of GL_ALONE go, so that they
     run while the script waits for the child, the host its own, and
     returns (the legs' results, the child's seconds), failing the phase
     if a leg failed."""
@@ -9474,7 +9480,8 @@ class GateChild:
         self._quiet = ctx.Event()
         self.proc = ctx.Process(target=_gate_main, daemon=True,
                                 args=(send, str(torch.device(dev)), legs,
-                                      full, budget, self._quiet))
+                                      full, budget, self._quiet,
+                                      torch.get_num_threads()))
         self.proc.start()
         send.close()
 

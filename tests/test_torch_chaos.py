@@ -13,11 +13,15 @@ in both packages: one run of each package a seed, nothing stubbed (the
 mesh scenarios recorded as they are called), shared by the module, must
 give the same traffic and the same summary, for a seed that draws them
 (2: the supervisor part, and shard_loss, shard_resync and reshard, names
-aside) and one that does not (4). The plan, the traffic shapes and the
-Zipfian generator are compared draw for draw.
+aside) and one that does not (4). After that run, the mesh scenarios
+alone for more seeds (shard_resync 2 and 10, reshard 2, 10 and 3), on
+the JAX package's routers that run compiled, with their flight dumps
+and a fresh router on a given mesh. The plan, the traffic shapes and
+the Zipfian generator are compared draw for draw.
 """
 
 import dataclasses
+import glob
 import random
 
 import numpy as np
@@ -29,8 +33,10 @@ from tigerbeetle_tpu import constants as JC
 from tigerbeetle_tpu.testing import chaos as JCH
 from tigerbeetle_tpu.utils import zipfian as JZ
 from tigerbeetle_tpu_torch import constants as TC
+from tigerbeetle_tpu_torch.parallel import shard_utils as TSU
 from tigerbeetle_tpu_torch.testing import chaos as TCH
 from tigerbeetle_tpu_torch.utils import zipfian as TZ
+from tests.port_verify import port_verify_restored  # noqa: F401
 
 # One intra-op thread: these tests share the CPU with the rest of the
 # suite, some of whose tests time themselves.
@@ -137,6 +143,57 @@ def test_mesh_seed_returns_shard_loss_and_shard_resync(default_runs,
     assert got["reshard"]["devices"] == 2
     monkeypatch.setattr(TCH, "_run_supervisor_chaos", lambda *a, **k: {})
     assert not TCH.run_chaos_seed(4, device="cpu")
+
+
+# The mesh scenarios alone, for more seeds. The JAX package's cached
+# routers (`_PART_ROUTER` on its 8 host devices, `_RESHARD_ROUTER` on 2)
+# are the ones its seed-2 run above compiled; they come back to base
+# ownership after each scenario.
+
+@pytest.mark.parametrize("seed", [2, 10])
+def test_shard_resync_scenario_equals_the_jax_packages(seed, tmp_path):
+    """The port's shard_resync_scenario equals the JAX package's (the
+    dropped device's and the flight dump's names aside)."""
+    got = TCH.shard_resync_scenario(seed, device="cpu",
+                                    flight_dir=str(tmp_path))
+    want = JCH.shard_resync_scenario(seed)
+    assert _no_names(got) == _no_names(want)
+    assert got["resyncs"] == 1 and got["devices"] == 8
+    assert got["flight_dump"].startswith("FLIGHT_0_shard_loss_quarantine_")
+    assert (tmp_path / got["flight_dump"]).exists()
+    # A given mesh gets a fresh router.
+    two = TCH.shard_resync_scenario(seed, mesh=TSU.Mesh(["cpu"] * 2),
+                                    flight_dir=str(tmp_path))
+    assert two["devices"] == 2 and two["resyncs"] == 1
+
+
+@pytest.mark.parametrize("seed", [2, 10, 3])
+def test_reshard_chaos_scenario_equals_the_jax_packages(seed, tmp_path):
+    got = TCH.reshard_chaos_scenario(seed, device="cpu",
+                                     flight_dir=str(tmp_path))
+    want = JCH.reshard_chaos_scenario(seed)
+    assert got == want
+    assert got["aborts"] == got["artifacts"] == 6
+    assert len(glob.glob(str(tmp_path / "FLIGHT_*_reshard_*"))) == 6
+    # The cached router comes back with base ownership; a given mesh gets
+    # a fresh router.
+    routers = [r for k, r in TCH._RESHARD_ROUTERS.items()
+               if k == ("cpu", str(tmp_path))]
+    assert routers and routers[0].ownership.entries == ()
+    assert TCH.reshard_chaos_scenario(seed, mesh=TSU.Mesh(["cpu"] * 2)) \
+        == got
+
+
+@pytest.mark.parametrize("seed", [2])
+def test_mesh_seed_reshard_runs_through_the_supervisor_chaos(seed,
+                                                           default_runs):
+    """The port's default chaos seed that draws the mesh scenario returns
+    `reshard` beside `shard_loss` and `shard_resync` (the module's one
+    run of the seed)."""
+    got = default_runs(seed)["got"]
+    assert {"shard_loss", "shard_resync", "reshard"} <= set(got)
+    assert got["reshard"]["aborts"] == 6
+    assert got["reshard"]["migrations"] == 1
 
 
 @pytest.mark.parametrize("seed", range(12))

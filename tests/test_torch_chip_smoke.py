@@ -25,6 +25,7 @@ from tigerbeetle_tpu_torch import DeviceLedger
 from tigerbeetle_tpu_torch import types as TT
 from tigerbeetle_tpu_torch.ops import fast_kernels, hash_table, ledger
 from tigerbeetle_tpu_torch.ops.state_epoch import device_state_digest
+from tests.port_verify import port_verify_restored  # noqa: F401
 
 # One intra-op thread: these tests share the CPU with the rest of the
 # suite, some of whose tests time themselves.
@@ -1040,6 +1041,33 @@ def test_static_phase_rehearsed_on_the_cpu():
     bad["negatives"]["host_wall_clock"] = False
     with pytest.raises(RuntimeError, match="negative proofs"):
         CS.static_phase("cpu", Done(bad))
+
+
+@pytest.mark.parametrize("main", ["static", "gate"])
+def test_the_childrens_mains_take_the_threads_they_are_given(main,
+                                                             monkeypatch):
+    """The static and gate children run with the intra-op threads their
+    parent passes (`StaticChild` and `GateChild` pass their own): a
+    spawned child would otherwise take one a core."""
+    from tigerbeetle_tpu_torch.testing import static_smoke as SS
+
+    seen, sent = [], []
+    monkeypatch.setattr(SS, "static_smoke", lambda **k: seen.append(
+        torch.get_num_threads()) or {})
+    monkeypatch.setattr(CS, "gate_legs_run", lambda *a: seen.append(
+        torch.get_num_threads()) or {})
+
+    class Send:
+        send = sent.append
+
+    try:
+        if main == "static":
+            CS._static_main(Send(), "cpu", "unused.json", 3)
+        else:
+            CS._gate_main(Send(), "cpu", (), {}, False, None, 3)
+    finally:
+        torch.set_num_threads(1)
+    assert seen == [3] and sent[0][0] == "ok", sent
 
 
 def test_chip_smoke_runs_the_static_leg_beside_the_durable_phase():

@@ -21,10 +21,10 @@ from tigerbeetle_tpu.testing import cluster as J_cluster
 from tigerbeetle_tpu.types import Operation as J_Operation
 from tigerbeetle_tpu.vsr import snapshot as J_snapshot
 from tigerbeetle_tpu_torch import StateMachine as P_StateMachine
-from tigerbeetle_tpu_torch import constants as P_constants
 from tigerbeetle_tpu_torch.testing import cluster as P_cluster
 from tigerbeetle_tpu_torch.types import Account, Operation, Transfer
 from tigerbeetle_tpu_torch.vsr import snapshot as P_snapshot
+from tests.port_verify import port_verify_restored  # noqa: F401
 
 MS = 1_000_000
 
@@ -195,15 +195,11 @@ CASES = {
 @pytest.mark.parametrize("case", list(CASES))
 def test_cluster_equal_to_the_jax_package(case):
     seed, count, network, scenario = CASES[case]
-    verify = P_constants.VERIFY
-    try:
-        out = {}
-        for pkg in ("P", "J"):
-            run = _Run(pkg, seed, count, network)
-            scenario(run)
-            out[pkg] = run.result()
-    finally:
-        P_constants.set_verify(verify)
+    out = {}
+    for pkg in ("P", "J"):
+        run = _Run(pkg, seed, count, network)
+        scenario(run)
+        out[pkg] = run.result()
     p, j = out["P"], out["J"]
     assert p["replicas"] == j["replicas"]
     assert p["replies"] == j["replies"]

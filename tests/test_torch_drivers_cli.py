@@ -23,6 +23,7 @@ from tigerbeetle_tpu_torch import devhub as P_devhub, main as P_main
 from tigerbeetle_tpu_torch.testing import chaos as P_chaos
 from tigerbeetle_tpu_torch.testing import fuzz as P_fuzz
 from tigerbeetle_tpu_torch.testing import vopr as P_vopr
+from tests.port_verify import port_verify_restored  # noqa: F401
 
 CFO_COUNTS = {"chaos": 1, "fuzz:durability": 1, "fuzz:ewah": 1,
               "fuzz:lsm_manifest_level": 1, "vopr": 4}

@@ -20,6 +20,7 @@ from tigerbeetle_tpu.testing import fuzz as J
 from tigerbeetle_tpu_torch import constants
 from tigerbeetle_tpu_torch.ops import ledger as P_ledger
 from tigerbeetle_tpu_torch.testing import fuzz as P
+from tests.port_verify import port_verify_restored  # noqa: F401
 
 # Small sizes (the JAX tests' where they are small): name -> (seed,
 # iterations). state_machine and device_ledger at the JAX tests' own.

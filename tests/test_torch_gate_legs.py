@@ -37,13 +37,13 @@ from tigerbeetle_tpu.testing import partitioned_chain_smoke as JPC
 from tigerbeetle_tpu.testing import reshard_smoke as JRS
 from tigerbeetle_tpu.testing import telemetry_smoke as JTS
 import chip_smoke as CS
-from tigerbeetle_tpu_torch import constants
 from tigerbeetle_tpu_torch.testing import chain_smoke as PC
 from tigerbeetle_tpu_torch.testing import overlap_smoke as PO
 from tigerbeetle_tpu_torch.testing import partitioned_chain_smoke as PPC
 from tigerbeetle_tpu_torch.testing import reshard_smoke as PRS
 from tigerbeetle_tpu_torch.testing import telemetry_smoke as PTS
 from tigerbeetle_tpu_torch.torchhound import core, opbudget
+from tests.port_verify import verify_off
 
 # One intra-op thread: these tests share the CPU with the rest of the
 # suite, some of whose tests time themselves.
@@ -67,13 +67,8 @@ def leg_runner(legs: dict):
 
     def get(name):
         if name not in runs:
-            was = constants.VERIFY
-            constants.set_verify(False)
-            try:
-                with CS.KernelCalls() as kc:
-                    summary = legs[name]("cpu")
-            finally:
-                constants.set_verify(was)
+            with verify_off(), CS.KernelCalls() as kc:
+                summary = legs[name]("cpu")
             runs[name] = (summary, tuple(kc.calls))
         return runs[name]
 

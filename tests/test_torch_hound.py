@@ -34,6 +34,7 @@ from tigerbeetle_tpu_torch.parallel.shard_utils import Mesh, psum
 from tigerbeetle_tpu_torch.torchhound import (cli, core, determinism,
                                               hostdet, registry, retrace,
                                               shardspec)
+from tests.port_verify import port_verify_off  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -256,7 +257,7 @@ def test_census_classes_and_lints():
     assert tr.launches == {"ht_probe": 0, "row_gather": 0}
 
 
-def test_flat_entry_census_counts_its_kernel_calls():
+def test_flat_entry_census_counts_its_kernel_calls(port_verify_off):
     """The flat tier calls the probe once and the row gather four times
     (PERF.md section 3), launching neither on the CPU; it is
     determinism-clean, syncs nothing and keeps its state in place."""

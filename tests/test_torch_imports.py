@@ -105,6 +105,7 @@ def test_importing_the_port_loads_no_jax():
         "tigerbeetle_tpu_torch.testing.telemetry_smoke, "
         "tigerbeetle_tpu_torch.testing.overload_smoke, "
         "tigerbeetle_tpu_torch.testing.observatory_smoke, "
+        "tigerbeetle_tpu_torch.testing.causality_smoke, "
         "tigerbeetle_tpu_torch.budget_trail\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
@@ -356,3 +357,17 @@ def test_the_gate_legs_and_the_op_budget_are_the_ports_own():
                  "testing/observatory_smoke.py", "torchhound/opbudget.py"):
         assert (PORT / name) in _sources(), name
     assert (PORT / "trace" / "opbudget_r01.json").exists()
+
+
+def test_the_causality_leg_is_the_ports_own():
+    """The JAX gate's causality leg exists in the port (the AST checks
+    above cover its source, the import check its imports) and drives the
+    port's own vortex, client and trace merge."""
+    path = PORT / "testing" / "causality_smoke.py"
+    assert path in _sources()
+    text = path.read_text()
+    for name in ("from .vortex import VortexSupervisor",
+                 "from ..vsr.client import Client",
+                 "from ..trace import Tracer, assemble_traces, merge_traces",
+                 "platform=platform"):
+        assert name in text, name

@@ -50,6 +50,7 @@ from tigerbeetle_tpu_torch.trace.context import mint_context as t_mint
 from tigerbeetle_tpu_torch.trace.event import Event as TEvent
 from tigerbeetle_tpu_torch.trace.flight_recorder import FlightRecorder as TFlight
 from tigerbeetle_tpu_torch.types import Account, Transfer
+from tests.port_verify import port_verify_off  # noqa: F401
 
 # One intra-op thread: these tests share the CPU with the rest of the
 # suite, some of whose tests time themselves.
@@ -388,7 +389,7 @@ def test_measured_dispatch_and_roofline_equal_the_jax_packages():
     assert TP.ROUTE_ALIASES == JP.ROUTE_ALIASES
 
 
-def test_static_cost_model_counts_the_flat_and_chain_tiers():
+def test_static_cost_model_counts_the_flat_and_chain_tiers(port_verify_off):
     before = (fused_probe.LAUNCHES, row_gather.LAUNCHES)
     model = TP.static_cost_model(depth=2, device="cpu")
     assert (fused_probe.LAUNCHES, row_gather.LAUNCHES) == before

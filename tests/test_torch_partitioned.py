@@ -55,6 +55,7 @@ from tigerbeetle_tpu_torch.oracle.state_machine import \
     StateMachineOracle as TOracle
 from tigerbeetle_tpu_torch.parallel import partitioned as TP
 from tigerbeetle_tpu_torch.parallel import shard_utils as TSU
+from tests.port_verify import port_verify_off  # noqa: F401
 
 # One intra-op thread: these tests share the CPU with the rest of the
 # suite, some of whose tests time themselves.
@@ -601,7 +602,8 @@ def test_a_mesh_of_two_distinct_devices_runs_the_same_step(pre):
                        outs[0][2]["shard_stats"]["tel"])
 
 
-def test_static_cost_model_counts_the_partitioned_chain_on_a_mesh():
+def test_static_cost_model_counts_the_partitioned_chain_on_a_mesh(
+        port_verify_off):
     """The cost model's partitioned_chain tier runs on a mesh of more
     than one shard (skipped on one, as the JAX package skips it on small
     meshes): a chain of `depth` plain prepares on 8 shards calls the

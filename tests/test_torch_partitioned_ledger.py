@@ -8,11 +8,9 @@ JAX package's on 8 shards (its 8 host devices) and against the oracle.
   `device_telemetry` equal the JAX ledger's, the digest the oracle's;
   write-through is refused; `DeviceLedger()` with no CUDA device still
   raises.
-- `shard_resync_scenario` equal to the JAX package's for two seeds (the
-  dropped device's and the flight dump's names aside). A default chaos
-  seed that draws the mesh scenario returns `shard_loss`, `shard_resync`
-  and `reshard` as the JAX package's does: tests/test_torch_chaos.py,
-  on the seed's one run in each package.
+- `shard_resync_scenario` equal to the JAX package's for two seeds:
+  tests/test_torch_chaos.py, beside the default chaos seed that draws the
+  mesh scenario (the JAX package's cached router compiled once there).
 
 Exact comparisons throughout. The JAX steps are compiled once, in
 tests/test_torch_partitioned.py's module caches.
@@ -26,8 +24,6 @@ import tigerbeetle_tpu  # noqa: F401  (enables JAX x64)
 from tigerbeetle_tpu.ops import batch as JB
 from tigerbeetle_tpu.ops import ledger as JL
 from tigerbeetle_tpu.ops import state_epoch as JSE
-from tigerbeetle_tpu.parallel import partitioned as JP
-from tigerbeetle_tpu.testing import chaos as JCH
 from tigerbeetle_tpu import types as JT
 from tigerbeetle_tpu_torch import types as TT
 from tigerbeetle_tpu_torch.ops import ledger as TL
@@ -36,9 +32,7 @@ from tigerbeetle_tpu_torch.oracle.state_machine import \
     StateMachineOracle as TOracle
 from tigerbeetle_tpu_torch.parallel import partitioned as TP
 from tigerbeetle_tpu_torch.parallel.shard_utils import default_mesh
-from tigerbeetle_tpu_torch.testing import chaos as TCH
-from tests.test_torch_partitioned import (A_CAP, T_CAP, _jmesh, _JSTEPS,
-                                          _tmesh)
+from tests.test_torch_partitioned import A_CAP, T_CAP, _tmesh
 from tests.test_torch_partitioned_router import N_DEV, Pair, _cross_pairs
 
 # One intra-op thread: these tests share the CPU with the rest of the
@@ -145,36 +139,3 @@ def test_attach_refuses_write_through_and_the_default_device_raises():
             TL.DeviceLedger()
         with pytest.raises(RuntimeError):
             TP.PartitionedRouter(default_mesh())
-
-
-# ------------------------------------------------------------------ chaos
-
-@pytest.fixture()
-def jax_resync_router(monkeypatch):
-    """The JAX package's cached shard_resync router on its default mesh
-    (all 8 host devices), sharing this module's compiled steps."""
-    r = JP.PartitionedRouter(_jmesh(N_DEV), a_cap=1 << 9, t_cap=1 << 11)
-    r._steps = _JSTEPS.setdefault(N_DEV, {})
-    monkeypatch.setattr(JCH, "_PART_ROUTER", r)
-    return r
-
-
-def _no_names(summary: dict) -> dict:
-    return {k: v for k, v in summary.items()
-            if k not in ("dropped", "flight_dump")}
-
-
-@pytest.mark.parametrize("seed", [2, 10])
-def test_shard_resync_scenario_equals_the_jax_packages(seed, tmp_path,
-                                                       jax_resync_router):
-    got = TCH.shard_resync_scenario(seed, device="cpu",
-                                    flight_dir=str(tmp_path))
-    want = JCH.shard_resync_scenario(seed)
-    assert _no_names(got) == _no_names(want)
-    assert got["resyncs"] == 1 and got["devices"] == 8
-    assert got["flight_dump"].startswith("FLIGHT_0_shard_loss_quarantine_")
-    assert (tmp_path / got["flight_dump"]).exists()
-    # A given mesh gets a fresh router.
-    two = TCH.shard_resync_scenario(seed, mesh=_tmesh(2),
-                                    flight_dir=str(tmp_path))
-    assert two["devices"] == 2 and two["resyncs"] == 1

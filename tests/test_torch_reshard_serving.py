@@ -270,15 +270,3 @@ def _arrays(nid):
                        ledger=1, code=1) for i in range(8)]
     nid[0] += 8
     return transfers_to_arrays(evs)
-
-
-@pytest.mark.parametrize("seed", [2])
-def test_mesh_seed_reshard_runs_through_the_supervisor_chaos(seed):
-    """The port's default chaos seed that draws the mesh scenario returns
-    `reshard` beside `shard_loss` and `shard_resync`."""
-    from tigerbeetle_tpu_torch.testing import chaos as TCH
-
-    got = TCH.run_chaos_seed(seed, device="cpu")
-    assert {"shard_loss", "shard_resync", "reshard"} <= set(got)
-    assert got["reshard"]["aborts"] == 6
-    assert got["reshard"]["migrations"] == 1

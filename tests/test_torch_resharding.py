@@ -24,12 +24,15 @@ pre-state of tests/test_torch_partitioned.py, carried across with
   before the flip; both packages' controllers step through the same
   windows, and each window's results, each stage's records and each
   digest are equal, the port's storage unmoved;
-- `reshard_chaos_scenario` against the JAX package's for three seeds;
+- `reshard_chaos_scenario` against the JAX package's for three seeds:
+  tests/test_torch_chaos.py, beside the default chaos seed that draws
+  the mesh scenario (the JAX package's cached router compiled once
+  there);
 - the CPU counterparts of the JAX package's tests/test_resharding.py.
 
 The JAX steps are compiled once a mesh size in this module's caches (one
-chain step an overlay), shared by the controller runs and the chaos
-seeds; the JAX controller at mesh 2 takes ~100 s to compile them.
+chain step an overlay), shared by the controller runs; the JAX controller
+at mesh 2 takes ~100 s to compile them.
 """
 
 import dataclasses
@@ -49,7 +52,6 @@ from tigerbeetle_tpu.oracle import StateMachineOracle as JOracle
 from tigerbeetle_tpu.parallel import partitioned as JP
 from tigerbeetle_tpu.parallel import resharding as JR
 from tigerbeetle_tpu.parallel import shard_utils as JSU
-from tigerbeetle_tpu.testing import chaos as JCH
 from tigerbeetle_tpu import types as JT
 from tigerbeetle_tpu_torch.convert import (partitioned_from_numpy,
                                            partitioned_to_numpy)
@@ -59,7 +61,6 @@ from tigerbeetle_tpu_torch.ops.window_graph import state_signature
 from tigerbeetle_tpu_torch.parallel import partitioned as TP
 from tigerbeetle_tpu_torch.parallel import resharding as TR
 from tigerbeetle_tpu_torch.parallel import shard_utils as TSU
-from tigerbeetle_tpu_torch.testing import chaos as TCH
 from tigerbeetle_tpu_torch.testing import reshard_smoke as RS
 from tests.test_torch_partitioned import (A_CAP, T_CAP, _assert_states_equal,
                                           _jmesh, _jstate_np, _tmesh,
@@ -375,32 +376,6 @@ def test_corrupted_chunk_aborts_as_the_jax_packages(tmp_path, monkeypatch):
     assert out["abort"] == "digest_mismatch" and tw.ctl.stage == "aborted"
     assert glob.glob(str(tmp_path / "FLIGHT_*_reshard_abort_digest_*"))
     assert glob.glob(str(tmp_path / "jax" / "FLIGHT_*_reshard_*"))
-
-
-@pytest.fixture()
-def jax_reshard_router(monkeypatch):
-    """The JAX package's cached reshard-chaos router on its default mesh
-    (2 host devices), sharing this module's compiled steps."""
-    r = _jrouter(2)
-    monkeypatch.setattr(JCH, "_RESHARD_ROUTER", r)
-    return r
-
-
-@pytest.mark.parametrize("seed", [2, 10, 3])
-def test_reshard_chaos_scenario_equals_the_jax_packages(
-        seed, tmp_path, monkeypatch, jax_reshard_router):
-    got = TCH.reshard_chaos_scenario(seed, device="cpu",
-                                     flight_dir=str(tmp_path))
-    want = JCH.reshard_chaos_scenario(seed)
-    assert got == want
-    assert got["aborts"] == got["artifacts"] == 6
-    assert len(glob.glob(str(tmp_path / "FLIGHT_*_reshard_*"))) == 6
-    # The cached router comes back with base ownership; a given mesh gets
-    # a fresh router.
-    routers = [r for k, r in TCH._RESHARD_ROUTERS.items()
-               if k == ("cpu", str(tmp_path))]
-    assert routers and routers[0].ownership.entries == ()
-    assert TCH.reshard_chaos_scenario(seed, mesh=_tmesh(2)) == got
 
 
 # ------------------------------------- the JAX tests/test_resharding.py

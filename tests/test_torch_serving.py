@@ -47,6 +47,7 @@ from tigerbeetle_tpu_torch.testing import chaos as TCH
 from tigerbeetle_tpu_torch.trace import FlightRecorder as TFlight
 from tigerbeetle_tpu_torch.trace import Tracer as TTracer
 from tigerbeetle_tpu_torch.trace import fmt_trace_id, mint_context
+from tests.port_verify import port_verify_restored  # noqa: F401
 
 # One intra-op thread: these tests share the CPU with the rest of the
 # suite, some of whose tests time themselves.

@@ -58,6 +58,8 @@ from tigerbeetle_tpu_torch.ops.u64 import carrier
 from tigerbeetle_tpu_torch.parallel import full_sharded as TFS
 from tigerbeetle_tpu_torch.parallel import shard_utils as TSU
 from tigerbeetle_tpu_torch.testing import chaos as TCH
+from tests.port_verify import (port_verify_off,  # noqa: F401
+                               port_verify_restored)
 
 # One intra-op thread: these tests share the CPU with the rest of the
 # suite, some of whose tests time themselves.
@@ -383,7 +385,7 @@ def test_two_shard_plain_step_equals_the_jax_sharded_step():
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_sharded_step_kernel_calls(mode):
+def test_sharded_step_kernel_calls(mode, port_verify_off):
     """Each shard's per-event stage makes one probe and two row gathers;
     the tail makes the single-chip tier's row gathers and no probe (the
     wrappers' calls, counted through their cost hook: on the card each

@@ -36,6 +36,7 @@ from tigerbeetle_tpu.testing import trace_coverage as JTC
 from tigerbeetle_tpu_torch import constants as TC
 from tigerbeetle_tpu_torch.testing import trace_coverage as TTC
 from tigerbeetle_tpu_torch.trace import Event, EventKind, Tracer
+from tests.port_verify import port_verify_restored  # noqa: F401
 
 # One intra-op thread: these tests share the CPU with the rest of the
 # suite, some of whose tests time themselves.

@@ -16,6 +16,7 @@ import tigerbeetle_tpu  # noqa: F401  (enables JAX x64)
 from tigerbeetle_tpu.testing import vopr as J
 from tigerbeetle_tpu_torch import testing as P_testing
 from tigerbeetle_tpu_torch.testing import vopr as P
+from tests.port_verify import port_verify_restored  # noqa: F401
 
 
 def _recording(monkeypatch, module) -> list:
